@@ -1,0 +1,50 @@
+"""smvp_toolkit_tpu_torch — the PyTorch/CUDA port of the JAX package.
+
+The same sparse-matrix codec and SpMV benchmark as the JAX package,
+written in PyTorch for an NVIDIA Hopper card. The SELL SpMV kernels are
+hand-written CUDA C++ (``csrc/``), built with ``nvcc`` on first use. Every
+entry point runs on ``cuda`` unless the caller passes ``device="cpu"``,
+which runs each kernel's plain PyTorch version instead.
+
+Module layout follows the JAX package so each module's counterpart is
+found under the same name:
+
+* ``io.mtx`` — MatrixMarket reading and writing.
+* ``formats.coo`` / ``formats.csr`` — COO triplets and the CSR codec.
+* ``ops.sell_plan`` — the SELL-T1 planner (host, numpy).
+* ``ops.spmv_sell`` — the SELL operator over the CUDA kernels.
+* ``ops.spmv_torch`` — plain-PyTorch CSR SpMV.
+* ``bench`` — timing, roofline and report files.
+* ``cli`` — the ``-c`` benchmark command line.
+
+Exports are lazy: importing the package imports neither the kernels'
+build machinery nor the formats.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+__version__ = "0.1.0"
+
+_EXPORTS = {
+    "COOMatrix": "smvp_toolkit_tpu_torch.formats.coo",
+    "CSRMatrix": "smvp_toolkit_tpu_torch.formats.csr",
+    "csr_encode": "smvp_toolkit_tpu_torch.formats.csr",
+    "csr_decode": "smvp_toolkit_tpu_torch.formats.csr",
+    "read_mtx": "smvp_toolkit_tpu_torch.io.mtx",
+    "write_mtx": "smvp_toolkit_tpu_torch.io.mtx",
+    "SellPlan": "smvp_toolkit_tpu_torch.ops.sell_plan",
+    "build_sell_plan": "smvp_toolkit_tpu_torch.ops.sell_plan",
+    "SellSpMV": "smvp_toolkit_tpu_torch.ops.spmv_sell",
+    "spmv_csr_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
+}
+
+__all__ = [*_EXPORTS, "__version__"]
+
+
+def __getattr__(name: str):
+    module = _EXPORTS.get(name)
+    if module is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(module), name)

@@ -1,0 +1,284 @@
+"""SELL-T1 execution plan (host-side planner, numpy).
+
+A copy of the numpy path of the JAX package's planner (``ops/sell_plan.py``
+there): every plan array it builds is
+equal to the JAX planner's, whose native C++ path is bit-identical to its
+numpy path.
+
+Layout rule — one **slot** per nonzero:
+
+* ``lane  = row mod 128``  (output lane)
+* ``slice = row div 128``  (output row group; y is (NS, 128))
+* each **sublane** (a row of the (S, 128) planes) holds entries of ONE
+  slice whose columns fall in ONE 128-wide column tile; a row with
+  several entries in the same tile occupies duplicate sublanes.
+
+Sublanes are sorted tile-major and cut into chunks of ``chunk``
+sublanes; each chunk's tiles lie in a window
+``[tile_base[c], tile_base[c] + WT)`` and the sublane stores its tile
+relative to that base (``rel_tile``). The CUDA kernels compute
+``y[slice·128 + l] += vals[s, l] · x[(tile_base[c] + rel[s])·128 + lidx[s, l]]``
+straight from these planes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+
+__all__ = ["LANES", "SellPlan", "build_sell_plan", "lidx_bytes_for_chunk"]
+
+LANES = 128
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-max(int(x), 1) // m) * m
+
+
+def lidx_bytes_for_chunk(chunk: int) -> int:
+    """Lane indices are stored as int8 when the chunk is a multiple of 32
+    sublanes, else as int32 (the JAX operator's rule, kept so that both
+    packages read the same planes)."""
+    return 1 if chunk % 32 == 0 else 4
+
+
+@dataclasses.dataclass(frozen=True)
+class SellPlan:
+    """Host-side arrays + static metadata for the SELL-T1 SpMV kernels.
+
+    S = padded sublane count (multiple of ``chunk``), CT = column tiles
+    (padded to 128), NS = row slices (padded to 16), WT = window tiles
+    per chunk (padded to 16). The paddings are the JAX planner's and are
+    kept so that plans compare field by field.
+    """
+
+    vals: np.ndarray  # f32 (S, 128); 0 in dead slots
+    lane_idx: np.ndarray  # i32 (S, 128): column offset within tile [0,128)
+    rel_tile: np.ndarray  # i32 (S, 1): tile - tile_base[chunk]; -1 = dead
+    slice_of: np.ndarray  # i32 (n_chunks, chunk): slice id (-1 = dead)
+    tile_base: np.ndarray  # i32 (n_chunks,): window start tile per chunk
+    shape: Tuple[int, int]
+    nnz: int
+    n_slices: int  # NS (padded)
+    n_coltiles: int  # CT (padded)
+    window_tiles: int  # WT
+    chunk: int  # sublanes per chunk
+    # Per-chunk slice-window start + window size NSW (None/0 = the full
+    # NS window).
+    slice_base: Optional[np.ndarray] = None  # i32 (n_chunks,)
+    slice_window: int = 0
+    # Streamed-y plans (JAX ``build_streamed_sell_plan``) set these; the
+    # port's kernels for them (K3) are not written yet, so the operator
+    # refuses such plans.
+    y_block_id: Optional[np.ndarray] = None  # i32 (n_chunks,)
+    y_block_slices: int = 0  # NSB (0 = resident-y plan)
+
+    def reduce_window(self) -> Tuple[np.ndarray, int]:
+        """(slice_base, NSW) with the full-window fallback applied."""
+        if self.slice_base is None or self.slice_window <= 0:
+            return (
+                np.zeros(self.n_chunks, dtype=np.int32),
+                self.n_slices,
+            )
+        return self.slice_base, self.slice_window
+
+    @property
+    def n_sublanes(self) -> int:
+        return int(self.vals.shape[0])
+
+    @property
+    def n_chunks(self) -> int:
+        return self.n_sublanes // self.chunk
+
+    def slots(self) -> int:
+        return self.n_sublanes * LANES
+
+    def traffic_bytes(
+        self, value_bytes: int = 4, lidx_bytes: Optional[int] = None,
+        x_bytes: int = 4,
+    ) -> int:
+        """Device-memory bytes one SpMV launch of the port's kernel moves,
+        each input read once and y written once.
+
+        The planes are dense (S × 128) whatever the occupancy, so padding
+        slots cost real bandwidth. Per launch: the values and lane-index
+        planes, one rel‖slice int32 word per sublane, ``tile_base``, x
+        once and y once. (The JAX planner's figure charges two int32 words
+        per sublane, its split rel/slice planes; the port's kernels read
+        the merged word only.)
+        """
+        if lidx_bytes is None:
+            lidx_bytes = lidx_bytes_for_chunk(self.chunk)
+        s = self.n_sublanes
+        return int(
+            s * LANES * (value_bytes + lidx_bytes)  # vals + lane_idx
+            + s * 4                                 # rel‖slice word
+            + self.n_chunks * 4                     # tile_base
+            + self.n_coltiles * LANES * x_bytes     # x
+            + self.n_slices * LANES * 4             # y (f32)
+        )
+
+
+def build_sell_plan(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    shape: Tuple[int, int],
+    *,
+    chunk: int = 1024,
+    min_window_tiles: int = 8,
+    allow_small_chunk: bool = True,
+) -> SellPlan:
+    """Build the SELL-T1 plan from COO triplets (host, encode-time).
+
+    ``min_window_tiles`` forces WT at least that wide.
+    """
+    nrows, ncols = shape
+    nnz = len(rows)
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    if np.iscomplexobj(np.asarray(vals)):
+        # Silent imaginary-part truncation is a correctness trap.
+        raise TypeError("SELL plan values must be real")
+    v = np.asarray(vals, dtype=np.float32)
+
+    ct_true = max(-(-ncols // LANES), 1)
+    ns_true = max(-(-nrows // LANES), 1)
+    CT = _round_up(ct_true, LANES)
+    NS = _round_up(ns_true, 16)
+
+    if nnz == 0:
+        if allow_small_chunk:
+            chunk = 8
+        S = chunk
+        return SellPlan(
+            vals=np.zeros((S, LANES), dtype=np.float32),
+            lane_idx=np.zeros((S, LANES), dtype=np.int32),
+            rel_tile=np.full((S, 1), -1, dtype=np.int32),
+            slice_of=np.full((1, S), -1, dtype=np.int32),
+            tile_base=np.zeros((1,), dtype=np.int32),
+            shape=shape,
+            nnz=0,
+            n_slices=NS,
+            n_coltiles=CT,
+            window_tiles=16,
+            chunk=chunk,
+            slice_base=np.zeros((1,), dtype=np.int32),
+            slice_window=min(16, NS),
+        )
+
+    slice_ = rows >> 7
+    lane = rows & 127
+    tile = cols >> 7
+
+    # Stable sort by (slice, tile, lane): entries of one (slice, tile)
+    # cell are adjacent, lanes ascending.
+    order = np.lexsort((lane, tile, slice_))
+    sl_s = slice_[order]
+    tl_s = tile[order]
+    ln_s = lane[order]
+    lo_s = (cols & 127)[order].astype(np.int32)
+    v_s = v[order]
+
+    # dup = occurrence index within (slice, tile, lane) runs.
+    cell = sl_s * ct_true + tl_s
+    same_lane = np.zeros(nnz, dtype=bool)
+    same_lane[1:] = (cell[1:] == cell[:-1]) & (ln_s[1:] == ln_s[:-1])
+    idx = np.arange(nnz)
+    run_start = np.where(~same_lane, idx, 0)
+    np.maximum.accumulate(run_start, out=run_start)
+    dup = idx - run_start
+
+    # sublane key = (tile, slice, dup): tile-major so each chunk of
+    # consecutive sublanes covers a narrow column-tile window.
+    # Field widths: tile 24b, slice 24b, dup 16b — guarded, not assumed.
+    if dup.size and int(dup.max()) >= (1 << 16):
+        raise ValueError(
+            "more than 65535 duplicate entries share one (row, col-tile); "
+            "coalesce duplicates before encoding"
+        )
+    if int(sl_s.max()) >= (1 << 24) or int(tl_s.max()) >= (1 << 24):
+        raise ValueError("matrix dimensions exceed 2^31 rows/cols")
+    sub_key = (
+        (tl_s.astype(np.int64) << 40)
+        | (sl_s.astype(np.int64) << 16)
+        | dup.astype(np.int64)
+    )
+    uniq, sub_id = np.unique(sub_key, return_inverse=True)
+    S_true = len(uniq)
+    # Small matrices: shrink the chunk to the real sublane count.
+    if allow_small_chunk and S_true <= chunk:
+        chunk = _round_up(S_true, 8)
+    S = _round_up(S_true, chunk)
+
+    vals_a = np.zeros((S, LANES), dtype=np.float32)
+    lidx_a = np.zeros((S, LANES), dtype=np.int32)
+    vals_a[sub_id, ln_s] = v_s
+    lidx_a[sub_id, ln_s] = lo_s
+
+    # Per-sublane tile and slice (uniq keys decode, tile-sorted).
+    u_tile = np.full(S, -1, dtype=np.int64)
+    u_slice = np.zeros(S, dtype=np.int64)
+    u_tile[:S_true] = uniq >> 40
+    u_slice[:S_true] = (uniq >> 16) & 0xFFFFFF
+    if S > S_true:  # dead padding sublanes adopt the last real tile
+        u_tile[S_true:] = u_tile[S_true - 1]
+
+    return _finish_plan(
+        vals_a, lidx_a, u_tile, u_slice, S_true, S, chunk,
+        CT=CT, NS=NS, shape=shape, nnz=nnz,
+        min_window_tiles=min_window_tiles,
+    )
+
+
+def _finish_plan(
+    vals_a, lidx_a, u_tile, u_slice, S_true, S, chunk, *,
+    CT, NS, shape, nnz, min_window_tiles,
+):
+    """Tile windows, relative tiles and slice windows (the planner's tail)."""
+    # Per-chunk tile windows; bases align down to 16 tiles and WT rounds
+    # to 16 (the JAX planner's alignment, kept for plan equality).
+    n_chunks = S // chunk
+    tiles_2d = u_tile.reshape(n_chunks, chunk)
+    t_lo = (tiles_2d.min(axis=1) // 16) * 16
+    t_hi = tiles_2d.max(axis=1)
+    WT = _round_up(max(int((t_hi - t_lo).max()) + 1, min_window_tiles), 16)
+    WT = min(WT, CT)
+    # Clamp windows to stay inside the padded tile range.
+    tile_base = np.minimum(t_lo, max(CT - WT, 0)).astype(np.int32)
+
+    rel = (u_tile - np.repeat(tile_base.astype(np.int64), chunk)).astype(
+        np.int32
+    )
+    rel[(rel < 0) | (rel >= WT)] = -1  # out of window -> dead
+    slice_compact = np.full(S, -1, dtype=np.int32)
+    slice_compact[:S_true] = u_slice[:S_true]
+
+    # Per-chunk slice windows.
+    sl_2d = slice_compact.reshape(n_chunks, chunk)
+    live = sl_2d >= 0
+    sl_min = np.where(live, sl_2d, np.iinfo(np.int32).max).min(axis=1)
+    sl_max = np.where(live, sl_2d, -1).max(axis=1)
+    sl_min = np.where(sl_min > sl_max, 0, sl_min)  # all-dead chunk
+    s_lo = (sl_min // 16) * 16
+    NSW = _round_up(max(int((sl_max - s_lo).max()) + 1, 8), 16)
+    NSW = min(NSW, NS)
+    slice_base = np.minimum(s_lo, max(NS - NSW, 0)).astype(np.int32)
+
+    return SellPlan(
+        vals=vals_a,
+        lane_idx=lidx_a,
+        rel_tile=rel.reshape(S, 1),
+        slice_of=sl_2d,
+        tile_base=tile_base,
+        shape=shape,
+        nnz=nnz,
+        n_slices=NS,
+        n_coltiles=CT,
+        window_tiles=WT,
+        chunk=chunk,
+        slice_base=slice_base,
+        slice_window=NSW,
+    )

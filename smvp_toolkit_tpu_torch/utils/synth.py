@@ -1,0 +1,69 @@
+"""Synthetic sparse-matrix generators (benchmark and test inputs).
+
+A copy of the JAX package's banded generator: the same numpy
+``RandomState`` stream, so the same seed gives the same matrix bit for
+bit. BASELINE.json's "synthetic 10M-nnz matrix" is
+``parse_synth_spec("synth:1000000:10000000")``.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+
+from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+
+__all__ = ["synth_banded", "parse_synth_spec"]
+
+
+def synth_banded(
+    n: int, nnz_per_row: int = 9, bandwidth: int = 64, seed: int = 0,
+    dtype=None, device=None,
+) -> COOMatrix:
+    """Banded SPD-ish pattern: entries within ±bandwidth of the diagonal."""
+    rng = np.random.RandomState(seed)
+    rows = np.repeat(np.arange(n, dtype=np.int64), nnz_per_row)
+    offs = rng.randint(-bandwidth, bandwidth + 1, size=len(rows))
+    cols = np.clip(rows + offs, 0, n - 1)
+    vals = rng.randn(len(rows))
+    return _dedup(rows, cols, vals, (n, n), dtype, device)
+
+
+def _dedup(rows, cols, vals, shape: Tuple[int, int], dtype,
+           device) -> COOMatrix:
+    """Drop duplicate (row, col) pairs (keep first) and sort row-major."""
+    key = rows * shape[1] + cols
+    order = np.argsort(key, kind="stable")
+    key_s = key[order]
+    keep = np.ones(len(key_s), dtype=bool)
+    keep[1:] = key_s[1:] != key_s[:-1]
+    sel = order[keep]
+    return COOMatrix.from_numpy(
+        rows[sel].astype(np.int32),
+        cols[sel].astype(np.int32),
+        vals[sel],
+        shape=shape,
+        dtype=dtype,
+        device=device,
+    )
+
+
+def parse_synth_spec(spec: str, *, dtype=None, device=None) -> COOMatrix:
+    """Parse ``synth:N:NNZ`` into a banded COO matrix.
+
+    Raises ValueError with a user-readable message on a malformed spec.
+    """
+    parts = spec.split(":")
+    if len(parts) != 3 or parts[0] != "synth":
+        raise ValueError(f"bad synth spec (want synth:N:NNZ): {spec!r}")
+    try:
+        n, nnz = int(parts[1]), int(parts[2])
+    except ValueError:
+        raise ValueError(
+            f"bad synth spec (want synth:N:NNZ): {spec!r}"
+        ) from None
+    if n < 1 or nnz < 0:
+        raise ValueError(f"bad synth spec (non-positive sizes): {spec!r}")
+    return synth_banded(n, nnz_per_row=max(nnz // n, 1), dtype=dtype,
+                        device=device)
