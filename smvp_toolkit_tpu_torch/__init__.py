@@ -2,7 +2,9 @@
 
 The same sparse-matrix codec and SpMV benchmark as the JAX package,
 written in PyTorch for an NVIDIA Hopper card. The SELL SpMV kernels are
-hand-written CUDA C++ (``csrc/``), built with ``nvcc`` on first use. Every
+hand-written CUDA C++ (``csrc/``), built with ``nvcc`` on first use; they
+run every plan the JAX planner builds (resident or streamed y, merged
+rel‖slice word or split planes). Every
 entry point runs on ``cuda`` unless the caller passes ``device="cpu"``,
 which runs each kernel's plain PyTorch version instead.
 
@@ -10,12 +12,13 @@ Module layout follows the JAX package so each module's counterpart is
 found under the same name:
 
 * ``io.mtx`` — MatrixMarket reading and writing.
-* ``formats.coo`` / ``formats.csr`` — COO triplets and the CSR codec.
-* ``ops.sell_plan`` — the SELL-T1 planner (host, numpy).
+* ``formats.coo`` / ``formats.csr`` / ``formats.tjds`` — COO triplets and
+  the CSR and TJDS codecs.
+* ``ops.sell_plan`` — the SELL-T1 planner, flat and streamed-y (host, numpy).
 * ``ops.spmv_sell`` — the SELL operator over the CUDA kernels.
-* ``ops.spmv_torch`` — plain-PyTorch CSR SpMV.
+* ``ops.spmv_torch`` — plain-PyTorch CSR and TJDS SpMV.
 * ``bench`` — timing, roofline and report files.
-* ``cli`` — the ``-c`` benchmark command line.
+* ``cli`` — the ``-c`` / ``-t`` benchmark command line.
 
 Exports are lazy: importing the package imports neither the kernels'
 build machinery nor the formats.
@@ -32,12 +35,17 @@ _EXPORTS = {
     "CSRMatrix": "smvp_toolkit_tpu_torch.formats.csr",
     "csr_encode": "smvp_toolkit_tpu_torch.formats.csr",
     "csr_decode": "smvp_toolkit_tpu_torch.formats.csr",
+    "TJDSMatrix": "smvp_toolkit_tpu_torch.formats.tjds",
+    "tjds_encode": "smvp_toolkit_tpu_torch.formats.tjds",
+    "tjds_decode": "smvp_toolkit_tpu_torch.formats.tjds",
     "read_mtx": "smvp_toolkit_tpu_torch.io.mtx",
     "write_mtx": "smvp_toolkit_tpu_torch.io.mtx",
     "SellPlan": "smvp_toolkit_tpu_torch.ops.sell_plan",
     "build_sell_plan": "smvp_toolkit_tpu_torch.ops.sell_plan",
+    "build_streamed_sell_plan": "smvp_toolkit_tpu_torch.ops.sell_plan",
     "SellSpMV": "smvp_toolkit_tpu_torch.ops.spmv_sell",
     "spmv_csr_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
+    "spmv_tjds_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
 }
 
 __all__ = [*_EXPORTS, "__version__"]

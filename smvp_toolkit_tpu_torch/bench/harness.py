@@ -155,7 +155,8 @@ def bench_spmv_fused(
     repeats: int = 3,
     warmup: int = 1,
 ):
-    """Time N SpMVs run inside ONE launch of the N-iteration kernel (K2).
+    """Time N SpMVs run inside ONE launch of the operator's N-iteration
+    kernel (K2, in the branch of the operator's route).
 
     ``op`` is a :class:`~smvp_toolkit_tpu_torch.ops.spmv_sell.SellSpMV`;
     each of ``repeats`` samples times one ``op.bench_loop(x, iterations)``

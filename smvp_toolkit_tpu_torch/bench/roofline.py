@@ -14,6 +14,7 @@ import torch
 __all__ = [
     "hbm_bandwidth_gbs",
     "spmv_bytes_csr",
+    "spmv_bytes_tjds",
     "roofline_fraction",
 ]
 
@@ -48,6 +49,17 @@ def spmv_bytes_csr(nnz: int, nrows: int, value_bytes: int = 4) -> float:
     val + col_ind + x-gather per nnz; row_ptr read + y write per row.
     """
     return nnz * (value_bytes + 4 + value_bytes) + nrows * (4 + value_bytes)
+
+
+def spmv_bytes_tjds(nnz: int, nrows: int, ndiags: int,
+                    value_bytes: int = 4) -> float:
+    """Bytes touched per TJDS SpMV iteration.
+
+    val + row_ind + x-stream per nnz; start_pos per diagonal; y write per
+    row (the x permutation is a one-time encode cost, not per-iteration).
+    """
+    return (nnz * (value_bytes + 4 + value_bytes) + (ndiags + 1) * 4
+            + nrows * value_bytes)
 
 
 def roofline_fraction(gbs: float, device=None) -> float:

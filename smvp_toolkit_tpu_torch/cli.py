@@ -1,16 +1,19 @@
-"""Command line: the reference's CSR benchmark (``-c``) on the port.
+"""Command line: the reference's CSR and TJDS benchmarks on the port.
 
-Counterpart of the JAX package's ``cli.py`` for the flags this slice of the
-port has: positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``),
-``-c``, ``-n``, ``-d``, ``--no-report``, ``--dtype``, ``--kernel``,
-``--fused``, ``--x``, ``--json-out`` and ``--device``. Validation and
-exit codes match the JAX CLI for those flags (``-n 0`` and ``-d /nope``
-give 2, a missing or unreadable file 1); argparse rejects every other
-flag with 2.
+Counterpart of the JAX package's ``cli.py`` for the flags the port has:
+positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``), ``-c``, ``-t``,
+``-n``, ``-d``, ``--no-report``, ``--decode-check``, ``--dtype``,
+``--kernel``, ``--fused``, ``--x``, ``--json-out`` and ``--device``.
+Validation and exit codes match the JAX CLI for those flags (``-n 0`` and
+``-d /nope`` give 2, a missing or unreadable file 1, a failed decode
+check 3); argparse rejects every other flag (``-a``, ``-g``,
+``--shards``, ...) with 2.
 
-``--kernel auto`` runs the SELL CUDA kernels (K1 per call, K2 under
-``--fused``); ``--kernel torch`` runs the plain-PyTorch CSR SpMV. The run
-is on ``cuda`` unless ``--device cpu`` is given, where each kernel's plain
+``--kernel auto`` runs the SELL CUDA kernels: CSR and TJDS are both
+replanned into SELL and run on the route their plan demands (K1, K3 or K4
+per call, the matching N-iteration kernel under ``--fused``);
+``--kernel torch`` runs the plain-PyTorch CSR or TJDS SpMV. The run is on
+``cuda`` unless ``--device cpu`` is given, where each kernel's plain
 version runs instead.
 """
 
@@ -27,17 +30,21 @@ import numpy as np
 __all__ = ["main", "build_parser"]
 
 ALG_CSR = "CSR"
+ALG_TJDS = "TJDS"
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="smvp-toolkit-tpu-torch",
-        description="Sparse-matrix codec + CSR SpMV benchmark (PyTorch/CUDA)",
+        description="Sparse-matrix codec + SpMV benchmark (CSR / TJDS, "
+                    "PyTorch/CUDA)",
     )
     p.add_argument("file", help="input MatrixMarket (.mtx) file, or "
                    "synth:N:NNZ for a synthetic banded matrix")
     p.add_argument("-c", "--csr", action="store_true",
                    help="benchmark CSR SpMV")
+    p.add_argument("-t", "--tjds", action="store_true",
+                   help="benchmark TJDS SpMV")
     p.add_argument(
         "-n", "--iter", type=int, default=1000, metavar="ITERATIONS",
         help="number of timed SpMV iterations (default 1000)",
@@ -48,6 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--no-report", action="store_true",
                    help="skip writing the report file")
+    p.add_argument(
+        "--decode-check", action="store_true",
+        help="verify each encoded format decodes bit-exactly to the input",
+    )
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32", help="device value dtype")
     p.add_argument(
@@ -79,8 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _validate(args) -> Optional[str]:
     """Reference-equivalent validation (main-cli.c:1274-1386)."""
-    if not args.csr:
-        return "no algorithm selected (use -c)"
+    if not (args.csr or args.tjds):
+        return "no algorithm selected (use -c and/or -t)"
     if args.iter < 1:
         return "iteration count must be >= 1"
     if args.dir and not os.path.isdir(args.dir):
@@ -126,13 +137,16 @@ def main(argv: Optional[List[str]] = None) -> int:
     from smvp_toolkit_tpu_torch.bench.roofline import (
         roofline_fraction,
         spmv_bytes_csr,
+        spmv_bytes_tjds,
     )
-    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.formats.csr import csr_decode, csr_encode
+    from smvp_toolkit_tpu_torch.formats.tjds import tjds_decode, tjds_encode
     from smvp_toolkit_tpu_torch.io.mtx import (
         MTXError,
         MTXUnsupportedType,
         read_mtx,
     )
+    from smvp_toolkit_tpu_torch.ops import spmv_sell, spmv_torch
     from smvp_toolkit_tpu_torch.utils.device import (
         device_label,
         resolve_device,
@@ -188,86 +202,111 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"{args.x!r}")
         return 2
 
-    csr = csr_encode(coo)
+    vbytes = torch.finfo(dtype).bits // 8
     if args.kernel == "torch":
-        from smvp_toolkit_tpu_torch.ops.spmv_torch import spmv_csr as spmv_fn
-
         kernel = "torch"
     else:
-        from smvp_toolkit_tpu_torch.ops.spmv_sell import (
-            sell_op_csr,
-            spmv_csr_sell as spmv_fn,
-        )
-
         kernel = "sell-cuda" if device.type == "cuda" else "sell-plain"
 
-    log("INFO", f"Benchmarking {ALG_CSR} SpMV ({kernel} kernel), "
-        f"{args.iter} iterations.")
-    try:
+    def run(alg_name, encoded, spmv_fn, op_fn, bytes_per_iter):
+        log("INFO", f"Benchmarking {alg_name} SpMV ({kernel} kernel), "
+            f"{args.iter} iterations.")
         if args.fused:
-            stats, y = bench_spmv_fused(sell_op_csr(csr), x,
+            stats, y = bench_spmv_fused(op_fn(encoded), x,
                                         iterations=args.iter)
         else:
-            stats = bench_spmv(spmv_fn, csr, x, iterations=args.iter)
-            y = spmv_fn(csr, x)
-    except (NotImplementedError, ValueError) as e:
-        # Plans the ported kernels cannot run yet (streamed-y, WT > 511).
-        log("ERROR", f"{ALG_CSR} SpMV unavailable on the port: {e}")
-        return 1
-    y = y.float().cpu().numpy()
-
-    vbytes = torch.finfo(dtype).bits // 8
-    nnzs = stats.nnz_per_s(coo.nnz)
-    gbs = stats.gb_per_s(spmv_bytes_csr(coo.nnz, coo.shape[0], vbytes))
-    frac = roofline_fraction(gbs, device)
-    log(
-        "DATA",
-        f"{ALG_CSR}: avg {stats.avg_ms:.6f} ms  "
-        f"({nnzs/1e9:.3f} Gnnz/s, {gbs:.1f} GB/s eff, "
-        f"{100*frac:.1f}% of roofline)",
-    )
-    if args.json_out:
-        rec = {
-            "alg": ALG_CSR,
-            "file": args.file,
-            "nnz": coo.nnz,
-            "iterations": args.iter,
-            "kernel": kernel,
-            "dtype": args.dtype,
-            "device": label,
-            "avg_ms": stats.avg_ms,
-            "min_ms": stats.min_ms,
-            "max_ms": stats.max_ms,
-            "stdev_ms": stats.stdev_ms,
-            "per_launch_stats": stats.per_launch,
-            "nnz_per_s": nnzs,
-            "eff_gb_s": gbs,
-            "roofline_frac": frac,
-        }
-        with open(args.json_out, "a") as f:
-            f.write(json.dumps(rec) + "\n")
-        log("FILE", f"JSON record appended: {args.json_out}")
-    if not args.no_report:
-        path = write_report(
-            args.dir,
-            alg_name=ALG_CSR,
-            input_file=args.file,
-            nnz=coo.nnz,
-            iterations=args.iter,
-            stats=stats,
-            output_vector=y[: coo.shape[0]],
-            extra_metrics={
-                "Device": label,
-                "Kernel": kernel,
-                "nnz/s": f"{nnzs:.4g}",
-                "Effective GB/s": f"{gbs:.4g}",
-                "Roofline fraction": f"{frac:.4g}",
-            },
+            stats = bench_spmv(spmv_fn, encoded, x, iterations=args.iter)
+            y = spmv_fn(encoded, x)
+        y = y.float().cpu().numpy()
+        nnzs = stats.nnz_per_s(coo.nnz)
+        gbs = stats.gb_per_s(bytes_per_iter)
+        frac = roofline_fraction(gbs, device)
+        log(
+            "DATA",
+            f"{alg_name}: avg {stats.avg_ms:.6f} ms  "
+            f"({nnzs/1e9:.3f} Gnnz/s, {gbs:.1f} GB/s eff, "
+            f"{100*frac:.1f}% of roofline)",
         )
-        log("FILE", f"Execution report file saved as:\n\t{path}")
+        if args.json_out:
+            rec = {
+                "alg": alg_name,
+                "file": args.file,
+                "nnz": coo.nnz,
+                "iterations": args.iter,
+                "kernel": kernel,
+                "dtype": args.dtype,
+                "device": label,
+                "avg_ms": stats.avg_ms,
+                "min_ms": stats.min_ms,
+                "max_ms": stats.max_ms,
+                "stdev_ms": stats.stdev_ms,
+                "per_launch_stats": stats.per_launch,
+                "nnz_per_s": nnzs,
+                "eff_gb_s": gbs,
+                "roofline_frac": frac,
+            }
+            with open(args.json_out, "a") as f:
+                f.write(json.dumps(rec) + "\n")
+            log("FILE", f"JSON record appended: {args.json_out}")
+        if not args.no_report:
+            path = write_report(
+                args.dir,
+                alg_name=alg_name,
+                input_file=args.file,
+                nnz=coo.nnz,
+                iterations=args.iter,
+                stats=stats,
+                output_vector=y[: coo.shape[0]],
+                extra_metrics={
+                    "Device": label,
+                    "Kernel": kernel,
+                    "nnz/s": f"{nnzs:.4g}",
+                    "Effective GB/s": f"{gbs:.4g}",
+                    "Roofline fraction": f"{frac:.4g}",
+                },
+            )
+            log("FILE", f"Execution report file saved as:\n\t{path}")
+
+    if args.csr:
+        csr = csr_encode(coo)
+        if args.decode_check and not _decode_check(ALG_CSR, csr_decode(csr),
+                                                   coo, log):
+            return 3
+        if args.kernel == "torch":
+            spmv_fn, op_fn = spmv_torch.spmv_csr, None
+        else:
+            spmv_fn, op_fn = spmv_sell.spmv_csr_sell, spmv_sell.sell_op_csr
+        run(ALG_CSR, csr, spmv_fn, op_fn,
+            spmv_bytes_csr(coo.nnz, coo.shape[0], vbytes))
+
+    if args.tjds:
+        tj = tjds_encode(coo)
+        if args.decode_check and not _decode_check(ALG_TJDS, tjds_decode(tj),
+                                                   coo, log):
+            return 3
+        if args.kernel == "torch":
+            spmv_fn, op_fn = spmv_torch.spmv_tjds, None
+        else:
+            spmv_fn, op_fn = spmv_sell.spmv_tjds_sell, spmv_sell.sell_op_tjds
+        run(ALG_TJDS, tj, spmv_fn, op_fn,
+            spmv_bytes_tjds(coo.nnz, coo.shape[0], tj.num_diags, vbytes))
 
     log("STOP", "smvp-toolkit-tpu-torch run complete.")
     return 0
+
+
+def _decode_check(alg, decoded, coo, log) -> bool:
+    """Decoded triplets against the input, both in canonical row-major
+    order: indices equal and values equal bit for bit."""
+    r, c, v = decoded.canonical_order().to_numpy()
+    R, C, V = coo.canonical_order().to_numpy()
+    ok = (np.array_equal(r, R) and np.array_equal(c, C)
+          and v.dtype == V.dtype and v.tobytes() == V.tobytes())
+    if ok:
+        log("INFO", f"{alg} decode round-trip: bit-exact ✓")
+    else:
+        log("ERROR", f"{alg} decode round-trip FAILED")
+    return ok
 
 
 if __name__ == "__main__":

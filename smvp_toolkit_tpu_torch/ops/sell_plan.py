@@ -17,8 +17,13 @@ Sublanes are sorted tile-major and cut into chunks of ``chunk``
 sublanes; each chunk's tiles lie in a window
 ``[tile_base[c], tile_base[c] + WT)`` and the sublane stores its tile
 relative to that base (``rel_tile``). The CUDA kernels compute
-``y[slice·128 + l] += vals[s, l] · x[(tile_base[c] + rel[s])·128 + lidx[s, l]]``
-straight from these planes.
+``y[(ybase[c] + slice)·128 + l] += vals[s, l] · x[(tile_base[c] + rel[s])·128 + lidx[s, l]]``
+straight from these planes, with ``ybase`` 0 for a resident-y plan.
+
+Above a y size, rows are cut into y blocks of ``y_block_rows`` rows and
+each block is planned on its own (``build_streamed_sell_plan``): its
+chunks never straddle two blocks, ``slice_of`` holds block-local slice
+ids and ``ybase[c] = y_block_id[c] · y_block_slices``.
 """
 
 from __future__ import annotations
@@ -28,9 +33,28 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["LANES", "SellPlan", "build_sell_plan", "lidx_bytes_for_chunk"]
+__all__ = [
+    "LANES",
+    "REL_DEAD",
+    "SLICE_SHIFT",
+    "SLICE_DEAD",
+    "SellPlan",
+    "build_sell_plan",
+    "build_streamed_sell_plan",
+    "common_window",
+    "rewindow_plan",
+    "lidx_bytes_for_chunk",
+]
 
 LANES = 128
+
+# The merged rel‖slice word (one int32 per sublane): rel in bits 0..8,
+# 511 marking a dead sublane; the slice id in bits 9..31, all ones marking
+# a dead sublane. Plans whose window or slice count does not fit it keep
+# the split rel_tile / slice_of planes.
+REL_DEAD = (1 << 9) - 1
+SLICE_SHIFT = 9
+SLICE_DEAD = (1 << (32 - SLICE_SHIFT)) - 1
 
 
 def _round_up(x: int, m: int) -> int:
@@ -69,9 +93,9 @@ class SellPlan:
     # NS window).
     slice_base: Optional[np.ndarray] = None  # i32 (n_chunks,)
     slice_window: int = 0
-    # Streamed-y plans (JAX ``build_streamed_sell_plan``) set these; the
-    # port's kernels for them (K3) are not written yet, so the operator
-    # refuses such plans.
+    # Streamed-y plans (``build_streamed_sell_plan``) set these; then
+    # ``slice_of``/``slice_base`` are local to each chunk's y block and
+    # ``n_slices`` is the total (n_blocks × y_block_slices).
     y_block_id: Optional[np.ndarray] = None  # i32 (n_chunks,)
     y_block_slices: int = 0  # NSB (0 = resident-y plan)
 
@@ -95,27 +119,36 @@ class SellPlan:
     def slots(self) -> int:
         return self.n_sublanes * LANES
 
+    @property
+    def merged_word(self) -> bool:
+        """Whether rel and slice fit the merged rel‖slice word (the JAX
+        operator's gate, ``spmv_pallas.py`` relsl route)."""
+        return self.window_tiles <= REL_DEAD and self.n_slices < SLICE_DEAD
+
     def traffic_bytes(
         self, value_bytes: int = 4, lidx_bytes: Optional[int] = None,
         x_bytes: int = 4,
     ) -> int:
-        """Device-memory bytes one SpMV launch of the port's kernel moves,
-        each input read once and y written once.
+        """Device-memory bytes one SpMV launch of the port's kernel for
+        this plan moves, each input read once and y written once.
 
         The planes are dense (S × 128) whatever the occupancy, so padding
         slots cost real bandwidth. Per launch: the values and lane-index
-        planes, one rel‖slice int32 word per sublane, ``tile_base``, x
-        once and y once. (The JAX planner's figure charges two int32 words
-        per sublane, its split rel/slice planes; the port's kernels read
-        the merged word only.)
+        planes, the per-sublane metadata the route reads (one merged
+        rel‖slice int32 word, or the split rel_tile and slice_of words),
+        ``tile_base``, ``y_block_id`` on a streamed plan, x once and y
+        once. (The JAX planner's figure always charges the two split
+        words and no ``y_block_id``.)
         """
         if lidx_bytes is None:
             lidx_bytes = lidx_bytes_for_chunk(self.chunk)
         s = self.n_sublanes
+        words = 1 if self.merged_word else 2
+        per_chunk = 2 if self.y_block_slices else 1  # tile_base, y_block_id
         return int(
             s * LANES * (value_bytes + lidx_bytes)  # vals + lane_idx
-            + s * 4                                 # rel‖slice word
-            + self.n_chunks * 4                     # tile_base
+            + s * 4 * words                         # per-sublane metadata
+            + self.n_chunks * 4 * per_chunk
             + self.n_coltiles * LANES * x_bytes     # x
             + self.n_slices * LANES * 4             # y (f32)
         )
@@ -281,4 +314,136 @@ def _finish_plan(
         chunk=chunk,
         slice_base=slice_base,
         slice_window=NSW,
+    )
+
+
+def build_streamed_sell_plan(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    shape: Tuple[int, int],
+    *,
+    chunk: int = 1024,
+    y_block_rows: int = 512 * LANES,
+) -> SellPlan:
+    """SELL-T1 plan whose y is cut into blocks of ``y_block_rows`` rows.
+
+    Rows are partitioned into y blocks (``y_block_rows`` a multiple of
+    2048, so every block is ``NSB = y_block_rows / 128`` slices), each
+    block is planned on its own and the sub-plans are concatenated.
+    Chunks therefore never straddle a block boundary and the per-chunk
+    block ids are non-decreasing; a block with no entries still gets one
+    all-dead chunk.
+
+    ``slice_of`` / ``slice_base`` in the result are LOCAL to each chunk's
+    y block; ``n_slices`` is the total padded slice count.
+    """
+    if y_block_rows % (16 * LANES) != 0:
+        raise ValueError("y_block_rows must be a multiple of 2048")
+    nrows, ncols = shape
+    nsb = y_block_rows // LANES
+    n_blocks = max(-(-nrows // y_block_rows), 1)
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    v = np.asarray(vals)
+
+    blk_of = rows // y_block_rows
+    order = np.argsort(blk_of, kind="stable")
+    bounds = np.searchsorted(blk_of[order], np.arange(n_blocks + 1))
+
+    subs = []
+    for g in range(n_blocks):
+        sel = order[bounds[g]:bounds[g + 1]]
+        subs.append(
+            build_sell_plan(
+                rows[sel] - g * y_block_rows, cols[sel], v[sel],
+                (y_block_rows, ncols), chunk=chunk,
+                allow_small_chunk=False,
+            )
+        )
+    subs, wt_common, nsw_common, sub_bases = common_window(subs, nsb)
+
+    return SellPlan(
+        vals=np.concatenate([p.vals for p in subs]),
+        lane_idx=np.concatenate([p.lane_idx for p in subs]),
+        rel_tile=np.concatenate([p.rel_tile for p in subs]),
+        slice_of=np.concatenate([p.slice_of for p in subs]),
+        tile_base=np.concatenate([p.tile_base for p in subs]),
+        shape=shape,
+        nnz=len(rows),
+        n_slices=n_blocks * nsb,
+        n_coltiles=subs[0].n_coltiles,
+        window_tiles=wt_common,
+        chunk=chunk,
+        slice_base=np.concatenate(sub_bases),
+        slice_window=nsw_common,
+        y_block_id=np.concatenate(
+            [np.full(p.n_chunks, g, dtype=np.int32)
+             for g, p in enumerate(subs)]
+        ),
+        y_block_slices=nsb,
+    )
+
+
+def common_window(plans, ns_cap: int):
+    """Align per-block plans to one (tile window, slice window) pair.
+
+    Takes the max per-plan tile window (rewindowed, O(S)), the max
+    per-plan slice window capped at ``ns_cap``, and re-clamps each plan's
+    slice bases so every window stays inside the cap.
+
+    Returns ``(plans, wt_common, nsw_common, bases)`` with ``bases[i]``
+    the re-clamped int32 slice_base of ``plans[i]``.
+    """
+    plans = [
+        rewindow_plan(p, max(q.window_tiles for q in plans)) for p in plans
+    ]
+    # Recompute after rewindowing: a plan whose own column-tile count is
+    # below the requested window clamps to it (WT = min(WT, CT)).
+    wt_common = max(p.window_tiles for p in plans)
+    nsw_common = min(max(p.reduce_window()[1] for p in plans), ns_cap)
+    bases = [
+        np.minimum(
+            p.reduce_window()[0].astype(np.int32),
+            max(ns_cap - nsw_common, 0),
+        )
+        for p in plans
+    ]
+    return plans, wt_common, nsw_common, bases
+
+
+def rewindow_plan(plan: SellPlan, min_window_tiles: int) -> SellPlan:
+    """Widen an existing plan's per-chunk column-tile window.
+
+    Equal to rebuilding with ``build_sell_plan(..., min_window_tiles=...)``
+    but O(S): the absolute tile of every sublane is recovered from
+    ``rel_tile + tile_base`` and only the windowing tail reruns.
+    """
+    rel = plan.rel_tile.reshape(-1).astype(np.int64)
+    if plan.nnz == 0 or (rel < 0).all():
+        # Empty plan: rel carries no tiles; its window [0, WT) already
+        # sits at base 0 and widening changes nothing it computes.
+        return plan
+    if (rel < 0).any():
+        # Out-of-window sublanes lost their absolute tile (never produced
+        # by build_sell_plan).
+        raise ValueError("plan has out-of-window sublanes; rebuild it")
+    chunk = plan.chunk
+    u_tile = rel + np.repeat(plan.tile_base.astype(np.int64), chunk)
+    tiles_2d = u_tile.reshape(plan.n_chunks, chunk)
+    t_lo = (tiles_2d.min(axis=1) // 16) * 16
+    t_hi = tiles_2d.max(axis=1)
+    CT = plan.n_coltiles
+    WT = _round_up(max(int((t_hi - t_lo).max()) + 1, min_window_tiles), 16)
+    WT = min(WT, CT)
+    tile_base = np.minimum(t_lo, max(CT - WT, 0)).astype(np.int32)
+    new_rel = (
+        u_tile - np.repeat(tile_base.astype(np.int64), chunk)
+    ).astype(np.int32)
+    new_rel[(new_rel < 0) | (new_rel >= WT)] = -1
+    return dataclasses.replace(
+        plan,
+        rel_tile=new_rel.reshape(-1, 1),
+        tile_base=tile_base,
+        window_tiles=WT,
     )

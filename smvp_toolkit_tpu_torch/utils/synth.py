@@ -1,9 +1,10 @@
 """Synthetic sparse-matrix generators (benchmark and test inputs).
 
-A copy of the JAX package's banded generator: the same numpy
-``RandomState`` stream, so the same seed gives the same matrix bit for
-bit. BASELINE.json's "synthetic 10M-nnz matrix" is
-``parse_synth_spec("synth:1000000:10000000")``.
+Copies of the JAX package's banded, uniform and power-law generators: the
+same numpy ``RandomState`` streams, so the same seed gives the same matrix
+bit for bit. BASELINE.json's "synthetic 10M-nnz matrix" is
+``parse_synth_spec("synth:1000000:10000000")``; the ``synth:N:NNZ``
+grammar is banded only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,7 +15,8 @@ import numpy as np
 
 from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
 
-__all__ = ["synth_banded", "parse_synth_spec"]
+__all__ = ["synth_banded", "synth_uniform", "synth_powerlaw",
+           "parse_synth_spec"]
 
 
 def synth_banded(
@@ -27,6 +29,33 @@ def synth_banded(
     offs = rng.randint(-bandwidth, bandwidth + 1, size=len(rows))
     cols = np.clip(rows + offs, 0, n - 1)
     vals = rng.randn(len(rows))
+    return _dedup(rows, cols, vals, (n, n), dtype, device)
+
+
+def synth_uniform(
+    nrows: int, ncols: int, nnz: int, seed: int = 0, dtype=None,
+    device=None,
+) -> COOMatrix:
+    """Uniformly scattered pattern (worst-case locality)."""
+    rng = np.random.RandomState(seed)
+    rows = rng.randint(0, nrows, size=nnz).astype(np.int64)
+    cols = rng.randint(0, ncols, size=nnz).astype(np.int64)
+    vals = rng.randn(nnz)
+    return _dedup(rows, cols, vals, (nrows, ncols), dtype, device)
+
+
+def synth_powerlaw(
+    n: int, nnz: int, alpha: float = 1.5, seed: int = 0, dtype=None,
+    device=None,
+) -> COOMatrix:
+    """Power-law column popularity (hub columns, as in circuit and web
+    graphs): column j is drawn with probability ∝ (j + 1)^-alpha."""
+    rng = np.random.RandomState(seed)
+    popularity = (np.arange(1, n + 1, dtype=np.float64)) ** (-alpha)
+    popularity /= popularity.sum()
+    rows = rng.randint(0, n, size=nnz).astype(np.int64)
+    cols = rng.choice(n, size=nnz, p=popularity).astype(np.int64)
+    vals = rng.randn(nnz)
     return _dedup(rows, cols, vals, (n, n), dtype, device)
 
 

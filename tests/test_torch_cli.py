@@ -1,12 +1,13 @@
 """The slice as a whole: the port's CLI against the JAX CLI.
 
-Both run ``-c -n 2`` on ``synth:4096:40960``; the JAX CLI on its Pallas
-SELL kernels (interpret mode on the CPU, autotune pinned off so both plan
-at chunk 2048), the port with ``--device cpu`` (the kernels' plain
-versions). The report vectors agree to 1e-6 of max |y| (plus one unit in
-the sixth significant digit the report prints), and the report layouts
-are the same line for line apart from the header name, timings and the
-device-metrics block. Also the error probes' exit codes.
+Both run ``-c -n 2`` (and ``-t -n 2``) on ``synth:4096:40960``; the JAX
+CLI on its Pallas SELL kernels (interpret mode on the CPU, autotune pinned
+off so both plan at chunk 2048), the port with ``--device cpu`` (the
+kernels' plain versions). The report vectors agree to 1e-6 of max |y|
+(plus one unit in the sixth significant digit the report prints), and the
+report layouts are the same line for line apart from the header name,
+timings and the device-metrics block. Also ``-c -t --decode-check``
+against a float64 oracle, and the error probes' exit codes.
 """
 
 from __future__ import annotations
@@ -32,8 +33,8 @@ TIMING = ("Total Time:", "Average Time:", "Fastest Time:",
           "Slowest Time:", "Time StDev:")
 
 
-def _report(tmp):
-    (path,) = glob.glob(os.path.join(tmp, "smvp-toolbox_report_CSR_*.txt"))
+def _report(tmp, alg="CSR"):
+    (path,) = glob.glob(os.path.join(tmp, f"smvp-toolbox_report_{alg}_*.txt"))
     with open(path) as f:
         return f.read().splitlines()
 
@@ -162,12 +163,13 @@ def test_error_probes(tmp_path):
     assert tcli.main(["-c", "-n", "1", *base, "/no/such/file.mtx"]) == 1
     assert tcli.main(["-c", "-n", "1", *base, str(empty)]) == 1
     assert tcli.main(["-n", "1", *base, SPEC]) == 2  # no algorithm
+    assert tcli.main(["-t", "-n", "1", "--no-report", *base, SPEC]) == 0
     assert tcli.main(["-c", "-n", "1", *base, "synth:bad"]) == 2
     assert tcli.main(["-c", "-n", "1", "--x", "bogus", *base, SPEC]) == 2
     assert tcli.main(["-c", "-n", "1", "--x", "random:q", *base, SPEC]) == 2
     assert tcli.main(["-c", "--fused", "--kernel", "torch", *base,
                       SPEC]) == 2
-    for flag in (["-t"], ["-a"], ["--kernel", "pallas"], ["--shards", "2"]):
+    for flag in (["-a"], ["-g"], ["--kernel", "pallas"], ["--shards", "2"]):
         with pytest.raises(SystemExit) as e:
             tcli.main(["-c", *flag, *base, SPEC])
         assert e.value.code == 2
@@ -189,3 +191,80 @@ def test_default_device_needs_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     assert tcli.main(["-c", "-n", "1", "--no-report", SPEC]) == 1
+
+
+@pytest.fixture(scope="module")
+def tjds_runs(tmp_path_factory):
+    """Both CLIs with ``-t --decode-check`` on the same spec."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("SMVP_SELL_AUTOTUNE", "0")
+    try:
+        tj = str(tmp_path_factory.mktemp("jax_t"))
+        tt = str(tmp_path_factory.mktemp("torch_t"))
+        assert jcli.main(["-t", "-n", "2", "--kernel", "pallas", "-d", tj,
+                          "--decode-check", "--x", "random:5", SPEC]) == 0
+        assert tcli.main(["-t", "-n", "2", "--device", "cpu", "-d", tt,
+                          "--decode-check", "--x", "random:5", "--json-out",
+                          os.path.join(tt, "r.jsonl"), SPEC]) == 0
+    finally:
+        mp.undo()
+    return _report(tj, "TJDS"), _report(tt, "TJDS"), tt
+
+
+def test_tjds_report_matches_jax_cli(tjds_runs):
+    j, t, tt = tjds_runs
+    assert _close(_vector(t), _vector(j))
+    i = t.index("Output vector (one cell per line):")
+    assert _layout(t)[:i] == _layout(j)[:i]
+    assert t[0] == ("Execution results for smvp-toolkit-tpu-torch v.0.1.0, "
+                    "TJDS algorithm")
+    with open(os.path.join(tt, "r.jsonl")) as f:
+        rec = json.loads(f.readline())
+    assert rec["alg"] == "TJDS" and rec["nnz"] == 39378
+    assert rec["kernel"] == "sell-plain"
+
+
+def _oracle(bf16, seed):
+    import scipy.sparse as sp
+
+    from smvp_toolkit_tpu_torch.utils.synth import parse_synth_spec
+
+    dt = torch.bfloat16 if bf16 else torch.float32
+    r, c, v = parse_synth_spec(SPEC, dtype=dt, device="cpu").to_numpy()
+    x = np.random.default_rng(seed).standard_normal(4096).astype(np.float32)
+    if bf16:
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    ref = sp.csr_matrix((v.astype(np.float64), (r, c)), shape=(4096, 4096))
+    return ref @ x.astype(np.float64)
+
+
+@pytest.mark.parametrize("extra", [[], ["--fused"], ["--kernel", "torch"],
+                                   ["--dtype", "bfloat16", "--fused"]])
+def test_csr_and_tjds_together_agree_with_oracle(tmp_path, extra, capsys):
+    rc = tcli.main(["-c", "-t", "-n", "2", "--device", "cpu", "--decode-check",
+                    "-d", str(tmp_path), "--x", "random:3", *extra, SPEC])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "CSR decode round-trip: bit-exact" in out
+    assert "TJDS decode round-trip: bit-exact" in out
+    ref = _oracle("--dtype" in extra, 3)
+    y_c = _vector(_report(str(tmp_path), "CSR"))
+    y_t = _vector(_report(str(tmp_path), "TJDS"))
+    assert _close(y_c, ref) and _close(y_t, ref)
+
+
+def test_decode_check_failure_exits_3(monkeypatch, capsys):
+    import dataclasses
+
+    from smvp_toolkit_tpu_torch.formats import tjds as ttjds
+
+    real = ttjds.tjds_decode
+
+    def corrupt(tj):
+        coo = real(tj)
+        return dataclasses.replace(coo, vals=coo.vals * 2)
+
+    monkeypatch.setattr(ttjds, "tjds_decode", corrupt)
+    assert tcli.main(["-t", "-n", "1", "--device", "cpu", "--no-report",
+                      "--decode-check", SPEC]) == 3
+    assert "TJDS decode round-trip FAILED" in capsys.readouterr().err

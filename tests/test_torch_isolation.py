@@ -30,7 +30,8 @@ SOURCES = sorted(p for p in PKG.rglob("*") if p.suffix in (".py", ".cu",
 def test_package_sources_found():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES}
     assert {"cli.py", "interop.py", "io/mtx.py", "ops/spmv_sell.py",
-            "csrc/sell_spmv.cu"} <= names
+            "formats/tjds.py", "csrc/sell_spmv.cu", "csrc/sell_bench.cu",
+            "csrc/sell_common.cuh"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,

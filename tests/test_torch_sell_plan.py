@@ -134,12 +134,16 @@ def test_plan_from_arrays_rejects_unknown_fields():
 def test_plan_gates():
     t, _ = _plans("tiny", {})
     plan_checks.check_plan(t)
-    with pytest.raises(ValueError, match="K4"):
-        plan_checks.check_plan(dataclasses.replace(t, window_tiles=512))
-    with pytest.raises(ValueError, match="K4"):
-        plan_checks.check_plan(
-            dataclasses.replace(t, n_slices=plan_checks.SLICE_DEAD))
-    with pytest.raises(NotImplementedError, match="K3"):
+    # A window past the 9-bit rel field or a slice count past the 23-bit
+    # slice field is no longer refused: such plans run on the split planes.
+    wide = dataclasses.replace(t, window_tiles=512)
+    plan_checks.check_plan(wide)
+    assert tsp.plan_route(wide) == "split"
+    tall = dataclasses.replace(t, n_slices=plan_checks.SLICE_DEAD)
+    plan_checks.check_plan(tall)
+    assert tsp.plan_route(tall) == "split"
+    # A plan that breaks an invariant the kernels index by still raises.
+    with pytest.raises(ValueError, match="y_block_id"):
         plan_checks.check_plan(dataclasses.replace(t, y_block_slices=512))
     bad_lidx = t.lane_idx.copy()
     bad_lidx[0, 0] = 128
@@ -150,15 +154,42 @@ def test_plan_gates():
     with pytest.raises(ValueError, match="outside x"):
         plan_checks.check_plan(dataclasses.replace(
             t, tile_base=t.tile_base + t.n_coltiles))
+    with pytest.raises(ValueError, match="outside x"):
+        plan_checks.check_plan(dataclasses.replace(
+            t, tile_base=t.tile_base - 16))
+    with pytest.raises(ValueError, match="window"):
+        plan_checks.check_plan(dataclasses.replace(t, window_tiles=1))
+    with pytest.raises(ValueError, match="slice_of"):
+        plan_checks.check_plan(dataclasses.replace(
+            t, slice_of=t.slice_of.astype(np.int64)))
+    with pytest.raises(ValueError, match="rel_tile"):
+        plan_checks.check_plan(dataclasses.replace(t, rel_tile=t.rel_tile[1:]))
 
 
 def test_streamed_y_plan_refused():
+    """A streamed-y plan is refused only where it breaks an invariant."""
     r, c, v, _ = _triplets("tiny")
-    with pytest.raises(NotImplementedError, match="K3"):
-        tsp._auto_plan(r, c, v, (3_000_000, 300))
+    rows = np.array([0, 2100, 4200, 5000])
+    good = tplan.build_streamed_sell_plan(
+        rows, np.array([3, 3, 200, 7]), np.array([1.0, -2.0, 0.5, 4.0]),
+        (6000, 300), chunk=8, y_block_rows=2048)
+    assert tsp.SellSpMV(good, device="cpu").route == "streamy_relsl"
+    blk = good.y_block_id
+    bad = {
+        "non-decreasing": dict(y_block_id=blk[::-1].copy()),
+        "outside y": dict(y_block_id=blk + 1),
+        "y block": dict(slice_of=np.where(good.slice_of >= 0, 16,
+                                          good.slice_of).astype(np.int32)),
+        "y_block_id": dict(y_block_id=blk[:-1]),
+    }
+    for match, change in bad.items():
+        with pytest.raises(ValueError, match=match):
+            tsp.SellSpMV(dataclasses.replace(good, **change), device="cpu")
+    # the JAX planner's streamed plan crosses over and runs
     streamed = jplan.build_streamed_sell_plan(r, c, v, (10, 300), chunk=8)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tsp.SellSpMV(plan_from_arrays(plan_fields(streamed)), device="cpu")
+    op = tsp.SellSpMV(plan_from_arrays(plan_fields(streamed)), device="cpu")
+    y = op(torch.ones(300))
+    assert y.shape == (10,) and y[0] == 1.0 and y[5] == -2.0 and y[9] == 0.5
 
 
 def test_auto_plan_matches_jax_auto_plan():
