@@ -9,7 +9,9 @@ Phases; any failure exits non-zero and prints no result line:
 
 1. The card's name and power limit, then the kernels' build from
    ``smvp_toolkit_tpu_torch/csrc`` (one nvcc per source, in parallel) with
-   its time, and each bench kernel's cooperative grid.
+   its time, and each bench kernel's cooperative grid. The plans of the
+   four full-size matrices and of the ``gcn_arxiv`` graph (its normalised
+   adjacency A and its transpose).
 2. Every kernel against its plain PyTorch version on the card, in float32
    and bfloat16: the forward kernel of the plan's route, its N-iteration
    kernel with N = 3, and the two against each other. Tolerance:
@@ -27,27 +29,51 @@ Phases; any failure exits non-zero and prints no result line:
      (resident y, split planes: K4 and its N-iteration kernel);
    - L3: ``synth_powerlaw(4_000_000, 40_000_000, seed=0)``, WT 30,880
      (streamed y, split planes: K3-split and its N-iteration kernel).
+   The k-column kernels (K1 and K4 with k > 1, their N-iteration kernel
+   with N = 3 on merged-word plans, and the values-gradient kernel K7) on
+   every resident-y small plan with k = 2, 8 and 17, on smoke and L2 with
+   k = 8, and on gcn_arxiv's A (split planes: K4, K7) and Aᵀ (merged
+   word: K1, K2) with k = 8 and, in float32, k = 256, the GCN's width.
 3. The main path at full size, each run with every launch count zeroed
    just before it and read just after; a run fails unless its route's
-   kernel launched and no other kernel did:
-   - smoke through the CLI, ``-c -n 200 --x random:1``, per call and
-     ``--fused``, float32 and bfloat16;
+   kernels launched and no other kernel did:
+   - smoke through the CLI, ``-c -n 200 --x random:1 --spmm 8``, per call
+     and ``--fused``, float32 and bfloat16 (K1 and K1 with k = 8; K2 and
+     K2 with k = 8);
    - L1 through the CLI, ``-c -t --decode-check -n 100 --x random:1``,
      per call and ``--fused``, float32 and bfloat16;
-   - L2 likewise, on a MatrixMarket file the port's ``write_mtx`` writes
-     into a temporary directory (its write and read times printed);
+   - L2 likewise with ``--spmm 8`` (K4 and K4 with k = 8; under
+     ``--fused`` K4's N-iteration kernel and N SpMM launches), on a
+     MatrixMarket file the port's ``write_mtx`` writes into a temporary
+     directory (its write and read times printed);
    - L3 through the operator API (``SellSpMV.from_coo``, ``__call__``,
-     ``bench_loop`` with N = 100), float32 and bfloat16.
-   Every output vector (both reports of a ``-c -t`` run) is checked
-   against a float64 scipy CSR oracle: max |y - oracle| / max |oracle|
-   <= 1e-5 (bfloat16: the oracle takes bf16-rounded vals and x; the
-   report prints 6 significant digits, which fits the bound).
+     ``bench_loop`` with N = 100), float32 and bfloat16;
+   - gcn_arxiv: a 3-layer GCN at the width of the OGB ogbn-arxiv GCN
+     baseline (169,343 nodes, dims [128, 256, 256, 40]) on
+     ``gcn_norm(synth_powerlaw(169_343, 2_315_598, seed=0))``, features
+     and labels from ``default_rng(0)``, the first 90,941 nodes (arxiv's
+     train split size) in the loss: three ``gcn_train_step`` steps (K4
+     with k > 1 forward, K1 with k > 1 backward) and three
+     ``gcn_train_step_edges`` steps (the same plus K7), lr 0.01, each
+     step's time printed, then one of each under ``torch.profiler``.
+     Step 1 must agree with the same step through ``spmm_csr`` on the
+     card (the edge step: with a float64 ``spmm_csr`` step) within rtol
+     1e-4 / atol 1e-5, and every loss must be finite.
+   Every output vector (both reports of a ``-c -t`` run) and every SpMM
+   result (``--spmm-out``) is checked against a float64 scipy CSR
+   oracle: max |y - oracle| / max |oracle| <= 1e-5 (bfloat16: the oracle
+   takes bf16-rounded vals and x; the report prints 6 significant digits,
+   which fits the bound).
 4. One ``{"kernels": [...]}`` line: per kernel, configuration and value
    dtype, its time per launch from CUDA events, its launches in the
    main-path run, its bound (bytes of its route over the card's memory
-   rate, or 2·nnz·N flops over the float32 rate, the larger), the plain
-   version's time and a library yardstick (``torch.sparse.mm`` on a
-   float32 CSR tensor of the same matrix, never called by the port).
+   rate, or 2·nnz·k·N flops over the float32 rate, the larger; K7 counts
+   2·k flops per slot of a live sublane), the plain version's time and a
+   library yardstick (``torch.sparse.mm`` on a float32 CSR tensor of the
+   same matrix with the same k, and for K7 ``torch.sparse.sampled_addmm``
+   on its pattern with beta 0; never called by the port). The k-column
+   kernels are timed at k = 8 on smoke and L2 and at k = 256 on
+   gcn_arxiv.
    Then the card's name and power limit again and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -73,6 +99,13 @@ L1_SPEC = "synth:4194304:41943040"
 L2_POWERLAW = (1_000_000, 10_000_000)
 L3_POWERLAW = (4_000_000, 40_000_000)
 ITERATIONS = {"smoke": 200, "L1": 100, "L2": 100, "L3": 100}
+SPMM_K = 8          # --spmm K of the smoke and L2 CLI runs
+GCN_NODES, GCN_EDGES = 169_343, 2_315_598  # ogbn-arxiv, symmetrised
+GCN_DIMS = [128, 256, 256, 40]  # the OGB arxiv GCN baseline's widths
+GCN_TRAIN_NODES = 90_941        # arxiv's train split
+GCN_STEPS, GCN_LR = 3, 0.01
+GCN_K = 256                     # the width the GCN kernels are timed at
+TOL_STEP = dict(rtol=1e-4, atol=1e-5)
 TOL_KERNEL = 1e-6
 TOL_ORACLE = 1e-5
 # H100 SXM peak for float32 arithmetic outside the tensor cores (NVIDIA's
@@ -90,6 +123,10 @@ KERNELS = {
     "sell_bench_streamy_relsl_kernel": ("sell_bench.cu", 742),
     "sell_bench_streamy_kernel": ("sell_bench.cu", 797),
     "sell_bench_split_kernel": ("sell_bench.cu", 797),
+    "sell_spmm_kernel": ("sell_spmm.cu", 389),
+    "sell_split_spmm_kernel": ("sell_spmm.cu", 592),
+    "sell_bench_spmm_kernel": ("sell_spmm.cu", 718),
+    "sell_vals_grad_kernel": ("sell_vals_grad.cu", 935),
 }
 # The route each full-size configuration must run on.
 ROUTE = {"smoke": "relsl", "L1": "streamy_relsl", "L2": "split",
@@ -174,8 +211,9 @@ class _Phase:
 
 def _wrappers(S):
     """Every kernel's wrapper by kernel name."""
-    return {S.KERNEL_NAMES[(route, bench)]: S._ROUTE_FNS[route][bench]
-            for route in S.ROUTES for bench in (False, True)}
+    return {**{S.KERNEL_NAMES[(route, bench)]: S._ROUTE_FNS[route][bench]
+               for route in S.ROUTES for bench in (False, True)},
+            **S.MAT_KERNELS}
 
 
 def _zero_counts(S):
@@ -187,13 +225,26 @@ def _counts(S):
     return {name: fn.launches for name, fn in _wrappers(S).items()}
 
 
+def _check_only(counts, want, what):
+    """Each kernel in ``want`` launched, no other kernel; their counts."""
+    for name in want:
+        _check(counts[name] >= 1, f"{name} never launched in {what}")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    _check(not others, f"{what} launched other kernels: {others}")
+    return {name: counts[name] for name in want}
+
+
 def _check_launched(S, counts, route, bench, what):
     """The route's forward (or bench) kernel launched, no other kernel."""
     want = S.KERNEL_NAMES[(route, bench)]
-    _check(counts[want] >= 1, f"{want} never launched in {what}")
-    others = {k: v for k, v in counts.items() if k != want and v}
-    _check(not others, f"{what} launched other kernels: {others}")
-    return counts[want]
+    return _check_only(counts, [want], what)[want]
+
+
+def _spmm_kernel_name(route, fused):
+    """The k-column kernel a ``--spmm`` run of this route launches."""
+    if route == "relsl":
+        return "sell_bench_spmm_kernel" if fused else "sell_spmm_kernel"
+    return "sell_split_spmm_kernel"  # --fused: N matmat calls
 
 
 def _configs():
@@ -226,6 +277,35 @@ def _configs():
               f"planned in {t2 - t1:.2f} s", flush=True)
         out[name] = (plan, (rr, cc, vv, coo.shape))
     return out
+
+
+def _gcn_graph(np, torch):
+    """gcn_arxiv's normalised adjacency on the card with its SELL operator
+    (A) and the transpose's (Aᵀ), planned as the training path plans them."""
+    from smvp_toolkit_tpu_torch.models import gcn_norm
+    from smvp_toolkit_tpu_torch.ops.spmv_sell import sell_op_csr
+    from smvp_toolkit_tpu_torch.utils.synth import synth_powerlaw
+
+    t0 = time.perf_counter()
+    coo = synth_powerlaw(GCN_NODES, GCN_EDGES, seed=0, device=DEVICE)
+    s = gcn_norm(coo)
+    t1 = time.perf_counter()
+    op = sell_op_csr(s)
+    t2 = time.perf_counter()
+    op_t = op.transpose()
+    t3 = time.perf_counter()
+    print(f"[plan] gcn_arxiv: {GCN_NODES} nodes, {coo.nnz} edges after "
+          f"de-duplication, {s.nnz} nnz with self loops; made and "
+          f"normalised in {t1 - t0:.2f} s", flush=True)
+    for label, o, secs in (("A", op, t2 - t1), ("At", op_t, t3 - t2)):
+        p = o.plan
+        print(f"[plan] gcn_arxiv {label}: route {o.route}, S {p.n_sublanes} "
+              f"in {p.n_chunks} chunks of {p.chunk}, WT {p.window_tiles}, "
+              f"NS {p.n_slices}, CT {p.n_coltiles}, occupancy "
+              f"{p.nnz / p.slots():.3f}; planned in {secs:.2f} s", flush=True)
+    _check(op.route == "split" and op_t.route == "relsl",
+           f"gcn_arxiv routes {op.route} / {op_t.route}, not split / relsl")
+    return {"s": s, "A": op, "At": op_t}
 
 
 def _small_plans(np):
@@ -274,9 +354,75 @@ def _small_plans(np):
     ]
 
 
-def phase_kernels(np, torch, plans):
+def _spmm_tolerance(torch, S, op):
+    """max(1e-6, 2·u·sqrt(n)) with n the most products any output element
+    sums and u = 2^-24: a float32 sum of n products in random order is off
+    by about u·sqrt(n) of its size, and the kernel's atomics and the plain
+    version's index_add_ are two such orders. Only a long row lifts it
+    above 1e-6 (n > 70): gcn_arxiv's Aᵀ has a hub row of about 490,000."""
+    if op.relsl is not None:
+        rel, sl = S._decode_word(op.relsl)
+    else:
+        rel, sl = op.rel.long(), op.slice_of.long()
+    _, _, row = S._live_slots(op.lidx, rel, sl, op.tile_base,
+                              chunk=op.plan.chunk, vals=op.vals)
+    n = int(torch.bincount(row).max().item()) if row.numel() else 0
+    return max(TOL_KERNEL, 2 * 2.0 ** -24 * n ** 0.5), n
+
+
+def _check_mat_kernels(np, torch, name, op, ks, errs):
+    """The k-column kernels of the operator's route against their plain
+    versions: the SpMM kernel, the N-iteration one (N = 3, merged word)
+    and K7, for each k; records each max abs error in ``errs``. K7 sums k
+    products per slot and is held to 1e-6; the SpMM kernels to
+    ``_spmm_tolerance`` of the plan."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    kw = op._mat_kw()
+    meta = dict(relsl=op.relsl, rel=op.rel, slice_of=op.slice_of)
+    dname = str(op.value_dtype).replace("torch.", "")
+    plan = op.plan
+    dead = torch.from_numpy((plan.rel_tile.reshape(-1) < 0)
+                            | (plan.slice_of.reshape(-1) < 0)).to(op.device)
+    tol, n_max = _spmm_tolerance(torch, S, op)
+    for k in ks:
+        rng = np.random.default_rng(k)
+        X = torch.from_numpy(rng.standard_normal(
+            (plan.n_coltiles * 128, k)).astype(np.float32)).to(op.device).to(
+            op.value_dtype)
+        G = torch.from_numpy(rng.standard_normal(
+            (plan.n_slices * 128, k)).astype(np.float32)).to(op.device)
+        fwd = op.spmm_kernel
+        plain = getattr(S, fwd.__name__ + "_plain")
+        yp = plain(*op._planes(), X, **kw)
+        got = {fwd.kernel: (fwd(*op._planes(), X, **kw), yp)}
+        if op.route == "relsl":
+            got["sell_bench_spmm_kernel"] = (
+                S.sell_bench_spmm(*op._planes(), X, iterations=3, **kw), yp)
+        got["sell_vals_grad_kernel"] = (
+            S.sell_vals_grad(op.lidx, op.tile_base, X, G, **meta, **kw),
+            S.sell_vals_grad_plain(op.lidx, op.tile_base, X, G, **meta, **kw))
+        torch.cuda.synchronize()
+        line = []
+        for kname, (y, ref) in got.items():
+            e = _rel_err(y, ref)
+            what = f"{kname} vs plain on {name} {dname} k={k}"
+            _check(torch.isfinite(y).all().item(), f"{what}: not finite")
+            t = TOL_KERNEL if kname == "sell_vals_grad_kernel" else tol
+            _check(e <= t, f"{what}: {e} > {t}")
+            errs[(kname, name, dname, k)] = (y - ref).abs().max().item()
+            line.append(f"{kname} {e:.3e}")
+        _check(not got["sell_vals_grad_kernel"][0].reshape(-1, 128)[
+            dead].any(), f"K7 on {name} {dname}: a dead sublane is not 0")
+        print(f"[check] {name:28s} {dname:9s} {op.route:5s} k={k:<3d} "
+              f"vs plain: {', '.join(line)} (SpMM tolerance {tol:.2e}: rows "
+              f"of up to {n_max} products)", flush=True)
+
+
+def phase_kernels(np, torch, plans, gcn):
     """Phase 2: every route's kernels against their plain version; returns
-    the operators and max abs errors of the full-size configurations."""
+    the operators and max abs errors of the full-size configurations (the
+    k-column kernels' keyed by kernel, configuration, dtype and k)."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
     dev = torch.device(DEVICE)
@@ -316,6 +462,16 @@ def phase_kernels(np, torch, plans):
                 ops[(name, dname)] = (op, x)
                 errs[(name, dname)] = ((y1 - yp).abs().max().item(),
                                        (y2 - yp).abs().max().item())
+            if not plan.y_block_slices:
+                ks = (SPMM_K,) if name in ROUTE else (2, 8, 17)
+                _check_mat_kernels(np, torch, name, op, ks, errs)
+    for label in ("A", "At"):
+        base = gcn[label]
+        for dname in DTYPE_NAMES:
+            op = base if dname == "float32" else S.SellSpMV(
+                base.plan, value_dtype=torch.bfloat16, device=dev)
+            ks = (SPMM_K, GCN_K) if dname == "float32" else (SPMM_K,)
+            _check_mat_kernels(np, torch, f"gcn_arxiv:{label}", op, ks, errs)
     return ops, errs
 
 
@@ -340,15 +496,34 @@ def _report_vector(np, path):
     return np.array([float(t) for t in lines[start + 1:end]])
 
 
-def _cli_runs(np, torch, name, source, argv0, triplets, launches):
-    """The CLI on ``source``, per call and fused, in both dtypes."""
+def _spmm_oracle(np, torch, triplets, dname):
+    """Float64 Y = A·X for the CLI's --spmm X (default_rng(0))."""
+    import scipy.sparse as sp
+
+    r, c, v, shape = triplets
+    X = np.random.default_rng(0).standard_normal(
+        (shape[1], SPMM_K)).astype(np.float32)
+    v = np.asarray(v, dtype=np.float32)
+    if dname == "bfloat16":
+        v = torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+        X = torch.from_numpy(X).to(torch.bfloat16).float().numpy()
+    a = sp.csr_matrix((v.astype(np.float64), (r, c)), shape=shape)
+    return a @ X.astype(np.float64)
+
+
+def _cli_runs(np, torch, name, source, argv0, triplets, launches,
+              spmm=False):
+    """The CLI on ``source``, per call and fused, in both dtypes; with
+    ``spmm``, each run also times ``--spmm 8`` and its Y is checked."""
     from smvp_toolkit_tpu_torch.cli import main as cli_main
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
     algs = ["CSR", "TJDS"] if "-t" in argv0 else ["CSR"]
+    route = ROUTE[name]
     for dname in DTYPE_NAMES:
         ref, _ = _oracle(np, torch, triplets, dname)
         scale = float(np.abs(ref).max())
+        ref_mat = _spmm_oracle(np, torch, triplets, dname) if spmm else None
         for fused in (False, True):
             with tempfile.TemporaryDirectory() as tmp:
                 argv = argv0 + ["-n", str(ITERATIONS[name]), "-d", tmp,
@@ -356,6 +531,9 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches):
                                 "--json-out", os.path.join(tmp, "run.jsonl"),
                                 "--x", "random:1", "--dtype", dname]
                 argv += ["--fused"] if fused else []
+                if spmm:
+                    argv += ["--spmm", str(SPMM_K), "--spmm-out",
+                             os.path.join(tmp, "y.npy")]
                 log = io.StringIO()
                 _zero_counts(S)
                 t0 = time.perf_counter()
@@ -369,9 +547,13 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches):
                     for alg in algs:
                         _check(f"{alg} decode round-trip: bit-exact"
                                in log.getvalue(), f"{what}: {alg} decode")
-                n = _check_launched(S, counts, ROUTE[name], fused, what)
-                launches[(S.KERNEL_NAMES[(ROUTE[name], fused)], name,
-                          dname)] = n
+                want = [S.KERNEL_NAMES[(route, fused)]]
+                if spmm:
+                    want.append(_spmm_kernel_name(route, fused))
+                got = _check_only(counts, want, what)
+                for kname, n in got.items():
+                    key = (kname, name, dname)
+                    launches[key] = launches.get(key, 0) + n
                 with open(os.path.join(tmp, "run.jsonl")) as f:
                     recs = [json.loads(ln) for ln in f]
                 errs = []
@@ -383,15 +565,22 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches):
                            f"vector shape {y.shape}")
                     _check(bool(np.isfinite(y).all()), f"{what} {alg} finite")
                     errs.append(float(np.abs(y - ref).max()) / scale)
-            rates = ", ".join(f"{r['alg']} avg {r['avg_ms']:.6f} ms/iter"
-                              for r in recs)
+                if spmm:
+                    Y = np.load(os.path.join(tmp, "y.npy")).astype(np.float64)
+                    _check(Y.shape == ref_mat.shape and bool(
+                        np.isfinite(Y).all()), f"{what} SpMM Y {Y.shape}")
+                    errs.append(float(np.abs(Y - ref_mat).max())
+                                / float(np.abs(ref_mat).max()))
+            rates = ", ".join(
+                f"{r['alg']} avg {r['avg_ms']:.6f} ms/iter"
+                + (f" ({r['kernel']}, {r['timing']})" if "k" in r else "")
+                for r in recs)
             print(f"[main] {name} {' '.join(argv0)} {dname}"
                   f"{' --fused' if fused else ''}: rc {rc}, {wall:.1f} s, "
-                  f"{rates}, launches {S.KERNEL_NAMES[(ROUTE[name], fused)]} "
-                  f"{n}, reports vs float64 oracle "
+                  f"{rates}, launches {got}, vs float64 oracle "
                   f"{', '.join(f'{e:.3e}' for e in errs)}", flush=True)
-            for alg, e in zip(algs, errs):
-                _check(e <= TOL_ORACLE, f"{what} {alg} oracle error {e}")
+            for e in errs:
+                _check(e <= TOL_ORACLE, f"{what} oracle error {e}")
 
 
 def _operator_runs(np, torch, name, triplets, launches):
@@ -438,7 +627,7 @@ def phase_main_path(np, torch, configs):
     launches = {}
     with _Phase("main path: smoke"):
         _cli_runs(np, torch, "smoke", SMOKE_SPEC, ["-c"],
-                  configs["smoke"][1], launches)
+                  configs["smoke"][1], launches, spmm=True)
     with _Phase("main path: L1"):
         _cli_runs(np, torch, "L1", L1_SPEC, ["-c", "-t", "--decode-check"],
                   configs["L1"][1], launches)
@@ -458,30 +647,196 @@ def phase_main_path(np, torch, configs):
               f"{t1 - t0:.1f} s, read in {t2 - t1:.1f} s", flush=True)
         del back
         _cli_runs(np, torch, "L2", path, ["-c", "-t", "--decode-check"],
-                  configs["L2"][1], launches)
+                  configs["L2"][1], launches, spmm=True)
     with _Phase("main path: L3"):
         _operator_runs(np, torch, "L3", configs["L3"][1], launches)
     return launches
 
 
+def _close_step(torch, what, got, want):
+    got, want = got.detach().double(), want.detach().double()
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    _check(got.shape == want.shape and torch.allclose(got, want, **TOL_STEP),
+           f"{what}: max |Δ| {err}")
+    return err
+
+
+def _profile_step(torch, label, step):
+    """One step under torch.profiler: wall time, device busy time (the sum
+    of its kernels, copies and fills) and the ten that took most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    per_name = {}
+    for e in prof.key_averages():  # device-side events only: an operator
+        # on the host also reports the device time of what it launched
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_name[e.key] = per_name.get(e.key, 0.0) + (
+                e.self_device_time_total / 1e3)
+    busy = sum(per_name.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"[profile] {label}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy:.3f} ms ({100 * busy / wall_ms:.1f}% of wall); by kernel: "
+          + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in top), flush=True)
+
+
+def phase_gcn(np, torch, gcn, launches):
+    """Phase 3 on the training path: gcn_arxiv's train and edge steps."""
+    import dataclasses
+
+    from smvp_toolkit_tpu_torch.models import (
+        gcn_init,
+        gcn_train_step,
+        gcn_train_step_edges,
+    )
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.ops.spmv_torch import spmm_csr
+
+    dev = torch.device(DEVICE)
+    s = gcn["s"]
+    rng = np.random.default_rng(0)
+    h = torch.from_numpy(rng.standard_normal(
+        (GCN_NODES, GCN_DIMS[0])).astype(np.float32)).to(dev)
+    labels = torch.from_numpy(rng.integers(0, GCN_DIMS[-1], GCN_NODES)).to(
+        dev)
+    mask = torch.arange(GCN_NODES, device=dev) < GCN_TRAIN_NODES
+    layers = len(GCN_DIMS) - 1
+    fwd, bwd = gcn["A"].spmm_kernel.kernel, gcn["At"].spmm_kernel.kernel
+
+    def fresh():
+        return gcn_init(torch.Generator().manual_seed(0), GCN_DIMS,
+                        device=dev)
+
+    def timed(step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # Step 1 through spmm_csr on the card: what the kernels' step 1 must give.
+    ref = fresh()
+    (_, ref_loss), ref_ms = timed(lambda: gcn_train_step(
+        s, ref, h, labels, mask, GCN_LR, spmm=spmm_csr))
+    model = fresh()
+    _zero_counts(S)
+    for step in range(1, GCN_STEPS + 1):
+        (_, loss), ms = timed(lambda: gcn_train_step(s, model, h, labels,
+                                                      mask, GCN_LR))
+        _check(bool(torch.isfinite(loss)), f"gcn train step {step} loss")
+        note = ""
+        if step == 1:
+            errs = [_close_step(torch, "gcn train step 1 loss", loss,
+                                ref_loss)]
+            for i, (p, q) in enumerate(zip(model.parameters(),
+                                           ref.parameters())):
+                errs.append(_close_step(torch, f"gcn train step 1 param {i}",
+                                        p, q))
+            note = (f"; vs spmm_csr step ({ref_ms:.3f} ms): max |Δ| "
+                    f"{max(errs):.3e}")
+        print(f"[gcn] gcn_train_step {step}: {ms:.3f} ms, loss "
+              f"{loss.item():.6f}{note}", flush=True)
+    got = _check_only(_counts(S), [fwd, bwd], "gcn_arxiv train steps")
+    _check(got == {fwd: layers * GCN_STEPS, bwd: layers * GCN_STEPS},
+           f"gcn train steps launched {got}")
+    for kname, n in got.items():
+        launches[(kname, "gcn_arxiv", "float32")] = n
+
+    # Edge step 1 in float64 through spmm_csr: the oracle of edge step 1.
+    s64 = dataclasses.replace(s, vals=s.vals.double())
+    m64 = fresh().double()
+    _, ev64, loss64 = gcn_train_step_edges(s64, m64, s64.vals, h.double(),
+                                           labels, mask, GCN_LR,
+                                           spmm=spmm_csr)
+    model_e, ev = fresh(), s.vals
+    _zero_counts(S)
+    for step in range(1, GCN_STEPS + 1):
+        (_, ev, loss), ms = timed(lambda: gcn_train_step_edges(
+            s, model_e, ev, h, labels, mask, GCN_LR))
+        _check(bool(torch.isfinite(loss)) and bool(torch.isfinite(ev).all()),
+               f"gcn edge step {step}: loss or edge values not finite")
+        note = ""
+        if step == 1:
+            errs = [_close_step(torch, "gcn edge step 1 edge values", ev,
+                                ev64),
+                    _close_step(torch, "gcn edge step 1 loss", loss, loss64)]
+            for i, (p, q) in enumerate(zip(model_e.parameters(),
+                                           m64.parameters())):
+                errs.append(_close_step(torch, f"gcn edge step 1 param {i}",
+                                        p, q))
+            note = f"; vs float64 spmm_csr step: max |Δ| {max(errs):.3e}"
+        print(f"[gcn] gcn_train_step_edges {step}: {ms:.3f} ms, loss "
+              f"{loss.item():.6f}{note}", flush=True)
+    kv = "sell_vals_grad_kernel"
+    got = _check_only(_counts(S), [fwd, bwd, kv], "gcn_arxiv edge steps")
+    _check(got == {fwd: layers * GCN_STEPS, bwd: layers * GCN_STEPS,
+                   kv: layers * GCN_STEPS}, f"gcn edge steps launched {got}")
+    for kname, n in got.items():
+        key = (kname, "gcn_arxiv", "float32")
+        launches[key] = launches.get(key, 0) + n
+    del s64, m64, ev64, ref
+
+    _profile_step(torch, "gcn_train_step", lambda: gcn_train_step(
+        s, model, h, labels, mask, GCN_LR))
+    _profile_step(torch, "gcn_train_step_edges", lambda: gcn_train_step_edges(
+        s, model_e, ev, h, labels, mask, GCN_LR))
+
+
 def _library_csr(np, torch, triplets):
+    """A float32 CSR tensor of the triplets on the card, duplicates summed
+    (gcn_norm's self loops repeat a graph's own (i, i) edges)."""
+    import scipy.sparse as sp
+
     r, c, v, shape = triplets
-    order = np.lexsort((c, r))
+    a = sp.csr_matrix((np.asarray(v, np.float32), (r, c)), shape=shape)
+    a.sum_duplicates()
     return torch.sparse_csr_tensor(
-        torch.from_numpy(np.concatenate(
-            [[0], np.cumsum(np.bincount(r, minlength=shape[0]))])).to(DEVICE),
-        torch.from_numpy(c[order].astype(np.int64)).to(DEVICE),
-        torch.from_numpy(np.asarray(v, np.float32)[order]).to(DEVICE),
+        torch.from_numpy(a.indptr.astype(np.int64)).to(DEVICE),
+        torch.from_numpy(a.indices.astype(np.int64)).to(DEVICE),
+        torch.from_numpy(a.data.astype(np.float32)).to(DEVICE),
         size=shape, check_invariants=True,
     )
 
 
-def phase_timings(np, torch, ops, errs, launches, configs):
-    """Phase 4: one entry per kernel, configuration and value dtype."""
-    from smvp_toolkit_tpu_torch.bench.roofline import hbm_bandwidth_gbs
+def _entry(kname, config, dname, *, launches, err, ms, plain_ms, lib_ms,
+           nbytes, flops, bw, iters=1, **extra):
+    """One ``kernels`` entry: ``nbytes`` (each input once, each output
+    once) over the memory rate, or ``flops`` over the float32 rate."""
+    t_bytes = nbytes / bw * 1e3
+    t_ops = flops / F32_PEAK_FLOPS * 1e3
+    src, line = KERNELS[kname]
+    print(f"[time] {kname} {config} {dname} {extra}: {ms:.6f} ms per launch "
+          f"({iters} iterations), bound {max(t_bytes, t_ops):.6f} ms, plain "
+          f"{plain_ms:.6f} ms, library {lib_ms:.6f} ms", flush=True)
+    return {
+        "name": f"{kname}[{config},{dname}]",
+        "config": config,
+        "route": "cuda",
+        "source": CSRC + src,
+        "replaces": f"{PALLAS}{line}",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+        "iterations_per_launch": iters,
+        "traffic_bytes_per_iteration": nbytes,
+        "reread_bound_ms": iters * t_bytes,
+        **extra,
+    }
+
+
+def phase_timings(np, torch, ops, errs, launches, configs, bw):
+    """Phase 4: one entry per k = 1 kernel, configuration and value dtype."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
-    bw = hbm_bandwidth_gbs(torch.device(DEVICE)) * 1e9
     entries = []
     for name, route in ROUTE.items():
         plan, triplets = configs[name]
@@ -492,7 +847,6 @@ def phase_timings(np, torch, ops, errs, launches, configs):
             xt = op._x_tiles(x)
             planes, kw = op._planes(), op._kw()
             vb = op.vals.element_size()
-            nbytes = plan.traffic_bytes(vb, x_bytes=vb)
             x2 = x.float()[:, None]
             for bench in (False, True):
                 kname = S.KERNEL_NAMES[(route, bench)]
@@ -514,30 +868,105 @@ def phase_timings(np, torch, ops, errs, launches, configs):
                                         reps=3)
                     lib_ms = _time_ms(lambda: torch.sparse.mm(a, x2), reps=20)
                 iters = n_iter if bench else 1
-                t_bytes = nbytes / bw * 1e3
-                t_ops = 2.0 * plan.nnz * iters / F32_PEAK_FLOPS * 1e3
-                src, line = KERNELS[kname]
-                entries.append({
-                    "name": f"{kname}[{name},{dname}]",
-                    "config": name,
-                    "route": "cuda",
-                    "source": CSRC + src,
-                    "replaces": f"{PALLAS}{line}",
-                    "launches": launches[(kname, name, dname)],
-                    "max_abs_err": errs[(name, dname)][int(bench)],
-                    "ms": ms,
-                    "plain_ms": plain_ms,
-                    "bound_ms": max(t_bytes, t_ops),
-                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                    "library_ms": lib_ms,
-                    "iterations_per_launch": iters,
-                    "traffic_bytes_per_iteration": nbytes,
-                    "reread_bound_ms": iters * t_bytes,
-                })
-                print(f"[time] {kname} {name} {dname}: {ms:.6f} ms per launch "
-                      f"({iters} SpMV), bound {max(t_bytes, t_ops):.6f} ms, "
-                      f"plain {plain_ms:.6f} ms, library {lib_ms:.6f} ms",
-                      flush=True)
+                entries.append(_entry(
+                    kname, name, dname,
+                    launches=launches[(kname, name, dname)],
+                    err=errs[(name, dname)][int(bench)], ms=ms,
+                    plain_ms=plain_ms, lib_ms=lib_ms,
+                    nbytes=plan.traffic_bytes(vb, x_bytes=vb),
+                    flops=2.0 * plan.nnz * iters, bw=bw, iters=iters))
+        del a
+    return entries
+
+
+def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
+    """Phase 4 for the k-column kernels: at k = 8 on smoke and L2 (both
+    dtypes, the N-iteration kernel with the CLI's N), at k = 256 on
+    gcn_arxiv (float32)."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    dev = torch.device(DEVICE)
+    entries = []
+    for name in ("smoke", "L2"):
+        plan, triplets = configs[name]
+        a = _library_csr(np, torch, triplets)
+        X = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (plan.shape[1], SPMM_K)).astype(np.float32)).to(dev)
+        for dname in DTYPE_NAMES:
+            op = ops[(name, dname)][0]
+            Xt = op._block(X, plan.n_coltiles * 128, op.value_dtype, "X")
+            planes, kw = op._planes(), op._mat_kw()
+            vb = op.vals.element_size()
+            runs = [(op.spmm_kernel, 1)]
+            if op.route == "relsl":
+                runs.append((S.sell_bench_spmm, ITERATIONS[name]))
+            for fn, n in runs:
+                plain = getattr(S, fn.__name__ + "_plain")
+                if n > 1:
+                    ms = _time_ms(lambda: fn(*planes, Xt, iterations=n, **kw),
+                                  reps=3, warmup=1)
+                    plain_ms = _time_ms(lambda: plain(
+                        *planes, Xt, iterations=n, **kw), reps=1, warmup=0)
+                    lib_ms = _time_ms(lambda: [torch.sparse.mm(a, X)
+                                               for _ in range(n)],
+                                      reps=1, warmup=1)
+                else:
+                    ms = _time_ms(lambda: fn(*planes, Xt, **kw), reps=20)
+                    plain_ms = _time_ms(lambda: plain(*planes, Xt, **kw),
+                                        reps=3)
+                    lib_ms = _time_ms(lambda: torch.sparse.mm(a, X), reps=20)
+                entries.append(_entry(
+                    fn.kernel, name, dname,
+                    launches=launches[(fn.kernel, name, dname)],
+                    err=errs[(fn.kernel, name, dname, SPMM_K)], ms=ms,
+                    plain_ms=plain_ms, lib_ms=lib_ms,
+                    nbytes=plan.traffic_bytes(vb, x_bytes=vb, k=SPMM_K),
+                    flops=2.0 * plan.nnz * SPMM_K * n, bw=bw, iters=n,
+                    k=SPMM_K))
+        del a
+    rng = np.random.default_rng(GCN_K)
+    X = torch.from_numpy(rng.standard_normal((GCN_NODES, GCN_K)).astype(
+        np.float32)).to(dev)
+    G = torch.from_numpy(rng.standard_normal((GCN_NODES, GCN_K)).astype(
+        np.float32)).to(dev)
+    for label in ("A", "At"):
+        o = gcn[label]
+        plan, kw = o.plan, o._mat_kw()
+        r, c, v = o._triplets
+        a = _library_csr(np, torch, (r, c, v, o.shape))
+        Xt = o._block(X, plan.n_coltiles * 128, torch.float32, "X")
+        fn = o.spmm_kernel
+        plain = getattr(S, fn.__name__ + "_plain")
+        common = dict(launches=launches[(fn.kernel, "gcn_arxiv", "float32")],
+                      nbytes=plan.traffic_bytes(4, x_bytes=4, k=GCN_K),
+                      bw=bw, k=GCN_K, plan=label)
+        entries.append(_entry(
+            fn.kernel, "gcn_arxiv", "float32",
+            err=errs[(fn.kernel, f"gcn_arxiv:{label}", "float32", GCN_K)],
+            ms=_time_ms(lambda: fn(*o._planes(), Xt, **kw), reps=10),
+            plain_ms=_time_ms(lambda: plain(*o._planes(), Xt, **kw), reps=1,
+                              warmup=1),
+            lib_ms=_time_ms(lambda: torch.sparse.mm(a, X), reps=10),
+            flops=2.0 * plan.nnz * GCN_K, **common))
+        if label == "A":  # K7 runs on A's planes in the edge steps
+            kname = "sell_vals_grad_kernel"
+            Gt = o._block(G, plan.n_slices * 128, torch.float32, "G")
+            meta = dict(relsl=o.relsl, rel=o.rel, slice_of=o.slice_of)
+            Xtr = X.t().contiguous()
+            live = int(((plan.rel_tile.reshape(-1) >= 0)
+                        & (plan.slice_of.reshape(-1) >= 0)).sum()) * 128
+            common["launches"] = launches[(kname, "gcn_arxiv", "float32")]
+            entries.append(_entry(
+                kname, "gcn_arxiv", "float32",
+                err=errs[(kname, "gcn_arxiv:A", "float32", GCN_K)],
+                ms=_time_ms(lambda: S.sell_vals_grad(
+                    o.lidx, o.tile_base, Xt, Gt, **meta, **kw), reps=10),
+                plain_ms=_time_ms(lambda: S.sell_vals_grad_plain(
+                    o.lidx, o.tile_base, Xt, Gt, **meta, **kw), reps=1,
+                    warmup=1),
+                lib_ms=_time_ms(lambda: torch.sparse.sampled_addmm(
+                    a, G, Xtr, beta=0.0), reps=10),
+                flops=2.0 * live * GCN_K, **common))
         del a
     return entries
 
@@ -570,18 +999,29 @@ def main() -> int:
         grid = {(r, d): S.bench_blocks(getattr(torch, d), torch.int8,
                                        route=r)
                 for r in S.ROUTES for d in DTYPE_NAMES}
+        grid.update({("spmm", d): S.bench_spmm_blocks(getattr(torch, d),
+                                                      torch.int8)
+                     for d in DTYPE_NAMES})
         print(f"[grid] bench kernels' cooperative grid (blocks of 256 "
               f"threads, int8 lane indices): {grid}", flush=True)
 
     with _Phase("plans"):
         configs = _configs()
         plans = _small_plans(np) + [(n, p) for n, (p, _) in configs.items()]
+        gcn = _gcn_graph(np, torch)
     with _Phase("kernels vs plain"):
-        ops, errs = phase_kernels(np, torch, plans)
+        ops, errs = phase_kernels(np, torch, plans, gcn)
     del plans
     launches = phase_main_path(np, torch, configs)
+    with _Phase("main path: gcn_arxiv"):
+        phase_gcn(np, torch, gcn, launches)
     with _Phase("timings"):
-        entries = phase_timings(np, torch, ops, errs, launches, configs)
+        from smvp_toolkit_tpu_torch.bench.roofline import hbm_bandwidth_gbs
+
+        bw = hbm_bandwidth_gbs(torch.device(DEVICE)) * 1e9
+        entries = phase_timings(np, torch, ops, errs, launches, configs, bw)
+        entries += phase_mat_timings(np, torch, ops, errs, launches, configs,
+                                     gcn, bw)
 
     print(json.dumps({"kernels": entries}))
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")

@@ -15,10 +15,13 @@ found under the same name:
 * ``formats.coo`` / ``formats.csr`` / ``formats.tjds`` — COO triplets and
   the CSR and TJDS codecs.
 * ``ops.sell_plan`` — the SELL-T1 planner, flat and streamed-y (host, numpy).
-* ``ops.spmv_sell`` — the SELL operator over the CUDA kernels.
-* ``ops.spmv_torch`` — plain-PyTorch CSR and TJDS SpMV.
+* ``ops.spmv_sell`` — the SELL operator over the CUDA kernels (SpMV,
+  SpMM, the values gradient).
+* ``ops.spmv_autograd`` — ``torch.autograd.Function``s over the operator.
+* ``ops.spmv_torch`` — plain-PyTorch CSR and TJDS SpMV and CSR SpMM.
+* ``models.graph`` — the GCN, trained on the operator's kernels.
 * ``bench`` — timing, roofline and report files.
-* ``cli`` — the ``-c`` / ``-t`` benchmark command line.
+* ``cli`` — the ``-c`` / ``-t`` / ``--spmm`` benchmark command line.
 
 Exports are lazy: importing the package imports neither the kernels'
 build machinery nor the formats.
@@ -46,6 +49,9 @@ _EXPORTS = {
     "SellSpMV": "smvp_toolkit_tpu_torch.ops.spmv_sell",
     "spmv_csr_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
     "spmv_tjds_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
+    "GCN": "smvp_toolkit_tpu_torch.models.graph",
+    "gcn_norm": "smvp_toolkit_tpu_torch.models.graph",
+    "gcn_train_step": "smvp_toolkit_tpu_torch.models.graph",
 }
 
 __all__ = [*_EXPORTS, "__version__"]

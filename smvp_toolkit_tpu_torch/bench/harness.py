@@ -23,7 +23,7 @@ __all__ = [
     "TimingStats",
     "time_fn",
     "bench_spmv",
-    "bench_spmv_fused",
+    "bench_fused",
 ]
 
 
@@ -147,29 +147,29 @@ def bench_spmv(
     )
 
 
-def bench_spmv_fused(
-    op,
+def bench_fused(
+    loop: Callable,
     x: torch.Tensor,
     *,
     iterations: int = 1000,
     repeats: int = 3,
     warmup: int = 1,
 ):
-    """Time N SpMVs run inside ONE launch of the operator's N-iteration
-    kernel (K2, in the branch of the operator's route).
+    """Time ``loop(x, iterations)``, which runs N iterations and returns
+    the last result, between one pair of CUDA events per sample: the
+    operator's N-iteration kernel (``SellSpMV.bench_loop``, K2 in the
+    branch of its route; ``bench_loop_mat``) or N calls.
 
-    ``op`` is a :class:`~smvp_toolkit_tpu_torch.ops.spmv_sell.SellSpMV`;
-    each of ``repeats`` samples times one ``op.bench_loop(x, iterations)``
-    launch with CUDA events. Returns ``(stats, y)``: per-iteration stats
-    (``per_launch=True``: min/max/stdev describe launch averages) and the
-    last launch's final y.
+    Each of ``repeats`` samples times one call. Returns ``(stats, y)``:
+    per-iteration stats (``per_launch=True``: min/max/stdev describe call
+    averages) and the last call's final result.
     """
     for _ in range(max(warmup, 0)):
-        op.bench_loop(x, iterations)
+        loop(x, iterations)
     samples, y = [], None
     for _ in range(max(repeats, 1)):
         with _Timer(x.device) as t:
-            y = op.bench_loop(x, iterations)
+            y = loop(x, iterations)
         samples.append(t.ms / iterations)
     # One sample per iteration so totals/extrema mean what the report
     # says they mean (Total ≈ iterations x avg).

@@ -3,7 +3,8 @@
 Counterpart of the JAX package's ``cli.py`` for the flags the port has:
 positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``), ``-c``, ``-t``,
 ``-n``, ``-d``, ``--no-report``, ``--decode-check``, ``--dtype``,
-``--kernel``, ``--fused``, ``--x``, ``--json-out`` and ``--device``.
+``--kernel``, ``--fused``, ``--x``, ``--json-out``, ``--spmm`` and
+``--device``, plus the port's ``--spmm-out``.
 Validation and exit codes match the JAX CLI for those flags (``-n 0`` and
 ``-d /nope`` give 2, a missing or unreadable file 1, a failed decode
 check 3); argparse rejects every other flag (``-a``, ``-g``,
@@ -15,6 +16,14 @@ per call, the matching N-iteration kernel under ``--fused``);
 ``--kernel torch`` runs the plain-PyTorch CSR or TJDS SpMV. The run is on
 ``cuda`` unless ``--device cpu`` is given, where each kernel's plain
 version runs instead.
+
+``--spmm K`` (with ``-c``) also times Y = A·X for K right-hand sides X
+(standard normal from ``default_rng(0)``, as the JAX CLI draws them) on
+the CSR matrix's SELL operator: one k-wide launch of the route's SpMM
+kernel per call on a resident-y plan, one SpMV launch per column on a
+streamed one; ``--fused`` times the N-iteration SpMM kernel on a
+merged-word plan, and N ``matmat`` calls between one pair of CUDA events
+on any other.
 """
 
 from __future__ import annotations
@@ -81,6 +90,15 @@ def build_parser() -> argparse.ArgumentParser:
         help="append one JSON line per benchmarked algorithm",
     )
     p.add_argument(
+        "--spmm", type=int, default=None, metavar="K",
+        help="also benchmark the SpMM Y = A·X with K right-hand sides on "
+             "the CSR encoding (needs -c)",
+    )
+    p.add_argument(
+        "--spmm-out", default=None, metavar="FILE",
+        help="write the --spmm result Y (nrows, K) as a float32 .npy file",
+    )
+    p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="run on the card (default) or on the CPU, where each kernel's "
              "plain PyTorch version runs",
@@ -98,6 +116,13 @@ def _validate(args) -> Optional[str]:
         return f"report directory does not exist: {args.dir}"
     if args.fused and args.kernel != "auto":
         return "--fused needs the SELL kernels (--kernel auto)"
+    if args.spmm is not None:
+        if args.spmm < 1:
+            return "--spmm K must be >= 1"
+        if not args.csr:
+            return "--spmm requires the CSR algorithm (-c)"
+    if args.spmm_out and args.spmm is None:
+        return "--spmm-out needs --spmm"
     return None
 
 
@@ -130,8 +155,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     import torch
 
     from smvp_toolkit_tpu_torch.bench.harness import (
+        bench_fused,
         bench_spmv,
-        bench_spmv_fused,
     )
     from smvp_toolkit_tpu_torch.bench.report import write_report
     from smvp_toolkit_tpu_torch.bench.roofline import (
@@ -212,8 +237,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         log("INFO", f"Benchmarking {alg_name} SpMV ({kernel} kernel), "
             f"{args.iter} iterations.")
         if args.fused:
-            stats, y = bench_spmv_fused(op_fn(encoded), x,
-                                        iterations=args.iter)
+            stats, y = bench_fused(op_fn(encoded).bench_loop, x,
+                                   iterations=args.iter)
         else:
             stats = bench_spmv(spmv_fn, encoded, x, iterations=args.iter)
             y = spmv_fn(encoded, x)
@@ -278,6 +303,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             spmv_fn, op_fn = spmv_sell.spmv_csr_sell, spmv_sell.sell_op_csr
         run(ALG_CSR, csr, spmv_fn, op_fn,
             spmv_bytes_csr(coo.nnz, coo.shape[0], vbytes))
+        if args.spmm:
+            _run_spmm(args, coo, csr, device, label, log)
 
     if args.tjds:
         tj = tjds_encode(coo)
@@ -293,6 +320,76 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     log("STOP", "smvp-toolkit-tpu-torch run complete.")
     return 0
+
+
+def _run_spmm(args, coo, csr, device, label, log) -> None:
+    """``--spmm K``: time Y = A·X with K right-hand sides.
+
+    The kernel label says what ran: ``sell-cuda-fused`` (one k-wide SpMM
+    launch per call), ``sell-cuda-percolumn`` (a streamed-y plan: one
+    SpMV launch per column), their ``sell-plain-*`` versions on the CPU,
+    or ``torch`` (``spmm_csr``). The aggregate rate is K·nnz per call.
+    """
+    import torch
+
+    from smvp_toolkit_tpu_torch.bench.harness import bench_fused, time_fn
+    from smvp_toolkit_tpu_torch.ops import spmv_sell, spmv_torch
+
+    k = args.spmm
+    X = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (coo.shape[1], k)).astype(np.float32)).to(device)
+    timing = "per call"
+    if args.kernel == "torch":
+        kernel = "torch"
+
+        def spmm(XX):
+            return spmv_torch.spmm_csr(csr, XX)
+    else:
+        op = spmv_sell.sell_op_csr(csr)
+        spmm = op.matmat
+        kernel = ("sell-cuda" if device.type == "cuda" else "sell-plain") + (
+            "-percolumn" if op.plan.y_block_slices else "-fused")
+    log("INFO", f"Benchmarking CSR SpMM ({kernel} kernel), K={k} right-hand "
+        f"sides, {args.iter} iterations.")
+    if args.fused:
+        if op.route == "relsl":
+            timing = "N-iteration kernel"
+            loop = op.bench_loop_mat
+        else:
+            timing = "N calls between one pair of events"
+
+            def loop(XX, n):
+                for _ in range(n):
+                    Y = op.matmat(XX)
+                return Y
+        log("INFO", f"--fused SpMM timing: {timing}.")
+        stats, Y = bench_fused(loop, X, iterations=args.iter)
+    else:
+        stats = time_fn(lambda: spmm(X), device=device, iterations=args.iter)
+        Y = spmm(X)
+    nnzs = stats.nnz_per_s(k * coo.nnz)
+    log("DATA", f"SPMM k={k}: avg {stats.avg_ms:.6f} ms  "
+        f"({nnzs/1e9:.3f} Gnnz/s across {k} RHS)")
+    if args.spmm_out:
+        np.save(args.spmm_out, Y.float().cpu().numpy())
+        log("FILE", f"SpMM result saved as:\n\t{args.spmm_out}")
+    if args.json_out:
+        rec = {
+            "alg": "SPMM-CSR",
+            "file": args.file,
+            "nnz": coo.nnz,
+            "k": k,
+            "iterations": args.iter,
+            "kernel": kernel,
+            "timing": timing,
+            "dtype": args.dtype,
+            "device": label,
+            "avg_ms": stats.avg_ms,
+            "nnz_per_s_krhs": nnzs,
+        }
+        with open(args.json_out, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        log("FILE", f"JSON record appended: {args.json_out}")
 
 
 def _decode_check(alg, decoded, coo, log) -> bool:

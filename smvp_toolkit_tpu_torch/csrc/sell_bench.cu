@@ -87,27 +87,6 @@ Kernel<V, L> route_kernel(int route) {
   }
 }
 
-// Co-resident block count of one kernel: SMs x max active blocks per SM.
-template <typename V, typename L>
-cudaError_t bench_grid(Kernel<V, L> kernel, int device, int* blocks) {
-  if (kernel == nullptr) return cudaErrorInvalidValue;
-  int coop = 0;
-  cudaError_t err =
-      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
-  if (err != cudaSuccess) return err;
-  if (!coop) return cudaErrorNotSupported;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, 0);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  *blocks = sms * per_sm;
-  return cudaSuccess;
-}
-
 template <typename V, typename L>
 cudaError_t launch_bench(int route, Args<V, L> a, int device,
                          cudaStream_t stream) {
@@ -120,7 +99,7 @@ cudaError_t launch_bench(int route, Args<V, L> a, int device,
   }
   Kernel<V, L> kernel = route_kernel<V, L>(route);
   int blocks = 0;
-  cudaError_t err = bench_grid(kernel, device, &blocks);
+  cudaError_t err = cooperative_grid(kernel, device, &blocks);
   if (err != cudaSuccess) return err;
   void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
@@ -166,7 +145,7 @@ extern "C" int sell_bench_blocks(int route, int value_kind, int lidx_kind,
   err = sell::with_types(value_kind, lidx_kind, [&](auto v, auto l) {
     using V = typename decltype(v)::type;
     using L = typename decltype(l)::type;
-    return bench_grid(route_kernel<V, L>(route), device, blocks);
+    return cooperative_grid(route_kernel<V, L>(route), device, blocks);
   });
   return static_cast<int>(err);
 }

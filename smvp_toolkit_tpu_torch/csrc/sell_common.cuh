@@ -1,5 +1,7 @@
 // One slot of the SELL-T1 SpMV, shared by every forward and bench kernel
-// (csrc/sell_spmv.cu, csrc/sell_bench.cu).
+// (csrc/sell_spmv.cu, csrc/sell_bench.cu); its decode policies, the slot
+// coordinates and the cooperative grid also serve the k-column kernels
+// (csrc/sell_spmm.cu, csrc/sell_vals_grad.cu).
 //
 // Per live slot (s, l) of the (S, 128) planes, with c = s / chunk:
 //   y[(ybase(c) + slice(s)) * 128 + l] +=
@@ -127,6 +129,63 @@ __device__ __forceinline__ void slot(const Args<V, L>& a, long long i) {
   if (p != 0.0f) {
     atomicAdd(a.y + (YAddr::base(a, c) + slice) * kLanes + lane, p);
   }
+}
+
+// Everything a k-column kernel reads (csrc/sell_spmm.cu,
+// csrc/sell_vals_grad.cu). X, Y and G are row-major (rows, k): row r's k
+// values are contiguous, element (r, j) at r * k + j. Resident y only.
+template <typename V, typename L>
+struct MatArgs {
+  const V* vals;          // null for the values-gradient kernel
+  const L* lidx;
+  const int* meta;        // merged rel‖slice word, or rel_tile (split)
+  const int* slice;       // slice_of (split planes only)
+  const int* tile_base;   // per chunk
+  const V* x;             // X, at least CT * 128 rows
+  const float* g;         // G, at least NS * 128 rows (values gradient)
+  float* out;             // Y (NS * 128, k), or the (S, 128) gradient
+  long long n_slots;      // S * 128
+  long long n_out;        // Y elements, NS * 128 * k (bench kernel)
+  int chunk;
+  int k;                  // columns of X, Y and G
+  int iterations;         // bench kernel only
+};
+
+// Column and row of slot i, false when its sublane is dead.
+template <class Decode, class A>
+__device__ __forceinline__ bool slot_coords(const A& a, long long i,
+                                            long long* col, long long* row) {
+  const long long s = i >> 7;
+  long long rel, slice;
+  if (!Decode::decode(a, s, &rel, &slice)) return false;
+  const long long c = s / a.chunk;
+  *col = (static_cast<long long>(a.tile_base[c]) + rel) * kLanes +
+         static_cast<long long>(a.lidx[i]);
+  *row = slice * kLanes + (i & (kLanes - 1));
+  return true;
+}
+
+// Blocks of a cooperative launch of `kernel` with kThreads threads: SMs x
+// co-resident blocks per SM (a larger grid fails at launch, not at the
+// grid.sync()).
+template <class Kernel>
+cudaError_t cooperative_grid(Kernel kernel, int device, int* blocks) {
+  if (kernel == nullptr) return cudaErrorInvalidValue;
+  int coop = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
+  if (err != cudaSuccess) return err;
+  if (!coop) return cudaErrorNotSupported;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, reinterpret_cast<const void*>(kernel), kThreads, 0);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *blocks = sms * per_sm;
+  return cudaSuccess;
 }
 
 template <typename T>

@@ -9,14 +9,18 @@ kernels compare plan by plan.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, Sequence, Tuple, Union
 
 import numpy as np
+import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+from smvp_toolkit_tpu_torch.models.graph import GCN
 from smvp_toolkit_tpu_torch.ops.sell_plan import SellPlan
+from smvp_toolkit_tpu_torch.utils.device import resolve_device
 
-__all__ = ["plan_from_arrays", "plan_fields", "coo_from_triplets"]
+__all__ = ["plan_from_arrays", "plan_fields", "coo_from_triplets",
+           "gcn_params_from_arrays"]
 
 _ARRAY_FIELDS = ("vals", "lane_idx", "rel_tile", "slice_of", "tile_base",
                  "slice_base", "y_block_id")
@@ -65,3 +69,16 @@ def coo_from_triplets(rows, cols, vals, shape, *, dtype=None,
         np.asarray(rows), np.asarray(cols), np.asarray(vals),
         shape=shape, dtype=dtype, device=device,
     )
+
+
+def gcn_params_from_arrays(pairs: Sequence[Tuple[np.ndarray, np.ndarray]], *,
+                           device=None) -> GCN:
+    """The port's GCN from a JAX GCN's ``(W, b)`` list given as numpy
+    arrays (``[(np.asarray(w), np.asarray(b)) for w, b in params]``),
+    float32, on ``device`` (default: the card)."""
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    return GCN([(tensor(w), tensor(b)) for w, b in pairs])

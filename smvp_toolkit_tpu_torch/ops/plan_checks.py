@@ -11,7 +11,10 @@ plan's fields unchecked, so what they need is checked here:
 * on a streamed-y plan: one block id per chunk, in range and
   non-decreasing, and block-local slice ids below the block's slices;
 * planes of the dtypes the kernels are compiled for and of matching
-  lengths, contiguous, on one device.
+  lengths, contiguous, on one device;
+* for the k-column kernels, X and G as row-major (rows, k) blocks with
+  k >= 1 and at least CT·128 (X) or NS·128 (G) rows, since the kernels
+  read row ``col`` of X and row ``row`` of G unchecked.
 
 Which planes a plan runs on (the merged rel‖slice word or the split
 rel_tile / slice_of planes) is the operator's route choice, not a check.
@@ -36,6 +39,7 @@ __all__ = [
     "REL_DEAD",
     "SLICE_SHIFT",
     "SLICE_DEAD",
+    "check_block",
     "check_plan",
     "check_planes",
 ]
@@ -85,8 +89,9 @@ def check_plan(plan: SellPlan) -> None:
         raise ValueError("a live sublane's tile lies outside x")
 
 
-def check_planes(*, vals: torch.Tensor, lidx: torch.Tensor,
-                 tile_base: torch.Tensor, x: torch.Tensor, chunk: int,
+def check_planes(*, lidx: torch.Tensor, tile_base: torch.Tensor, chunk: int,
+                 vals: Optional[torch.Tensor] = None,
+                 x: Optional[torch.Tensor] = None,
                  relsl: Optional[torch.Tensor] = None,
                  rel: Optional[torch.Tensor] = None,
                  slice_of: Optional[torch.Tensor] = None,
@@ -95,11 +100,13 @@ def check_planes(*, vals: torch.Tensor, lidx: torch.Tensor,
 
     The per-sublane metadata is either ``relsl`` (the merged word) or
     ``rel`` and ``slice_of`` (the split planes); ``y_block_id`` is given
-    for a streamed-y plan.
+    for a streamed-y plan. ``vals`` is left out by the values-gradient
+    kernel, which does not read it, and ``x`` by the k-column kernels,
+    whose blocks ``check_block`` checks.
     """
-    if vals.dtype not in VALUE_DTYPES:
+    if vals is not None and vals.dtype not in VALUE_DTYPES:
         raise TypeError(f"vals must be float32 or bfloat16, got {vals.dtype}")
-    if x.dtype != vals.dtype:
+    if x is not None and vals is not None and x.dtype != vals.dtype:
         raise TypeError(f"x ({x.dtype}) must have the vals dtype "
                         f"({vals.dtype})")
     if lidx.dtype not in LIDX_DTYPES:
@@ -114,21 +121,25 @@ def check_planes(*, vals: torch.Tensor, lidx: torch.Tensor,
     for name, t in index.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
-    for name, t in dict(vals=vals, lidx=lidx, x=x, **index).items():
+    given = dict(vals=vals, lidx=lidx, x=x, **index)
+    for name, t in given.items():
+        if t is None:
+            continue
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.device != vals.device:
+        if t.device != lidx.device:
             raise ValueError(
-                f"{name} is on {t.device}, vals on {vals.device}: all "
+                f"{name} is on {t.device}, lidx on {lidx.device}: all "
                 "planes and x must be on one device"
             )
     meta = relsl if relsl is not None else rel
     s = meta.numel()
-    if vals.shape != (s, 128) or lidx.shape != (s, 128):
-        raise ValueError(
-            f"vals {tuple(vals.shape)} and lidx {tuple(lidx.shape)} must be "
-            f"({s}, 128), one row per sublane's metadata word"
-        )
+    for name, t in (("lidx", lidx), ("vals", vals)):
+        if t is not None and t.shape != (s, 128):
+            raise ValueError(
+                f"{name} {tuple(t.shape)} must be ({s}, 128), one row per "
+                "sublane's metadata word"
+            )
     if slice_of is not None and slice_of.numel() != s:
         raise ValueError(f"slice_of has {slice_of.numel()} entries, rel {s}")
     if chunk < 1 or s % chunk or tile_base.numel() != s // chunk:
@@ -139,5 +150,27 @@ def check_planes(*, vals: torch.Tensor, lidx: torch.Tensor,
     if y_block_id is not None and y_block_id.numel() != s // chunk:
         raise ValueError(f"y_block_id has {y_block_id.numel()} entries, "
                          f"the plan {s // chunk} chunks")
-    if x.numel() % 128:
+    if x is not None and x.numel() % 128:
         raise ValueError("x must be padded to whole 128-wide column tiles")
+
+
+def check_block(name: str, t: torch.Tensor, *, rows: int, dtypes,
+                device: torch.device) -> int:
+    """A row-major (rows, k) block of the k-column kernels (X, or the
+    cotangent G): two dimensions, at least ``rows`` rows, k >= 1, one of
+    ``dtypes``, contiguous, on ``device``. Returns k."""
+    if t.dim() != 2 or t.shape[1] < 1:
+        raise ValueError(f"{name} must be a (rows, k) block with k >= 1, "
+                         f"got shape {tuple(t.shape)}")
+    if t.shape[0] < rows:
+        raise ValueError(f"{name} has {t.shape[0]} rows, the plan needs "
+                         f"at least {rows}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} must be one of {list(dtypes)}, got "
+                        f"{t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous (row-major); copy a "
+                         "strided or expanded view with .contiguous()")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the planes on {device}")
+    return int(t.shape[1])

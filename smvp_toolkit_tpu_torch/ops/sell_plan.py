@@ -127,18 +127,27 @@ class SellPlan:
 
     def traffic_bytes(
         self, value_bytes: int = 4, lidx_bytes: Optional[int] = None,
-        x_bytes: int = 4,
+        x_bytes: int = 4, k: int = 1,
     ) -> int:
-        """Device-memory bytes one SpMV launch of the port's kernel for
-        this plan moves, each input read once and y written once.
+        """Device-memory bytes one launch of the port's kernel for this
+        plan moves over k columns, each input read once and y written once.
 
         The planes are dense (S × 128) whatever the occupancy, so padding
         slots cost real bandwidth. Per launch: the values and lane-index
         planes, the per-sublane metadata the route reads (one merged
         rel‖slice int32 word, or the split rel_tile and slice_of words),
-        ``tile_base``, ``y_block_id`` on a streamed plan, x once and y
-        once. (The JAX planner's figure always charges the two split
-        words and no ``y_block_id``.)
+        ``tile_base``, ``y_block_id`` on a streamed plan, then x and y
+        once per column: the k-column kernels take all k columns in one
+        launch, so the planes are read once whatever k. (The JAX planner's
+        figure always charges the two split words and no ``y_block_id``,
+        and for k > 1 charges the planes ``ceil(k / 8)`` times, once per
+        launch group of its VMEM-sized ``spmm_launch_group``, or k times
+        where its operator falls back to one launch per column.)
+
+        The same figure bounds the values-gradient kernel with
+        ``value_bytes=4``: it reads no values plane but writes a float32
+        plane of the same shape, and reads G (NS·128 × k float32) where
+        the SpMM writes y.
         """
         if lidx_bytes is None:
             lidx_bytes = lidx_bytes_for_chunk(self.chunk)
@@ -149,8 +158,8 @@ class SellPlan:
             s * LANES * (value_bytes + lidx_bytes)  # vals + lane_idx
             + s * 4 * words                         # per-sublane metadata
             + self.n_chunks * 4 * per_chunk
-            + self.n_coltiles * LANES * x_bytes     # x
-            + self.n_slices * LANES * 4             # y (f32)
+            + k * self.n_coltiles * LANES * x_bytes  # x, k columns
+            + k * self.n_slices * LANES * 4         # y (f32), k columns
         )
 
 

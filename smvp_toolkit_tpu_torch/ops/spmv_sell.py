@@ -21,6 +21,24 @@ planes. The two ``streamy`` routes run plans from
 ``y_block_id`` per chunk). The forward kernels are built from
 ``csrc/sell_spmv.cu``, the bench kernels from ``csrc/sell_bench.cu``.
 
+The k-column kernels (``csrc/sell_spmm.cu``, ``csrc/sell_vals_grad.cu``)
+serve the SpMM and training path on resident-y plans:
+
+* ``sell_spmm`` (K1 with k > 1, merged word) and ``sell_split_spmm`` (K4
+  with k > 1, split planes): Y = A·X in one launch for all k columns;
+* ``sell_bench_spmm`` (K2 with k > 1, merged word): N of those sweeps in
+  one cooperative launch;
+* ``sell_vals_grad`` (K7): the cotangent of the values plane, on either
+  kind of planes.
+
+The JAX operator lays k columns side by side in 128-lane groups
+(``pack_columns``/``unpack_columns``) and cuts k into launch groups of 8
+(``spmm_launch_group``); both exist for the TPU's lanes and VMEM. Here X,
+Y and G are plain row-major (rows, k) tensors, any k runs in one launch,
+and there is no column layout or group. Streamed-y plans run SpMM column
+by column on their K3 kernel, as the JAX operator falls back to a vmap
+over columns there; they have no values gradient, as in the JAX package.
+
 Each wrapper launches its kernel for a CUDA tensor, or raises; only a
 tensor that lies on the CPU goes to the plain PyTorch version beside it
 (``<wrapper>_plain``). Each wrapper counts its launches in a plain integer
@@ -38,11 +56,13 @@ import numpy as np
 import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import host_tensor
-from smvp_toolkit_tpu_torch.ops import _build
+from smvp_toolkit_tpu_torch.ops import _build, spmv_autograd
 from smvp_toolkit_tpu_torch.ops.plan_checks import (
     REL_DEAD,
     SLICE_DEAD,
     SLICE_SHIFT,
+    VALUE_DTYPES,
+    check_block,
     check_plan,
     check_planes,
 )
@@ -77,7 +97,17 @@ __all__ = [
     "sell_bench_streamy_plain",
     "sell_bench_split",
     "sell_bench_split_plain",
+    "sell_spmm",
+    "sell_spmm_plain",
+    "sell_split_spmm",
+    "sell_split_spmm_plain",
+    "sell_bench_spmm",
+    "sell_bench_spmm_plain",
+    "sell_vals_grad",
+    "sell_vals_grad_plain",
+    "MAT_KERNELS",
     "bench_blocks",
+    "bench_spmm_blocks",
     "spmv_csr_sell",
     "sell_op_csr",
     "spmv_tjds_sell",
@@ -229,6 +259,84 @@ def sell_bench_split_plain(*args, iterations: int, **kw) -> torch.Tensor:
     return _repeat(sell_split_plain, iterations, *args, **kw)
 
 
+# At most this many products exist at once in a k-column plain version:
+# it works through the columns in groups, so a check at full width never
+# materialises live slots × k products (at the GCN's k = 256 on
+# ogbn-arxiv that would be several GB).
+_PLAIN_ELEMS = 1 << 26
+
+
+def _live_slots(lidx, rel, sl, tile_base, *, chunk: int, vals=None):
+    """Flat slot index, X row and Y row (int64) of every slot in a live
+    sublane; with ``vals``, only of the slots whose value is nonzero."""
+    mask = ((rel >= 0) & (sl >= 0))[:, None].expand(-1, LANES)
+    if vals is not None:
+        mask = mask & (vals != 0)
+    slot = mask.reshape(-1).nonzero().squeeze(1)
+    s = slot // LANES
+    col = ((tile_base.long()[s // chunk] + rel[s]) * LANES
+           + lidx.reshape(-1)[slot].long())
+    return slot, col, sl[s] * LANES + slot % LANES
+
+
+def _spmm_plain(vals, lidx, rel, sl, tile_base, X, *, n_slices: int,
+                chunk: int) -> torch.Tensor:
+    """The k-column kernels' function: Y[row, :] += v·X[col, :] for every
+    slot of a live sublane whose value v is nonzero; Y float32 of
+    (n_slices·128, k). Gathered and ``index_add_``-ed in column groups."""
+    slot, col, row = _live_slots(lidx, rel, sl, tile_base, chunk=chunk,
+                                 vals=vals)
+    v = vals.reshape(-1)[slot].float()[:, None]
+    k = X.shape[1]
+    Y = torch.zeros(n_slices * LANES, k, dtype=torch.float32,
+                    device=X.device)
+    group = max(1, _PLAIN_ELEMS // max(len(slot), 1))
+    for j in range(0, k, group):
+        Y[:, j:j + group].index_add_(0, row, v * X[col, j:j + group].float())
+    return Y
+
+
+def sell_spmm_plain(vals, lidx, relsl, tile_base, X, *, n_slices: int,
+                    n_coltiles: int, chunk: int) -> torch.Tensor:
+    """K1-with-k's function in plain PyTorch (merged word)."""
+    rel, sl = _decode_word(relsl)
+    return _spmm_plain(vals, lidx, rel, sl, tile_base, X,
+                       n_slices=n_slices, chunk=chunk)
+
+
+def sell_split_spmm_plain(vals, lidx, rel, slice_of, tile_base, X, *,
+                          n_slices: int, n_coltiles: int,
+                          chunk: int) -> torch.Tensor:
+    """K4-with-k's function in plain PyTorch (split planes)."""
+    return _spmm_plain(vals, lidx, rel.reshape(-1).long(),
+                       slice_of.reshape(-1).long(), tile_base, X,
+                       n_slices=n_slices, chunk=chunk)
+
+
+def sell_bench_spmm_plain(*args, iterations: int, **kw) -> torch.Tensor:
+    """K2-with-k's function: ``iterations`` fresh K1 SpMMs, the last Y."""
+    return _repeat(sell_spmm_plain, iterations, *args, **kw)
+
+
+def sell_vals_grad_plain(lidx, tile_base, X, G, *, n_slices: int,
+                         n_coltiles: int, chunk: int, relsl=None, rel=None,
+                         slice_of=None) -> torch.Tensor:
+    """K7's function in plain PyTorch: ``out[s, l] = Σ_j G[row, j]·X[col,
+    j]`` with j ascending, on every slot of a live sublane (padding lanes
+    included); 0 on dead sublanes. Returns the (S, 128) float32 plane."""
+    if relsl is not None:
+        rel, sl = _decode_word(relsl)
+    else:
+        rel, sl = rel.reshape(-1).long(), slice_of.reshape(-1).long()
+    slot, col, row = _live_slots(lidx, rel, sl, tile_base, chunk=chunk)
+    acc = torch.zeros(len(slot), dtype=torch.float32, device=X.device)
+    for j in range(X.shape[1]):
+        acc = acc + G[row, j] * X[col, j].float()
+    out = torch.zeros(lidx.numel(), dtype=torch.float32, device=X.device)
+    out[slot] = acc
+    return out.reshape(lidx.shape)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -250,6 +358,32 @@ _BENCH_SIGNATURES = {
     "sell_bench_blocks": (ctypes.c_int, [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int),
+    ]),
+    "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+_SPMM_SIGNATURES = {
+    "sell_spmm_launch": (ctypes.c_int, [
+        ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _VP,
+    ]),
+    "sell_bench_spmm_launch": (ctypes.c_int, [
+        _VP, _VP, _VP, _VP, _VP, _VP,
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP,
+    ]),
+    "sell_bench_spmm_blocks": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int),
+    ]),
+    "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+_VALS_GRAD_SIGNATURES = {
+    "sell_vals_grad_launch": (ctypes.c_int, [
+        ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _VP,
     ]),
     "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -433,6 +567,140 @@ _ROUTE_FNS = {
 }
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _spmm_dispatch(wrapper, plain, route: str, planes: dict, X, *,
+                   n_slices: int, n_coltiles: int, chunk: int,
+                   iterations: Optional[int] = None) -> torch.Tensor:
+    """Check the planes and X, then run ``plain`` on CPU tensors or launch
+    the route's k-column kernel (the bench kernel when ``iterations`` is
+    given), counted on ``wrapper``, on CUDA ones."""
+    if iterations is not None and iterations < 1:
+        raise ValueError("iterations must be >= 1")
+    vals = planes["vals"]
+    check_planes(**planes, chunk=chunk)
+    k = check_block("X", X, rows=n_coltiles * LANES, dtypes=(vals.dtype,),
+                    device=vals.device)
+    kw = dict(n_slices=n_slices, n_coltiles=n_coltiles, chunk=chunk)
+    if vals.device.type == "cpu":
+        if iterations is not None:
+            kw["iterations"] = iterations
+        return plain(*planes.values(), X, **kw)
+    dev = _launch_device(vals)
+    vk, lk = _kinds(vals, planes["lidx"])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("sell_spmm", _SPMM_SIGNATURES)
+    n_slots = vals.numel()
+    meta = planes.get("relsl", planes.get("rel"))
+    if iterations is None:
+        Y = torch.zeros(n_slices * LANES, k, dtype=torch.float32, device=dev)
+        rc = lib.sell_spmm_launch(
+            _ROUTE_IDS[route], vals.data_ptr(), planes["lidx"].data_ptr(),
+            meta.data_ptr(), _ptr(planes.get("slice_of")),
+            planes["tile_base"].data_ptr(), X.data_ptr(), Y.data_ptr(),
+            n_slots, chunk, k, vk, lk, dev.index, stream)
+    else:
+        Y = torch.empty(n_slices * LANES, k, dtype=torch.float32, device=dev)
+        rc = lib.sell_bench_spmm_launch(
+            vals.data_ptr(), planes["lidx"].data_ptr(), meta.data_ptr(),
+            planes["tile_base"].data_ptr(), X.data_ptr(), Y.data_ptr(),
+            n_slots, Y.numel(), chunk, k, iterations, vk, lk, dev.index,
+            stream)
+    _check_rc(lib, rc, f"{wrapper.kernel} launch")
+    wrapper.launches += 1
+    return Y
+
+
+def sell_spmm(vals, lidx, relsl, tile_base, X, *, n_slices: int,
+              n_coltiles: int, chunk: int) -> torch.Tensor:
+    """K1 with k columns: Y = A·X over the merged-word planes; X is (at
+    least CT·128, k) in the value dtype, Y float32 (n_slices·128, k)."""
+    return _spmm_dispatch(sell_spmm, sell_spmm_plain, "relsl",
+                          dict(vals=vals, lidx=lidx, relsl=relsl,
+                               tile_base=tile_base),
+                          X, n_slices=n_slices, n_coltiles=n_coltiles,
+                          chunk=chunk)
+
+
+def sell_split_spmm(vals, lidx, rel, slice_of, tile_base, X, *,
+                    n_slices: int, n_coltiles: int,
+                    chunk: int) -> torch.Tensor:
+    """K4 with k columns: Y = A·X over the split planes."""
+    return _spmm_dispatch(sell_split_spmm, sell_split_spmm_plain, "split",
+                          dict(vals=vals, lidx=lidx, rel=rel,
+                               slice_of=slice_of, tile_base=tile_base),
+                          X, n_slices=n_slices, n_coltiles=n_coltiles,
+                          chunk=chunk)
+
+
+def sell_bench_spmm(vals, lidx, relsl, tile_base, X, *, n_slices: int,
+                    n_coltiles: int, chunk: int,
+                    iterations: int) -> torch.Tensor:
+    """K2 with k columns: ``iterations`` K1 SpMMs in one cooperative
+    launch (merged word); the last Y."""
+    return _spmm_dispatch(sell_bench_spmm, sell_bench_spmm_plain, "relsl",
+                          dict(vals=vals, lidx=lidx, relsl=relsl,
+                               tile_base=tile_base),
+                          X, n_slices=n_slices, n_coltiles=n_coltiles,
+                          chunk=chunk, iterations=iterations)
+
+
+def sell_vals_grad(lidx, tile_base, X, G, *, n_slices: int, n_coltiles: int,
+                   chunk: int, relsl=None, rel=None,
+                   slice_of=None) -> torch.Tensor:
+    """K7: the (S, 128) float32 cotangent of the values plane of Y = A·X
+    for output cotangent G (float32, at least NS·128 rows, as many columns
+    as X). It decodes whichever planes it is given: the merged ``relsl``
+    word or the split ``rel`` and ``slice_of``."""
+    planes = dict(lidx=lidx, tile_base=tile_base, relsl=relsl, rel=rel,
+                  slice_of=slice_of)
+    check_planes(**planes, chunk=chunk)
+    dev = lidx.device
+    k = check_block("X", X, rows=n_coltiles * LANES, dtypes=VALUE_DTYPES,
+                    device=dev)
+    if check_block("G", G, rows=n_slices * LANES, dtypes=(torch.float32,),
+                   device=dev) != k:
+        raise ValueError(f"X has {k} columns, G {G.shape[1]}")
+    kw = dict(n_slices=n_slices, n_coltiles=n_coltiles, chunk=chunk)
+    if dev.type == "cpu":
+        return sell_vals_grad_plain(lidx, tile_base, X, G, relsl=relsl,
+                                    rel=rel, slice_of=slice_of, **kw)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"the SELL kernels run on cuda tensors (got {dev}); only CPU "
+            "tensors take the plain version"
+        )
+    vk, lk = _kinds(X, lidx)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _build.load("sell_vals_grad", _VALS_GRAD_SIGNATURES)
+    out = torch.empty(lidx.shape, dtype=torch.float32, device=dev)
+    route = "relsl" if relsl is not None else "split"
+    rc = lib.sell_vals_grad_launch(
+        _ROUTE_IDS[route], lidx.data_ptr(),
+        (relsl if relsl is not None else rel).data_ptr(), _ptr(slice_of),
+        tile_base.data_ptr(), X.data_ptr(), G.data_ptr(), out.data_ptr(),
+        lidx.numel(), chunk, k, vk, lk, dev.index, stream)
+    _check_rc(lib, rc, f"{sell_vals_grad.kernel} launch")
+    sell_vals_grad.launches += 1
+    return out
+
+
+# The k-column wrappers by kernel name, each with its launch counter.
+MAT_KERNELS = {
+    "sell_spmm_kernel": sell_spmm,
+    "sell_split_spmm_kernel": sell_split_spmm,
+    "sell_bench_spmm_kernel": sell_bench_spmm,
+    "sell_vals_grad_kernel": sell_vals_grad,
+}
+for _name, _fn in MAT_KERNELS.items():
+    _fn.kernel = _name
+    _fn.launches = 0
+# The SpMM kernel of each resident-y route.
+_SPMM_FNS = {"relsl": sell_spmm, "split": sell_split_spmm}
+
+
 def bench_blocks(value_dtype: torch.dtype, lidx_dt: torch.dtype,
                  device=None, route: str = "relsl") -> int:
     """Blocks of one bench launch of ``route`` on ``device`` (SMs ×
@@ -445,6 +713,20 @@ def bench_blocks(value_dtype: torch.dtype, lidx_dt: torch.dtype,
                                int(lidx_dt == torch.int32), dev.index,
                                ctypes.byref(out))
     _check_rc(lib, rc, f"{KERNEL_NAMES[(route, True)]} occupancy query")
+    return out.value
+
+
+def bench_spmm_blocks(value_dtype: torch.dtype, lidx_dt: torch.dtype,
+                      device=None) -> int:
+    """Blocks of one ``sell_bench_spmm_kernel`` launch on ``device`` (SMs ×
+    co-resident blocks)."""
+    dev = resolve_device(device)
+    lib = _build.load("sell_spmm", _SPMM_SIGNATURES)
+    out = ctypes.c_int(0)
+    rc = lib.sell_bench_spmm_blocks(int(value_dtype == torch.bfloat16),
+                                    int(lidx_dt == torch.int32), dev.index,
+                                    ctypes.byref(out))
+    _check_rc(lib, rc, "sell_bench_spmm_kernel occupancy query")
     return out.value
 
 
@@ -464,10 +746,15 @@ class SellSpMV:
     merged-word routes, ``rel`` and ``slice_of`` (int32 per sublane, -1 =
     dead) on split ones, ``y_block_id`` on streamed ones; the others are
     None.
+
+    ``triplets`` are the host (rows, cols, values) the plan was built
+    from, kept for the training hooks: ``transpose`` plans Aᵀ from them
+    and ``slot_map`` finds each triplet's slot. ``from_coo`` and the CSR
+    and TJDS caches pass them.
     """
 
     def __init__(self, plan: SellPlan, value_dtype: Optional[torch.dtype] = None,
-                 device=None):
+                 device=None, *, triplets=None):
         self.device = resolve_device(device)
         check_plan(plan)
         self.value_dtype = torch.float32 if value_dtype is None else value_dtype
@@ -495,6 +782,11 @@ class SellSpMV:
         if plan.y_block_slices:
             self.y_block_id = upload(plan.y_block_id)
         self.kernel, self.bench_kernel = _ROUTE_FNS[self.route]
+        self.spmm_kernel = _SPMM_FNS.get(self.route)
+        self._triplets = triplets
+        self._t_op: Optional[SellSpMV] = None
+        self._slot_map: Optional[np.ndarray] = None
+        self._slot_index: Optional[torch.Tensor] = None
 
     @staticmethod
     def from_coo(coo, value_dtype: Optional[torch.dtype] = None,
@@ -502,7 +794,8 @@ class SellSpMV:
         r, c, v = coo.to_numpy()
         return SellSpMV(_auto_plan(r, c, v, coo.shape),
                         value_dtype=value_dtype,
-                        device=coo.device if device is None else device)
+                        device=coo.device if device is None else device,
+                        triplets=(r, c, v))
 
     def _x_tiles(self, x: torch.Tensor) -> torch.Tensor:
         """x cast to the value dtype and zero-padded to CT·128."""
@@ -531,9 +824,204 @@ class SellSpMV:
             kw["nsb"] = self.plan.y_block_slices
         return kw
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.kernel(*self._planes(), self._x_tiles(x), **self._kw())
+    def _block(self, X: torch.Tensor, rows: int, dtype: torch.dtype,
+               what: str) -> torch.Tensor:
+        """X (n, k) cast to ``dtype`` and zero-padded to ``rows`` rows: a
+        new contiguous row-major block, whatever the layout of X (an
+        autograd cotangent may be an expanded, stride-0 view)."""
+        if X.device != self.device:
+            raise ValueError(
+                f"{what} is on {X.device}, the operator on {self.device}"
+            )
+        if X.dim() != 2 or X.shape[0] > rows or X.shape[1] < 1:
+            raise ValueError(f"{what} must be (n, k) with n <= {rows} and "
+                             f"k >= 1, got {tuple(X.shape)}")
+        out = torch.zeros(rows, X.shape[1], dtype=dtype, device=self.device)
+        out[: X.shape[0]] = X.detach()
+        return out
+
+    def _vals_plane(self, vals: Optional[torch.Tensor]) -> torch.Tensor:
+        """The values plane, or ``vals`` in its place, in the value dtype."""
+        if vals is None:
+            return self.vals
+        if vals.device != self.device or vals.numel() != self.vals.numel():
+            raise ValueError(
+                f"vals must hold {self.vals.numel()} slots on "
+                f"{self.device}, got {vals.numel()} on {vals.device}"
+            )
+        return vals.detach().reshape(self.vals.shape).to(
+            self.value_dtype).contiguous()
+
+    def _mat_kw(self):
+        return dict(n_slices=self.plan.n_slices,
+                    n_coltiles=self.plan.n_coltiles, chunk=self.plan.chunk)
+
+    def _apply(self, x: torch.Tensor,
+               vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+        planes = (self._vals_plane(vals),) + self._planes()[1:]
+        y = self.kernel(*planes, self._x_tiles(x), **self._kw())
         return y[: self.shape[0]]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self._apply(x)
+
+    def matmat(self, X: torch.Tensor,
+               vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Y = A·X for a dense block X (ncols, k); Y float32 (nrows, k).
+
+        k == 1 is one SpMV (``__call__``). A resident-y plan runs one
+        k-wide launch of its route's SpMM kernel (K1 or K4 with k
+        columns); a streamed-y plan runs column by column on its K3
+        kernel. X is rounded to the value dtype first (bf16 mode rounds
+        it to bf16, as the JAX operator does). ``vals`` (S·128 values in
+        the planner's slot order) replaces the values plane for this
+        call, as the trainable-edge path needs.
+        """
+        if X.dim() != 2:
+            raise ValueError(f"X must be (ncols, k), got {tuple(X.shape)}")
+        k = int(X.shape[1])
+        if k == 1:
+            return self._apply(X[:, 0], vals)[:, None]
+        if self.spmm_kernel is None:  # streamed y: per column
+            return torch.stack([self._apply(X[:, j], vals)
+                                for j in range(k)], dim=1)
+        planes = (self._vals_plane(vals),) + self._planes()[1:]
+        Xt = self._block(X, self.plan.n_coltiles * LANES, self.value_dtype,
+                         "X")
+        return self.spmm_kernel(*planes, Xt, **self._mat_kw())[
+            : self.shape[0]]
+
+    def bench_loop_mat(self, X: torch.Tensor,
+                       iterations: int) -> torch.Tensor:
+        """N SpMMs in ONE launch of the k-column bench kernel (K2 with k
+        columns; merged word, resident y); returns the last Y."""
+        if self.plan.y_block_slices:
+            raise ValueError("bench_loop_mat requires a resident-y plan")
+        if X.dim() != 2:
+            raise ValueError(f"X must be (ncols, k), got {tuple(X.shape)}")
+        if X.shape[1] == 1:
+            return self.bench_loop(X[:, 0], iterations)[:, None]
+        if self.route != "relsl":
+            raise ValueError("bench_loop_mat runs the relsl layout only")
+        Xt = self._block(X, self.plan.n_coltiles * LANES, self.value_dtype,
+                         "X")
+        return sell_bench_spmm(*self._planes(), Xt, iterations=iterations,
+                               **self._mat_kw())[: self.shape[0]]
+
+    # -- training hooks ---------------------------------------------------
+
+    def transpose(self) -> "SellSpMV":
+        """The operator of Aᵀ, planned lazily from the stored triplets at
+        chunk 2048 (``_auto_plan``), as the JAX operator plans it."""
+        if self._t_op is None:
+            if self._triplets is None:
+                raise ValueError(
+                    "transpose requires an operator built via from_coo"
+                )
+            r, c, v = self._triplets
+            plan_t = _auto_plan(np.asarray(c), np.asarray(r), v,
+                                (self.shape[1], self.shape[0]))
+            self._t_op = SellSpMV(plan_t, value_dtype=self.value_dtype,
+                                  device=self.device, triplets=(c, r, v))
+        return self._t_op
+
+    def slot_map(self) -> np.ndarray:
+        """Flat slot index (into ``vals.reshape(-1)``) of each triplet.
+
+        The slot layout depends only on (rows, cols), so a probe plan with
+        values 1..nnz at the operator's chunk gives each triplet's slot.
+        Cached; needs the stored triplets and a resident-y plan.
+        """
+        if self._slot_map is None:
+            if self._triplets is None:
+                raise ValueError(
+                    "slot_map requires an operator built via from_coo"
+                )
+            if self.plan.y_block_slices:
+                raise ValueError(
+                    "slot_map/differentiable_edges need a resident-y "
+                    "plan; streamed-y operators (> ~2M rows) train via "
+                    "spmm_csr (ops/spmv_torch.py) instead"
+                )
+            r, c, _ = self._triplets
+            nnz = len(r)
+            if nnz >= (1 << 24):
+                raise ValueError(
+                    "slot_map probe ids must stay exact in f32 "
+                    "(nnz < 2^24); train larger matrices through spmm_csr"
+                )
+            probe = np.arange(1, nnz + 1, dtype=np.float32)
+            p = build_sell_plan(np.asarray(r), np.asarray(c), probe,
+                                self.shape, chunk=self.plan.chunk)
+            flat = p.vals.reshape(-1)
+            nz = np.flatnonzero(flat)
+            if len(nz) != nnz:
+                raise RuntimeError("probe plan slot count mismatch")
+            slot = np.empty(nnz, dtype=np.int64)
+            slot[flat[nz].astype(np.int64) - 1] = nz
+            self._slot_map = slot
+        return self._slot_map
+
+    def slot_index(self) -> torch.Tensor:
+        """``slot_map()`` as an int64 tensor on the operator's device."""
+        if self._slot_index is None:
+            self._slot_index = torch.from_numpy(self.slot_map()).to(
+                self.device)
+        return self._slot_index
+
+    def scatter_values(self, v: torch.Tensor) -> torch.Tensor:
+        """A values plane from the nnz values ``v`` in triplet order; every
+        other slot holds 0."""
+        idx = self.slot_index()
+        if v.dim() != 1 or v.shape[0] != idx.shape[0]:
+            raise ValueError(f"v must hold the {idx.shape[0]} triplet "
+                             f"values, got shape {tuple(v.shape)}")
+        vals = torch.zeros(self.vals.numel(), dtype=self.value_dtype,
+                           device=self.device)
+        vals[idx] = v.detach().to(self.device, self.value_dtype)
+        return vals.reshape(self.vals.shape)
+
+    def vjp_vals(self, x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        """Cotangent of y = A·x w.r.t. the values plane, (S, 128) float32:
+        ``g[row(s, l)]·x[col(s, l)]`` on every slot of a live sublane, 0
+        on dead ones (K7 with one column)."""
+        return self.vjp_vals_mat(x.reshape(-1, 1), g.reshape(-1, 1))
+
+    def vjp_vals_mat(self, X: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+        """Cotangent of Y = A·X w.r.t. the values plane, (S, 128) float32:
+        ``Σ_j G[row(s, l), j]·X[col(s, l), j]`` in one K7 launch. X is
+        rounded to the value dtype, G taken as float32."""
+        if self.plan.y_block_slices:
+            raise ValueError(
+                "vals-grad needs a resident-y plan; streamed-y operators "
+                "(> ~2M rows) train via spmm_csr (ops/spmv_torch.py) "
+                "instead"
+            )
+        Xt = self._block(X, self.plan.n_coltiles * LANES, self.value_dtype,
+                         "X")
+        Gt = self._block(G, self.plan.n_slices * LANES, torch.float32, "G")
+        return sell_vals_grad(self.lidx, self.tile_base, Xt, Gt,
+                              relsl=self.relsl, rel=self.rel,
+                              slice_of=self.slice_of, **self._mat_kw())
+
+    def differentiable(self):
+        """``f(x) = A·x`` with a backward pass ``Aᵀ·g`` on the kernels."""
+        return spmv_autograd.differentiable(self)
+
+    def differentiable_mat(self):
+        """``f(X) = A·X`` on the SpMM kernels, backward ``Aᵀ·G`` through
+        the transpose operator's ``matmat``."""
+        return spmv_autograd.differentiable_mat(self)
+
+    def differentiable_edges(self):
+        """``f(v, x) = A(v)·x``, differentiable in both; ``v`` holds the
+        nnz values in triplet order."""
+        return spmv_autograd.differentiable_edges(self)
+
+    def differentiable_edges_mat(self):
+        """``f(v, X) = A(v)·X``, differentiable in both: forward on the
+        SpMM kernels, d/dX through the transpose, d/dv on K7."""
+        return spmv_autograd.differentiable_edges_mat(self)
 
     def bench_loop(self, x: torch.Tensor, iterations: int) -> torch.Tensor:
         """N SpMVs in ONE launch of the route's bench kernel; returns the
@@ -606,7 +1094,7 @@ def _cached_op(matrix, triplets_fn=_triplets_from_csr_host) -> SellSpMV:
         vdt = (torch.bfloat16 if matrix.dtype == torch.bfloat16
                else torch.float32)
         op = SellSpMV(_auto_plan(r, c, v, shape), value_dtype=vdt,
-                      device=matrix.device)
+                      device=matrix.device, triplets=(r, c, v))
         _CACHE[matrix] = op
     return op
 

@@ -149,3 +149,126 @@ def test_cli_tjds_path_launches_kernels(card):
     assert main(["-t", "--decode-check", "-n", "5", "--no-report",
                  "synth:20000:200000"]) == 0
     assert S.sell_spmv.launches >= 5 and S.sell_bench_loop.launches == 0
+
+
+# -- the k-column kernels: K1/K4 with k > 1, K2 with k > 1, K7 -------------
+
+
+def _block(card, rows, k, seed, dtype=torch.float32):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (rows, k)).astype(np.float32)).to(card).to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("k", [1, 2, 8, 17, 40])
+@pytest.mark.parametrize("route", ["relsl", "split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kcolumn_kernels_match_plain(card, route, dtype, k):
+    plan = _route_plan(route)
+    op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+    assert op.route == route
+    kw = op._mat_kw()
+    X = _block(card, plan.n_coltiles * 128, k, 3, dtype)
+    G = _block(card, plan.n_slices * 128, k, 4)
+    fwd = op.spmm_kernel
+    plain = getattr(S, fwd.__name__ + "_plain")
+    before = {n: f.launches for n, f in S.MAT_KERNELS.items()}
+    y1 = fwd(*op._planes(), X, **kw)
+    yp = plain(*op._planes(), X, **kw)
+    meta = dict(relsl=op.relsl, rel=op.rel, slice_of=op.slice_of)
+    g1 = S.sell_vals_grad(op.lidx, op.tile_base, X, G, **meta, **kw)
+    gp = S.sell_vals_grad_plain(op.lidx, op.tile_base, X, G, **meta, **kw)
+    want = {fwd.kernel: 1, "sell_vals_grad_kernel": 1}
+    if route == "relsl":
+        y2 = S.sell_bench_spmm(*op._planes(), X, iterations=3, **kw)
+        want["sell_bench_spmm_kernel"] = 1
+    torch.cuda.synchronize()
+    after = {n: f.launches - before[n] for n, f in S.MAT_KERNELS.items()}
+    assert after == {n: want.get(n, 0) for n in S.MAT_KERNELS}
+    assert y1.shape == (plan.n_slices * 128, k) and g1.shape == op.vals.shape
+    assert _rel(y1, yp) <= TOL
+    assert _rel(g1, gp) <= TOL
+    dead = (plan.rel_tile.reshape(-1) < 0) | (plan.slice_of.reshape(-1) < 0)
+    assert not g1[torch.from_numpy(dead).to(card)].any()
+    if route == "relsl":
+        assert _rel(y2, yp) <= TOL
+
+
+def test_matmat_and_autograd_on_card(card):
+    rng = np.random.RandomState(5)
+    n, m, nnz, k = 3000, 2500, 20000, 6
+    r, c = rng.randint(0, n, nnz), rng.randint(0, m, nnz)
+    key = np.unique(r.astype(np.int64) * m + c)
+    r, c = key // m, key % m
+    v = rng.randn(len(r)).astype(np.float32)
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+
+    coo = COOMatrix.from_numpy(r, c, v, shape=(n, m), device=card)
+    op = S.SellSpMV.from_coo(coo)
+    dense = np.zeros((n, m))
+    dense[r, c] = v
+    X = _block(card, m, k, 1).requires_grad_(True)
+    W = _block(card, n, k, 2)
+    vv = torch.from_numpy(v).to(card).requires_grad_(True)
+    before = {n_: f.launches for n_, f in S.MAT_KERNELS.items()}
+    out = op.differentiable_edges_mat()(vv, X)
+    (W * out).sum().backward()
+    torch.cuda.synchronize()
+    Xn, Wn = X.detach().double().cpu().numpy(), W.double().cpu().numpy()
+    np.testing.assert_allclose(out.detach().cpu().numpy(), dense @ Xn,
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(vv.grad.cpu().numpy(),
+                               (Wn[r] * Xn[c]).sum(axis=1), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(X.grad.cpu().numpy(), dense.T @ Wn,
+                               rtol=1e-4, atol=1e-5)
+    after = {n_: f.launches - before[n_] for n_, f in S.MAT_KERNELS.items()}
+    assert after["sell_vals_grad_kernel"] == 1
+    assert after[op.spmm_kernel.kernel] + after[
+        op.transpose().spmm_kernel.kernel] >= 2
+
+
+def test_gcn_step_on_card_matches_spmm_csr(card):
+    from smvp_toolkit_tpu_torch.models import gcn_init, gcn_norm
+    from smvp_toolkit_tpu_torch.models import gcn_train_step
+    from smvp_toolkit_tpu_torch.ops.spmv_torch import spmm_csr
+    from smvp_toolkit_tpu_torch.utils.synth import synth_powerlaw
+
+    s = gcn_norm(synth_powerlaw(5000, 40000, seed=1, device=card))
+    rng = np.random.default_rng(0)
+    h = torch.from_numpy(rng.standard_normal((5000, 16)).astype(
+        np.float32)).to(card)
+    labels = torch.from_numpy(rng.integers(0, 5, 5000)).to(card)
+    mask = torch.arange(5000, device=card) < 3000
+    models = [gcn_init(torch.Generator().manual_seed(0), [16, 32, 5],
+                       device=card) for _ in range(2)]
+    S.sell_spmm.launches = S.sell_split_spmm.launches = 0
+    _, loss = gcn_train_step(s, models[0], h, labels, mask)
+    assert S.sell_spmm.launches + S.sell_split_spmm.launches >= 4
+    _, loss_ref = gcn_train_step(s, models[1], h, labels, mask,
+                                 spmm=spmm_csr)
+    assert abs(loss.item() - loss_ref.item()) <= 1e-4 * abs(loss_ref.item())
+    for p, q in zip(models[0].parameters(), models[1].parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-4, atol=1e-5)
+
+
+def test_bench_spmm_grid_is_coresident(card):
+    blocks = S.bench_spmm_blocks(torch.float32, torch.int8, card)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert blocks >= sms and blocks % sms == 0
+
+
+def test_cli_spmm_launches_kcolumn_kernels(card, tmp_path):
+    from smvp_toolkit_tpu_torch.cli import main
+
+    spec = "synth:20000:200000"
+    for fused, want in ((False, "sell_spmm_kernel"),
+                        (True, "sell_bench_spmm_kernel")):
+        for fn in S.MAT_KERNELS.values():
+            fn.launches = 0
+        out = str(tmp_path / f"y{int(fused)}.npy")
+        argv = ["-c", "-n", "3", "--no-report", "--spmm", "4",
+                "--spmm-out", out] + (["--fused"] if fused else [])
+        assert main(argv + [spec]) == 0
+        counts = {n: f.launches for n, f in S.MAT_KERNELS.items()}
+        assert counts.pop(want) >= 3 and not any(counts.values())
+        assert np.load(out).shape == (20000, 4)

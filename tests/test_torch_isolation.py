@@ -31,7 +31,9 @@ def test_package_sources_found():
     names = {p.relative_to(PKG).as_posix() for p in SOURCES}
     assert {"cli.py", "interop.py", "io/mtx.py", "ops/spmv_sell.py",
             "formats/tjds.py", "csrc/sell_spmv.cu", "csrc/sell_bench.cu",
-            "csrc/sell_common.cuh"} <= names
+            "csrc/sell_common.cuh", "csrc/sell_spmm.cu",
+            "csrc/sell_vals_grad.cu", "ops/spmv_autograd.py",
+            "models/graph.py", "models/__init__.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -56,7 +58,14 @@ coo = parse_synth_spec("synth:2000:10000", device="cpu").pad(128)
 y = spmv_csr_sell(csr_encode(coo), torch.ones(2000))
 assert y.shape == (2000,) and bool(torch.isfinite(y).all())
 assert main(["-c", "-n", "1", "--no-report", "--device", "cpu",
-             "synth:500:2000"]) == 0
+             "--spmm", "3", "synth:500:2000"]) == 0
+from smvp_toolkit_tpu_torch.models import gcn_init, gcn_norm, gcn_train_step
+s = gcn_norm(parse_synth_spec("synth:300:1500", device="cpu"))
+model = gcn_init(torch.Generator().manual_seed(0), [4, 8, 3], device="cpu")
+_, loss = gcn_train_step(s, model, torch.ones(300, 4),
+                         torch.zeros(300, dtype=torch.long),
+                         torch.ones(300, dtype=torch.bool))
+assert bool(torch.isfinite(loss))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "smvp_toolkit_tpu" or m.startswith("smvp_toolkit_tpu."))
@@ -108,3 +117,18 @@ def test_other_entry_points_without_device_raise(tmp_path):
                    shape=(1, 1))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
+
+
+def test_training_entry_points_without_device_raise():
+    _no_card()
+    from smvp_toolkit_tpu_torch.interop import gcn_params_from_arrays
+    from smvp_toolkit_tpu_torch.models import gcn_init
+
+    pairs = [(np.ones((2, 3), np.float32), np.zeros(3, np.float32))]
+    for fn in (lambda: gcn_init(torch.Generator(), [2, 3]),
+               lambda: gcn_params_from_arrays(pairs),
+               lambda: gcn_params_from_arrays(pairs, device="cuda")):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    assert gcn_params_from_arrays(pairs, device="cpu").weights[0].shape == (
+        2, 3)
