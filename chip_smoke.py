@@ -34,6 +34,14 @@ Phases; any failure exits non-zero and prints no result line:
    every resident-y small plan with k = 2, 8 and 17, on smoke and L2 with
    k = 8, and on gcn_arxiv's A (split planes: K4, K7) and Aᵀ (merged
    word: K1, K2) with k = 8 and, in float32, k = 256, the GCN's width.
+   The fused solvers (K9 CG, K10 Chebyshev, K11 IC(0)-PCG at sweeps 2 and
+   4) against their plain versions, 30 steps, on 2-D Poisson 64² and HPCG
+   16³, float32 and bfloat16, and K9 on split planes (Poisson 256², its
+   plan widened past 511 tiles): max |x - x_plain| / max |x_plain| <= 1e-4;
+   in bfloat16 after 3 steps, where a control (K9 against a plain CG whose
+   SpMV input skips the bf16 rounding) must exceed it, and after 30 steps
+   <= 2^-7, since a one-ulp float32 difference now and then flips the bf16
+   rounding of an SpMV input entry and CG carries the jump on.
 3. The main path at full size, each run with every launch count zeroed
    just before it and read just after; a run fails unless its route's
    kernels launched and no other kernel did:
@@ -59,6 +67,20 @@ Phases; any failure exits non-zero and prints no result line:
      Step 1 must agree with the same step through ``spmm_csr`` on the
      card (the edge step: with a float64 ``spmm_csr`` step) within rtol
      1e-4 / atol 1e-5, and every loss must be finite.
+   - hpcg104: the HPCG benchmark's 27-point stencil on its default
+     104³ grid (1,124,864 rows, 29,791,000 nnz), built with scipy and
+     written once as a symmetric ``.mtx`` (15,457,932 stored entries),
+     then the CLI with ``-c -n 10 --expand-symmetry --x random:1 --solve
+     cg-fused:300`` and ``--solve pcg-ic0-fused:100`` (each launches its
+     fused kernel once, and K1 for the benchmark and the residual check
+     only), and the API on the same matrix: ``chebyshev-fused:600``
+     (bounds from ``lanczos_eigsh`` as the CLI takes them), the scan
+     loops ``cg:300``, ``cg:100``, ``pcg:300``, ``pcg-ic0:100`` and
+     ``chebyshev:600``, and ``cg:1000:1e-6`` (its stopping step printed).
+     Every float64 relative residual (scipy CSR of the full matrix) must
+     be <= 1e-4 (``cg:100`` is only compared), each fused solve within 3x
+     of its scan loop (or both <= 1e-5), and IC(0)-PCG below CG at 100
+     steps. The A, L and Lᵀ plans and their common window are printed.
    Every output vector (both reports of a ``-c -t`` run) and every SpMM
    result (``--spmm-out``) is checked against a float64 scipy CSR
    oracle: max |y - oracle| / max |oracle| <= 1e-5 (bfloat16: the oracle
@@ -73,7 +95,12 @@ Phases; any failure exits non-zero and prints no result line:
    same matrix with the same k, and for K7 ``torch.sparse.sampled_addmm``
    on its pattern with beta 0; never called by the port). The k-column
    kernels are timed at k = 8 on smoke and L2 and at k = 256 on
-   gcn_arxiv.
+   gcn_arxiv. The fused solvers at hpcg104 in float32 (K9 300 steps, K10
+   600, K11 100 at sweeps 4): bound = one step's bytes (the planes of each
+   SpMV phase, K11: A + 3·(L + Lᵀ), and each state vector once) times the
+   steps over the memory rate; yardstick: the same solve by the port's
+   scan-loop solver (``models.solvers``) with ``torch.sparse.mm`` on
+   float32 CSR tensors as its SpMV.
    Then the card's name and power limit again and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -112,22 +139,43 @@ TOL_ORACLE = 1e-5
 # data sheet); the kernels' multiply-adds run there in both value modes.
 F32_PEAK_FLOPS = 67e12
 CSRC = "smvp_toolkit_tpu_torch/csrc/"
-PALLAS = "smvp_toolkit_tpu/ops/spmv_pallas.py:"
-# Per kernel: source, and the TPU kernel it replaces.
+JAX_OPS = "smvp_toolkit_tpu/ops/"
+# Per kernel: source, and the TPU kernel it replaces (file:line).
 KERNELS = {
-    "sell_spmv_kernel": ("sell_spmv.cu", 389),
-    "sell_streamy_relsl_kernel": ("sell_spmv.cu", 864),
-    "sell_streamy_kernel": ("sell_spmv.cu", 824),
-    "sell_split_kernel": ("sell_spmv.cu", 592),
-    "sell_bench_kernel": ("sell_bench.cu", 718),
-    "sell_bench_streamy_relsl_kernel": ("sell_bench.cu", 742),
-    "sell_bench_streamy_kernel": ("sell_bench.cu", 797),
-    "sell_bench_split_kernel": ("sell_bench.cu", 797),
-    "sell_spmm_kernel": ("sell_spmm.cu", 389),
-    "sell_split_spmm_kernel": ("sell_spmm.cu", 592),
-    "sell_bench_spmm_kernel": ("sell_spmm.cu", 718),
-    "sell_vals_grad_kernel": ("sell_vals_grad.cu", 935),
+    "sell_spmv_kernel": ("sell_spmv.cu", "spmv_pallas.py:389"),
+    "sell_streamy_relsl_kernel": ("sell_spmv.cu", "spmv_pallas.py:864"),
+    "sell_streamy_kernel": ("sell_spmv.cu", "spmv_pallas.py:824"),
+    "sell_split_kernel": ("sell_spmv.cu", "spmv_pallas.py:592"),
+    "sell_bench_kernel": ("sell_bench.cu", "spmv_pallas.py:718"),
+    "sell_bench_streamy_relsl_kernel": ("sell_bench.cu", "spmv_pallas.py:742"),
+    "sell_bench_streamy_kernel": ("sell_bench.cu", "spmv_pallas.py:797"),
+    "sell_bench_split_kernel": ("sell_bench.cu", "spmv_pallas.py:797"),
+    "sell_spmm_kernel": ("sell_spmm.cu", "spmv_pallas.py:389"),
+    "sell_split_spmm_kernel": ("sell_spmm.cu", "spmv_pallas.py:592"),
+    "sell_bench_spmm_kernel": ("sell_spmm.cu", "spmv_pallas.py:718"),
+    "sell_vals_grad_kernel": ("sell_vals_grad.cu", "spmv_pallas.py:935"),
+    "sell_cg_kernel": ("sell_solvers.cu", "cg_fused.py:64"),
+    "sell_chebyshev_kernel": ("sell_solvers.cu", "pcg_fused.py:188"),
+    "sell_pcg_ic0_kernel": ("sell_solvers.cu", "pcg_fused.py:343"),
 }
+# hpcg104: the HPCG benchmark's 27-point stencil (GenerateProblem_ref.cpp:
+# diagonal 26, each neighbour -1) on hpcg.dat's default local grid.
+HPCG_N = 104
+HPCG_ROWS, HPCG_NNZ, HPCG_STORED = 1_124_864, 29_791_000, 15_457_932
+HPCG_BENCH_N = 10   # -n of the hpcg104 CLI runs
+HPCG_CLI = (("cg-fused", 300), ("pcg-ic0-fused", 100))
+SOLVE_RESIDUAL = 1e-4   # float64 relative residual of every hpcg104 solve
+# Fused kernel vs its plain version: 1e-4 of max |x|, the JAX package's
+# own tolerance for its fused solvers against their scan loops (the
+# reductions re-associate). In bfloat16 it binds after 3 steps; a control
+# (K9 against a plain CG whose SpMV input skips the bf16 rounding) must
+# miss it there. After 30 bf16 steps the limit is two units of bf16
+# rounding: a one-ulp float32 difference between two summation orders now
+# and then flips the bf16 rounding of an SpMV input entry (a 2^-9 jump)
+# that CG's scalars carry into every later step. That check only bounds
+# the drift; it cannot tell a missing rounding from a sound run.
+TOL_SOLVER = 1e-4
+TOL_SOLVER_BF16 = 2.0 ** -7
 # The route each full-size configuration must run on.
 ROUTE = {"smoke": "relsl", "L1": "streamy_relsl", "L2": "split",
          "L3": "streamy"}
@@ -177,13 +225,14 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
 def _ptxas_summary(logs):
     """Registers per kernel (most over its value/index types) and the
     spill stores of all kernels, from ptxas -v output."""
+    names = [*KERNELS, "sell_cg_split_kernel"]
     regs, spills = {}, 0
     for text in logs.values():
         entry = None
         for ln in text.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", ln)
             if m:
-                entry = max((k for k in KERNELS if k in m.group(1)),
+                entry = max((k for k in names if k in m.group(1)),
                             key=len, default=m.group(1))
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m:
@@ -211,9 +260,11 @@ class _Phase:
 
 def _wrappers(S):
     """Every kernel's wrapper by kernel name."""
+    from smvp_toolkit_tpu_torch.ops.pcg_fused import SOLVER_KERNELS
+
     return {**{S.KERNEL_NAMES[(route, bench)]: S._ROUTE_FNS[route][bench]
                for route in S.ROUTES for bench in (False, True)},
-            **S.MAT_KERNELS}
+            **S.MAT_KERNELS, **SOLVER_KERNELS}
 
 
 def _zero_counts(S):
@@ -804,10 +855,12 @@ def _library_csr(np, torch, triplets):
 
 
 def _entry(kname, config, dname, *, launches, err, ms, plain_ms, lib_ms,
-           nbytes, flops, bw, iters=1, **extra):
+           nbytes, flops, bw, iters=1, per_iteration=False, **extra):
     """One ``kernels`` entry: ``nbytes`` (each input once, each output
-    once) over the memory rate, or ``flops`` over the float32 rate."""
-    t_bytes = nbytes / bw * 1e3
+    once) over the memory rate, or ``flops`` over the float32 rate. With
+    ``per_iteration`` (the fused solvers) ``nbytes`` is one iteration's
+    traffic, which every iteration moves again."""
+    t_bytes = nbytes / bw * 1e3 * (iters if per_iteration else 1)
     t_ops = flops / F32_PEAK_FLOPS * 1e3
     src, line = KERNELS[kname]
     print(f"[time] {kname} {config} {dname} {extra}: {ms:.6f} ms per launch "
@@ -818,7 +871,7 @@ def _entry(kname, config, dname, *, launches, err, ms, plain_ms, lib_ms,
         "config": config,
         "route": "cuda",
         "source": CSRC + src,
-        "replaces": f"{PALLAS}{line}",
+        "replaces": f"{JAX_OPS}{line}",
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
@@ -828,7 +881,7 @@ def _entry(kname, config, dname, *, launches, err, ms, plain_ms, lib_ms,
         "library_ms": lib_ms,
         "iterations_per_launch": iters,
         "traffic_bytes_per_iteration": nbytes,
-        "reread_bound_ms": iters * t_bytes,
+        "reread_bound_ms": t_bytes if per_iteration else iters * t_bytes,
         **extra,
     }
 
@@ -971,6 +1024,394 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
     return entries
 
 
+def _card_coo(np, torch, a, dtype=None):
+    """The port's COO of a scipy matrix on the card, values in ``dtype``."""
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+
+    a = a.tocoo()
+    return COOMatrix.from_numpy(a.row, a.col, a.data, shape=a.shape,
+                                dtype=dtype, pad_to=128, device=DEVICE)
+
+
+def _card_csr(np, torch, a, dtype=None):
+    """The port's CSR of a scipy matrix on the card, values in ``dtype``."""
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+
+    return csr_encode(_card_coo(np, torch, a, dtype))
+
+
+def _bounds(torch, csr, spmv=None):
+    """Chebyshev's interval as the CLI takes it: 30 Lanczos steps from a
+    default_rng(0) start, lambda_min x 0.3, lambda_max x 1.1."""
+    import numpy as np
+
+    from smvp_toolkit_tpu_torch.models.solvers import lanczos_eigsh
+
+    n = csr.shape[0]
+    v0 = torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(
+        np.float32)).to(DEVICE)
+    lows, highs = lanczos_eigsh(csr, v0, num_iters=min(30, n), k=1,
+                                spmv=spmv)
+    return float(lows[0]) * 0.3, float(highs[0]) * 1.1
+
+
+def _solver_runs(op, factors, b, it, lo, hi):
+    """(kernel, label, fused, plain) of each solver kernel at ``it`` steps
+    (K11 at sweeps 2 and 4)."""
+    from smvp_toolkit_tpu_torch.ops import cg_fused as C
+    from smvp_toolkit_tpu_torch.ops import pcg_fused as P
+
+    runs = [("sell_cg_kernel", "", lambda: C.fused_cg(op, b, it),
+             lambda: C.fused_cg_plain(op, b, it)),
+            ("sell_chebyshev_kernel", "",
+             lambda: P.fused_chebyshev(op, b, lo, hi, it),
+             lambda: P.fused_chebyshev_plain(op, b, lo, hi, it))]
+    for sw in (2, 4):
+        runs.append(("sell_pcg_ic0_kernel", f" sweeps {sw}",
+                     lambda sw=sw: P.fused_pcg_ic0(op, factors, b, it,
+                                                   sweeps=sw),
+                     lambda sw=sw: P.fused_pcg_ic0_plain(op, factors, b, it,
+                                                         sweeps=sw)))
+    return runs
+
+
+def _cg_unrounded(torch, op, b, it):
+    """x of ``it`` CG steps on ``op``'s plain sweep with the SpMV input
+    left in float32: what K9 would give in bfloat16 mode if it skipped
+    rounding its input (the control of the bf16 check)."""
+    from smvp_toolkit_tpu_torch.models.solvers import conjugate_gradient
+    from smvp_toolkit_tpu_torch.ops import cg_fused as C
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    plain = getattr(S, op.kernel.__name__ + "_plain")
+    kw, n_in = op._kw(), op.plan.n_coltiles * 128
+
+    def spmv(planes, v):
+        y = plain(*planes, v[:n_in], **kw)
+        return torch.nn.functional.pad(y, (0, v.numel() - y.numel()))
+
+    bt = C.pad_state(b, C.state_tiles(op.plan))
+    x, _ = conjugate_gradient(op._planes(), bt, num_iters=it, spmv=spmv)
+    return x[:b.numel()]
+
+
+def phase_solver_kernels(np, torch):
+    """Phase 2 for the fused solvers: K9, K10 and K11 (sweeps 2 and 4)
+    against their plain versions on Poisson 64² and HPCG 16³, float32 and
+    bfloat16, 30 steps (bfloat16 also 3); K9 on split planes."""
+    import dataclasses
+
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.ops.cg_fused import fused_cg, fused_cg_plain
+    from smvp_toolkit_tpu_torch.ops.ilu import ic0
+    from smvp_toolkit_tpu_torch.ops.sell_plan import rewindow_plan
+    from smvp_toolkit_tpu_torch.utils.synth import hpcg_stencil, poisson2d
+
+    for name, a in (("poisson64", poisson2d(64)),
+                    ("hpcg16", hpcg_stencil(16))):
+        csr32 = _card_csr(np, torch, a, torch.float32)
+        lo, hi = _bounds(torch, csr32)
+        b = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            a.shape[0]).astype(np.float32)).to(DEVICE)
+        for dname in DTYPE_NAMES:
+            csr = dataclasses.replace(csr32, vals=csr32.vals.to(
+                getattr(torch, dname)))
+            op = S.sell_op_csr(csr)
+            factors = ic0(csr)
+            for it in ((3, 30) if dname == "bfloat16" else (30,)):
+                tol = (TOL_SOLVER_BF16 if dname == "bfloat16" and it == 30
+                       else TOL_SOLVER)
+                line = []
+                for kname, label, fused, plain in _solver_runs(
+                        op, factors, b, it, lo, hi):
+                    x, xp = fused(), plain()
+                    torch.cuda.synchronize()
+                    e = _rel_err(x, xp)
+                    what = f"{kname}{label} vs plain on {name} {dname} {it}"
+                    _check(bool(torch.isfinite(x).all()), f"{what}: finite")
+                    _check(e <= tol, f"{what}: {e} > {tol}")
+                    line.append(f"{kname}{label} {e:.3e}")
+                print(f"[check] {name:9s} {dname:9s} {it:2d} steps vs plain "
+                      f"(tolerance {tol:.1e}): {', '.join(line)}",
+                      flush=True)
+                if dname == "bfloat16":
+                    e = _rel_err(fused_cg(op, b, it),
+                                 _cg_unrounded(torch, op, b, it))
+                    _check(it != 3 or e > TOL_SOLVER,
+                           f"{name}: the bf16 check misses an unrounded "
+                           f"SpMV input ({e} <= {TOL_SOLVER})")
+                    print(f"[check] {name:9s} control: sell_cg_kernel vs CG "
+                          f"with an unrounded SpMV input, {it} steps: "
+                          f"{e:.3e}", flush=True)
+    # K9 on split planes: 256² is the smallest Poisson grid whose 512
+    # column tiles let a widened window pass 511 (a window never exceeds
+    # CT; Poisson 64² has CT 128).
+    csr = _card_csr(np, torch, poisson2d(256), torch.float32)
+    op = S.SellSpMV(rewindow_plan(S.sell_op_csr(csr).plan, 512),
+                    device=DEVICE)
+    _check(op.route == "split", f"poisson256 widened runs on {op.route}")
+    b = torch.ones(csr.shape[0], device=DEVICE)
+    e = _rel_err(fused_cg(op, b, 30), fused_cg_plain(op, b, 30))
+    _check(e <= TOL_SOLVER, f"sell_cg_kernel split vs plain: {e}")
+    print(f"[check] poisson256 float32 split planes (WT "
+          f"{op.plan.window_tiles}) 30 steps: sell_cg_kernel vs plain "
+          f"{e:.3e}", flush=True)
+
+
+def _hpcg_solve(torch, S, label, fn, want, relres, out):
+    """One hpcg104 solve through the API, launch counts zeroed before and
+    read after: ``want`` maps each kernel that may launch to its exact
+    count (None: any count >= 1)."""
+    _zero_counts(S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    x, res = got if isinstance(got, tuple) else (got, None)
+    counts = _check_only(_counts(S), list(want), f"hpcg104 {label}")
+    for kname, n in want.items():
+        _check(n is None or counts[kname] == n,
+               f"hpcg104 {label}: {kname} launched {counts[kname]}, not {n}")
+    rr = relres(x)
+    out[label] = rr
+    print(f"[main] hpcg104 API {label}: {ms:.1f} ms, float64 relative "
+          f"residual {rr:.3e}, launches {counts}", flush=True)
+    return x, res, counts
+
+
+def phase_hpcg(np, torch, launches):
+    """Phase 3 on the solver path at hpcg104: the CLI's fused solves from a
+    symmetric .mtx, then the API's scan-loop and fused solves on the same
+    matrix, each held to a float64 residual."""
+    import scipy.sparse as sp
+
+    from smvp_toolkit_tpu_torch.cli import main as cli_main
+    from smvp_toolkit_tpu_torch.io.mtx import write_mtx
+    from smvp_toolkit_tpu_torch.models import solvers as M
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.ops.algebra import diagonal
+    from smvp_toolkit_tpu_torch.ops.ilu import ic0
+    from smvp_toolkit_tpu_torch.ops.pcg_fused import (
+        fused_chebyshev,
+        fused_pcg_ic0,
+    )
+    from smvp_toolkit_tpu_torch.utils.synth import hpcg_stencil
+
+    t0 = time.perf_counter()
+    a = hpcg_stencil(HPCG_N)
+    print(f"[hpcg] {a.shape[0]}x{a.shape[1]}, nnz {a.nnz}; built with scipy "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    _check(a.shape[0] == HPCG_ROWS and a.nnz == HPCG_NNZ,
+           f"hpcg104 shape {a.shape}, nnz {a.nnz}")
+    n = a.shape[0]
+    b = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    b64 = b.astype(np.float64)
+
+    def relres(x):
+        x = x.double().cpu().numpy() if hasattr(x, "cpu") else x
+        return float(np.linalg.norm(b64 - a @ np.asarray(x, np.float64))
+                     / np.linalg.norm(b64))
+
+    res = {}
+    k1 = S.KERNEL_NAMES[("relsl", False)]
+    with tempfile.TemporaryDirectory() as tmp:
+        low = sp.tril(a).tocoo()
+        _check(low.nnz == HPCG_STORED, f"hpcg104 stores {low.nnz} entries")
+        path = os.path.join(tmp, "hpcg104.mtx")
+        t0 = time.perf_counter()
+        write_mtx(path, low.row, low.col, low.data, a.shape,
+                  symmetry="symmetric")
+        print(f"[mtx] hpcg104 {path}: {os.path.getsize(path)} bytes, "
+              f"{low.nnz} stored entries (symmetric), written in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        del low
+        for method, iters in HPCG_CLI:
+            kname = {"cg-fused": "sell_cg_kernel",
+                     "pcg-ic0-fused": "sell_pcg_ic0_kernel"}[method]
+            xpath = os.path.join(tmp, "x.npy")
+            jpath = os.path.join(tmp, f"{method}.jsonl")
+            argv = ["-c", "-n", str(HPCG_BENCH_N), "--expand-symmetry",
+                    "--x", "random:1", "--no-report", "--json-out", jpath,
+                    "--solve", f"{method}:{iters}", "--solve-out", xpath,
+                    path]
+            log = io.StringIO()
+            _zero_counts(S)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                rc = cli_main(argv)
+            wall = time.perf_counter() - t0
+            counts = _counts(S)
+            what = f"hpcg104 CLI --solve {method}:{iters}"
+            _check(rc == 0, f"{what} returned {rc}:\n{log.getvalue()}")
+            # the -c benchmark (N timed, 2 warm-up, 1 result) and the
+            # residual check on K1, the solve on its fused kernel
+            want = {k1: HPCG_BENCH_N + 4, kname: 1}
+            got = _check_only(counts, list(want), what)
+            _check(got == want, f"{what} launched {got}, not {want}")
+            launches[(kname, "hpcg104", "float32")] = got[kname]
+            with open(jpath) as f:
+                rec = [json.loads(ln) for ln in f][-1]
+            rr = relres(np.load(xpath))
+            res[method] = rr
+            _check(rec["iterations"] == iters, f"{what}: {rec}")
+            print(f"[main] {what}: rc 0, {wall:.1f} s, solve "
+                  f"{rec['wall_ms']:.1f} ms, CLI relative residual "
+                  f"{rec['relative_residual']:.3e}, float64 {rr:.3e}, "
+                  f"launches {got}", flush=True)
+    with _Phase("hpcg104 API set-up"):
+        from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+
+        coo = _card_coo(np, torch, a)
+        csr = csr_encode(coo)
+        t0 = time.perf_counter()
+        op = S.sell_op_csr(csr)
+        t1 = time.perf_counter()
+        factors = ic0(csr)
+        t2 = time.perf_counter()
+        print(f"[hpcg] A planned in {t1 - t0:.1f} s; ic0 (csrc/ilu.cpp) in "
+              f"{t2 - t1:.2f} s", flush=True)
+    bt = torch.from_numpy(b).to(DEVICE)
+    api = {}
+    _hpcg_solve(torch, S, "cg:300", lambda: M.conjugate_gradient(
+        csr, bt, num_iters=300), {k1: 301}, relres, api)
+    _hpcg_solve(torch, S, "cg:100", lambda: M.conjugate_gradient(
+        csr, bt, num_iters=100), {k1: 101}, relres, api)
+    diag = diagonal(coo)
+    _hpcg_solve(torch, S, "pcg:300", lambda: M.pcg(
+        csr, bt, diag, num_iters=300), {k1: 301}, relres, api)
+    pre = M.ic0_preconditioner(factors, sweeps=4, op_builder=S.sell_op_csr)
+    routes = {S.KERNEL_NAMES[(S.sell_op_csr(f).route, False)]
+              for f in (factors.strict, factors.strict_t)} | {k1}
+    _, _, counts = _hpcg_solve(
+        torch, S, "pcg-ic0:100", lambda: M.pcg_precond(
+            csr, bt, pre, num_iters=100), dict.fromkeys(routes), relres, api)
+    _check(sum(counts.values()) == 101 + 6 * 101,
+           f"pcg-ic0:100 launched {counts}")
+    lo, hi = _bounds(torch, csr)
+    print(f"[hpcg] Chebyshev interval [{lo:.6g}, {hi:.6g}] (Lanczos x0.3, "
+          f"x1.1)", flush=True)
+    _hpcg_solve(torch, S, "chebyshev:600", lambda: M.chebyshev(
+        csr, bt, lo, hi, num_iters=600), {k1: 601}, relres, api)
+    _, _, counts = _hpcg_solve(
+        torch, S, "chebyshev-fused:600",
+        lambda: fused_chebyshev(op, bt, lo, hi, 600),
+        {"sell_chebyshev_kernel": 1}, relres, api)
+    launches[("sell_chebyshev_kernel", "hpcg104", "float32")] = counts[
+        "sell_chebyshev_kernel"]
+    res["chebyshev-fused"] = api.pop("chebyshev-fused:600")
+    _, hist, counts = _hpcg_solve(
+        torch, S, "cg:1000:1e-6", lambda: M.conjugate_gradient(
+            csr, bt, num_iters=1000, tol=1e-6), {k1: None}, relres, api)
+    print(f"[hpcg] cg:1000:1e-6 stopped after {counts[k1] - 1} steps",
+          flush=True)
+    # K11 through the API too: it plans and keeps the factor plans
+    _hpcg_solve(torch, S, "pcg-ic0-fused:100", lambda: fused_pcg_ic0(
+        op, factors, bt, 100), {"sell_pcg_ic0_kernel": 1}, relres, api)
+    fp = op._ic0_planes[factors]
+    for label, p in zip(("A", "L", "Lt"), fp.plans):
+        print(f"[plan] hpcg104 {label}: S {p.n_sublanes} in {p.n_chunks} "
+              f"chunks of {p.chunk}, WT {p.window_tiles}, NS {p.n_slices}, "
+              f"CT {p.n_coltiles}, occupancy {p.nnz / p.slots():.3f}",
+              flush=True)
+    print(f"[plan] hpcg104 common window: WT {fp.window_tiles} (<= 511: "
+          f"the merged word)", flush=True)
+
+    for label, rr in {**res, **api}.items():
+        _check(np.isfinite(rr), f"hpcg104 {label}: residual {rr}")
+        if label != "cg:100":  # a comparison run, short of convergence
+            _check(rr <= SOLVE_RESIDUAL, f"hpcg104 {label}: residual {rr}")
+    for fused, scan in (("cg-fused", "cg:300"),
+                        ("pcg-ic0-fused", "pcg-ic0:100"),
+                        ("chebyshev-fused", "chebyshev:600")):
+        f, s_ = res[fused], api[scan]
+        _check(f <= 3 * s_ or max(f, s_) <= 1e-5,
+               f"hpcg104 {fused} residual {f} vs {scan} {s_}")
+    _check(api["pcg-ic0:100"] < api["cg:100"],
+           f"hpcg104 pcg-ic0:100 {api['pcg-ic0:100']} not below cg:100 "
+           f"{api['cg:100']}")
+    print(f"[hpcg] residuals: fused {res}, API {api}", flush=True)
+    return dict(a=a, csr=csr, op=op, factors=factors, b=bt, lo=lo, hi=hi)
+
+
+def _plane_bytes(plan, vb):
+    """The bytes of one sweep's planes on the merged word: values, lane
+    indices, the rel‖slice word and tile_base."""
+    from smvp_toolkit_tpu_torch.ops.sell_plan import lidx_bytes_for_chunk
+
+    s = plan.n_sublanes
+    return s * 128 * (vb + lidx_bytes_for_chunk(plan.chunk)) + s * 4 \
+        + plan.n_chunks * 4
+
+
+def phase_solver_timings(np, torch, hp, launches, bw):
+    """Phase 4 for K9-K11 at hpcg104, float32: the kernel, its plain
+    version and the yardstick over the same steps: the port's scan-loop
+    solver (``models.solvers``) with ``torch.sparse.mm`` on float32 CSR
+    tensors as its SpMV."""
+    from smvp_toolkit_tpu_torch.models import solvers as M
+    from smvp_toolkit_tpu_torch.ops import cg_fused as C
+    from smvp_toolkit_tpu_torch.ops import pcg_fused as P
+    from smvp_toolkit_tpu_torch.ops.spmv_sell import _triplets_from_csr_host
+
+    op, factors, b = hp["op"], hp["factors"], hp["b"]
+    lo, hi = hp["lo"], hp["hi"]
+    a = hp["a"].tocoo()
+    A = _library_csr(np, torch, (a.row, a.col, a.data, a.shape))
+
+    def mv(m, v):
+        return torch.sparse.mm(m, v[:, None])[:, 0]
+
+    def library_op(c):
+        m = _library_csr(np, torch, _triplets_from_csr_host(c))
+        return lambda v: mv(m, v)
+
+    lib_pre = M.ic0_preconditioner(factors, sweeps=4, op_builder=library_op)
+    fp = op._ic0_planes[factors]
+    t_vec = max(p.n_slices for p in fp.plans)
+    vec = max(t_vec, fp.plans[0].n_coltiles) * 128 * 4
+    pa, pl, plt = (_plane_bytes(p, 4) for p in fp.plans)
+    nnz_a, nnz_l = fp.plans[0].nnz, fp.plans[1].nnz
+    cases = (
+        ("sell_cg_kernel", 300, lambda: C.fused_cg(op, b, 300),
+         lambda: C.fused_cg_plain(op, b, 300),
+         lambda: M.conjugate_gradient(A, b, num_iters=300, spmv=mv),
+         pa + 4 * vec, 2.0 * nnz_a, {}),
+        ("sell_chebyshev_kernel", 600,
+         lambda: P.fused_chebyshev(op, b, lo, hi, 600),
+         lambda: P.fused_chebyshev_plain(op, b, lo, hi, 600),
+         lambda: M.chebyshev(A, b, lo, hi, num_iters=600, spmv=mv),
+         pa + 4 * vec, 2.0 * nnz_a, {}),
+        ("sell_pcg_ic0_kernel", 100,
+         lambda: P.fused_pcg_ic0(op, factors, b, 100),
+         lambda: P.fused_pcg_ic0_plain(op, factors, b, 100),
+         lambda: M.pcg_precond(A, b, lib_pre, num_iters=100, spmv=mv),
+         pa + 3 * (pl + plt) + 7 * vec, 2.0 * (nnz_a + 6 * nnz_l),
+         {"sweeps": 4}),
+    )
+    entries = []
+    for kname, iters, fn, plain, lib, nbytes, flops, extra in cases:
+        ms = _time_ms(fn, reps=2, warmup=1)
+        x = fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        xp = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = (x - xp).abs().max().item()
+        rel = _rel_err(x, xp)
+        _check(rel <= TOL_SOLVER, f"{kname} vs plain at hpcg104: {rel}")
+        lib_ms = _time_ms(lib, reps=1, warmup=1)
+        entries.append(_entry(
+            kname, "hpcg104", "float32",
+            launches=launches[(kname, "hpcg104", "float32")], err=err,
+            ms=ms, plain_ms=plain_ms, lib_ms=lib_ms, nbytes=nbytes,
+            flops=flops * iters, bw=bw, iters=iters, per_iteration=True,
+            **extra))
+    del A, lib_pre
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1002,6 +1443,15 @@ def main() -> int:
         grid.update({("spmm", d): S.bench_spmm_blocks(getattr(torch, d),
                                                       torch.int8)
                      for d in DTYPE_NAMES})
+        from smvp_toolkit_tpu_torch.ops.cg_fused import solver_blocks
+
+        grid.update({(k, r, d): solver_blocks(k, getattr(torch, d),
+                                              torch.int8, route=r)
+                     for k, r in (("sell_cg_kernel", "relsl"),
+                                  ("sell_cg_kernel", "split"),
+                                  ("sell_chebyshev_kernel", "relsl"),
+                                  ("sell_pcg_ic0_kernel", "relsl"))
+                     for d in DTYPE_NAMES})
         print(f"[grid] bench kernels' cooperative grid (blocks of 256 "
               f"threads, int8 lane indices): {grid}", flush=True)
 
@@ -1012,9 +1462,13 @@ def main() -> int:
     with _Phase("kernels vs plain"):
         ops, errs = phase_kernels(np, torch, plans, gcn)
     del plans
+    with _Phase("solver kernels vs plain"):
+        phase_solver_kernels(np, torch)
     launches = phase_main_path(np, torch, configs)
     with _Phase("main path: gcn_arxiv"):
         phase_gcn(np, torch, gcn, launches)
+    with _Phase("main path: hpcg104"):
+        hpcg = phase_hpcg(np, torch, launches)
     with _Phase("timings"):
         from smvp_toolkit_tpu_torch.bench.roofline import hbm_bandwidth_gbs
 
@@ -1022,6 +1476,7 @@ def main() -> int:
         entries = phase_timings(np, torch, ops, errs, launches, configs, bw)
         entries += phase_mat_timings(np, torch, ops, errs, launches, configs,
                                      gcn, bw)
+        entries += phase_solver_timings(np, torch, hpcg, launches, bw)
 
     print(json.dumps({"kernels": entries}))
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")

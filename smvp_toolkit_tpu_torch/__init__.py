@@ -20,8 +20,14 @@ found under the same name:
 * ``ops.spmv_autograd`` — ``torch.autograd.Function``s over the operator.
 * ``ops.spmv_torch`` — plain-PyTorch CSR and TJDS SpMV and CSR SpMM.
 * ``models.graph`` — the GCN, trained on the operator's kernels.
+* ``models.solvers`` — CG, preconditioned CG, Chebyshev and Lanczos, one
+  SpMV launch per step.
+* ``ops.ilu`` / ``ops.algebra`` — IC(0) factors (host C++ pass) and the
+  matrix diagonal.
+* ``ops.cg_fused`` / ``ops.pcg_fused`` — whole CG, Chebyshev and
+  IC(0)-PCG solves in one launch of a CUDA kernel each.
 * ``bench`` — timing, roofline and report files.
-* ``cli`` — the ``-c`` / ``-t`` / ``--spmm`` benchmark command line.
+* ``cli`` — the ``-c`` / ``-t`` / ``--spmm`` / ``--solve`` command line.
 
 Exports are lazy: importing the package imports neither the kernels'
 build machinery nor the formats.
@@ -52,6 +58,12 @@ _EXPORTS = {
     "GCN": "smvp_toolkit_tpu_torch.models.graph",
     "gcn_norm": "smvp_toolkit_tpu_torch.models.graph",
     "gcn_train_step": "smvp_toolkit_tpu_torch.models.graph",
+    "conjugate_gradient": "smvp_toolkit_tpu_torch.models.solvers",
+    "pcg_precond": "smvp_toolkit_tpu_torch.models.solvers",
+    "ic0": "smvp_toolkit_tpu_torch.ops.ilu",
+    "fused_cg": "smvp_toolkit_tpu_torch.ops.cg_fused",
+    "fused_chebyshev": "smvp_toolkit_tpu_torch.ops.pcg_fused",
+    "fused_pcg_ic0": "smvp_toolkit_tpu_torch.ops.pcg_fused",
 }
 
 __all__ = [*_EXPORTS, "__version__"]

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``cli.py`` for the flags the port has:
 positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``), ``-c``, ``-t``,
 ``-n``, ``-d``, ``--no-report``, ``--decode-check``, ``--dtype``,
-``--kernel``, ``--fused``, ``--x``, ``--json-out``, ``--spmm`` and
-``--device``, plus the port's ``--spmm-out``.
+``--kernel``, ``--fused``, ``--x``, ``--json-out``, ``--spmm``,
+``--solve``, ``--expand-symmetry`` and ``--device``, plus the port's
+``--spmm-out`` and ``--solve-out``.
 Validation and exit codes match the JAX CLI for those flags (``-n 0`` and
 ``-d /nope`` give 2, a missing or unreadable file 1, a failed decode
 check 3); argparse rejects every other flag (``-a``, ``-g``,
@@ -24,6 +25,16 @@ kernel per call on a resident-y plan, one SpMV launch per column on a
 streamed one; ``--fused`` times the N-iteration SpMM kernel on a
 merged-word plan, and N ``matmat`` calls between one pair of CUDA events
 on any other.
+
+``--solve METHOD[:ITERS[:TOL]]`` (with ``-c``) then solves A x = b, b the
+``--x`` vector, with one of the SPD methods the port has (``cg``,
+``cg-fused``, ``pcg``, ``pcg-ic0``, ``pcg-ic0-fused``, ``chebyshev``,
+``chebyshev-fused``); the JAX CLI's other methods exit 2 as not ported
+yet. The scan-loop methods launch one SpMV per step (``--kernel auto``:
+the SELL kernels; ``torch``: the plain-PyTorch CSR SpMV), the ``-fused``
+ones the whole solve in one launch of their CUDA kernel. The relative
+residual is checked in float64 through the run's SpMV kernel, and a
+``SOLVE-<METHOD>`` report and JSON record are written.
 """
 
 from __future__ import annotations
@@ -40,6 +51,16 @@ __all__ = ["main", "build_parser"]
 
 ALG_CSR = "CSR"
 ALG_TJDS = "TJDS"
+
+# The JAX CLI's --solve methods (its cli.py SOLVE_METHODS) and the ones
+# the port has.
+SOLVE_METHODS = ("cg", "cg-fused", "pcg", "pcg-amg", "pcg-cheb",
+                 "pcg-neumann", "pcg-ic0", "pcg-ic0-fused",
+                 "pcg-ssor", "pcg-bjac", "bicgstab", "bicgstab-ilu",
+                 "bicgstab-amg", "gmres", "gmres-ilu", "gmres-amg",
+                 "minres", "chebyshev", "chebyshev-fused")
+PORTED_SOLVE_METHODS = ("cg", "cg-fused", "pcg", "pcg-ic0", "pcg-ic0-fused",
+                        "chebyshev", "chebyshev-fused")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -71,6 +92,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=["float32", "bfloat16"],
                    default="float32", help="device value dtype")
     p.add_argument(
+        "--expand-symmetry", action="store_true",
+        help="expand symmetric/skew/hermitian storage to the full matrix "
+             "(the reference multiplies stored entries only)",
+    )
+    p.add_argument(
         "--kernel", choices=["auto", "torch"], default="auto",
         help="SpMV implementation (auto: the SELL CUDA kernels; torch: "
              "plain-PyTorch CSR gather + index_add_)",
@@ -99,6 +125,17 @@ def build_parser() -> argparse.ArgumentParser:
         help="write the --spmm result Y (nrows, K) as a float32 .npy file",
     )
     p.add_argument(
+        "--solve", default=None, metavar="METHOD[:ITERS[:TOL]]",
+        help="after benchmarking, solve A x = b (b = the --x vector) with "
+             f"one of {', '.join(PORTED_SOLVE_METHODS)}; default 100 "
+             "iterations; an optional relative-residual target stops the "
+             "scan-loop methods early (e.g. cg:200:1e-6); needs -c",
+    )
+    p.add_argument(
+        "--solve-out", default=None, metavar="FILE",
+        help="write the --solve solution x (nrows) as a float32 .npy file",
+    )
+    p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="run on the card (default) or on the CPU, where each kernel's "
              "plain PyTorch version runs",
@@ -123,6 +160,39 @@ def _validate(args) -> Optional[str]:
             return "--spmm requires the CSR algorithm (-c)"
     if args.spmm_out and args.spmm is None:
         return "--spmm-out needs --spmm"
+    if args.solve_out and not args.solve:
+        return "--solve-out needs --solve"
+    if args.solve:
+        return _validate_solve(args)
+    return None
+
+
+def _validate_solve(args) -> Optional[str]:
+    """The JAX CLI's --solve checks, then the port's method list."""
+    if not args.csr:
+        return "--solve requires the CSR encoding (-c)"
+    parts = args.solve.split(":")
+    method = parts[0].lower()
+    if method not in SOLVE_METHODS:
+        return (f"--solve method must be one of {', '.join(SOLVE_METHODS)} "
+                f"(got {method!r})")
+    if len(parts) > 3:
+        return f"--solve takes METHOD[:ITERS[:TOL]] (got {args.solve!r})"
+    if len(parts) > 1:
+        try:
+            if int(parts[1]) < 1:
+                return f"bad --solve iteration count: {args.solve!r}"
+        except ValueError:
+            return f"bad --solve iteration count: {args.solve!r}"
+    if len(parts) > 2:
+        try:
+            if not 0 < float(parts[2]) < 1:
+                return f"bad --solve tolerance: {args.solve!r}"
+        except ValueError:
+            return f"bad --solve tolerance: {args.solve!r}"
+    if method not in PORTED_SOLVE_METHODS:
+        return (f"--solve {method} is not ported yet; the port has "
+                f"{', '.join(PORTED_SOLVE_METHODS)}")
     return None
 
 
@@ -196,7 +266,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     else:
         log("FILE", f"Loading matrix: {args.file}")
         try:
-            coo = read_mtx(args.file, dtype=dtype, device=device)
+            coo = read_mtx(args.file, expand_symmetry=args.expand_symmetry,
+                           dtype=dtype, device=device)
         except FileNotFoundError:
             log("ERROR", f"could not open file: {args.file}")
             return 1
@@ -305,6 +376,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             spmv_bytes_csr(coo.nnz, coo.shape[0], vbytes))
         if args.spmm:
             _run_spmm(args, coo, csr, device, label, log)
+        if args.solve:
+            rc = _run_solve(args, coo, csr, x, device, label, log, spmv_fn)
+            if rc:
+                return rc
 
     if args.tjds:
         tj = tjds_encode(coo)
@@ -390,6 +465,154 @@ def _run_spmm(args, coo, csr, device, label, log) -> None:
         with open(args.json_out, "a") as f:
             f.write(json.dumps(rec) + "\n")
         log("FILE", f"JSON record appended: {args.json_out}")
+
+
+def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
+    """``--solve METHOD[:ITERS[:TOL]]``: solve A x = b, b = the --x vector
+    (the JAX CLI's ``_run_solve`` for the ported methods).
+
+    ``spmv`` is the run's CSR SpMV (the SELL kernels or the plain-PyTorch
+    one): the scan-loop methods step with it and the residual check uses
+    it. The fused methods run on the matrix's cached SELL operator.
+    """
+    import time
+
+    import torch
+
+    from smvp_toolkit_tpu_torch.models import solvers
+    from smvp_toolkit_tpu_torch.ops import spmv_sell
+
+    if coo.shape[0] != coo.shape[1]:
+        log("ERROR", "--solve needs a square system")
+        return 2
+    spec = args.solve.split(":")
+    method = spec[0].lower()
+    iters = int(spec[1]) if len(spec) > 1 else 100
+    tol = float(spec[2]) if len(spec) > 2 else None
+    n = coo.shape[0]
+    b = x[:n].float()
+
+    def lanczos_bounds(safety_lo=0.3, safety_hi=1.1):
+        """Chebyshev's spectrum bounds: 30 Lanczos steps from a random
+        start (ones is an eigenvector of constant-row-sum matrices), with
+        a deliberately low lower cushion (single-pass Lanczos tends to
+        overestimate lambda_min, and an interval that misses the bottom
+        of the spectrum makes the iteration diverge)."""
+        v0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            n).astype(np.float32)).to(device)
+        lows, highs = solvers.lanczos_eigsh(csr, v0, num_iters=min(30, n),
+                                            k=1, spmv=spmv)
+        return float(lows[0]) * safety_lo, float(highs[0]) * safety_hi
+
+    def factors():
+        from smvp_toolkit_tpu_torch.ops.ilu import ic0
+
+        try:
+            return ic0(csr)
+        except ValueError as e:  # shift ladder exhausted: nowhere near SPD
+            log("ERROR", str(e))
+            return None
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    sync()
+    t0 = time.perf_counter()
+    res = None
+    if method == "cg":
+        xs, res = solvers.conjugate_gradient(csr, b, num_iters=iters,
+                                             spmv=spmv, tol=tol)
+    elif method == "pcg":
+        from smvp_toolkit_tpu_torch.ops.algebra import diagonal
+
+        xs, res = solvers.pcg(csr, b, diagonal(coo), num_iters=iters,
+                              spmv=spmv, tol=tol)
+    elif method == "pcg-ic0":
+        f = factors()
+        if f is None:
+            return 2
+        # The factors get their own SELL operators on the SELL path; the
+        # plain-PyTorch path applies them with its CSR SpMV.
+        m = solvers.ic0_preconditioner(
+            f, sweeps=4, spmv=spmv,
+            op_builder=None if args.kernel == "torch"
+            else spmv_sell.sell_op_csr)
+        xs, res = solvers.pcg_precond(csr, b, m, num_iters=iters, spmv=spmv,
+                                      tol=tol)
+    elif method == "chebyshev":
+        lo, hi = lanczos_bounds()
+        xs, _ = solvers.chebyshev(csr, b, lo, hi, num_iters=iters, spmv=spmv)
+    else:  # the fused methods: the whole solve in one kernel launch
+        from smvp_toolkit_tpu_torch.ops.cg_fused import fused_cg
+        from smvp_toolkit_tpu_torch.ops.pcg_fused import (
+            fused_chebyshev,
+            fused_pcg_ic0,
+        )
+
+        op = spmv_sell.sell_op_csr(csr)
+        if method == "cg-fused":
+            xs = fused_cg(op, b, iters)
+        elif method == "pcg-ic0-fused":
+            f = factors()
+            if f is None:
+                return 2
+            xs = fused_pcg_ic0(op, f, b, iters, sweeps=4)
+        else:
+            lo, hi = lanczos_bounds()
+            xs = fused_chebyshev(op, b, lo, hi, iters)
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    if tol is not None and res is not None:
+        # The achieved count: history entries past the stopping step
+        # repeat the final norm, so the first one at or below the target
+        # is the stopping step. The fused methods and chebyshev take no
+        # tolerance and run the count they were given.
+        rn = res.double().cpu().numpy()
+        tgt = tol * max(float(torch.linalg.vector_norm(b)), 1e-30)
+        hit = np.nonzero(rn <= tgt * (1.0 + 1e-6))[0]
+        iters = int(hit[0]) + 1 if hit.size else rn.shape[0]
+
+    b64 = b.double().cpu().numpy()
+    r = b64 - spmv(csr, xs).double().cpu().numpy()
+    relres = float(np.linalg.norm(r) / max(np.linalg.norm(b64), 1e-30))
+    log("DATA", f"SOLVE {method}: {iters} iterations in {ms:.2f} ms, "
+        f"relative residual {relres:.3e}")
+    if args.solve_out:
+        np.save(args.solve_out, xs.float().cpu().numpy())
+        log("FILE", f"Solution saved as:\n\t{args.solve_out}")
+    if not np.isfinite(relres) or relres > 1.0:
+        log("INFO", f"solve did not converge — {method} assumes an SPD "
+            "system; try more iterations")
+    if args.json_out:
+        with open(args.json_out, "a") as f:
+            f.write(json.dumps({
+                "alg": f"SOLVE-{method.upper()}",
+                "file": args.file,
+                "iterations": iters,
+                "wall_ms": ms,
+                "relative_residual": relres,
+                "device": label,
+            }) + "\n")
+        log("FILE", f"JSON record appended: {args.json_out}")
+    if not args.no_report:
+        from smvp_toolkit_tpu_torch.bench.harness import TimingStats
+        from smvp_toolkit_tpu_torch.bench.report import write_report
+
+        path = write_report(
+            args.dir,
+            alg_name=f"SOLVE-{method.upper()}",
+            input_file=args.file,
+            nnz=coo.nnz,
+            iterations=iters,
+            stats=TimingStats(times_ms=np.asarray([ms]), iterations=1,
+                              per_launch=True),
+            output_vector=xs.float().cpu().numpy(),
+            extra_metrics={"Device": label,
+                           "Relative residual": f"{relres:.6g}"},
+        )
+        log("FILE", f"Solve report saved as:\n\t{path}")
+    return 0
 
 
 def _decode_check(alg, decoded, coo, log) -> bool:

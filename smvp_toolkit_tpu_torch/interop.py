@@ -15,12 +15,15 @@ import numpy as np
 import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+from smvp_toolkit_tpu_torch.formats.csr import CSRMatrix
 from smvp_toolkit_tpu_torch.models.graph import GCN
+from smvp_toolkit_tpu_torch.ops.ilu import IC0Factors
 from smvp_toolkit_tpu_torch.ops.sell_plan import SellPlan
 from smvp_toolkit_tpu_torch.utils.device import resolve_device
 
 __all__ = ["plan_from_arrays", "plan_fields", "coo_from_triplets",
-           "gcn_params_from_arrays"]
+           "gcn_params_from_arrays", "csr_from_arrays",
+           "ic0_factors_from_arrays"]
 
 _ARRAY_FIELDS = ("vals", "lane_idx", "rel_tile", "slice_of", "tile_base",
                  "slice_base", "y_block_id")
@@ -82,3 +85,42 @@ def gcn_params_from_arrays(pairs: Sequence[Tuple[np.ndarray, np.ndarray]], *,
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
     return GCN([(tensor(w), tensor(b)) for w, b in pairs])
+
+
+def csr_from_arrays(fields: Dict[str, object], *, dtype=None,
+                    device=None) -> CSRMatrix:
+    """The port's CSRMatrix from a JAX CSRMatrix's fields: ``row_ptr``,
+    ``col_ind`` and ``vals`` as numpy arrays (padding included), ``shape``
+    and ``nnz``. Values go to ``dtype`` (default float32) on ``device``
+    (default: the card)."""
+    dev = resolve_device(device)
+    dtype = torch.float32 if dtype is None else dtype
+
+    def index(a):
+        return torch.from_numpy(np.array(a, dtype=np.int32)).to(dev)
+
+    shape = fields["shape"]
+    return CSRMatrix(
+        row_ptr=index(fields["row_ptr"]), col_ind=index(fields["col_ind"]),
+        vals=torch.from_numpy(np.array(fields["vals"], dtype=np.float32)).to(
+            dtype).to(dev),
+        shape=(int(shape[0]), int(shape[1])), nnz=int(fields["nnz"]),
+    )
+
+
+def ic0_factors_from_arrays(strict: Dict[str, object],
+                            strict_t: Dict[str, object], diag, *,
+                            dtype=None, device=None) -> IC0Factors:
+    """The port's IC0Factors from a JAX ``IC0Factors``: ``strict`` and
+    ``strict_t`` are the fields of its two CSR matrices (as
+    :func:`csr_from_arrays` takes them), ``diag`` its diagonal as a numpy
+    array. Both packages' fused IC(0) solvers then run the same
+    factors."""
+    dev = resolve_device(device)
+    dtype = torch.float32 if dtype is None else dtype
+    return IC0Factors(
+        strict=csr_from_arrays(strict, dtype=dtype, device=dev),
+        strict_t=csr_from_arrays(strict_t, dtype=dtype, device=dev),
+        diag=torch.from_numpy(np.array(diag, dtype=np.float32)).to(dtype).to(
+            dev),
+    )

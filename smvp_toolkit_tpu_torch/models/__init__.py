@@ -1,4 +1,5 @@
-"""Models on the port's sparse kernels: the GCN (``models.graph``)."""
+"""Models on the port's sparse kernels: the GCN (``models.graph``) and
+the SPD solvers (``models.solvers``)."""
 
 from smvp_toolkit_tpu_torch.models.graph import (
     GCN,
@@ -9,6 +10,15 @@ from smvp_toolkit_tpu_torch.models.graph import (
     gcn_train_step,
     gcn_train_step_edges,
 )
+from smvp_toolkit_tpu_torch.models.solvers import (
+    chebyshev,
+    conjugate_gradient,
+    ic0_preconditioner,
+    lanczos,
+    lanczos_eigsh,
+    pcg,
+    pcg_precond,
+)
 
 __all__ = [
     "GCN",
@@ -18,4 +28,11 @@ __all__ = [
     "gcn_forward",
     "gcn_train_step",
     "gcn_train_step_edges",
+    "conjugate_gradient",
+    "lanczos",
+    "lanczos_eigsh",
+    "chebyshev",
+    "pcg",
+    "pcg_precond",
+    "ic0_preconditioner",
 ]

@@ -1,11 +1,18 @@
-"""Build the port's CUDA sources with ``nvcc`` and load them with ctypes.
+"""Build the port's native sources and load them with ctypes.
 
-Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own
-into ``build/kernels/lib<name>-<hash>.so`` at the root of the checkout,
-keyed by a hash of the sources and flags, so an edited source rebuilds
-and an unchanged one loads at once. Several sources build in parallel:
-one ``nvcc`` each, all started together. A failed build raises with
-nvcc's output; there is no fallback.
+Each ``csrc/<name>.cu`` (CUDA, built with ``nvcc``) or ``csrc/<name>.cpp``
+(host C++, built with the host compiler ``c++``) has a plain C interface
+and compiles on its own into ``build/kernels/lib<name>-<hash>.so`` at the
+root of the checkout, keyed by a hash of the sources and flags, so an
+edited source rebuilds and an unchanged one loads at once. Several
+sources build in parallel: one compiler process each, all started
+together. A failed build raises with the compiler's output; there is no
+fallback.
+
+The host sources build wherever a C++ compiler is (the CPU tests build
+and run them); ``-ffp-contract=off`` keeps the compiler from fusing a
+multiply and an add into one rounding, so a host pass stays bit-identical
+to the numpy loop it copies.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
@@ -24,6 +31,7 @@ from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 __all__ = [
     "KernelBuildError",
+    "CXX_FLAGS",
     "NVCC_FLAGS",
     "build",
     "build_dir",
@@ -39,12 +47,14 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # registers, shared memory and spills into the log
 )
 
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 class KernelBuildError(RuntimeError):
-    """nvcc is missing or refused a source."""
+    """A compiler is missing or refused a source."""
 
 
 def build_dir() -> Path:
@@ -53,8 +63,14 @@ def build_dir() -> Path:
 
 
 def sources() -> Tuple[str, ...]:
-    """Names of the kernel sources (``csrc/<name>.cu``)."""
-    return tuple(sorted(p.stem for p in _CSRC.glob("*.cu")))
+    """Names of the native sources (``csrc/<name>.cu`` and ``.cpp``)."""
+    return tuple(sorted(p.stem for p in (*_CSRC.glob("*.cu"),
+                                         *_CSRC.glob("*.cpp"))))
+
+
+def _source(name: str) -> Path:
+    cu = _CSRC / f"{name}.cu"
+    return cu if cu.exists() else _CSRC / f"{name}.cpp"
 
 
 def _nvcc() -> str:
@@ -72,10 +88,28 @@ def _nvcc() -> str:
     )
 
 
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or shutil.which("c++")
+    if not cxx:
+        raise KernelBuildError(
+            "no host C++ compiler found (set CXX or put c++ on PATH)"
+        )
+    return cxx
+
+
+def _command(name: str, out: Path) -> list:
+    src = _source(name)
+    if src.suffix == ".cu":
+        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
+    return [_cxx(), *CXX_FLAGS, "-o", str(out), str(src)]
+
+
 def _lib_path(name: str) -> Path:
+    src = _source(name)
+    cuda = src.suffix == ".cu"
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for p in [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))]:
+    h.update(" ".join(NVCC_FLAGS if cuda else CXX_FLAGS).encode())
+    for p in [src, *(sorted(_CSRC.glob("*.cuh")) if cuda else ())]:
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
@@ -84,23 +118,22 @@ def _lib_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     """Build every named source that is not built yet, in parallel.
 
-    Returns ``{name: nvcc output}`` for the sources built by this call
+    Returns ``{name: compiler output}`` for the sources built by this call
     (ptxas's register and spill report among it).
     """
     names = sources() if names is None else tuple(names)
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {}
-    nvcc = _nvcc()
-    build_dir().mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name in todo:
+    jobs = []
+    for name in todo:  # every compiler found before any process starts
         out = _lib_path(name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
+        jobs.append((name, out, tmp, _command(name, tmp)))
+    build_dir().mkdir(parents=True, exist_ok=True)
+    procs = [(name, out, tmp, cmd, subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, out, tmp, cmd in jobs]
     logs, failed = {}, []
     for name, out, tmp, cmd, proc in procs:
         text, _ = proc.communicate()
@@ -112,14 +145,14 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
             os.replace(tmp, out)  # atomic: concurrent builds agree
             out.with_suffix(".log").write_text(text)
     if failed:
-        raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelBuildError("build failed:\n" + "\n".join(failed))
     return logs
 
 
 def load(name: str,
          signatures: Dict[str, Tuple[object, Sequence[object]]]
          ) -> ctypes.CDLL:
-    """The library of ``csrc/<name>.cu``, built on first use.
+    """The library of ``csrc/<name>.cu`` or ``.cpp``, built on first use.
 
     ``signatures`` maps each C function to ``(restype, argtypes)``; they
     are declared once, when the library is first loaded.

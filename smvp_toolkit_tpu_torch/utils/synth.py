@@ -5,6 +5,10 @@ same numpy ``RandomState`` streams, so the same seed gives the same matrix
 bit for bit. BASELINE.json's "synthetic 10M-nnz matrix" is
 ``parse_synth_spec("synth:1000000:10000000")``; the ``synth:N:NNZ``
 grammar is banded only, as in the JAX package.
+
+Two SPD stencils for the solvers, as host scipy CSR matrices (float64):
+the 2-D Poisson 5-point Laplacian and the HPCG benchmark's 27-point
+stencil.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import numpy as np
 from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
 
 __all__ = ["synth_banded", "synth_uniform", "synth_powerlaw",
-           "parse_synth_spec"]
+           "parse_synth_spec", "poisson2d", "hpcg_stencil"]
 
 
 def synth_banded(
@@ -96,3 +100,23 @@ def parse_synth_spec(spec: str, *, dtype=None, device=None) -> COOMatrix:
         raise ValueError(f"bad synth spec (non-positive sizes): {spec!r}")
     return synth_banded(n, nnz_per_row=max(nnz // n, 1), dtype=dtype,
                         device=device)
+
+
+def poisson2d(nx: int):
+    """The 2-D Dirichlet Poisson matrix on an nx² grid (4 on the
+    diagonal, -1 for each of the 4 neighbours) as a scipy CSR."""
+    import scipy.sparse as sp
+
+    t = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (nx, nx))
+    return (sp.kron(sp.eye(nx), t) + sp.kron(t, sp.eye(nx))).tocsr()
+
+
+def hpcg_stencil(nx: int):
+    """The HPCG benchmark's matrix on an nx³ grid (its
+    ``GenerateProblem_ref.cpp``): 26 on the diagonal, -1 for each of the up
+    to 26 neighbours in the 3×3×3 box, as a scipy CSR. At hpcg.dat's
+    default 104³: 1,124,864 rows and (3·104 − 2)³ = 29,791,000 nnz."""
+    import scipy.sparse as sp
+
+    b1 = sp.diags([1.0, 1.0, 1.0], [-1, 0, 1], (nx, nx))
+    return (27.0 * sp.eye(nx ** 3) - sp.kron(b1, sp.kron(b1, b1))).tocsr()

@@ -268,3 +268,151 @@ def test_decode_check_failure_exits_3(monkeypatch, capsys):
     assert tcli.main(["-t", "-n", "1", "--device", "cpu", "--no-report",
                       "--decode-check", SPEC]) == 3
     assert "TJDS decode round-trip FAILED" in capsys.readouterr().err
+
+
+# -- --solve and --expand-symmetry ------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def spd_file(tmp_path_factory):
+    """2-D Poisson 20² stored as its lower triangle (symmetric .mtx)."""
+    import scipy.sparse as sp
+
+    t = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (20, 20))
+    a = sp.tril(sp.kron(sp.eye(20), t) + sp.kron(t, sp.eye(20))).tocoo()
+    path = str(tmp_path_factory.mktemp("spd") / "poisson20.mtx")
+    write_mtx(path, a.row, a.col, a.data, a.shape, symmetry="symmetric")
+    return path
+
+
+def _solve(tmp_path, path, spec, *extra):
+    out = str(tmp_path / "run.jsonl")
+    rc = tcli.main(["-c", "-n", "2", "-d", str(tmp_path), "--device", "cpu",
+                    "--expand-symmetry", "--x", "random:1", "--json-out", out,
+                    "--solve", spec, *extra, path])
+    recs = [json.loads(ln) for ln in open(out)] if os.path.exists(out) else []
+    return rc, recs
+
+
+@pytest.mark.parametrize("method", tcli.PORTED_SOLVE_METHODS)
+def test_solve_methods_on_cpu(tmp_path, spd_file, method, capsys):
+    rc, recs = _solve(tmp_path, spd_file, f"{method}:150")
+    assert rc == 0
+    (rec,) = [r for r in recs if r["alg"].startswith("SOLVE")]
+    assert rec["alg"] == f"SOLVE-{method.upper()}"
+    assert set(rec) == {"alg", "file", "iterations", "wall_ms",
+                        "relative_residual", "device"}
+    assert rec["iterations"] == 150 and rec["device"] == "cpu (cpu)"
+    # Chebyshev's interval has a 0.3x lower cushion: it converges slower
+    assert rec["relative_residual"] <= (1e-2 if "cheb" in method else 1e-4)
+    lines = _report(str(tmp_path), f"SOLVE-{method.upper()}")
+    assert len(_vector(lines)) == 400
+    assert f"SOLVE {method}: 150 iterations" in capsys.readouterr().out
+
+
+def test_solve_matches_jax_cli(tmp_path, spd_file):
+    """cg:20 through both CLIs (short of convergence, so the residual is
+    not float32 noise): the same relative residual to 1e-3 and the same
+    solution vector to 1e-4 of its max (the reports' 6 digits)."""
+    (tmp_path / "port").mkdir()
+    rc, recs = _solve(tmp_path / "port", spd_file, "cg:20")
+    assert rc == 0
+    jdir = tmp_path / "jax"
+    jdir.mkdir()
+    jout = str(jdir / "run.jsonl")
+    assert jcli.main(["-c", "-n", "2", "-d", str(jdir), "--expand-symmetry",
+                      "--x", "random:1", "--json-out", jout, "--solve",
+                      "cg:20", spd_file]) == 0
+    jrec = [json.loads(ln) for ln in open(jout)][-1]
+    trec = recs[-1]
+    assert jrec["alg"] == trec["alg"] == "SOLVE-CG"
+    assert jrec["iterations"] == trec["iterations"] == 20
+    assert abs(trec["relative_residual"] - jrec["relative_residual"]) <= (
+        1e-3 * jrec["relative_residual"])
+    xt = _vector(_report(str(tmp_path / "port"), "SOLVE-CG"))
+    xj = _vector(_report(str(jdir), "SOLVE-CG"))
+    assert np.abs(xt - xj).max() <= 1e-4 * np.abs(xj).max()
+
+
+def test_expand_symmetry_reads_the_full_matrix(tmp_path, spd_file, capsys):
+    assert tcli.main(["-c", "-n", "1", "--no-report", "--device", "cpu",
+                      "--expand-symmetry", spd_file]) == 0
+    assert "400x400 matrix, 1920 non-zeros (matrix coordinate real " \
+        "general)" in capsys.readouterr().out
+    assert tcli.main(["-c", "-n", "1", "--no-report", "--device", "cpu",
+                      spd_file]) == 0
+    assert "400x400 matrix, 1160 non-zeros" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [
+    ["-t", "--solve", "cg"],
+    ["-c", "--solve", "sor"],
+    ["-c", "--solve", "gmres"],
+    ["-c", "--solve", "pcg-amg"],
+    ["-c", "--solve", "cg:x"],
+    ["-c", "--solve", "cg:0"],
+    ["-c", "--solve", "cg:10:2"],
+    ["-c", "--solve", "cg:10:1e-6:3"],
+])
+def test_solve_validation_exit_2(spd_file, argv, capsys):
+    assert tcli.main(argv + ["--device", "cpu", "--no-report", spd_file]) == 2
+    err = capsys.readouterr()
+    text = err.out + err.err
+    if "gmres" in argv or "pcg-amg" in argv:
+        assert "not ported yet" in text
+
+
+def test_solve_non_square_exits_2(tmp_path, capsys):
+    path = str(tmp_path / "rect.mtx")
+    write_mtx(path, np.array([0, 1]), np.array([0, 2]), np.array([1.0, 2.0]),
+              (2, 3))
+    assert tcli.main(["-c", "-n", "1", "--no-report", "--device", "cpu",
+                      "--solve", "cg", path]) == 2
+    out = capsys.readouterr()
+    assert "square" in out.out + out.err
+
+
+@pytest.mark.parametrize("method", ["cg-fused", "pcg-ic0-fused",
+                                    "chebyshev-fused"])
+def test_fused_methods_report_their_count_with_a_tolerance(
+        tmp_path, spd_file, method, capsys):
+    """The JAX CLI reads a fused method's one-entry residual as a history
+    and reports 1 iteration; the port reports the count it ran."""
+    rc, recs = _solve(tmp_path, spd_file, f"{method}:40:1e-6")
+    assert rc == 0 and recs[-1]["iterations"] == 40
+    assert f"SOLVE {method}: 40 iterations" in capsys.readouterr().out
+
+
+def test_tolerance_reports_the_achieved_count(tmp_path, spd_file):
+    rc, recs = _solve(tmp_path, spd_file, "cg:300:1e-5")
+    assert rc == 0 and 10 < recs[-1]["iterations"] < 300
+
+
+def test_solve_out_writes_the_solution(tmp_path, spd_file):
+    import scipy.sparse as sp
+
+    out = str(tmp_path / "x.npy")
+    rc, recs = _solve(tmp_path, spd_file, "pcg-ic0:60", "--solve-out", out)
+    x = np.load(out)
+    assert rc == 0 and x.shape == (400,) and x.dtype == np.float32
+    t = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (20, 20))
+    a = sp.kron(sp.eye(20), t) + sp.kron(t, sp.eye(20))
+    b = np.random.default_rng(1).standard_normal(400).astype(np.float32)
+    r = b - a @ x.astype(np.float64)
+    assert abs(np.linalg.norm(r) / np.linalg.norm(b)
+               - recs[-1]["relative_residual"]) <= 1e-6
+    assert tcli.main(["-c", "--device", "cpu", "--solve-out", out,
+                      spd_file]) == 2  # --solve-out without --solve
+
+
+def test_ic0_failure_exits_2(tmp_path, spd_file, monkeypatch, capsys):
+    from smvp_toolkit_tpu_torch.ops import ilu
+
+    def broken(csr, **kw):
+        raise ValueError("ic0: factorization kept breaking down")
+
+    monkeypatch.setattr(ilu, "ic0", broken)
+    rc, _ = _solve(tmp_path, spd_file, "pcg-ic0-fused:5")
+    assert rc == 2
+    out = capsys.readouterr()
+    assert "kept breaking down" in out.out + out.err

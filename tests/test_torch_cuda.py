@@ -272,3 +272,145 @@ def test_cli_spmm_launches_kcolumn_kernels(card, tmp_path):
         counts = {n: f.launches for n, f in S.MAT_KERNELS.items()}
         assert counts.pop(want) >= 3 and not any(counts.values())
         assert np.load(out).shape == (20000, 4)
+
+
+# -- the fused solvers: K9 (CG), K10 (Chebyshev), K11 (IC(0)-PCG) ----------
+
+SOLVER_TOL = 1e-4  # reductions re-associate; the JAX fused-solver tolerance
+# bfloat16 after 30 steps: two units of bf16 rounding. A one-ulp float32
+# difference between two summation orders now and then flips the bf16
+# rounding of an SpMV input entry (a jump of 2^-9), which CG's scalars carry
+# into every later step: kernel and plain agree within 1e-4 for the first
+# steps and drift to about 2e-3 by step 30, while each alone repeats itself
+# within 1e-6 (measured on the H100). The 3-step check at SOLVER_TOL is the
+# one that catches a kernel skipping the bf16 rounding; the 30-step limit
+# only bounds the drift.
+SOLVER_TOL_BF16 = 2.0 ** -7
+
+
+def _stencil_csr(kind, card):
+    """A CSR on the card: 2-D Poisson 64² or 256², or the HPCG 27-point
+    stencil on 16³ (diagonal 26, neighbours −1)."""
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.utils.synth import hpcg_stencil, poisson2d
+
+    a = (poisson2d(int(kind[len("poisson"):])) if kind.startswith("poisson")
+         else hpcg_stencil(16)).tocoo()
+    coo = COOMatrix.from_numpy(a.row, a.col, a.data, shape=a.shape,
+                               pad_to=128, device=card)
+    return csr_encode(coo)
+
+
+def _solver_rel(a, b):
+    return (a - b).abs().max().item() / b.abs().max().item()
+
+
+@pytest.mark.parametrize("kind", ["poisson64", "hpcg16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_solvers_match_plain(card, kind, dtype):
+    import dataclasses
+
+    from smvp_toolkit_tpu_torch.ops import cg_fused as C
+    from smvp_toolkit_tpu_torch.ops import pcg_fused as P
+    from smvp_toolkit_tpu_torch.ops.ilu import ic0
+
+    csr = _stencil_csr(kind, card)
+    if dtype == torch.bfloat16:
+        csr = dataclasses.replace(csr, vals=csr.vals.to(dtype))
+    op = S.sell_op_csr(csr)
+    n = csr.shape[0]
+    b = torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(
+        np.float32)).to(card)
+    factors = ic0(csr)
+    steps = (3, 30) if dtype == torch.bfloat16 else (30,)
+    before = {k: f.launches for k, f in P.SOLVER_KERNELS.items()}
+    runs = []
+    for it in steps:
+        runs += [(f"cg {it}", C.fused_cg(op, b, it),
+                  C.fused_cg_plain(op, b, it)),
+                 (f"cheb {it}", P.fused_chebyshev(op, b, 0.05, 30.0, it),
+                  P.fused_chebyshev_plain(op, b, 0.05, 30.0, it))]
+        for sweeps in (2, 4):
+            runs.append((f"ic0 s{sweeps} {it}",
+                         P.fused_pcg_ic0(op, factors, b, it, sweeps=sweeps),
+                         P.fused_pcg_ic0_plain(op, factors, b, it,
+                                               sweeps=sweeps)))
+    torch.cuda.synchronize()
+    after = {k: f.launches - before[k] for k, f in P.SOLVER_KERNELS.items()}
+    k = len(steps)
+    assert after == {"sell_cg_kernel": k, "sell_chebyshev_kernel": k,
+                     "sell_pcg_ic0_kernel": 2 * k}
+    for name, got, want in runs:
+        assert got.shape == (n,) and bool(torch.isfinite(got).all()), name
+        tol = SOLVER_TOL_BF16 if name.endswith(" 30") and (
+            dtype == torch.bfloat16) else SOLVER_TOL
+        assert _solver_rel(got, want) <= tol, (name, _solver_rel(got, want))
+
+
+def test_fused_cg_split_planes_matches_plain(card):
+    from smvp_toolkit_tpu_torch.ops.cg_fused import fused_cg, fused_cg_plain
+    from smvp_toolkit_tpu_torch.ops.sell_plan import rewindow_plan
+
+    # 256² is the smallest Poisson grid with 512 column tiles, so that a
+    # widened window can pass 511 (a window never exceeds CT).
+    csr = _stencil_csr("poisson256", card)
+    op = S.SellSpMV(rewindow_plan(S.sell_op_csr(csr).plan, 512), device=card)
+    assert op.route == "split"
+    b = torch.ones(csr.shape[0], device=card)
+    got, want = fused_cg(op, b, 30), fused_cg_plain(op, b, 30)
+    assert _solver_rel(got, want) <= SOLVER_TOL
+
+
+def test_fused_solvers_zero_iterations_and_refusals(card):
+    from smvp_toolkit_tpu_torch.ops import pcg_fused as P
+    from smvp_toolkit_tpu_torch.ops.cg_fused import fused_cg
+    from smvp_toolkit_tpu_torch.ops.ilu import ic0
+    from smvp_toolkit_tpu_torch.ops.sell_plan import rewindow_plan
+
+    csr = _stencil_csr("poisson64", card)
+    op = S.sell_op_csr(csr)
+    b = torch.ones(csr.shape[0], device=card)
+    before = {k: f.launches for k, f in P.SOLVER_KERNELS.items()}
+    for x in (fused_cg(op, b, 0), P.fused_chebyshev(op, b, 0.1, 8.0, 0),
+              P.fused_pcg_ic0(op, ic0(csr), b, 0)):
+        assert x.shape == b.shape and not x.any()
+    assert before == {k: f.launches for k, f in P.SOLVER_KERNELS.items()}
+    csr = _stencil_csr("poisson256", card)
+    b = torch.ones(csr.shape[0], device=card)
+    split = S.SellSpMV(rewindow_plan(S.sell_op_csr(csr).plan, 512),
+                       device=card)
+    assert split.route == "split"
+    with pytest.raises(ValueError, match="relsl"):
+        P.fused_chebyshev(split, b, 0.1, 8.0, 3)
+    with pytest.raises(ValueError, match="relsl"):
+        P.fused_pcg_ic0(split, ic0(csr), b, 3)
+    streamed = S.SellSpMV(build_streamed_sell_plan(
+        np.arange(6000), np.arange(6000), np.ones(6000), (6000, 6000),
+        chunk=256, y_block_rows=2048), device=card)
+    with pytest.raises(ValueError, match="resident-y"):
+        fused_cg(streamed, torch.ones(6000, device=card), 3)
+
+
+def test_cli_solve_launches_fused_kernels(card, tmp_path):
+    import scipy.sparse as sp
+
+    from smvp_toolkit_tpu_torch.cli import main
+    from smvp_toolkit_tpu_torch.io.mtx import write_mtx
+    from smvp_toolkit_tpu_torch.ops import pcg_fused as P
+    from smvp_toolkit_tpu_torch.utils.synth import poisson2d
+
+    a = sp.tril(poisson2d(40)).tocoo()
+    path = str(tmp_path / "p40.mtx")
+    write_mtx(path, a.row, a.col, a.data, a.shape, symmetry="symmetric")
+    for method, kname in (("cg-fused", "sell_cg_kernel"),
+                          ("pcg-ic0-fused", "sell_pcg_ic0_kernel"),
+                          ("chebyshev-fused", "sell_chebyshev_kernel")):
+        for f in P.SOLVER_KERNELS.values():
+            f.launches = 0
+        S.sell_spmv.launches = 0
+        assert main(["-c", "-n", "3", "--no-report", "--expand-symmetry",
+                     "--solve", f"{method}:50", path]) == 0
+        counts = {k: f.launches for k, f in P.SOLVER_KERNELS.items()}
+        assert counts.pop(kname) == 1 and not any(counts.values())
+        assert S.sell_spmv.launches >= 4  # the benchmark and the check

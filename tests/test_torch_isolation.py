@@ -24,7 +24,7 @@ import smvp_toolkit_tpu_torch
 PKG = Path(smvp_toolkit_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
 SOURCES = sorted(p for p in PKG.rglob("*") if p.suffix in (".py", ".cu",
-                                                            ".cuh"))
+                                                            ".cuh", ".cpp"))
 
 
 def test_package_sources_found():
@@ -33,7 +33,10 @@ def test_package_sources_found():
             "formats/tjds.py", "csrc/sell_spmv.cu", "csrc/sell_bench.cu",
             "csrc/sell_common.cuh", "csrc/sell_spmm.cu",
             "csrc/sell_vals_grad.cu", "ops/spmv_autograd.py",
-            "models/graph.py", "models/__init__.py"} <= names
+            "models/graph.py", "models/__init__.py", "models/solvers.py",
+            "ops/algebra.py", "ops/ilu.py", "ops/cg_fused.py",
+            "ops/pcg_fused.py", "csrc/sell_solvers.cu",
+            "csrc/ilu.cpp"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -66,6 +69,21 @@ _, loss = gcn_train_step(s, model, torch.ones(300, 4),
                          torch.zeros(300, dtype=torch.long),
                          torch.ones(300, dtype=torch.bool))
 assert bool(torch.isfinite(loss))
+from smvp_toolkit_tpu_torch.models import conjugate_gradient, lanczos_eigsh
+from smvp_toolkit_tpu_torch.ops.ilu import ic0
+from smvp_toolkit_tpu_torch.ops.cg_fused import fused_cg
+from smvp_toolkit_tpu_torch.ops.pcg_fused import fused_chebyshev, fused_pcg_ic0
+from smvp_toolkit_tpu_torch.ops.spmv_sell import sell_op_csr
+csr = csr_encode(parse_synth_spec("synth:2000:10000", device="cpu").pad(128))
+f = ic0(csr)
+x, res = conjugate_gradient(csr, torch.ones(2000), num_iters=5)
+op = sell_op_csr(csr)
+for x in (fused_cg(op, torch.ones(2000), 3),
+          fused_chebyshev(op, torch.ones(2000), 0.5, 2.0, 3),
+          fused_pcg_ic0(op, f, torch.ones(2000), 3)):
+    assert x.shape == (2000,)
+assert main(["-c", "-n", "1", "--no-report", "--device", "cpu",
+             "--solve", "pcg-ic0-fused:3", "synth:500:2000"]) == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "smvp_toolkit_tpu" or m.startswith("smvp_toolkit_tpu."))
@@ -117,6 +135,23 @@ def test_other_entry_points_without_device_raise(tmp_path):
                    shape=(1, 1))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
+
+
+def test_solver_entry_points_without_device_raise():
+    _no_card()
+    from smvp_toolkit_tpu_torch.interop import (
+        csr_from_arrays,
+        ic0_factors_from_arrays,
+    )
+
+    fields = dict(row_ptr=np.array([0, 1]), col_ind=np.array([0]),
+                  vals=np.array([2.0]), shape=(1, 1), nnz=1)
+    for fn in (lambda: csr_from_arrays(fields),
+               lambda: ic0_factors_from_arrays(fields, fields, [2.0])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    f = ic0_factors_from_arrays(fields, fields, [2.0], device="cpu")
+    assert f.diag.device.type == "cpu" and f.shape == (1, 1)
 
 
 def test_training_entry_points_without_device_raise():

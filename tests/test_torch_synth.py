@@ -57,3 +57,22 @@ def test_powerlaw_has_hub_columns():
     assert coo.dtype == torch.bfloat16
     counts = np.bincount(coo.to_numpy()[1], minlength=5000)
     assert counts[0] > 100 * max(np.median(counts), 1)
+
+
+@pytest.mark.parametrize("nx", [3, 8])
+def test_hpcg_stencil_is_hpcgs_matrix(nx):
+    """26 on the diagonal, −1 for each neighbour in the 3×3×3 box (HPCG's
+    GenerateProblem_ref.cpp), (3·nx − 2)³ nonzeros, symmetric."""
+    a = tsynth.hpcg_stencil(nx).tocoo()
+    assert a.shape == (nx ** 3, nx ** 3) and a.nnz == (3 * nx - 2) ** 3
+    idx = np.stack(np.unravel_index(np.arange(nx ** 3), (nx, nx, nx)), 1)
+    d = np.abs(idx[a.row] - idx[a.col])
+    assert (d.max(axis=1) <= 1).all()
+    assert np.array_equal(a.data, np.where(a.row == a.col, 26.0, -1.0))
+    assert (abs(a - a.T) > 0).nnz == 0
+
+
+def test_poisson2d_is_the_five_point_laplacian():
+    a = tsynth.poisson2d(5).toarray()
+    assert a.shape == (25, 25) and (np.diag(a) == 4).all()
+    assert (a.sum(axis=1)[[0, 24]] == 2).all() and a[6, 7] == a[6, 11] == -1
