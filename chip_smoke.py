@@ -42,6 +42,16 @@ Phases; any failure exits non-zero and prints no result line:
    SpMV input skips the bf16 rounding) must exceed it, and after 30 steps
    <= 2^-7, since a one-ulp float32 difference now and then flips the bf16
    rounding of an SpMV input entry and CG carries the jump on.
+   K8 (double-float) on every small resident merged-word plan, without
+   and with a lo plane (the streamed and WT > 511 plans must be refused),
+   on the JAX suite's cancelling rows and on its edge scales (exact): its
+   N-iteration kernel with N = 3 bit for bit one launch, K8 against its
+   plain version (float64 in K8's order) <= 2^-50 of max |y|, against the
+   float64 oracle of the planes <= 5e-14 (tests/test_df64_pallas.py:37).
+   K5 in bfloat16 on every small merged-word plan (resident: k = 1, 2, 8,
+   17 and K2-packed with N = 3; streamed: k = 1) and on smoke (k = 1, 8,
+   K2-packed) and L1 (streamed): <= 1e-6 of max |y| against its plain
+   version and against K1 (K3) bf16 on the same plan.
 3. The main path at full size, each run with every launch count zeroed
    just before it and read just after; a run fails unless its route's
    kernels launched and no other kernel did:
@@ -81,8 +91,24 @@ Phases; any failure exits non-zero and prints no result line:
      be <= 1e-4 (``cg:100`` is only compared), each fused solve within 3x
      of its scan loop (or both <= 1e-5), and IC(0)-PCG below CG at 100
      steps. The A, L and Lᵀ plans and their common window are printed.
+   - smoke-df64: the CLI with ``-c -t --kernel df64 -n 200 --x random:1
+     --out-dir`` on the smoke matrix, per call and ``--fused``: CSR only on
+     K8 (its N-iteration kernel), TJDS on its SELL kernel; every CSR entry
+     within one float32 ulp of the float64 oracle rounded to float32,
+     while K1's float32 y must miss that on some rows;
+   - smoke-df64-f64: ``SellDf64SpMV.from_coo_f64`` on the smoke
+     coordinates with float64 values (a lo plane), ``__call__`` and
+     ``bench_loop`` (N = 100), hi + lo <= 5e-14 of the float64 oracle;
+   - smoke-packed: the smoke CLI run under ``SMVP_SELL_PACK=1`` in
+     bfloat16 with ``--spmm 8`` (K5 and K5 with k = 8; under ``--fused``
+     K2-packed and the k-column K2); L1-packed: L1's operator under the
+     switch (K5 on streamed y; ``bench_loop`` refused); L2 under the
+     switch keeps K4 (WT 2,000 > 511);
+   - hpcg104-refine: ``refine_solve`` on hpcg104 with ``fused_cg(op, r,
+     300)`` (K9, three launches) as the inner solve, three sweeps: a
+     float64 relative residual <= 1e-10.
    Every output vector (both reports of a ``-c -t`` run) and every SpMM
-   result (``--spmm-out``) is checked against a float64 scipy CSR
+   result (``--out-dir``'s ``spmm.npy``) is checked against a float64 scipy CSR
    oracle: max |y - oracle| / max |oracle| <= 1e-5 (bfloat16: the oracle
    takes bf16-rounded vals and x; the report prints 6 significant digits,
    which fits the bound).
@@ -100,7 +126,15 @@ Phases; any failure exits non-zero and prints no result line:
    SpMV phase, K11: A + 3·(L + Lᵀ), and each state vector once) times the
    steps over the memory rate; yardstick: the same solve by the port's
    scan-loop solver (``models.solvers``) with ``torch.sparse.mm`` on
-   float32 CSR tensors as its SpMV.
+   float32 CSR tensors as its SpMV. K5, K5 with k = 8 and K2-packed (N =
+   200) on smoke-packed and K5 on L1-packed: bound the packed route's
+   bytes (4 per slot); yardstick the float32 CSR call. K8 and its
+   N-iteration kernel on smoke-df64 (N = 200) and smoke-df64-f64 (N = 100):
+   each first held at those shapes against its plain version (<= 2^-50 of
+   max |y|; the N-iteration kernel with N = 3), that error its
+   ``max_abs_err``; bound ``SellDf64SpMV.traffic_bytes`` or 4 (8 with a lo
+   plane) float64 flops per non-zero over the float64 rate; yardstick
+   ``torch.sparse.mm`` on a float64 CSR tensor with x = x_hi + x_lo.
    Then the card's name and power limit again and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -157,7 +191,23 @@ KERNELS = {
     "sell_cg_kernel": ("sell_solvers.cu", "cg_fused.py:64"),
     "sell_chebyshev_kernel": ("sell_solvers.cu", "pcg_fused.py:188"),
     "sell_pcg_ic0_kernel": ("sell_solvers.cu", "pcg_fused.py:343"),
+    "sell_df64_kernel": ("sell_df64.cu", "spmv_df64.py:307"),
+    "sell_bench_df64_kernel": ("sell_df64.cu", "spmv_df64.py:383"),
+    "sell_packed_kernel": ("sell_packed.cu", "spmv_pallas.py:672"),
+    "sell_packed_spmm_kernel": ("sell_packed.cu", "spmv_pallas.py:672"),
+    "sell_bench_packed_kernel": ("sell_packed.cu", "spmv_pallas.py:765"),
 }
+# K8 (double-float): against its plain version <= 2^-50 of max |y| (both
+# float64 sums, in other orders); against the float64 oracle <= 5e-14, the
+# JAX suite's bound (tests/test_df64_pallas.py:37). hpcg104-refine: a
+# float64 relative residual <= 1e-10 after three refinement sweeps.
+TOL_DF64_PLAIN = 2.0 ** -50
+TOL_DF64_ORACLE = 5e-14
+REFINE_RESIDUAL = 1e-10
+DF64_F64_ITERATIONS = 100   # bench_loop N of smoke-df64-f64
+# H100 SXM peak for float64 outside the tensor cores (NVIDIA's data sheet),
+# where K8's products and sums run.
+F64_PEAK_FLOPS = 34e12
 # hpcg104: the HPCG benchmark's 27-point stencil (GenerateProblem_ref.cpp:
 # diagonal 26, each neighbour -1) on hpcg.dat's default local grid.
 HPCG_N = 104
@@ -176,6 +226,10 @@ SOLVE_RESIDUAL = 1e-4   # float64 relative residual of every hpcg104 solve
 # the drift; it cannot tell a missing rounding from a sound run.
 TOL_SOLVER = 1e-4
 TOL_SOLVER_BF16 = 2.0 ** -7
+# The packed route's configurations: the full-size plan each reuses and the
+# name of its SMVP_SELL_PACK=1 run (smoke through the CLI, L1 through the
+# operator API; L2's window of 2,000 tiles keeps K4).
+PACKED_CONFIGS = {"smoke": "smoke-packed", "L1": "L1-packed"}
 # The route each full-size configuration must run on.
 ROUTE = {"smoke": "relsl", "L1": "streamy_relsl", "L2": "split",
          "L3": "streamy"}
@@ -261,10 +315,12 @@ class _Phase:
 def _wrappers(S):
     """Every kernel's wrapper by kernel name."""
     from smvp_toolkit_tpu_torch.ops.pcg_fused import SOLVER_KERNELS
+    from smvp_toolkit_tpu_torch.ops.spmv_df64 import DF64_KERNELS
 
     return {**{S.KERNEL_NAMES[(route, bench)]: S._ROUTE_FNS[route][bench]
                for route in S.ROUTES for bench in (False, True)},
-            **S.MAT_KERNELS, **SOLVER_KERNELS}
+            **S.MAT_KERNELS, **SOLVER_KERNELS, **S.PACKED_KERNELS,
+            **DF64_KERNELS}
 
 
 def _zero_counts(S):
@@ -447,7 +503,7 @@ def _check_mat_kernels(np, torch, name, op, ks, errs):
         plain = getattr(S, fwd.__name__ + "_plain")
         yp = plain(*op._planes(), X, **kw)
         got = {fwd.kernel: (fwd(*op._planes(), X, **kw), yp)}
-        if op.route == "relsl":
+        if op.base_route == "relsl":
             got["sell_bench_spmm_kernel"] = (
                 S.sell_bench_spmm(*op._planes(), X, iterations=3, **kw), yp)
         got["sell_vals_grad_kernel"] = (
@@ -482,7 +538,7 @@ def phase_kernels(np, torch, plans, gcn):
         for dname in DTYPE_NAMES:
             op = S.SellSpMV(plan, value_dtype=getattr(torch, dname),
                             device=dev)
-            fwd, bench = S._ROUTE_FNS[op.route]
+            fwd, bench = S._ROUTE_FNS[op.base_route]
             plain = getattr(S, fwd.__name__ + "_plain")
             x = torch.from_numpy(
                 np.random.default_rng(3).standard_normal(plan.shape[1])
@@ -493,8 +549,8 @@ def phase_kernels(np, torch, plans, gcn):
             yp = plain(*op._planes(), xt, **op._kw())
             torch.cuda.synchronize()
             e1, e2, e21 = _rel_err(y1, yp), _rel_err(y2, yp), _rel_err(y2, y1)
-            names = (S.KERNEL_NAMES[(op.route, False)],
-                     S.KERNEL_NAMES[(op.route, True)])
+            names = (S.KERNEL_NAMES[(op.base_route, False)],
+                     S.KERNEL_NAMES[(op.base_route, True)])
             print(f"[check] {name:28s} {dname:9s} {op.route:13s} lidx "
                   f"{str(op.lidx.dtype):11s} {names[0]} vs plain {e1:.3e}  "
                   f"{names[1]}(N=3) vs plain {e2:.3e}  bench vs forward "
@@ -563,28 +619,31 @@ def _spmm_oracle(np, torch, triplets, dname):
 
 
 def _cli_runs(np, torch, name, source, argv0, triplets, launches,
-              spmm=False):
-    """The CLI on ``source``, per call and fused, in both dtypes; with
-    ``spmm``, each run also times ``--spmm 8`` and its Y is checked."""
+              spmm=False, config=None, dtypes=DTYPE_NAMES, want=None):
+    """The CLI on ``source``, per call and fused, in ``dtypes``; with
+    ``spmm``, each run also times ``--spmm 8`` and its Y is checked.
+    ``config`` names the configuration whose route and N it takes
+    (default ``name``); ``want(fused)`` lists the kernels the run must
+    launch (default: the route's and, with ``spmm``, its SpMM kernel)."""
     from smvp_toolkit_tpu_torch.cli import main as cli_main
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
+    config = config or name
     algs = ["CSR", "TJDS"] if "-t" in argv0 else ["CSR"]
-    route = ROUTE[name]
-    for dname in DTYPE_NAMES:
+    route = ROUTE[config]
+    for dname in dtypes:
         ref, _ = _oracle(np, torch, triplets, dname)
         scale = float(np.abs(ref).max())
         ref_mat = _spmm_oracle(np, torch, triplets, dname) if spmm else None
         for fused in (False, True):
             with tempfile.TemporaryDirectory() as tmp:
-                argv = argv0 + ["-n", str(ITERATIONS[name]), "-d", tmp,
+                argv = argv0 + ["-n", str(ITERATIONS[config]), "-d", tmp,
                                 "--device", torch.device(DEVICE).type,
                                 "--json-out", os.path.join(tmp, "run.jsonl"),
                                 "--x", "random:1", "--dtype", dname]
                 argv += ["--fused"] if fused else []
                 if spmm:
-                    argv += ["--spmm", str(SPMM_K), "--spmm-out",
-                             os.path.join(tmp, "y.npy")]
+                    argv += ["--spmm", str(SPMM_K), "--out-dir", tmp]
                 log = io.StringIO()
                 _zero_counts(S)
                 t0 = time.perf_counter()
@@ -598,10 +657,13 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches,
                     for alg in algs:
                         _check(f"{alg} decode round-trip: bit-exact"
                                in log.getvalue(), f"{what}: {alg} decode")
-                want = [S.KERNEL_NAMES[(route, fused)]]
-                if spmm:
-                    want.append(_spmm_kernel_name(route, fused))
-                got = _check_only(counts, want, what)
+                if want is None:
+                    kernels = [S.KERNEL_NAMES[(route, fused)]]
+                    if spmm:
+                        kernels.append(_spmm_kernel_name(route, fused))
+                else:
+                    kernels = want(fused)
+                got = _check_only(counts, kernels, what)
                 for kname, n in got.items():
                     key = (kname, name, dname)
                     launches[key] = launches.get(key, 0) + n
@@ -617,7 +679,8 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches,
                     _check(bool(np.isfinite(y).all()), f"{what} {alg} finite")
                     errs.append(float(np.abs(y - ref).max()) / scale)
                 if spmm:
-                    Y = np.load(os.path.join(tmp, "y.npy")).astype(np.float64)
+                    Y = np.load(os.path.join(tmp, "spmm.npy")).astype(
+                        np.float64)
                     _check(Y.shape == ref_mat.shape and bool(
                         np.isfinite(Y).all()), f"{what} SpMM Y {Y.shape}")
                     errs.append(float(np.abs(Y - ref_mat).max())
@@ -838,30 +901,34 @@ def phase_gcn(np, torch, gcn, launches):
         s, model_e, ev, h, labels, mask, GCN_LR))
 
 
-def _library_csr(np, torch, triplets):
-    """A float32 CSR tensor of the triplets on the card, duplicates summed
-    (gcn_norm's self loops repeat a graph's own (i, i) edges)."""
+def _library_csr(np, torch, triplets, dtype=None):
+    """A float32 (or ``dtype``) CSR tensor of the triplets on the card,
+    duplicates summed (gcn_norm's self loops repeat a graph's own (i, i)
+    edges)."""
     import scipy.sparse as sp
 
+    dtype = np.float32 if dtype is None else dtype
     r, c, v, shape = triplets
-    a = sp.csr_matrix((np.asarray(v, np.float32), (r, c)), shape=shape)
+    a = sp.csr_matrix((np.asarray(v, dtype), (r, c)), shape=shape)
     a.sum_duplicates()
     return torch.sparse_csr_tensor(
         torch.from_numpy(a.indptr.astype(np.int64)).to(DEVICE),
         torch.from_numpy(a.indices.astype(np.int64)).to(DEVICE),
-        torch.from_numpy(a.data.astype(np.float32)).to(DEVICE),
+        torch.from_numpy(a.data.astype(dtype)).to(DEVICE),
         size=shape, check_invariants=True,
     )
 
 
 def _entry(kname, config, dname, *, launches, err, ms, plain_ms, lib_ms,
-           nbytes, flops, bw, iters=1, per_iteration=False, **extra):
+           nbytes, flops, bw, iters=1, per_iteration=False,
+           peak=F32_PEAK_FLOPS, **extra):
     """One ``kernels`` entry: ``nbytes`` (each input once, each output
-    once) over the memory rate, or ``flops`` over the float32 rate. With
-    ``per_iteration`` (the fused solvers) ``nbytes`` is one iteration's
-    traffic, which every iteration moves again."""
+    once) over the memory rate, or ``flops`` over ``peak`` (the float32
+    rate; K8's float64 rate). With ``per_iteration`` (the fused solvers)
+    ``nbytes`` is one iteration's traffic, which every iteration moves
+    again."""
     t_bytes = nbytes / bw * 1e3 * (iters if per_iteration else 1)
-    t_ops = flops / F32_PEAK_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     src, line = KERNELS[kname]
     print(f"[time] {kname} {config} {dname} {extra}: {ms:.6f} ms per launch "
           f"({iters} iterations), bound {max(t_bytes, t_ops):.6f} ms, plain "
@@ -928,8 +995,44 @@ def phase_timings(np, torch, ops, errs, launches, configs, bw):
                     plain_ms=plain_ms, lib_ms=lib_ms,
                     nbytes=plan.traffic_bytes(vb, x_bytes=vb),
                     flops=2.0 * plan.nnz * iters, bw=bw, iters=iters))
+            if dname == "bfloat16" and name in PACKED_CONFIGS:
+                entries += _packed_timings(torch, S, name, op, xt, a, x2,
+                                           errs, launches, bw)
         del a
     return entries
+
+
+def _packed_timings(torch, S, name, op, xt, a, x2, errs, launches, bw):
+    """Phase 4 for K5 (k = 1) and, on a resident plan, K2-packed with the
+    CLI's N, on ``name``'s bf16 operator; the library call is the float32
+    CSR yardstick ``a`` of the k = 1 entries."""
+    pk, sl = op.packed_planes()
+    plan, config = op.plan, PACKED_CONFIGS[name]
+    kw = op._kw()
+    if plan.y_block_slices:
+        kw["y_block_id"] = op.y_block_id
+    nbytes = plan.traffic_bytes(2, x_bytes=2, packed=True)
+    runs = [(S.sell_packed, 1)]
+    if not plan.y_block_slices:
+        runs.append((S.sell_bench_packed, ITERATIONS[name]))
+    out = []
+    for fn, n in runs:
+        plain = getattr(S, fn.__name__ + "_plain")
+        it = {} if n == 1 else {"iterations": n}
+        ms = _time_ms(lambda: fn(pk, sl, op.tile_base, xt, **it, **kw),
+                      reps=20 if n == 1 else 3, warmup=2 if n == 1 else 1)
+        plain_ms = _time_ms(lambda: plain(pk, sl, op.tile_base, xt, **it,
+                                          **kw), reps=3 if n == 1 else 1,
+                            warmup=2 if n == 1 else 0)
+        lib_ms = _time_ms(lambda: [torch.sparse.mm(a, x2) for _ in range(n)],
+                          reps=20 if n == 1 else 1, warmup=1)
+        out.append(_entry(
+            fn.kernel, config, "bfloat16",
+            launches=launches[(fn.kernel, config, "bfloat16")],
+            err=errs[(fn.kernel, name, "bfloat16")], ms=ms,
+            plain_ms=plain_ms, lib_ms=lib_ms, nbytes=nbytes,
+            flops=2.0 * plan.nnz * n, bw=bw, iters=n))
+    return out
 
 
 def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
@@ -951,7 +1054,7 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
             planes, kw = op._planes(), op._mat_kw()
             vb = op.vals.element_size()
             runs = [(op.spmm_kernel, 1)]
-            if op.route == "relsl":
+            if op.base_route == "relsl":
                 runs.append((S.sell_bench_spmm, ITERATIONS[name]))
             for fn, n in runs:
                 plain = getattr(S, fn.__name__ + "_plain")
@@ -976,6 +1079,22 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
                     nbytes=plan.traffic_bytes(vb, x_bytes=vb, k=SPMM_K),
                     flops=2.0 * plan.nnz * SPMM_K * n, bw=bw, iters=n,
                     k=SPMM_K))
+            if dname == "bfloat16" and name in PACKED_CONFIGS:
+                pk, sl = op.packed_planes()
+                fn = S.sell_packed_spmm
+                config = PACKED_CONFIGS[name]
+                entries.append(_entry(
+                    fn.kernel, config, dname,
+                    launches=launches[(fn.kernel, config, dname)],
+                    err=errs[(fn.kernel, name, dname, SPMM_K)],
+                    ms=_time_ms(lambda: fn(pk, sl, op.tile_base, Xt, **kw),
+                                reps=20),
+                    plain_ms=_time_ms(lambda: S.sell_packed_spmm_plain(
+                        pk, sl, op.tile_base, Xt, **kw), reps=3),
+                    lib_ms=_time_ms(lambda: torch.sparse.mm(a, X), reps=20),
+                    nbytes=plan.traffic_bytes(2, x_bytes=2, k=SPMM_K,
+                                              packed=True),
+                    flops=2.0 * plan.nnz * SPMM_K, bw=bw, k=SPMM_K))
         del a
     rng = np.random.default_rng(GCN_K)
     X = torch.from_numpy(rng.standard_normal((GCN_NODES, GCN_K)).astype(
@@ -1229,12 +1348,10 @@ def phase_hpcg(np, torch, launches):
         for method, iters in HPCG_CLI:
             kname = {"cg-fused": "sell_cg_kernel",
                      "pcg-ic0-fused": "sell_pcg_ic0_kernel"}[method]
-            xpath = os.path.join(tmp, "x.npy")
             jpath = os.path.join(tmp, f"{method}.jsonl")
             argv = ["-c", "-n", str(HPCG_BENCH_N), "--expand-symmetry",
                     "--x", "random:1", "--no-report", "--json-out", jpath,
-                    "--solve", f"{method}:{iters}", "--solve-out", xpath,
-                    path]
+                    "--solve", f"{method}:{iters}", "--out-dir", tmp, path]
             log = io.StringIO()
             _zero_counts(S)
             t0 = time.perf_counter()
@@ -1252,7 +1369,7 @@ def phase_hpcg(np, torch, launches):
             launches[(kname, "hpcg104", "float32")] = got[kname]
             with open(jpath) as f:
                 rec = [json.loads(ln) for ln in f][-1]
-            rr = relres(np.load(xpath))
+            rr = relres(np.load(os.path.join(tmp, "solve.npy")))
             res[method] = rr
             _check(rec["iterations"] == iters, f"{what}: {rec}")
             print(f"[main] {what}: rc 0, {wall:.1f} s, solve "
@@ -1281,7 +1398,7 @@ def phase_hpcg(np, torch, launches):
     _hpcg_solve(torch, S, "pcg:300", lambda: M.pcg(
         csr, bt, diag, num_iters=300), {k1: 301}, relres, api)
     pre = M.ic0_preconditioner(factors, sweeps=4, op_builder=S.sell_op_csr)
-    routes = {S.KERNEL_NAMES[(S.sell_op_csr(f).route, False)]
+    routes = {S.KERNEL_NAMES[(S.sell_op_csr(f).base_route, False)]
               for f in (factors.strict, factors.strict_t)} | {k1}
     _, _, counts = _hpcg_solve(
         torch, S, "pcg-ic0:100", lambda: M.pcg_precond(
@@ -1412,6 +1529,417 @@ def phase_solver_timings(np, torch, hp, launches, bw):
     return entries
 
 
+def _plane_oracle(np, plan, vals64, x64):
+    """Float64 y of a resident plan's own planes: every live slot's
+    ``vals64[s, l]·x64[col(s, l)]`` summed per row (scipy)."""
+    import scipy.sparse as sp
+
+    rel = plan.rel_tile.reshape(-1).astype(np.int64)
+    sl = plan.slice_of.reshape(-1).astype(np.int64)
+    live = np.nonzero((rel >= 0) & (sl >= 0))[0]
+    c = live // plan.chunk
+    rows = (sl[live] * 128)[:, None] + np.arange(128)
+    cols = ((plan.tile_base[c].astype(np.int64) + rel[live]) * 128)[:, None] \
+        + plan.lane_idx[live]
+    v = vals64[live]
+    keep = v != 0
+    a = sp.csr_matrix((v[keep], (rows[keep], cols[keep])),
+                      shape=(plan.n_slices * 128, plan.n_coltiles * 128))
+    xp = np.zeros(plan.n_coltiles * 128)
+    xp[: len(x64)] = x64
+    return (a @ xp)[: plan.shape[0]]
+
+
+def _check_df64(np, torch, label, op, x64, vals64):
+    """K8 and its N-iteration kernel (N = 3) on ``op`` against the plain
+    version (<= 2^-50 of max |y|) and the float64 oracle of the same
+    planes (``vals64``) and x pair (<= 5e-14); the N = 3 launch bit for
+    bit equal to one launch (the fixed summation order). Returns y."""
+    from smvp_toolkit_tpu_torch.ops import spmv_df64 as D
+    from smvp_toolkit_tpu_torch.ops.precision import df_split, df_to_f64
+
+    xh, xl = df_split(x64, device=DEVICE)
+    kw = dict(n_slices=op.plan.n_slices, chunk=op.plan.chunk)
+    planes = op._planes(xh, xl)
+    y1 = D.sell_df64(*planes, **kw)
+    y3 = D.sell_bench_df64(*planes, iterations=3, **kw)
+    yp = D.sell_df64_plain(*planes, **kw)
+    torch.cuda.synchronize()
+    n = op.shape[0]
+    y, p = df_to_f64(y1[0][:n], y1[1][:n]), df_to_f64(yp[0][:n], yp[1][:n])
+    want = _plane_oracle(np, op.plan, vals64, df_to_f64(xh, xl))
+    e_plain, e_oracle = (_rel_err(torch.from_numpy(y), torch.from_numpy(r))
+                         for r in (p, want))
+    same = torch.equal(y1[0], y3[0]) and torch.equal(y1[1], y3[1])
+    what = f"sell_df64_kernel on {label}"
+    _check(bool(np.isfinite(y).all()), f"{what}: not finite")
+    _check(e_plain <= TOL_DF64_PLAIN, f"{what} vs plain: {e_plain}")
+    _check(e_oracle <= TOL_DF64_ORACLE, f"{what} vs float64: {e_oracle}")
+    _check(same, f"sell_bench_df64_kernel (N = 3) on {label}: not bit for "
+           "bit one launch")
+    print(f"[check] {label:28s} df64, lo plane {op.vals_lo is not None}: "
+          f"sell_df64_kernel vs plain {e_plain:.3e}, vs float64 "
+          f"{e_oracle:.3e}; sell_bench_df64_kernel (N = 3) bit-equal",
+          flush=True)
+    return y
+
+
+def _check_packed(np, torch, label, op, ks, errs, config=None):
+    """K5 (and on a resident plan K2-packed with N = 3 and K5 with k
+    columns for each k in ``ks``) on ``op``'s bf16 planes against the
+    plain versions and against the route's K1 (K3) kernels on the same
+    plan; with ``config``, the max abs errors go into ``errs``."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    pk, sl = op.packed_planes()
+    plan = op.plan
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        plan.shape[1]).astype(np.float32)).to(DEVICE)
+    xt = op._x_tiles(x)
+    kw = op._kw()
+    if plan.y_block_slices:
+        kw["y_block_id"] = op.y_block_id
+    y1 = op.kernel(*op._planes(), xt, **op._kw())
+    yp = S.sell_packed_plain(pk, sl, op.tile_base, xt, **kw)
+    got = {"sell_packed_kernel": (S.sell_packed(pk, sl, op.tile_base, xt,
+                                                **kw), yp, y1)}
+    if not plan.y_block_slices:
+        got["sell_bench_packed_kernel"] = (S.sell_bench_packed(
+            pk, sl, op.tile_base, xt, iterations=3, **kw), yp, y1)
+    mkw = op._mat_kw()
+    for k in ks:
+        X = torch.from_numpy(np.random.default_rng(k).standard_normal(
+            (plan.n_coltiles * 128, k)).astype(np.float32)).to(DEVICE).to(
+            torch.bfloat16)
+        got[("sell_packed_spmm_kernel", k)] = (
+            S.sell_packed_spmm(pk, sl, op.tile_base, X, **mkw),
+            S.sell_packed_spmm_plain(pk, sl, op.tile_base, X, **mkw),
+            op.spmm_kernel(*op._planes(), X, **mkw))
+    torch.cuda.synchronize()
+    tol = _spmm_tolerance(torch, S, op)[0] if ks else TOL_KERNEL
+    line = []
+    for key, (y, ref, k1) in got.items():
+        mat = isinstance(key, tuple)
+        kname = f"{key[0]} k={key[1]}" if mat else key
+        t = tol if mat else TOL_KERNEL
+        e, e1 = _rel_err(y, ref), _rel_err(y, k1)
+        what = f"{kname} on {label} bfloat16"
+        _check(bool(torch.isfinite(y).all()), f"{what}: not finite")
+        _check(e <= t, f"{what} vs plain: {e} > {t}")
+        _check(e1 <= t, f"{what} vs the route's kernel: {e1} > {t}")
+        line.append(f"{kname} vs plain {e:.3e}, vs {op.base_route} {e1:.3e}")
+        if config is not None:
+            ekey = ((key[0], config, "bfloat16", key[1]) if mat
+                    else (key, config, "bfloat16"))
+            errs[ekey] = (y - ref).abs().max().item()
+    print(f"[check] {label:28s} bfloat16 packed: " + "; ".join(line),
+          flush=True)
+
+
+def phase_new_kernels(np, torch, plans, ops, errs):
+    """Phase 2 for K8, K5 and K2-packed: K8 on every small resident
+    merged-word plan with and without a lo plane (the others refused),
+    on cancelling rows and on the edge scales; K5 (k = 1, 2, 8, 17;
+    streamed: k = 1) and K2-packed (N = 3) on every small merged-word
+    plan; K5 on the full-size smoke (k = 1, 8, K2-packed) and L1
+    (streamed) bf16 operators, their errors kept for phase 4."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.ops.precision import df_split, df_to_f64
+    from smvp_toolkit_tpu_torch.ops.spmv_df64 import SellDf64SpMV
+
+    for name, plan in plans:
+        if name in ROUTE:
+            continue
+        if plan.y_block_slices or not plan.merged_word:
+            try:
+                SellDf64SpMV(plan, device=DEVICE)
+            except ValueError:
+                print(f"[check] {name:28s} SellDf64SpMV refuses the plan "
+                      f"(streamed y, or WT {plan.window_tiles} > 511)",
+                      flush=True)
+            else:
+                _check(False, f"SellDf64SpMV took {name}")
+        else:
+            x64 = np.random.default_rng(3).standard_normal(plan.shape[1])
+            lo = (plan.vals * 2.0 ** -24 * np.random.default_rng(4).uniform(
+                -0.5, 0.5, plan.vals.shape)).astype(np.float32)
+            for vals_lo in (None, lo):
+                vals64 = plan.vals.astype(np.float64)
+                if vals_lo is not None:
+                    vals64 = vals64 + vals_lo
+                _check_df64(np, torch, name, SellDf64SpMV(
+                    plan, vals_lo=vals_lo, device=DEVICE), x64, vals64)
+        if plan.merged_word:
+            op = S.SellSpMV(plan, value_dtype=torch.bfloat16, device=DEVICE)
+            _check_packed(np, torch, name, op,
+                          () if plan.y_block_slices else (2, 8, 17), errs)
+    # the JAX suite's cancelling rows: pairs (b, -b + 1e-4 noise), b ~ 1e4
+    rng = np.random.RandomState(3)
+    base = rng.randn(128) * 1e4
+    v64 = np.empty(256)
+    v64[0::2], v64[1::2] = base, -base + 1e-4 * rng.randn(128)
+    op = SellDf64SpMV.from_coo_f64(np.repeat(np.arange(128), 2),
+                                   np.arange(256), v64, (128, 256), chunk=8,
+                                   device=DEVICE)
+    held = op.plan.vals.astype(np.float64) + op.vals_lo.cpu().numpy()
+    _check_df64(np, torch, "cancelling rows", op, np.ones(256), held)
+    # test_df64_edge_scales_no_nan's cases, exact here
+    for v, want in (([0.0], 0.0), ([1e30, -1e30, 3.0], 3.0),
+                    ([1e30, 1e-30, -1e30, 3.0], 3.0)):
+        e = SellDf64SpMV.from_coo_f64(np.zeros(len(v), np.int64),
+                                      np.arange(len(v)), np.asarray(v),
+                                      (4, 4), chunk=8, device=DEVICE)
+        got = df_to_f64(*e(*df_split(np.ones(4), device=DEVICE)))[0]
+        _check(got == want, f"sell_df64_kernel on edge scales {v}: {got}")
+    print("[check] edge scales (test_df64_edge_scales_no_nan): exact",
+          flush=True)
+    for name in PACKED_CONFIGS:
+        op, _ = ops[(name, "bfloat16")]
+        _check_packed(np, torch, name, op,
+                      () if op.plan.y_block_slices else (SPMM_K,), errs,
+                      config=name)
+
+
+def _ulp_misses(np, y, ref) -> int:
+    """Entries of float32 ``y`` more than one float32 ulp from the float64
+    oracle rounded to float32."""
+    r32 = ref.astype(np.float32)
+    return int((np.abs(y.astype(np.float64) - r32.astype(np.float64))
+                > np.spacing(np.abs(r32)).astype(np.float64)).sum())
+
+
+def phase_df64(np, torch, configs, ops, launches):
+    """Phase 3 on the double-float path: smoke-df64 through the CLI (per
+    call and --fused; CSR on K8, TJDS on its SELL kernel) and
+    smoke-df64-f64 through the API. Returns the operators and x pairs
+    that phase 4 times."""
+    import scipy.sparse as sp
+
+    from smvp_toolkit_tpu_torch.cli import main as cli_main
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.ops.precision import df_split, df_to_f64
+    from smvp_toolkit_tpu_torch.ops.spmv_df64 import SellDf64SpMV
+
+    plan, triplets = configs["smoke"]
+    ref, x32 = _oracle(np, torch, triplets, "float32")  # --x random:1
+    op32, _ = ops[("smoke", "float32")]
+    y_k1 = op32(torch.from_numpy(x32).to(DEVICE)).double().cpu().numpy()
+    control = _ulp_misses(np, y_k1, ref)
+    _check(control > 0, "the one-ulp check cannot tell K1's float32 y from "
+           "the float64 oracle")
+    for fused in (False, True):
+        k8 = "sell_bench_df64_kernel" if fused else "sell_df64_kernel"
+        tj = S.KERNEL_NAMES[(ROUTE["smoke"], fused)]
+        with tempfile.TemporaryDirectory() as tmp:
+            jpath = os.path.join(tmp, "r.jsonl")
+            argv = ["-c", "-t", "--kernel", "df64", "-n",
+                    str(ITERATIONS["smoke"]), "--x", "random:1", "-d", tmp,
+                    "--device", torch.device(DEVICE).type,
+                    "--json-out", jpath, "--out-dir", tmp,
+                    *(["--fused"] if fused else []), SMOKE_SPEC]
+            log = io.StringIO()
+            _zero_counts(S)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                rc = cli_main(argv)
+            wall = time.perf_counter() - t0
+            what = f"smoke-df64 CLI fused={fused}"
+            _check(rc == 0, f"{what} returned {rc}:\n{log.getvalue()}")
+            got = _check_only(_counts(S), [k8, tj], what)
+            launches[(k8, "smoke-df64", "df64")] = got[k8]
+            y = np.load(os.path.join(tmp, "y.npy"))
+            misses = _ulp_misses(np, y, ref)
+            _check(y.shape == ref.shape and misses == 0,
+                   f"{what}: {misses} CSR entries beyond one float32 ulp")
+            (tpath,) = glob.glob(os.path.join(tmp,
+                                              "smvp-toolbox_report_TJDS_*"))
+            e_tj = float(np.abs(_report_vector(np, tpath) - ref).max()
+                         / np.abs(ref).max())
+            _check(e_tj <= TOL_ORACLE, f"{what}: TJDS oracle error {e_tj}")
+            with open(jpath) as f:
+                csr_rec, tj_rec = (json.loads(ln) for ln in f)
+            run_on = "cuda" if torch.device(DEVICE).type == "cuda" else "plain"
+            _check(csr_rec["kernel"] == f"df64-{run_on}"
+                   and tj_rec["kernel"] == f"sell-{run_on}",
+                   f"{what}: labels {csr_rec['kernel']}, {tj_rec['kernel']}")
+        print(f"[main] smoke-df64 -c -t --kernel df64"
+              f"{' --fused' if fused else ''}: rc 0, {wall:.1f} s, CSR avg "
+              f"{csr_rec['avg_ms']:.6f} ms/iter ({csr_rec['eff_gb_s']:.1f} "
+              f"GB/s of SellDf64SpMV.traffic_bytes), TJDS avg "
+              f"{tj_rec['avg_ms']:.6f} ms/iter; launches {got}; CSR y "
+              f"within one float32 ulp of float64 on all {len(y)} rows "
+              f"(K1's float32 y misses {control}); TJDS vs float64 "
+              f"{e_tj:.3e}", flush=True)
+    # smoke-df64-f64: float64 values, so a lo plane
+    r, c, _, shape = triplets
+    v64 = np.random.default_rng(0).standard_normal(len(r))
+    x64 = np.random.default_rng(1).standard_normal(shape[1])
+    t0 = time.perf_counter()
+    op = SellDf64SpMV.from_coo_f64(r, c, v64, shape, device=DEVICE)
+    t1 = time.perf_counter()
+    _check(op.vals_lo is not None, "smoke-df64-f64 has no lo plane")
+    want = sp.csr_matrix((v64, (r, c)), shape=shape) @ x64
+    xh, xl = df_split(x64, device=DEVICE)
+    for bench in (False, True):
+        k = "sell_bench_df64_kernel" if bench else "sell_df64_kernel"
+        _zero_counts(S)
+        y = (op.bench_loop(xh, xl, DF64_F64_ITERATIONS) if bench
+             else op(xh, xl))
+        torch.cuda.synchronize()
+        what = f"smoke-df64-f64 {'bench_loop' if bench else '__call__'}"
+        n = _check_only(_counts(S), [k], what)[k]
+        launches[(k, "smoke-df64-f64", "df64")] = n
+        err = _rel_err(torch.from_numpy(df_to_f64(*y)),
+                       torch.from_numpy(want))
+        _check(err <= TOL_DF64_ORACLE, f"{what}: vs float64 {err}")
+        print(f"[main] {what} (from_coo_f64, two planner passes, "
+              f"{t1 - t0:.1f} s): launches {n}, hi + lo vs float64 "
+              f"{err:.3e}", flush=True)
+    return {"smoke-df64": (SellDf64SpMV(plan, device=DEVICE),
+                           df_split(x32.astype(np.float64), device=DEVICE),
+                           np.asarray(triplets[2], np.float64)),
+            "smoke-df64-f64": (op, (xh, xl), v64)}
+
+
+def phase_packed(np, torch, configs, ops, launches):
+    """Phase 3 under SMVP_SELL_PACK=1: smoke-packed through the CLI in
+    bf16 (K5 and K5 with k = 8 per call; K2-packed and the k-column K2
+    under --fused), L1-packed through the API (K5 on streamed y; its
+    bench_loop refused), and L2, whose 2,000-tile window keeps K4."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    os.environ["SMVP_SELL_PACK"] = "1"
+    try:
+        _cli_runs(np, torch, "smoke-packed", SMOKE_SPEC, ["-c"],
+                  configs["smoke"][1], launches, spmm=True, config="smoke",
+                  dtypes=("bfloat16",), want=lambda fused: (
+                      ["sell_bench_packed_kernel", "sell_bench_spmm_kernel"]
+                      if fused else ["sell_packed_kernel",
+                                     "sell_packed_spmm_kernel"]))
+        for name, config, kname in (("L1", "L1-packed", "sell_packed_kernel"),
+                                    ("L2", "L2", "sell_split_kernel")):
+            op, _ = ops[(name, "bfloat16")]
+            ref, x = _oracle(np, torch, configs[name][1], "bfloat16")
+            route = "streamy_packed" if name == "L1" else "split"
+            _check(op.route == route, f"{name} with the switch runs on "
+                   f"{op.route}, not {route}")
+            _zero_counts(S)
+            y = op(torch.from_numpy(x).to(DEVICE))
+            torch.cuda.synchronize()
+            what = f"{config} operator bfloat16 SMVP_SELL_PACK=1"
+            n = _check_only(_counts(S), [kname], what)[kname]
+            if name == "L1":
+                launches[(kname, config, "bfloat16")] = n
+                try:
+                    op.bench_loop(torch.from_numpy(x).to(DEVICE), 2)
+                except ValueError:
+                    pass
+                else:
+                    _check(False, "L1-packed bench_loop was not refused")
+            err = float(np.abs(y.double().cpu().numpy() - ref).max()
+                        / np.abs(ref).max())
+            _check(err <= TOL_ORACLE, f"{what}: oracle error {err}")
+            print(f"[main] {what}: route {op.route}, launches {n} "
+                  f"({kname})" + (", bench_loop refused" if name == "L1"
+                                  else "") + f", vs float64 oracle "
+                  f"{err:.3e}", flush=True)
+    finally:
+        del os.environ["SMVP_SELL_PACK"]
+
+
+def phase_refine(np, torch, hp):
+    """Phase 3 on hpcg104: ``refine_solve`` with three sweeps, each inner
+    solve ``fused_cg(op, r, 300)`` (K9), the residual from the
+    double-float CSR SpMV; held to a float64 relative residual."""
+    from smvp_toolkit_tpu_torch.models import refine_solve
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.ops.cg_fused import fused_cg
+    from smvp_toolkit_tpu_torch.ops.precision import df_to_f64
+
+    a, csr, op = hp["a"], hp["csr"], hp["op"]
+    b64 = hp["b"].double().cpu().numpy()
+    _zero_counts(S)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    xh, xl, norms = refine_solve(csr, b64, num_refinements=3,
+                                 inner=lambda r: fused_cg(op, r, 300))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _check_only(_counts(S), ["sell_cg_kernel"], "hpcg104-refine")
+    _check(counts["sell_cg_kernel"] == 3, f"hpcg104-refine: {counts}")
+    x64 = df_to_f64(xh, xl)
+    rr = float(np.linalg.norm(b64 - a @ x64) / np.linalg.norm(b64))
+    _check(bool(np.isfinite(rr)) and rr <= REFINE_RESIDUAL,
+           f"hpcg104-refine: float64 relative residual {rr}")
+    print(f"[main] hpcg104-refine API refine_solve(inner = fused_cg 300, "
+          f"3 sweeps): {ms:.1f} ms, sweep residual norms "
+          f"{', '.join(f'{v:.6e}' for v in norms)} (|b| "
+          f"{np.linalg.norm(b64):.6e}), float64 relative residual "
+          f"{rr:.3e}, launches {counts}", flush=True)
+
+
+def phase_df64_timings(np, torch, configs, df64, launches, bw):
+    """Phase 4 for K8 and its N-iteration kernel on smoke-df64 (N = 200)
+    and smoke-df64-f64 (N = 100): the plain version on the card, and the
+    library call ``torch.sparse.mm`` on a float64 CSR tensor of the same
+    matrix with x = x_hi + x_lo in float64. Bound: the launch's bytes
+    (``SellDf64SpMV.traffic_bytes``), or its float64 flops (4 per
+    non-zero, 8 with a lo plane) over the float64 rate. Each kernel is
+    held here, at these shapes, against its plain version (<= 2^-50 of
+    max |y|; the N-iteration kernel with N = 3), and that error is its
+    entry's ``max_abs_err``."""
+    from smvp_toolkit_tpu_torch.ops import spmv_df64 as D
+    from smvp_toolkit_tpu_torch.ops.precision import df_to_f64
+
+    r, c, _, shape = configs["smoke"][1]
+    entries = []
+    for config, n_iter in (("smoke-df64", ITERATIONS["smoke"]),
+                           ("smoke-df64-f64", DF64_F64_ITERATIONS)):
+        op, (xh, xl), v64 = df64[config]
+        a = _library_csr(np, torch, (r, c, v64, shape), dtype=np.float64)
+        x64 = (xh.double() + xl.double())[:, None]
+        planes = op._planes(xh, xl)
+        kw = dict(n_slices=op.plan.n_slices, chunk=op.plan.chunk)
+        yp = df_to_f64(*D.sell_df64_plain(*planes, **kw))
+        scale = float(np.abs(yp).max())
+        errs = {}
+        for fn, it in ((D.sell_df64, {}), (D.sell_bench_df64,
+                                           {"iterations": 3})):
+            yk = df_to_f64(*fn(*planes, **it, **kw))
+            errs[fn.kernel] = float(np.abs(yk - yp).max())
+            _check(bool(np.isfinite(yk).all())
+                   and errs[fn.kernel] <= TOL_DF64_PLAIN * scale,
+                   f"{fn.kernel} on {config} vs plain: max abs "
+                   f"{errs[fn.kernel]} > 2^-50 of {scale}")
+        print(f"[check] {config} df64 full size: sell_df64_kernel vs plain "
+              f"{errs['sell_df64_kernel']:.3e}, sell_bench_df64_kernel "
+              f"(N = 3) vs plain {errs['sell_bench_df64_kernel']:.3e} "
+              f"(max abs; max |y| {scale:.6e})", flush=True)
+        per_slot = 4 if op.vals_lo is None else 8
+        for bench in (False, True):
+            fn = D.sell_bench_df64 if bench else D.sell_df64
+            plain = D.sell_bench_df64_plain if bench else D.sell_df64_plain
+            it = {"iterations": n_iter} if bench else {}
+            n = n_iter if bench else 1
+            ms = _time_ms(lambda: fn(*planes, **it, **kw),
+                          reps=3 if bench else 20, warmup=1 if bench else 2)
+            plain_ms = _time_ms(lambda: plain(*planes, **it, **kw),
+                                reps=1 if bench else 3,
+                                warmup=0 if bench else 2)
+            lib_ms = _time_ms(lambda: [torch.sparse.mm(a, x64)
+                                       for _ in range(n)],
+                              reps=1 if bench else 20, warmup=1)
+            entries.append(_entry(
+                fn.kernel, config, "df64",
+                launches=launches[(fn.kernel, config, "df64")],
+                err=errs[fn.kernel], ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
+                nbytes=op.traffic_bytes(), flops=per_slot * op.plan.nnz * n,
+                bw=bw, iters=n, peak=F64_PEAK_FLOPS,
+                lo_plane=op.vals_lo is not None))
+        del a
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1452,6 +1980,10 @@ def main() -> int:
                                   ("sell_chebyshev_kernel", "relsl"),
                                   ("sell_pcg_ic0_kernel", "relsl"))
                      for d in DTYPE_NAMES})
+        from smvp_toolkit_tpu_torch.ops.spmv_df64 import bench_df64_blocks
+
+        grid["sell_bench_packed_kernel"] = S.bench_packed_blocks()
+        grid["sell_bench_df64_kernel"] = bench_df64_blocks(torch.int8)
         print(f"[grid] bench kernels' cooperative grid (blocks of 256 "
               f"threads, int8 lane indices): {grid}", flush=True)
 
@@ -1461,14 +1993,22 @@ def main() -> int:
         gcn = _gcn_graph(np, torch)
     with _Phase("kernels vs plain"):
         ops, errs = phase_kernels(np, torch, plans, gcn)
+    with _Phase("df64 and packed kernels vs plain"):
+        phase_new_kernels(np, torch, plans, ops, errs)
     del plans
     with _Phase("solver kernels vs plain"):
         phase_solver_kernels(np, torch)
     launches = phase_main_path(np, torch, configs)
+    with _Phase("main path: smoke-df64, smoke-df64-f64"):
+        df64 = phase_df64(np, torch, configs, ops, launches)
+    with _Phase("main path: smoke-packed, L1-packed, L2 gate"):
+        phase_packed(np, torch, configs, ops, launches)
     with _Phase("main path: gcn_arxiv"):
         phase_gcn(np, torch, gcn, launches)
     with _Phase("main path: hpcg104"):
         hpcg = phase_hpcg(np, torch, launches)
+    with _Phase("main path: hpcg104-refine"):
+        phase_refine(np, torch, hpcg)
     with _Phase("timings"):
         from smvp_toolkit_tpu_torch.bench.roofline import hbm_bandwidth_gbs
 
@@ -1477,6 +2017,7 @@ def main() -> int:
         entries += phase_mat_timings(np, torch, ops, errs, launches, configs,
                                      gcn, bw)
         entries += phase_solver_timings(np, torch, hpcg, launches, bw)
+        entries += phase_df64_timings(np, torch, configs, df64, launches, bw)
 
     print(json.dumps({"kernels": entries}))
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")

@@ -16,18 +16,22 @@ found under the same name:
   the CSR and TJDS codecs.
 * ``ops.sell_plan`` — the SELL-T1 planner, flat and streamed-y (host, numpy).
 * ``ops.spmv_sell`` — the SELL operator over the CUDA kernels (SpMV,
-  SpMM, the values gradient).
+  SpMM, the values gradient; the packed bf16 plane under
+  ``SMVP_SELL_PACK=1``).
+* ``ops.precision`` / ``ops.spmv_df64`` — double-float arithmetic, the
+  float64 CSR SpMV, and the double-float SELL operator on its CUDA kernel.
 * ``ops.spmv_autograd`` — ``torch.autograd.Function``s over the operator.
 * ``ops.spmv_torch`` — plain-PyTorch CSR and TJDS SpMV and CSR SpMM.
 * ``models.graph`` — the GCN, trained on the operator's kernels.
 * ``models.solvers`` — CG, preconditioned CG, Chebyshev and Lanczos, one
-  SpMV launch per step.
+  SpMV launch per step, and mixed-precision refinement.
 * ``ops.ilu`` / ``ops.algebra`` — IC(0) factors (host C++ pass) and the
   matrix diagonal.
 * ``ops.cg_fused`` / ``ops.pcg_fused`` — whole CG, Chebyshev and
   IC(0)-PCG solves in one launch of a CUDA kernel each.
 * ``bench`` — timing, roofline and report files.
-* ``cli`` — the ``-c`` / ``-t`` / ``--spmm`` / ``--solve`` command line.
+* ``cli`` — the ``-c`` / ``-t`` / ``--spmm`` / ``--solve`` / ``--kernel
+  df64`` command line.
 
 Exports are lazy: importing the package imports neither the kernels'
 build machinery nor the formats.
@@ -60,6 +64,9 @@ _EXPORTS = {
     "gcn_train_step": "smvp_toolkit_tpu_torch.models.graph",
     "conjugate_gradient": "smvp_toolkit_tpu_torch.models.solvers",
     "pcg_precond": "smvp_toolkit_tpu_torch.models.solvers",
+    "refine_solve": "smvp_toolkit_tpu_torch.models.solvers",
+    "SellDf64SpMV": "smvp_toolkit_tpu_torch.ops.spmv_df64",
+    "spmv_csr_df64": "smvp_toolkit_tpu_torch.ops.precision",
     "ic0": "smvp_toolkit_tpu_torch.ops.ilu",
     "fused_cg": "smvp_toolkit_tpu_torch.ops.cg_fused",
     "fused_chebyshev": "smvp_toolkit_tpu_torch.ops.pcg_fused",

@@ -5,7 +5,7 @@ positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``), ``-c``, ``-t``,
 ``-n``, ``-d``, ``--no-report``, ``--decode-check``, ``--dtype``,
 ``--kernel``, ``--fused``, ``--x``, ``--json-out``, ``--spmm``,
 ``--solve``, ``--expand-symmetry`` and ``--device``, plus the port's
-``--spmm-out`` and ``--solve-out``.
+``--out-dir``, which writes the run's results as float32 ``.npy`` files.
 Validation and exit codes match the JAX CLI for those flags (``-n 0`` and
 ``-d /nope`` give 2, a missing or unreadable file 1, a failed decode
 check 3); argparse rejects every other flag (``-a``, ``-g``,
@@ -14,9 +14,19 @@ check 3); argparse rejects every other flag (``-a``, ``-g``,
 ``--kernel auto`` runs the SELL CUDA kernels: CSR and TJDS are both
 replanned into SELL and run on the route their plan demands (K1, K3 or K4
 per call, the matching N-iteration kernel under ``--fused``);
-``--kernel torch`` runs the plain-PyTorch CSR or TJDS SpMV. The run is on
-``cuda`` unless ``--device cpu`` is given, where each kernel's plain
-version runs instead.
+``--kernel torch`` runs the plain-PyTorch CSR or TJDS SpMV. ``--kernel df64``
+runs CSR in double-float on K8 (``ops/spmv_df64.py``, a ``SellDf64SpMV``
+built once from the CSR's host triplets) and reports ``hi + lo`` as
+float32, as the JAX CLI does; ``SMVP_DF64_XLA=1`` takes the plain-PyTorch
+``precision.spmv_csr_df64`` instead. TJDS has no double-float variant and
+runs its ordinary SELL kernel, and ``--spmm`` runs on ``spmm_csr``; their
+records name the kernel that ran. Under ``--fused`` the N df64 iterations
+are one launch of K8's N-iteration kernel, where the JAX CLI falls back to
+its loop protocol. The run is on ``cuda`` unless ``--device cpu`` is
+given, where each kernel's plain version runs instead. In bfloat16,
+``SMVP_SELL_PACK=1`` runs the SELL kernels on the packed plane (K5,
+K2-packed; ``ops/spmv_sell.py``); ``--fused`` on a streamed-y plan then
+fails, as the JAX operator's ``bench_loop`` does.
 
 ``--spmm K`` (with ``-c``) also times Y = A·X for K right-hand sides X
 (standard normal from ``default_rng(0)``, as the JAX CLI draws them) on
@@ -97,14 +107,18 @@ def build_parser() -> argparse.ArgumentParser:
              "(the reference multiplies stored entries only)",
     )
     p.add_argument(
-        "--kernel", choices=["auto", "torch"], default="auto",
+        "--kernel", choices=["auto", "torch", "df64"], default="auto",
         help="SpMV implementation (auto: the SELL CUDA kernels; torch: "
-             "plain-PyTorch CSR gather + index_add_)",
+             "plain-PyTorch CSR gather + index_add_; df64: double-float "
+             "CSR SpMV on the df64 SELL kernel, SMVP_DF64_XLA=1 for the "
+             "plain-PyTorch float64 CSR path; TJDS and --spmm then run "
+             "their ordinary kernels)",
     )
     p.add_argument(
         "--fused", action="store_true",
         help="time the N iterations as one launch of the N-iteration "
-             "kernel (SELL kernels only)",
+             "kernel (SELL kernels; with --kernel df64 the df64 kernel's "
+             "N-iteration launch, where the JAX CLI times a loop)",
     )
     p.add_argument(
         "--x", default="ones", metavar="MODE",
@@ -121,10 +135,6 @@ def build_parser() -> argparse.ArgumentParser:
              "the CSR encoding (needs -c)",
     )
     p.add_argument(
-        "--spmm-out", default=None, metavar="FILE",
-        help="write the --spmm result Y (nrows, K) as a float32 .npy file",
-    )
-    p.add_argument(
         "--solve", default=None, metavar="METHOD[:ITERS[:TOL]]",
         help="after benchmarking, solve A x = b (b = the --x vector) with "
              f"one of {', '.join(PORTED_SOLVE_METHODS)}; default 100 "
@@ -132,8 +142,11 @@ def build_parser() -> argparse.ArgumentParser:
              "scan-loop methods early (e.g. cg:200:1e-6); needs -c",
     )
     p.add_argument(
-        "--solve-out", default=None, metavar="FILE",
-        help="write the --solve solution x (nrows) as a float32 .npy file",
+        "--out-dir", default=None, metavar="DIR",
+        help="write the run's results in full float32 precision as .npy "
+             "files in DIR: the CSR output vector (y.npy), the --spmm "
+             "result Y (spmm.npy, nrows x K) and the --solve solution "
+             "(solve.npy); needs -c",
     )
     p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -151,17 +164,17 @@ def _validate(args) -> Optional[str]:
         return "iteration count must be >= 1"
     if args.dir and not os.path.isdir(args.dir):
         return f"report directory does not exist: {args.dir}"
-    if args.fused and args.kernel != "auto":
-        return "--fused needs the SELL kernels (--kernel auto)"
+    if args.fused and args.kernel == "torch":
+        return "--fused needs the SELL kernels (--kernel auto or df64)"
+    if args.out_dir and not args.csr:
+        return "--out-dir needs the CSR algorithm (-c)"
+    if args.out_dir and not os.path.isdir(args.out_dir):
+        return f"--out-dir does not exist: {args.out_dir}"
     if args.spmm is not None:
         if args.spmm < 1:
             return "--spmm K must be >= 1"
         if not args.csr:
             return "--spmm requires the CSR algorithm (-c)"
-    if args.spmm_out and args.spmm is None:
-        return "--spmm-out needs --spmm"
-    if args.solve_out and not args.solve:
-        return "--solve-out needs --solve"
     if args.solve:
         return _validate_solve(args)
     return None
@@ -299,21 +312,22 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
 
     vbytes = torch.finfo(dtype).bits // 8
-    if args.kernel == "torch":
-        kernel = "torch"
-    else:
-        kernel = "sell-cuda" if device.type == "cuda" else "sell-plain"
+    on_card = device.type == "cuda"
+    sell_kernel = "sell-cuda" if on_card else "sell-plain"
 
-    def run(alg_name, encoded, spmv_fn, op_fn, bytes_per_iter):
+    def run(alg_name, encoded, spmv_fn, loop_fn, bytes_per_iter, kernel):
+        """Benchmark one format; ``loop_fn(x, n)`` runs ``--fused``'s N
+        iterations."""
         log("INFO", f"Benchmarking {alg_name} SpMV ({kernel} kernel), "
             f"{args.iter} iterations.")
         if args.fused:
-            stats, y = bench_fused(op_fn(encoded).bench_loop, x,
-                                   iterations=args.iter)
+            stats, y = bench_fused(loop_fn, x, iterations=args.iter)
         else:
             stats = bench_spmv(spmv_fn, encoded, x, iterations=args.iter)
             y = spmv_fn(encoded, x)
         y = y.float().cpu().numpy()
+        if args.out_dir and alg_name == ALG_CSR:
+            _save(args.out_dir, "y.npy", y[: coo.shape[0]], log)
         nnzs = stats.nnz_per_s(coo.nnz)
         gbs = stats.gb_per_s(bytes_per_iter)
         frac = roofline_fraction(gbs, device)
@@ -363,21 +377,42 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
             log("FILE", f"Execution report file saved as:\n\t{path}")
 
+    def refused(op) -> bool:
+        """``--fused`` on an operator whose ``bench_loop`` refuses it now
+        (``SMVP_SELL_PACK=1`` on a streamed-y plan): the run fails with
+        the JAX operator's message."""
+        why = args.fused and op.bench_loop_refusal()
+        if why:
+            log("ERROR", why)
+        return bool(why)
+
     if args.csr:
         csr = csr_encode(coo)
         if args.decode_check and not _decode_check(ALG_CSR, csr_decode(csr),
                                                    coo, log):
             return 3
+        nbytes = spmv_bytes_csr(coo.nnz, coo.shape[0], vbytes)
         if args.kernel == "torch":
-            spmv_fn, op_fn = spmv_torch.spmv_csr, None
+            spmv_fn, loop_fn, kernel = spmv_torch.spmv_csr, None, "torch"
+        elif args.kernel == "df64":
+            spmv_fn, loop_fn, kernel, nb = _df64_csr(csr, on_card)
+            nbytes = nb or nbytes
         else:
-            spmv_fn, op_fn = spmv_sell.spmv_csr_sell, spmv_sell.sell_op_csr
-        run(ALG_CSR, csr, spmv_fn, op_fn,
-            spmv_bytes_csr(coo.nnz, coo.shape[0], vbytes))
+            spmv_fn, kernel = spmv_sell.spmv_csr_sell, sell_kernel
+
+            def loop_fn(xx, n):
+                return spmv_sell.sell_op_csr(csr).bench_loop(xx, n)
+            if refused(spmv_sell.sell_op_csr(csr)):
+                return 2
+        run(ALG_CSR, csr, spmv_fn, loop_fn, nbytes, kernel)
         if args.spmm:
             _run_spmm(args, coo, csr, device, label, log)
         if args.solve:
-            rc = _run_solve(args, coo, csr, x, device, label, log, spmv_fn)
+            # The solves step with the run's CSR SpMV; df64 solves on the
+            # SELL kernels, as the JAX CLI solves df64 runs on its default.
+            rc = _run_solve(args, coo, csr, x, device, label, log,
+                            spmv_sell.spmv_csr_sell
+                            if args.kernel == "df64" else spmv_fn)
             if rc:
                 return rc
 
@@ -387,14 +422,68 @@ def main(argv: Optional[List[str]] = None) -> int:
                                                    coo, log):
             return 3
         if args.kernel == "torch":
-            spmv_fn, op_fn = spmv_torch.spmv_tjds, None
+            spmv_fn, loop_fn, kernel = spmv_torch.spmv_tjds, None, "torch"
         else:
-            spmv_fn, op_fn = spmv_sell.spmv_tjds_sell, spmv_sell.sell_op_tjds
-        run(ALG_TJDS, tj, spmv_fn, op_fn,
-            spmv_bytes_tjds(coo.nnz, coo.shape[0], tj.num_diags, vbytes))
+            if args.kernel == "df64":
+                log("INFO", "df64 is CSR-only; TJDS runs its ordinary SELL "
+                    "kernel.")
+            spmv_fn, kernel = spmv_sell.spmv_tjds_sell, sell_kernel
+
+            def loop_fn(xx, n):
+                return spmv_sell.sell_op_tjds(tj).bench_loop(xx, n)
+            if refused(spmv_sell.sell_op_tjds(tj)):
+                return 2
+        run(ALG_TJDS, tj, spmv_fn, loop_fn,
+            spmv_bytes_tjds(coo.nnz, coo.shape[0], tj.num_diags, vbytes),
+            kernel)
 
     log("STOP", "smvp-toolkit-tpu-torch run complete.")
     return 0
+
+
+def _save(out_dir: str, name: str, arr: np.ndarray, log) -> None:
+    """One ``--out-dir`` result as a float32 ``.npy`` file."""
+    path = os.path.join(out_dir, name)
+    np.save(path, np.asarray(arr, dtype=np.float32))
+    log("FILE", f"Result saved as:\n\t{path}")
+
+
+def _df64_csr(csr, on_card: bool):
+    """``--kernel df64`` on CSR: ``(spmv_fn, loop_fn, kernel label, bytes
+    per iteration or None)``, each SpMV returning ``hi + lo`` as float32
+    (the JAX CLI's displayed result). K8 through a ``SellDf64SpMV`` built
+    once from the CSR's host triplets, its bytes
+    ``SellDf64SpMV.traffic_bytes()``; under ``SMVP_DF64_XLA=1`` the
+    plain-PyTorch ``spmv_csr_df64``, ``--fused`` then timing N calls."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell
+    from smvp_toolkit_tpu_torch.ops.precision import spmv_csr_df64
+    from smvp_toolkit_tpu_torch.ops.spmv_df64 import SellDf64SpMV
+
+    if os.environ.get("SMVP_DF64_XLA") == "1":
+        def csr_df64(encoded, xx):
+            xx = xx.float()
+            hi, lo = spmv_csr_df64(encoded, xx, xx.new_zeros(xx.shape))
+            return hi + lo
+
+        def loop(xx, n):
+            for _ in range(n):
+                y = csr_df64(csr, xx)
+            return y
+
+        return csr_df64, loop, "df64-torch", None
+    r, c, v, shape = spmv_sell._triplets_from_csr_host(csr)
+    op = SellDf64SpMV.from_coo_f64(r, c, v, shape, device=csr.device)
+
+    def csr_df64(encoded, xx):
+        hi, lo = op(xx.float(), None)
+        return hi + lo
+
+    def loop(xx, n):
+        hi, lo = op.bench_loop(xx.float(), None, n)
+        return hi + lo
+
+    return (csr_df64, loop, "df64-cuda" if on_card else "df64-plain",
+            op.traffic_bytes())
 
 
 def _run_spmm(args, coo, csr, device, label, log) -> None:
@@ -403,7 +492,8 @@ def _run_spmm(args, coo, csr, device, label, log) -> None:
     The kernel label says what ran: ``sell-cuda-fused`` (one k-wide SpMM
     launch per call), ``sell-cuda-percolumn`` (a streamed-y plan: one
     SpMV launch per column), their ``sell-plain-*`` versions on the CPU,
-    or ``torch`` (``spmm_csr``). The aggregate rate is K·nnz per call.
+    or ``torch`` (``spmm_csr``, also under ``--kernel df64``, which has no
+    SpMM variant). The aggregate rate is K·nnz per call.
     """
     import torch
 
@@ -414,8 +504,12 @@ def _run_spmm(args, coo, csr, device, label, log) -> None:
     X = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (coo.shape[1], k)).astype(np.float32)).to(device)
     timing = "per call"
-    if args.kernel == "torch":
+    op = None
+    if args.kernel in ("torch", "df64"):
         kernel = "torch"
+        if args.kernel == "df64":
+            log("INFO", "--spmm runs on the plain-PyTorch kernel (no df64 "
+                "SpMM variant).")
 
         def spmm(XX):
             return spmv_torch.spmm_csr(csr, XX)
@@ -427,7 +521,7 @@ def _run_spmm(args, coo, csr, device, label, log) -> None:
     log("INFO", f"Benchmarking CSR SpMM ({kernel} kernel), K={k} right-hand "
         f"sides, {args.iter} iterations.")
     if args.fused:
-        if op.route == "relsl":
+        if op is not None and op.base_route == "relsl":
             timing = "N-iteration kernel"
             loop = op.bench_loop_mat
         else:
@@ -435,7 +529,7 @@ def _run_spmm(args, coo, csr, device, label, log) -> None:
 
             def loop(XX, n):
                 for _ in range(n):
-                    Y = op.matmat(XX)
+                    Y = spmm(XX)
                 return Y
         log("INFO", f"--fused SpMM timing: {timing}.")
         stats, Y = bench_fused(loop, X, iterations=args.iter)
@@ -445,9 +539,8 @@ def _run_spmm(args, coo, csr, device, label, log) -> None:
     nnzs = stats.nnz_per_s(k * coo.nnz)
     log("DATA", f"SPMM k={k}: avg {stats.avg_ms:.6f} ms  "
         f"({nnzs/1e9:.3f} Gnnz/s across {k} RHS)")
-    if args.spmm_out:
-        np.save(args.spmm_out, Y.float().cpu().numpy())
-        log("FILE", f"SpMM result saved as:\n\t{args.spmm_out}")
+    if args.out_dir:
+        _save(args.out_dir, "spmm.npy", Y.float().cpu().numpy(), log)
     if args.json_out:
         rec = {
             "alg": "SPMM-CSR",
@@ -578,9 +671,8 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
     relres = float(np.linalg.norm(r) / max(np.linalg.norm(b64), 1e-30))
     log("DATA", f"SOLVE {method}: {iters} iterations in {ms:.2f} ms, "
         f"relative residual {relres:.3e}")
-    if args.solve_out:
-        np.save(args.solve_out, xs.float().cpu().numpy())
-        log("FILE", f"Solution saved as:\n\t{args.solve_out}")
+    if args.out_dir:
+        _save(args.out_dir, "solve.npy", xs.float().cpu().numpy(), log)
     if not np.isfinite(relres) or relres > 1.0:
         log("INFO", f"solve did not converge — {method} assumes an SPD "
             "system; try more iterations")

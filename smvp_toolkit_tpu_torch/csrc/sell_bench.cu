@@ -8,11 +8,11 @@
 //   sell_bench_streamy_relsl_kernel relsl branch, streamed y
 //   sell_bench_split_kernel         split-plane branch, resident y
 //   sell_bench_streamy_kernel       split-plane branch, streamed y
-// Each iteration is the forward sweep of csrc/sell_spmv.cu (same body,
-// sell_common.cuh). The TPU grid runs in order, so the TPU kernel re-zeroes
-// y when an iteration (or, streamed, a y block) starts; on Hopper blocks
-// run in no order, so each iteration here zeroes ALL of y in a
-// grid-stride loop, grid.sync(), sweeps, grid.sync(). Zeroing all of y
+// Each iteration is the forward sweep of csrc/sell_spmv.cu (same slot body,
+// sell_common.cuh::bench_sweeps). The TPU grid runs in order, so the TPU
+// kernel re-zeroes y when an iteration (or, streamed, a y block) starts; on
+// Hopper blocks run in no order, so each iteration here zeroes ALL of y in
+// a grid-stride loop, grid.sync(), sweeps, grid.sync(). Zeroing all of y
 // (not only the visited blocks) keeps a block that no chunk visits at zero.
 // The grid is SMs x co-resident blocks (a larger cooperative grid fails at
 // launch, not at the sync).
@@ -23,54 +23,34 @@
 //
 // C interface (ctypes) as in sell_spmv.cu.
 
-#include <cooperative_groups.h>
-
 #include "sell_common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace sell;
 
-template <class Decode, class YAddr, typename V, typename L>
-__device__ __forceinline__ void sweeps(const Args<V, L>& a) {
-  cg::grid_group grid = cg::this_grid();
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (int it = 0; it < a.iterations; ++it) {
-    for (long long i = tid; i < a.n_out; i += stride) a.y[i] = 0.0f;
-    grid.sync();
-    for (long long i = tid; i < a.n_slots; i += stride) {
-      slot<Decode, YAddr>(a, i);
-    }
-    grid.sync();
-  }
-}
-
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_bench_kernel(const Args<V, L> a) {
-  sweeps<MergedWord, ResidentY>(a);
+  bench_sweeps<MergedWord, ResidentY>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_bench_streamy_relsl_kernel(const Args<V, L> a) {
-  sweeps<MergedWord, StreamedY>(a);
+  bench_sweeps<MergedWord, StreamedY>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_bench_streamy_kernel(const Args<V, L> a) {
-  sweeps<SplitPlanes, StreamedY>(a);
+  bench_sweeps<SplitPlanes, StreamedY>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_bench_split_kernel(const Args<V, L> a) {
-  sweeps<SplitPlanes, ResidentY>(a);
+  bench_sweeps<SplitPlanes, ResidentY>(a);
 }
 
 template <typename V, typename L>

@@ -1,15 +1,20 @@
 // One slot of the SELL-T1 SpMV, shared by every forward and bench kernel
-// (csrc/sell_spmv.cu, csrc/sell_bench.cu); its decode policies, the slot
-// coordinates and the cooperative grid also serve the k-column kernels
-// (csrc/sell_spmm.cu, csrc/sell_vals_grad.cu).
+// (csrc/sell_spmv.cu, csrc/sell_bench.cu, csrc/sell_packed.cu); its decode
+// policies, the slot coordinates, the warp walk over k columns and the
+// cooperative grid also serve the k-column kernels (csrc/sell_spmm.cu,
+// csrc/sell_vals_grad.cu) and the fused solvers (csrc/sell_solvers.cu).
 //
 // Per live slot (s, l) of the (S, 128) planes, with c = s / chunk:
 //   y[(ybase(c) + slice(s)) * 128 + l] +=
 //       vals[s, l] * x[(tile_base[c] + rel(s)) * 128 + lidx[s, l]]
 // Two policies pick the kernel's route:
-//   * how a sublane's rel and slice are decoded: the merged rel‖slice word
-//     (rel in bits 0..8, 511 = dead; slice in bits 9..31, all ones = dead),
-//     or the split rel_tile and slice_of planes (int32 each, -1 = dead);
+//   * how a slot's rel, slice, value and lane index are decoded: the
+//     merged rel‖slice word per sublane (rel in bits 0..8, 511 = dead;
+//     slice in bits 9..31, all ones = dead) beside the values and lane
+//     planes; the split rel_tile and slice_of planes (int32 each, -1 =
+//     dead) beside the same two planes; or the packed val‖rel‖lane word
+//     per slot (bf16 value bits in 16..31, rel in 7..15 with 511 = dead,
+//     lane in 0..6) beside the slice_of plane;
 //   * how y is addressed: resident (ybase = 0) or block-streamed
 //     (ybase = y_block_id[c] * nsb, slice ids local to the block).
 // A sublane is dead when rel OR slice is dead: the planner gives dead
@@ -17,17 +22,18 @@
 // slice marks them.
 //
 // One thread per slot: 128 consecutive threads cover one sublane, so the
-// vals/lidx loads are coalesced and the sublane's metadata is one
-// broadcast load. The x value is gathered directly and the product lands
-// in y with a float atomicAdd (summation order varies from run to run:
-// compare y with a tolerance, never bitwise). Zero products (padding
-// slots) skip the atomic; NaN and Inf products still land. Values are f32
-// or bf16 storage, products and sums f32. Tile, column, slot and row
-// indices are 64-bit: a window may span the whole column range (rel then
-// needs the full int32) and plans of 180M slots occur.
+// plane loads are coalesced and the sublane's metadata is one broadcast
+// load. The x value is gathered directly and the product lands in y with
+// a float atomicAdd (summation order varies from run to run: compare y
+// with a tolerance, never bitwise). Zero products (padding slots) skip
+// the atomic; NaN and Inf products still land. Values are f32 or bf16
+// storage, products and sums f32. Tile, column, slot and row indices are
+// 64-bit: a window may span the whole column range (rel then needs the
+// full int32) and plans of 180M slots occur.
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -54,8 +60,8 @@ template <typename V, typename L>
 struct Args {
   const V* vals;
   const L* lidx;
-  const int* meta;        // merged rel‖slice word, or rel_tile (split)
-  const int* slice;       // slice_of (split routes only)
+  const int* meta;        // merged word, rel_tile (split) or packed word
+  const int* slice;       // slice_of (split and packed routes only)
   const int* tile_base;   // per chunk
   const int* y_block_id;  // per chunk (streamed routes only)
   const V* x;
@@ -72,12 +78,27 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-struct MergedWord {
+// The values and lane-index planes (merged word and split planes).
+struct ValuePlanes {
   template <class A>
-  __device__ __forceinline__ static bool decode(const A& a, long long s,
+  __device__ __forceinline__ static float value(const A& a, long long i) {
+    return to_f32(a.vals[i]);
+  }
+  template <class A>
+  __device__ __forceinline__ static long long lane_index(const A& a,
+                                                         long long i) {
+    return static_cast<long long>(a.lidx[i]);
+  }
+};
+
+// Each policy decodes slot i: false when its sublane is dead, else its
+// rel and slice; value() and lane_index() read the slot's value and lane.
+struct MergedWord : ValuePlanes {
+  template <class A>
+  __device__ __forceinline__ static bool decode(const A& a, long long i,
                                                 long long* rel,
                                                 long long* slice) {
-    const unsigned word = static_cast<unsigned>(a.meta[s]);
+    const unsigned word = static_cast<unsigned>(a.meta[i >> 7]);
     const unsigned r = word & kRelDead;
     const unsigned sl = word >> kSliceShift;
     if (r == kRelDead || sl == kSliceDead) return false;
@@ -87,17 +108,49 @@ struct MergedWord {
   }
 };
 
-struct SplitPlanes {
+struct SplitPlanes : ValuePlanes {
   template <class A>
-  __device__ __forceinline__ static bool decode(const A& a, long long s,
+  __device__ __forceinline__ static bool decode(const A& a, long long i,
                                                 long long* rel,
                                                 long long* slice) {
-    const int r = a.meta[s];
-    const int sl = a.slice[s];
+    const int r = a.meta[i >> 7];
+    const int sl = a.slice[i >> 7];
     if (r < 0 || sl < 0) return false;
     *rel = r;
     *slice = sl;
     return true;
+  }
+};
+
+// The packed word per slot in meta, slice_of per sublane in slice; the
+// value is the word's high half, which is the bf16 value's float32 bits.
+constexpr int kPackRelShift = 7;
+constexpr unsigned kPackLaneMask = 127u;
+constexpr unsigned kPackValueMask = 0xFFFF0000u;
+
+struct PackedWord {
+  template <class A>
+  __device__ __forceinline__ static bool decode(const A& a, long long i,
+                                                long long* rel,
+                                                long long* slice) {
+    const unsigned r =
+        (static_cast<unsigned>(a.meta[i]) >> kPackRelShift) & kRelDead;
+    const int sl = a.slice[i >> 7];
+    if (r == kRelDead || sl < 0) return false;
+    *rel = r;
+    *slice = sl;
+    return true;
+  }
+  template <class A>
+  __device__ __forceinline__ static float value(const A& a, long long i) {
+    return __uint_as_float(static_cast<unsigned>(a.meta[i]) &
+                           kPackValueMask);
+  }
+  template <class A>
+  __device__ __forceinline__ static long long lane_index(const A& a,
+                                                         long long i) {
+    return static_cast<long long>(static_cast<unsigned>(a.meta[i]) &
+                                  kPackLaneMask);
   }
 };
 
@@ -117,17 +170,45 @@ struct StreamedY {
 
 template <class Decode, class YAddr, typename V, typename L>
 __device__ __forceinline__ void slot(const Args<V, L>& a, long long i) {
-  const long long s = i >> 7;
   const long long lane = i & (kLanes - 1);
   long long rel, slice;
-  if (!Decode::decode(a, s, &rel, &slice)) return;
-  const long long c = s / a.chunk;
+  if (!Decode::decode(a, i, &rel, &slice)) return;
+  const long long c = (i >> 7) / a.chunk;
   const long long col =
       (static_cast<long long>(a.tile_base[c]) + rel) * kLanes +
-      static_cast<long long>(a.lidx[i]);
-  const float p = to_f32(a.vals[i]) * to_f32(a.x[col]);
+      Decode::lane_index(a, i);
+  const float p = Decode::value(a, i) * to_f32(a.x[col]);
   if (p != 0.0f) {
     atomicAdd(a.y + (YAddr::base(a, c) + slice) * kLanes + lane, p);
+  }
+}
+
+// The forward kernels' body: slot i of a one-thread-per-slot grid.
+template <class Decode, class YAddr, typename V, typename L>
+__device__ __forceinline__ void forward_sweep(const Args<V, L>& a) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < a.n_slots) slot<Decode, YAddr>(a, i);
+}
+
+// The N-iteration kernels' body (one cooperative launch): each iteration
+// zeroes ALL of y in a grid-stride loop, grid.sync(), sweeps every slot,
+// grid.sync(). The TPU grid runs in order and re-zeroes y when an
+// iteration (or, streamed, a y block) starts; on Hopper blocks run in no
+// order, and zeroing all of y keeps a block that no chunk visits at zero.
+template <class Decode, class YAddr, typename V, typename L>
+__device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (int it = 0; it < a.iterations; ++it) {
+    for (long long i = tid; i < a.n_out; i += stride) a.y[i] = 0.0f;
+    grid.sync();
+    for (long long i = tid; i < a.n_slots; i += stride) {
+      slot<Decode, YAddr>(a, i);
+    }
+    grid.sync();
   }
 }
 
@@ -138,8 +219,8 @@ template <typename V, typename L>
 struct MatArgs {
   const V* vals;          // null for the values-gradient kernel
   const L* lidx;
-  const int* meta;        // merged rel‖slice word, or rel_tile (split)
-  const int* slice;       // slice_of (split planes only)
+  const int* meta;        // merged word, rel_tile (split) or packed word
+  const int* slice;       // slice_of (split and packed planes only)
   const int* tile_base;   // per chunk
   const V* x;             // X, at least CT * 128 rows
   const float* g;         // G, at least NS * 128 rows (values gradient)
@@ -155,14 +236,74 @@ struct MatArgs {
 template <class Decode, class A>
 __device__ __forceinline__ bool slot_coords(const A& a, long long i,
                                             long long* col, long long* row) {
-  const long long s = i >> 7;
   long long rel, slice;
-  if (!Decode::decode(a, s, &rel, &slice)) return false;
-  const long long c = s / a.chunk;
+  if (!Decode::decode(a, i, &rel, &slice)) return false;
+  const long long c = (i >> 7) / a.chunk;
   *col = (static_cast<long long>(a.tile_base[c]) + rel) * kLanes +
-         static_cast<long long>(a.lidx[i]);
+         Decode::lane_index(a, i);
   *row = slice * kLanes + (i & (kLanes - 1));
   return true;
+}
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// The k-column kernels' warp walk: the warp of slot i adds its live
+// nonzero slots' products into Y. One thread decodes each slot (the plane
+// loads stay coalesced); the warp ballots its live nonzero slots and walks
+// them one at a time, the slot's value, X row and Y row broadcast with
+// __shfl_sync, its 32 lanes covering the k columns 32 at a time (float
+// atomics). All 32 lanes must call it (n_slots is a multiple of 128, so a
+// warp's slots are all in range or all out of range).
+template <class Decode, typename V, typename L>
+__device__ __forceinline__ void warp_slots(const MatArgs<V, L>& a,
+                                           long long i) {
+  const int lane = threadIdx.x & 31;
+  long long col = 0, row = 0;
+  float v = 0.0f;
+  bool live = slot_coords<Decode>(a, i, &col, &row);
+  if (live) {
+    v = Decode::value(a, i);
+    live = v != 0.0f;
+  }
+  const long long k = a.k;
+  unsigned todo = __ballot_sync(kFull, live);
+  while (todo) {
+    const int t = __ffs(todo) - 1;
+    todo &= todo - 1;
+    const float vt = __shfl_sync(kFull, v, t);
+    const V* xr = a.x + __shfl_sync(kFull, col, t) * k;
+    float* yr = a.out + __shfl_sync(kFull, row, t) * k;
+    for (long long j = lane; j < k; j += 32) {
+      atomicAdd(yr + j, vt * to_f32(xr[j]));
+    }
+  }
+}
+
+// The k-column forward sweep: the warps of a one-thread-per-slot grid.
+template <class Decode, typename V, typename L>
+__device__ __forceinline__ void mat_sweep(const MatArgs<V, L>& a) {
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if ((i & ~31LL) < a.n_slots) warp_slots<Decode>(a, i);
+}
+
+// The k-column N-iteration body (one cooperative launch), zeroing all of
+// Y between grid.sync()s before each sweep, as bench_sweeps.
+template <class Decode, typename V, typename L>
+__device__ __forceinline__ void mat_bench_sweeps(const MatArgs<V, L>& a) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (int it = 0; it < a.iterations; ++it) {
+    for (long long i = tid; i < a.n_out; i += stride) a.out[i] = 0.0f;
+    grid.sync();
+    // stride is a multiple of 32, so the lanes of a warp agree on the loop.
+    for (long long i = tid; (i & ~31LL) < a.n_slots; i += stride) {
+      warp_slots<Decode>(a, i);
+    }
+    grid.sync();
+  }
 }
 
 // Blocks of a cooperative launch of `kernel` with kThreads threads: SMs x

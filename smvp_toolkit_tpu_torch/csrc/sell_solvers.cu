@@ -77,8 +77,6 @@ namespace {
 
 using namespace sell;
 
-constexpr unsigned kFull = 0xffffffffu;
-
 // Co-resident blocks per SM the compiler must leave room for: 8 blocks of
 // 256 threads fill an SM, and cap a thread at 32 registers. Left to
 // itself the compiler gives these kernels 64-96 registers, so an SM holds

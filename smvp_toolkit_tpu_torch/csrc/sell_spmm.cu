@@ -20,14 +20,15 @@
 // nothing, even against an Inf or NaN in X: the k = 1 kernels land such a
 // NaN product, these skip the slot.
 //
-// Design: one thread per slot decodes its slot, so the plane loads are
-// coalesced as in K1. The warp then ballots its live nonzero slots and
-// walks them one at a time: the slot's value, X row and Y row are
-// broadcast with __shfl_sync, and the 32 lanes cover the k columns 32 at a
-// time, so each step reads 32 consecutive X values and adds into 32
-// consecutive Y values (float atomics; compare Y with a tolerance, never
-// bitwise). Lanes past k idle when k is not a multiple of 32. Every index
-// is 64-bit: X of 169,343 x 256 already passes 2^31 / 64 rows.
+// Design (sell_common.cuh::warp_slots): one thread per slot decodes its
+// slot, so the plane loads are coalesced as in K1. The warp then ballots
+// its live nonzero slots and walks them one at a time: the slot's value,
+// X row and Y row are broadcast with __shfl_sync, and the 32 lanes cover
+// the k columns 32 at a time, so each step reads 32 consecutive X values
+// and adds into 32 consecutive Y values (float atomics; compare Y with a
+// tolerance, never bitwise). Lanes past k idle when k is not a multiple
+// of 32. Every index is 64-bit: X of 169,343 x 256 already passes 2^31 / 64
+// rows.
 //
 // Bound on this card: bytes at small k (the planes, as the k = 1 kernels),
 // then X and Y, which grow with k; the arithmetic is 2·nnz·k flops, far
@@ -42,81 +43,28 @@
 // caller's stream is PyTorch's current stream; nothing here allocates or
 // synchronises. The caller zeroes Y before a forward launch.
 
-#include <cooperative_groups.h>
-
 #include "sell_common.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 using namespace sell;
 
-constexpr unsigned kFull = 0xffffffffu;
-
-// The warp of slot i adds its live nonzero slots' products into Y. All 32
-// lanes must call it (n_slots is a multiple of 128, so a warp's slots are
-// all in range or all out of range).
-template <class Decode, typename V, typename L>
-__device__ __forceinline__ void warp_slots(const MatArgs<V, L>& a,
-                                           long long i) {
-  const int lane = threadIdx.x & 31;
-  long long col = 0, row = 0;
-  float v = 0.0f;
-  bool live = slot_coords<Decode>(a, i, &col, &row);
-  if (live) {
-    v = to_f32(a.vals[i]);
-    live = v != 0.0f;
-  }
-  const long long k = a.k;
-  unsigned todo = __ballot_sync(kFull, live);
-  while (todo) {
-    const int t = __ffs(todo) - 1;
-    todo &= todo - 1;
-    const float vt = __shfl_sync(kFull, v, t);
-    const V* xr = a.x + __shfl_sync(kFull, col, t) * k;
-    float* yr = a.out + __shfl_sync(kFull, row, t) * k;
-    for (long long j = lane; j < k; j += 32) {
-      atomicAdd(yr + j, vt * to_f32(xr[j]));
-    }
-  }
-}
-
-template <class Decode, typename V, typename L>
-__device__ __forceinline__ void sweep(const MatArgs<V, L>& a) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if ((i & ~31LL) < a.n_slots) warp_slots<Decode>(a, i);
-}
-
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_spmm_kernel(const MatArgs<V, L> a) {
-  sweep<MergedWord>(a);
+  mat_sweep<MergedWord>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_split_spmm_kernel(const MatArgs<V, L> a) {
-  sweep<SplitPlanes>(a);
+  mat_sweep<SplitPlanes>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_bench_spmm_kernel(const MatArgs<V, L> a) {
-  cg::grid_group grid = cg::this_grid();
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (int it = 0; it < a.iterations; ++it) {
-    for (long long i = tid; i < a.n_out; i += stride) a.out[i] = 0.0f;
-    grid.sync();
-    // stride is a multiple of 32, so the lanes of a warp agree on the loop.
-    for (long long i = tid; (i & ~31LL) < a.n_slots; i += stride) {
-      warp_slots<MergedWord>(a, i);
-    }
-    grid.sync();
-  }
+  mat_bench_sweeps<MergedWord>(a);
 }
 
 template <typename V, typename L>

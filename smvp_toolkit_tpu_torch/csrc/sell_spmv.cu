@@ -8,7 +8,8 @@
 //   K4       sell_split_kernel         <- _make_sell_kernel_resident,
 //                                         _make_sell_kernel_prefetch,
 //                                         _make_sell_kernel
-// All four are one body (sell_common.cuh) under the two route policies:
+// All four are one body (sell_common.cuh, forward_sweep) under the two
+// route policies:
 // merged word or split planes, resident or block-streamed y. The TPU's
 // resident-x / scalar-prefetch / window-stack split is about VMEM and has
 // no meaning here: one kernel serves all three. So does the TPU's one-hot
@@ -38,35 +39,28 @@ namespace {
 
 using namespace sell;
 
-template <class Decode, class YAddr, typename V, typename L>
-__device__ __forceinline__ void sweep(const Args<V, L>& a) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < a.n_slots) slot<Decode, YAddr>(a, i);
-}
-
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_spmv_kernel(const Args<V, L> a) {
-  sweep<MergedWord, ResidentY>(a);
+  forward_sweep<MergedWord, ResidentY>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_streamy_relsl_kernel(const Args<V, L> a) {
-  sweep<MergedWord, StreamedY>(a);
+  forward_sweep<MergedWord, StreamedY>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_streamy_kernel(const Args<V, L> a) {
-  sweep<SplitPlanes, StreamedY>(a);
+  forward_sweep<SplitPlanes, StreamedY>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_split_kernel(const Args<V, L> a) {
-  sweep<SplitPlanes, ResidentY>(a);
+  forward_sweep<SplitPlanes, ResidentY>(a);
 }
 
 template <typename V, typename L>

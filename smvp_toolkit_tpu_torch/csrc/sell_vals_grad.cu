@@ -40,8 +40,6 @@ namespace {
 
 using namespace sell;
 
-constexpr unsigned kFull = 0xffffffffu;
-
 template <class Decode, typename V, typename L>
 __device__ __forceinline__ void vals_grad(const MatArgs<V, L>& a) {
   const long long i =

@@ -23,7 +23,7 @@ from smvp_toolkit_tpu_torch.utils.device import resolve_device
 
 __all__ = ["plan_from_arrays", "plan_fields", "coo_from_triplets",
            "gcn_params_from_arrays", "csr_from_arrays",
-           "ic0_factors_from_arrays"]
+           "ic0_factors_from_arrays", "df64_from_arrays"]
 
 _ARRAY_FIELDS = ("vals", "lane_idx", "rel_tile", "slice_of", "tile_base",
                  "slice_base", "y_block_id")
@@ -124,3 +124,15 @@ def ic0_factors_from_arrays(strict: Dict[str, object],
         diag=torch.from_numpy(np.array(diag, dtype=np.float32)).to(dtype).to(
             dev),
     )
+
+
+def df64_from_arrays(fields: Dict[str, Union[np.ndarray, int]],
+                     vals_lo=None, *, device=None):
+    """The port's ``SellDf64SpMV`` from a JAX ``SellDf64SpMV``: ``fields``
+    are its plan's fields (:func:`plan_fields`), ``vals_lo`` its lo plane
+    as a numpy array (``np.asarray(op.vals_lo)``) or None when it has
+    none. Both packages then run the same planes."""
+    from smvp_toolkit_tpu_torch.ops.spmv_df64 import SellDf64SpMV
+
+    lo = None if vals_lo is None else np.asarray(vals_lo, dtype=np.float32)
+    return SellDf64SpMV(plan_from_arrays(fields), vals_lo=lo, device=device)

@@ -1,5 +1,5 @@
 """Models on the port's sparse kernels: the GCN (``models.graph``) and
-the SPD solvers (``models.solvers``)."""
+the SPD solvers with mixed-precision refinement (``models.solvers``)."""
 
 from smvp_toolkit_tpu_torch.models.graph import (
     GCN,
@@ -18,6 +18,7 @@ from smvp_toolkit_tpu_torch.models.solvers import (
     lanczos_eigsh,
     pcg,
     pcg_precond,
+    refine_solve,
 )
 
 __all__ = [
@@ -35,4 +36,5 @@ __all__ = [
     "pcg",
     "pcg_precond",
     "ic0_preconditioner",
+    "refine_solve",
 ]

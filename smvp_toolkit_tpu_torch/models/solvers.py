@@ -2,9 +2,11 @@
 
 Counterpart of the SPD part of the JAX package's ``models/solvers.py``:
 conjugate gradient, Jacobi- and generally-preconditioned CG, the IC(0)
-preconditioner, Chebyshev iteration, and Lanczos with its host-side
-tridiagonal eigensolve. Plain functions on tensors, with the same
-recurrences, update order and breakdown guards as the JAX functions.
+preconditioner, Chebyshev iteration, Lanczos with its host-side
+tridiagonal eigensolve, and mixed-precision iterative refinement
+(``refine_solve``) on the double-float residual of ``ops.precision``.
+Plain functions on tensors, with the same recurrences, update order and
+breakdown guards as the JAX functions.
 
 The SpMV is injectable as ``spmv(matrix, x)``, as in JAX; it defaults to
 ``spmv_sell.spmv_csr_sell``, the matrix's cached SELL operator, which
@@ -35,6 +37,7 @@ __all__ = [
     "pcg",
     "pcg_precond",
     "ic0_preconditioner",
+    "refine_solve",
 ]
 
 
@@ -231,3 +234,46 @@ def ic0_preconditioner(factors, sweeps: int = 4,
                                 sweeps=sweeps, spmv=spmv_lt)
 
     return apply
+
+
+def refine_solve(matrix, b, *, inner: Callable, num_refinements: int = 3,
+                 vals_lo: Optional[torch.Tensor] = None):
+    """Mixed-precision iterative refinement: float64-quality solves from a
+    float32 inner solver.
+
+    Wilkinson refinement with the double-float machinery of
+    ``ops.precision``: x lives as a (hi, lo) float32 pair, the residual
+    ``r = b − A·x`` comes from the double-float CSR SpMV
+    (``spmv_csr_df64``, float64 products and row sums), ANY float32 inner
+    solver supplies the correction ``d ≈ A⁻¹r`` and ``x += d`` accumulates
+    error-free. Each sweep multiplies the error by the inner solve's
+    contraction, down to the double-float floor. ``vals_lo`` carries the
+    low words of float64 matrix values (``df_split``, aligned with
+    ``matrix.vals``) when the operator itself exceeds float32.
+
+    ``inner(r) -> d`` takes and returns float32 vectors on the matrix's
+    device; ``b`` may be float32 or float64, a tensor or host array.
+    Returns ``(x_hi, x_lo, res_norms)``: the pair and one float64 residual
+    norm per sweep, taken before its correction (numpy, length
+    ``num_refinements``).
+    """
+    from smvp_toolkit_tpu_torch.ops.precision import (
+        _df_add,
+        df_split,
+        df_to_f64,
+        spmv_csr_df64,
+    )
+
+    if isinstance(b, torch.Tensor):
+        b = b.detach().to(matrix.device)
+    b_hi, b_lo = df_split(b, device=matrix.device)
+    x_hi = torch.zeros_like(b_hi)
+    x_lo = torch.zeros_like(b_hi)
+    norms = []
+    for _ in range(num_refinements):
+        y_hi, y_lo = spmv_csr_df64(matrix, x_hi, x_lo, vals_lo)
+        r_hi, r_lo = _df_add((b_hi, b_lo), (-y_hi, -y_lo))
+        norms.append(float(np.linalg.norm(df_to_f64(r_hi, r_lo))))
+        d = inner(r_hi.float()).float()
+        x_hi, x_lo = _df_add((x_hi, x_lo), (d, torch.zeros_like(d)))
+    return x_hi, x_lo, np.asarray(norms)

@@ -227,8 +227,9 @@ def fused_cg(op, b: torch.Tensor, num_iters: int) -> torch.Tensor:
     x, r, p, q = (torch.empty_like(bt) for _ in range(4))
     xin = p if op.value_dtype == torch.float32 else torch.empty(
         bt.numel(), dtype=op.value_dtype, device=op.device)
-    launch("sell_cg_kernel", op, route=op.route, planes=_route_planes(op),
-           b=bt, x=x, r=r, p=p, q=q, xin=xin, iterations=num_iters)
+    launch("sell_cg_kernel", op, route=op.base_route,
+           planes=_route_planes(op), b=bt, x=x, r=r, p=p, q=q, xin=xin,
+           iterations=num_iters)
     fused_cg.launches += 1
     return x[:n]
 

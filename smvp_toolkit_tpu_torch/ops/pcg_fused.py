@@ -70,7 +70,7 @@ __all__ = [
 def _require_relsl(op, label: str) -> None:
     if op.plan.y_block_slices:
         raise ValueError(f"{label} requires a resident-y plan")
-    if op.route != "relsl":
+    if op.base_route != "relsl":
         raise ValueError(f"{label} runs the relsl layout only")
 
 

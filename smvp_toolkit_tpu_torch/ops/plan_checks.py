@@ -14,7 +14,12 @@ plan's fields unchecked, so what they need is checked here:
   lengths, contiguous, on one device;
 * for the k-column kernels, X and G as row-major (rows, k) blocks with
   k >= 1 and at least CT·128 (X) or NS·128 (G) rows, since the kernels
-  read row ``col`` of X and row ``row`` of G unchecked.
+  read row ``col`` of X and row ``row`` of G unchecked;
+* for the packed word (bf16 value in bits 16..31, rel in 7..15, lane in
+  0..6): a window of at most 511 tiles, so that every live rel fits the
+  9-bit field below its dead marker 511, and lane indices below 128, the
+  7-bit field (``check_packed_plan``); the word plane, the slice ids and
+  a bf16 x of matching shapes (``check_packed_planes``).
 
 Which planes a plan runs on (the merged rel‖slice word or the split
 rel_tile / slice_of planes) is the operator's route choice, not a check.
@@ -36,13 +41,19 @@ from smvp_toolkit_tpu_torch.ops.sell_plan import (
 )
 
 __all__ = [
+    "PACK_REL_SHIFT",
     "REL_DEAD",
     "SLICE_SHIFT",
     "SLICE_DEAD",
     "check_block",
+    "check_packed_plan",
+    "check_packed_planes",
     "check_plan",
     "check_planes",
 ]
+
+# The packed word: rel sits above the 7 lane-index bits.
+PACK_REL_SHIFT = 7
 
 VALUE_DTYPES = (torch.float32, torch.bfloat16)
 LIDX_DTYPES = (torch.int8, torch.int32)
@@ -174,3 +185,57 @@ def check_block(name: str, t: torch.Tensor, *, rows: int, dtypes,
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, the planes on {device}")
     return int(t.shape[1])
+
+
+def check_packed_plan(plan: SellPlan) -> None:
+    """Raise unless ``plan`` fits the packed word: every live rel below
+    511 (a window of at most 511 tiles; 511 marks a dead sublane) and
+    every lane index in the 7-bit field."""
+    if plan.window_tiles > REL_DEAD:
+        raise ValueError(
+            f"window of {plan.window_tiles} tiles: the packed word's 9-bit "
+            f"rel field holds windows of at most {REL_DEAD} tiles"
+        )
+    lidx = plan.lane_idx
+    if lidx.size and (lidx.min() < 0 or lidx.max() >= 128):
+        raise ValueError("lane indices must lie in [0, 128) (7 bits)")
+
+
+def check_packed_planes(*, packed: torch.Tensor, slice_of: torch.Tensor,
+                        tile_base: torch.Tensor, chunk: int,
+                        x: Optional[torch.Tensor] = None,
+                        y_block_id: Optional[torch.Tensor] = None) -> None:
+    """Dtypes, shapes, contiguity and a common device for one packed
+    launch: the (S, 128) int32 word plane, S int32 slice ids, one
+    ``tile_base`` (and ``y_block_id``) word per chunk, and a bfloat16 x
+    padded to whole column tiles (the k-column kernel's X is checked by
+    ``check_block``)."""
+    given = dict(packed=packed, slice_of=slice_of, tile_base=tile_base,
+                 y_block_id=y_block_id)
+    for name, t in given.items():
+        if t is None:
+            continue
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+        if not t.is_contiguous() or t.device != packed.device:
+            raise ValueError(f"{name} must be contiguous, on "
+                             f"{packed.device}")
+    s = slice_of.numel()
+    if packed.shape != (s, 128):
+        raise ValueError(f"packed {tuple(packed.shape)} must be ({s}, 128), "
+                         "one row per slice id")
+    if chunk < 1 or s % chunk or tile_base.numel() != s // chunk:
+        raise ValueError(f"{s} sublanes do not split into "
+                         f"{tile_base.numel()} chunks of {chunk}")
+    if y_block_id is not None and y_block_id.numel() != s // chunk:
+        raise ValueError(f"y_block_id has {y_block_id.numel()} entries, "
+                         f"the plan {s // chunk} chunks")
+    if x is not None:
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"x must be bfloat16 on the packed route, got "
+                            f"{x.dtype}")
+        if not x.is_contiguous() or x.device != packed.device:
+            raise ValueError(f"x must be contiguous, on {packed.device}")
+        if x.numel() % 128:
+            raise ValueError("x must be padded to whole 128-wide column "
+                             "tiles")

@@ -127,7 +127,7 @@ class SellPlan:
 
     def traffic_bytes(
         self, value_bytes: int = 4, lidx_bytes: Optional[int] = None,
-        x_bytes: int = 4, k: int = 1,
+        x_bytes: int = 4, k: int = 1, packed: bool = False,
     ) -> int:
         """Device-memory bytes one launch of the port's kernel for this
         plan moves over k columns, each input read once and y written once.
@@ -148,11 +148,17 @@ class SellPlan:
         ``value_bytes=4``: it reads no values plane but writes a float32
         plane of the same shape, and reads G (NS·128 × k float32) where
         the SpMM writes y.
+
+        ``packed`` is the packed route (``SMVP_SELL_PACK=1``, bf16): one
+        int32 val‖rel‖lane word per slot in place of the values and
+        lane-index planes, and one slice id per sublane as its metadata.
         """
         if lidx_bytes is None:
             lidx_bytes = lidx_bytes_for_chunk(self.chunk)
         s = self.n_sublanes
         words = 1 if self.merged_word else 2
+        if packed:
+            value_bytes, lidx_bytes, words = 4, 0, 1
         per_chunk = 2 if self.y_block_slices else 1  # tile_base, y_block_id
         return int(
             s * LANES * (value_bytes + lidx_bytes)  # vals + lane_idx

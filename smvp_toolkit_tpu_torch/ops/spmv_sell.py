@@ -39,6 +39,18 @@ and there is no column layout or group. Streamed-y plans run SpMM column
 by column on their K3 kernel, as the JAX operator falls back to a vmap
 over columns there; they have no values gradient, as in the JAX package.
 
+In bfloat16 value mode, ``SMVP_SELL_PACK=1`` (read at each call, where
+the JAX operator reads it) takes the packed route of ``csrc/sell_packed.cu``
+on plans whose window fits the 9-bit rel field (``window_tiles <= 511``),
+for the operator's own values plane only: one int32 word per slot holds
+the bf16 value, rel and lane (``packed_plane_host``), beside the
+per-sublane ``slice_of`` plane:
+
+* ``sell_packed`` (K5, k = 1, resident or streamed y), ``sell_packed_spmm``
+  (K5 with k > 1, resident y) and ``sell_bench_packed`` (K2-packed, N K5
+  sweeps in one cooperative launch, resident y; a streamed plan's
+  ``bench_loop`` raises under the switch, as the JAX one does).
+
 Each wrapper launches its kernel for a CUDA tensor, or raises; only a
 tensor that lies on the CPU goes to the plain PyTorch version beside it
 (``<wrapper>_plain``). Each wrapper counts its launches in a plain integer
@@ -49,6 +61,7 @@ path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import os
 import weakref
 from typing import Optional
 
@@ -58,11 +71,14 @@ import torch
 from smvp_toolkit_tpu_torch.formats.coo import host_tensor
 from smvp_toolkit_tpu_torch.ops import _build, spmv_autograd
 from smvp_toolkit_tpu_torch.ops.plan_checks import (
+    PACK_REL_SHIFT,
     REL_DEAD,
     SLICE_DEAD,
     SLICE_SHIFT,
     VALUE_DTYPES,
     check_block,
+    check_packed_plan,
+    check_packed_planes,
     check_plan,
     check_planes,
 )
@@ -105,6 +121,16 @@ __all__ = [
     "sell_bench_spmm_plain",
     "sell_vals_grad",
     "sell_vals_grad_plain",
+    "packed_plane_host",
+    "sell_packed",
+    "sell_packed_plain",
+    "sell_packed_spmm",
+    "sell_packed_spmm_plain",
+    "sell_bench_packed",
+    "sell_bench_packed_plain",
+    "PACKED_KERNELS",
+    "PACKED_ROUTES",
+    "bench_packed_blocks",
     "MAT_KERNELS",
     "bench_blocks",
     "bench_spmm_blocks",
@@ -153,6 +179,22 @@ def relsl_plane_host(plan: SellPlan) -> np.ndarray:
 def lidx_dtype(chunk: int) -> torch.dtype:
     """int8 lane indices when ``chunk % 32 == 0``, else int32."""
     return torch.int8 if lidx_bytes_for_chunk(chunk) == 1 else torch.int32
+
+
+def packed_plane_host(plan: SellPlan) -> np.ndarray:
+    """The packed val‖rel‖lane word per slot, (S, 128) int32: the bf16
+    rounding of the value in bits 16..31, the sublane's rel in bits 7..15
+    (511 = dead), the lane index in bits 0..6. The JAX operator's
+    ``SellSpMV._packed()`` bit for bit (bf16 rounds to nearest even in
+    both)."""
+    check_packed_plan(plan)
+    bits = torch.from_numpy(np.ascontiguousarray(plan.vals, np.float32)).to(
+        torch.bfloat16).view(torch.int16).numpy().view(np.uint16).astype(
+        np.uint32) << 16
+    rel = np.where(plan.rel_tile < 0, REL_DEAD, plan.rel_tile).astype(
+        np.uint32).reshape(-1, 1)
+    lane = plan.lane_idx.astype(np.uint32)
+    return (bits | (rel << PACK_REL_SHIFT) | lane).view(np.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -335,6 +377,41 @@ def sell_vals_grad_plain(lidx, tile_base, X, G, *, n_slices: int,
     out = torch.zeros(lidx.numel(), dtype=torch.float32, device=X.device)
     out[slot] = acc
     return out.reshape(lidx.shape)
+
+
+def _unpack_word(packed):
+    """(vals float32 (S, 128), lane indices, rel int64 per sublane with -1
+    for dead) from the packed word plane; rel is read from lane 0, as the
+    JAX ``_unpack_plane`` reads it."""
+    w = packed.reshape(-1, LANES)
+    vals = (w & -65536).view(torch.float32)
+    lidx = w & 127
+    rel = (w[:, 0].long() & 0xFFFFFFFF) >> PACK_REL_SHIFT & REL_DEAD
+    return vals, lidx, rel.masked_fill(rel == REL_DEAD, -1)
+
+
+def sell_packed_plain(packed, slice_of, tile_base, x, *, n_slices: int,
+                      chunk: int, y_block_id=None,
+                      nsb: int = 0) -> torch.Tensor:
+    """K5's function in plain PyTorch: the word unpacked, then K1's sweep
+    (resident y, or streamed with ``y_block_id`` and ``nsb``)."""
+    vals, lidx, rel = _unpack_word(packed)
+    ybase = None if y_block_id is None else _block_base(y_block_id, nsb)
+    return _sweep_plain(vals, lidx, rel, slice_of.reshape(-1).long(),
+                        tile_base, ybase, x, n_slices=n_slices, chunk=chunk)
+
+
+def sell_packed_spmm_plain(packed, slice_of, tile_base, X, *, n_slices: int,
+                           n_coltiles: int, chunk: int) -> torch.Tensor:
+    """K5-with-k's function in plain PyTorch (resident y)."""
+    vals, lidx, rel = _unpack_word(packed)
+    return _spmm_plain(vals, lidx, rel, slice_of.reshape(-1).long(),
+                       tile_base, X, n_slices=n_slices, chunk=chunk)
+
+
+def sell_bench_packed_plain(*args, iterations: int, **kw) -> torch.Tensor:
+    """K2-packed's function: ``iterations`` fresh K5 SpMVs, the last y."""
+    return _repeat(sell_packed_plain, iterations, *args, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -687,6 +764,124 @@ def sell_vals_grad(lidx, tile_base, X, G, *, n_slices: int, n_coltiles: int,
     return out
 
 
+_PACKED_SIGNATURES = {
+    "sell_packed_launch": (ctypes.c_int, [
+        _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _VP]),
+    "sell_packed_spmm_launch": (ctypes.c_int, [
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, _VP]),
+    "sell_bench_packed_launch": (ctypes.c_int, [
+        _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP]),
+    "sell_bench_packed_blocks": (ctypes.c_int, [
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int)]),
+    "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def _packed_dispatch(wrapper, plain, packed, slice_of, tile_base, x, *,
+                     n_slices: int, chunk: int, y_block_id=None, nsb: int = 0,
+                     n_coltiles: Optional[int] = None,
+                     iterations: Optional[int] = None) -> torch.Tensor:
+    """Check the packed planes, then run ``plain`` on CPU tensors or launch
+    the wrapper's kernel (counted on ``wrapper``) on CUDA ones: the
+    k-column kernel when ``n_coltiles`` is given (x is then the (rows, k)
+    block X), the N-iteration one when ``iterations`` is."""
+    if iterations is not None and iterations < 1:
+        raise ValueError("iterations must be >= 1")
+    mat = n_coltiles is not None
+    check_packed_planes(packed=packed, slice_of=slice_of, tile_base=tile_base,
+                        chunk=chunk, x=None if mat else x,
+                        y_block_id=y_block_id)
+    kw = dict(n_slices=n_slices, chunk=chunk)
+    if mat:
+        k = check_block("X", x, rows=n_coltiles * LANES,
+                        dtypes=(torch.bfloat16,), device=packed.device)
+        kw["n_coltiles"] = n_coltiles
+    elif y_block_id is not None:
+        kw.update(y_block_id=y_block_id, nsb=nsb)
+    if packed.device.type == "cpu":
+        if iterations is not None:
+            kw["iterations"] = iterations
+        return plain(packed, slice_of, tile_base, x, **kw)
+    dev = _launch_device(packed)
+    lib = _build.load("sell_packed", _PACKED_SIGNATURES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n_slots, n_out = packed.numel(), n_slices * LANES
+    planes = (packed.data_ptr(), slice_of.data_ptr(), tile_base.data_ptr())
+    if mat:
+        y = torch.zeros(n_out, k, dtype=torch.float32, device=dev)
+        rc = lib.sell_packed_spmm_launch(*planes, x.data_ptr(), y.data_ptr(),
+                                         n_slots, chunk, k, dev.index, stream)
+    elif iterations is not None:
+        y = torch.empty(n_out, dtype=torch.float32, device=dev)
+        rc = lib.sell_bench_packed_launch(*planes, x.data_ptr(), y.data_ptr(),
+                                          n_slots, n_out, chunk, iterations,
+                                          dev.index, stream)
+    else:
+        y = torch.zeros(n_out, dtype=torch.float32, device=dev)
+        rc = lib.sell_packed_launch(*planes, _ptr(y_block_id), x.data_ptr(),
+                                    y.data_ptr(), n_slots, chunk, nsb,
+                                    dev.index, stream)
+    _check_rc(lib, rc, f"{wrapper.kernel} launch")
+    wrapper.launches += 1
+    return y
+
+
+def sell_packed(packed, slice_of, tile_base, x, *, n_slices: int, chunk: int,
+                y_block_id=None, nsb: int = 0) -> torch.Tensor:
+    """K5: y = A·x over the packed word plane (bf16 values and x), resident
+    y, or streamed with ``y_block_id`` and ``nsb`` slices per block."""
+    if y_block_id is not None and nsb < 1:
+        raise ValueError("a streamed plan needs nsb >= 1")
+    return _packed_dispatch(sell_packed, sell_packed_plain, packed, slice_of,
+                            tile_base, x, n_slices=n_slices, chunk=chunk,
+                            y_block_id=y_block_id, nsb=nsb)
+
+
+def sell_packed_spmm(packed, slice_of, tile_base, X, *, n_slices: int,
+                     n_coltiles: int, chunk: int) -> torch.Tensor:
+    """K5 with k columns: Y = A·X over the packed word plane, resident y; X
+    is (at least CT·128, k) bf16, Y float32 (n_slices·128, k)."""
+    return _packed_dispatch(sell_packed_spmm, sell_packed_spmm_plain, packed,
+                            slice_of, tile_base, X, n_slices=n_slices,
+                            chunk=chunk, n_coltiles=n_coltiles)
+
+
+def sell_bench_packed(packed, slice_of, tile_base, x, *, n_slices: int,
+                      chunk: int, iterations: int) -> torch.Tensor:
+    """K2-packed: ``iterations`` K5 SpMVs in one cooperative launch
+    (resident y); the last y."""
+    return _packed_dispatch(sell_bench_packed, sell_bench_packed_plain,
+                            packed, slice_of, tile_base, x,
+                            n_slices=n_slices, chunk=chunk,
+                            iterations=iterations)
+
+
+# The packed wrappers by kernel name, each with its launch counter, and
+# the route names SellSpMV.route reports under SMVP_SELL_PACK=1.
+PACKED_KERNELS = {
+    "sell_packed_kernel": sell_packed,
+    "sell_packed_spmm_kernel": sell_packed_spmm,
+    "sell_bench_packed_kernel": sell_bench_packed,
+}
+for _name, _fn in PACKED_KERNELS.items():
+    _fn.kernel = _name
+    _fn.launches = 0
+PACKED_ROUTES = ("packed", "streamy_packed")
+
+
+def bench_packed_blocks(device=None) -> int:
+    """Blocks of one ``sell_bench_packed_kernel`` launch on ``device``."""
+    dev = resolve_device(device)
+    lib = _build.load("sell_packed", _PACKED_SIGNATURES)
+    out = ctypes.c_int(0)
+    rc = lib.sell_bench_packed_blocks(dev.index, ctypes.byref(out))
+    _check_rc(lib, rc, "sell_bench_packed_kernel occupancy query")
+    return out.value
+
+
 # The k-column wrappers by kernel name, each with its launch counter.
 MAT_KERNELS = {
     "sell_spmm_kernel": sell_spmm,
@@ -745,7 +940,10 @@ class SellSpMV:
     operator. Only the planes the route reads are uploaded: ``relsl`` on
     merged-word routes, ``rel`` and ``slice_of`` (int32 per sublane, -1 =
     dead) on split ones, ``y_block_id`` on streamed ones; the others are
-    None.
+    None. ``base_route`` is the plan's route; ``route`` is the route a call
+    takes now: ``packed`` or ``streamy_packed`` while ``SMVP_SELL_PACK=1``
+    and the packed gates pass (bf16 values, ``window_tiles <= 511``),
+    whose planes (``packed_planes``) are built and uploaded at first use.
 
     ``triplets`` are the host (rows, cols, values) the plan was built
     from, kept for the training hooks: ``transpose`` plans Aᵀ from them
@@ -762,7 +960,7 @@ class SellSpMV:
             raise ValueError("value_dtype must be float32 or bfloat16")
         self.plan = plan
         self.shape = plan.shape
-        self.route = plan_route(plan)
+        self.base_route = plan_route(plan)
         dev = self.device
 
         def upload(a):
@@ -781,12 +979,41 @@ class SellSpMV:
             self.slice_of = upload(plan.slice_of)
         if plan.y_block_slices:
             self.y_block_id = upload(plan.y_block_id)
-        self.kernel, self.bench_kernel = _ROUTE_FNS[self.route]
-        self.spmm_kernel = _SPMM_FNS.get(self.route)
+        self.kernel, self.bench_kernel = _ROUTE_FNS[self.base_route]
+        self.spmm_kernel = _SPMM_FNS.get(self.base_route)
+        self._packed: Optional[tuple] = None
         self._triplets = triplets
         self._t_op: Optional[SellSpMV] = None
         self._slot_map: Optional[np.ndarray] = None
         self._slot_index: Optional[torch.Tensor] = None
+
+    def packed_on(self, vals: Optional[torch.Tensor] = None) -> bool:
+        """Whether a call takes the packed route: ``SMVP_SELL_PACK=1``,
+        bf16 values, a window that fits the 9-bit rel field, and the
+        operator's own values plane (a ``vals`` plane passed by the
+        training hooks never does), the JAX operator's gates."""
+        return (os.environ.get("SMVP_SELL_PACK") == "1"
+                and self.value_dtype == torch.bfloat16
+                and self.plan.window_tiles <= REL_DEAD
+                and vals is None)
+
+    @property
+    def route(self) -> str:
+        """The route a call takes now (class docstring)."""
+        if self.packed_on():
+            return PACKED_ROUTES[int(bool(self.plan.y_block_slices))]
+        return self.base_route
+
+    def packed_planes(self):
+        """(packed word plane (S, 128), slice_of per sublane), int32 on
+        the operator's device; built and uploaded at first use."""
+        if self._packed is None:
+            pk = host_tensor(packed_plane_host(self.plan), np.int32)
+            sl = self.slice_of
+            if sl is None:
+                sl = host_tensor(self.plan.slice_of.reshape(-1), np.int32)
+            self._packed = (pk.to(self.device), sl.to(self.device))
+        return self._packed
 
     @staticmethod
     def from_coo(coo, value_dtype: Optional[torch.dtype] = None,
@@ -858,6 +1085,11 @@ class SellSpMV:
 
     def _apply(self, x: torch.Tensor,
                vals: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.packed_on(vals):
+            y = sell_packed(*self.packed_planes(), self.tile_base,
+                            self._x_tiles(x), y_block_id=self.y_block_id,
+                            **self._kw())
+            return y[: self.shape[0]]
         planes = (self._vals_plane(vals),) + self._planes()[1:]
         y = self.kernel(*planes, self._x_tiles(x), **self._kw())
         return y[: self.shape[0]]
@@ -871,9 +1103,10 @@ class SellSpMV:
 
         k == 1 is one SpMV (``__call__``). A resident-y plan runs one
         k-wide launch of its route's SpMM kernel (K1 or K4 with k
-        columns); a streamed-y plan runs column by column on its K3
-        kernel. X is rounded to the value dtype first (bf16 mode rounds
-        it to bf16, as the JAX operator does). ``vals`` (S·128 values in
+        columns, or K5 with k columns on the packed route); a streamed-y
+        plan runs column by column on its K3 (or K5) kernel. X is rounded
+        to the value dtype first (bf16 mode rounds it to bf16, as the JAX
+        operator does). ``vals`` (S·128 values in
         the planner's slot order) replaces the values plane for this
         call, as the trainable-edge path needs.
         """
@@ -885,23 +1118,27 @@ class SellSpMV:
         if self.spmm_kernel is None:  # streamed y: per column
             return torch.stack([self._apply(X[:, j], vals)
                                 for j in range(k)], dim=1)
-        planes = (self._vals_plane(vals),) + self._planes()[1:]
         Xt = self._block(X, self.plan.n_coltiles * LANES, self.value_dtype,
                          "X")
+        if self.packed_on(vals):
+            return sell_packed_spmm(*self.packed_planes(), self.tile_base, Xt,
+                                    **self._mat_kw())[: self.shape[0]]
+        planes = (self._vals_plane(vals),) + self._planes()[1:]
         return self.spmm_kernel(*planes, Xt, **self._mat_kw())[
             : self.shape[0]]
 
     def bench_loop_mat(self, X: torch.Tensor,
                        iterations: int) -> torch.Tensor:
         """N SpMMs in ONE launch of the k-column bench kernel (K2 with k
-        columns; merged word, resident y); returns the last Y."""
+        columns; merged word, resident y); returns the last Y. k > 1
+        ignores ``SMVP_SELL_PACK``, as the JAX ``bench_loop_mat`` does."""
         if self.plan.y_block_slices:
             raise ValueError("bench_loop_mat requires a resident-y plan")
         if X.dim() != 2:
             raise ValueError(f"X must be (ncols, k), got {tuple(X.shape)}")
         if X.shape[1] == 1:
             return self.bench_loop(X[:, 0], iterations)[:, None]
-        if self.route != "relsl":
+        if self.base_route != "relsl":
             raise ValueError("bench_loop_mat runs the relsl layout only")
         Xt = self._block(X, self.plan.n_coltiles * LANES, self.value_dtype,
                          "X")
@@ -1023,9 +1260,27 @@ class SellSpMV:
         SpMM kernels, d/dX through the transpose, d/dv on K7."""
         return spmv_autograd.differentiable_edges_mat(self)
 
+    def bench_loop_refusal(self) -> Optional[str]:
+        """Why ``bench_loop`` refuses this operator now, or None: the
+        packed route's K2-packed has no streamed-y form."""
+        if self.packed_on() and self.plan.y_block_slices:
+            return ("streamed-y bench_loop supports relsl/split-plane modes "
+                    "(SMVP_SELL_PACK=1 has no streamed-y N-iteration kernel)")
+        return None
+
     def bench_loop(self, x: torch.Tensor, iterations: int) -> torch.Tensor:
         """N SpMVs in ONE launch of the route's bench kernel; returns the
-        last iteration's y."""
+        last iteration's y. On the packed route that is K2-packed: a
+        streamed plan raises there (``bench_loop_refusal``), as the JAX
+        operator does, rather than fall back to the unpacked kernel."""
+        why = self.bench_loop_refusal()
+        if why:
+            raise ValueError(why)
+        if self.packed_on():
+            y = sell_bench_packed(*self.packed_planes(), self.tile_base,
+                                  self._x_tiles(x), iterations=iterations,
+                                  **self._kw())
+            return y[: self.shape[0]]
         y = self.bench_kernel(*self._planes(), self._x_tiles(x),
                               iterations=iterations, **self._kw())
         return y[: self.shape[0]]

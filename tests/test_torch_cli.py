@@ -391,9 +391,11 @@ def test_tolerance_reports_the_achieved_count(tmp_path, spd_file):
 def test_solve_out_writes_the_solution(tmp_path, spd_file):
     import scipy.sparse as sp
 
-    out = str(tmp_path / "x.npy")
-    rc, recs = _solve(tmp_path, spd_file, "pcg-ic0:60", "--solve-out", out)
-    x = np.load(out)
+    out = tmp_path / "out"
+    out.mkdir()
+    rc, recs = _solve(tmp_path, spd_file, "pcg-ic0:60", "--out-dir",
+                      str(out))
+    x = np.load(out / "solve.npy")
     assert rc == 0 and x.shape == (400,) and x.dtype == np.float32
     t = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], (20, 20))
     a = sp.kron(sp.eye(20), t) + sp.kron(t, sp.eye(20))
@@ -401,8 +403,7 @@ def test_solve_out_writes_the_solution(tmp_path, spd_file):
     r = b - a @ x.astype(np.float64)
     assert abs(np.linalg.norm(r) / np.linalg.norm(b)
                - recs[-1]["relative_residual"]) <= 1e-6
-    assert tcli.main(["-c", "--device", "cpu", "--solve-out", out,
-                      spd_file]) == 2  # --solve-out without --solve
+    assert sorted(os.listdir(out)) == ["solve.npy", "y.npy"]
 
 
 def test_ic0_failure_exits_2(tmp_path, spd_file, monkeypatch, capsys):
@@ -416,3 +417,122 @@ def test_ic0_failure_exits_2(tmp_path, spd_file, monkeypatch, capsys):
     assert rc == 2
     out = capsys.readouterr()
     assert "kept breaking down" in out.out + out.err
+
+
+# -- --kernel df64 and the packed bf16 route ---------------------------------
+
+
+def _within_one_ulp(y, ref):
+    """Each float32 y within one float32 ulp of the float64 oracle rounded
+    to float32."""
+    r32 = ref.astype(np.float32)
+    return np.abs(y.astype(np.float64) - r32.astype(np.float64)) <= \
+        np.spacing(np.abs(r32)).astype(np.float64)
+
+
+def _records(path):
+    with open(path) as f:
+        return [json.loads(ln) for ln in f]
+
+
+@pytest.mark.parametrize("mode", ["call", "fused", "xla"])
+def test_df64_csr_within_one_ulp(tmp_path, mode, monkeypatch):
+    if mode == "xla":
+        monkeypatch.setenv("SMVP_DF64_XLA", "1")
+    jp = str(tmp_path / "r.jsonl")
+    extra = ["--fused"] if mode == "fused" else []
+    assert tcli.main(["-c", "-t", "-n", "2", "--device", "cpu",
+                      "--kernel", "df64", "--x", "random:1", "--no-report",
+                      "--json-out", jp, "--out-dir", str(tmp_path), *extra,
+                      SPEC]) == 0
+    y = np.load(tmp_path / "y.npy")
+    assert y.dtype == np.float32 and y.shape == (4096,)
+    assert _within_one_ulp(y, _oracle(False, 1)).all()
+    csr, tjds = _records(jp)
+    assert csr["kernel"] == ("df64-torch" if mode == "xla" else "df64-plain")
+    assert tjds["alg"] == "TJDS" and tjds["kernel"] == "sell-plain"
+    if mode != "xla":  # the record's bytes: SellDf64SpMV.traffic_bytes()
+        from smvp_toolkit_tpu_torch.ops.spmv_df64 import SellDf64SpMV
+        from smvp_toolkit_tpu_torch.ops.spmv_sell import (
+            _triplets_from_csr_host,
+        )
+        from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+        from smvp_toolkit_tpu_torch.utils.synth import parse_synth_spec
+
+        r, c, v, shape = _triplets_from_csr_host(csr_encode(
+            parse_synth_spec(SPEC, device="cpu").pad(128)))
+        nb = SellDf64SpMV.from_coo_f64(r, c, v, shape,
+                                       device="cpu").traffic_bytes()
+        assert np.isclose(csr["eff_gb_s"], nb / (csr["avg_ms"] * 1e-3) / 1e9)
+
+
+def test_df64_logs_tjds_fallback_and_float32_control(tmp_path, capsys):
+    assert tcli.main(["-c", "-t", "-n", "1", "--device", "cpu", "--kernel",
+                      "df64", "--no-report", "--x", "random:1", SPEC]) == 0
+    out = capsys.readouterr().out
+    assert "df64 is CSR-only; TJDS runs its ordinary SELL kernel." in out
+    assert "Benchmarking TJDS SpMV (sell-plain kernel)" in out
+    assert "Benchmarking CSR SpMV (df64-plain kernel)" in out
+    # the float32 path misses the one-ulp check on some rows
+    assert tcli.main(["-c", "-n", "1", "--device", "cpu", "--no-report",
+                      "--x", "random:1", "--out-dir", str(tmp_path),
+                      SPEC]) == 0
+    assert not _within_one_ulp(np.load(tmp_path / "y.npy"),
+                               _oracle(False, 1)).all()
+
+
+def test_df64_spmm_runs_on_spmm_csr(tmp_path, capsys):
+    jp = str(tmp_path / "r.jsonl")
+    for extra in ([], ["--fused"]):
+        assert tcli.main(["-c", "-n", "2", "--device", "cpu", "--kernel",
+                          "df64", "--spmm", "3", "--no-report", "--json-out",
+                          jp, *extra, SPEC]) == 0
+    out = capsys.readouterr().out
+    assert out.count("--spmm runs on the plain-PyTorch kernel (no df64 "
+                     "SpMM variant).") == 2
+    spmm = [r for r in _records(jp) if r["alg"] == "SPMM-CSR"]
+    assert [r["kernel"] for r in spmm] == ["torch", "torch"]
+    assert spmm[1]["timing"] == "N calls between one pair of events"
+
+
+def test_out_dir_needs_csr_and_a_directory(tmp_path):
+    assert tcli.main(["-t", "-n", "1", "--device", "cpu", "--out-dir",
+                      str(tmp_path), SPEC]) == 2
+    assert tcli.main(["-c", "-n", "1", "--device", "cpu", "--out-dir",
+                      str(tmp_path / "nope"), SPEC]) == 2
+    assert not os.listdir(tmp_path)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_packed_bf16_agrees_with_oracle(tmp_path, fused, monkeypatch):
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as tsp
+
+    monkeypatch.setenv("SMVP_SELL_PACK", "1")
+    calls = []
+    for name in ("sell_packed_plain", "sell_bench_packed_plain"):
+        fn = getattr(tsp, name)
+        monkeypatch.setattr(tsp, name, lambda *a, _f=fn, _n=name, **kw: (
+            calls.append(_n), _f(*a, **kw))[1])
+    assert tcli.main(["-c", "-n", "2", "--device", "cpu", "--dtype",
+                      "bfloat16", "--no-report", "--x", "random:2",
+                      "--out-dir", str(tmp_path),
+                      *(["--fused"] if fused else []), SPEC]) == 0
+    # the N-iteration plain version repeats the forward one
+    assert ("sell_bench_packed_plain" in calls) == fused
+    assert "sell_packed_plain" in calls
+    assert _close(np.load(tmp_path / "y.npy"), _oracle(True, 2))
+
+
+def test_packed_fused_on_a_streamed_plan_fails(monkeypatch, capsys):
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as tsp
+
+    monkeypatch.setenv("SMVP_SELL_PACK", "1")
+    # a 2048-row y cut makes the small spec's plan streamed
+    monkeypatch.setattr(tsp, "_RESIDENT_Y_LIMIT", 2048 * 4)
+    monkeypatch.setattr(tsp, "_STREAM_Y_BLOCK_ROWS", 2048)
+    argv = ["-c", "-n", "1", "--device", "cpu", "--dtype", "bfloat16",
+            "--no-report", SPEC]
+    assert tcli.main(argv) == 0  # per call: K5 on streamed y
+    assert tcli.main(argv + ["--fused"]) == 2
+    err = capsys.readouterr().err
+    assert "streamed-y bench_loop supports relsl/split-plane modes" in err

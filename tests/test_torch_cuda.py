@@ -265,13 +265,12 @@ def test_cli_spmm_launches_kcolumn_kernels(card, tmp_path):
                         (True, "sell_bench_spmm_kernel")):
         for fn in S.MAT_KERNELS.values():
             fn.launches = 0
-        out = str(tmp_path / f"y{int(fused)}.npy")
         argv = ["-c", "-n", "3", "--no-report", "--spmm", "4",
-                "--spmm-out", out] + (["--fused"] if fused else [])
+                "--out-dir", str(tmp_path)] + (["--fused"] if fused else [])
         assert main(argv + [spec]) == 0
         counts = {n: f.launches for n, f in S.MAT_KERNELS.items()}
         assert counts.pop(want) >= 3 and not any(counts.values())
-        assert np.load(out).shape == (20000, 4)
+        assert np.load(tmp_path / "spmm.npy").shape == (20000, 4)
 
 
 # -- the fused solvers: K9 (CG), K10 (Chebyshev), K11 (IC(0)-PCG) ----------
@@ -414,3 +413,144 @@ def test_cli_solve_launches_fused_kernels(card, tmp_path):
         counts = {k: f.launches for k, f in P.SOLVER_KERNELS.items()}
         assert counts.pop(kname) == 1 and not any(counts.values())
         assert S.sell_spmv.launches >= 4  # the benchmark and the check
+
+
+# -- K8 (double-float), K5 and K2-packed -------------------------------------
+
+
+def _df64_case(lo_plane, chunk=512):
+    from smvp_toolkit_tpu_torch.ops.spmv_df64 import SellDf64SpMV
+
+    rng = np.random.RandomState(0 if lo_plane else 2)
+    n, m, nnz = 900, 800, 12000
+    r, c = rng.randint(0, n, nnz), rng.randint(0, m, nnz)
+    v = rng.randn(nnz) * np.exp2(rng.randint(-8, 8, nnz))
+    if not lo_plane:
+        v = v.astype(np.float32).astype(np.float64)
+    x64 = rng.randn(m)
+    return r, c, v, (n, m), x64, lambda dev: SellDf64SpMV.from_coo_f64(
+        r, c, v, (n, m), chunk=chunk, device=dev)
+
+
+@pytest.mark.parametrize("lo_plane", [True, False])
+def test_df64_kernels_match_plain_and_oracle(card, lo_plane):
+    from smvp_toolkit_tpu_torch.ops import spmv_df64 as D
+    from smvp_toolkit_tpu_torch.ops.precision import df_split, df_to_f64
+
+    r, c, v, shape, x64, make = _df64_case(lo_plane)
+    op = make(card)
+    assert (op.vals_lo is not None) == lo_plane
+    xh, xl = df_split(x64, device=card)
+    before = (D.sell_df64.launches, D.sell_bench_df64.launches)
+    yh, yl = op(xh, xl)
+    bh, bl = op.bench_loop(xh, xl, 3)
+    ph, pl = D.sell_df64_plain(*op._planes(xh, xl),
+                               n_slices=op.plan.n_slices,
+                               chunk=op.plan.chunk)
+    torch.cuda.synchronize()
+    assert (D.sell_df64.launches, D.sell_bench_df64.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(yh, bh) and torch.equal(yl, bl)  # fixed order
+    y = df_to_f64(yh, yl)
+    n = shape[0]
+    yp = df_to_f64(ph[:n], pl[:n])
+    scale = np.abs(yp).max()
+    assert np.abs(y - yp).max() <= 2.0 ** -50 * scale  # same order: 0
+    oracle = np.zeros(n)
+    np.add.at(oracle, r, v * x64[c])
+    assert np.abs(y - oracle).max() <= 5e-14 * np.abs(oracle).max()
+
+
+def test_df64_edge_scales_exact_on_card(card):
+    from smvp_toolkit_tpu_torch.ops.precision import df_split, df_to_f64
+    from smvp_toolkit_tpu_torch.ops.spmv_df64 import SellDf64SpMV
+
+    def run(v64, cols, n=4):
+        v64 = np.asarray(v64, np.float64)
+        op = SellDf64SpMV.from_coo_f64(np.zeros(len(v64), np.int64),
+                                       np.asarray(cols), v64, (n, n),
+                                       chunk=8, device=card)
+        return df_to_f64(*op(*df_split(np.ones(n), device=card)))[0]
+
+    assert run([0.0], [0]) == 0.0
+    # the low words of 1e-35 and 2e-35 are float32 subnormals (2^-149)
+    assert abs(run([1e-35, 2e-35], [0, 1]) - 3e-35) <= 3 * 2.0 ** -149
+    assert run([1e30, -1e30, 3.0], [0, 1, 2]) == 3.0
+
+
+@pytest.mark.parametrize("route", ["relsl", "streamy_relsl"])
+def test_packed_kernels_match_plain(card, route, monkeypatch):
+    op = S.SellSpMV(_route_plan(route), value_dtype=torch.bfloat16,
+                    device=card)
+    monkeypatch.setenv("SMVP_SELL_PACK", "1")
+    assert op.route == ("packed" if route == "relsl" else "streamy_packed")
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        op.plan.shape[1]).astype(np.float32)).to(card)
+    xt = op._x_tiles(x)
+    pk, sl = op.packed_planes()
+    kw = op._kw()
+    if "nsb" in kw:
+        kw["y_block_id"] = op.y_block_id
+    before = {n: f.launches for n, f in S.PACKED_KERNELS.items()}
+    y1 = S.sell_packed(pk, sl, op.tile_base, xt, **kw)
+    yp = S.sell_packed_plain(pk, sl, op.tile_base, xt, **kw)
+    y_k1 = op.kernel(*op._planes(), xt, **op._kw())
+    want = {"sell_packed_kernel": 1}
+    if route == "relsl":
+        y2 = S.sell_bench_packed(pk, sl, op.tile_base, xt, iterations=3,
+                                 **op._kw())
+        want["sell_bench_packed_kernel"] = 1
+        for k in (2, 8, 17):
+            X = _block(card, op.plan.n_coltiles * 128, k, k, torch.bfloat16)
+            Y = S.sell_packed_spmm(pk, sl, op.tile_base, X,
+                                   **op._mat_kw())
+            Yp = S.sell_packed_spmm_plain(pk, sl, op.tile_base, X,
+                                          **op._mat_kw())
+            assert _rel(Y, Yp) <= TOL
+        want["sell_packed_spmm_kernel"] = 3
+    torch.cuda.synchronize()
+    after = {n: f.launches - before[n] for n, f in S.PACKED_KERNELS.items()}
+    assert after == {n: want.get(n, 0) for n in S.PACKED_KERNELS}
+    assert _rel(y1, yp) <= TOL and _rel(y1, y_k1) <= TOL
+    if route == "relsl":
+        assert _rel(y2, yp) <= TOL
+    else:
+        with pytest.raises(ValueError, match="streamed-y bench_loop"):
+            op.bench_loop(x, 2)
+
+
+def test_packed_gates_on_card(card, monkeypatch):
+    monkeypatch.setenv("SMVP_SELL_PACK", "1")
+    split = S.SellSpMV(_route_plan("split"), value_dtype=torch.bfloat16,
+                       device=card)
+    f32 = S.SellSpMV(_route_plan("relsl"), device=card)
+    assert split.route == "split" and f32.route == "relsl"
+    before = {n: f.launches for n, f in S.PACKED_KERNELS.items()}
+    for op in (split, f32):
+        op(torch.ones(op.plan.shape[1], device=card))
+    torch.cuda.synchronize()
+    assert {n: f.launches for n, f in S.PACKED_KERNELS.items()} == before
+
+
+def test_cli_df64_and_packed_launch_their_kernels(card, tmp_path,
+                                                   monkeypatch):
+    from smvp_toolkit_tpu_torch.cli import main
+    from smvp_toolkit_tpu_torch.ops import spmv_df64 as D
+
+    D.sell_df64.launches = D.sell_bench_df64.launches = 0
+    assert main(["-c", "-n", "5", "--kernel", "df64", "--no-report",
+                 "synth:20000:200000"]) == 0
+    assert D.sell_df64.launches >= 5 and D.sell_bench_df64.launches == 0
+    assert main(["-c", "-n", "5", "--kernel", "df64", "--fused",
+                 "--no-report", "synth:20000:200000"]) == 0
+    assert D.sell_bench_df64.launches >= 1
+    monkeypatch.setenv("SMVP_SELL_PACK", "1")
+    for f in S.PACKED_KERNELS.values():
+        f.launches = 0
+    S.sell_spmv.launches = 0
+    assert main(["-c", "-n", "5", "--dtype", "bfloat16", "--no-report",
+                 "synth:20000:200000"]) == 0
+    assert main(["-c", "-n", "5", "--dtype", "bfloat16", "--fused",
+                 "--no-report", "synth:20000:200000"]) == 0
+    assert S.sell_packed.launches >= 5 and S.sell_bench_packed.launches >= 1
+    assert S.sell_spmv.launches == 0

@@ -36,7 +36,8 @@ def test_package_sources_found():
             "models/graph.py", "models/__init__.py", "models/solvers.py",
             "ops/algebra.py", "ops/ilu.py", "ops/cg_fused.py",
             "ops/pcg_fused.py", "csrc/sell_solvers.cu",
-            "csrc/ilu.cpp"} <= names
+            "csrc/ilu.cpp", "ops/precision.py", "ops/spmv_df64.py",
+            "csrc/sell_df64.cu", "csrc/sell_packed.cu"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -84,6 +85,20 @@ for x in (fused_cg(op, torch.ones(2000), 3),
     assert x.shape == (2000,)
 assert main(["-c", "-n", "1", "--no-report", "--device", "cpu",
              "--solve", "pcg-ic0-fused:3", "synth:500:2000"]) == 0
+from smvp_toolkit_tpu_torch.models import refine_solve
+from smvp_toolkit_tpu_torch.ops.precision import df_split
+from smvp_toolkit_tpu_torch.ops.spmv_df64 import sell_df64_op
+hi, lo = sell_df64_op(parse_synth_spec("synth:900:4000", device="cpu"))(
+    *df_split(np.ones(900), device="cpu"))
+assert hi.shape == lo.shape == (900,)
+xh, xl, norms = refine_solve(csr, np.ones(2000), num_refinements=2,
+                             inner=lambda r: fused_cg(op, r, 5))
+assert main(["-c", "-t", "-n", "1", "--no-report", "--device", "cpu",
+             "--kernel", "df64", "--fused", "synth:500:2000"]) == 0
+import os
+os.environ["SMVP_SELL_PACK"] = "1"
+assert main(["-c", "-n", "1", "--no-report", "--device", "cpu", "--dtype",
+             "bfloat16", "--spmm", "3", "synth:500:2000"]) == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "smvp_toolkit_tpu" or m.startswith("smvp_toolkit_tpu."))
@@ -135,6 +150,20 @@ def test_other_entry_points_without_device_raise(tmp_path):
                    shape=(1, 1))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
+
+
+def test_df64_entry_points_without_device_raise():
+    _no_card()
+    from smvp_toolkit_tpu_torch.ops.precision import df_split
+    from smvp_toolkit_tpu_torch.ops.spmv_df64 import SellDf64SpMV
+
+    r, c = np.array([0, 1]), np.array([1, 0])
+    for fn in (lambda: df_split(np.ones(3)),
+               lambda: SellDf64SpMV.from_coo_f64(r, c, np.ones(2), (2, 2))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    op = SellDf64SpMV.from_coo_f64(r, c, np.ones(2), (2, 2), device="cpu")
+    assert op.device.type == "cpu"
 
 
 def test_solver_entry_points_without_device_raise():

@@ -201,12 +201,11 @@ SPEC = "synth:4096:40960"
 def test_cli_spmm_record_and_result(tmp_path, monkeypatch):
     monkeypatch.setenv("SMVP_SELL_AUTOTUNE", "0")
     jout, tout = str(tmp_path / "j.jsonl"), str(tmp_path / "t.jsonl")
-    y_path = str(tmp_path / "y.npy")
     assert jcli.main(["-c", "-n", "1", "--no-report", "--kernel", "xla",
                       "--spmm", "4", "--json-out", jout, SPEC]) == 0
     assert tcli.main(["-c", "-n", "2", "--no-report", "--device", "cpu",
-                      "--spmm", "4", "--spmm-out", y_path, "--json-out",
-                      tout, SPEC]) == 0
+                      "--spmm", "4", "--out-dir", str(tmp_path),
+                      "--json-out", tout, SPEC]) == 0
     with open(jout) as f:
         jrec = [json.loads(ln) for ln in f][-1]
     with open(tout) as f:
@@ -223,7 +222,8 @@ def test_cli_spmm_record_and_result(tmp_path, monkeypatch):
     np.add.at(dense, (r, c), v)
     X = np.random.default_rng(0).standard_normal((4096, 4)).astype(
         np.float32)
-    assert _rel(np.load(y_path), dense @ X.astype(np.float64)) <= TOL
+    assert _rel(np.load(tmp_path / "spmm.npy"),
+                dense @ X.astype(np.float64)) <= TOL
 
 
 @pytest.mark.parametrize("extra,timing", [
@@ -241,9 +241,8 @@ def test_cli_spmm_modes(tmp_path, extra, timing):
 
 @pytest.mark.parametrize("argv", [
     ["-c", "--spmm", "0"], ["-c", "--spmm", "-3"], ["-t", "--spmm", "4"],
-    ["-c"]])  # --spmm-out without --spmm
+    ["-c", "--spmm", "4", "--out-dir", "/nonexistent"]])
 def test_cli_spmm_probes_rc2(argv, tmp_path):
-    out = str(tmp_path / "y.npy")
-    assert tcli.main(argv + ["--spmm-out", out, "--device", "cpu",
-                             "--no-report", SPEC]) == 2
-    assert not os.path.exists(out)
+    assert tcli.main(["-d", str(tmp_path)] + argv + ["--device", "cpu",
+                                                    SPEC]) == 2
+    assert not os.listdir(tmp_path)
