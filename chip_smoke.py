@@ -52,6 +52,13 @@ Phases; any failure exits non-zero and prints no result line:
    17 and K2-packed with N = 3; streamed: k = 1) and on smoke (k = 1, 8,
    K2-packed) and L1 (streamed): <= 1e-6 of max |y| against its plain
    version and against K1 (K3) bf16 on the same plan.
+   K6 (``sell_onehot``, the ``SMVP_SELL_COMPAT=1`` kernel, on the plan's
+   dense one-hot operands) on every small resident plan and on smoke, and
+   K2-subwin (``sell_bench_subwin``, N = 3, the ``SMVP_SELL_SUBWIN=1``
+   kernel) on the eligible small plan and on smoke, float32 and bfloat16:
+   <= 1e-6 of max |y| against the plain version and against K1 (K2 relsl)
+   on the same plan; a control, K2-subwin fed ``stb`` shifted by 16 tiles,
+   must miss that tolerance.
 3. The main path at full size, each run with every launch count zeroed
    just before it and read just after; a run fails unless its route's
    kernels launched and no other kernel did:
@@ -107,6 +114,27 @@ Phases; any failure exits non-zero and prints no result line:
    - hpcg104-refine: ``refine_solve`` on hpcg104 with ``fused_cg(op, r,
      300)`` (K9, three launches) as the inner solve, three sweeps: a
      float64 relative residual <= 1e-10.
+   - smoke-cc: smoke's matrix co-clustered once in this process
+     (``ops/cocluster.py``, started in a background thread with the plans,
+     minutes of host work; s_true must fall below the natural order's),
+     the f32 and bf16 ``CoClusteredSellSpMV`` built from that one result:
+     K1 and K2 (N = 3) on the permuted planes against their plain versions,
+     then ``__call__`` (K1 only) and ``bench_loop(200)`` (K2 only,
+     K2-cocluster), natural y against the float64 oracle, the co-clustered
+     and natural occupancy printed; the f32 ``bench_loop`` again under
+     ``SMVP_SELL_SUBWIN=1`` (K2-subwin only); one CLI run ``-c --cocluster
+     -n 200 --x random:1 --fused`` in bf16 (K2 only, reusing the result);
+   - the JAX operator's switches on smoke's CLI: smoke-compat (``-c -n
+     10`` under ``SMVP_SELL_COMPAT=1``, both dtypes: K6 only, 13 launches),
+     smoke-subwin (``-c --fused -n 200`` under ``SMVP_SELL_SUBWIN=1``, both
+     dtypes: K2-subwin only), and ``-c -n 10`` in float32 under
+     ``SMVP_SELL_RELSL=0`` (K4 only), ``SMVP_SELL_SPLIT=4`` (four K1 launches
+     per call), ``SMVP_SELL_SPMM=0`` with ``--spmm 8`` (eight K1 launches per
+     SpMM call, no SpMM kernel) and ``SMVP_SELL_LIDX32=1`` (int32 lane
+     planes; ``traffic_bytes`` 3 bytes per slot more, printed);
+   - the headline module (``bench/headline.py``) in this process: three
+     validated K2 rungs on smoke (co-clustered bf16, natural bf16, float32),
+     its JSON line printed.
    Every output vector (both reports of a ``-c -t`` run) and every SpMM
    result (``--out-dir``'s ``spmm.npy``) is checked against a float64 scipy CSR
    oracle: max |y - oracle| / max |oracle| <= 1e-5 (bfloat16: the oracle
@@ -135,6 +163,14 @@ Phases; any failure exits non-zero and prints no result line:
    ``max_abs_err``; bound ``SellDf64SpMV.traffic_bytes`` or 4 (8 with a lo
    plane) float64 flops per non-zero over the float64 rate; yardstick
    ``torch.sparse.mm`` on a float64 CSR tensor with x = x_hi + x_lo.
+   K6 on smoke (both dtypes, launches from smoke-compat): bound its dense
+   operands' bytes (read once), the dense products' time at the float32
+   rate printed beside it (``dense_flops_ms``; the kernel skips the
+   one-hot zeros, so only 2 flops per non-zero bound it). K2-subwin on
+   smoke and K2-cocluster (``sell_bench_kernel`` on smoke-cc's permuted
+   planes, replacing ``CoClusteredSellSpMV.bench_loop``) at N = 200: bound
+   the plan's bytes or 2·nnz·N flops, the larger. Library: the natural
+   float32 CSR ``torch.sparse.mm``, N calls for N iterations.
    Then the card's name and power limit again and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -196,7 +232,16 @@ KERNELS = {
     "sell_packed_kernel": ("sell_packed.cu", "spmv_pallas.py:672"),
     "sell_packed_spmm_kernel": ("sell_packed.cu", "spmv_pallas.py:672"),
     "sell_bench_packed_kernel": ("sell_packed.cu", "spmv_pallas.py:765"),
+    "sell_onehot_kernel": ("sell_onehot.cu", "spmv_pallas.py:903"),
+    "sell_bench_subwin_kernel": ("sell_bench.cu", "spmv_pallas.py:782"),
 }
+# K2-cocluster: K2 on the co-clustered permuted planes, the JAX
+# CoClusteredSellSpMV.bench_loop (no pallas_call of its own).
+COCLUSTER_REPLACES = "spmv_pallas.py:2727"
+# The switch runs: smoke's CLI at this N under each switch (smoke-compat
+# with K6 per call; RELSL=0, SPLIT=4, SPMM=0 and LIDX32=1 per call).
+SWITCH_N = 10
+SPLIT_N = 4
 # K8 (double-float): against its plain version <= 2^-50 of max |y| (both
 # float64 sums, in other orders); against the float64 oracle <= 5e-14, the
 # JAX suite's bound (tests/test_df64_pallas.py:37). hpcg104-refine: a
@@ -320,7 +365,7 @@ def _wrappers(S):
     return {**{S.KERNEL_NAMES[(route, bench)]: S._ROUTE_FNS[route][bench]
                for route in S.ROUTES for bench in (False, True)},
             **S.MAT_KERNELS, **SOLVER_KERNELS, **S.PACKED_KERNELS,
-            **DF64_KERNELS}
+            **DF64_KERNELS, **S.SWITCH_KERNELS}
 
 
 def _zero_counts(S):
@@ -619,12 +664,15 @@ def _spmm_oracle(np, torch, triplets, dname):
 
 
 def _cli_runs(np, torch, name, source, argv0, triplets, launches,
-              spmm=False, config=None, dtypes=DTYPE_NAMES, want=None):
-    """The CLI on ``source``, per call and fused, in ``dtypes``; with
-    ``spmm``, each run also times ``--spmm 8`` and its Y is checked.
-    ``config`` names the configuration whose route and N it takes
-    (default ``name``); ``want(fused)`` lists the kernels the run must
-    launch (default: the route's and, with ``spmm``, its SpMM kernel)."""
+              spmm=False, config=None, dtypes=DTYPE_NAMES, want=None,
+              fused_modes=(False, True), n=None, count=None):
+    """The CLI on ``source``, per call and fused (``fused_modes``), in
+    ``dtypes``; with ``spmm``, each run also times ``--spmm 8`` and its Y
+    is checked. ``config`` names the configuration whose route and N it
+    takes (default ``name``; ``n`` overrides N); ``want(fused)`` lists the
+    kernels the run must launch (default: the route's and, with ``spmm``,
+    its SpMM kernel); ``count(fused)``, when given, maps a kernel to the
+    exact number of launches the run must make."""
     from smvp_toolkit_tpu_torch.cli import main as cli_main
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
@@ -635,9 +683,9 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches,
         ref, _ = _oracle(np, torch, triplets, dname)
         scale = float(np.abs(ref).max())
         ref_mat = _spmm_oracle(np, torch, triplets, dname) if spmm else None
-        for fused in (False, True):
+        for fused in fused_modes:
             with tempfile.TemporaryDirectory() as tmp:
-                argv = argv0 + ["-n", str(ITERATIONS[config]), "-d", tmp,
+                argv = argv0 + ["-n", str(n or ITERATIONS[config]), "-d", tmp,
                                 "--device", torch.device(DEVICE).type,
                                 "--json-out", os.path.join(tmp, "run.jsonl"),
                                 "--x", "random:1", "--dtype", dname]
@@ -664,9 +712,12 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches,
                 else:
                     kernels = want(fused)
                 got = _check_only(counts, kernels, what)
-                for kname, n in got.items():
+                if count is not None:
+                    _check(got == count(fused), f"{what}: launches {got}, "
+                           f"want {count(fused)}")
+                for kname, k in got.items():
                     key = (kname, name, dname)
-                    launches[key] = launches.get(key, 0) + n
+                    launches[key] = launches.get(key, 0) + k
                 with open(os.path.join(tmp, "run.jsonl")) as f:
                     recs = [json.loads(ln) for ln in f]
                 errs = []
@@ -921,7 +972,7 @@ def _library_csr(np, torch, triplets, dtype=None):
 
 def _entry(kname, config, dname, *, launches, err, ms, plain_ms, lib_ms,
            nbytes, flops, bw, iters=1, per_iteration=False,
-           peak=F32_PEAK_FLOPS, **extra):
+           peak=F32_PEAK_FLOPS, replaces=None, **extra):
     """One ``kernels`` entry: ``nbytes`` (each input once, each output
     once) over the memory rate, or ``flops`` over ``peak`` (the float32
     rate; K8's float64 rate). With ``per_iteration`` (the fused solvers)
@@ -938,7 +989,7 @@ def _entry(kname, config, dname, *, launches, err, ms, plain_ms, lib_ms,
         "config": config,
         "route": "cuda",
         "source": CSRC + src,
-        "replaces": f"{JAX_OPS}{line}",
+        "replaces": f"{JAX_OPS}{replaces or line}",
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
@@ -1940,6 +1991,414 @@ def phase_df64_timings(np, torch, configs, df64, launches, bw):
     return entries
 
 
+@contextlib.contextmanager
+def _env(**kv):
+    """Set the given SMVP_* switches for the block, then unset them."""
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k in kv:
+            del os.environ[k]
+
+
+def _start_cocluster(triplets):
+    """Co-cluster the smoke matrix in a background thread (the refinement
+    is host C++ called through ctypes, which lets the GIL go): minutes of
+    host work that overlap the device phases. ``cocluster`` keeps the
+    result in the process, so the co-clustered operators, the CLI run and
+    the headline module that follow reuse it. Returns a function that
+    waits for it and returns the result."""
+    import threading
+
+    from smvp_toolkit_tpu_torch.ops.cocluster import cocluster
+
+    r, c, _, shape = triplets
+    out = {}
+
+    def work():
+        t0 = time.perf_counter()
+        try:
+            out["res"] = cocluster(r, c, shape)
+        except BaseException as e:  # re-raised by the waiter
+            out["err"] = e
+        out["s"] = time.perf_counter() - t0
+
+    th = threading.Thread(target=work, name="cocluster-smoke", daemon=True)
+    th.start()
+
+    def wait():
+        t0 = time.perf_counter()
+        th.join()
+        if "err" in out:
+            raise out["err"]
+        res = out["res"]
+        print(f"[plan] smoke co-clustered in {out['s']:.1f} s of host time "
+              f"(waited {time.perf_counter() - t0:.1f} s here): s_true "
+              f"{res.s_true} sublanes against {res.s_true_natural} for the "
+              f"natural order, {res.moves} moves, init {res.init}, padded "
+              f"shape {res.shape_padded}", flush=True)
+        return res
+
+    return wait
+
+
+def _subwin_planes(S, op):
+    """K2-subwin's windows for ``op`` under the switch (raises if the plan
+    is not eligible)."""
+    with _env(SMVP_SELL_SUBWIN="1"):
+        win = op.subwin_windows()
+    _check(win is not None, f"{op.plan.chunk}-chunk plan: no sub-windows")
+    return win
+
+
+def _check_onehot(np, torch, S, label, op, errs=None):
+    """K6 on ``op``'s dense operands against its plain version and against
+    the route's K1 (K4) kernel, <= 1e-6 of max |y|."""
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        op.plan.shape[1]).astype(np.float32)).to(DEVICE)
+    xt = op._x_tiles(x)
+    vals, lidx, oht, seg = op.onehot_planes()
+    xw = S.onehot_xw(xt, op.tile_base, op.plan.window_tiles)
+    y = S.sell_onehot(xw, vals, lidx, oht, seg)
+    yp = S.sell_onehot_plain(xw, vals, lidx, oht, seg)
+    y1 = op.kernel(*op._planes(), xt, **op._kw())
+    torch.cuda.synchronize()
+    e, e1 = _rel_err(y, yp), _rel_err(y, y1)
+    dname = str(op.value_dtype).replace("torch.", "")
+    what = f"sell_onehot_kernel on {label} {dname}"
+    _check(bool(torch.isfinite(y).all()), f"{what}: not finite")
+    _check(e <= TOL_KERNEL, f"{what} vs plain: {e}")
+    _check(e1 <= TOL_KERNEL, f"{what} vs {op.base_route}: {e1}")
+    if errs is not None:
+        errs[("sell_onehot_kernel", label, dname)] = (y - yp).abs().max(
+            ).item()
+    print(f"[check] {label:28s} {dname:9s} sell_onehot_kernel vs plain "
+          f"{e:.3e}, vs {op.base_route} {e1:.3e} (oht {tuple(oht.shape)}, seg "
+          f"{tuple(seg.shape)}, {(oht.numel() + seg.numel()) * 4} bytes)",
+          flush=True)
+
+
+def _check_subwin(np, torch, S, label, op, errs=None):
+    """K2-subwin (N = 3) against its plain version and against K2 relsl on
+    the same plan (<= 1e-6 of max |y|), and the control: stb shifted by 16
+    tiles must miss that tolerance."""
+    stb, ssb, split, sub_wt, sub_nsw = _subwin_planes(S, op)
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        op.plan.shape[1]).astype(np.float32)).to(DEVICE)
+    xt = op._x_tiles(x)
+    planes = (op.vals, op.lidx, op.relsl, op.tile_base)
+    kw = dict(split=split, sub_wt=sub_wt, sub_nsw=sub_nsw, iterations=3,
+              **op._kw())
+    y = S.sell_bench_subwin(*planes, stb, ssb, xt, **kw)
+    yp = S.sell_bench_subwin_plain(*planes, stb, ssb, xt, **kw)
+    y2 = S.sell_bench_loop(*planes, xt, iterations=3, **op._kw())
+    bad = S.sell_bench_subwin(*planes, stb + 16, ssb, xt, **kw)
+    torch.cuda.synchronize()
+    e, e2, eb = _rel_err(y, yp), _rel_err(y, y2), _rel_err(bad, y2)
+    dname = str(op.value_dtype).replace("torch.", "")
+    what = f"sell_bench_subwin_kernel on {label} {dname}"
+    _check(bool(torch.isfinite(y).all()), f"{what}: not finite")
+    _check(e <= TOL_KERNEL, f"{what} vs plain: {e}")
+    _check(e2 <= TOL_KERNEL, f"{what} vs sell_bench_kernel: {e2}")
+    _check(eb > TOL_KERNEL, f"{what}: stb + 16 still within {TOL_KERNEL}")
+    if errs is not None:
+        errs[("sell_bench_subwin_kernel", label, dname)] = (
+            y - yp).abs().max().item()
+    print(f"[check] {label:28s} {dname:9s} sell_bench_subwin_kernel (N=3, "
+          f"split {split}, sub_wt {sub_wt}/{op.plan.window_tiles}, sub_nsw "
+          f"{sub_nsw}) vs plain {e:.3e}, vs sell_bench_kernel {e2:.3e}; "
+          f"control stb + 16: {eb:.3e} (must exceed {TOL_KERNEL})",
+          flush=True)
+
+
+def phase_switch_kernels(np, torch, plans, ops, errs):
+    """Phase 2 for K6 and K2-subwin: K6 on every small resident plan and
+    on smoke (float32 and bfloat16), K2-subwin on the eligible small plan
+    and on smoke, each with its control."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    for name, plan in plans:
+        if name in ROUTE or plan.y_block_slices:
+            continue
+        for dname in DTYPE_NAMES:
+            op = S.SellSpMV(plan, value_dtype=getattr(torch, dname),
+                            device=DEVICE)
+            _check_onehot(np, torch, S, name, op)
+            if name == "random-rect-empty-rows":
+                _check_subwin(np, torch, S, name, op)
+    for dname in DTYPE_NAMES:
+        op, _ = ops[("smoke", dname)]
+        _check_onehot(np, torch, S, "smoke", op, errs)
+        op._onehot = None  # 6 GB of dense operands; phase 4 rebuilds them
+        _check_subwin(np, torch, S, "smoke", op, errs)
+
+
+def _cc_operators(np, torch, triplets, result):
+    """smoke-cc: the co-clustered f32 and bf16 operators, both from the
+    process's one co-clustering of the matrix (``result``)."""
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    r, c, v, shape = triplets
+    coo = COOMatrix.from_numpy(r, c, v, shape=shape, device="cpu")
+    out = {}
+    for dname in DTYPE_NAMES:
+        t0 = time.perf_counter()
+        op = S.CoClusteredSellSpMV(coo, value_dtype=getattr(torch, dname),
+                                   device=DEVICE)
+        _check(op.result is result, "smoke-cc co-clustered the matrix again")
+        p = op.inner.plan
+        print(f"[plan] smoke-cc {dname}: S {p.n_sublanes} in {p.n_chunks} "
+              f"chunks of {p.chunk}, WT {p.window_tiles}, NS {p.n_slices}, "
+              f"CT {p.n_coltiles}, occupancy {op.occupancy:.4f}; built in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out[dname] = op
+    return out
+
+
+def phase_cocluster(np, torch, configs, wait_cc, launches, errs):
+    """Phase 3, smoke-cc: K1 and K2 on the co-clustered plan against their
+    plain versions, then ``__call__`` and ``bench_loop(200)`` in both
+    dtypes (natural y against the float64 oracle), and one CLI run
+    ``-c --cocluster --fused`` in bf16 (K2 on the permuted planes only).
+    Returns the operators and x for phase 4."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    triplets = configs["smoke"][1]
+    result = wait_cc()
+    _check(result.s_true < result.s_true_natural,
+           f"co-clustering did not cut the sublanes: {result.s_true} >= "
+           f"{result.s_true_natural}")
+    nat = configs["smoke"][0]
+    ccs = _cc_operators(np, torch, triplets, result)
+    print(f"[main] smoke-cc occupancy {ccs['float32'].occupancy:.4f} "
+          f"(co-clustered plan) against {nat.nnz / nat.slots():.4f} "
+          f"(natural plan), {result.occupancy(nat.nnz):.4f} and "
+          f"{nat.nnz / (result.s_true_natural * 128):.4f} unpadded",
+          flush=True)
+    out = {}
+    n_iter = ITERATIONS["smoke"]
+    for dname in DTYPE_NAMES:
+        op = ccs[dname]
+        inner = op.inner
+        ref, x = _oracle(np, torch, triplets, dname)
+        xd = torch.from_numpy(x).to(DEVICE)
+        # K1 and K2 on the permuted planes against their plain versions
+        xp = op.to_permuted(xd.to(inner.value_dtype))
+        xt = inner._x_tiles(xp)
+        y1 = S.sell_spmv(*inner._planes(), xt, **inner._kw())
+        y2 = S.sell_bench_loop(*inner._planes(), xt, iterations=3,
+                               **inner._kw())
+        yp = S.sell_spmv_plain(*inner._planes(), xt, **inner._kw())
+        torch.cuda.synchronize()
+        e1, e2 = _rel_err(y1, yp), _rel_err(y2, yp)
+        _check(e1 <= TOL_KERNEL and e2 <= TOL_KERNEL,
+               f"K1/K2 on smoke-cc {dname} vs plain: {e1}, {e2}")
+        errs[("sell_bench_kernel", "smoke-cc", dname)] = (
+            y2 - yp).abs().max().item()
+        print(f"[check] smoke-cc {dname:9s} sell_spmv_kernel vs plain "
+              f"{e1:.3e}, sell_bench_kernel(N=3) vs plain {e2:.3e}",
+              flush=True)
+        scale = float(np.abs(ref).max())
+        for bench in (False, True):
+            _zero_counts(S)
+            y = (op.from_permuted(op.bench_loop(xp, n_iter)) if bench
+                 else op(xd))
+            torch.cuda.synchronize()
+            what = f"smoke-cc operator {dname} bench={bench}"
+            kname = S.KERNEL_NAMES[("relsl", bench)]
+            k = _check_only(_counts(S), [kname], what)[kname]
+            launches[(kname, "smoke-cc", dname)] = k
+            y = y.double().cpu().numpy()
+            _check(y.shape == ref.shape and bool(np.isfinite(y).all()),
+                   f"{what}: y shape {y.shape} or not finite")
+            err = float(np.abs(y - ref).max()) / scale
+            _check(err <= TOL_ORACLE, f"{what} oracle error {err}")
+            print(f"[main] smoke-cc CoClusteredSellSpMV "
+                  f"{'bench_loop(' + str(n_iter) + ')' if bench else '__call__'}"
+                  f" {dname}: launches {k} ({kname}), vs float64 oracle "
+                  f"{err:.3e}", flush=True)
+        out[dname] = (op, xp)
+    # the same bench_loop under SMVP_SELL_SUBWIN=1
+    op, xp = out["float32"]
+    with _env(SMVP_SELL_SUBWIN="1"):
+        _check(op.inner.bench_route == "subwin", "smoke-cc under the "
+               f"switch runs {op.inner.bench_route}")
+        _zero_counts(S)
+        y = op.from_permuted(op.bench_loop(xp, n_iter))
+        torch.cuda.synchronize()
+    k = _check_only(_counts(S), ["sell_bench_subwin_kernel"],
+                    "smoke-cc bench_loop SMVP_SELL_SUBWIN=1")
+    ref, _ = _oracle(np, torch, triplets, "float32")
+    err = float(np.abs(y.double().cpu().numpy() - ref).max()
+                / np.abs(ref).max())
+    _check(err <= TOL_ORACLE, f"smoke-cc subwin oracle error {err}")
+    print(f"[main] smoke-cc bench_loop({n_iter}) float32 "
+          f"SMVP_SELL_SUBWIN=1: launches {k}, vs float64 oracle {err:.3e}",
+          flush=True)
+    # the CLI: co-clustered through the process's cocluster result
+    _cli_runs(np, torch, "smoke-cc-cli", SMOKE_SPEC, ["-c", "--cocluster"],
+              triplets, launches, config="smoke", dtypes=("bfloat16",),
+              fused_modes=(True,), want=lambda fused: ["sell_bench_kernel"])
+    return out
+
+
+def phase_switches(np, torch, configs, launches):
+    """Phase 3 under the JAX operator's switches, the smoke CLI each time:
+    smoke-compat (``-c -n 10``, COMPAT=1: K6 only), smoke-subwin (``-c
+    --fused -n 200``, SUBWIN=1: K2-subwin only), then ``-c -n 10`` under
+    RELSL=0 (K4 only), SPLIT=4 (four K1 launches per call), SPMM=0 with
+    ``--spmm 8`` (eight K1 launches per SpMM call) and LIDX32=1 (int32
+    lane planes; the bytes printed)."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    plan, trip = configs["smoke"]
+    calls = SWITCH_N + 3  # timed, two warm-up and the result call
+    nch = plan.n_chunks
+    ranges = -(-nch // -(-nch // min(SPLIT_N, nch)))  # 4 at smoke's 92
+    with _env(SMVP_SELL_COMPAT="1"):
+        _cli_runs(np, torch, "smoke-compat", SMOKE_SPEC, ["-c"], trip,
+                  launches, config="smoke", n=SWITCH_N, fused_modes=(False,),
+                  want=lambda fused: ["sell_onehot_kernel"],
+                  count=lambda fused: {"sell_onehot_kernel": calls})
+    with _env(SMVP_SELL_SUBWIN="1"):
+        _cli_runs(np, torch, "smoke-subwin", SMOKE_SPEC, ["-c"], trip,
+                  launches, config="smoke", fused_modes=(True,),
+                  want=lambda fused: ["sell_bench_subwin_kernel"])
+    with _env(SMVP_SELL_RELSL="0"):
+        _cli_runs(np, torch, "smoke-relsl0", SMOKE_SPEC, ["-c"], trip,
+                  launches, config="smoke", n=SWITCH_N, fused_modes=(False,),
+                  dtypes=("float32",),
+                  want=lambda fused: ["sell_split_kernel"])
+    with _env(SMVP_SELL_SPLIT=str(SPLIT_N)):
+        _cli_runs(np, torch, "smoke-split4", SMOKE_SPEC, ["-c"], trip,
+                  launches, config="smoke", n=SWITCH_N, fused_modes=(False,),
+                  dtypes=("float32",),
+                  want=lambda fused: ["sell_spmv_kernel"],
+                  count=lambda fused: {"sell_spmv_kernel": ranges * calls})
+    with _env(SMVP_SELL_SPMM="0"):
+        _cli_runs(np, torch, "smoke-spmm0", SMOKE_SPEC, ["-c"], trip,
+                  launches, spmm=True, config="smoke", n=SWITCH_N,
+                  fused_modes=(False,), dtypes=("float32",),
+                  want=lambda fused: ["sell_spmv_kernel"],
+                  count=lambda fused: {
+                      "sell_spmv_kernel": calls + SPMM_K * calls})
+    before = plan.traffic_bytes()
+    with _env(SMVP_SELL_LIDX32="1"):
+        after = plan.traffic_bytes()
+        op = S.SellSpMV(plan, device=DEVICE)
+        _check(op.lidx.dtype == torch.int32, f"LIDX32: {op.lidx.dtype}")
+        _cli_runs(np, torch, "smoke-lidx32", SMOKE_SPEC, ["-c"], trip,
+                  launches, config="smoke", n=SWITCH_N, fused_modes=(False,),
+                  dtypes=("float32",),
+                  want=lambda fused: ["sell_spmv_kernel"])
+    del op
+    _check(after - before == plan.n_sublanes * 128 * 3,
+           f"LIDX32 bytes {before} -> {after}")
+    print(f"[main] smoke SMVP_SELL_LIDX32=1: int32 lane planes; traffic_bytes "
+          f"{before} -> {after} (+{after - before}, 3 bytes per slot)",
+          flush=True)
+
+
+def phase_headline():
+    """Phase 3: the headline module in this process (its co-clustering
+    comes from the process's cocluster result); prints its JSON line."""
+    from smvp_toolkit_tpu_torch.bench import headline
+
+    rec = headline.run()
+    print(json.dumps(rec), flush=True)
+    modes = [r["mode"] for r in rec["rungs"]]
+    _check(modes == ["sell-cuda-gridfused-cc-bf16", "sell-cuda-gridfused-bf16",
+                     "sell-cuda-gridfused"], f"headline rungs {modes}")
+    for r in rec["rungs"]:
+        _check(r["validation_err"] < headline.LIMIT, f"headline {r['mode']}: "
+               f"{r['validation_err']}")
+    print("[main] headline: " + "; ".join(
+        f"{r['mode']} {r['value']:.1f} Mnnz/s ({r['avg_ms']:.6f} ms, "
+        f"occupancy {r['occupancy']:.4f}, err {r['validation_err']:.3e})"
+        for r in rec["rungs"]), flush=True)
+    return rec
+
+
+def phase_switch_timings(np, torch, ops, ccs, errs, launches, configs, bw):
+    """Phase 4 for K6 (smoke, both dtypes, one SpMV), K2-subwin (smoke,
+    N = 200) and K2-cocluster (smoke-cc, N = 200). Library: the natural
+    float32 CSR ``torch.sparse.mm``, N calls for N iterations. K6's bound
+    is its bytes (the dense operands read once); its dense products'
+    time at the float32 rate is printed beside it, but the kernel skips
+    the one-hot zeros, so only the 2 flops per non-zero bound it."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    plan, triplets = configs["smoke"]
+    a = _library_csr(np, torch, triplets)
+    n_iter = ITERATIONS["smoke"]
+    entries = []
+    for dname in DTYPE_NAMES:
+        op, x = ops[("smoke", dname)]
+        x2 = x.float()[:, None]
+        xt = op._x_tiles(x)
+        vb = op.vals.element_size()
+        vals, lidx, oht, seg = op.onehot_planes()
+        xw = S.onehot_xw(xt, op.tile_base, plan.window_tiles)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (xw, vals, lidx, oht, seg)) + (
+            plan.n_slices * 128 * 4)
+        dense = 2.0 * plan.n_sublanes * 128 * (plan.window_tiles
+                                               + plan.n_slices)
+        ms = _time_ms(lambda: S.sell_onehot(xw, vals, lidx, oht, seg), reps=5)
+        plain_ms = _time_ms(lambda: S.sell_onehot_plain(
+            xw, vals, lidx, oht, seg), reps=2, warmup=1)
+        lib_ms = _time_ms(lambda: torch.sparse.mm(a, x2), reps=20)
+        entries.append(_entry(
+            "sell_onehot_kernel", "smoke-compat", dname,
+            launches=launches[("sell_onehot_kernel", "smoke-compat", dname)],
+            err=errs[("sell_onehot_kernel", "smoke", dname)], ms=ms,
+            plain_ms=plain_ms, lib_ms=lib_ms, nbytes=nbytes,
+            flops=2.0 * plan.nnz, bw=bw,
+            dense_flops_ms=dense / F32_PEAK_FLOPS * 1e3))
+        op._onehot = None  # the dense operands: 6 GB at smoke
+        del vals, lidx, oht, seg, xw
+        stb, ssb, split, sub_wt, sub_nsw = _subwin_planes(S, op)
+        planes = (op.vals, op.lidx, op.relsl, op.tile_base)
+        kw = dict(split=split, sub_wt=sub_wt, sub_nsw=sub_nsw,
+                  iterations=n_iter, **op._kw())
+        ms = _time_ms(lambda: S.sell_bench_subwin(*planes, stb, ssb, xt,
+                                                  **kw), reps=3, warmup=1)
+        plain_ms = _time_ms(lambda: S.sell_bench_subwin_plain(
+            *planes, stb, ssb, xt, **kw), reps=1, warmup=0)
+        lib_ms = _time_ms(lambda: [torch.sparse.mm(a, x2)
+                                   for _ in range(n_iter)], reps=1, warmup=1)
+        entries.append(_entry(
+            "sell_bench_subwin_kernel", "smoke-subwin", dname,
+            launches=launches[("sell_bench_subwin_kernel", "smoke-subwin",
+                               dname)],
+            err=errs[("sell_bench_subwin_kernel", "smoke", dname)], ms=ms,
+            plain_ms=plain_ms, lib_ms=lib_ms,
+            nbytes=plan.traffic_bytes(vb, x_bytes=vb),
+            flops=2.0 * plan.nnz * n_iter, bw=bw, iters=n_iter,
+            split=split, sub_wt=sub_wt, sub_nsw=sub_nsw))
+        cc, xp = ccs[dname]
+        inner = cc.inner
+        xpt = inner._x_tiles(xp)
+        ms = _time_ms(lambda: S.sell_bench_loop(
+            *inner._planes(), xpt, iterations=n_iter, **inner._kw()),
+            reps=3, warmup=1)
+        plain_ms = _time_ms(lambda: S.sell_bench_loop_plain(
+            *inner._planes(), xpt, iterations=n_iter, **inner._kw()),
+            reps=1, warmup=0)
+        entries.append(_entry(
+            "sell_bench_kernel", "smoke-cc", dname,
+            launches=launches[("sell_bench_kernel", "smoke-cc", dname)],
+            err=errs[("sell_bench_kernel", "smoke-cc", dname)], ms=ms,
+            plain_ms=plain_ms, lib_ms=lib_ms,
+            nbytes=inner.plan.traffic_bytes(vb, x_bytes=vb),
+            flops=2.0 * inner.plan.nnz * n_iter, bw=bw, iters=n_iter,
+            replaces=COCLUSTER_REPLACES, occupancy=cc.occupancy))
+    del a
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -1989,12 +2448,15 @@ def main() -> int:
 
     with _Phase("plans"):
         configs = _configs()
+        wait_cc = _start_cocluster(configs["smoke"][1])
         plans = _small_plans(np) + [(n, p) for n, (p, _) in configs.items()]
         gcn = _gcn_graph(np, torch)
     with _Phase("kernels vs plain"):
         ops, errs = phase_kernels(np, torch, plans, gcn)
     with _Phase("df64 and packed kernels vs plain"):
         phase_new_kernels(np, torch, plans, ops, errs)
+    with _Phase("one-hot and sub-window kernels vs plain"):
+        phase_switch_kernels(np, torch, plans, ops, errs)
     del plans
     with _Phase("solver kernels vs plain"):
         phase_solver_kernels(np, torch)
@@ -2009,6 +2471,12 @@ def main() -> int:
         hpcg = phase_hpcg(np, torch, launches)
     with _Phase("main path: hpcg104-refine"):
         phase_refine(np, torch, hpcg)
+    with _Phase("main path: smoke-cc"):
+        ccs = phase_cocluster(np, torch, configs, wait_cc, launches, errs)
+    with _Phase("main path: switches"):
+        phase_switches(np, torch, configs, launches)
+    with _Phase("main path: headline"):
+        phase_headline()
     with _Phase("timings"):
         from smvp_toolkit_tpu_torch.bench.roofline import hbm_bandwidth_gbs
 
@@ -2018,6 +2486,8 @@ def main() -> int:
                                      gcn, bw)
         entries += phase_solver_timings(np, torch, hpcg, launches, bw)
         entries += phase_df64_timings(np, torch, configs, df64, launches, bw)
+        entries += phase_switch_timings(np, torch, ops, ccs, errs, launches,
+                                        configs, bw)
 
     print(json.dumps({"kernels": entries}))
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")

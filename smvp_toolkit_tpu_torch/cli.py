@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``cli.py`` for the flags the port has:
 positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``), ``-c``, ``-t``,
 ``-n``, ``-d``, ``--no-report``, ``--decode-check``, ``--dtype``,
 ``--kernel``, ``--fused``, ``--x``, ``--json-out``, ``--spmm``,
-``--solve``, ``--expand-symmetry`` and ``--device``, plus the port's
+``--solve``, ``--expand-symmetry``, ``--cocluster``, ``--analyze`` and
+``--device``, plus the port's
 ``--out-dir``, which writes the run's results as float32 ``.npy`` files.
 Validation and exit codes match the JAX CLI for those flags (``-n 0`` and
 ``-d /nope`` give 2, a missing or unreadable file 1, a failed decode
@@ -27,6 +28,21 @@ given, where each kernel's plain version runs instead. In bfloat16,
 ``SMVP_SELL_PACK=1`` runs the SELL kernels on the packed plane (K5,
 K2-packed; ``ops/spmv_sell.py``); ``--fused`` on a streamed-y plan then
 fails, as the JAX operator's ``bench_loop`` does.
+
+``--cocluster`` runs CSR on a ``CoClusteredSellSpMV`` (``ops/cocluster.py``
+joint row and column maps, chunk 2048) built once from the CSR's host
+triplets in the run's value dtype; its occupancy and chunk are logged.
+Each call scatters x into the permuted coordinates, runs the inner
+operator's kernel and gathers y back; under ``--fused`` the N iterations
+are one K2 launch on the permuted planes (K2-cocluster), x scattered once
+and y gathered once per launch. The JAX CLI builds its co-clustered
+operator in float32 with its autotuned chunk and times its loop protocol
+under ``--fused`` (its grid-fused timer never finds the co-clustered
+operator in its cache). TJDS, ``--spmm`` and ``--solve`` keep the natural
+operator; ``--kernel torch`` and ``df64`` ignore the flag, as the JAX CLI
+does off its Pallas kernels. Co-clustering a 10M-nnz matrix is minutes of
+host work. ``--analyze`` prints the JAX CLI's matrix analysis
+(``utils/analyze.py``) before the benchmarks.
 
 ``--spmm K`` (with ``-c``) also times Y = A·X for K right-hand sides X
 (standard normal from ``default_rng(0)``, as the JAX CLI draws them) on
@@ -147,6 +163,17 @@ def build_parser() -> argparse.ArgumentParser:
              "files in DIR: the CSR output vector (y.npy), the --spmm "
              "result Y (spmm.npy, nrows x K) and the --solve solution "
              "(solve.npy); needs -c",
+    )
+    p.add_argument(
+        "--cocluster", action="store_true",
+        help="run CSR on the joint row x column co-clustering planner's "
+             "coordinates (ops/cocluster.py; minutes of host work for a "
+             "10M-nnz matrix); --fused then times the N-iteration kernel on "
+             "the permuted planes",
+    )
+    p.add_argument(
+        "--analyze", action="store_true",
+        help="print matrix structure statistics and kernel plan metrics",
     )
     p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
@@ -311,6 +338,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"{args.x!r}")
         return 2
 
+    if args.analyze:
+        from smvp_toolkit_tpu_torch.utils.analyze import (
+            analyze,
+            format_analysis,
+        )
+
+        log("DATA", "Matrix analysis:")
+        for line in format_analysis(analyze(coo)).splitlines():
+            print(f"\t{line}")
+
     vbytes = torch.finfo(dtype).bits // 8
     on_card = device.type == "cuda"
     sell_kernel = "sell-cuda" if on_card else "sell-plain"
@@ -397,6 +434,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif args.kernel == "df64":
             spmv_fn, loop_fn, kernel, nb = _df64_csr(csr, on_card)
             nbytes = nb or nbytes
+        elif args.cocluster:
+            spmv_fn, loop_fn, op = _cocluster_csr(csr, log)
+            kernel = sell_kernel + "-cocluster"
+            if refused(op.inner):
+                return 2
         else:
             spmv_fn, kernel = spmv_sell.spmv_csr_sell, sell_kernel
 
@@ -404,6 +446,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                 return spmv_sell.sell_op_csr(csr).bench_loop(xx, n)
             if refused(spmv_sell.sell_op_csr(csr)):
                 return 2
+        if args.cocluster and args.kernel != "auto":
+            log("INFO", "--cocluster applies to the SELL kernels (--kernel "
+                "auto) only; ignored on this path.")
         run(ALG_CSR, csr, spmv_fn, loop_fn, nbytes, kernel)
         if args.spmm:
             _run_spmm(args, coo, csr, device, label, log)
@@ -446,6 +491,37 @@ def _save(out_dir: str, name: str, arr: np.ndarray, log) -> None:
     path = os.path.join(out_dir, name)
     np.save(path, np.asarray(arr, dtype=np.float32))
     log("FILE", f"Result saved as:\n\t{path}")
+
+
+def _cocluster_csr(csr, log):
+    """``--cocluster`` on CSR: ``(spmv_fn, loop_fn, operator)`` over a
+    ``CoClusteredSellSpMV`` built once from the CSR's host triplets in the
+    CSR's value dtype, chunk 2048. ``spmv_fn`` takes and returns natural
+    coordinates; ``loop_fn`` scatters x once, runs ``bench_loop``
+    (K2-cocluster) and gathers y once."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.ops import spmv_sell
+
+    r, c, v, shape = spmv_sell._triplets_from_csr_host(csr)
+    coo = COOMatrix.from_numpy(r, c, v, shape=shape, device="cpu")
+    vdt = torch.bfloat16 if csr.dtype == torch.bfloat16 else torch.float32
+    op = spmv_sell.CoClusteredSellSpMV(coo, value_dtype=vdt,
+                                       device=csr.device)
+    p = op.inner.plan
+    log("INFO", f"co-clustered plan: occupancy {op.occupancy:.3f} (chunk "
+        f"{p.chunk}; S {p.n_sublanes}, natural-order sublanes "
+        f"{op.result.s_true_natural}, co-clustered "
+        f"{op.result.s_true})")
+
+    def csr_cc(encoded, xx):
+        return op(xx)
+
+    def loop(xx, n):
+        return op.from_permuted(op.bench_loop(op.to_permuted(xx), n))
+
+    return csr_cc, loop, op
 
 
 def _df64_csr(csr, on_card: bool):

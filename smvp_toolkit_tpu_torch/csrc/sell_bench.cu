@@ -21,6 +21,21 @@
 // re-read every iteration, as in the TPU kernel, and at the benchmark
 // sizes they exceed the 50 MB L2, so the rate is a memory rate.
 //
+// K2-subwin (sell_bench_subwin_kernel) is the relsl branch with
+// per-sub-chain windows (SMVP_SELL_SUBWIN=1; _sub_windows :223 through
+// _relsl_chain_store's subwin branch :329-357, launched :2297). Each chunk
+// is cut into `split` sub-chains of chunk/split sublanes; sub-chain h of
+// chunk c reads x from its own window of sub_wt tiles at stb[c, h] and
+// reduces into its own window of sub_nsw slices at ssb[c, h]. Per slot:
+//   rel_adj = rel - (stb[c, h] - tile_base[c])
+//   y[slice·128 + l] += vals · x[(stb[c, h] + rel_adj)·128 + lidx]
+// only when 0 <= rel_adj < sub_wt and ssb[c, h] <= slice < ssb[c, h] +
+// sub_nsw; any other slot (dead sublanes included: rel 511 and the dead
+// slice id fall outside every window) contributes nothing, as the TPU's
+// windowed one-hot products drop it. The column equals K2's whatever stb
+// is, so only this window rule lets a wrong stb or ssb show in y. The same
+// N-iteration loop (zero y, grid.sync(), sweep, grid.sync()).
+//
 // C interface (ctypes) as in sell_spmv.cu.
 
 #include "sell_common.cuh"
@@ -51,6 +66,56 @@ template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads)
     sell_bench_split_kernel(const Args<V, L> a) {
   bench_sweeps<SplitPlanes, ResidentY>(a);
+}
+
+// K2-subwin's arguments: the relsl planes (Args) and the sub-chain
+// windows, stb and ssb of shape (n_chunks, split), int32.
+template <typename V, typename L>
+struct SubwinArgs {
+  Args<V, L> a;
+  const int* stb;
+  const int* ssb;
+  int split;
+  int sub_wt;
+  int sub_nsw;
+};
+
+template <typename V, typename L>
+__device__ __forceinline__ void subwin_slot(const SubwinArgs<V, L>& w,
+                                            long long i) {
+  const Args<V, L>& a = w.a;
+  const long long s = i >> 7;
+  const long long c = s / a.chunk;
+  const long long h = (s - c * a.chunk) / (a.chunk / w.split);
+  const long long stb = w.stb[c * w.split + h];
+  const long long ssb = w.ssb[c * w.split + h];
+  const unsigned word = static_cast<unsigned>(a.meta[s]);
+  const long long rel_adj = static_cast<long long>(word & kRelDead) -
+                            (stb - static_cast<long long>(a.tile_base[c]));
+  const long long slice = word >> kSliceShift;
+  if (rel_adj < 0 || rel_adj >= w.sub_wt || slice < ssb ||
+      slice >= ssb + w.sub_nsw) {
+    return;
+  }
+  const long long col =
+      (stb + rel_adj) * kLanes + static_cast<long long>(a.lidx[i]);
+  const float p = to_f32(a.vals[i]) * to_f32(a.x[col]);
+  if (p != 0.0f) atomicAdd(a.y + slice * kLanes + (i & (kLanes - 1)), p);
+}
+
+template <typename V, typename L>
+__global__ void __launch_bounds__(kThreads)
+    sell_bench_subwin_kernel(const SubwinArgs<V, L> w) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (int it = 0; it < w.a.iterations; ++it) {
+    for (long long i = tid; i < w.a.n_out; i += stride) w.a.y[i] = 0.0f;
+    grid.sync();
+    for (long long i = tid; i < w.a.n_slots; i += stride) subwin_slot(w, i);
+    grid.sync();
+  }
 }
 
 template <typename V, typename L>
@@ -112,6 +177,44 @@ extern "C" int sell_bench_launch(int route, const void* vals, const void* lidx,
                               y_block_id, x, y, n_slots, n_out, chunk, nsb,
                               iterations),
         device, st);
+  });
+  return static_cast<int>(err);
+}
+
+// K2-subwin: arguments as sell_bench_launch on the relsl route, plus the
+// (n_chunks, split) int32 window bases stb and ssb and the window sizes.
+extern "C" int sell_bench_subwin_launch(
+    const void* vals, const void* lidx, const void* relsl,
+    const void* tile_base, const void* stb, const void* ssb, const void* x,
+    void* y, long long n_slots, long long n_out, int chunk, int split,
+    int sub_wt, int sub_nsw, int iterations, int value_kind, int lidx_kind,
+    int device, void* stream) {
+  if (split < 2 || chunk % split || sub_wt < 1 || sub_nsw < 1 ||
+      iterations < 1 || stb == nullptr || ssb == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = sell::with_types(value_kind, lidx_kind, [&](auto v, auto l) {
+    using V = typename decltype(v)::type;
+    using L = typename decltype(l)::type;
+    SubwinArgs<V, L> w{
+        sell::make_args<V, L>(vals, lidx, relsl, nullptr, tile_base,
+                              nullptr, x, y, n_slots, n_out, chunk, 0,
+                              iterations),
+        static_cast<const int*>(stb), static_cast<const int*>(ssb), split,
+        sub_wt, sub_nsw};
+    auto kernel = sell_bench_subwin_kernel<V, L>;
+    int blocks = 0;
+    cudaError_t e = cooperative_grid(kernel, device, &blocks);
+    if (e != cudaSuccess) return e;
+    void* params[] = {&w};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(blocks), dim3(kThreads), params, 0,
+                                    st);
+    if (e != cudaSuccess) return e;
+    return cudaGetLastError();
   });
   return static_cast<int>(err);
 }

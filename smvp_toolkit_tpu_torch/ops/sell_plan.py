@@ -29,6 +29,7 @@ ids and ``ybase[c] = y_block_id[c] · y_block_slices``.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -63,9 +64,11 @@ def _round_up(x: int, m: int) -> int:
 
 def lidx_bytes_for_chunk(chunk: int) -> int:
     """Lane indices are stored as int8 when the chunk is a multiple of 32
-    sublanes, else as int32 (the JAX operator's rule, kept so that both
+    sublanes and ``SMVP_SELL_LIDX32`` is not 1, else as int32 (the JAX
+    operator's rule, read at each call as there, kept so that both
     packages read the same planes)."""
-    return 1 if chunk % 32 == 0 else 4
+    return (1 if chunk % 32 == 0
+            and os.environ.get("SMVP_SELL_LIDX32") != "1" else 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,6 +170,30 @@ class SellPlan:
             + k * self.n_coltiles * LANES * x_bytes  # x, k columns
             + k * self.n_slices * LANES * 4         # y (f32), k columns
         )
+
+    # Dense one-hot views of the plan: the operands of the one-hot kernel
+    # (K6, ``spmv_sell.sell_onehot``), which takes them per chunk. They are
+    # O(S × WT) and O(NS × S), the JAX planner's views bit for bit.
+    def oht_dense(self) -> np.ndarray:
+        """(S, WT) float32: 1 at (s, rel_tile[s]) for every sublane whose
+        rel lies in the window, 0 elsewhere."""
+        if self.y_block_slices:
+            raise ValueError("dense views undefined for streamed-y plans")
+        oht = np.zeros((self.n_sublanes, self.window_tiles), dtype=np.float32)
+        rel = self.rel_tile.reshape(-1)
+        ok = (rel >= 0) & (rel < self.window_tiles)
+        oht[np.arange(self.n_sublanes)[ok], rel[ok]] = 1.0
+        return oht
+
+    def seg_dense(self) -> np.ndarray:
+        """(NS, S) float32: 1 at (slice_of[s], s) for every live sublane."""
+        if self.y_block_slices:
+            raise ValueError("dense views undefined for streamed-y plans")
+        seg = np.zeros((self.n_slices, self.n_sublanes), dtype=np.float32)
+        sl = self.slice_of.reshape(-1)
+        ok = (sl >= 0) & (sl < self.n_slices)
+        seg[sl[ok], np.arange(self.n_sublanes)[ok]] = 1.0
+        return seg
 
 
 def build_sell_plan(

@@ -38,7 +38,6 @@ from smvp_toolkit_tpu_torch.ops.sell_plan import (
     LANES,
     SellPlan,
     build_sell_plan,
-    lidx_bytes_for_chunk,
 )
 from smvp_toolkit_tpu_torch.ops.spmv_sell import (
     _check_rc,
@@ -357,7 +356,7 @@ class SellDf64SpMV:
         slots = plan.n_sublanes * LANES
         planes = 4 if self.vals_lo is None else 8
         return int(
-            slots * (planes + lidx_bytes_for_chunk(plan.chunk))
+            slots * (planes + self.lidx.element_size())
             + plan.n_sublanes * 4 + plan.n_chunks * 4
             + self.sublanes.numel() * 4 + self.slice_ptr.numel() * 4
             + 2 * plan.n_coltiles * LANES * 4

@@ -51,6 +51,18 @@ per-sublane ``slice_of`` plane:
   sweeps in one cooperative launch, resident y; a streamed plan's
   ``bench_loop`` raises under the switch, as the JAX one does).
 
+Two kernels serve the JAX operator's opt-in switches:
+
+* ``sell_onehot`` (K6, ``csrc/sell_onehot.cu``): y = A·x from the plan's
+  dense one-hot operands, under ``SMVP_SELL_COMPAT=1``;
+* ``sell_bench_subwin`` (K2-subwin, ``csrc/sell_bench.cu``): K2 with
+  per-sub-chain x and y windows (``_sub_windows``), under
+  ``SMVP_SELL_SUBWIN=1``.
+
+``CoClusteredSellSpMV`` runs the same kernels in co-clustered coordinates
+(``ops/cocluster.py``); its ``bench_loop`` is K2 on the permuted planes
+(K2-cocluster).
+
 Each wrapper launches its kernel for a CUDA tensor, or raises; only a
 tensor that lies on the CPU goes to the plain PyTorch version beside it
 (``<wrapper>_plain``). Each wrapper counts its launches in a plain integer
@@ -70,6 +82,7 @@ import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import host_tensor
 from smvp_toolkit_tpu_torch.ops import _build, spmv_autograd
+from smvp_toolkit_tpu_torch.ops.autotune import chain_split
 from smvp_toolkit_tpu_torch.ops.plan_checks import (
     PACK_REL_SHIFT,
     REL_DEAD,
@@ -138,6 +151,14 @@ __all__ = [
     "sell_op_csr",
     "spmv_tjds_sell",
     "sell_op_tjds",
+    "sell_onehot",
+    "sell_onehot_plain",
+    "onehot_xw",
+    "sell_bench_subwin",
+    "sell_bench_subwin_plain",
+    "SWITCH_KERNELS",
+    "CoClusteredSellSpMV",
+    "sell_op_coo_coclustered",
 ]
 
 # Above this many bytes of y the JAX operator leaves its resident-y plan
@@ -195,6 +216,72 @@ def packed_plane_host(plan: SellPlan) -> np.ndarray:
         np.uint32).reshape(-1, 1)
     lane = plan.lane_idx.astype(np.uint32)
     return (bits | (rel << PACK_REL_SHIFT) | lane).view(np.int32)
+
+
+def _sub_windows(plan: SellPlan, split: int):
+    """Per-sub-chain tile and slice windows of the split chain (host,
+    O(S)); the JAX package's ``_sub_windows`` bit for bit.
+
+    Each chunk's ``split`` sub-chains of ``chunk / split`` sublanes span
+    only about 1/split of the chunk's tiles and slices (tile-major sort),
+    so each gets its own window: ``stb[c, h]`` tiles from its first tile
+    rounded down to 16, ``ssb[c, h]`` slices likewise, of common widths
+    ``sub_wt`` and ``sub_nsw`` (multiples of 16, clamped to the plan).
+
+    Returns ``(stb, ssb, sub_wt, sub_nsw)``, int32 (n_chunks, split)
+    window bases and the two widths, or None when the plan is
+    ineligible: no non-zeros, a streamed y, a live sublane outside its
+    chunk's window, or a base shift that would pull the dead rel marker
+    (511) into a window.
+    """
+    if plan.nnz == 0 or plan.y_block_slices:
+        return None
+    rel = plan.rel_tile.reshape(-1).astype(np.int64)
+    if ((rel < 0) & (plan.slice_of.reshape(-1) >= 0)).any():
+        return None  # live out-of-window sublanes: rebuild the plan
+    nch, chunk = plan.n_chunks, plan.chunk
+    per = chunk // split
+    tb = np.repeat(plan.tile_base.astype(np.int64), chunk)
+    live = plan.slice_of.reshape(-1) >= 0
+    ut = np.where(live, rel + tb, -1).reshape(nch, split, per)
+    sl = np.where(
+        live, plan.slice_of.reshape(-1).astype(np.int64), -1
+    ).reshape(nch, split, per)
+    big = 1 << 40
+    t_lo = np.where(ut >= 0, ut, big).min(axis=2)
+    t_hi = np.where(ut >= 0, ut, -1).max(axis=2)
+    t_lo = np.where(t_hi < 0, 0, np.minimum(t_lo, big - 1))
+    t_hi = np.maximum(t_hi, 0)
+    t_lo16 = (t_lo // 16) * 16
+    sub_wt = int(max(int((t_hi - t_lo16).max()) + 1, 8))
+    sub_wt = min(-(-sub_wt // 16) * 16, plan.n_coltiles)
+    stb = np.minimum(t_lo16, max(plan.n_coltiles - sub_wt, 0))
+    s_lo = np.where(sl >= 0, sl, big).min(axis=2)
+    s_hi = np.where(sl >= 0, sl, -1).max(axis=2)
+    s_lo = np.where(s_hi < 0, 0, np.minimum(s_lo, big - 1))
+    s_hi = np.maximum(s_hi, 0)
+    s_lo16 = (s_lo // 16) * 16
+    sub_nsw = int(max(int((s_hi - s_lo16).max()) + 1, 8))
+    sub_nsw = min(-(-sub_nsw // 16) * 16, plan.n_slices)
+    ssb = np.minimum(s_lo16, max(plan.n_slices - sub_nsw, 0))
+    # Dead-marker guard: rel_adj(dead) = 511 - (stb - tile_base) must stay
+    # outside [0, sub_wt).
+    shift = (stb - plan.tile_base.astype(np.int64)[:, None]).max()
+    if shift > REL_DEAD - sub_wt or shift < 0:
+        return None
+    return (stb.astype(np.int32), ssb.astype(np.int32), sub_wt, sub_nsw)
+
+
+def subwin_split(chunk: int) -> int:
+    """The chain split K2-subwin runs with: ``chain_split(chunk)``
+    (``SMVP_SELL_SPLIT_CHAIN`` or the split policy), or 1 where the JAX
+    chain falls back to one chain (a split below 2, a chunk that is not a
+    multiple of ``split·128``, or sub-chains not a multiple of 8
+    sublanes; ``_relsl_chain_store``, spmv_pallas.py:298-300)."""
+    split = chain_split(chunk)
+    if split < 2 or chunk % (split * LANES) or (chunk // split) % 8:
+        return 1
+    return split
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +523,11 @@ _BENCH_SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int),
     ]),
+    "sell_bench_subwin_launch": (ctypes.c_int, [
+        _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_longlong,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _VP]),
     "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -926,8 +1018,180 @@ def bench_spmm_blocks(value_dtype: torch.dtype, lidx_dt: torch.dtype,
 
 
 # ---------------------------------------------------------------------------
+# The switch kernels: K6 (SMVP_SELL_COMPAT=1) and K2-subwin
+# (SMVP_SELL_SUBWIN=1)
+# ---------------------------------------------------------------------------
+
+
+def onehot_xw(x_tiles: torch.Tensor, tile_base: torch.Tensor,
+              window_tiles: int) -> torch.Tensor:
+    """K6's x operand, (n_chunks, WT, 128) float32: each chunk's window of
+    ``WT`` x tiles from ``tile_base[c]``, x cast to float32 first (in bf16
+    value mode x is already rounded to bf16), as the JAX launch stacks it
+    (spmv_pallas.py:1340-1347)."""
+    xt = x_tiles.reshape(-1, LANES).float()
+    tiles = tile_base.long()[:, None] + torch.arange(
+        window_tiles, device=xt.device)
+    return xt[tiles]
+
+
+def sell_onehot_plain(xw, vals, lidx, oht, seg) -> torch.Tensor:
+    """K6's function in plain PyTorch, the JAX kernel's three products per
+    chunk: ``table = OHT_c·xw_c``, ``g = table[s, lidx]``, ``y += SEG_c·
+    (vals ∘ g)``, as batched float32 matrix products (no TF32) summed over
+    chunks; y float32 of ``NS·128``."""
+    n_chunks, chunk, _ = oht.shape
+    table = torch.bmm(oht, xw)
+    g = torch.gather(table, 2, lidx.reshape(n_chunks, chunk, LANES).long())
+    prod = vals.reshape(n_chunks, chunk, LANES) * g
+    return torch.bmm(seg, prod).sum(0).reshape(-1)
+
+
+def _check_onehot(xw, vals, lidx, oht, seg) -> None:
+    if oht.dim() != 3 or seg.dim() != 3 or xw.dim() != 3:
+        raise ValueError("oht, seg and xw must be 3-D per-chunk operands")
+    n_chunks, chunk, wt = oht.shape
+    ns = seg.shape[1]
+    want = {"xw": (xw, (n_chunks, wt, LANES), torch.float32),
+            "vals": (vals, (n_chunks * chunk, LANES), torch.float32),
+            "lidx": (lidx, (n_chunks * chunk, LANES), torch.int32),
+            "oht": (oht, (n_chunks, chunk, wt), torch.float32),
+            "seg": (seg, (n_chunks, ns, chunk), torch.float32)}
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != oht.device:
+            raise ValueError(f"{name} is on {t.device}, oht on {oht.device}")
+
+
+_ONEHOT_SIGNATURES = {
+    "sell_onehot_launch": (ctypes.c_int, [
+        _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP]),
+    "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def sell_onehot(xw, vals, lidx, oht, seg) -> torch.Tensor:
+    """K6: y = A·x from the dense one-hot operands (``onehot_xw``, vals as
+    float32, lidx as int32, oht (n_chunks, chunk, WT), seg (n_chunks, NS,
+    chunk)); y float32 of ``NS·128``."""
+    _check_onehot(xw, vals, lidx, oht, seg)
+    if oht.device.type == "cpu":
+        return sell_onehot_plain(xw, vals, lidx, oht, seg)
+    dev = _launch_device(oht)
+    n_chunks, chunk, wt = oht.shape
+    ns = seg.shape[1]
+    lib = _build.load("sell_onehot", _ONEHOT_SIGNATURES)
+    y = torch.empty(ns * LANES, dtype=torch.float32, device=dev)
+    rc = lib.sell_onehot_launch(
+        xw.data_ptr(), vals.data_ptr(), lidx.data_ptr(), oht.data_ptr(),
+        seg.data_ptr(), y.data_ptr(), n_chunks, chunk, wt, ns, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_rc(lib, rc, "sell_onehot_kernel launch")
+    sell_onehot.launches += 1
+    return y
+
+
+def _subwin_sweep_plain(vals, lidx, relsl, tile_base, stb, ssb, x, *,
+                        n_slices: int, chunk: int, split: int, sub_wt: int,
+                        sub_nsw: int) -> torch.Tensor:
+    """One K2-subwin sweep in plain PyTorch: the merged word decoded, each
+    sublane's sub-chain window applied (``rel_adj`` in ``[0, sub_wt)``,
+    slice in ``[ssb, ssb + sub_nsw)``), x read at ``(stb + rel_adj)·128 +
+    lidx``."""
+    word = relsl.reshape(-1).long() & 0xFFFFFFFF
+    rel, sl = word & REL_DEAD, word >> SLICE_SHIFT
+    s = torch.arange(rel.numel(), device=x.device)
+    c = s // chunk
+    h = c * split + (s % chunk) // (chunk // split)
+    stb_s = stb.reshape(-1).long()[h]
+    ssb_s = ssb.reshape(-1).long()[h]
+    rel_adj = rel - (stb_s - tile_base.long()[c])
+    ok = ((rel_adj >= 0) & (rel_adj < sub_wt) & (sl >= ssb_s)
+          & (sl < ssb_s + sub_nsw))
+    live = ok.nonzero().squeeze(1)
+    col = ((stb_s + rel_adj)[live] * LANES)[:, None] + lidx[live].long()
+    prod = vals[live].float() * x.reshape(-1)[col].float()
+    row = (sl[live] * LANES)[:, None] + torch.arange(LANES, device=x.device)
+    y = torch.zeros(n_slices * LANES, dtype=torch.float32, device=x.device)
+    return y.index_add_(0, row.reshape(-1), prod.reshape(-1))
+
+
+def sell_bench_subwin_plain(*args, iterations: int, **kw) -> torch.Tensor:
+    """K2-subwin's function: ``iterations`` fresh windowed sweeps."""
+    return _repeat(_subwin_sweep_plain, iterations, *args, **kw)
+
+
+def sell_bench_subwin(vals, lidx, relsl, tile_base, stb, ssb, x, *,
+                      n_slices: int, chunk: int, split: int, sub_wt: int,
+                      sub_nsw: int, iterations: int) -> torch.Tensor:
+    """K2-subwin: ``iterations`` SpMVs over the merged-word planes in one
+    cooperative launch, each sub-chain h of chunk c reading x from its
+    window at ``stb[c, h]`` and reducing into its slices from
+    ``ssb[c, h]`` (``_sub_windows``); the last y."""
+    if iterations < 1:
+        raise ValueError("iterations must be >= 1")
+    check_planes(vals=vals, lidx=lidx, relsl=relsl, tile_base=tile_base,
+                 x=x, chunk=chunk)
+    n_chunks = tile_base.numel()
+    if split < 2 or chunk % split or sub_wt < 1 or sub_nsw < 1:
+        raise ValueError(f"bad sub-chain windows: split {split} of chunk "
+                         f"{chunk}, widths {sub_wt} and {sub_nsw}")
+    for name, t in (("stb", stb), ("ssb", ssb)):
+        if (t.dtype != torch.int32 or tuple(t.shape) != (n_chunks, split)
+                or not t.is_contiguous() or t.device != vals.device):
+            raise ValueError(f"{name} must be contiguous int32 of shape "
+                             f"({n_chunks}, {split}) on {vals.device}")
+    kw = dict(n_slices=n_slices, chunk=chunk, split=split, sub_wt=sub_wt,
+              sub_nsw=sub_nsw)
+    if vals.device.type == "cpu":
+        return sell_bench_subwin_plain(vals, lidx, relsl, tile_base, stb,
+                                       ssb, x, iterations=iterations, **kw)
+    dev = _launch_device(vals)
+    vk, lk = _kinds(vals, lidx)
+    n_out = n_slices * LANES
+    lib = _build.load("sell_bench", _BENCH_SIGNATURES)
+    y = torch.empty(n_out, dtype=torch.float32, device=dev)
+    rc = lib.sell_bench_subwin_launch(
+        vals.data_ptr(), lidx.data_ptr(), relsl.data_ptr(),
+        tile_base.data_ptr(), stb.data_ptr(), ssb.data_ptr(), x.data_ptr(),
+        y.data_ptr(), vals.numel(), n_out, chunk, split, sub_wt, sub_nsw,
+        iterations, vk, lk, dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check_rc(lib, rc, "sell_bench_subwin_kernel cooperative launch")
+    sell_bench_subwin.launches += 1
+    return y
+
+
+# The switch kernels' wrappers by kernel name, each with its launch counter.
+SWITCH_KERNELS = {
+    "sell_onehot_kernel": sell_onehot,
+    "sell_bench_subwin_kernel": sell_bench_subwin,
+}
+for _name, _fn in SWITCH_KERNELS.items():
+    _fn.kernel = _name
+    _fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # The operator
 # ---------------------------------------------------------------------------
+
+
+def _compat() -> bool:
+    return os.environ.get("SMVP_SELL_COMPAT") == "1"
+
+
+def _relsl_on() -> bool:
+    return os.environ.get("SMVP_SELL_RELSL", "1") == "1"
+
+
+def _n_split() -> int:
+    return max(1, int(os.environ.get("SMVP_SELL_SPLIT", "1")))
 
 
 class SellSpMV:
@@ -937,13 +1201,50 @@ class SellSpMV:
     Build once per matrix (host planning + one upload), call many times.
     ``value_dtype`` is float32 or bfloat16; in bf16 mode vals and x are
     stored as bf16 and products accumulate in float32, as in the JAX
-    operator. Only the planes the route reads are uploaded: ``relsl`` on
-    merged-word routes, ``rel`` and ``slice_of`` (int32 per sublane, -1 =
-    dead) on split ones, ``y_block_id`` on streamed ones; the others are
-    None. ``base_route`` is the plan's route; ``route`` is the route a call
-    takes now: ``packed`` or ``streamy_packed`` while ``SMVP_SELL_PACK=1``
-    and the packed gates pass (bf16 values, ``window_tiles <= 511``),
-    whose planes (``packed_planes``) are built and uploaded at first use.
+    operator. The planes of the plan's own route are uploaded at
+    construction: ``relsl`` on merged-word plans, ``rel`` and ``slice_of``
+    (int32 per sublane, -1 = dead) on split ones, ``y_block_id`` on
+    streamed ones; the others are None. ``base_route`` is the plan's
+    route.
+
+    The JAX operator's switches are read at each call, where it reads
+    them, and a call takes the JAX route (``route`` for ``__call__`` and
+    ``matmat``, ``bench_route`` for ``bench_loop``):
+
+    * ``SMVP_SELL_PACK=1``: the packed route, ``packed`` or
+      ``streamy_packed``, in bf16 on plans with ``window_tiles <= 511``,
+      for the operator's own values plane (``packed_planes``, built at
+      first use);
+    * ``SMVP_SELL_RELSL=0``: a merged-word plan runs on the split planes
+      (K4 resident, K3-split streamed; ``split_planes``, uploaded at first
+      use);
+    * ``SMVP_SELL_COMPAT=1``: ``__call__`` on a resident-y plan runs K6,
+      ``onehot``, on the dense operands (``onehot_planes``, built on the
+      device at first use; S·(WT + NS)·4 bytes); a streamed plan leaves
+      the merged word for the split planes, as the JAX gates do; ``matmat``
+      runs one k = 1 call per column; ``bench_loop`` ignores the switch
+      (the JAX bench kernel has no one-hot branch);
+    * ``SMVP_SELL_LIDX32=1``: int32 lane planes (``lidx_dtype``, at
+      construction) and 4 bytes per lane in ``SellPlan.traffic_bytes``;
+    * ``SMVP_SELL_SPMM=0``: ``matmat`` makes one k = 1 call per column;
+    * ``SMVP_SELL_SPLIT=N``: ``__call__`` cuts the chunks into N ranges of
+      ``ceil(n_chunks / N)`` and sums one launch per range, on resident-y
+      plans, without COMPAT, for the operator's own values;
+    * ``SMVP_SELL_SUBWIN=1``: ``bench_loop`` on a resident merged-word
+      plan runs K2-subwin, ``subwin``, when the chain split
+      (``subwin_split``) is above 1 and ``_sub_windows`` returns windows;
+    * ``SMVP_SELL_SPLIT_CHAIN=N``: the chain split of ``_sub_windows`` and
+      K2-subwin; nothing else on the card.
+
+    The port does not follow the JAX operator's other switches, because
+    they shape only TPU work that an exact gather does not have:
+    ``SMVP_SELL_REDUCE1`` and ``SMVP_SELL_REDUCE2`` are lossy bf16 MXU
+    reductions (off by about 2.5e-3 and 1e-5), which an exact float32
+    gather and sum have nothing to reproduce of; ``SMVP_SELL_BF16_TAA``
+    rounds the gathered table to bf16 only in bf16 value mode, where it
+    already is bf16; ``SMVP_SELL_NOWINDOW``, ``SMVP_SELL_PREFETCH``,
+    ``SMVP_SELL_VMEM_MB`` and ``SMVP_SELL_SPMM_GROUP`` shape TPU VMEM
+    windows, copies and budgets (the port runs any k in one launch).
 
     ``triplets`` are the host (rows, cols, values) the plan was built
     from, kept for the training hooks: ``transpose`` plans Aᵀ from them
@@ -982,6 +1283,9 @@ class SellSpMV:
         self.kernel, self.bench_kernel = _ROUTE_FNS[self.base_route]
         self.spmm_kernel = _SPMM_FNS.get(self.base_route)
         self._packed: Optional[tuple] = None
+        self._split: Optional[tuple] = None
+        self._onehot: Optional[tuple] = None
+        self._subwin: dict = {}
         self._triplets = triplets
         self._t_op: Optional[SellSpMV] = None
         self._slot_map: Optional[np.ndarray] = None
@@ -997,12 +1301,41 @@ class SellSpMV:
                 and self.plan.window_tiles <= REL_DEAD
                 and vals is None)
 
+    def _merged_route(self) -> bool:
+        """The merged word under ``SMVP_SELL_RELSL`` (default on)."""
+        return self.plan.merged_word and _relsl_on()
+
+    def _plane_route(self, merged: bool) -> str:
+        """The merged-word or split-plane route of this plan's y."""
+        if self.plan.y_block_slices:
+            return "streamy_relsl" if merged else "streamy"
+        return "relsl" if merged else "split"
+
+    def _route(self, vals: Optional[torch.Tensor] = None) -> str:
+        streamed = bool(self.plan.y_block_slices)
+        compat = _compat()
+        if compat and not streamed:
+            return "onehot"
+        if not compat and self.packed_on(vals):
+            return PACKED_ROUTES[int(streamed)]
+        return self._plane_route(self._merged_route() and not compat)
+
     @property
     def route(self) -> str:
-        """The route a call takes now (class docstring)."""
+        """The route ``__call__`` takes now (class docstring)."""
+        return self._route()
+
+    @property
+    def bench_route(self) -> str:
+        """The route ``bench_loop`` takes now: ``packed`` under
+        ``SMVP_SELL_PACK=1`` (its gates), ``subwin`` under
+        ``SMVP_SELL_SUBWIN=1`` (its gates), else the merged word or the
+        split planes under ``SMVP_SELL_RELSL``; COMPAT is not read."""
         if self.packed_on():
             return PACKED_ROUTES[int(bool(self.plan.y_block_slices))]
-        return self.base_route
+        if self.subwin_windows() is not None:
+            return "subwin"
+        return self._plane_route(self._merged_route())
 
     def packed_planes(self):
         """(packed word plane (S, 128), slice_of per sublane), int32 on
@@ -1014,6 +1347,68 @@ class SellSpMV:
                 sl = host_tensor(self.plan.slice_of.reshape(-1), np.int32)
             self._packed = (pk.to(self.device), sl.to(self.device))
         return self._packed
+
+    def split_planes(self):
+        """(rel_tile, slice_of), int32 per sublane on the operator's device:
+        the split planes' metadata, uploaded at first use on a merged-word
+        plan (``SMVP_SELL_RELSL=0``)."""
+        if self.rel is not None:
+            return self.rel, self.slice_of
+        if self._split is None:
+            self._split = tuple(
+                host_tensor(a.reshape(-1), np.int32).to(self.device)
+                for a in (self.plan.rel_tile, self.plan.slice_of))
+        return self._split
+
+    def onehot_planes(self):
+        """K6's plan operands on the operator's device, built there at
+        first use: (vals float32 (S, 128), lidx int32 (S, 128), oht
+        (n_chunks, chunk, WT), seg (n_chunks, NS, chunk)), the JAX
+        launch's one-hot planes (``SellPlan.oht_dense`` and ``seg_dense``
+        per chunk)."""
+        if self._onehot is None:
+            plan, dev = self.plan, self.device
+            nch, chunk, wt = plan.n_chunks, plan.chunk, plan.window_tiles
+            ns = plan.n_slices
+            s = torch.arange(plan.n_sublanes, device=dev)
+            rel = torch.from_numpy(
+                plan.rel_tile.reshape(-1).astype(np.int64)).to(dev)
+            ok = (rel >= 0) & (rel < wt)
+            oht = torch.zeros(plan.n_sublanes, wt, dtype=torch.float32,
+                              device=dev)
+            oht[s[ok], rel[ok]] = 1.0
+            sl = torch.from_numpy(
+                plan.slice_of.reshape(-1).astype(np.int64)).to(dev)
+            ok = (sl >= 0) & (sl < ns)
+            seg = torch.zeros(nch, ns, chunk, dtype=torch.float32,
+                              device=dev)
+            seg[(s // chunk)[ok], sl[ok], (s % chunk)[ok]] = 1.0
+            self._onehot = (self.vals.float(), self.lidx.int(),
+                            oht.reshape(nch, chunk, wt), seg)
+        return self._onehot
+
+    def subwin_windows(self):
+        """K2-subwin's windows now: ``(stb, ssb, split, sub_wt, sub_nsw)``
+        with stb and ssb int32 (n_chunks, split) on the device, or None
+        when ``bench_loop`` does not take K2-subwin: the switch is off,
+        the plan is streamed or on split planes, the chain split
+        (``subwin_split``) is 1, or ``_sub_windows`` finds the plan
+        ineligible. Cached per split."""
+        if (os.environ.get("SMVP_SELL_SUBWIN") != "1"
+                or self.plan.y_block_slices or not self._merged_route()):
+            return None
+        split = subwin_split(self.plan.chunk)
+        if split < 2:
+            return None
+        if split not in self._subwin:
+            sub = _sub_windows(self.plan, split)
+            if sub is not None:
+                stb, ssb, sub_wt, sub_nsw = sub
+                sub = (host_tensor(stb, np.int32).to(self.device),
+                       host_tensor(ssb, np.int32).to(self.device), split,
+                       sub_wt, sub_nsw)
+            self._subwin[split] = sub
+        return self._subwin[split]
 
     @staticmethod
     def from_coo(coo, value_dtype: Optional[torch.dtype] = None,
@@ -1039,11 +1434,15 @@ class SellSpMV:
         out[: x.shape[0]] = x.to(self.value_dtype)
         return out
 
-    def _planes(self):
-        """The route's planes, in its wrappers' positional order."""
-        return tuple(t for t in (self.vals, self.lidx, self.relsl, self.rel,
-                                 self.slice_of, self.tile_base,
-                                 self.y_block_id) if t is not None)
+    def _planes(self, route: Optional[str] = None):
+        """The planes of ``route`` (default the plan's own), in its
+        wrappers' positional order: vals, lidx, the merged word or the
+        split planes, tile_base and, streamed, y_block_id."""
+        route = route or self.base_route
+        meta = ((self.relsl,) if route in ("relsl", "streamy_relsl")
+                else self.split_planes())
+        tail = (self.y_block_id,) if self.plan.y_block_slices else ()
+        return (self.vals, self.lidx, *meta, self.tile_base, *tail)
 
     def _kw(self):
         kw = dict(n_slices=self.plan.n_slices, chunk=self.plan.chunk)
@@ -1083,15 +1482,44 @@ class SellSpMV:
         return dict(n_slices=self.plan.n_slices,
                     n_coltiles=self.plan.n_coltiles, chunk=self.plan.chunk)
 
+    def _launch_range(self, route: str, a: int, b: int, xt: torch.Tensor,
+                      vals: Optional[torch.Tensor]) -> torch.Tensor:
+        """One forward launch of ``route`` over chunks ``[a, b)`` (views of
+        the planes, contiguous along the sublanes); y of all NS slices."""
+        c0, c1 = a * self.plan.chunk, b * self.plan.chunk
+        kw = self._kw()
+        yb = None if self.y_block_id is None else self.y_block_id[a:b]
+        if route in PACKED_ROUTES:
+            pk, sl = self.packed_planes()
+            return sell_packed(pk[c0:c1], sl[c0:c1], self.tile_base[a:b], xt,
+                               y_block_id=yb, **kw)
+        planes = self._planes(route)
+        n_chunk_planes = 2 if yb is not None else 1
+        head = (self._vals_plane(vals),) + planes[1:-n_chunk_planes]
+        tail = planes[-n_chunk_planes:]
+        return _ROUTE_FNS[route][0](*(t[c0:c1] for t in head),
+                                    *(t[a:b] for t in tail), xt, **kw)
+
     def _apply(self, x: torch.Tensor,
                vals: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.packed_on(vals):
-            y = sell_packed(*self.packed_planes(), self.tile_base,
-                            self._x_tiles(x), y_block_id=self.y_block_id,
-                            **self._kw())
-            return y[: self.shape[0]]
-        planes = (self._vals_plane(vals),) + self._planes()[1:]
-        y = self.kernel(*planes, self._x_tiles(x), **self._kw())
+        route = self._route(vals)
+        xt = self._x_tiles(x)
+        if route == "onehot":
+            v, lidx, oht, seg = self.onehot_planes()
+            if vals is not None:
+                v = self._vals_plane(vals).float()
+            xw = onehot_xw(xt, self.tile_base, self.plan.window_tiles)
+            return sell_onehot(xw, v, lidx, oht, seg)[: self.shape[0]]
+        # SMVP_SELL_SPLIT=N: N launches over chunk ranges, then a sum (the
+        # JAX gates: resident y, no COMPAT, the operator's own values).
+        nch = self.plan.n_chunks
+        n_split = (1 if self.plan.y_block_slices or vals is not None
+                   else min(_n_split(), nch))
+        per = -(-nch // n_split)
+        y = None
+        for a in range(0, nch, per):
+            part = self._launch_range(route, a, min(a + per, nch), xt, vals)
+            y = part if y is None else y + part
         return y[: self.shape[0]]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -1104,18 +1532,20 @@ class SellSpMV:
         k == 1 is one SpMV (``__call__``). A resident-y plan runs one
         k-wide launch of its route's SpMM kernel (K1 or K4 with k
         columns, or K5 with k columns on the packed route); a streamed-y
-        plan runs column by column on its K3 (or K5) kernel. X is rounded
-        to the value dtype first (bf16 mode rounds it to bf16, as the JAX
-        operator does). ``vals`` (S·128 values in
-        the planner's slot order) replaces the values plane for this
-        call, as the trainable-edge path needs.
+        plan, ``SMVP_SELL_SPMM=0`` and ``SMVP_SELL_COMPAT=1`` run one k = 1
+        call per column, as the JAX operator's vmap fallback does. X is
+        rounded to the value dtype first (bf16 mode rounds it to bf16, as
+        the JAX operator does). ``vals`` (S·128 values in the planner's
+        slot order) replaces the values plane for this call, as the
+        trainable-edge path needs.
         """
         if X.dim() != 2:
             raise ValueError(f"X must be (ncols, k), got {tuple(X.shape)}")
         k = int(X.shape[1])
         if k == 1:
             return self._apply(X[:, 0], vals)[:, None]
-        if self.spmm_kernel is None:  # streamed y: per column
+        if (os.environ.get("SMVP_SELL_SPMM") == "0"
+                or self.plan.y_block_slices or _compat()):
             return torch.stack([self._apply(X[:, j], vals)
                                 for j in range(k)], dim=1)
         Xt = self._block(X, self.plan.n_coltiles * LANES, self.value_dtype,
@@ -1123,8 +1553,9 @@ class SellSpMV:
         if self.packed_on(vals):
             return sell_packed_spmm(*self.packed_planes(), self.tile_base, Xt,
                                     **self._mat_kw())[: self.shape[0]]
-        planes = (self._vals_plane(vals),) + self._planes()[1:]
-        return self.spmm_kernel(*planes, Xt, **self._mat_kw())[
+        route = "relsl" if self._merged_route() else "split"
+        planes = (self._vals_plane(vals),) + self._planes(route)[1:]
+        return _SPMM_FNS[route](*planes, Xt, **self._mat_kw())[
             : self.shape[0]]
 
     def bench_loop_mat(self, X: torch.Tensor,
@@ -1269,20 +1700,29 @@ class SellSpMV:
         return None
 
     def bench_loop(self, x: torch.Tensor, iterations: int) -> torch.Tensor:
-        """N SpMVs in ONE launch of the route's bench kernel; returns the
-        last iteration's y. On the packed route that is K2-packed: a
-        streamed plan raises there (``bench_loop_refusal``), as the JAX
-        operator does, rather than fall back to the unpacked kernel."""
+        """N SpMVs in ONE launch of the bench kernel of ``bench_route``;
+        returns the last iteration's y. On the packed route that is
+        K2-packed: a streamed plan raises there (``bench_loop_refusal``),
+        as the JAX operator does, rather than fall back to the unpacked
+        kernel. On ``subwin`` it is K2-subwin."""
         why = self.bench_loop_refusal()
         if why:
             raise ValueError(why)
-        if self.packed_on():
-            y = sell_bench_packed(*self.packed_planes(), self.tile_base,
-                                  self._x_tiles(x), iterations=iterations,
+        route = self.bench_route
+        xt = self._x_tiles(x)
+        if route in PACKED_ROUTES:
+            y = sell_bench_packed(*self.packed_planes(), self.tile_base, xt,
+                                  iterations=iterations, **self._kw())
+        elif route == "subwin":
+            stb, ssb, split, sub_wt, sub_nsw = self.subwin_windows()
+            y = sell_bench_subwin(self.vals, self.lidx, self.relsl,
+                                  self.tile_base, stb, ssb, xt,
+                                  split=split, sub_wt=sub_wt,
+                                  sub_nsw=sub_nsw, iterations=iterations,
                                   **self._kw())
-            return y[: self.shape[0]]
-        y = self.bench_kernel(*self._planes(), self._x_tiles(x),
-                              iterations=iterations, **self._kw())
+        else:
+            y = _ROUTE_FNS[route][1](*self._planes(route), xt,
+                                     iterations=iterations, **self._kw())
         return y[: self.shape[0]]
 
 
@@ -1297,9 +1737,12 @@ def _auto_plan(rows, cols, vals, shape, chunk: int = 2048) -> SellPlan:
 
     This is the JAX package's ``_auto_plan``, which its operator uses
     under ``SMVP_SELL_AUTOTUNE=0``. By default the JAX operator autotunes
-    the chunk per matrix (``_tuned_plan``); the port has no autotuner yet,
-    so its plan equals the JAX default plan only where the autotuner also
-    picks chunk 2048. Both give the same y within tolerance.
+    the chunk per matrix (``_tuned_plan``, ported as logic in
+    ``ops/autotune.py``); its rates were fitted on TPU cells, so the
+    port's operators keep chunk 2048 (a stated departure, as is
+    ``CoClusteredSellSpMV``'s default chunk), and the plan equals the JAX
+    default plan only where the autotuner also picks chunk 2048. Both
+    give the same y within tolerance.
     """
     if shape[0] * 4 > _RESIDENT_Y_LIMIT:  # NS·128·4 ≈ nrows·4 bytes
         return build_streamed_sell_plan(
@@ -1374,3 +1817,89 @@ def spmv_tjds_sell(tjds, x: torch.Tensor) -> torch.Tensor:
 def sell_op_tjds(tjds) -> SellSpMV:
     """The cached SELL operator for a TJDS matrix."""
     return _cached_op(tjds, _triplets_from_tjds_host)
+
+
+class CoClusteredSellSpMV:
+    """SELL-T1 operator on jointly co-clustered coordinates.
+
+    The co-clustering planner (``ops/cocluster.py``) re-derives the
+    row->slice and col->tile assignments jointly, which lifts occupancy
+    (the linear factor of the kernels' slot rate) beyond what a
+    natural-order plan reaches. The price is a coordinate change: the
+    inner operator computes y' = A'·x' with x' = scatter(x, col_map) and
+    y = y'[row_map].
+
+    Fast path (solvers, benchmarks): stay in PERMUTED space through
+    ``to_permuted`` / ``from_permuted`` at the boundaries and call
+    ``inner`` or ``bench_loop`` (K2 on the permuted planes: K2-cocluster,
+    or K2-packed under ``SMVP_SELL_PACK=1``). Convenience path:
+    ``__call__`` takes and returns natural coordinates (one scatter and
+    one gather on the device per call).
+
+    Departure from the JAX class: ``chunk`` defaults to 2048, the port's
+    plan for every operator (``_auto_plan``), where the JAX class lets
+    its TPU-fitted autotuner pick; ``chunk=None`` gives the JAX default
+    plan (``cocluster_plan``'s autotuned pick). ``cocluster_kw`` pass
+    through to ``cocluster``, which keeps its last results in the process,
+    so the f32 and bf16 operators of one matrix share one refinement
+    (minutes of host work for 10M non-zeros).
+    """
+
+    def __init__(self, coo, value_dtype: Optional[torch.dtype] = None,
+                 chunk: Optional[int] = 2048, device=None, **cocluster_kw):
+        from smvp_toolkit_tpu_torch.ops.cocluster import cocluster_plan
+
+        r, c, v = coo.to_numpy()
+        r, c = np.asarray(r, np.int64), np.asarray(c, np.int64)
+        vdt = torch.float32 if value_dtype is None else value_dtype
+        try:
+            out = cocluster_plan(r, c, v, coo.shape, chunk=chunk,
+                                 bf16=vdt == torch.bfloat16, **cocluster_kw)
+        except _build.KernelBuildError as e:
+            raise RuntimeError(
+                "co-clustering needs csrc/cocluster.cpp built with the host "
+                "C++ compiler: python -c \"from smvp_toolkit_tpu_torch.ops "
+                "import _build; _build.build(['cocluster'])\""
+            ) from e
+        if out is None:
+            raise ValueError("co-clustering needs a matrix with non-zeros")
+        self.result, plan, self.vmem_mb = out
+        self.shape = coo.shape  # NATURAL shape (inner.shape is padded)
+        rm, cm = self.result.row_map, self.result.col_map
+        self.inner = SellSpMV(plan, value_dtype=vdt,
+                              device=coo.device if device is None else device,
+                              triplets=(rm[r], cm[c], v))
+        dev = self.inner.device
+        self._col_map = torch.tensor(cm, device=dev)
+        self._row_map = torch.tensor(rm, device=dev)
+
+    @property
+    def occupancy(self) -> float:
+        return self.inner.plan.nnz / float(self.inner.plan.slots())
+
+    def to_permuted(self, x: torch.Tensor) -> torch.Tensor:
+        """Natural x -> permuted, padded x' (one scatter on the device)."""
+        m_pad = self.result.shape_padded[1]
+        out = torch.zeros((m_pad,) + tuple(x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        out[self._col_map] = x[: self.shape[1]]
+        return out
+
+    def from_permuted(self, y: torch.Tensor) -> torch.Tensor:
+        """Permuted y' -> natural y (one gather on the device)."""
+        return y[self._row_map]
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.from_permuted(self.inner(self.to_permuted(x)))
+
+    def bench_loop(self, x_permuted: torch.Tensor,
+                   iterations: int) -> torch.Tensor:
+        """N SpMVs in one launch in permuted coordinates (K2-cocluster):
+        the inner operator's ``bench_loop``; y' in permuted order."""
+        return self.inner.bench_loop(x_permuted, iterations)
+
+
+def sell_op_coo_coclustered(coo, **kw) -> CoClusteredSellSpMV:
+    """Co-clustered SELL operator for a COO matrix (host planning and
+    refinement, then one upload)."""
+    return CoClusteredSellSpMV(coo, **kw)

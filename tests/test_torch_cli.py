@@ -536,3 +536,114 @@ def test_packed_fused_on_a_streamed_plan_fails(monkeypatch, capsys):
     assert tcli.main(argv + ["--fused"]) == 2
     err = capsys.readouterr().err
     assert "streamed-y bench_loop supports relsl/split-plane modes" in err
+
+
+# -- --cocluster and --analyze ---------------------------------------------
+
+
+def _oracle_y(bf16=False, seed=2):
+    import scipy.sparse as sp
+
+    from smvp_toolkit_tpu_torch.utils.synth import parse_synth_spec
+
+    dt = torch.bfloat16 if bf16 else torch.float32
+    r, c, v = parse_synth_spec(SPEC, dtype=dt, device="cpu").to_numpy()
+    x = np.random.default_rng(seed).standard_normal(4096).astype(np.float32)
+    if bf16:
+        x = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    a = sp.csr_matrix((v.astype(np.float64), (r, c)), shape=(4096, 4096))
+    return a @ x.astype(np.float64)
+
+
+@pytest.mark.parametrize("extra", [[], ["--fused"], ["--dtype", "bfloat16"],
+                                   ["--fused", "--dtype", "bfloat16"]])
+def test_cocluster_runs_agree_with_oracle(tmp_path, extra, capsys):
+    rc = tcli.main(["-c", "-t", "-n", "2", "--device", "cpu", "-d",
+                    str(tmp_path), "--x", "random:2", "--cocluster",
+                    "--json-out", str(tmp_path / "r.jsonl"), *extra, SPEC])
+    assert rc == 0
+    out = capsys.readouterr().out
+    assert "co-clustered plan: occupancy" in out and "(chunk 656;" in out
+    ref = _oracle_y("bfloat16" in extra)
+    for alg in ("CSR", "TJDS"):
+        assert _close(_vector(_report(str(tmp_path), alg)), ref)
+    with open(tmp_path / "r.jsonl") as f:
+        kernels = [json.loads(ln)["kernel"] for ln in f]
+    assert kernels == ["sell-plain-cocluster", "sell-plain"]
+
+
+def test_cocluster_report_agrees_with_jax_cli(tmp_path):
+    tj, tt = tmp_path / "jax", tmp_path / "torch"
+    tj.mkdir()
+    tt.mkdir()
+    assert jcli.main(["-c", "-n", "2", "--kernel", "pallas", "--cocluster",
+                      "-d", str(tj), "--x", "random:5", SPEC]) == 0
+    assert tcli.main(["-c", "-n", "2", "--device", "cpu", "--cocluster",
+                      "-d", str(tt), "--x", "random:5", SPEC]) == 0
+    assert _close(_vector(_report(str(tt))), _vector(_report(str(tj))))
+
+
+def test_cocluster_ignored_off_the_sell_kernels(tmp_path, capsys):
+    assert tcli.main(["-c", "-n", "1", "--device", "cpu", "--no-report",
+                      "--kernel", "torch", "--cocluster", SPEC]) == 0
+    out = capsys.readouterr().out
+    assert "ignored on this path" in out and "co-clustered plan" not in out
+
+
+def _analysis_lines(text):
+    lines = text.splitlines()
+    i = next(k for k, ln in enumerate(lines) if "Matrix analysis:" in ln)
+    return [ln for ln in lines[i + 1:] if ln.startswith("\t")]
+
+
+def test_analyze_prints_the_jax_cli_lines(tmp_path, capsys, monkeypatch):
+    assert jcli.main(["-c", "-n", "1", "--kernel", "xla", "--no-report",
+                      "--analyze", SPEC]) == 0
+    want = _analysis_lines(capsys.readouterr().out)
+    assert tcli.main(["-c", "-n", "1", "--device", "cpu", "--no-report",
+                      "--analyze", SPEC]) == 0
+    got = _analysis_lines(capsys.readouterr().out)
+    assert got == want and len(got) == 6
+
+
+def _analysis_matrix(kind):
+    from smvp_toolkit_tpu_torch.utils.synth import (
+        parse_synth_spec,
+        synth_powerlaw,
+    )
+
+    if kind == "banded":
+        return parse_synth_spec("synth:30000:300000", device="cpu")
+    if kind == "powerlaw":
+        return synth_powerlaw(20000, 150000, seed=0, device="cpu")
+    if kind == "empty-rows":
+        from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+
+        rng = np.random.default_rng(1)
+        r = rng.integers(0, 1000, 6000) * 3
+        c = rng.integers(0, 5000, 6000)
+        return COOMatrix.from_numpy(r, c, rng.standard_normal(6000),
+                                    shape=(3100, 5000), device="cpu")
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+
+    e = np.zeros(0, np.int64)
+    return COOMatrix.from_numpy(e, e, np.zeros(0), shape=(50, 70),
+                                device="cpu")
+
+
+@pytest.mark.parametrize("autotune", ["1", "0"])
+@pytest.mark.parametrize("kind", ["banded", "powerlaw", "empty-rows",
+                                  "nnz0"])
+def test_analyze_dict_equals_jax(kind, autotune, monkeypatch):
+    from smvp_toolkit_tpu.formats.coo import COOMatrix as JCOO
+    from smvp_toolkit_tpu.utils.analyze import analyze as janalyze
+    from smvp_toolkit_tpu.utils.analyze import format_analysis as jformat
+    from smvp_toolkit_tpu_torch.utils.analyze import analyze, format_analysis
+
+    monkeypatch.setenv("SMVP_SELL_AUTOTUNE", autotune)
+    coo = _analysis_matrix(kind)
+    r, c, v = coo.to_numpy()
+    jcoo = JCOO.from_numpy(r, c, v, shape=coo.shape)
+    got, want = analyze(coo), janalyze(jcoo)
+    assert got == want
+    assert format_analysis(got) == jformat(want)

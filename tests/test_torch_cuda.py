@@ -554,3 +554,135 @@ def test_cli_df64_and_packed_launch_their_kernels(card, tmp_path,
                  "--no-report", "synth:20000:200000"]) == 0
     assert S.sell_packed.launches >= 5 and S.sell_bench_packed.launches >= 1
     assert S.sell_spmv.launches == 0
+
+
+# -- K6 (SMVP_SELL_COMPAT=1), K2-subwin (SMVP_SELL_SUBWIN=1), the
+# co-clustered operator and the other switches ------------------------------
+
+
+@pytest.mark.parametrize("chunk", [2048, 200])  # int8 / int32 lane indices
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_kernel_matches_plain(card, chunk, dtype, monkeypatch):
+    plan = _plan(chunk)
+    op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+    monkeypatch.setenv("SMVP_SELL_COMPAT", "1")
+    assert op.route == "onehot"
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        plan.shape[1]).astype(np.float32)).to(card)
+    vals, lidx, oht, seg = op.onehot_planes()
+    xw = S.onehot_xw(op._x_tiles(x), op.tile_base, plan.window_tiles)
+    before = S.sell_onehot.launches
+    y = S.sell_onehot(xw, vals, lidx, oht, seg)
+    y_call = op(x)
+    yp = S.sell_onehot_plain(xw, vals, lidx, oht, seg)
+    y_k1 = op.kernel(*op._planes(), op._x_tiles(x), **op._kw())
+    torch.cuda.synchronize()
+    assert S.sell_onehot.launches == before + 2
+    assert _rel(y, yp) <= TOL and _rel(y, y_k1) <= TOL
+    assert torch.equal(y_call, y[: plan.shape[0]])  # one fixed order
+    # a wrong dense operand shows
+    s = int(np.nonzero(plan.slice_of.reshape(-1) >= 0)[0][3])
+    c, j = divmod(s, plan.chunk)
+    sl = int(plan.slice_of.reshape(-1)[s])
+    bad = seg.clone()
+    bad[c, sl, j], bad[c, (sl + 1) % plan.n_slices, j] = 0.0, 1.0
+    assert _rel(S.sell_onehot(xw, vals, lidx, oht, bad), yp) > 1e-4
+
+
+def _subwin_plan(chunk):
+    rng = np.random.RandomState(chunk + 1)
+    n, nnz = 40000, 400000
+    r = rng.randint(0, n, nnz)
+    c = np.clip(r + rng.randint(-300, 301, nnz), 0, n - 1)
+    return build_sell_plan(r, c, rng.randn(nnz), (n, n), chunk=chunk)
+
+
+@pytest.mark.parametrize("chunk", [2048, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_subwin_kernel_matches_plain_and_k2(card, chunk, dtype,
+                                            monkeypatch):
+    monkeypatch.setenv("SMVP_SELL_SUBWIN", "1")
+    if chunk < 2048:
+        monkeypatch.setenv("SMVP_SELL_SPLIT_CHAIN", "2")
+    op = S.SellSpMV(_subwin_plan(chunk), value_dtype=dtype, device=card)
+    assert op.bench_route == "subwin"
+    stb, ssb, split, sub_wt, sub_nsw = op.subwin_windows()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        op.plan.shape[1]).astype(np.float32)).to(card)
+    xt = op._x_tiles(x)
+    planes = (op.vals, op.lidx, op.relsl, op.tile_base)
+    kw = dict(split=split, sub_wt=sub_wt, sub_nsw=sub_nsw, iterations=3,
+              **op._kw())
+    before = S.sell_bench_subwin.launches
+    y = S.sell_bench_subwin(*planes, stb, ssb, xt, **kw)
+    y_loop = op.bench_loop(x, 3)
+    yp = S.sell_bench_subwin_plain(*planes, stb, ssb, xt, **kw)
+    y_k2 = S.sell_bench_loop(*planes, xt, iterations=3, **op._kw())
+    bad = S.sell_bench_subwin(*planes, stb + 16, ssb, xt, **kw)
+    torch.cuda.synchronize()
+    assert S.sell_bench_subwin.launches == before + 3
+    assert _rel(y, yp) <= TOL and _rel(y, y_k2) <= TOL
+    assert _rel(y_loop, y_k2[: op.shape[0]]) <= TOL
+    assert _rel(bad, y_k2) > TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_coclustered_operator_on_card(card, dtype):
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+
+    rng = np.random.default_rng(3)
+    n, nnz = 3000, 24000
+    r = rng.integers(0, n, nnz)
+    c = np.clip(r + rng.integers(-300, 301, nnz), 0, n - 1)
+    v = rng.standard_normal(nnz)
+    coo = COOMatrix.from_numpy(r, c, v, shape=(n, n), device="cpu")
+    cpu = S.CoClusteredSellSpMV(coo, value_dtype=dtype, passes=4)
+    gpu = S.CoClusteredSellSpMV(coo, value_dtype=dtype, device=card,
+                                passes=4)
+    assert gpu.result is cpu.result
+    x = np.random.default_rng(4).standard_normal(n).astype(np.float32)
+    before = (S.sell_spmv.launches, S.sell_bench_loop.launches)
+    y = gpu(torch.from_numpy(x).to(card))
+    xp = gpu.to_permuted(torch.from_numpy(x).to(card))
+    yb = gpu.bench_loop(xp, 3)
+    torch.cuda.synchronize()
+    assert (S.sell_spmv.launches, S.sell_bench_loop.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _rel(y.cpu(), cpu(torch.from_numpy(x))) <= TOL
+    assert _rel(yb.cpu(), cpu.bench_loop(cpu.to_permuted(
+        torch.from_numpy(x)), 1)) <= TOL
+
+
+def test_cli_cocluster_and_switches_launch_their_kernels(card, monkeypatch):
+    from smvp_toolkit_tpu_torch.cli import main
+
+    fns = {"sell_spmv_kernel": S.sell_spmv,
+           "sell_bench_kernel": S.sell_bench_loop,
+           "sell_split_kernel": S.sell_split, **S.SWITCH_KERNELS}
+
+    def run(argv, env=None, spec="synth:20000:200000"):
+        for f in fns.values():
+            f.launches = 0
+        for k, v in (env or {}).items():
+            monkeypatch.setenv(k, v)
+        assert main(argv + ["--no-report", spec]) == 0
+        for k in env or {}:
+            monkeypatch.delenv(k)
+        return {n: f.launches for n, f in fns.items() if f.launches}
+
+    got = run(["-c", "-n", "5", "--cocluster", "--fused", "--dtype",
+               "bfloat16"])
+    assert set(got) == {"sell_bench_kernel"}
+    got = run(["-c", "-n", "5", "--cocluster"])
+    assert set(got) == {"sell_spmv_kernel"} and got["sell_spmv_kernel"] >= 5
+    assert set(run(["-c", "-n", "5"], {"SMVP_SELL_COMPAT": "1"})) == {
+        "sell_onehot_kernel"}
+    assert set(run(["-c", "-n", "5"], {"SMVP_SELL_RELSL": "0"})) == {
+        "sell_split_kernel"}
+    assert set(run(["-c", "-n", "5", "--fused"],
+                   {"SMVP_SELL_SUBWIN": "1"})) == {"sell_bench_subwin_kernel"}
+    big = "synth:100000:1000000"  # 10 chunks of 2048
+    split = run(["-c", "-n", "5"], {"SMVP_SELL_SPLIT": "4"}, big)
+    plain = run(["-c", "-n", "5"], spec=big)
+    assert set(split) == set(plain) == {"sell_spmv_kernel"}
+    assert split["sell_spmv_kernel"] == 4 * plain["sell_spmv_kernel"]

@@ -37,7 +37,9 @@ def test_package_sources_found():
             "ops/algebra.py", "ops/ilu.py", "ops/cg_fused.py",
             "ops/pcg_fused.py", "csrc/sell_solvers.cu",
             "csrc/ilu.cpp", "ops/precision.py", "ops/spmv_df64.py",
-            "csrc/sell_df64.cu", "csrc/sell_packed.cu"} <= names
+            "csrc/sell_df64.cu", "csrc/sell_packed.cu",
+            "csrc/cocluster.cpp", "csrc/sell_onehot.cu", "ops/cocluster.py",
+            "ops/autotune.py", "utils/analyze.py", "bench/headline.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -99,6 +101,18 @@ import os
 os.environ["SMVP_SELL_PACK"] = "1"
 assert main(["-c", "-n", "1", "--no-report", "--device", "cpu", "--dtype",
              "bfloat16", "--spmm", "3", "synth:500:2000"]) == 0
+os.environ["SMVP_SELL_PACK"] = "0"
+assert main(["-c", "-t", "-n", "1", "--no-report", "--device", "cpu",
+             "--cocluster", "--analyze", "--fused", "synth:900:4000"]) == 0
+from smvp_toolkit_tpu_torch.ops.cocluster import cocluster
+from smvp_toolkit_tpu_torch.ops.autotune import pick_plan
+from smvp_toolkit_tpu_torch.bench import headline
+r, c, v = parse_synth_spec("synth:900:4000", device="cpu").to_numpy()
+assert cocluster(r, c, (900, 900), passes=2).s_true > 0
+assert pick_plan(r, c, v, (900, 900))[0].nnz == len(r)
+os.environ["SMVP_SELL_COMPAT"] = "1"
+assert main(["-c", "-n", "1", "--no-report", "--device", "cpu",
+             "synth:900:4000"]) == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "smvp_toolkit_tpu" or m.startswith("smvp_toolkit_tpu."))
