@@ -135,6 +135,30 @@ Phases; any failure exits non-zero and prints no result line:
    - the headline module (``bench/headline.py``) in this process: three
      validated K2 rungs on smoke (co-clustered bf16, natural bf16, float32),
      its JSON line printed.
+   - distribution (``parallel/``): smoke-dp4, smoke's matrix as 4
+     row-block shards at chunk 1024 (``shard_sell``), each rank's shard
+     launched in turn on the one card, float32 and bfloat16: first,
+     uncounted, per shard K2-sharded (N = 3), K1 and K1 with k = 8 against
+     their plain versions (<= 1e-6; SpMM: ``_spmm_tolerance``), the
+     shards' rows in rank order against smoke's unsharded K2 and K1 (<=
+     1e-6) and the float64 oracle (<= 1e-5), a control in reverse order
+     that must miss, and the gradient of sum(W ∘ A·X) at k = 8 summed
+     over the 4 transpose shards against the plain autograd gradient;
+     then the counted run: every rank's K2-sharded at N = 200 (K2 only, 4
+     launches per dtype). smoke-dp1: a real one-rank NCCL group in this
+     process (``MASTER_ADDR``/``MASTER_PORT``, ``RANK=0``,
+     ``WORLD_SIZE=1``, ``distributed_init``): ``spmv_sell_sharded`` and
+     ``bench_loop_sharded`` (NCCL all-gather), ``spmm_sell_sharded`` and
+     ``differentiable_spmm_sharded``'s gradient (NCCL all-reduce),
+     ``spmv_csr_sharded``, ``spmv_tjds_sharded`` and ``spmv_csr_2d``,
+     counted (K1, K2 and K1 with k = 8 only) and held to the float64
+     oracle, the all-gather of smoke's y timed, the group destroyed. Then
+     ``torchrun --standalone --nproc_per_node 1`` on ``parallel.launch``
+     (``--alg csr`` and ``tjds``, ``-n 100``: its checksum against the
+     float64 sum of the values) and on the CLI (``-c -t --shards 1 -n
+     10``), in subprocesses; and L2 as 4 row-block CSR shards with equal
+     rows and with equal non-zeros, each shard's non-zeros and local time
+     printed, y against the oracle.
    Every output vector (both reports of a ``-c -t`` run) and every SpMM
    result (``--out-dir``'s ``spmm.npy``) is checked against a float64 scipy CSR
    oracle: max |y - oracle| / max |oracle| <= 1e-5 (bfloat16: the oracle
@@ -171,6 +195,11 @@ Phases; any failure exits non-zero and prints no result line:
    planes, replacing ``CoClusteredSellSpMV.bench_loop``) at N = 200: bound
    the plan's bytes or 2·nnz·N flops, the larger. Library: the natural
    float32 CSR ``torch.sparse.mm``, N calls for N iterations.
+   K2-sharded (``bench_loop_sharded`` → ``sell_bench_kernel``) at N = 200
+   per shard launch of smoke-dp4 and smoke-dp1, both dtypes, each first
+   held to its plain version at N = 200: bound the shard plan's bytes or
+   2·nnz_shard·N flops, the larger; library ``torch.sparse.mm`` on the
+   shard's row-block float32 CSR, N calls.
    Then the card's name and power limit again and, last, the
    ``{"ok": true, "device": ...}`` line.
 
@@ -280,6 +309,15 @@ ROUTE = {"smoke": "relsl", "L1": "streamy_relsl", "L2": "split",
          "L3": "streamy"}
 DTYPE_NAMES = ("float32", "bfloat16")
 DEVICE = "cuda:0"
+# Distribution: smoke as 4 row-block shards at the JAX sharder's default
+# chunk, launched rank by rank on the one card (smoke-dp4), and as one
+# shard over a real one-rank NCCL group (smoke-dp1); K2-sharded is K2 on
+# a shard's planes (the JAX bench_loop_sharded's pallas_call).
+DIST_SHARDS = 4
+DIST_CHUNK = 1024
+DIST_CHECK_N = 3
+DIST_REPLACES = "smvp_toolkit_tpu/parallel/sell_dist.py:419"
+LAUNCH_N = 100      # -n of the torchrun parallel.launch runs
 
 
 def _card_line() -> str:
@@ -989,7 +1027,8 @@ def _entry(kname, config, dname, *, launches, err, ms, plain_ms, lib_ms,
         "config": config,
         "route": "cuda",
         "source": CSRC + src,
-        "replaces": f"{JAX_OPS}{replaces or line}",
+        "replaces": (replaces if replaces and "/" in replaces
+                     else f"{JAX_OPS}{replaces or line}"),
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
@@ -2399,6 +2438,466 @@ def phase_switch_timings(np, torch, ops, ccs, errs, launches, configs, bw):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# Distribution: smoke as row-block shards (smoke-dp4 on emulated ranks,
+# smoke-dp1 on a real one-rank NCCL group), the torchrun entry points, and
+# L2's load balance
+# ---------------------------------------------------------------------------
+
+
+def _dist_inputs(np, torch, triplets, dname):
+    """The oracle's x (default_rng(1), bf16-rounded in bf16) on the card,
+    the float64 oracle y, and the --spmm X (default_rng(0), likewise)."""
+    ref, x = _oracle(np, torch, triplets, dname)
+    X = np.random.default_rng(0).standard_normal(
+        (triplets[3][1], SPMM_K)).astype(np.float32)
+    if dname == "bfloat16":
+        X = torch.from_numpy(X).to(torch.bfloat16).float().numpy()
+    dev = torch.device(DEVICE)
+    return ref, torch.from_numpy(x).to(dev), torch.from_numpy(X).to(dev)
+
+
+def _host_coo(torch, triplets, device="cpu"):
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+
+    r, c, v, shape = triplets
+    return COOMatrix.from_numpy(r, c, v, shape=shape, device=device)
+
+
+def _dist_shards(torch, sh, dname):
+    """Every rank's view of the sharding ``sh`` on the card in ``dname``
+    (the host stacks do not depend on the value dtype)."""
+    import dataclasses
+
+    sh = dataclasses.replace(sh, value_dtype=getattr(torch, dname))
+    return [sh.for_rank(k, torch.device(DEVICE)) for k in range(sh.n_shards)]
+
+
+def _cat_rows(torch, sh, blocks, nrows):
+    """The ranks' first rows_per_shard rows in the given order, trimmed."""
+    return torch.cat([b[: sh.rows_per_shard] for b in blocks])[:nrows]
+
+
+def _plain_grad(torch, csr, X, W):
+    """X̄ of sum(W ∘ A·X) by autograd through the plain CSR SpMM."""
+    from smvp_toolkit_tpu_torch.ops.spmv_torch import spmm_csr
+
+    Xr = X.clone().requires_grad_(True)
+    (spmm_csr(csr, Xr) * W).sum().backward()
+    return Xr.grad
+
+
+def phase_dist_kernels(np, torch, configs, ops):
+    """smoke-dp4: smoke's matrix as 4 row-block shards at chunk 1024,
+    launched rank by rank on the card. Per shard, K2-sharded (N = 3), K1
+    and K1 with k = 8 against their plain versions; the shards' rows in
+    rank order against the unsharded K2 (N = 3) and K1 (<= 1e-6) and the
+    float64 oracle (<= 1e-5); in reverse order they must miss. The
+    gradient of sum(W ∘ A·X) at k = 8 from the transpose shards (the sum
+    of the ranks' A_kᵀ·W_k) against the plain autograd gradient. Returns
+    the ranks per dtype and the transpose shards."""
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.parallel import sell_dist as SD
+    from smvp_toolkit_tpu_torch.parallel.mesh import Mesh
+
+    plan, trip = configs["smoke"]
+    nrows, ncols = trip[3]
+    dev = torch.device(DEVICE)
+    t0 = time.perf_counter()
+    coo = _host_coo(torch, trip)
+    emulated = Mesh(DIST_SHARDS, 0, dev)
+    sh = SD.shard_sell(coo, emulated, chunk=DIST_CHUNK)
+    t1 = time.perf_counter()
+    sh_t = SD.shard_sell_transpose(coo, emulated, chunk=DIST_CHUNK)
+    t2 = time.perf_counter()
+    _check(sh.relsl is not None and sh.lidx.dtype == np.int8,
+           "smoke-dp4: merged word and int8 lanes")
+    print(f"[plan] smoke-dp4: {DIST_SHARDS} shards of {sh.rows_per_shard} "
+          f"rows, chunk {sh.chunk}, S {sh.S}, WT {sh.WT}, NSl {sh.NSl}, CT "
+          f"{sh.CT}, nnz per shard {list(sh.plan_nnz)}, planned in "
+          f"{t1 - t0:.1f} s; transpose shards S {sh_t.S}, WT {sh_t.WT}, in "
+          f"{t2 - t1:.1f} s", flush=True)
+    out = {"sh": sh}
+    for dname in DTYPE_NAMES:
+        ref, x, X = _dist_inputs(np, torch, trip, dname)
+        scale = float(np.abs(ref).max())
+        ranks = _dist_shards(torch, sh, dname)
+        op = ops[("smoke", dname)][0]
+        y_k2, y_k1 = op.bench_loop(x, DIST_CHECK_N), op(x)
+        ys, y1s, Ys, e_k2, e_k1, e_mm = [], [], [], 0.0, 0.0, 0.0
+        for s in ranks:
+            o = s.op
+            kw = dict(n_slices=s.NSl, chunk=s.chunk)
+            xt = o._x_tiles(x)
+            planes = (o.vals, o.lidx, o.relsl, o.tile_base)
+            y = SD._local_bench(s, x, DIST_CHECK_N)
+            yp = S.sell_bench_loop_plain(*planes, xt,
+                                         iterations=DIST_CHECK_N, **kw)
+            y1, y1p = SD._local_spmv(s, x), S.sell_spmv_plain(*planes, xt,
+                                                               **kw)
+            Y = SD._local_mat(s, X)
+            Yp = S.sell_spmm_plain(*planes, o._block(X, s.CT * 128, o.vals
+                                                     .dtype, "X"),
+                                   **o._mat_kw())
+            torch.cuda.synchronize()
+            tol_mm, _ = _spmm_tolerance(torch, S, o)
+            e_k2 = max(e_k2, _rel_err(y, yp))
+            e_k1 = max(e_k1, _rel_err(y1, y1p))
+            e = _rel_err(Y, Yp)
+            e_mm = max(e_mm, e)
+            _check(e <= tol_mm, f"smoke-dp4 {dname} shard {s.rank}: K1 "
+                   f"k={SPMM_K} vs plain {e} (tolerance {tol_mm})")
+            ys.append(y)
+            y1s.append(y1)
+            Ys.append(Y)
+        yc = _cat_rows(torch, sh, ys, nrows)
+        wrong = _cat_rows(torch, sh, ys[::-1], nrows)
+        e_cat, e_wrong = _rel_err(yc, y_k2), _rel_err(wrong, y_k2)
+        e_cat1 = _rel_err(_cat_rows(torch, sh, y1s, nrows), y_k1)
+        e_or = float(np.abs(yc.double().cpu().numpy() - ref).max()) / scale
+        ref_mat = _spmm_oracle(np, torch, trip, dname)
+        Yc = _cat_rows(torch, sh, Ys, nrows).double().cpu().numpy()
+        e_or_mm = float(np.abs(Yc - ref_mat).max() / np.abs(ref_mat).max())
+        print(f"[check] smoke-dp4 {dname}: per shard vs plain K2-sharded "
+              f"(N={DIST_CHECK_N}) {e_k2:.3e}, K1 {e_k1:.3e}, K1 k={SPMM_K} "
+              f"{e_mm:.3e}; rank-order y vs "
+              f"unsharded K2 {e_cat:.3e}, vs K1 {e_cat1:.3e}, vs float64 "
+              f"oracle {e_or:.3e}, Y vs oracle {e_or_mm:.3e}; control "
+              f"(reverse order) vs K2 {e_wrong:.3e}", flush=True)
+        for what, e, tol in (("K2-sharded vs plain", e_k2, TOL_KERNEL),
+                             ("K1 vs plain", e_k1, TOL_KERNEL),
+                             ("y vs unsharded K2", e_cat, TOL_KERNEL),
+                             ("y vs unsharded K1", e_cat1, TOL_KERNEL),
+                             ("y vs oracle", e_or, TOL_ORACLE),
+                             ("Y vs oracle", e_or_mm, TOL_ORACLE)):
+            _check(e <= tol, f"smoke-dp4 {dname} {what}: {e}")
+        _check(e_wrong > TOL_KERNEL, f"smoke-dp4 {dname}: the reversed "
+               f"control did not miss ({e_wrong})")
+        out[dname] = (ranks, x, ref)
+        del ys, y1s, Ys
+    # The gradient: X̄ = Aᵀ·W = Σ_k A_kᵀ·W_k on the transpose shards.
+    t_ranks = _dist_shards(torch, sh_t, "float32")
+    _, _, X = _dist_inputs(np, torch, trip, "float32")
+    W = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (nrows, SPMM_K)).astype(np.float32)).to(dev)
+    Wp = torch.nn.functional.pad(
+        W, (0, 0, 0, sh_t.n_shards * sh_t.rows_per_shard - nrows))
+    g = sum(SD._local_mat_t(s, Wp) for s in t_ranks)[:ncols]
+    want = _plain_grad(torch, csr_encode(_host_coo(torch, trip, dev)), X, W)
+    torch.cuda.synchronize()
+    tol = max(_spmm_tolerance(torch, S, s.op)[0] for s in t_ranks)
+    e = _rel_err(g, want)
+    print(f"[check] smoke-dp4 gradient of sum(W*A.X), k={SPMM_K}, from "
+          f"{len(t_ranks)} transpose shards vs plain autograd: {e:.3e} "
+          f"(tolerance {tol:.3e})", flush=True)
+    _check(e <= tol, f"smoke-dp4 gradient vs plain autograd: {e}")
+    return out
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_dist_main(np, torch, configs, dist_shards, launches):
+    """The distribution main path, counts zeroed before and read after
+    each run: smoke-dp4's ranks' K2-sharded launches at N = 200, one
+    after another on the card (4 per dtype, K2 only); then smoke-dp1, a
+    real one-rank NCCL group in this process: the sharded SpMV (K1, NCCL
+    all-gather), K2-sharded at N = 200, the SpMM and its gradient through
+    ``differentiable_spmm_sharded`` (K1 with k = 8, NCCL all-reduce), the
+    row-block CSR, the striped TJDS (NCCL all-reduce) and the 1 × 1 grid,
+    each against the float64 oracle. Returns smoke-dp1's shards and the
+    all-gather time of smoke's y."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.parallel import sell_dist as SD
+
+    plan, trip = configs["smoke"]
+    nrows = trip[3][0]
+    sh = dist_shards["sh"]
+    n_iter = ITERATIONS["smoke"]
+    _zero_counts(S)
+    SD.bench_loop_sharded.launches = 0
+    for dname in DTYPE_NAMES:
+        ranks, x, ref = dist_shards[dname]
+        y = _cat_rows(torch, sh, [SD._local_bench(s, x, n_iter)
+                                  for s in ranks], nrows)
+        torch.cuda.synchronize()
+        e = float(np.abs(y.double().cpu().numpy() - ref).max()) / float(
+            np.abs(ref).max())
+        print(f"[main] smoke-dp4 {dname}: {len(ranks)} ranks' K2-sharded "
+              f"(N={n_iter}) in turn, y vs float64 oracle {e:.3e}",
+              flush=True)
+        _check(e <= TOL_ORACLE, f"smoke-dp4 {dname} N={n_iter}: {e}")
+    counts = _counts(S)
+    got = _check_only(counts, ["sell_bench_kernel"], "smoke-dp4 main path")
+    _check(got["sell_bench_kernel"] == SD.bench_loop_sharded.launches
+           == DIST_SHARDS * len(DTYPE_NAMES),
+           f"smoke-dp4 launches {got}, bench_loop_sharded "
+           f"{SD.bench_loop_sharded.launches}")
+    for dname in DTYPE_NAMES:
+        launches[("sell_bench_kernel", "smoke-dp4", dname)] = DIST_SHARDS
+    return _dist_nccl(np, torch, trip, launches)
+
+
+def _dist_nccl(np, torch, trip, launches):
+    import torch.distributed as dist
+
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.formats.tjds import tjds_encode
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.parallel import (
+        differentiable_spmm_sharded,
+        distributed_init,
+        make_mesh,
+        make_mesh_2d,
+        shard_csr,
+        shard_csr_2d,
+        shard_sell,
+        shard_sell_transpose,
+        shard_tjds,
+        spmm_sell_sharded,
+        spmv_csr_2d,
+        spmv_csr_sharded,
+        spmv_sell_sharded,
+        spmv_tjds_sharded,
+    )
+    from smvp_toolkit_tpu_torch.parallel import sell_dist as SD
+    from smvp_toolkit_tpu_torch.parallel.mesh import gather_rows
+
+    nrows, ncols = trip[3]
+    n_iter = ITERATIONS["smoke"]
+    env = dict(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               RANK="0", WORLD_SIZE="1")
+    with _env(**env):
+        t0 = time.perf_counter()
+        _check(distributed_init(device=DEVICE),
+               "distributed_init() with WORLD_SIZE=1")
+        t1 = time.perf_counter()
+    try:
+        backend = "nccl" if torch.device(DEVICE).type == "cuda" else "gloo"
+        _check(dist.get_backend() == backend and distributed_init(),
+               f"one-rank group: backend {dist.get_backend()}, a second "
+               "init must keep it")
+        mesh = make_mesh(device=DEVICE)
+        coo = _host_coo(torch, trip)
+        t2 = time.perf_counter()
+        sh1 = shard_sell(coo, mesh, chunk=DIST_CHUNK)
+        sh1_t = shard_sell_transpose(coo, mesh, chunk=DIST_CHUNK)
+        t3 = time.perf_counter()
+        print(f"[plan] smoke-dp1: NCCL group of 1 rank on {mesh.device} "
+              f"(init {t1 - t0:.1f} s), one shard, chunk {sh1.chunk}, S "
+              f"{sh1.S}, WT {sh1.WT}; with its transpose planned in "
+              f"{t3 - t2:.1f} s", flush=True)
+        coo_card = _host_coo(torch, trip, mesh.device)
+        csr = csr_encode(coo_card)
+        tj = tjds_encode(coo_card)
+        ranks = {"float32": [sh1]}
+        ranks["bfloat16"] = _dist_shards(torch, sh1, "bfloat16")
+        results = {}
+        _zero_counts(S)
+        SD.bench_loop_sharded.launches = 0
+        for dname in DTYPE_NAMES:
+            ref, x, X = _dist_inputs(np, torch, trip, dname)
+            s = ranks[dname][0]
+            results[(dname, "spmv_sell_sharded")] = (
+                spmv_sell_sharded(s, x, mesh), ref)
+            results[(dname, "bench_loop_sharded")] = (
+                SD.bench_loop_sharded(s, x, mesh, n_iter), ref)
+        ref, x, X = _dist_inputs(np, torch, trip, "float32")
+        results[("float32", "spmm_sell_sharded")] = (
+            spmm_sell_sharded(sh1, X, mesh),
+            _spmm_oracle(np, torch, trip, "float32"))
+        W = torch.from_numpy(np.random.default_rng(5).standard_normal(
+            (nrows, SPMM_K)).astype(np.float32)).to(mesh.device)
+        f = differentiable_spmm_sharded(sh1, sh1_t, mesh)
+        Xr = X.clone().requires_grad_(True)
+        (f(Xr) * W).sum().backward()
+        want = _plain_grad(torch, csr, X, W)
+        results[("float32", "spmv_csr_sharded")] = (
+            spmv_csr_sharded(shard_csr(csr, mesh), x, mesh), ref)
+        results[("float32", "spmv_tjds_sharded")] = (
+            spmv_tjds_sharded(shard_tjds(tj, mesh), x, mesh), ref)
+        grid = make_mesh_2d(1, 1, device=DEVICE)
+        results[("float32", "spmv_csr_2d")] = (
+            spmv_csr_2d(shard_csr_2d(csr, grid), x, grid), ref)
+        torch.cuda.synchronize()
+        counts = _counts(S)
+        got = _check_only(counts, ["sell_spmv_kernel", "sell_bench_kernel",
+                                   "sell_spmm_kernel"], "smoke-dp1 main path")
+        _check(SD.bench_loop_sharded.launches == len(DTYPE_NAMES),
+               f"smoke-dp1 bench_loop_sharded launches "
+               f"{SD.bench_loop_sharded.launches}")
+        for dname in DTYPE_NAMES:
+            launches[("sell_bench_kernel", "smoke-dp1", dname)] = 1
+        tol, _ = _spmm_tolerance(torch, S, sh1_t.op)
+        e_grad = _rel_err(Xr.grad, want)
+        line = []
+        for (dname, fn), (y, ref) in results.items():
+            y = y.double().cpu().numpy()
+            _check(y.shape == ref.shape and bool(np.isfinite(y).all()),
+                   f"smoke-dp1 {fn} {dname}: shape {y.shape}")
+            e = float(np.abs(y - ref).max() / np.abs(ref).max())
+            line.append(f"{fn} {dname} {e:.3e}")
+            _check(e <= TOL_ORACLE, f"smoke-dp1 {fn} {dname}: {e}")
+        print(f"[main] smoke-dp1 (NCCL, 1 rank): launches {got}; vs float64 "
+              f"oracle: {', '.join(line)}; differentiable_spmm_sharded "
+              f"gradient vs plain autograd {e_grad:.3e} (tolerance "
+              f"{tol:.3e})", flush=True)
+        _check(e_grad <= tol, f"smoke-dp1 gradient: {e_grad}")
+        y = results[("float32", "spmv_sell_sharded")][0]
+        ag_ms = _time_ms(lambda: gather_rows(y, 1, mesh.group), reps=20)
+        ar_ms = _time_ms(lambda: dist.all_reduce(y, group=mesh.group),
+                         reps=20)
+        print(f"[dist] NCCL one-rank all_gather of smoke's y ({y.numel()} "
+              f"float32): {ag_ms:.6f} ms, all_reduce {ar_ms:.6f} ms (one "
+              "card: no link crossed)", flush=True)
+    finally:
+        dist.destroy_process_group()
+    return {"ranks": ranks, "allgather_ms": ag_ms, "allreduce_ms": ar_ms}
+
+
+def phase_dist_entry_points(np, torch, configs):
+    """``torchrun --standalone --nproc_per_node 1`` on the runner
+    (``parallel.launch``, --alg csr and tjds, -n 100: its checksum against
+    the float64 sum of the matrix, x = ones) and on the CLI (``-c -t
+    --shards 1 -n 10``), each in a subprocess."""
+    r, c, v, shape = configs["smoke"][1]
+    want = float(np.asarray(v, np.float64).sum())
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        env.pop(k, None)
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "1", "-m"]
+    dev = ["--device", torch.device(DEVICE).type]
+    for argv in (["smvp_toolkit_tpu_torch.parallel.launch", SMOKE_SPEC,
+                  "--alg", "csr", "-n", str(LAUNCH_N), *dev],
+                 ["smvp_toolkit_tpu_torch.parallel.launch", SMOKE_SPEC,
+                  "--alg", "tjds", "-n", str(LAUNCH_N), *dev],
+                 ["smvp_toolkit_tpu_torch.cli", "-c", "-t", "--shards", "1",
+                  "-n", "10", "--no-report", *dev, SMOKE_SPEC]):
+        t0 = time.perf_counter()
+        proc = subprocess.run(run + argv, cwd=root, env=env,
+                              capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        what = "torchrun " + " ".join(argv)
+        _check(proc.returncode == 0, f"{what}: rc {proc.returncode}\n"
+               f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        data = [ln for ln in proc.stdout.splitlines() if "[DATA]" in ln]
+        m = re.search(r"y checksum \[process 0\]: (\S+)", proc.stdout)
+        if "launch" in argv[0]:
+            _check(m is not None, f"{what}: no checksum line")
+            got = float(m.group(1))
+            e = abs(got - want) / abs(want)
+            _check(e <= TOL_ORACLE, f"{what}: checksum {got} vs {want}")
+            data.append(f"checksum {got} vs float64 sum {want:.9g} "
+                        f"({e:.3e})")
+        else:
+            _check(len(data) >= 3, f"{what}: {data}")
+        print(f"[main] {what}: rc 0 in {wall:.1f} s; " + " | ".join(
+            ln.split("\t", 1)[-1] for ln in data), flush=True)
+
+
+def phase_dist_balance(np, torch, configs):
+    """L2's power-law matrix as 4 row-block CSR shards (emulated ranks)
+    with equal rows and with equal non-zeros: each shard's non-zeros and
+    the time of its local SpMV, and the rank-order y against the float64
+    oracle."""
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.parallel.mesh import Mesh
+    from smvp_toolkit_tpu_torch.parallel.spmv_dist import (
+        _local_csr,
+        shard_csr,
+    )
+
+    trip = configs["L2"][1]
+    dev = torch.device(DEVICE)
+    csr = csr_encode(_host_coo(torch, trip, dev))
+    ref, x = _oracle(np, torch, trip, "float32")
+    x = torch.from_numpy(x).to(dev)
+    for balance in ("rows", "nnz"):
+        sh = shard_csr(csr, Mesh(DIST_SHARDS, 0, dev), balance=balance)
+        ends = sh.nnz_starts[1:] + (sh.nnz,)
+        nnz = [e - s for s, e in zip(sh.nnz_starts, ends)]
+        blocks, ms = [], []
+        for k in range(DIST_SHARDS):
+            s = sh.for_rank(k, dev)
+            ms.append(_time_ms(lambda: _local_csr(s, x), reps=20))
+            blocks.append(_local_csr(s, x)[: sh.block_rows()[k]])
+        y = torch.cat(blocks).double().cpu().numpy()
+        e = float(np.abs(y - ref).max() / np.abs(ref).max())
+        print(f"[main] L2 shard_csr balance={balance}: rows per shard "
+              f"{list(sh.block_rows())}, nnz per shard {nnz} (max/mean "
+              f"{max(nnz) / (sum(nnz) / len(nnz)):.3f}), local ms "
+              f"{[round(t, 6) for t in ms]} (max/mean "
+              f"{max(ms) / (sum(ms) / len(ms)):.3f}), y vs float64 oracle "
+              f"{e:.3e}", flush=True)
+        _check(e <= TOL_ORACLE, f"L2 balance={balance}: {e}")
+
+
+def phase_dist_timings(np, torch, configs, dist_shards, dp1, launches, bw):
+    """Phase 4 for K2-sharded (``bench_loop_sharded`` → ``sell_bench_kernel``)
+    at N = 200: each smoke-dp4 shard's launch and smoke-dp1's, f32 / bf16.
+    Bound: the shard plan's bytes over the memory rate, or 2·nnz·N flops
+    over the float32 rate; library: ``torch.sparse.mm`` on the shard's
+    row-block float32 CSR, N calls."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    r, c, v, shape = configs["smoke"][1]
+    n_iter = ITERATIONS["smoke"]
+    entries = []
+    for config, ranks_of in (("smoke-dp4", lambda d: dist_shards[d][0]),
+                             ("smoke-dp1", lambda d: dp1["ranks"][d])):
+        libs = {}
+        for dname in DTYPE_NAMES:
+            x = dist_shards[dname][1]
+            for s in ranks_of(dname):
+                o = s.op
+                blk = s.rows_per_shard
+                if s.rank not in libs:
+                    sel = (r >= s.rank * blk) & (r < (s.rank + 1) * blk)
+                    a = _library_csr(np, torch, (r[sel] - s.rank * blk,
+                                                 c[sel], v[sel],
+                                                 (blk, shape[1])))
+                    x2 = dist_shards["float32"][1][:, None]
+                    libs[s.rank] = _time_ms(lambda: [
+                        torch.sparse.mm(a, x2) for _ in range(n_iter)],
+                        reps=1, warmup=1)
+                    del a
+                xt = o._x_tiles(x)
+                planes = (o.vals, o.lidx, o.relsl, o.tile_base)
+                kw = dict(n_slices=s.NSl, chunk=s.chunk, iterations=n_iter)
+                ms = _time_ms(lambda: S.sell_bench_loop(*planes, xt, **kw),
+                              reps=3, warmup=1)
+                plain_ms = _time_ms(lambda: S.sell_bench_loop_plain(
+                    *planes, xt, **kw), reps=1, warmup=0)
+                yk = S.sell_bench_loop(*planes, xt, **kw)
+                yp = S.sell_bench_loop_plain(*planes, xt, **kw)
+                err = (yk - yp).abs().max().item()
+                _check(_rel_err(yk, yp) <= TOL_KERNEL,
+                       f"{config} shard {s.rank} {dname} N={n_iter}: "
+                       f"K2-sharded vs plain {_rel_err(yk, yp)}")
+                nnz = s.plan_nnz[s.rank]
+                vb = o.vals.element_size()
+                entries.append(_entry(
+                    "sell_bench_kernel", f"{config}/shard{s.rank}", dname,
+                    launches=launches[("sell_bench_kernel", config, dname)]
+                    // len(ranks_of(dname)),
+                    err=err, ms=ms, plain_ms=plain_ms, lib_ms=libs[s.rank],
+                    nbytes=o.plan.traffic_bytes(vb, x_bytes=vb),
+                    flops=2.0 * nnz * n_iter, bw=bw, iters=n_iter,
+                    replaces=DIST_REPLACES, wrapper="bench_loop_sharded",
+                    shard_nnz=nnz, shards=s.n_shards,
+                    allgather_ms=dp1["allgather_ms"]))
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -2477,6 +2976,14 @@ def main() -> int:
         phase_switches(np, torch, configs, launches)
     with _Phase("main path: headline"):
         phase_headline()
+    with _Phase("distribution: smoke-dp4 kernels vs plain"):
+        dist_shards = phase_dist_kernels(np, torch, configs, ops)
+    with _Phase("main path: smoke-dp4, smoke-dp1 (NCCL)"):
+        dp1 = phase_dist_main(np, torch, configs, dist_shards, launches)
+    with _Phase("main path: torchrun entry points"):
+        phase_dist_entry_points(np, torch, configs)
+    with _Phase("main path: L2 load balance"):
+        phase_dist_balance(np, torch, configs)
     with _Phase("timings"):
         from smvp_toolkit_tpu_torch.bench.roofline import hbm_bandwidth_gbs
 
@@ -2488,6 +2995,8 @@ def main() -> int:
         entries += phase_df64_timings(np, torch, configs, df64, launches, bw)
         entries += phase_switch_timings(np, torch, ops, ccs, errs, launches,
                                         configs, bw)
+        entries += phase_dist_timings(np, torch, configs, dist_shards, dp1,
+                                      launches, bw)
 
     print(json.dumps({"kernels": entries}))
     print(f"[done] total {time.perf_counter() - t_start:.1f} s")

@@ -29,9 +29,13 @@ found under the same name:
   matrix diagonal.
 * ``ops.cg_fused`` / ``ops.pcg_fused`` — whole CG, Chebyshev and
   IC(0)-PCG solves in one launch of a CUDA kernel each.
+* ``parallel`` — data-parallel SpMV and SpMM over a ``torch.distributed``
+  process group, one rank per device (NCCL on cards, gloo on the CPU):
+  CSR row blocks, TJDS stripes, a 2-D grid, the SELL kernels per rank
+  (K2-sharded: ``bench_loop_sharded``), the traffic model, ``launch``.
 * ``bench`` — timing, roofline and report files.
 * ``cli`` — the ``-c`` / ``-t`` / ``--spmm`` / ``--solve`` / ``--kernel
-  df64`` command line.
+  df64`` / ``--shards`` command line.
 
 Exports are lazy: importing the package imports neither the kernels'
 build machinery nor the formats.
@@ -71,6 +75,13 @@ _EXPORTS = {
     "fused_cg": "smvp_toolkit_tpu_torch.ops.cg_fused",
     "fused_chebyshev": "smvp_toolkit_tpu_torch.ops.pcg_fused",
     "fused_pcg_ic0": "smvp_toolkit_tpu_torch.ops.pcg_fused",
+    "distributed_init": "smvp_toolkit_tpu_torch.parallel.mesh",
+    "make_mesh": "smvp_toolkit_tpu_torch.parallel.mesh",
+    "shard_csr": "smvp_toolkit_tpu_torch.parallel.spmv_dist",
+    "spmv_csr_sharded": "smvp_toolkit_tpu_torch.parallel.spmv_dist",
+    "shard_sell": "smvp_toolkit_tpu_torch.parallel.sell_dist",
+    "spmv_sell_sharded": "smvp_toolkit_tpu_torch.parallel.sell_dist",
+    "bench_loop_sharded": "smvp_toolkit_tpu_torch.parallel.sell_dist",
 }
 
 __all__ = [*_EXPORTS, "__version__"]

@@ -4,13 +4,12 @@ Counterpart of the JAX package's ``cli.py`` for the flags the port has:
 positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``), ``-c``, ``-t``,
 ``-n``, ``-d``, ``--no-report``, ``--decode-check``, ``--dtype``,
 ``--kernel``, ``--fused``, ``--x``, ``--json-out``, ``--spmm``,
-``--solve``, ``--expand-symmetry``, ``--cocluster``, ``--analyze`` and
-``--device``, plus the port's
+``--solve``, ``--expand-symmetry``, ``--cocluster``, ``--analyze``, ``--shards``,
+``--shard-balance`` and ``--device``, plus the port's
 ``--out-dir``, which writes the run's results as float32 ``.npy`` files.
 Validation and exit codes match the JAX CLI for those flags (``-n 0`` and
 ``-d /nope`` give 2, a missing or unreadable file 1, a failed decode
-check 3); argparse rejects every other flag (``-a``, ``-g``,
-``--shards``, ...) with 2.
+check 3); argparse rejects every other flag (``-a``, ``-g``, ...) with 2.
 
 ``--kernel auto`` runs the SELL CUDA kernels: CSR and TJDS are both
 replanned into SELL and run on the route their plan demands (K1, K3 or K4
@@ -61,6 +60,20 @@ the SELL kernels; ``torch``: the plain-PyTorch CSR SpMV), the ``-fused``
 ones the whole solve in one launch of their CUDA kernel. The relative
 residual is checked in float64 through the run's SpMV kernel, and a
 ``SOLVE-<METHOD>`` report and JSON record are written.
+
+``--shards N`` (N > 1) times the CSR and TJDS SpMVs sharded over N ranks
+of a process group, one per device (``parallel/``): run it under
+``torchrun`` with N processes (NCCL on cards; gloo with ``--device cpu``).
+``--kernel auto`` runs each rank's SELL kernel on its row block
+(``sell_dist.spmv_sell_sharded``), ``--kernel torch`` the plain-PyTorch
+row-block CSR (``--shard-balance rows|nnz``) or striped TJDS sums; every
+timed call includes the all-gather (all-reduce for stripes). A group of
+fewer ranks fails as the JAX CLI fails with fewer devices (exit 1,
+"requested N devices, only M present"); ``--fused`` with ``--shards > 1``
+exits 2. ``--kernel df64`` (CSR) has no sharded variant and runs
+unsharded, as the JAX CLI's forced kernels do; ``--cocluster``, ``--spmm``
+and ``--solve`` run unsharded on each rank. Only rank 0 writes reports,
+JSON records and ``--out-dir`` files.
 """
 
 from __future__ import annotations
@@ -176,6 +189,18 @@ def build_parser() -> argparse.ArgumentParser:
         help="print matrix structure statistics and kernel plan metrics",
     )
     p.add_argument(
+        "--shards", type=int, default=1, metavar="N",
+        help="data-parallel shards (row blocks), one rank each: run under "
+             "torchrun with N processes (NCCL on cards, gloo with --device "
+             "cpu)",
+    )
+    p.add_argument(
+        "--shard-balance", choices=("rows", "nnz"), default="rows",
+        help="row-block boundaries: equal rows (default) or equal-nnz "
+             "quantiles (balances skewed matrices; --kernel torch CSR "
+             "shards only)",
+    )
+    p.add_argument(
         "--device", choices=["cuda", "cpu"], default="cuda",
         help="run on the card (default) or on the CPU, where each kernel's "
              "plain PyTorch version runs",
@@ -191,6 +216,10 @@ def _validate(args) -> Optional[str]:
         return "iteration count must be >= 1"
     if args.dir and not os.path.isdir(args.dir):
         return f"report directory does not exist: {args.dir}"
+    if args.shards < 1:
+        return "shard count must be >= 1"
+    if args.fused and args.shards > 1:
+        return "--fused is not supported together with --shards"
     if args.fused and args.kernel == "torch":
         return "--fused needs the SELL kernels (--kernel auto or df64)"
     if args.out_dir and not args.csr:
@@ -252,6 +281,17 @@ def _make_x(mode: str, n: int, dtype, device):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    joined = []
+    try:
+        return _main(args, joined)
+    finally:
+        if joined:  # the process group this run joined
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _main(args, joined: list) -> int:
     err = _validate(args)
 
     from smvp_toolkit_tpu_torch.utils.logging import log
@@ -292,6 +332,29 @@ def main(argv: Optional[List[str]] = None) -> int:
     except RuntimeError as e:
         log("ERROR", str(e))
         return 1
+    mesh = None
+    if args.shards > 1:
+        from smvp_toolkit_tpu_torch.parallel.mesh import (
+            distributed_init,
+            make_mesh,
+        )
+
+        import torch.distributed as dist
+
+        if not dist.is_initialized() and distributed_init(device=device):
+            joined.append(True)
+        try:
+            mesh = make_mesh(args.shards, device=device)
+        except ValueError as e:
+            log("ERROR", str(e))
+            return 1
+        if mesh.rank < 0:
+            log("INFO", f"this rank is outside the {args.shards}-shard "
+                "mesh; nothing to run")
+            return 0
+        device = mesh.device
+    lead = mesh is None or mesh.group is None or \
+        dist.get_rank() == 0
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
 
     if args.file.startswith("synth:"):
@@ -352,18 +415,34 @@ def main(argv: Optional[List[str]] = None) -> int:
     on_card = device.type == "cuda"
     sell_kernel = "sell-cuda" if on_card else "sell-plain"
 
-    def run(alg_name, encoded, spmv_fn, loop_fn, bytes_per_iter, kernel):
+    def run(alg_name, encoded, spmv_fn, loop_fn, bytes_per_iter, kernel,
+            shardable=True):
         """Benchmark one format; ``loop_fn(x, n)`` runs ``--fused``'s N
-        iterations."""
-        log("INFO", f"Benchmarking {alg_name} SpMV ({kernel} kernel), "
+        iterations. With ``--shards > 1`` a shardable format runs its
+        sharded SpMV."""
+        sharded = mesh is not None and shardable
+        if mesh is not None and not shardable:
+            log("INFO", f"{alg_name} SpMV runs on the {kernel} kernel (no "
+                "sharded variant).")
+        log("INFO", f"Benchmarking {alg_name} SpMV ({kernel} kernel"
+            f"{f', {args.shards} shards' if sharded else ''}), "
             f"{args.iter} iterations.")
-        if args.fused:
+        if sharded:
+            from smvp_toolkit_tpu_torch.parallel.spmv_dist import (
+                shard_and_bench,
+            )
+
+            stats, y = shard_and_bench(
+                alg_name, encoded, x, args.shards, iterations=args.iter,
+                kernel="torch" if args.kernel == "torch" else "auto",
+                balance=args.shard_balance, mesh=mesh)
+        elif args.fused:
             stats, y = bench_fused(loop_fn, x, iterations=args.iter)
         else:
             stats = bench_spmv(spmv_fn, encoded, x, iterations=args.iter)
             y = spmv_fn(encoded, x)
         y = y.float().cpu().numpy()
-        if args.out_dir and alg_name == ALG_CSR:
+        if args.out_dir and alg_name == ALG_CSR and lead:
             _save(args.out_dir, "y.npy", y[: coo.shape[0]], log)
         nnzs = stats.nnz_per_s(coo.nnz)
         gbs = stats.gb_per_s(bytes_per_iter)
@@ -374,7 +453,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"({nnzs/1e9:.3f} Gnnz/s, {gbs:.1f} GB/s eff, "
             f"{100*frac:.1f}% of roofline)",
         )
-        if args.json_out:
+        if args.json_out and lead:
             rec = {
                 "alg": alg_name,
                 "file": args.file,
@@ -392,10 +471,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                 "eff_gb_s": gbs,
                 "roofline_frac": frac,
             }
+            if sharded:
+                rec["shards"] = args.shards
             with open(args.json_out, "a") as f:
                 f.write(json.dumps(rec) + "\n")
             log("FILE", f"JSON record appended: {args.json_out}")
-        if not args.no_report:
+        if not args.no_report and lead:
             path = write_report(
                 args.dir,
                 alg_name=alg_name,
@@ -414,11 +495,11 @@ def main(argv: Optional[List[str]] = None) -> int:
             )
             log("FILE", f"Execution report file saved as:\n\t{path}")
 
-    def refused(op) -> bool:
-        """``--fused`` on an operator whose ``bench_loop`` refuses it now
-        (``SMVP_SELL_PACK=1`` on a streamed-y plan): the run fails with
-        the JAX operator's message."""
-        why = args.fused and op.bench_loop_refusal()
+    def refused(op_fn) -> bool:
+        """``--fused`` on an operator (built by ``op_fn``) whose
+        ``bench_loop`` refuses it now (``SMVP_SELL_PACK=1`` on a
+        streamed-y plan): the run fails with the JAX operator's message."""
+        why = args.fused and op_fn().bench_loop_refusal()
         if why:
             log("ERROR", why)
         return bool(why)
@@ -434,22 +515,27 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif args.kernel == "df64":
             spmv_fn, loop_fn, kernel, nb = _df64_csr(csr, on_card)
             nbytes = nb or nbytes
+        elif args.cocluster and mesh is not None:
+            log("INFO", "--cocluster has no sharded variant; the sharded "
+                "run plans the natural order.")
+            spmv_fn, loop_fn, kernel = None, None, sell_kernel
         elif args.cocluster:
             spmv_fn, loop_fn, op = _cocluster_csr(csr, log)
             kernel = sell_kernel + "-cocluster"
-            if refused(op.inner):
+            if refused(lambda: op.inner):
                 return 2
         else:
             spmv_fn, kernel = spmv_sell.spmv_csr_sell, sell_kernel
 
             def loop_fn(xx, n):
                 return spmv_sell.sell_op_csr(csr).bench_loop(xx, n)
-            if refused(spmv_sell.sell_op_csr(csr)):
+            if refused(lambda: spmv_sell.sell_op_csr(csr)):
                 return 2
         if args.cocluster and args.kernel != "auto":
             log("INFO", "--cocluster applies to the SELL kernels (--kernel "
                 "auto) only; ignored on this path.")
-        run(ALG_CSR, csr, spmv_fn, loop_fn, nbytes, kernel)
+        run(ALG_CSR, csr, spmv_fn, loop_fn, nbytes, kernel,
+            shardable=args.kernel != "df64")
         if args.spmm:
             _run_spmm(args, coo, csr, device, label, log)
         if args.solve:
@@ -476,7 +562,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
             def loop_fn(xx, n):
                 return spmv_sell.sell_op_tjds(tj).bench_loop(xx, n)
-            if refused(spmv_sell.sell_op_tjds(tj)):
+            if refused(lambda: spmv_sell.sell_op_tjds(tj)):
                 return 2
         run(ALG_TJDS, tj, spmv_fn, loop_fn,
             spmv_bytes_tjds(coo.nnz, coo.shape[0], tj.num_diags, vbytes),

@@ -169,10 +169,14 @@ def test_error_probes(tmp_path):
     assert tcli.main(["-c", "-n", "1", "--x", "random:q", *base, SPEC]) == 2
     assert tcli.main(["-c", "--fused", "--kernel", "torch", *base,
                       SPEC]) == 2
-    for flag in (["-a"], ["-g"], ["--kernel", "pallas"], ["--shards", "2"]):
+    for flag in (["-a"], ["-g"], ["--kernel", "pallas"]):
         with pytest.raises(SystemExit) as e:
             tcli.main(["-c", *flag, *base, SPEC])
         assert e.value.code == 2
+    # --shards is ported: more shards than ranks exits 1, a count below 1
+    # exits 2, as in the JAX CLI (tests/test_torch_dist.py)
+    assert tcli.main(["-c", "--shards", "2", *base, SPEC]) == 1
+    assert tcli.main(["-c", "--shards", "0", *base, SPEC]) == 2
     # the JAX CLI gives the same codes for the probes both have
     assert jcli.main(["-c", "-n", "0", SPEC]) == 2
     assert jcli.main(["-c", "-n", "1", "-d", "/nope", SPEC]) == 2

@@ -686,3 +686,94 @@ def test_cli_cocluster_and_switches_launch_their_kernels(card, monkeypatch):
     plain = run(["-c", "-n", "5"], spec=big)
     assert set(split) == set(plain) == {"sell_spmv_kernel"}
     assert split["sell_spmv_kernel"] == 4 * plain["sell_spmv_kernel"]
+
+
+def _dist_coo(dtype=torch.float32):
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+
+    rng = np.random.RandomState(11)
+    n, m, nnz = 9000, 14000, 120000
+    r = rng.randint(0, n // 2, size=nnz) * 2
+    c = rng.randint(0, m, size=nnz)
+    return COOMatrix.from_numpy(r, c, rng.randn(nnz), shape=(n, m),
+                                dtype=dtype, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_sharded_per_shard_matches_plain_and_k2(card, dtype):
+    """A 4-shard plan (chunk 1024, int8 lanes), each shard launched in turn
+    on the card as its rank would: K2-sharded (N = 3) against its plain
+    version per shard, and the shards' rows in rank order against the
+    unsharded K2; in the wrong order they miss."""
+    from smvp_toolkit_tpu_torch.parallel import sell_dist as SD
+    from smvp_toolkit_tpu_torch.parallel.mesh import Mesh
+
+    coo = _dist_coo(dtype)
+    sh = SD.shard_sell(coo, Mesh(4, 0, card), value_dtype=dtype)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        coo.shape[1]).astype(np.float32)).to(card)
+    before = SD.bench_loop_sharded.launches
+    ys = []
+    for k in range(4):
+        s = sh.for_rank(k, card)
+        assert s.op.lidx.dtype == torch.int8 and s.op.relsl is not None
+        y = SD._local_bench(s, x, 3)
+        yp = S.sell_bench_loop_plain(
+            s.op.vals, s.op.lidx, s.op.relsl, s.op.tile_base,
+            s.op._x_tiles(x), n_slices=s.NSl, chunk=s.chunk, iterations=3)
+        torch.cuda.synchronize()
+        assert _rel(y, yp) <= TOL
+        ys.append(y[: sh.rows_per_shard])
+    assert SD.bench_loop_sharded.launches == before + 4
+    ref = S.SellSpMV.from_coo(coo, value_dtype=dtype, device=card)
+    want = ref.bench_loop(x, 3)
+    assert _rel(torch.cat(ys)[: coo.shape[0]], want) <= TOL
+    assert _rel(torch.cat(ys[::-1])[: coo.shape[0]], want) > TOL
+
+
+def test_one_rank_nccl_group(card, monkeypatch):
+    """A real one-rank NCCL group: the sharded SpMV (K1 and NCCL
+    all-gather), K2-sharded and the striped TJDS (NCCL all-reduce)
+    against the unsharded operator."""
+    import socket
+
+    import torch.distributed as dist
+
+    from smvp_toolkit_tpu_torch.formats.tjds import tjds_encode
+    from smvp_toolkit_tpu_torch.parallel import (
+        distributed_init,
+        make_mesh,
+        shard_sell,
+        shard_tjds,
+        spmv_sell_sharded,
+        spmv_tjds_sharded,
+    )
+    from smvp_toolkit_tpu_torch.parallel.sell_dist import bench_loop_sharded
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(port)),
+                 ("RANK", "0"), ("WORLD_SIZE", "1")):
+        monkeypatch.setenv(k, v)
+    assert distributed_init()
+    try:
+        assert dist.get_backend() == "nccl" and distributed_init()
+        mesh = make_mesh()
+        assert (mesh.size, mesh.rank, mesh.device) == (1, 0, card)
+        coo = _dist_coo()
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            coo.shape[1]).astype(np.float32)).to(card)
+        want = S.SellSpMV.from_coo(coo, device=card)(x)
+        sh = shard_sell(coo, mesh)
+        before = S.sell_spmv.launches
+        assert _rel(spmv_sell_sharded(sh, x, mesh), want) <= TOL
+        assert S.sell_spmv.launches == before + 1
+        assert _rel(bench_loop_sharded(sh, x, mesh, 3), want) <= TOL
+        coo_card = _dist_coo()
+        tj = tjds_encode(type(coo_card).from_numpy(
+            *coo_card.to_numpy(), shape=coo_card.shape, device=card))
+        assert _rel(spmv_tjds_sharded(shard_tjds(tj, mesh), x, mesh),
+                    want) <= 1e-5
+    finally:
+        dist.destroy_process_group()

@@ -39,7 +39,10 @@ def test_package_sources_found():
             "csrc/ilu.cpp", "ops/precision.py", "ops/spmv_df64.py",
             "csrc/sell_df64.cu", "csrc/sell_packed.cu",
             "csrc/cocluster.cpp", "csrc/sell_onehot.cu", "ops/cocluster.py",
-            "ops/autotune.py", "utils/analyze.py", "bench/headline.py"} <= names
+            "ops/autotune.py", "utils/analyze.py", "bench/headline.py",
+            "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
+            "parallel/spmv_dist.py", "parallel/spmv_2d.py",
+            "parallel/sell_dist.py", "parallel/traffic.py"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -210,3 +213,24 @@ def test_training_entry_points_without_device_raise():
             fn()
     assert gcn_params_from_arrays(pairs, device="cpu").weights[0].shape == (
         2, 3)
+
+
+def test_parallel_entry_points_without_device_raise(monkeypatch):
+    _no_card()
+    from smvp_toolkit_tpu_torch import parallel
+
+    for k in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    for fn in (parallel.make_mesh, lambda: parallel.make_mesh_2d(1, 1)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn()
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        parallel.distributed_init()
+    from smvp_toolkit_tpu_torch.parallel.launch import main as launch
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch(["synth:100:300", "-n", "1"])
+    assert parallel.make_mesh(device="cpu").device.type == "cpu"
