@@ -20,7 +20,11 @@ Phases; any failure exits non-zero and prints no result line:
    with empty rows, a matrix with no nonzeros, a plan with int32 lane
    indices (chunk 200), a streamed-y plan with an empty middle y block, a
    streamed-y plan with int32 lane indices, a small streamed split plan, a
-   resident split plan (WT > 511), and the four full-size configurations:
+   resident split plan (WT > 511), five streamed plans with the edges of
+   the warp-per-sublane walk (split planes with a run of dead sublanes
+   ending each chunk, with an empty middle y block, with int32 lane
+   indices, with one live sublane in a chunk; a chunk of one sublane),
+   and the four full-size configurations:
    - smoke: BASELINE.json's synthetic 10M-nnz matrix,
      ``synth:1000000:10000000`` (resident y, merged word: K1, K2);
    - L1: ``synth:4194304:41943040``, 64 y blocks (streamed y, merged word:
@@ -42,6 +46,12 @@ Phases; any failure exits non-zero and prints no result line:
    SpMV input skips the bf16 rounding) must exceed it, and after 30 steps
    <= 2^-7, since a one-ulp float32 difference now and then flips the bf16
    rounding of an SpMV input entry and CG carries the jump on.
+   K3-split and K2 streamed split (the warp-per-sublane body) on the
+   split planes of every small streamed plan, float32 and bfloat16: N = 1
+   and N = 3 against the plain version and N = 3 against one launch (<=
+   1e-6); with Inf in x at a padding lane's column (there and at L3),
+   their NaN and Inf positions must equal the plain version's (a padding
+   slot's 0 · Inf lands NaN in its row), with at least one NaN.
    K8 (double-float) on every small resident merged-word plan, without
    and with a lo plane (the streamed and WT > 511 plans must be refused),
    on the JAX suite's cancelling rows and on its edge scales (exact): its
@@ -166,8 +176,11 @@ Phases; any failure exits non-zero and prints no result line:
    which fits the bound).
 4. One ``{"kernels": [...]}`` line: per kernel, configuration and value
    dtype, its time per launch from CUDA events, its launches in the
-   main-path run, its bound (bytes of its route over the card's memory
-   rate, or 2·nnz·k·N flops over the float32 rate, the larger; K7 counts
+   main-path run (the k = 1 route entries name their ``body``:
+   ``warp-per-sublane`` for K3-split and K2 streamed split,
+   ``thread-per-slot`` for the others), its bound (bytes of its route
+   over the card's memory rate, or 2·nnz·k·N flops over the float32
+   rate, the larger; K7 counts
    2·k flops per slot of a live sublane), the plain version's time and a
    library yardstick (``torch.sparse.mm`` on a float32 CSR tensor of the
    same matrix with the same k, and for K7 ``torch.sparse.sampled_addmm``
@@ -264,6 +277,11 @@ KERNELS = {
     "sell_onehot_kernel": ("sell_onehot.cu", "spmv_pallas.py:903"),
     "sell_bench_subwin_kernel": ("sell_bench.cu", "spmv_pallas.py:782"),
 }
+# The k = 1 route kernels that run the warp-per-sublane body
+# (sell_common.cuh, sublane_run); the others run one thread per slot. A
+# phase-4 entry names its body, so that a time can be told from the
+# thread-per-slot times these kernels had before.
+WARP_PER_SUBLANE = ("sell_streamy_kernel", "sell_bench_streamy_kernel")
 # K2-cocluster: K2 on the co-clustered permuted planes, the JAX
 # CoClusteredSellSpMV.bench_loop (no pallas_call of its own).
 COCLUSTER_REPLACES = "spmv_pallas.py:2727"
@@ -360,10 +378,11 @@ def _time_ms(fn, reps: int, warmup: int = 2) -> float:
 
 
 def _ptxas_summary(logs):
-    """Registers per kernel (most over its value/index types) and the
-    spill stores of all kernels, from ptxas -v output."""
+    """Registers per kernel (most over its value/index types), the spill
+    stores of all kernels, and each spilling kernel's most spill-store
+    bytes in one of its type instances, from ptxas -v output."""
     names = [*KERNELS, "sell_cg_split_kernel"]
-    regs, spills = {}, 0
+    regs, spills, spilled = {}, 0, {}
     for text in logs.values():
         entry = None
         for ln in text.splitlines():
@@ -374,10 +393,13 @@ def _ptxas_summary(logs):
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m:
                 spills += int(m.group(1))
+                if entry and int(m.group(1)):
+                    spilled[entry] = max(spilled.get(entry, 0),
+                                         int(m.group(1)))
             m = re.search(r"Used (\d+) registers", ln)
             if m and entry:
                 regs[entry] = max(regs.get(entry, 0), int(m.group(1)))
-    return regs, spills
+    return regs, spills, spilled
 
 
 class _Phase:
@@ -541,6 +563,38 @@ def _small_plans(np):
         ("resident-split",
          build_sell_plan(rw[:1500], cw[:1500], vw[:1500], (200000, 70000),
                          chunk=2048)),
+        *_streamy_contract_plans(np, build_streamed_sell_plan),
+    ]
+
+
+def _streamy_contract_plans(np, build):
+    """Streamed plans over 547 column tiles (WT > 511: split planes) in
+    2048-row y blocks, one chunk per block, with the edges of the
+    warp-per-sublane walk (a block per run of sublanes inside one chunk):
+    a run of dead sublanes ending every chunk, an empty middle y block (an
+    all-dead chunk), int32 lane indices (chunk 200), a chunk of a single
+    sublane (chunk 1, whose window is one tile), and a chunk whose only
+    live sublane is its first."""
+    rng = np.random.RandomState(8)
+    b = 2048
+
+    def coords(blocks, per_block):
+        rows = np.concatenate([rng.randint(k * b, (k + 1) * b, per_block)
+                               for k in blocks])
+        return rows, rng.randint(0, 70000, rows.size), rng.randn(rows.size)
+
+    def plan(coo, chunk):
+        return build(*coo, (3 * b, 70000), chunk=chunk, y_block_rows=b)
+
+    r, c, v = coords((0, 2), 200)
+    lone = (np.append(r, b + 77), np.append(c, 4097), np.append(v, 2.5))
+    return [
+        ("streamed-split-dead-run-ends-chunk",
+         plan(coords((0, 1, 2), 200), 256)),
+        ("streamed-split-empty-middle-block", plan((r, c, v), 256)),
+        ("streamed-split-int32-lidx", plan(coords((0, 1, 2), 150), 200)),
+        ("streamed-single-sublane-chunk", plan(coords((0, 1, 2), 200), 1)),
+        ("streamed-split-single-live-sublane", plan(lone, 256)),
     ]
 
 
@@ -663,6 +717,75 @@ def phase_kernels(np, torch, plans, gcn):
             ks = (SPMM_K, GCN_K) if dname == "float32" else (SPMM_K,)
             _check_mat_kernels(np, torch, f"gcn_arxiv:{label}", op, ks, errs)
     return ops, errs
+
+
+def _inf_at_padding(np, op, xt):
+    """x with Inf at the column of the first padding lane (v = 0) of the
+    first live sublane that has one: that column's padding lanes land NaN
+    (0 · Inf) in their rows, and its real nonzeros ±Inf."""
+    rel, sl = op.plan.rel_tile.reshape(-1), op.plan.slice_of.reshape(-1)
+    s = int(np.argmax((rel >= 0) & (sl >= 0)
+                      & (op.plan.vals == 0).any(axis=1)))
+    lane = int(np.argmax(op.plan.vals[s] == 0))
+    col = ((int(op.plan.tile_base[s // op.plan.chunk]) + int(rel[s])) * 128
+           + int(op.plan.lane_idx[s, lane]))
+    xi = xt.clone()
+    xi[col] = float("inf")
+    return xi
+
+
+def phase_streamy(np, torch, plans, ops):
+    """Phase 2 for the warp-per-sublane body: K3-split and K2 streamed
+    split (N = 1 and N = 3) on the split planes of every small streamed
+    plan, float32 and bfloat16, against the plain version and N = 3
+    against one launch (<= 1e-6 of max |y|); with Inf at a padding lane's
+    column (small plans and L3), the NaN and Inf positions of both kernels
+    equal the plain version's, and there is at least one NaN."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    dev = torch.device(DEVICE)
+    cases = [(name, S.SellSpMV(plan, value_dtype=getattr(torch, d),
+                               device=dev))
+             for name, plan in plans
+             if plan.y_block_slices and name not in ROUTE
+             for d in DTYPE_NAMES]
+    cases += [("L3", ops[("L3", d)][0]) for d in DTYPE_NAMES]
+    for name, op in cases:
+        planes, kw = op._planes("streamy"), op._kw()
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            op.plan.shape[1]).astype(np.float32)).to(dev)
+        xt = op._x_tiles(x)
+        dname = str(op.value_dtype).replace("torch.", "")
+        what = f"the streamed split kernels on {name} {dname}"
+        errs = []
+        if name != "L3":  # phase_kernels holds L3's to its plain version
+            y1 = S.sell_streamy(*planes, xt, **kw)
+            yb1 = S.sell_bench_streamy(*planes, xt, iterations=1, **kw)
+            y3 = S.sell_bench_streamy(*planes, xt, iterations=3, **kw)
+            yp = S.sell_streamy_plain(*planes, xt, **kw)
+            torch.cuda.synchronize()
+            errs = [_rel_err(y1, yp), _rel_err(yb1, yp), _rel_err(y3, yp),
+                    _rel_err(y3, y1)]
+            _check(torch.isfinite(y1).all().item(), f"{what}: not finite")
+            _check(max(errs) <= TOL_KERNEL, f"{what}: {errs}")
+        xi = _inf_at_padding(np, op, xt)
+        want = S.sell_streamy_plain(*planes, xi, **kw)
+        got = (S.sell_streamy(*planes, xi, **kw),
+               S.sell_bench_streamy(*planes, xi, iterations=3, **kw))
+        torch.cuda.synchronize()
+        n_nan = int(torch.isnan(want).sum())
+        _check(n_nan >= 1, f"{what}: Inf at a padding column gave no NaN")
+        for y in got:
+            _check(torch.equal(torch.isnan(y), torch.isnan(want))
+                   and torch.equal(torch.isinf(y), torch.isinf(want)),
+                   f"{what}: NaN or Inf positions differ from the plain "
+                   f"version's")
+        print(f"[check] {name:34s} {dname:9s} sell_streamy_kernel, "
+              f"sell_bench_streamy_kernel (N=1, N=3) vs plain, N=3 vs one: "
+              f"{', '.join(f'{e:.3e}' for e in errs) or 'phase 2 above'}; "
+              f"Inf at a padding column: {n_nan} NaN rows, equal positions "
+              f"(chunk {op.plan.chunk}, WT {op.plan.window_tiles}, lidx "
+              f"{str(op.lidx.dtype)[6:]})", flush=True)
 
 
 def _oracle(np, torch, triplets, dname):
@@ -1084,7 +1207,9 @@ def phase_timings(np, torch, ops, errs, launches, configs, bw):
                     err=errs[(name, dname)][int(bench)], ms=ms,
                     plain_ms=plain_ms, lib_ms=lib_ms,
                     nbytes=plan.traffic_bytes(vb, x_bytes=vb),
-                    flops=2.0 * plan.nnz * iters, bw=bw, iters=iters))
+                    flops=2.0 * plan.nnz * iters, bw=bw, iters=iters,
+                    body=("warp-per-sublane" if kname in WARP_PER_SUBLANE
+                          else "thread-per-slot")))
             if dname == "bfloat16" and name in PACKED_CONFIGS:
                 entries += _packed_timings(torch, S, name, op, xt, a, x2,
                                            errs, launches, bw)
@@ -2917,10 +3042,10 @@ def main() -> int:
 
     with _Phase("build"):
         logs = _build.build()
-        regs, spills = _ptxas_summary(logs)
+        regs, spills, spilled = _ptxas_summary(logs)
         print(f"[build] {len(logs)} source(s) built: {sorted(logs)}; "
-              f"registers per thread: {regs}; spill stores {spills} bytes",
-              flush=True)
+              f"registers per thread: {regs}; spill stores {spills} bytes "
+              f"(most in one type instance: {spilled})", flush=True)
         from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
         grid = {(r, d): S.bench_blocks(getattr(torch, d), torch.int8,
@@ -2952,6 +3077,8 @@ def main() -> int:
         gcn = _gcn_graph(np, torch)
     with _Phase("kernels vs plain"):
         ops, errs = phase_kernels(np, torch, plans, gcn)
+    with _Phase("streamed split kernels: contract plans, Inf"):
+        phase_streamy(np, torch, plans, ops)
     with _Phase("df64 and packed kernels vs plain"):
         phase_new_kernels(np, torch, plans, ops, errs)
     with _Phase("one-hot and sub-window kernels vs plain"):

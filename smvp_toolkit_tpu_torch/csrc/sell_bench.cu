@@ -8,18 +8,24 @@
 //   sell_bench_streamy_relsl_kernel relsl branch, streamed y
 //   sell_bench_split_kernel         split-plane branch, resident y
 //   sell_bench_streamy_kernel       split-plane branch, streamed y
-// Each iteration is the forward sweep of csrc/sell_spmv.cu (same slot body,
-// sell_common.cuh::bench_sweeps). The TPU grid runs in order, so the TPU
+// Each iteration is the forward sweep of csrc/sell_spmv.cu, in the same
+// body: one thread per slot for three branches (sell_common.cuh,
+// bench_sweeps), one warp per sublane for the streamed split-plane branch
+// (sublane_bench_sweeps: the same (chunk, run) work items as K3-split,
+// walked in a grid-stride loop). The TPU grid runs in order, so the TPU
 // kernel re-zeroes y when an iteration (or, streamed, a y block) starts; on
 // Hopper blocks run in no order, so each iteration here zeroes ALL of y in
 // a grid-stride loop, grid.sync(), sweeps, grid.sync(). Zeroing all of y
 // (not only the visited blocks) keeps a block that no chunk visits at zero.
 // The grid is SMs x co-resident blocks (a larger cooperative grid fails at
-// launch, not at the sync).
+// launch, not at the sync); the occupancy query that sizes it sees each
+// kernel's registers and static shared memory, and the warp-per-sublane
+// kernel's launch bound (kSublaneMinBlocks) holds it at eight blocks an SM.
 //
 // Bound on this card: bytes, as the forward kernels; the planes are
 // re-read every iteration, as in the TPU kernel, and at the benchmark
-// sizes they exceed the 50 MB L2, so the rate is a memory rate.
+// sizes they exceed the 50 MB L2, so the rate is a memory rate: N times
+// the planes' bytes over the memory rate is the least time.
 //
 // K2-subwin (sell_bench_subwin_kernel) is the relsl branch with
 // per-sub-chain windows (SMVP_SELL_SUBWIN=1; _sub_windows :223 through
@@ -36,7 +42,8 @@
 // is, so only this window rule lets a wrong stb or ssb show in y. The same
 // N-iteration loop (zero y, grid.sync(), sweep, grid.sync()).
 //
-// C interface (ctypes) as in sell_spmv.cu.
+// C interface (ctypes) as in sell_spmv.cu, misaligned planes on the
+// streamed split route included.
 
 #include "sell_common.cuh"
 
@@ -57,9 +64,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_bench_streamy_kernel(const Args<V, L> a) {
-  bench_sweeps<SplitPlanes, StreamedY>(a);
+  sublane_bench_sweeps<StreamedY>(a);
 }
 
 template <typename V, typename L>
@@ -141,6 +148,11 @@ cudaError_t launch_bench(int route, Args<V, L> a, int device,
       (streamed && (a.y_block_id == nullptr || a.nsb < 1)) ||
       a.iterations < 1) {
     return cudaErrorInvalidValue;
+  }
+  if (route == kStreamy) {
+    if (!sublane_aligned(a)) return cudaErrorMisalignedAddress;
+    long long items = 0;
+    if (!sublane_items(a, &items) || a.n_out % 4) return cudaErrorInvalidValue;
   }
   Kernel<V, L> kernel = route_kernel<V, L>(route);
   int blocks = 0;

@@ -1,8 +1,11 @@
-// One slot of the SELL-T1 SpMV, shared by every forward and bench kernel
-// (csrc/sell_spmv.cu, csrc/sell_bench.cu, csrc/sell_packed.cu); its decode
-// policies, the slot coordinates, the warp walk over k columns and the
-// cooperative grid also serve the k-column kernels (csrc/sell_spmm.cu,
-// csrc/sell_vals_grad.cu) and the fused solvers (csrc/sell_solvers.cu).
+// The two bodies of the SELL-T1 SpMV that the forward and bench kernels
+// (csrc/sell_spmv.cu, csrc/sell_bench.cu, csrc/sell_packed.cu) run: one
+// thread per slot (`slot`, every route but one) and one warp per sublane
+// (`sublane_run`, the streamed split-plane route: K3-split and K2 streamed
+// split). The decode policies, the slot coordinates, the warp walk over k
+// columns and the cooperative grid also serve the k-column kernels
+// (csrc/sell_spmm.cu, csrc/sell_vals_grad.cu) and the fused solvers
+// (csrc/sell_solvers.cu).
 //
 // Per live slot (s, l) of the (S, 128) planes, with c = s / chunk:
 //   y[(ybase(c) + slice(s)) * 128 + l] +=
@@ -29,7 +32,15 @@
 // the atomic; NaN and Inf products still land. Values are f32 or bf16
 // storage, products and sums f32. Tile, column, slot and row indices are
 // 64-bit: a window may span the whole column range (rel then needs the
-// full int32) and plans of 180M slots occur.
+// full int32) and plans of 180M slots occur. Each slot pays for that: a
+// 64-bit divide for its chunk, its chunk's and sublane's metadata loads
+// and 64-bit address arithmetic.
+//
+// One warp per sublane (the section below `sublane_run`): a block takes a
+// run of sublanes inside one chunk, reads the chunk's metadata once and
+// stages the run's rel and slice ids in shared memory; each thread covers
+// four consecutive lanes with one vector load of values and one of lane
+// indices, and adds its four products with one vector atomic.
 
 #pragma once
 
@@ -212,6 +223,175 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// One warp per sublane, split planes (K3-split, K2 streamed split; written
+// over the y policy so that the resident split route can take it).
+//
+// Work item `item` is run r = item % runs of chunk c = item / runs: up to
+// kRun consecutive sublanes of one chunk (chunks never straddle a y block
+// in a streamed plan), so c, tile_base[c] and the chunk's y base come once
+// per item in 32-bit index arithmetic, with one 64-bit base per run and
+// 32-bit offsets inside it. The block stages the run's rel and slice ids
+// in shared memory with one coalesced load, then each warp walks every
+// kWarps-th sublane: a dead one (rel < 0 or slice < 0) is skipped before
+// any plane load; a live one costs each thread one 16-byte load of four
+// values (8 bytes in bf16), one load of four lane indices (4 bytes int8,
+// 16 bytes int32), four gathers of x and one float4 atomic into its four
+// consecutive rows (red.global.add.v4.f32, sm_90), left out when all four
+// products are exactly zero. Every slot of a live sublane is multiplied,
+// padding (v = 0) included, so Inf or NaN in x at a padding lane's column
+// lands NaN in its row, as in the one-thread-per-slot body; padding lanes
+// carry lane index 0, so their gathers read one address per sublane. The
+// plane loads are streaming (__ldcs: read once, kept out of L1, where the
+// gathered x tiles stay).
+//
+// Planes must be aligned for the vector loads (values to 4 elements, lane
+// indices to 4 elements, y to 16 bytes), and whole chunks: the launchers
+// return cudaErrorMisalignedAddress or cudaErrorInvalidValue and launch
+// nothing otherwise. The kernels are built with __launch_bounds__(kThreads,
+// kSublaneMinBlocks): 32 registers a thread, eight blocks on an SM.
+
+constexpr int kWarps = kThreads / 32;
+constexpr int kRun = 64;              // sublanes per work item
+constexpr int kSublaneMinBlocks = 8;  // co-resident blocks per SM
+static_assert(kRun <= kThreads, "one staging load per thread");
+
+__host__ __device__ inline int runs_per_chunk(int chunk) {
+  return (chunk + kRun - 1) / kRun;
+}
+
+__device__ __forceinline__ void load_values(const float* p, float (&v)[4]) {
+  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+// bf16 bits are the high half of the float32 with the same value.
+__device__ __forceinline__ void load_values(const __nv_bfloat16* p,
+                                            float (&v)[4]) {
+  const uint2 q = __ldcs(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+__device__ __forceinline__ void load_lanes(const int8_t* p, int (&l)[4]) {
+  const int w = __ldcs(reinterpret_cast<const int*>(p));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) l[i] = static_cast<int8_t>(w >> (8 * i));
+}
+
+__device__ __forceinline__ void load_lanes(const int32_t* p, int (&l)[4]) {
+  const int4 q = __ldcs(reinterpret_cast<const int4*>(p));
+  l[0] = q.x;
+  l[1] = q.y;
+  l[2] = q.z;
+  l[3] = q.w;
+}
+
+// y[0..3] += p in one vector atomic, unless all four products are zero.
+__device__ __forceinline__ void add_rows4(float* y, const float (&p)[4]) {
+  if (p[0] == 0.0f && p[1] == 0.0f && p[2] == 0.0f && p[3] == 0.0f) return;
+  atomicAdd(reinterpret_cast<float4*>(y), make_float4(p[0], p[1], p[2], p[3]));
+}
+
+// All kThreads threads of the block call it with the same item.
+template <class YAddr, typename V, typename L>
+__device__ __forceinline__ void sublane_run(const Args<V, L>& a, int runs,
+                                            int item, int* s_rel,
+                                            int* s_slice) {
+  const int c = item / runs;
+  const int first = (item - c * runs) * kRun;
+  const int n = min(kRun, a.chunk - first);
+  const long long s0 = static_cast<long long>(c) * a.chunk + first;
+  const long long tile0 = a.tile_base[c];
+  const long long ybase = YAddr::base(a, c);
+  if (threadIdx.x < n) {
+    s_rel[threadIdx.x] = a.meta[s0 + threadIdx.x];
+    s_slice[threadIdx.x] = a.slice[s0 + threadIdx.x];
+  }
+  __syncthreads();
+  const int lane4 = 4 * (threadIdx.x & 31);
+  const V* vals = a.vals + s0 * kLanes + lane4;
+  const L* lidx = a.lidx + s0 * kLanes + lane4;
+  float* y = a.y + ybase * kLanes + lane4;
+  for (int j = threadIdx.x >> 5; j < n; j += kWarps) {
+    const int rel = s_rel[j];
+    const int slice = s_slice[j];
+    if (rel < 0 || slice < 0) continue;
+    float v[4];
+    int l[4];
+    load_values(vals + j * kLanes, v);
+    load_lanes(lidx + j * kLanes, l);
+    const V* xt = a.x + (tile0 + rel) * kLanes;
+    float p[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = v[i] * to_f32(__ldg(xt + l[i]));
+    add_rows4(y + static_cast<long long>(slice) * kLanes, p);
+  }
+  __syncthreads();  // the next item restages s_rel and s_slice
+}
+
+// The forward kernel's body: work item blockIdx.x.
+template <class YAddr, typename V, typename L>
+__device__ __forceinline__ void sublane_sweep(const Args<V, L>& a) {
+  __shared__ int s_rel[kRun], s_slice[kRun];
+  sublane_run<YAddr>(a, runs_per_chunk(a.chunk), blockIdx.x, s_rel,
+                     s_slice);
+}
+
+// The N-iteration body (one cooperative launch), as bench_sweeps: each
+// iteration zeroes all of y (float4 stores), grid.sync(), walks the work
+// items in a grid-stride loop, grid.sync().
+template <class YAddr, typename V, typename L>
+__device__ __forceinline__ void sublane_bench_sweeps(const Args<V, L>& a) {
+  __shared__ int s_rel[kRun], s_slice[kRun];
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int runs = runs_per_chunk(a.chunk);
+  const long long chunk_slots = static_cast<long long>(kLanes) * a.chunk;
+  const int items = static_cast<int>(a.n_slots / chunk_slots) * runs;
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  float4* y4 = reinterpret_cast<float4*>(a.y);
+  for (int it = 0; it < a.iterations; ++it) {
+    for (long long i = tid; i < a.n_out / 4; i += stride) {
+      y4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    grid.sync();
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      sublane_run<YAddr>(a, runs, item, s_rel, s_slice);
+    }
+    grid.sync();
+  }
+}
+
+// The work items of a launch (chunks x runs per chunk); false unless the
+// planes are whole chunks and the items fit a grid.
+template <typename V, typename L>
+bool sublane_items(const Args<V, L>& a, long long* items) {
+  if (a.chunk < 1 || a.n_slots < 1) return false;
+  const long long per_chunk = static_cast<long long>(kLanes) * a.chunk;
+  if (a.n_slots % per_chunk) return false;
+  *items = a.n_slots / per_chunk * runs_per_chunk(a.chunk);
+  return *items <= 0x7fffffffLL;
+}
+
+// The vector loads and atomics: values and lane indices aligned to four
+// elements, y to 16 bytes.
+template <typename V, typename L>
+bool sublane_aligned(const Args<V, L>& a) {
+  const auto at = [](const void* p, size_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  return at(a.vals, 4 * sizeof(V)) && at(a.lidx, 4 * sizeof(L)) &&
+         at(a.y, 16);
+}
+
+// ---------------------------------------------------------------------------
 // Everything a k-column kernel reads (csrc/sell_spmm.cu,
 // csrc/sell_vals_grad.cu). X, Y and G are row-major (rows, k): row r's k
 // values are contiguous, element (r, j) at r * k + j. Resident y only.

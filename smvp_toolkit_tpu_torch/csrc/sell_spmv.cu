@@ -8,13 +8,19 @@
 //   K4       sell_split_kernel         <- _make_sell_kernel_resident,
 //                                         _make_sell_kernel_prefetch,
 //                                         _make_sell_kernel
-// All four are one body (sell_common.cuh, forward_sweep) under the two
-// route policies:
-// merged word or split planes, resident or block-streamed y. The TPU's
-// resident-x / scalar-prefetch / window-stack split is about VMEM and has
-// no meaning here: one kernel serves all three. So does the TPU's one-hot
-// MXU table select and row reduce, which exist because the TPU has no fast
-// gather or scatter; Hopper has both (see sell_common.cuh).
+// K1, K3-relsl and K4 are one body (sell_common.cuh, forward_sweep: one
+// thread per slot) under the two route policies: merged word or split
+// planes, resident or block-streamed y. K3-split, the streamed split-plane
+// route, runs the warp-per-sublane body (sell_common.cuh, sublane_sweep):
+// a block per run of 64 sublanes inside one chunk, the chunk's tile_base
+// and y block read once, the run's rel and slice_of staged in shared
+// memory, a warp per live sublane with one vector load of values and one
+// of lane indices per thread (four lanes each), four x gathers and one
+// float4 atomic into four consecutive rows. The TPU's resident-x /
+// scalar-prefetch / window-stack split is about VMEM and has no meaning
+// here: one kernel serves all three. So does the TPU's one-hot MXU table
+// select and row reduce, which exist because the TPU has no fast gather
+// or scatter; Hopper has both (see sell_common.cuh).
 //
 // Streamed y: the caller zeroes all of y (n_slices * 128 floats) before
 // the launch, so a y block that no chunk visits comes back zero.
@@ -26,12 +32,17 @@
 // once (SellPlan.traffic_bytes). The arithmetic, 2 flops per nonzero, is
 // far below the card's rate. The design reads each plane byte once per
 // launch and skips the atomic for zero products, which are most of the
-// slots at the planes' occupancy.
+// slots at the planes' occupancy. The one-thread-per-slot body runs at a
+// slot rate, not the byte rate: its cost is the instructions per slot (a
+// 64-bit divide, four metadata loads); the warp-per-sublane body spends
+// them once per chunk, sublane or four slots.
 //
 // C interface (ctypes): sell_spmv_launch returns a cudaError_t value, 0 on
 // success, from cudaGetLastError() right after the launch. Pointers and
 // the stream come in as void*, sizes as long long. The caller's stream is
-// PyTorch's current stream; nothing here allocates or synchronises.
+// PyTorch's current stream; nothing here allocates or synchronises. On
+// the streamed split route a plane not aligned for the vector loads
+// returns cudaErrorMisalignedAddress and launches nothing.
 
 #include "sell_common.cuh"
 
@@ -52,9 +63,9 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_streamy_kernel(const Args<V, L> a) {
-  forward_sweep<SplitPlanes, StreamedY>(a);
+  sublane_sweep<StreamedY>(a);
 }
 
 template <typename V, typename L>
@@ -76,6 +87,21 @@ cudaError_t launch(void (*kernel)(Args<V, L>), Args<V, L> a,
   return cudaGetLastError();
 }
 
+// One block per work item of the warp-per-sublane body.
+template <typename V, typename L>
+cudaError_t launch_sublanes(void (*kernel)(Args<V, L>), Args<V, L> a,
+                            cudaStream_t stream) {
+  if (!sublane_aligned(a)) return cudaErrorMisalignedAddress;
+  long long items = 0;
+  if (!sublane_items(a, &items)) return cudaErrorInvalidValue;
+  void* params[] = {&a};
+  cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
+                                     dim3(static_cast<unsigned>(items)),
+                                     dim3(kThreads), params, 0, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 template <typename V, typename L>
 cudaError_t launch_route(int route, const Args<V, L>& a, cudaStream_t st) {
   const bool split = route == kStreamy || route == kSplit;
@@ -87,7 +113,7 @@ cudaError_t launch_route(int route, const Args<V, L>& a, cudaStream_t st) {
   switch (route) {
     case kRelsl: return launch(sell_spmv_kernel<V, L>, a, st);
     case kStreamyRelsl: return launch(sell_streamy_relsl_kernel<V, L>, a, st);
-    case kStreamy: return launch(sell_streamy_kernel<V, L>, a, st);
+    case kStreamy: return launch_sublanes(sell_streamy_kernel<V, L>, a, st);
     case kSplit: return launch(sell_split_kernel<V, L>, a, st);
     default: return cudaErrorInvalidValue;
   }

@@ -659,7 +659,11 @@ def sell_streamy_relsl(vals, lidx, relsl, tile_base, y_block_id, x, *,
 
 def sell_streamy(vals, lidx, rel, slice_of, tile_base, y_block_id, x, *,
                  n_slices: int, chunk: int, nsb: int) -> torch.Tensor:
-    """K3-split: y = A·x, split planes, y in blocks of ``nsb`` slices."""
+    """K3-split: y = A·x, split planes, y in blocks of ``nsb`` slices.
+
+    Its kernel runs one warp per sublane with vector loads of four lanes
+    (``sell_common.cuh::sublane_run``): a values or lane-index plane not
+    aligned to four elements (a view at an odd offset) raises."""
     return _dispatch(sell_streamy, sell_streamy_plain, "streamy",
                      dict(vals=vals, lidx=lidx, rel=rel, slice_of=slice_of,
                           tile_base=tile_base, y_block_id=y_block_id),
@@ -702,7 +706,8 @@ def sell_bench_streamy(vals, lidx, rel, slice_of, tile_base, y_block_id, x,
                        *, n_slices: int, chunk: int, nsb: int,
                        iterations: int) -> torch.Tensor:
     """K2 on the streamed split route: ``iterations`` K3-split SpMVs in one
-    cooperative launch; the last y."""
+    cooperative launch, in K3-split's body and alignment rule; the last
+    y."""
     return _dispatch(sell_bench_streamy, sell_bench_streamy_plain, "streamy",
                      dict(vals=vals, lidx=lidx, rel=rel, slice_of=slice_of,
                           tile_base=tile_base, y_block_id=y_block_id),

@@ -23,6 +23,8 @@ from smvp_toolkit_tpu_torch.ops.sell_plan import (
     build_streamed_sell_plan,
 )
 
+import test_torch_streamy_contract as streamy_plans
+
 pytestmark = pytest.mark.cuda
 
 TOL = 1e-6  # atomics change the summation order: never bitwise
@@ -140,6 +142,60 @@ def test_streamed_empty_middle_block_zero(card):
     for y in (op(x), op.bench_loop(x, 2)):
         assert not y[2048:4096].any()
         assert y[5].item() == 1.5 * 4 and y[17].item() == -2.0 * 500
+
+
+@pytest.mark.parametrize("name", streamy_plans.NAMES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_streamy_kernels_contract(card, name, dtype):
+    """K3-split and K2 streamed split (the warp-per-sublane body) against
+    their plain versions on the contract plans; N = 3 against one launch;
+    Inf at a padding lane's column: NaN in the same rows as the plain
+    version, and only there."""
+    plan = streamy_plans.contract_plan(name)
+    op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+    planes, kw = op._planes("streamy"), op._kw()
+    x = np.random.default_rng(4).standard_normal(plan.shape[1])
+    xt = op._x_tiles(torch.from_numpy(x.astype(np.float32)).to(card))
+    before = (S.sell_streamy.launches, S.sell_bench_streamy.launches)
+    y1 = S.sell_streamy(*planes, xt, **kw)
+    yb1 = S.sell_bench_streamy(*planes, xt, iterations=1, **kw)
+    y3 = S.sell_bench_streamy(*planes, xt, iterations=3, **kw)
+    yp = S.sell_streamy_plain(*planes, xt, **kw)
+    torch.cuda.synchronize()
+    assert (S.sell_streamy.launches, S.sell_bench_streamy.launches) == (
+        before[0] + 1, before[1] + 2)
+    for y in (y1, yb1, y3):
+        assert _rel(y, yp) <= TOL
+    assert _rel(y3, y1) <= TOL
+    col, rows = streamy_plans.padding_column(plan)
+    xt[col] = float("inf")
+    want = torch.isnan(S.sell_streamy_plain(*planes, xt, **kw))
+    assert want.nonzero().squeeze(1).cpu().numpy().tolist() == rows.tolist()
+    for y in (S.sell_streamy(*planes, xt, **kw),
+              S.sell_bench_streamy(*planes, xt, iterations=3, **kw)):
+        assert torch.equal(torch.isnan(y), want)
+        assert torch.isfinite(y[~want]).all()
+
+
+@pytest.mark.parametrize("plane", ["vals", "lidx"])
+def test_streamy_misaligned_plane_raises(card, plane):
+    """A plane view at an odd offset: the launch is refused, never run on
+    another body or the plain version."""
+    plan = streamy_plans.contract_plan("dead-run-ends-chunk")
+    op = S.SellSpMV(plan, device=card)
+    planes, kw = list(op._planes("streamy")), op._kw()
+    i = 0 if plane == "vals" else 1
+    t = planes[i]
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+    planes[i] = flat[1:].view(t.shape)
+    planes[i].copy_(t)
+    xt = op._x_tiles(torch.ones(plan.shape[1], device=card))
+    before = (S.sell_streamy.launches, S.sell_bench_streamy.launches)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        S.sell_streamy(*planes, xt, **kw)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        S.sell_bench_streamy(*planes, xt, iterations=2, **kw)
+    assert (S.sell_streamy.launches, S.sell_bench_streamy.launches) == before
 
 
 def test_cli_tjds_path_launches_kernels(card):
