@@ -9,7 +9,8 @@ Phases; any failure exits non-zero and prints no result line:
 
 1. The card's name and power limit, then the kernels' build from
    ``smvp_toolkit_tpu_torch/csrc`` (one nvcc per source, in parallel) with
-   its time, and each bench kernel's cooperative grid. The plans of the
+   its time, and each bench kernel's cooperative grid (K2 split's for both
+   lane-index types on a line of its own). The plans of the
    four full-size matrices and of the ``gcn_arxiv`` graph (its normalised
    adjacency A and its transpose).
 2. Every kernel against its plain PyTorch version on the card, in float32
@@ -46,12 +47,20 @@ Phases; any failure exits non-zero and prints no result line:
    SpMV input skips the bf16 rounding) must exceed it, and after 30 steps
    <= 2^-7, since a one-ulp float32 difference now and then flips the bf16
    rounding of an SpMV input entry and CG carries the jump on.
-   K3-split and K2 streamed split (the warp-per-sublane body) on the
-   split planes of every small streamed plan, float32 and bfloat16: N = 1
-   and N = 3 against the plain version and N = 3 against one launch (<=
-   1e-6); with Inf in x at a padding lane's column (there and at L3),
-   their NaN and Inf positions must equal the plain version's (a padding
-   slot's 0 · Inf lands NaN in its row), with at least one NaN.
+   The warp-per-sublane kernels of both split-plane routes, K3-split and
+   K2 streamed split on the split planes of every small streamed plan and
+   K4 and K2 split on those of every small resident plan (merged-word
+   plans through ``split_planes``) and of each streamed plan's resident-y
+   variant, float32 and bfloat16: N = 1 and N = 3 against the plain
+   version and N = 3 against one launch (<= 1e-6); with Inf in x at a
+   padding lane's column (there, at L3 and at L2), their NaN and Inf
+   positions must equal the plain version's (a padding slot's 0 · Inf
+   lands NaN in its row), with at least one NaN; a plan with no live
+   sublane (nnz0's split planes) must give y = 0. Then K4 through the
+   operator against its plain version: on smoke's split planes under
+   ``SMVP_SELL_RELSL=0`` (one launch), with ``SMVP_SELL_SPLIT=4`` too,
+   and on L2 under ``SMVP_SELL_SPLIT=4`` (four launches on views over
+   chunk ranges).
    K8 (double-float) on every small resident merged-word plan, without
    and with a lo plane (the streamed and WT > 511 plans must be refused),
    on the JAX suite's cancelling rows and on its edge scales (exact): its
@@ -148,7 +157,8 @@ Phases; any failure exits non-zero and prints no result line:
    - distribution (``parallel/``): smoke-dp4, smoke's matrix as 4
      row-block shards at chunk 1024 (``shard_sell``), each rank's shard
      launched in turn on the one card, float32 and bfloat16: first,
-     uncounted, per shard K2-sharded (N = 3), K1 and K1 with k = 8 against
+     uncounted, per shard K2-sharded (N = 3), K1, K4 on the shard's split
+     planes (``SMVP_SELL_RELSL=0``) and K1 with k = 8 against
      their plain versions (<= 1e-6; SpMM: ``_spmm_tolerance``), the
      shards' rows in rank order against smoke's unsharded K2 and K1 (<=
      1e-6) and the float64 oracle (<= 1e-5), a control in reverse order
@@ -177,10 +187,12 @@ Phases; any failure exits non-zero and prints no result line:
 4. One ``{"kernels": [...]}`` line: per kernel, configuration and value
    dtype, its time per launch from CUDA events, its launches in the
    main-path run (the k = 1 route entries name their ``body``:
-   ``warp-per-sublane`` for K3-split and K2 streamed split,
-   ``thread-per-slot`` for the others), its bound (bytes of its route
-   over the card's memory rate, or 2·nnz·k·N flops over the float32
-   rate, the larger; K7 counts
+   ``warp-per-sublane`` for K3-split, K4 and their N-iteration kernels,
+   ``thread-per-slot`` for the others, and their slot rate
+   ``g_slots_per_s``; a ``[time]`` line gives each N-iteration kernel's
+   time per iteration against one launch of its forward kernel), its
+   bound (bytes of its route over the card's memory rate, or 2·nnz·k·N
+   flops over the float32 rate, the larger; K7 counts
    2·k flops per slot of a live sublane), the plain version's time and a
    library yardstick (``torch.sparse.mm`` on a float32 CSR tensor of the
    same matrix with the same k, and for K7 ``torch.sparse.sampled_addmm``
@@ -281,7 +293,8 @@ KERNELS = {
 # (sell_common.cuh, sublane_run); the others run one thread per slot. A
 # phase-4 entry names its body, so that a time can be told from the
 # thread-per-slot times these kernels had before.
-WARP_PER_SUBLANE = ("sell_streamy_kernel", "sell_bench_streamy_kernel")
+WARP_PER_SUBLANE = ("sell_streamy_kernel", "sell_bench_streamy_kernel",
+                    "sell_split_kernel", "sell_bench_split_kernel")
 # K2-cocluster: K2 on the co-clustered permuted planes, the JAX
 # CoClusteredSellSpMV.bench_loop (no pallas_call of its own).
 COCLUSTER_REPLACES = "spmv_pallas.py:2727"
@@ -481,12 +494,14 @@ def _configs():
         plan = _auto_plan(rr, cc, vv, coo.shape)
         t2 = time.perf_counter()
         occ = coo.nnz / plan.slots()
+        live = float(((plan.rel_tile.reshape(-1) >= 0)
+                      & (plan.slice_of.reshape(-1) >= 0)).mean())
         print(f"[plan] {name}: {coo.shape[0]}x{coo.shape[1]}, nnz {coo.nnz}, "
               f"S {plan.n_sublanes} in {plan.n_chunks} chunks of "
               f"{plan.chunk}, WT {plan.window_tiles}, NS {plan.n_slices}, "
               f"CT {plan.n_coltiles}, y blocks of {plan.y_block_slices} "
-              f"slices, occupancy {occ:.3f}; made in {t1 - t0:.2f} s, "
-              f"planned in {t2 - t1:.2f} s", flush=True)
+              f"slices, occupancy {occ:.3f}, live sublanes {live:.4f}; made "
+              f"in {t1 - t0:.2f} s, planned in {t2 - t1:.2f} s", flush=True)
         out[name] = (plan, (rr, cc, vv, coo.shape))
     return out
 
@@ -722,10 +737,13 @@ def phase_kernels(np, torch, plans, gcn):
 def _inf_at_padding(np, op, xt):
     """x with Inf at the column of the first padding lane (v = 0) of the
     first live sublane that has one: that column's padding lanes land NaN
-    (0 · Inf) in their rows, and its real nonzeros ±Inf."""
+    (0 · Inf) in their rows, and its real nonzeros ±Inf. None when no live
+    sublane has a padding lane."""
     rel, sl = op.plan.rel_tile.reshape(-1), op.plan.slice_of.reshape(-1)
-    s = int(np.argmax((rel >= 0) & (sl >= 0)
-                      & (op.plan.vals == 0).any(axis=1)))
+    has = (rel >= 0) & (sl >= 0) & (op.plan.vals == 0).any(axis=1)
+    if not has.any():
+        return None
+    s = int(np.argmax(has))
     lane = int(np.argmax(op.plan.vals[s] == 0))
     col = ((int(op.plan.tile_base[s // op.plan.chunk]) + int(rel[s])) * 128
            + int(op.plan.lane_idx[s, lane]))
@@ -734,58 +752,123 @@ def _inf_at_padding(np, op, xt):
     return xi
 
 
-def phase_streamy(np, torch, plans, ops):
-    """Phase 2 for the warp-per-sublane body: K3-split and K2 streamed
-    split (N = 1 and N = 3) on the split planes of every small streamed
-    plan, float32 and bfloat16, against the plain version and N = 3
-    against one launch (<= 1e-6 of max |y|); with Inf at a padding lane's
-    column (small plans and L3), the NaN and Inf positions of both kernels
-    equal the plain version's, and there is at least one NaN."""
+def _resident(np, plan):
+    """The resident-y variant of a streamed plan: the same chunks, planes
+    and windows, each chunk's live slices moved to their place in one y."""
+    import dataclasses
+
+    sl = plan.slice_of.astype(np.int64)
+    glob = plan.y_block_id.astype(np.int64)[:, None] * plan.y_block_slices
+    return dataclasses.replace(
+        plan, slice_of=np.where(sl >= 0, glob + sl, -1).astype(np.int32),
+        slice_base=None, slice_window=0, y_block_id=None, y_block_slices=0)
+
+
+def _split_cases(np, torch, plans, ops):
+    """(name, operator, route) of every warp-per-sublane check: the split
+    planes of every small streamed plan and L3 (K3-split, K2 streamed
+    split); of every small resident plan (merged-word ones through
+    ``split_planes``, as under ``SMVP_SELL_RELSL=0``), of the resident-y
+    variants of the streamed contract plans, and L2 (K4, K2 split)."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
     dev = torch.device(DEVICE)
-    cases = [(name, S.SellSpMV(plan, value_dtype=getattr(torch, d),
-                               device=dev))
-             for name, plan in plans
-             if plan.y_block_slices and name not in ROUTE
-             for d in DTYPE_NAMES]
-    cases += [("L3", ops[("L3", d)][0]) for d in DTYPE_NAMES]
-    for name, op in cases:
-        planes, kw = op._planes("streamy"), op._kw()
+    small = [(n, p) for n, p in plans if n not in ROUTE]
+    small += [(f"resident-y:{n}", _resident(np, p)) for n, p in small
+              if p.y_block_slices]
+    cases = [(n, S.SellSpMV(p, value_dtype=getattr(torch, d), device=dev),
+              "streamy" if p.y_block_slices else "split")
+             for n, p in small for d in DTYPE_NAMES]
+    cases += [(n, ops[(n, d)][0], ROUTE[n]) for n in ("L3", "L2")
+              for d in DTYPE_NAMES]
+    return cases
+
+
+def phase_streamy(np, torch, plans, ops):
+    """Phase 2 for the warp-per-sublane body on both split-plane routes:
+    K3-split and K2 streamed split, K4 and K2 split (N = 1 and N = 3) on
+    the split planes of ``_split_cases``, float32 and bfloat16, against the
+    plain version and N = 3 against one launch (<= 1e-6 of max |y|); with
+    Inf at a padding lane's column (small plans, L3 and L2), the NaN and
+    Inf positions of both kernels equal the plain version's, and there is
+    at least one NaN; a plan with no live sublane gives y = 0. Then K4
+    through the operator on smoke's split planes (``SMVP_SELL_RELSL=0``)
+    and on four chunk ranges of views (``SMVP_SELL_SPLIT=4``, smoke and
+    L2) against the plain version."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    dev = torch.device(DEVICE)
+    for name, op, route in _split_cases(np, torch, plans, ops):
+        fwd, bench = S._ROUTE_FNS[route]
+        plain = getattr(S, fwd.__name__ + "_plain")
+        names = f"{S.KERNEL_NAMES[(route, False)]}, " \
+                f"{S.KERNEL_NAMES[(route, True)]}"
+        planes, kw = op._planes(route), op._kw()
         x = torch.from_numpy(np.random.default_rng(3).standard_normal(
             op.plan.shape[1]).astype(np.float32)).to(dev)
         xt = op._x_tiles(x)
         dname = str(op.value_dtype).replace("torch.", "")
-        what = f"the streamed split kernels on {name} {dname}"
+        what = f"{names} on {name} {dname}"
         errs = []
-        if name != "L3":  # phase_kernels holds L3's to its plain version
-            y1 = S.sell_streamy(*planes, xt, **kw)
-            yb1 = S.sell_bench_streamy(*planes, xt, iterations=1, **kw)
-            y3 = S.sell_bench_streamy(*planes, xt, iterations=3, **kw)
-            yp = S.sell_streamy_plain(*planes, xt, **kw)
+        if name not in ROUTE:  # phase_kernels holds L2's and L3's
+            y1 = fwd(*planes, xt, **kw)
+            yb1 = bench(*planes, xt, iterations=1, **kw)
+            y3 = bench(*planes, xt, iterations=3, **kw)
+            yp = plain(*planes, xt, **kw)
             torch.cuda.synchronize()
             errs = [_rel_err(y1, yp), _rel_err(yb1, yp), _rel_err(y3, yp),
                     _rel_err(y3, y1)]
             _check(torch.isfinite(y1).all().item(), f"{what}: not finite")
             _check(max(errs) <= TOL_KERNEL, f"{what}: {errs}")
         xi = _inf_at_padding(np, op, xt)
-        want = S.sell_streamy_plain(*planes, xi, **kw)
-        got = (S.sell_streamy(*planes, xi, **kw),
-               S.sell_bench_streamy(*planes, xi, iterations=3, **kw))
-        torch.cuda.synchronize()
-        n_nan = int(torch.isnan(want).sum())
-        _check(n_nan >= 1, f"{what}: Inf at a padding column gave no NaN")
-        for y in got:
-            _check(torch.equal(torch.isnan(y), torch.isnan(want))
-                   and torch.equal(torch.isinf(y), torch.isinf(want)),
-                   f"{what}: NaN or Inf positions differ from the plain "
-                   f"version's")
-        print(f"[check] {name:34s} {dname:9s} sell_streamy_kernel, "
-              f"sell_bench_streamy_kernel (N=1, N=3) vs plain, N=3 vs one: "
+        if xi is None:  # no live sublane: y = 0
+            ys = (plain(*planes, xt, **kw), fwd(*planes, xt, **kw),
+                  bench(*planes, xt, iterations=3, **kw))
+            _check(not any(y.any() for y in ys),
+                   f"{what}: a plan with no live sublane gave y != 0")
+            inf = "no live sublane, y = 0"
+        else:
+            want = plain(*planes, xi, **kw)
+            got = (fwd(*planes, xi, **kw),
+                   bench(*planes, xi, iterations=3, **kw))
+            torch.cuda.synchronize()
+            n_nan = int(torch.isnan(want).sum())
+            _check(n_nan >= 1, f"{what}: Inf at a padding column gave no NaN")
+            for y in got:
+                _check(torch.equal(torch.isnan(y), torch.isnan(want))
+                       and torch.equal(torch.isinf(y), torch.isinf(want)),
+                       f"{what}: NaN or Inf positions differ from the plain "
+                       f"version's")
+            inf = (f"Inf at a padding column: {n_nan} NaN rows, equal "
+                   f"positions")
+        print(f"[check] {name:40s} {dname:9s} {names} "
+              f"(N=1, N=3) vs plain, N=3 vs one: "
               f"{', '.join(f'{e:.3e}' for e in errs) or 'phase 2 above'}; "
-              f"Inf at a padding column: {n_nan} NaN rows, equal positions "
-              f"(chunk {op.plan.chunk}, WT {op.plan.window_tiles}, lidx "
-              f"{str(op.lidx.dtype)[6:]})", flush=True)
+              f"{inf} (chunk {op.plan.chunk}, WT {op.plan.window_tiles}, "
+              f"lidx {str(op.lidx.dtype)[6:]})", flush=True)
+    for name, env in (("smoke", dict(SMVP_SELL_RELSL="0")),
+                      ("smoke", dict(SMVP_SELL_RELSL="0",
+                                     SMVP_SELL_SPLIT=str(SPLIT_N))),
+                      ("L2", dict(SMVP_SELL_SPLIT=str(SPLIT_N)))):
+        for dname in DTYPE_NAMES:
+            op, x = ops[(name, dname)]
+            with _env(**env):
+                _check(op.route == "split", f"{name} under {env} runs on "
+                       f"{op.route}")
+                before = S.sell_split.launches
+                y = op(x)
+                n = S.sell_split.launches - before
+            yp = S.sell_split_plain(*op._planes("split"), op._x_tiles(x),
+                                    **op._kw())[: op.shape[0]]
+            torch.cuda.synchronize()
+            e = _rel_err(y, yp)
+            want = SPLIT_N if "SMVP_SELL_SPLIT" in env else 1
+            _check(n == want, f"{name} under {env}: {n} K4 launches, not "
+                   f"{want}")
+            _check(e <= TOL_KERNEL, f"K4 on {name} {dname} under {env} vs "
+                   f"plain: {e}")
+            print(f"[check] {name} {dname} under {env}: {n} sell_split_kernel "
+                  f"launch(es) vs plain {e:.3e}", flush=True)
 
 
 def _oracle(np, torch, triplets, dname):
@@ -1209,7 +1292,14 @@ def phase_timings(np, torch, ops, errs, launches, configs, bw):
                     nbytes=plan.traffic_bytes(vb, x_bytes=vb),
                     flops=2.0 * plan.nnz * iters, bw=bw, iters=iters,
                     body=("warp-per-sublane" if kname in WARP_PER_SUBLANE
-                          else "thread-per-slot")))
+                          else "thread-per-slot"),
+                    g_slots_per_s=plan.slots() * iters / ms * 1e-6))
+            fwd_ms, bench_ms = (e["ms"] for e in entries[-2:])
+            print(f"[time] {name} {dname}: {S.KERNEL_NAMES[(route, True)]} "
+                  f"{bench_ms / n_iter:.6f} ms per iteration = "
+                  f"{bench_ms / n_iter / fwd_ms:.3f} x one "
+                  f"{S.KERNEL_NAMES[(route, False)]} launch "
+                  f"({fwd_ms:.6f} ms)", flush=True)
             if dname == "bfloat16" and name in PACKED_CONFIGS:
                 entries += _packed_timings(torch, S, name, op, xt, a, x2,
                                            errs, launches, bw)
@@ -2614,8 +2704,9 @@ def _plain_grad(torch, csr, X, W):
 
 def phase_dist_kernels(np, torch, configs, ops):
     """smoke-dp4: smoke's matrix as 4 row-block shards at chunk 1024,
-    launched rank by rank on the card. Per shard, K2-sharded (N = 3), K1
-    and K1 with k = 8 against their plain versions; the shards' rows in
+    launched rank by rank on the card. Per shard, K2-sharded (N = 3), K1,
+    K4 on the shard's split planes (``SMVP_SELL_RELSL=0``) and K1 with k =
+    8 against their plain versions; the shards' rows in
     rank order against the unsharded K2 (N = 3) and K1 (<= 1e-6) and the
     float64 oracle (<= 1e-5); in reverse order they must miss. The
     gradient of sum(W ∘ A·X) at k = 8 from the transpose shards (the sum
@@ -2650,7 +2741,7 @@ def phase_dist_kernels(np, torch, configs, ops):
         ranks = _dist_shards(torch, sh, dname)
         op = ops[("smoke", dname)][0]
         y_k2, y_k1 = op.bench_loop(x, DIST_CHECK_N), op(x)
-        ys, y1s, Ys, e_k2, e_k1, e_mm = [], [], [], 0.0, 0.0, 0.0
+        ys, y1s, Ys, e_k2, e_k1, e_k4, e_mm = [], [], [], 0.0, 0.0, 0.0, 0.0
         for s in ranks:
             o = s.op
             kw = dict(n_slices=s.NSl, chunk=s.chunk)
@@ -2661,6 +2752,10 @@ def phase_dist_kernels(np, torch, configs, ops):
                                          iterations=DIST_CHECK_N, **kw)
             y1, y1p = SD._local_spmv(s, x), S.sell_spmv_plain(*planes, xt,
                                                                **kw)
+            with _env(SMVP_SELL_RELSL="0"):  # K4 on the shard's split planes
+                y4 = SD._local_spmv(s, x)
+            y4p = S.sell_split_plain(o.vals, o.lidx, *o.split_planes(),
+                                     o.tile_base, xt, **kw)
             Y = SD._local_mat(s, X)
             Yp = S.sell_spmm_plain(*planes, o._block(X, s.CT * 128, o.vals
                                                      .dtype, "X"),
@@ -2669,6 +2764,7 @@ def phase_dist_kernels(np, torch, configs, ops):
             tol_mm, _ = _spmm_tolerance(torch, S, o)
             e_k2 = max(e_k2, _rel_err(y, yp))
             e_k1 = max(e_k1, _rel_err(y1, y1p))
+            e_k4 = max(e_k4, _rel_err(y4, y4p))
             e = _rel_err(Y, Yp)
             e_mm = max(e_mm, e)
             _check(e <= tol_mm, f"smoke-dp4 {dname} shard {s.rank}: K1 "
@@ -2685,13 +2781,15 @@ def phase_dist_kernels(np, torch, configs, ops):
         Yc = _cat_rows(torch, sh, Ys, nrows).double().cpu().numpy()
         e_or_mm = float(np.abs(Yc - ref_mat).max() / np.abs(ref_mat).max())
         print(f"[check] smoke-dp4 {dname}: per shard vs plain K2-sharded "
-              f"(N={DIST_CHECK_N}) {e_k2:.3e}, K1 {e_k1:.3e}, K1 k={SPMM_K} "
+              f"(N={DIST_CHECK_N}) {e_k2:.3e}, K1 {e_k1:.3e}, K4 (split "
+              f"planes) {e_k4:.3e}, K1 k={SPMM_K} "
               f"{e_mm:.3e}; rank-order y vs "
               f"unsharded K2 {e_cat:.3e}, vs K1 {e_cat1:.3e}, vs float64 "
               f"oracle {e_or:.3e}, Y vs oracle {e_or_mm:.3e}; control "
               f"(reverse order) vs K2 {e_wrong:.3e}", flush=True)
         for what, e, tol in (("K2-sharded vs plain", e_k2, TOL_KERNEL),
                              ("K1 vs plain", e_k1, TOL_KERNEL),
+                             ("K4 vs plain", e_k4, TOL_KERNEL),
                              ("y vs unsharded K2", e_cat, TOL_KERNEL),
                              ("y vs unsharded K1", e_cat1, TOL_KERNEL),
                              ("y vs oracle", e_or, TOL_ORACLE),
@@ -3069,6 +3167,11 @@ def main() -> int:
         grid["sell_bench_df64_kernel"] = bench_df64_blocks(torch.int8)
         print(f"[grid] bench kernels' cooperative grid (blocks of 256 "
               f"threads, int8 lane indices): {grid}", flush=True)
+        split_grid = {(d, str(lt)[6:]): S.bench_blocks(getattr(torch, d), lt,
+                                                       route="split")
+                      for d in DTYPE_NAMES for lt in (torch.int8, torch.int32)}
+        print(f"[grid] sell_bench_split_kernel (K2 split, warp per sublane): "
+              f"{split_grid} blocks of 256 threads", flush=True)
 
     with _Phase("plans"):
         configs = _configs()
@@ -3077,7 +3180,7 @@ def main() -> int:
         gcn = _gcn_graph(np, torch)
     with _Phase("kernels vs plain"):
         ops, errs = phase_kernels(np, torch, plans, gcn)
-    with _Phase("streamed split kernels: contract plans, Inf"):
+    with _Phase("warp-per-sublane kernels: contract plans, Inf, switches"):
         phase_streamy(np, torch, plans, ops)
     with _Phase("df64 and packed kernels vs plain"):
         phase_new_kernels(np, torch, plans, ops, errs)

@@ -9,14 +9,15 @@
 //   sell_bench_split_kernel         split-plane branch, resident y
 //   sell_bench_streamy_kernel       split-plane branch, streamed y
 // Each iteration is the forward sweep of csrc/sell_spmv.cu, in the same
-// body: one thread per slot for three branches (sell_common.cuh,
-// bench_sweeps), one warp per sublane for the streamed split-plane branch
-// (sublane_bench_sweeps: the same (chunk, run) work items as K3-split,
-// walked in a grid-stride loop). The TPU grid runs in order, so the TPU
-// kernel re-zeroes y when an iteration (or, streamed, a y block) starts; on
-// Hopper blocks run in no order, so each iteration here zeroes ALL of y in
-// a grid-stride loop, grid.sync(), sweeps, grid.sync(). Zeroing all of y
-// (not only the visited blocks) keeps a block that no chunk visits at zero.
+// body: one thread per slot for the two merged-word branches
+// (sell_common.cuh, bench_sweeps), one warp per sublane for the two
+// split-plane branches (sublane_bench_sweeps: the (chunk, run) work items
+// of K3-split and K4, walked in a grid-stride loop). The TPU grid runs in
+// order, so the TPU kernel re-zeroes y when an iteration (or, streamed, a
+// y block) starts; on Hopper blocks run in no order, so each iteration
+// here zeroes ALL of y in a grid-stride loop, grid.sync(), sweeps,
+// grid.sync(). Zeroing all of y (not only the visited blocks) keeps a
+// block that no chunk visits at zero.
 // The grid is SMs x co-resident blocks (a larger cooperative grid fails at
 // launch, not at the sync); the occupancy query that sizes it sees each
 // kernel's registers and static shared memory, and the warp-per-sublane
@@ -42,8 +43,8 @@
 // is, so only this window rule lets a wrong stb or ssb show in y. The same
 // N-iteration loop (zero y, grid.sync(), sweep, grid.sync()).
 //
-// C interface (ctypes) as in sell_spmv.cu, misaligned planes on the
-// streamed split route included.
+// C interface (ctypes) as in sell_spmv.cu, misaligned planes and planes
+// of no sublane on the split-plane routes included.
 
 #include "sell_common.cuh"
 
@@ -70,9 +71,9 @@ __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
 }
 
 template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_bench_split_kernel(const Args<V, L> a) {
-  bench_sweeps<SplitPlanes, ResidentY>(a);
+  sublane_bench_sweeps<ResidentY>(a);
 }
 
 // K2-subwin's arguments: the relsl planes (Args) and the sub-chain
@@ -149,7 +150,7 @@ cudaError_t launch_bench(int route, Args<V, L> a, int device,
       a.iterations < 1) {
     return cudaErrorInvalidValue;
   }
-  if (route == kStreamy) {
+  if (split) {  // the warp-per-sublane body
     if (!sublane_aligned(a)) return cudaErrorMisalignedAddress;
     long long items = 0;
     if (!sublane_items(a, &items) || a.n_out % 4) return cudaErrorInvalidValue;

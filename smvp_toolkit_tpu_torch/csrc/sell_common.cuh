@@ -1,11 +1,11 @@
 // The two bodies of the SELL-T1 SpMV that the forward and bench kernels
 // (csrc/sell_spmv.cu, csrc/sell_bench.cu, csrc/sell_packed.cu) run: one
-// thread per slot (`slot`, every route but one) and one warp per sublane
-// (`sublane_run`, the streamed split-plane route: K3-split and K2 streamed
-// split). The decode policies, the slot coordinates, the warp walk over k
-// columns and the cooperative grid also serve the k-column kernels
-// (csrc/sell_spmm.cu, csrc/sell_vals_grad.cu) and the fused solvers
-// (csrc/sell_solvers.cu).
+// thread per slot (`slot`: the merged-word and packed routes) and one warp
+// per sublane (`sublane_run`: both split-plane routes, K3-split and K2
+// streamed split on a streamed y, K4 and K2 split on a resident y). The
+// decode policies, the slot coordinates, the warp walk over k columns and
+// the cooperative grid also serve the k-column kernels (csrc/sell_spmm.cu,
+// csrc/sell_vals_grad.cu) and the fused solvers (csrc/sell_solvers.cu).
 //
 // Per live slot (s, l) of the (S, 128) planes, with c = s / chunk:
 //   y[(ybase(c) + slice(s)) * 128 + l] +=
@@ -224,8 +224,8 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 }
 
 // ---------------------------------------------------------------------------
-// One warp per sublane, split planes (K3-split, K2 streamed split; written
-// over the y policy so that the resident split route can take it).
+// One warp per sublane, split planes, under either y policy (StreamedY:
+// K3-split, K2 streamed split; ResidentY: K4, K2 split).
 //
 // Work item `item` is run r = item % runs of chunk c = item / runs: up to
 // kRun consecutive sublanes of one chunk (chunks never straddle a y block

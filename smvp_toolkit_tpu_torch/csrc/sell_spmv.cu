@@ -8,19 +8,19 @@
 //   K4       sell_split_kernel         <- _make_sell_kernel_resident,
 //                                         _make_sell_kernel_prefetch,
 //                                         _make_sell_kernel
-// K1, K3-relsl and K4 are one body (sell_common.cuh, forward_sweep: one
-// thread per slot) under the two route policies: merged word or split
-// planes, resident or block-streamed y. K3-split, the streamed split-plane
-// route, runs the warp-per-sublane body (sell_common.cuh, sublane_sweep):
-// a block per run of 64 sublanes inside one chunk, the chunk's tile_base
-// and y block read once, the run's rel and slice_of staged in shared
-// memory, a warp per live sublane with one vector load of values and one
-// of lane indices per thread (four lanes each), four x gathers and one
-// float4 atomic into four consecutive rows. The TPU's resident-x /
-// scalar-prefetch / window-stack split is about VMEM and has no meaning
-// here: one kernel serves all three. So does the TPU's one-hot MXU table
-// select and row reduce, which exist because the TPU has no fast gather
-// or scatter; Hopper has both (see sell_common.cuh).
+// K1 and K3-relsl, the merged-word routes, are one body (sell_common.cuh,
+// forward_sweep: one thread per slot) under the two y policies: resident
+// or block-streamed. K3-split and K4, the split-plane routes, run the
+// warp-per-sublane body (sell_common.cuh, sublane_sweep) under the same
+// two policies: a block per run of 64 sublanes inside one chunk, the
+// chunk's tile_base (and, streamed, its y block) read once, the run's rel
+// and slice_of staged in shared memory, a warp per live sublane with one
+// vector load of values and one of lane indices per thread (four lanes
+// each), four x gathers and one float4 atomic into four consecutive rows.
+// The TPU's resident-x / scalar-prefetch / window-stack split is about
+// VMEM and has no meaning here: one kernel serves all three. So does the
+// TPU's one-hot MXU table select and row reduce, which exist because the
+// TPU has no fast gather or scatter; Hopper has both (see sell_common.cuh).
 //
 // Streamed y: the caller zeroes all of y (n_slices * 128 floats) before
 // the launch, so a y block that no chunk visits comes back zero.
@@ -41,8 +41,9 @@
 // success, from cudaGetLastError() right after the launch. Pointers and
 // the stream come in as void*, sizes as long long. The caller's stream is
 // PyTorch's current stream; nothing here allocates or synchronises. On
-// the streamed split route a plane not aligned for the vector loads
-// returns cudaErrorMisalignedAddress and launches nothing.
+// the split-plane routes a plane not aligned for the vector loads returns
+// cudaErrorMisalignedAddress, and planes that are not whole chunks (or
+// hold no sublane) cudaErrorInvalidValue; neither launches anything.
 
 #include "sell_common.cuh"
 
@@ -69,9 +70,9 @@ __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
 }
 
 template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_split_kernel(const Args<V, L> a) {
-  forward_sweep<SplitPlanes, ResidentY>(a);
+  sublane_sweep<ResidentY>(a);
 }
 
 template <typename V, typename L>
@@ -114,7 +115,7 @@ cudaError_t launch_route(int route, const Args<V, L>& a, cudaStream_t st) {
     case kRelsl: return launch(sell_spmv_kernel<V, L>, a, st);
     case kStreamyRelsl: return launch(sell_streamy_relsl_kernel<V, L>, a, st);
     case kStreamy: return launch_sublanes(sell_streamy_kernel<V, L>, a, st);
-    case kSplit: return launch(sell_split_kernel<V, L>, a, st);
+    case kSplit: return launch_sublanes(sell_split_kernel<V, L>, a, st);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -672,7 +672,13 @@ def sell_streamy(vals, lidx, rel, slice_of, tile_base, y_block_id, x, *,
 
 def sell_split(vals, lidx, rel, slice_of, tile_base, x, *, n_slices: int,
                chunk: int) -> torch.Tensor:
-    """K4: y = A·x, split planes, resident y."""
+    """K4: y = A·x, split planes, resident y.
+
+    Its kernel runs one warp per sublane with vector loads of four lanes
+    (``sell_common.cuh::sublane_run``), as K3-split's: a values or
+    lane-index plane not aligned to four elements (a view at an odd
+    offset) raises, and so do planes of no sublane. Views over whole
+    chunks (``SellSpMV._launch_range``) stay aligned."""
     return _dispatch(sell_split, sell_split_plain, "split",
                      dict(vals=vals, lidx=lidx, rel=rel, slice_of=slice_of,
                           tile_base=tile_base),
@@ -719,7 +725,8 @@ def sell_bench_split(vals, lidx, rel, slice_of, tile_base, x, *,
                      n_slices: int, chunk: int,
                      iterations: int) -> torch.Tensor:
     """K2 on the split route: ``iterations`` K4 SpMVs in one cooperative
-    launch; the last y."""
+    launch, in K4's body and alignment rule (planes of no sublane raise
+    too); the last y."""
     return _dispatch(sell_bench_split, sell_bench_split_plain, "split",
                      dict(vals=vals, lidx=lidx, rel=rel, slice_of=slice_of,
                           tile_base=tile_base),

@@ -144,58 +144,117 @@ def test_streamed_empty_middle_block_zero(card):
         assert y[5].item() == 1.5 * 4 and y[17].item() == -2.0 * 500
 
 
+def _split_fns(route):
+    """The forward and N-iteration wrappers of a split-plane route, and
+    the forward's plain version."""
+    fwd, bench = S._ROUTE_FNS[route]
+    return fwd, bench, getattr(S, fwd.__name__ + "_plain")
+
+
+@pytest.mark.parametrize("route", streamy_plans.ROUTES)
 @pytest.mark.parametrize("name", streamy_plans.NAMES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_streamy_kernels_contract(card, name, dtype):
-    """K3-split and K2 streamed split (the warp-per-sublane body) against
-    their plain versions on the contract plans; N = 3 against one launch;
-    Inf at a padding lane's column: NaN in the same rows as the plain
-    version, and only there."""
-    plan = streamy_plans.contract_plan(name)
+def test_streamy_kernels_contract(card, name, dtype, route):
+    """The warp-per-sublane kernels of both split-plane routes (K3-split
+    and K2 streamed split; K4 and K2 split) against their plain versions
+    on the contract plans; N = 3 against one launch; Inf at a padding
+    lane's column: NaN in the same rows as the plain version, and only
+    there."""
+    plan = streamy_plans.contract_plan(name, route)
     op = S.SellSpMV(plan, value_dtype=dtype, device=card)
-    planes, kw = op._planes("streamy"), op._kw()
+    fwd, bench, plain = _split_fns(route)
+    planes, kw = op._planes(route), op._kw()
     x = np.random.default_rng(4).standard_normal(plan.shape[1])
     xt = op._x_tiles(torch.from_numpy(x.astype(np.float32)).to(card))
-    before = (S.sell_streamy.launches, S.sell_bench_streamy.launches)
-    y1 = S.sell_streamy(*planes, xt, **kw)
-    yb1 = S.sell_bench_streamy(*planes, xt, iterations=1, **kw)
-    y3 = S.sell_bench_streamy(*planes, xt, iterations=3, **kw)
-    yp = S.sell_streamy_plain(*planes, xt, **kw)
+    before = (fwd.launches, bench.launches)
+    y1 = fwd(*planes, xt, **kw)
+    yb1 = bench(*planes, xt, iterations=1, **kw)
+    y3 = bench(*planes, xt, iterations=3, **kw)
+    yp = plain(*planes, xt, **kw)
     torch.cuda.synchronize()
-    assert (S.sell_streamy.launches, S.sell_bench_streamy.launches) == (
-        before[0] + 1, before[1] + 2)
+    assert (fwd.launches, bench.launches) == (before[0] + 1, before[1] + 2)
     for y in (y1, yb1, y3):
         assert _rel(y, yp) <= TOL
     assert _rel(y3, y1) <= TOL
     col, rows = streamy_plans.padding_column(plan)
     xt[col] = float("inf")
-    want = torch.isnan(S.sell_streamy_plain(*planes, xt, **kw))
+    want = torch.isnan(plain(*planes, xt, **kw))
     assert want.nonzero().squeeze(1).cpu().numpy().tolist() == rows.tolist()
-    for y in (S.sell_streamy(*planes, xt, **kw),
-              S.sell_bench_streamy(*planes, xt, iterations=3, **kw)):
+    for y in (fwd(*planes, xt, **kw), bench(*planes, xt, iterations=3, **kw)):
         assert torch.equal(torch.isnan(y), want)
         assert torch.isfinite(y[~want]).all()
 
 
+@pytest.mark.parametrize("route", streamy_plans.ROUTES)
 @pytest.mark.parametrize("plane", ["vals", "lidx"])
-def test_streamy_misaligned_plane_raises(card, plane):
+def test_streamy_misaligned_plane_raises(card, plane, route):
     """A plane view at an odd offset: the launch is refused, never run on
     another body or the plain version."""
-    plan = streamy_plans.contract_plan("dead-run-ends-chunk")
+    plan = streamy_plans.contract_plan("dead-run-ends-chunk", route)
     op = S.SellSpMV(plan, device=card)
-    planes, kw = list(op._planes("streamy")), op._kw()
+    fwd, bench, _ = _split_fns(route)
+    planes, kw = list(op._planes(route)), op._kw()
     i = 0 if plane == "vals" else 1
     t = planes[i]
     flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
     planes[i] = flat[1:].view(t.shape)
     planes[i].copy_(t)
     xt = op._x_tiles(torch.ones(plan.shape[1], device=card))
-    before = (S.sell_streamy.launches, S.sell_bench_streamy.launches)
+    before = (fwd.launches, bench.launches)
     with pytest.raises(RuntimeError, match="misaligned"):
-        S.sell_streamy(*planes, xt, **kw)
+        fwd(*planes, xt, **kw)
     with pytest.raises(RuntimeError, match="misaligned"):
-        S.sell_bench_streamy(*planes, xt, iterations=2, **kw)
-    assert (S.sell_streamy.launches, S.sell_bench_streamy.launches) == before
+        bench(*planes, xt, iterations=2, **kw)
+    assert (fwd.launches, bench.launches) == before
+
+
+@pytest.mark.parametrize("route", streamy_plans.ROUTES)
+def test_split_no_live_sublane_zero(card, route):
+    """A plan with no live sublane: both kernels launch and return y = 0,
+    as their plain versions do."""
+    op, planes, kw = streamy_plans.no_live_planes(route)
+    planes = [t.to(card) for t in planes]
+    fwd, bench, _ = _split_fns(route)
+    xt = torch.ones(op.plan.n_coltiles * 128, device=card)
+    before = (fwd.launches, bench.launches)
+    for y in (fwd(*planes, xt, **kw), bench(*planes, xt, iterations=2, **kw)):
+        assert y.shape == (op.plan.n_slices * 128,) and not y.any()
+    assert (fwd.launches, bench.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("route", streamy_plans.ROUTES)
+def test_split_planes_of_no_sublane(card, route):
+    """Planes of no sublane at all: both launches are refused (no work
+    item), with no launch counted."""
+    plan = streamy_plans.contract_plan("dead-run-ends-chunk", route)
+    op = S.SellSpMV(plan, device=card)
+    fwd, bench, _ = _split_fns(route)
+    planes = [t[:0] for t in op._planes(route)]
+    xt = op._x_tiles(torch.ones(plan.shape[1], device=card))
+    before = (fwd.launches, bench.launches)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        fwd(*planes, xt, **op._kw())
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        bench(*planes, xt, iterations=2, **op._kw())
+    assert (fwd.launches, bench.launches) == before
+
+
+def test_split_launch_views_match_plain(card, monkeypatch):
+    """SMVP_SELL_SPLIT=3 on the resident int32-lane plan (chunk 200): three
+    K4 launches on views over chunk ranges, each aligned for the vector
+    loads, summed to the plain version's y."""
+    plan = streamy_plans.contract_plan("int32-lidx", "split")
+    op = S.SellSpMV(plan, device=card)
+    assert op.route == "split" and op.lidx.dtype == torch.int32
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        plan.shape[1]).astype(np.float32)).to(card)
+    yp = S.sell_split_plain(*op._planes(), op._x_tiles(x), **op._kw())
+    monkeypatch.setenv("SMVP_SELL_SPLIT", "3")
+    before = S.sell_split.launches
+    y = op(x)
+    torch.cuda.synchronize()
+    assert S.sell_split.launches == before + plan.n_chunks == before + 3
+    assert _rel(y, yp[: plan.shape[0]]) <= TOL
 
 
 def test_cli_tjds_path_launches_kernels(card):
