@@ -21,11 +21,12 @@ Phases; any failure exits non-zero and prints no result line:
    with empty rows, a matrix with no nonzeros, a plan with int32 lane
    indices (chunk 200), a streamed-y plan with an empty middle y block, a
    streamed-y plan with int32 lane indices, a small streamed split plan, a
-   resident split plan (WT > 511), five streamed plans with the edges of
-   the warp-per-sublane walk (split planes with a run of dead sublanes
-   ending each chunk, with an empty middle y block, with int32 lane
-   indices, with one live sublane in a chunk; a chunk of one sublane),
-   and the four full-size configurations:
+   resident split plan (WT > 511), ten streamed plans with the edges of
+   the warp-per-sublane walk, five on split planes (547 column tiles) and
+   five on the merged word (469 column tiles): a run of dead sublanes
+   ending each chunk, an empty middle y block, int32 lane indices, one
+   live sublane in a chunk, a chunk of one sublane; and the four
+   full-size configurations:
    - smoke: BASELINE.json's synthetic 10M-nnz matrix,
      ``synth:1000000:10000000`` (resident y, merged word: K1, K2);
    - L1: ``synth:4194304:41943040``, 64 y blocks (streamed y, merged word:
@@ -47,20 +48,24 @@ Phases; any failure exits non-zero and prints no result line:
    SpMV input skips the bf16 rounding) must exceed it, and after 30 steps
    <= 2^-7, since a one-ulp float32 difference now and then flips the bf16
    rounding of an SpMV input entry and CG carries the jump on.
-   The warp-per-sublane kernels of both split-plane routes, K3-split and
-   K2 streamed split on the split planes of every small streamed plan and
+   The warp-per-sublane kernels of all four routes: K3-split and K2
+   streamed split on the split planes of every small streamed plan and
    K4 and K2 split on those of every small resident plan (merged-word
    plans through ``split_planes``) and of each streamed plan's resident-y
-   variant, float32 and bfloat16: N = 1 and N = 3 against the plain
-   version and N = 3 against one launch (<= 1e-6); with Inf in x at a
-   padding lane's column (there, at L3 and at L2), their NaN and Inf
-   positions must equal the plain version's (a padding slot's 0 · Inf
-   lands NaN in its row), with at least one NaN; a plan with no live
-   sublane (nnz0's split planes) must give y = 0. Then K4 through the
+   variant; K3-relsl and K1 (with their thread-per-slot N-iteration
+   kernels) on the merged word of every small merged-word plan, of the
+   resident-y variants of the streamed ones, and of smoke and L1;
+   float32 and bfloat16: N = 1 and N = 3 against the plain version and
+   N = 3 against one launch (<= 1e-6); with Inf in x at a padding lane's
+   column (there, at L3, L2, L1 and smoke), their NaN and Inf positions
+   must equal the plain version's (a padding slot's 0 · Inf lands NaN in
+   its row), with at least one NaN; a plan with no live sublane (nnz0's
+   merged word and split planes) must give y = 0. Then K4 through the
    operator against its plain version: on smoke's split planes under
    ``SMVP_SELL_RELSL=0`` (one launch), with ``SMVP_SELL_SPLIT=4`` too,
    and on L2 under ``SMVP_SELL_SPLIT=4`` (four launches on views over
-   chunk ranges).
+   chunk ranges); and K1 on smoke under ``SMVP_SELL_SPLIT=4`` (four
+   launches) and on smoke's int32 lane planes (``SMVP_SELL_LIDX32=1``).
    K8 (double-float) on every small resident merged-word plan, without
    and with a lo plane (the streamed and WT > 511 plans must be refused),
    on the JAX suite's cancelling rows and on its edge scales (exact): its
@@ -185,12 +190,20 @@ Phases; any failure exits non-zero and prints no result line:
    takes bf16-rounded vals and x; the report prints 6 significant digits,
    which fits the bound).
 4. One ``{"kernels": [...]}`` line: per kernel, configuration and value
-   dtype, its time per launch from CUDA events, its launches in the
+   dtype, its time per launch from CUDA events (K1's and K3-relsl's, and
+   their library calls', with the launches queued behind a spin kernel,
+   so that the host's work per call does not pace the card; their
+   host-paced times beside, ``host_paced_ms`` and
+   ``host_paced_library_ms``), its launches in the
    main-path run (the k = 1 route entries name their ``body``:
-   ``warp-per-sublane`` for K3-split, K4 and their N-iteration kernels,
-   ``thread-per-slot`` for the others, and their slot rate
-   ``g_slots_per_s``; a ``[time]`` line gives each N-iteration kernel's
-   time per iteration against one launch of its forward kernel), its
+   ``warp-per-sublane`` for the four forward kernels and the split
+   routes' N-iteration kernels, ``thread-per-slot`` for K2 and K2
+   streamed, and their slot rate ``g_slots_per_s``; a ``[time]`` line
+   gives each N-iteration kernel's time per iteration against one launch
+   of its forward kernel; a ``[grid]`` line gives K1's and K3-relsl's
+   blocks and waves, and on smoke K1's time over the first one and two
+   waves' chunks; phase 1's ``[regs]`` line the forward kernels'
+   registers and spills; smoke-dp4's ``[time]`` lines K1 per shard), its
    bound (bytes of its route over the card's memory rate, or 2·nnz·k·N
    flops over the float32 rate, the larger; K7 counts
    2·k flops per slot of a live sublane), the plain version's time and a
@@ -290,11 +303,25 @@ KERNELS = {
     "sell_bench_subwin_kernel": ("sell_bench.cu", "spmv_pallas.py:782"),
 }
 # The k = 1 route kernels that run the warp-per-sublane body
-# (sell_common.cuh, sublane_run); the others run one thread per slot. A
+# (sell_common.cuh, sublane_run): every forward kernel (K1 and K3-relsl
+# staging the merged word, K3-split and K4 the split planes) and the split
+# routes' N-iteration kernels; the others run one thread per slot. A
 # phase-4 entry names its body, so that a time can be told from the
 # thread-per-slot times these kernels had before.
-WARP_PER_SUBLANE = ("sell_streamy_kernel", "sell_bench_streamy_kernel",
+WARP_PER_SUBLANE = ("sell_spmv_kernel", "sell_streamy_relsl_kernel",
+                    "sell_streamy_kernel", "sell_bench_streamy_kernel",
                     "sell_split_kernel", "sell_bench_split_kernel")
+# Clock cycles of the spin kernel behind which ``_time_ms(queued=True)``
+# queues its calls: about 25 ms at the H100's clocks, far more than the
+# host takes to queue 20 calls of a wrapper.
+QUEUE_SPIN_CYCLES = 50_000_000
+# The forward kernels' work items (sell_common.cuh: kRun sublanes of one
+# chunk per block) and co-resident blocks per SM (kSublaneMinBlocks).
+SUBLANE_RUN = 64
+SUBLANE_BLOCKS_PER_SM = 8
+# The merged-word routes (K1, K3-relsl): their forward kernels and library
+# calls are timed queued (``_time_ms``), the host-paced times beside.
+MERGED_ROUTES = ("relsl", "streamy_relsl")
 # K2-cocluster: K2 on the co-clustered permuted planes, the JAX
 # CoClusteredSellSpMV.bench_loop (no pallas_call of its own).
 COCLUSTER_REPLACES = "spmv_pallas.py:2727"
@@ -373,20 +400,37 @@ def _check(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def _time_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean time per call from CUDA events around ``reps`` calls."""
+def _time_ms(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
+    """Mean time per call from CUDA events around ``reps`` calls.
+
+    With ``queued``, a spin kernel (``torch.cuda._sleep``) holds the card
+    while the host queues the calls behind the start event, so that the
+    host's work per call (a wrapper's checks, its ctypes call, the output's
+    allocation) does not pace the card, and the events time the card's
+    work alone. It fails if the host took longer to queue them than the
+    card spun."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    spin = torch.cuda.Event(enable_timing=True)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queued:
+        spin.record()
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(reps):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3
     end.record()
     torch.cuda.synchronize()
+    if queued:
+        spin_ms = spin.elapsed_time(start)
+        _check(host_ms < spin_ms, f"queued timing: the host took {host_ms:.3f} "
+               f"ms to queue {reps} calls, the card spun {spin_ms:.3f} ms")
     return start.elapsed_time(end) / reps
 
 
@@ -583,34 +627,45 @@ def _small_plans(np):
 
 
 def _streamy_contract_plans(np, build):
-    """Streamed plans over 547 column tiles (WT > 511: split planes) in
-    2048-row y blocks, one chunk per block, with the edges of the
-    warp-per-sublane walk (a block per run of sublanes inside one chunk):
-    a run of dead sublanes ending every chunk, an empty middle y block (an
-    all-dead chunk), int32 lane indices (chunk 200), a chunk of a single
-    sublane (chunk 1, whose window is one tile), and a chunk whose only
-    live sublane is its first."""
+    """Streamed plans in 2048-row y blocks, one chunk per block, with the
+    edges of the warp-per-sublane walk (a block per run of sublanes inside
+    one chunk): a run of dead sublanes ending every chunk, an empty middle
+    y block (an all-dead chunk), int32 lane indices (chunk 200), a chunk
+    of a single sublane (chunk 1, whose window is one tile), and a chunk
+    whose only live sublane is its first. Over 547 column tiles (WT > 511:
+    split planes) and, ``merged-``, over 469 (WT 480: the merged word,
+    whose padding sublanes carry a live rel and a dead slice)."""
     rng = np.random.RandomState(8)
     b = 2048
 
-    def coords(blocks, per_block):
+    def coords(blocks, per_block, ncols):
         rows = np.concatenate([rng.randint(k * b, (k + 1) * b, per_block)
                                for k in blocks])
-        return rows, rng.randint(0, 70000, rows.size), rng.randn(rows.size)
+        return rows, rng.randint(0, ncols, rows.size), rng.randn(rows.size)
 
-    def plan(coo, chunk):
-        return build(*coo, (3 * b, 70000), chunk=chunk, y_block_rows=b)
+    def plan(coo, chunk, ncols):
+        return build(*coo, (3 * b, ncols), chunk=chunk, y_block_rows=b)
 
-    r, c, v = coords((0, 2), 200)
-    lone = (np.append(r, b + 77), np.append(c, 4097), np.append(v, 2.5))
-    return [
-        ("streamed-split-dead-run-ends-chunk",
-         plan(coords((0, 1, 2), 200), 256)),
-        ("streamed-split-empty-middle-block", plan((r, c, v), 256)),
-        ("streamed-split-int32-lidx", plan(coords((0, 1, 2), 150), 200)),
-        ("streamed-single-sublane-chunk", plan(coords((0, 1, 2), 200), 1)),
-        ("streamed-split-single-live-sublane", plan(lone, 256)),
-    ]
+    out = []
+    for kind, ncols in (("split", 70000), ("merged", 60000)):
+        r, c, v = coords((0, 2), 200, ncols)
+        lone = (np.append(r, b + 77), np.append(c, 4097), np.append(v, 2.5))
+        out += [
+            (f"streamed-{kind}-dead-run-ends-chunk",
+             plan(coords((0, 1, 2), 200, ncols), 256, ncols)),
+            (f"streamed-{kind}-empty-middle-block",
+             plan((r, c, v), 256, ncols)),
+            (f"streamed-{kind}-int32-lidx",
+             plan(coords((0, 1, 2), 150, ncols), 200, ncols)),
+            ("streamed-single-sublane-chunk" if kind == "split" else
+             f"streamed-{kind}-single-sublane-chunk",
+             plan(coords((0, 1, 2), 200, ncols), 1, ncols)),
+            (f"streamed-{kind}-single-live-sublane", plan(lone, 256, ncols)),
+        ]
+    for name, p in out[5:]:
+        _check(p.merged_word and p.window_tiles <= 511,
+               f"{name}: not a merged-word plan")
+    return out
 
 
 def _spmm_tolerance(torch, S, op):
@@ -784,21 +839,47 @@ def _split_cases(np, torch, plans, ops):
     return cases
 
 
-def phase_streamy(np, torch, plans, ops):
-    """Phase 2 for the warp-per-sublane body on both split-plane routes:
-    K3-split and K2 streamed split, K4 and K2 split (N = 1 and N = 3) on
-    the split planes of ``_split_cases``, float32 and bfloat16, against the
-    plain version and N = 3 against one launch (<= 1e-6 of max |y|); with
-    Inf at a padding lane's column (small plans, L3 and L2), the NaN and
-    Inf positions of both kernels equal the plain version's, and there is
-    at least one NaN; a plan with no live sublane gives y = 0. Then K4
-    through the operator on smoke's split planes (``SMVP_SELL_RELSL=0``)
-    and on four chunk ranges of views (``SMVP_SELL_SPLIT=4``, smoke and
-    L2) against the plain version."""
+def _merged_cases(np, torch, plans, ops):
+    """(name, operator, route) of every merged-word check: every small
+    merged-word plan on its own route (K1 and K2 resident, K3-relsl and
+    K2 streamed), the resident-y variants of the streamed ones (K1, K2),
+    and smoke and L1."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
     dev = torch.device(DEVICE)
-    for name, op, route in _split_cases(np, torch, plans, ops):
+    small = [(n, p) for n, p in plans if n not in ROUTE and p.merged_word]
+    small += [(f"resident-y:{n}", _resident(np, p)) for n, p in small
+              if p.y_block_slices]
+    cases = []
+    for n, p in small:
+        for d in DTYPE_NAMES:
+            op = S.SellSpMV(p, value_dtype=getattr(torch, d), device=dev)
+            cases.append((n, op, op.base_route))
+    cases += [(n, ops[(n, d)][0], ROUTE[n]) for n in ("L1", "smoke")
+              for d in DTYPE_NAMES]
+    return cases
+
+
+def phase_streamy(np, torch, plans, ops):
+    """Phase 2 for the warp-per-sublane body on all four routes: K3-split
+    and K2 streamed split, K4 and K2 split (N = 1 and N = 3) on the split
+    planes of ``_split_cases``, and K3-relsl and K1 with their
+    thread-per-slot N-iteration kernels on the merged word of
+    ``_merged_cases``, float32 and bfloat16, against the plain version and
+    N = 3 against one launch (<= 1e-6 of max |y|; phase 2 holds the
+    full-size plans'); with Inf at a padding lane's column (small plans,
+    L3, L2, L1 and smoke), the NaN and Inf positions of both kernels equal
+    the plain version's, and there is at least one NaN; a plan with no
+    live sublane gives y = 0. Then K4 through the operator on smoke's
+    split planes (``SMVP_SELL_RELSL=0``) and on four chunk ranges of views
+    (``SMVP_SELL_SPLIT=4``, smoke and L2), and K1 on smoke's four chunk
+    ranges (``SMVP_SELL_SPLIT=4``) and on its int32 lane planes
+    (``SMVP_SELL_LIDX32=1``), against the plain version."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    dev = torch.device(DEVICE)
+    for name, op, route in (_split_cases(np, torch, plans, ops)
+                            + _merged_cases(np, torch, plans, ops)):
         fwd, bench = S._ROUTE_FNS[route]
         plain = getattr(S, fwd.__name__ + "_plain")
         names = f"{S.KERNEL_NAMES[(route, False)]}, " \
@@ -869,6 +950,33 @@ def phase_streamy(np, torch, plans, ops):
                    f"plain: {e}")
             print(f"[check] {name} {dname} under {env}: {n} sell_split_kernel "
                   f"launch(es) vs plain {e:.3e}", flush=True)
+    for dname in DTYPE_NAMES:
+        op, x = ops[("smoke", dname)]
+        with _env(SMVP_SELL_SPLIT=str(SPLIT_N)):
+            _check(op.route == "relsl", f"smoke under SPLIT runs on "
+                   f"{op.route}")
+            before = S.sell_spmv.launches
+            y = op(x)
+            n = S.sell_spmv.launches - before
+        yp = S.sell_spmv_plain(*op._planes(), op._x_tiles(x),
+                               **op._kw())[: op.shape[0]]
+        with _env(SMVP_SELL_LIDX32="1"):
+            op32 = S.SellSpMV(op.plan, value_dtype=op.value_dtype, device=dev)
+        _check(op32.lidx.dtype == torch.int32, "LIDX32=1 kept int8 lanes")
+        xt = op32._x_tiles(x)
+        y32 = S.sell_spmv(*op32._planes(), xt, **op32._kw())
+        y32p = S.sell_spmv_plain(*op32._planes(), xt, **op32._kw())
+        torch.cuda.synchronize()
+        e, e32 = _rel_err(y, yp), _rel_err(y32, y32p)
+        del op32, y32, y32p
+        _check(n == SPLIT_N, f"smoke under SPLIT={SPLIT_N}: {n} K1 launches")
+        _check(e <= TOL_KERNEL, f"K1 on smoke {dname} under SPLIT={SPLIT_N} "
+               f"vs plain: {e}")
+        _check(e32 <= TOL_KERNEL, f"K1 on smoke {dname} under LIDX32=1 vs "
+               f"plain: {e32}")
+        print(f"[check] smoke {dname}: {n} sell_spmv_kernel launches under "
+              f"SMVP_SELL_SPLIT={SPLIT_N} vs plain {e:.3e}; on int32 lanes "
+              f"(SMVP_SELL_LIDX32=1) vs plain {e32:.3e}", flush=True)
 
 
 def _oracle(np, torch, triplets, dname):
@@ -1249,6 +1357,47 @@ def _entry(kname, config, dname, *, launches, err, ms, plain_ms, lib_ms,
     }
 
 
+def _sublane_blocks(plan):
+    """Blocks of one warp-per-sublane forward launch: chunks x runs."""
+    return plan.n_chunks * -(-plan.chunk // SUBLANE_RUN)
+
+
+def _sublane_grid(torch, name, op):
+    """The forward kernel's grid on a full-size plan, in waves of
+    co-resident blocks; on smoke (resident y), K1's time over views of the
+    first one and two waves' chunks beside the whole launch, to show what
+    the last, partial wave costs."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    plan = op.plan
+    runs = -(-plan.chunk // SUBLANE_RUN)
+    wave = torch.cuda.get_device_properties(0).multi_processor_count * \
+        SUBLANE_BLOCKS_PER_SM
+    blocks = _sublane_blocks(plan)
+    kname = S.KERNEL_NAMES[(op.base_route, False)]
+    dname = str(op.value_dtype)[6:]
+    line = (f"[grid] {kname} on {name} {dname}: {plan.n_chunks} chunks x "
+            f"{runs} runs = {blocks} blocks of 256 threads, "
+            f"{blocks / wave:.2f} waves of {wave}")
+    if not plan.y_block_slices:
+        per_wave = wave // runs
+        xt = op._x_tiles(torch.ones(plan.shape[1], device=op.device))
+        parts = []
+        for c in (per_wave, 2 * per_wave, plan.n_chunks):
+            if c > plan.n_chunks:
+                continue
+            cut = c * plan.chunk
+            args = (op.vals[:cut], op.lidx[:cut], op.relsl[:cut],
+                    op.tile_base[:c], xt)
+            ms = _time_ms(lambda: S.sell_spmv(
+                *args, n_slices=plan.n_slices, chunk=plan.chunk), reps=20,
+                queued=True)
+            parts.append(f"{c} chunks ({c * runs / wave:.2f} waves) "
+                         f"{ms:.6f} ms = {ms / c * 1e3:.4f} us per chunk")
+        line += "; " + ", ".join(parts)
+    print(line, flush=True)
+
+
 def phase_timings(np, torch, ops, errs, launches, configs, bw):
     """Phase 4: one entry per k = 1 kernel, configuration and value dtype."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
@@ -1283,7 +1432,16 @@ def phase_timings(np, torch, ops, errs, launches, configs, bw):
                     plain_ms = _time_ms(lambda: plain(*planes, xt, **kw),
                                         reps=3)
                     lib_ms = _time_ms(lambda: torch.sparse.mm(a, x2), reps=20)
+                    if route in MERGED_ROUTES:
+                        # the card's time alone; the host-paced times beside
+                        queued = dict(
+                            host_paced_ms=ms, host_paced_library_ms=lib_ms)
+                        ms = _time_ms(lambda: fn(*planes, xt, **kw), reps=20,
+                                      queued=True)
+                        lib_ms = _time_ms(lambda: torch.sparse.mm(a, x2),
+                                          reps=20, queued=True)
                 iters = n_iter if bench else 1
+                extra = {} if bench or route not in MERGED_ROUTES else queued
                 entries.append(_entry(
                     kname, name, dname,
                     launches=launches[(kname, name, dname)],
@@ -1293,7 +1451,9 @@ def phase_timings(np, torch, ops, errs, launches, configs, bw):
                     flops=2.0 * plan.nnz * iters, bw=bw, iters=iters,
                     body=("warp-per-sublane" if kname in WARP_PER_SUBLANE
                           else "thread-per-slot"),
-                    g_slots_per_s=plan.slots() * iters / ms * 1e-6))
+                    g_slots_per_s=plan.slots() * iters / ms * 1e-6, **extra))
+            if route in MERGED_ROUTES:
+                _sublane_grid(torch, name, op)
             fwd_ms, bench_ms = (e["ms"] for e in entries[-2:])
             print(f"[time] {name} {dname}: {S.KERNEL_NAMES[(route, True)]} "
                   f"{bench_ms / n_iter:.6f} ms per iteration = "
@@ -3098,6 +3258,15 @@ def phase_dist_timings(np, torch, configs, dist_shards, dp1, launches, bw):
                 kw = dict(n_slices=s.NSl, chunk=s.chunk, iterations=n_iter)
                 ms = _time_ms(lambda: S.sell_bench_loop(*planes, xt, **kw),
                               reps=3, warmup=1)
+                if config == "smoke-dp4":
+                    k1_ms = _time_ms(lambda: S.sell_spmv(
+                        *planes, xt, n_slices=s.NSl, chunk=s.chunk), reps=20,
+                        queued=True)
+                    print(f"[time] smoke-dp4 shard {s.rank} {dname}: "
+                          f"sell_spmv_kernel (warp per sublane, "
+                          f"{_sublane_blocks(o.plan)} blocks) {k1_ms:.6f} ms "
+                          f"per launch; sell_bench_kernel (thread per slot) "
+                          f"{ms / n_iter:.6f} ms per iteration", flush=True)
                 plain_ms = _time_ms(lambda: S.sell_bench_loop_plain(
                     *planes, xt, **kw), reps=1, warmup=0)
                 yk = S.sell_bench_loop(*planes, xt, **kw)
@@ -3144,6 +3313,11 @@ def main() -> int:
         print(f"[build] {len(logs)} source(s) built: {sorted(logs)}; "
               f"registers per thread: {regs}; spill stores {spills} bytes "
               f"(most in one type instance: {spilled})", flush=True)
+        print("[regs] warp-per-sublane forward kernels (most over their "
+              "value and index types): " + "; ".join(
+                  f"{k} {regs.get(k)} registers, spill stores "
+                  f"{spilled.get(k, 0)} bytes" for k in WARP_PER_SUBLANE
+                  if "bench" not in k), flush=True)
         from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
         grid = {(r, d): S.bench_blocks(getattr(torch, d), torch.int8,

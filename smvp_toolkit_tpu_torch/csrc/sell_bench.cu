@@ -8,11 +8,12 @@
 //   sell_bench_streamy_relsl_kernel relsl branch, streamed y
 //   sell_bench_split_kernel         split-plane branch, resident y
 //   sell_bench_streamy_kernel       split-plane branch, streamed y
-// Each iteration is the forward sweep of csrc/sell_spmv.cu, in the same
-// body: one thread per slot for the two merged-word branches
-// (sell_common.cuh, bench_sweeps), one warp per sublane for the two
-// split-plane branches (sublane_bench_sweeps: the (chunk, run) work items
-// of K3-split and K4, walked in a grid-stride loop). The TPU grid runs in
+// Each iteration computes the forward sweep of csrc/sell_spmv.cu: one
+// thread per slot for the two merged-word branches (sell_common.cuh,
+// bench_sweeps; their forward kernels K1 and K3-relsl run one warp per
+// sublane), one warp per sublane for the two split-plane branches
+// (sublane_bench_sweeps under the split staging: the (chunk, run) work
+// items of K3-split and K4, walked in a grid-stride loop). The TPU grid runs in
 // order, so the TPU kernel re-zeroes y when an iteration (or, streamed, a
 // y block) starts; on Hopper blocks run in no order, so each iteration
 // here zeroes ALL of y in a grid-stride loop, grid.sync(), sweeps,
@@ -67,13 +68,13 @@ __global__ void __launch_bounds__(kThreads)
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_bench_streamy_kernel(const Args<V, L> a) {
-  sublane_bench_sweeps<StreamedY>(a);
+  sublane_bench_sweeps<SplitPlanes, StreamedY>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_bench_split_kernel(const Args<V, L> a) {
-  sublane_bench_sweeps<ResidentY>(a);
+  sublane_bench_sweeps<SplitPlanes, ResidentY>(a);
 }
 
 // K2-subwin's arguments: the relsl planes (Args) and the sub-chain

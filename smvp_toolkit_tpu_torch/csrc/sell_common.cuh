@@ -1,11 +1,13 @@
 // The two bodies of the SELL-T1 SpMV that the forward and bench kernels
 // (csrc/sell_spmv.cu, csrc/sell_bench.cu, csrc/sell_packed.cu) run: one
-// thread per slot (`slot`: the merged-word and packed routes) and one warp
-// per sublane (`sublane_run`: both split-plane routes, K3-split and K2
-// streamed split on a streamed y, K4 and K2 split on a resident y). The
-// decode policies, the slot coordinates, the warp walk over k columns and
-// the cooperative grid also serve the k-column kernels (csrc/sell_spmm.cu,
-// csrc/sell_vals_grad.cu) and the fused solvers (csrc/sell_solvers.cu).
+// warp per sublane (`sublane_run`: every k = 1 forward kernel of the four
+// routes, K1 and K3-relsl on the merged word, K3-split and K4 on the split
+// planes, and the split routes' N-iteration kernels) and one thread per
+// slot (`slot`: the merged-word routes' N-iteration kernels K2 and K2
+// streamed, the packed route, K2-subwin). The decode policies, the slot
+// coordinates, the warp walk over k columns and the cooperative grid also
+// serve the k-column kernels (csrc/sell_spmm.cu, csrc/sell_vals_grad.cu)
+// and the fused solvers (csrc/sell_solvers.cu).
 //
 // Per live slot (s, l) of the (S, 128) planes, with c = s / chunk:
 //   y[(ybase(c) + slice(s)) * 128 + l] +=
@@ -38,9 +40,10 @@
 //
 // One warp per sublane (the section below `sublane_run`): a block takes a
 // run of sublanes inside one chunk, reads the chunk's metadata once and
-// stages the run's rel and slice ids in shared memory; each thread covers
-// four consecutive lanes with one vector load of values and one of lane
-// indices, and adds its four products with one vector atomic.
+// stages the run's rel and slice ids in shared memory (from the merged
+// word, one load per sublane, or from the two split planes); each thread
+// covers four consecutive lanes with one vector load of values and one of
+// lane indices, and adds its four products with one vector atomic.
 
 #pragma once
 
@@ -117,6 +120,18 @@ struct MergedWord : ValuePlanes {
     *slice = sl;
     return true;
   }
+  // The warp-per-sublane body's staging of sublane s: its rel and slice,
+  // -1 in both when either field is dead.
+  template <class A>
+  __device__ __forceinline__ static void stage(const A& a, long long s,
+                                               int* rel, int* slice) {
+    const unsigned word = static_cast<unsigned>(a.meta[s]);
+    const unsigned r = word & kRelDead;
+    const unsigned sl = word >> kSliceShift;
+    const bool dead = r == kRelDead || sl == kSliceDead;
+    *rel = dead ? -1 : static_cast<int>(r);
+    *slice = dead ? -1 : static_cast<int>(sl);
+  }
 };
 
 struct SplitPlanes : ValuePlanes {
@@ -130,6 +145,12 @@ struct SplitPlanes : ValuePlanes {
     *rel = r;
     *slice = sl;
     return true;
+  }
+  template <class A>
+  __device__ __forceinline__ static void stage(const A& a, long long s,
+                                               int* rel, int* slice) {
+    *rel = a.meta[s];
+    *slice = a.slice[s];
   }
 };
 
@@ -224,15 +245,19 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 }
 
 // ---------------------------------------------------------------------------
-// One warp per sublane, split planes, under either y policy (StreamedY:
-// K3-split, K2 streamed split; ResidentY: K4, K2 split).
+// One warp per sublane, under a staging policy (MergedWord: K1 on a
+// resident y, K3-relsl on a streamed one; SplitPlanes: K3-split and K2
+// streamed split on a streamed y, K4 and K2 split on a resident one) and a
+// y policy.
 //
 // Work item `item` is run r = item % runs of chunk c = item / runs: up to
 // kRun consecutive sublanes of one chunk (chunks never straddle a y block
 // in a streamed plan), so c, tile_base[c] and the chunk's y base come once
 // per item in 32-bit index arithmetic, with one 64-bit base per run and
 // 32-bit offsets inside it. The block stages the run's rel and slice ids
-// in shared memory with one coalesced load, then each warp walks every
+// in shared memory (Stage::stage: thread t loads sublane s0 + t's merged
+// word and decodes it, -1 in both where rel or slice is dead; or its two
+// split words), then each warp walks every
 // kWarps-th sublane: a dead one (rel < 0 or slice < 0) is skipped before
 // any plane load; a live one costs each thread one 16-byte load of four
 // values (8 bytes in bf16), one load of four lane indices (4 bytes int8,
@@ -299,7 +324,7 @@ __device__ __forceinline__ void add_rows4(float* y, const float (&p)[4]) {
 }
 
 // All kThreads threads of the block call it with the same item.
-template <class YAddr, typename V, typename L>
+template <class Stage, class YAddr, typename V, typename L>
 __device__ __forceinline__ void sublane_run(const Args<V, L>& a, int runs,
                                             int item, int* s_rel,
                                             int* s_slice) {
@@ -310,8 +335,8 @@ __device__ __forceinline__ void sublane_run(const Args<V, L>& a, int runs,
   const long long tile0 = a.tile_base[c];
   const long long ybase = YAddr::base(a, c);
   if (threadIdx.x < n) {
-    s_rel[threadIdx.x] = a.meta[s0 + threadIdx.x];
-    s_slice[threadIdx.x] = a.slice[s0 + threadIdx.x];
+    Stage::stage(a, s0 + threadIdx.x, &s_rel[threadIdx.x],
+                 &s_slice[threadIdx.x]);
   }
   __syncthreads();
   const int lane4 = 4 * (threadIdx.x & 31);
@@ -336,17 +361,17 @@ __device__ __forceinline__ void sublane_run(const Args<V, L>& a, int runs,
 }
 
 // The forward kernel's body: work item blockIdx.x.
-template <class YAddr, typename V, typename L>
+template <class Stage, class YAddr, typename V, typename L>
 __device__ __forceinline__ void sublane_sweep(const Args<V, L>& a) {
   __shared__ int s_rel[kRun], s_slice[kRun];
-  sublane_run<YAddr>(a, runs_per_chunk(a.chunk), blockIdx.x, s_rel,
-                     s_slice);
+  sublane_run<Stage, YAddr>(a, runs_per_chunk(a.chunk), blockIdx.x, s_rel,
+                            s_slice);
 }
 
 // The N-iteration body (one cooperative launch), as bench_sweeps: each
 // iteration zeroes all of y (float4 stores), grid.sync(), walks the work
 // items in a grid-stride loop, grid.sync().
-template <class YAddr, typename V, typename L>
+template <class Stage, class YAddr, typename V, typename L>
 __device__ __forceinline__ void sublane_bench_sweeps(const Args<V, L>& a) {
   __shared__ int s_rel[kRun], s_slice[kRun];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
@@ -363,7 +388,7 @@ __device__ __forceinline__ void sublane_bench_sweeps(const Args<V, L>& a) {
     }
     grid.sync();
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      sublane_run<YAddr>(a, runs, item, s_rel, s_slice);
+      sublane_run<Stage, YAddr>(a, runs, item, s_rel, s_slice);
     }
     grid.sync();
   }

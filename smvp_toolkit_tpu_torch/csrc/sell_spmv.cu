@@ -8,15 +8,16 @@
 //   K4       sell_split_kernel         <- _make_sell_kernel_resident,
 //                                         _make_sell_kernel_prefetch,
 //                                         _make_sell_kernel
-// K1 and K3-relsl, the merged-word routes, are one body (sell_common.cuh,
-// forward_sweep: one thread per slot) under the two y policies: resident
-// or block-streamed. K3-split and K4, the split-plane routes, run the
-// warp-per-sublane body (sell_common.cuh, sublane_sweep) under the same
-// two policies: a block per run of 64 sublanes inside one chunk, the
-// chunk's tile_base (and, streamed, its y block) read once, the run's rel
-// and slice_of staged in shared memory, a warp per live sublane with one
-// vector load of values and one of lane indices per thread (four lanes
-// each), four x gathers and one float4 atomic into four consecutive rows.
+// All four run one body, the warp per sublane (sell_common.cuh,
+// sublane_sweep), under a staging policy and a y policy: K1 and K3-relsl
+// stage the merged rel‖slice word (one int32 load per sublane), K3-split
+// and K4 the two split planes; K1 and K4 write a resident y, K3-relsl and
+// K3-split a block-streamed one. A block takes a run of 64 sublanes inside
+// one chunk, reads the chunk's tile_base (and, streamed, its y block)
+// once, stages the run's rel and slice in shared memory, and a warp per
+// live sublane does one vector load of values and one of lane indices per
+// thread (four lanes each), four x gathers and one float4 atomic into four
+// consecutive rows.
 // The TPU's resident-x / scalar-prefetch / window-stack split is about
 // VMEM and has no meaning here: one kernel serves all three. So does the
 // TPU's one-hot MXU table select and row reduce, which exist because the
@@ -32,16 +33,16 @@
 // once (SellPlan.traffic_bytes). The arithmetic, 2 flops per nonzero, is
 // far below the card's rate. The design reads each plane byte once per
 // launch and skips the atomic for zero products, which are most of the
-// slots at the planes' occupancy. The one-thread-per-slot body runs at a
-// slot rate, not the byte rate: its cost is the instructions per slot (a
-// 64-bit divide, four metadata loads); the warp-per-sublane body spends
-// them once per chunk, sublane or four slots.
+// slots at the planes' occupancy. The warp-per-sublane body spends the
+// index work (the chunk's divide, the metadata loads, 64-bit addressing)
+// once per chunk, sublane or four slots, where one thread per slot spent
+// it per slot and ran at a slot rate, not the byte rate.
 //
 // C interface (ctypes): sell_spmv_launch returns a cudaError_t value, 0 on
 // success, from cudaGetLastError() right after the launch. Pointers and
 // the stream come in as void*, sizes as long long. The caller's stream is
-// PyTorch's current stream; nothing here allocates or synchronises. On
-// the split-plane routes a plane not aligned for the vector loads returns
+// PyTorch's current stream; nothing here allocates or synchronises. A
+// plane not aligned for the vector loads returns
 // cudaErrorMisalignedAddress, and planes that are not whole chunks (or
 // hold no sublane) cudaErrorInvalidValue; neither launches anything.
 
@@ -52,40 +53,27 @@ namespace {
 using namespace sell;
 
 template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_spmv_kernel(const Args<V, L> a) {
-  forward_sweep<MergedWord, ResidentY>(a);
+  sublane_sweep<MergedWord, ResidentY>(a);
 }
 
 template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_streamy_relsl_kernel(const Args<V, L> a) {
-  forward_sweep<MergedWord, StreamedY>(a);
+  sublane_sweep<MergedWord, StreamedY>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_streamy_kernel(const Args<V, L> a) {
-  sublane_sweep<StreamedY>(a);
+  sublane_sweep<SplitPlanes, StreamedY>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_split_kernel(const Args<V, L> a) {
-  sublane_sweep<ResidentY>(a);
-}
-
-template <typename V, typename L>
-cudaError_t launch(void (*kernel)(Args<V, L>), Args<V, L> a,
-                   cudaStream_t stream) {
-  const long long blocks = (a.n_slots + kThreads - 1) / kThreads;
-  if (blocks < 1 || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  void* params[] = {&a};
-  cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
-                                     dim3(static_cast<unsigned>(blocks)),
-                                     dim3(kThreads), params, 0, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  sublane_sweep<SplitPlanes, ResidentY>(a);
 }
 
 // One block per work item of the warp-per-sublane body.
@@ -112,8 +100,9 @@ cudaError_t launch_route(int route, const Args<V, L>& a, cudaStream_t st) {
     return cudaErrorInvalidValue;
   }
   switch (route) {
-    case kRelsl: return launch(sell_spmv_kernel<V, L>, a, st);
-    case kStreamyRelsl: return launch(sell_streamy_relsl_kernel<V, L>, a, st);
+    case kRelsl: return launch_sublanes(sell_spmv_kernel<V, L>, a, st);
+    case kStreamyRelsl:
+      return launch_sublanes(sell_streamy_relsl_kernel<V, L>, a, st);
     case kStreamy: return launch_sublanes(sell_streamy_kernel<V, L>, a, st);
     case kSplit: return launch_sublanes(sell_split_kernel<V, L>, a, st);
     default: return cudaErrorInvalidValue;

@@ -169,6 +169,10 @@ __all__ = [
 _RESIDENT_Y_LIMIT = 8 * 2**20
 _STREAM_Y_BLOCK_ROWS = 512 * LANES
 
+# The byte alignment of a plane that the warp-per-sublane kernels read with
+# vector loads (``sell_common.cuh::sublane_aligned``: four f32 values).
+_VEC_ALIGN = 16
+
 # Route names and their ids in csrc/sell_common.cuh (sell::Route).
 ROUTES = ("relsl", "streamy_relsl", "streamy", "split")
 _ROUTE_IDS = {name: i for i, name in enumerate(ROUTES)}
@@ -640,7 +644,13 @@ def _dispatch(wrapper, plain, route: str, planes: dict, x, *, n_slices: int,
 
 def sell_spmv(vals, lidx, relsl, tile_base, x, *, n_slices: int,
               chunk: int) -> torch.Tensor:
-    """K1: y = A·x over the SELL planes, y float32 of ``n_slices * 128``."""
+    """K1: y = A·x over the SELL planes, y float32 of ``n_slices * 128``.
+
+    Its kernel runs one warp per sublane with vector loads of four lanes
+    (``sell_common.cuh::sublane_run``, staging the merged word): a values
+    or lane-index plane not aligned to four elements (a view at an odd
+    offset) raises, and so do planes of no sublane. Views over whole
+    chunks (``SellSpMV._launch_range``) stay aligned."""
     return _dispatch(sell_spmv, sell_spmv_plain, "relsl",
                      dict(vals=vals, lidx=lidx, relsl=relsl,
                           tile_base=tile_base),
@@ -649,7 +659,10 @@ def sell_spmv(vals, lidx, relsl, tile_base, x, *, n_slices: int,
 
 def sell_streamy_relsl(vals, lidx, relsl, tile_base, y_block_id, x, *,
                        n_slices: int, chunk: int, nsb: int) -> torch.Tensor:
-    """K3-relsl: y = A·x, merged word, y in blocks of ``nsb`` slices."""
+    """K3-relsl: y = A·x, merged word, y in blocks of ``nsb`` slices.
+
+    Its kernel is K1's body under the streamed y policy, with K1's
+    alignment rule."""
     return _dispatch(sell_streamy_relsl, sell_streamy_relsl_plain,
                      "streamy_relsl",
                      dict(vals=vals, lidx=lidx, relsl=relsl,
@@ -1479,7 +1492,10 @@ class SellSpMV:
         return out
 
     def _vals_plane(self, vals: Optional[torch.Tensor]) -> torch.Tensor:
-        """The values plane, or ``vals`` in its place, in the value dtype."""
+        """The values plane, or ``vals`` in its place, in the value dtype,
+        contiguous and aligned to 16 bytes: the forward kernels' vector
+        loads refuse a view at an odd offset, so such a ``vals`` is copied
+        into new storage first."""
         if vals is None:
             return self.vals
         if vals.device != self.device or vals.numel() != self.vals.numel():
@@ -1487,8 +1503,11 @@ class SellSpMV:
                 f"vals must hold {self.vals.numel()} slots on "
                 f"{self.device}, got {vals.numel()} on {vals.device}"
             )
-        return vals.detach().reshape(self.vals.shape).to(
+        out = vals.detach().reshape(self.vals.shape).to(
             self.value_dtype).contiguous()
+        if out.data_ptr() % _VEC_ALIGN:
+            out = out.clone()
+        return out
 
     def _mat_kw(self):
         return dict(n_slices=self.plan.n_slices,

@@ -46,10 +46,17 @@ def _colorize(stream) -> bool:
 
 
 def log(tag: str, message: str, *, file=None) -> None:
-    """Print a tagged line, colored when the destination is a TTY."""
+    """Write a tagged line, colored when the destination is a TTY.
+
+    The whole line, newline included, goes out in one ``write`` and is
+    flushed at once: processes that share one pipe (the ranks of a
+    ``torchrun`` job) then never split each other's lines, as long as a
+    line is shorter than ``PIPE_BUF`` (4096 bytes on Linux)."""
     file = file or (sys.stderr if tag == "ERROR" else sys.stdout)
     color = _COLORS.get(tag, "")
     if color and _colorize(file):
-        print(f"{color}[{tag}]\t{message}{_RESET}", file=file)
+        line = f"{color}[{tag}]\t{message}{_RESET}\n"
     else:
-        print(f"[{tag}]\t{message}", file=file)
+        line = f"[{tag}]\t{message}\n"
+    file.write(line)
+    file.flush()

@@ -145,8 +145,8 @@ def test_streamed_empty_middle_block_zero(card):
 
 
 def _split_fns(route):
-    """The forward and N-iteration wrappers of a split-plane route, and
-    the forward's plain version."""
+    """The forward and N-iteration wrappers of a route, and the forward's
+    plain version."""
     fwd, bench = S._ROUTE_FNS[route]
     return fwd, bench, getattr(S, fwd.__name__ + "_plain")
 
@@ -155,11 +155,12 @@ def _split_fns(route):
 @pytest.mark.parametrize("name", streamy_plans.NAMES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_streamy_kernels_contract(card, name, dtype, route):
-    """The warp-per-sublane kernels of both split-plane routes (K3-split
-    and K2 streamed split; K4 and K2 split) against their plain versions
-    on the contract plans; N = 3 against one launch; Inf at a padding
-    lane's column: NaN in the same rows as the plain version, and only
-    there."""
+    """The kernels of every route on the contract plans against their
+    plain versions: the warp-per-sublane forward kernels (K3-split, K4,
+    and on the merged word K3-relsl and K1) and the N-iteration kernels
+    (K2 streamed split and K2 split warp per sublane, K2 streamed and K2
+    thread per slot); N = 3 against one launch; Inf at a padding lane's
+    column: NaN in the same rows as the plain version, and only there."""
     plan = streamy_plans.contract_plan(name, route)
     op = S.SellSpMV(plan, value_dtype=dtype, device=card)
     fwd, bench, plain = _split_fns(route)
@@ -189,7 +190,9 @@ def test_streamy_kernels_contract(card, name, dtype, route):
 @pytest.mark.parametrize("plane", ["vals", "lidx"])
 def test_streamy_misaligned_plane_raises(card, plane, route):
     """A plane view at an odd offset: the launch is refused, never run on
-    another body or the plain version."""
+    another body or the plain version. The merged routes' N-iteration
+    kernels run one thread per slot, which reads any offset: only their
+    forward kernels are held to it."""
     plan = streamy_plans.contract_plan("dead-run-ends-chunk", route)
     op = S.SellSpMV(plan, device=card)
     fwd, bench, _ = _split_fns(route)
@@ -203,6 +206,9 @@ def test_streamy_misaligned_plane_raises(card, plane, route):
     before = (fwd.launches, bench.launches)
     with pytest.raises(RuntimeError, match="misaligned"):
         fwd(*planes, xt, **kw)
+    assert fwd.launches == before[0]
+    if route in streamy_plans.MERGED:
+        return
     with pytest.raises(RuntimeError, match="misaligned"):
         bench(*planes, xt, iterations=2, **kw)
     assert (fwd.launches, bench.launches) == before
@@ -224,8 +230,9 @@ def test_split_no_live_sublane_zero(card, route):
 
 @pytest.mark.parametrize("route", streamy_plans.ROUTES)
 def test_split_planes_of_no_sublane(card, route):
-    """Planes of no sublane at all: both launches are refused (no work
-    item), with no launch counted."""
+    """Planes of no sublane at all: the launches of the warp-per-sublane
+    kernels are refused (no work item), with no launch counted; on the
+    merged routes that is the forward kernel."""
     plan = streamy_plans.contract_plan("dead-run-ends-chunk", route)
     op = S.SellSpMV(plan, device=card)
     fwd, bench, _ = _split_fns(route)
@@ -234,6 +241,9 @@ def test_split_planes_of_no_sublane(card, route):
     before = (fwd.launches, bench.launches)
     with pytest.raises(RuntimeError, match="invalid argument"):
         fwd(*planes, xt, **op._kw())
+    assert fwd.launches == before[0]
+    if route in streamy_plans.MERGED:
+        return
     with pytest.raises(RuntimeError, match="invalid argument"):
         bench(*planes, xt, iterations=2, **op._kw())
     assert (fwd.launches, bench.launches) == before
@@ -255,6 +265,62 @@ def test_split_launch_views_match_plain(card, monkeypatch):
     torch.cuda.synchronize()
     assert S.sell_split.launches == before + plan.n_chunks == before + 3
     assert _rel(y, yp[: plan.shape[0]]) <= TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [2048, 200])  # int8 / int32 lane indices
+def test_k1_split_launch_views_match_plain(card, chunk, dtype, monkeypatch):
+    """SMVP_SELL_SPLIT=4 on a resident merged-word plan: four K1 launches
+    on views over chunk ranges (each aligned for the vector loads, the
+    last range shorter), summed to the plain version's y."""
+    plan = _plan(chunk)
+    op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+    assert op.route == "relsl" and plan.n_chunks >= 4
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        plan.shape[1]).astype(np.float32)).to(card)
+    yp = S.sell_spmv_plain(*op._planes(), op._x_tiles(x), **op._kw())
+    monkeypatch.setenv("SMVP_SELL_SPLIT", "4")
+    before = S.sell_spmv.launches
+    y = op(x)
+    torch.cuda.synchronize()
+    assert S.sell_spmv.launches == before + 4
+    assert _rel(y, yp[: plan.shape[0]]) <= TOL
+
+
+@pytest.mark.parametrize("route", ["relsl", "split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_caller_vals_at_odd_offset_get_aligned_storage(card, route, dtype,
+                                                       monkeypatch):
+    """A ``vals`` plane that a caller passes as a view at an odd offset
+    (``matmat(X, vals=...)`` with k = 1, and per column under
+    ``SMVP_SELL_SPMM=0``, as the edge training path calls it) is copied
+    into aligned storage before the forward kernel's launch: the kernel
+    launches once per column and y equals the plain version's on the
+    same values."""
+    plan = (_plan(2048) if route == "relsl" else
+            streamy_plans.contract_plan("dead-run-ends-chunk", "split"))
+    op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+    assert op.route == route
+    fwd, _, plain = _split_fns(route)
+    v = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        op.vals.numel()).astype(np.float32)).to(card).to(dtype)
+    v = v * (op.vals.reshape(-1) != 0)
+    flat = torch.empty(v.numel() + 1, dtype=dtype, device=card)
+    odd = flat[1:]
+    odd.copy_(v)
+    assert odd.data_ptr() % 16
+    X = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (plan.shape[1], 2)).astype(np.float32)).to(card)
+    planes = (v.reshape(op.vals.shape),) + op._planes(route)[1:]
+    want = torch.stack([plain(*planes, op._x_tiles(X[:, j]), **op._kw())[
+        : plan.shape[0]] for j in range(2)], dim=1)
+    before = fwd.launches
+    y1 = op.matmat(X[:, :1], vals=odd)
+    monkeypatch.setenv("SMVP_SELL_SPMM", "0")
+    y2 = op.matmat(X, vals=odd)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 3
+    assert _rel(y1, want[:, :1]) <= TOL and _rel(y2, want) <= TOL
 
 
 def test_cli_tjds_path_launches_kernels(card):

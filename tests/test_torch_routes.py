@@ -24,6 +24,8 @@ from smvp_toolkit_tpu.ops import spmv_pallas as jsp
 from smvp_toolkit_tpu_torch.interop import plan_fields, plan_from_arrays
 from smvp_toolkit_tpu_torch.ops import spmv_sell as tsp
 
+import test_torch_streamy_contract as contract
+
 TOL = 1e-6
 BLOCK_ROWS = 2048
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -192,3 +194,48 @@ def test_plain_matches_float64_oracle(case):
     ref = (a @ xp)[: tp.shape[0]]
     y = tsp.SellSpMV(tp, device="cpu")(torch.from_numpy(x))
     assert _rel(y.numpy(), ref) <= TOL
+
+
+# The merged-word contract plans of tests/test_torch_streamy_contract.py
+# (the edges of the warp-per-sublane walk, windows of at most 480 tiles)
+# on both merged routes: the port's plain versions against the JAX
+# operator on the same plan. The JAX operator refuses two of the edges, as
+# a TPU would (its Mosaic tile rules, ``ops/mosaic_check.py``): a chunk of
+# one sublane (not a multiple of 8) and, in bfloat16, chunk 200 (blocks of
+# 200 sublanes, not a multiple of 16); there the refusal is checked, and
+# the float64 oracle of tests/test_torch_streamy_contract.py holds the
+# port.
+MERGED_CASES = [(r, n) for r in contract.MERGED for n in contract.NAMES]
+
+
+def _jax_refuses(name, dtype):
+    return name == "single-sublane-chunk" or (
+        name == "int32-lidx" and dtype == "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("route, name", MERGED_CASES,
+                         ids=[f"{r}-{n}" for r, n in MERGED_CASES])
+def test_merged_contract_plans_match_jax_operator(route, name, dtype):
+    from smvp_toolkit_tpu.ops.mosaic_check import MosaicConstraintError
+
+    tdt, jdt = DTYPES[dtype]
+    tp = contract.contract_plan(name, route)
+    jp = jplan.SellPlan(**plan_fields(tp))
+    x = np.random.default_rng(9).standard_normal(tp.shape[1]).astype(
+        np.float32)
+    op = tsp.SellSpMV(tp, value_dtype=tdt, device="cpu")
+    assert op.route == route
+    before = _launches()
+    y_t, yb_t = op(torch.from_numpy(x)), op.bench_loop(torch.from_numpy(x), 2)
+    assert _launches() == before
+    assert torch.equal(y_t, yb_t)
+    if _jax_refuses(name, dtype):
+        with pytest.raises(MosaicConstraintError):
+            jsp.SellSpMV(jp, value_dtype=jdt)(jnp.asarray(x))
+        return
+    jop = jsp.SellSpMV(jp, value_dtype=jdt)
+    y_j = jop(jnp.asarray(x))
+    assert np.abs(np.asarray(y_j)).max() > 0
+    assert _rel(y_t.numpy(), y_j) <= TOL
+    assert _rel(yb_t.numpy(), jop.bench_loop(jnp.asarray(x), 2)) <= TOL

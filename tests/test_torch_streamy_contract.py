@@ -1,10 +1,14 @@
-"""The non-finite contract of the split-plane routes' plain versions.
+"""The non-finite contract of the warp-per-sublane routes' plain versions.
 
-The two routes that run the warp-per-sublane body (``sell_common.cuh``,
-``sublane_run``), the streamed split route (K3-split and K2 streamed split:
-``sell_streamy``, ``sell_bench_streamy``) and the resident split route (K4
-and K2 split: ``sell_split``, ``sell_bench_split``), are held on the card
-to their plain versions (tests/test_torch_cuda.py), so these pin what the
+All four routes run the warp-per-sublane body (``sell_common.cuh``,
+``sublane_run``) in their forward kernels: the streamed split route
+(K3-split and K2 streamed split: ``sell_streamy``, ``sell_bench_streamy``),
+the resident split route (K4 and K2 split: ``sell_split``,
+``sell_bench_split``), and the two merged-word routes, whose forward
+kernels stage the merged rel‖slice word (K3-relsl: ``sell_streamy_relsl``;
+K1: ``sell_spmv``; their N-iteration kernels ``sell_bench_streamy_relsl``
+and ``sell_bench_loop`` run one thread per slot). Each is held on the card
+to its plain version (tests/test_torch_cuda.py), so these pin what the
 kernels must do: every slot of a live sublane contributes v · x[col],
 padding (v = 0) included, so Inf in x at a column that only padding lanes
 read lands NaN (0 · Inf) in exactly the rows of the live sublanes whose
@@ -16,18 +20,24 @@ a kernel can get them wrong: a run of dead sublanes ending a chunk, an
 empty middle y block (an all-dead chunk between live ones), int32 lane
 indices (a chunk that is not a multiple of 32), a chunk of one sublane,
 and a chunk whose only live sublane is its first. Each is a streamed plan
-with one chunk per y block over 547 column tiles (windows over 511 tiles,
-but the one-sublane chunks' single tile); its resident-y variant (``resident``) keeps every chunk and
-writes each chunk's slices into one y, so each edge stays where it was.
-Every column is odd, so no nonzero sits at lane 0 of a tile and x there is
-read by padding lanes alone (``padding_column``). A plan with no live
-sublane (the split planes of an empty matrix, and an empty streamed plan)
+with one chunk per y block: on the split routes over 547 column tiles
+(windows over 511 tiles, but the one-sublane chunks' single tile), on the
+merged routes over 469 (windows of at most 480 tiles, which the merged
+word's 9-bit rel holds). Its resident-y variant (``resident``) keeps every
+chunk and writes each chunk's slices into one y, so each edge stays where
+it was. On the merged routes a chunk's dead padding sublanes carry the
+chunk's last real tile, so their rel is live and only the slice field
+marks them dead (the plans are checked to hold one). Every column is odd,
+so no nonzero sits at lane 0 of a tile and x there is read by padding
+lanes alone (``padding_column``). A plan with no live sublane (the split
+planes or merged word of an empty matrix, and an empty streamed plan)
 gives y = 0. On the CPU the wrappers take these plain versions and count
-no launch. With finite x both plain versions agree with a float64 numpy
+no launch. With finite x the plain versions agree with a float64 numpy
 oracle of the plan within 1e-6 of max |y| (float32 sums of a few
 products; bfloat16: the oracle takes the bf16-rounded values and x).
-Parity with the JAX operator on finite inputs is
-tests/test_torch_routes.py's ``streamed-split`` and ``resident-split`` cases.
+Parity with the JAX operator on finite inputs is tests/test_torch_routes.py's
+``streamed-split`` and ``resident-split`` cases and its merged contract
+plans (``test_merged_contract_plans_match_jax_operator``).
 """
 
 from __future__ import annotations
@@ -47,24 +57,28 @@ from smvp_toolkit_tpu_torch.ops.sell_plan import (
 TOL = 1e-6
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # Per route: the forward and N-iteration wrappers, their plain versions.
-ROUTES = ("streamy", "split")
+# The split routes come first: their cases keep the ids they had before the
+# merged routes joined.
+ROUTES = ("streamy", "split", "streamy_relsl", "relsl")
+MERGED = ("streamy_relsl", "relsl")
+RESIDENT = ("split", "relsl")
 WRAPPERS = {route: {"forward": (fwd, {}), "bench": (bench, {"iterations": 2})}
-            for route, (fwd, bench) in
-            (("streamy", (S.sell_streamy, S.sell_bench_streamy)),
-             ("split", (S.sell_split, S.sell_bench_split)))}
-PLAINS = {"streamy": (S.sell_streamy_plain, S.sell_bench_streamy_plain),
-          "split": (S.sell_split_plain, S.sell_bench_split_plain)}
+            for route, (fwd, bench) in S._ROUTE_FNS.items()}
+PLAINS = {route: (getattr(S, fwd.__name__ + "_plain"),
+                  getattr(S, bench.__name__ + "_plain"))
+          for route, (fwd, bench) in S._ROUTE_FNS.items()}
 BLOCK_ROWS = 2048
 NCOLS = 70000  # 547 column tiles: windows over 511 tiles, split planes
+NCOLS_MERGED = 60000  # 469 column tiles: windows fit the merged word
 
 NAMES = ("dead-run-ends-chunk", "empty-middle-block", "int32-lidx",
          "single-sublane-chunk", "single-live-sublane")
 
 
-def _coords(rng, blocks, per_block):
+def _coords(rng, blocks, per_block, ncols):
     rows = np.concatenate([rng.randint(b * BLOCK_ROWS, (b + 1) * BLOCK_ROWS,
                                        per_block) for b in blocks])
-    cols = rng.randint(0, NCOLS, rows.size) | 1
+    cols = rng.randint(0, ncols, rows.size) | 1
     return rows, cols, rng.randn(rows.size)
 
 
@@ -80,28 +94,36 @@ def resident(plan):
 
 
 def contract_plan(name, route="streamy"):
-    """The named plan on ``route`` (``streamy`` or ``split``), checked to
-    have the edge it is named for."""
+    """The named plan on ``route`` (one of ``ROUTES``), checked to have
+    the edge it is named for and to run on ``route``."""
     rng = np.random.RandomState(sum(map(ord, name)))
+    ncols = NCOLS_MERGED if route in MERGED else NCOLS
     if name == "single-live-sublane":
         # block 1 holds one entry: its chunk's first sublane is live, the
         # rest padding
-        r, c, v = _coords(rng, (0, 2), 200)
+        r, c, v = _coords(rng, (0, 2), 200, ncols)
         r = np.append(r, BLOCK_ROWS + 77)
         c, v = np.append(c, 4097), np.append(v, 2.5)
     else:
         # fewer entries per block than a chunk has sublanes: one chunk per
         # block, over every column tile
         r, c, v = _coords(rng, (0, 2) if name == "empty-middle-block"
-                          else (0, 1, 2), 150 if name == "int32-lidx" else 200)
+                          else (0, 1, 2), 150 if name == "int32-lidx" else 200,
+                          ncols)
     chunk = {"int32-lidx": 200, "single-sublane-chunk": 1}.get(name, 256)
-    plan = build_streamed_sell_plan(r, c, v, (3 * BLOCK_ROWS, NCOLS),
+    plan = build_streamed_sell_plan(r, c, v, (3 * BLOCK_ROWS, ncols),
                                     chunk=chunk, y_block_rows=BLOCK_ROWS)
-    if route == "split":
+    if route in RESIDENT:
         plan = resident(plan)
-    dead = ((plan.rel_tile.reshape(-1) < 0)
-            | (plan.slice_of.reshape(-1) < 0)).reshape(plan.n_chunks, chunk)
-    assert bool(plan.y_block_slices) == (route == "streamy")
+    assert bool(plan.y_block_slices) == (route not in RESIDENT)
+    if route in MERGED:
+        assert S.plan_route(plan) == route
+    rel = plan.rel_tile.reshape(-1)
+    dead = ((rel < 0) | (plan.slice_of.reshape(-1) < 0)).reshape(
+        plan.n_chunks, chunk)
+    if route in MERGED and chunk > 1:
+        # a dead padding sublane that only its slice field marks
+        assert (dead.reshape(-1) & (rel >= 0)).any()
     if name == "single-sublane-chunk":
         assert chunk == 1 and not dead.all()
     elif name == "single-live-sublane":
@@ -115,11 +137,11 @@ def contract_plan(name, route="streamy"):
 
 def no_live_planes(route):
     """(operator, planes, kw) of a plan with no live sublane on ``route``
-    (CPU): the split planes of an empty matrix (a merged-word plan, its
-    split planes all -1), or an empty streamed plan (one all-dead chunk
-    per y block)."""
+    (CPU): the merged word or the split planes of an empty matrix (a
+    merged-word plan, its split planes all -1), or of an empty streamed
+    plan (one all-dead chunk per y block)."""
     empty = np.zeros(0, np.int64)
-    if route == "split":
+    if route in RESIDENT:
         plan = build_sell_plan(empty, empty, np.zeros(0), (300, 200))
     else:
         plan = build_streamed_sell_plan(empty, empty, np.zeros(0),
@@ -176,12 +198,12 @@ def oracle(plan, x, vals=None):
     return y
 
 
-# The streamed plans keep the ids they had before the resident variants.
-CASES = [("streamy", n) for n in NAMES] + [("split", n) for n in NAMES]
+# The streamed split plans keep the ids they had before the other routes.
+CASES = [(r, n) for r in ROUTES for n in NAMES]
 
 
 @pytest.fixture(scope="module", params=CASES,
-                ids=[n if r == "streamy" else f"split-{n}" for r, n in CASES])
+                ids=[n if r == "streamy" else f"{r}-{n}" for r, n in CASES])
 def plan(request):
     """(route, plan) of one contract case."""
     route, name = request.param
@@ -244,3 +266,27 @@ def test_no_live_sublane_gives_zero(route, wrapper):
     y = fn(*planes, xt, **kw, **extra)
     assert _launches(route) == before
     assert y.shape == (op.plan.n_slices * 128,) and not y.any()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("route", RESIDENT)
+def test_caller_vals_get_aligned_storage(route, dtype):
+    """A ``vals`` plane passed in by a caller (``matmat(X, vals=...)``)
+    reaches the forward wrapper contiguous and aligned to 16 bytes, as the
+    warp-per-sublane kernels' vector loads need: a view at an odd offset
+    is copied into new storage, an aligned plane is passed on as it is;
+    y is the same either way."""
+    plan = contract_plan("dead-run-ends-chunk", route)
+    op = S.SellSpMV(plan, value_dtype=DTYPES[dtype], device="cpu")
+    v = op.vals.reshape(-1).clone()
+    flat = torch.empty(v.numel() + 1, dtype=v.dtype)
+    odd = flat[1:]
+    odd.copy_(v)
+    assert odd.data_ptr() % S._VEC_ALIGN
+    got = op._vals_plane(odd)
+    assert got.data_ptr() % S._VEC_ALIGN == 0 and got.is_contiguous()
+    assert torch.equal(got, op.vals)
+    assert op._vals_plane(v).data_ptr() == v.data_ptr()
+    x = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (plan.shape[1], 1)).astype(np.float32))
+    assert torch.equal(op.matmat(x, vals=odd), op.matmat(x, vals=v))
