@@ -9,8 +9,10 @@ Phases; any failure exits non-zero and prints no result line:
 
 1. The card's name and power limit, then the kernels' build from
    ``smvp_toolkit_tpu_torch/csrc`` (one nvcc per source, in parallel) with
-   its time, and each bench kernel's cooperative grid (K2 split's for both
-   lane-index types on a line of its own). The plans of the
+   its time, the registers and spills of every warp-per-sublane kernel,
+   forward and N-iteration (``[regs]``), and each bench kernel's
+   cooperative grid (the four routes' N-iteration kernels for both value
+   and lane-index types on a line of their own). The plans of the
    four full-size matrices and of the ``gcn_arxiv`` graph (its normalised
    adjacency A and its transpose).
 2. Every kernel against its plain PyTorch version on the card, in float32
@@ -52,11 +54,12 @@ Phases; any failure exits non-zero and prints no result line:
    streamed split on the split planes of every small streamed plan and
    K4 and K2 split on those of every small resident plan (merged-word
    plans through ``split_planes``) and of each streamed plan's resident-y
-   variant; K3-relsl and K1 (with their thread-per-slot N-iteration
-   kernels) on the merged word of every small merged-word plan, of the
-   resident-y variants of the streamed ones, and of smoke and L1;
-   float32 and bfloat16: N = 1 and N = 3 against the plain version and
-   N = 3 against one launch (<= 1e-6); with Inf in x at a padding lane's
+   variant; K3-relsl and K2 streamed, K1 and K2 on the merged word of
+   every small merged-word plan, of the resident-y variants of the
+   streamed ones, and of smoke and L1; float32 and bfloat16: N = 1, 2
+   and 3 against the plain version (N = 1 and 2 end in K2's two y
+   buffers) and N = 3 against one launch (<= 1e-6); with
+   Inf in x at a padding lane's
    column (there, at L3, L2, L1 and smoke), their NaN and Inf positions
    must equal the plain version's (a padding slot's 0 · Inf lands NaN in
    its row), with at least one NaN; a plan with no live sublane (nnz0's
@@ -65,7 +68,8 @@ Phases; any failure exits non-zero and prints no result line:
    ``SMVP_SELL_RELSL=0`` (one launch), with ``SMVP_SELL_SPLIT=4`` too,
    and on L2 under ``SMVP_SELL_SPLIT=4`` (four launches on views over
    chunk ranges); and K1 on smoke under ``SMVP_SELL_SPLIT=4`` (four
-   launches) and on smoke's int32 lane planes (``SMVP_SELL_LIDX32=1``).
+   launches), and K1 and K2 (N = 3) on smoke's int32 lane planes
+   (``SMVP_SELL_LIDX32=1``).
    K8 (double-float) on every small resident merged-word plan, without
    and with a lo plane (the streamed and WT > 511 plans must be refused),
    on the JAX suite's cancelling rows and on its edge scales (exact): its
@@ -195,15 +199,16 @@ Phases; any failure exits non-zero and prints no result line:
    so that the host's work per call does not pace the card; their
    host-paced times beside, ``host_paced_ms`` and
    ``host_paced_library_ms``), its launches in the
-   main-path run (the k = 1 route entries name their ``body``:
-   ``warp-per-sublane`` for the four forward kernels and the split
-   routes' N-iteration kernels, ``thread-per-slot`` for K2 and K2
-   streamed, and their slot rate ``g_slots_per_s``; a ``[time]`` line
-   gives each N-iteration kernel's time per iteration against one launch
-   of its forward kernel; a ``[grid]`` line gives K1's and K3-relsl's
-   blocks and waves, and on smoke K1's time over the first one and two
-   waves' chunks; phase 1's ``[regs]`` line the forward kernels'
-   registers and spills; smoke-dp4's ``[time]`` lines K1 per shard), its
+   main-path run (the k = 1 route entries name their ``body``,
+   ``warp-per-sublane`` for all eight (the four forward kernels and the
+   four routes' N-iteration kernels), and their slot rate
+   ``g_slots_per_s``; each N-iteration kernel is first held at its N
+   against one plain SpMV, <= 1e-6; a ``[time]`` line gives each
+   N-iteration kernel's time per iteration against one launch of its
+   forward kernel, on smoke, L1, L2, L3, smoke-cc and every smoke-dp4
+   shard; a ``[grid]`` line gives K1's and K3-relsl's blocks and waves,
+   and on smoke K1's time over the first one and two waves' chunks;
+   smoke-dp4's ``[time]`` lines K1 per shard), its
    bound (bytes of its route over the card's memory rate, or 2·nnz·k·N
    flops over the float32 rate, the larger; K7 counts
    2·k flops per slot of a live sublane), the plain version's time and a
@@ -230,7 +235,8 @@ Phases; any failure exits non-zero and prints no result line:
    rate printed beside it (``dense_flops_ms``; the kernel skips the
    one-hot zeros, so only 2 flops per non-zero bound it). K2-subwin on
    smoke and K2-cocluster (``sell_bench_kernel`` on smoke-cc's permuted
-   planes, replacing ``CoClusteredSellSpMV.bench_loop``) at N = 200: bound
+   planes, replacing ``CoClusteredSellSpMV.bench_loop``; held at N = 200
+   against the plain version, <= 1e-6) at N = 200: bound
    the plan's bytes or 2·nnz·N flops, the larger. Library: the natural
    float32 CSR ``torch.sparse.mm``, N calls for N iterations.
    K2-sharded (``bench_loop_sharded`` → ``sell_bench_kernel``) at N = 200
@@ -302,13 +308,17 @@ KERNELS = {
     "sell_onehot_kernel": ("sell_onehot.cu", "spmv_pallas.py:903"),
     "sell_bench_subwin_kernel": ("sell_bench.cu", "spmv_pallas.py:782"),
 }
-# The k = 1 route kernels that run the warp-per-sublane body
+# The k = 1 route kernels, which all run the warp-per-sublane body
 # (sell_common.cuh, sublane_run): every forward kernel (K1 and K3-relsl
-# staging the merged word, K3-split and K4 the split planes) and the split
-# routes' N-iteration kernels; the others run one thread per slot. A
-# phase-4 entry names its body, so that a time can be told from the
+# staging the merged word, K3-split and K4 the split planes) and every
+# route's N-iteration kernel (K2 and K2 streamed on the merged word, K2
+# streamed split and K2 split); the packed, k-column and solver kernels
+# run one thread per slot. Phase 1 prints their registers and spills, and
+# a phase-4 entry names its body, so that a time can be told from the
 # thread-per-slot times these kernels had before.
-WARP_PER_SUBLANE = ("sell_spmv_kernel", "sell_streamy_relsl_kernel",
+WARP_PER_SUBLANE = ("sell_spmv_kernel", "sell_bench_kernel",
+                    "sell_streamy_relsl_kernel",
+                    "sell_bench_streamy_relsl_kernel",
                     "sell_streamy_kernel", "sell_bench_streamy_kernel",
                     "sell_split_kernel", "sell_bench_split_kernel")
 # Clock cycles of the spin kernel behind which ``_time_ms(queued=True)``
@@ -862,19 +872,20 @@ def _merged_cases(np, torch, plans, ops):
 
 def phase_streamy(np, torch, plans, ops):
     """Phase 2 for the warp-per-sublane body on all four routes: K3-split
-    and K2 streamed split, K4 and K2 split (N = 1 and N = 3) on the split
-    planes of ``_split_cases``, and K3-relsl and K1 with their
-    thread-per-slot N-iteration kernels on the merged word of
-    ``_merged_cases``, float32 and bfloat16, against the plain version and
-    N = 3 against one launch (<= 1e-6 of max |y|; phase 2 holds the
-    full-size plans'); with Inf at a padding lane's column (small plans,
-    L3, L2, L1 and smoke), the NaN and Inf positions of both kernels equal
-    the plain version's, and there is at least one NaN; a plan with no
-    live sublane gives y = 0. Then K4 through the operator on smoke's
-    split planes (``SMVP_SELL_RELSL=0``) and on four chunk ranges of views
-    (``SMVP_SELL_SPLIT=4``, smoke and L2), and K1 on smoke's four chunk
-    ranges (``SMVP_SELL_SPLIT=4``) and on its int32 lane planes
-    (``SMVP_SELL_LIDX32=1``), against the plain version."""
+    and K2 streamed split, K4 and K2 split on the split planes of
+    ``_split_cases``, and K3-relsl and K2 streamed, K1 and K2 on the merged
+    word of ``_merged_cases``, float32 and bfloat16: the forward kernel and
+    the N-iteration kernel at N = 1, 2 and 3 (K2's two y buffers) against
+    the plain version and N = 3 against one launch (<= 1e-6 of max |y|;
+    phase 2 holds the full-size plans'); with Inf at a padding lane's
+    column (small plans, L3, L2, L1 and smoke), the NaN and Inf positions
+    of both kernels equal the plain version's, and there is at least one
+    NaN; a plan with no live sublane gives y = 0. Then K4 through the
+    operator on smoke's split planes (``SMVP_SELL_RELSL=0``) and on four
+    chunk ranges of views (``SMVP_SELL_SPLIT=4``, smoke and L2), and K1 on
+    smoke's four chunk ranges (``SMVP_SELL_SPLIT=4``), and K1 and K2 (N =
+    3) on its int32 lane planes (``SMVP_SELL_LIDX32=1``), against the plain
+    version."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
     dev = torch.device(DEVICE)
@@ -894,11 +905,12 @@ def phase_streamy(np, torch, plans, ops):
         if name not in ROUTE:  # phase_kernels holds L2's and L3's
             y1 = fwd(*planes, xt, **kw)
             yb1 = bench(*planes, xt, iterations=1, **kw)
+            yb2 = bench(*planes, xt, iterations=2, **kw)
             y3 = bench(*planes, xt, iterations=3, **kw)
             yp = plain(*planes, xt, **kw)
             torch.cuda.synchronize()
-            errs = [_rel_err(y1, yp), _rel_err(yb1, yp), _rel_err(y3, yp),
-                    _rel_err(y3, y1)]
+            errs = [_rel_err(y1, yp), _rel_err(yb1, yp), _rel_err(yb2, yp),
+                    _rel_err(y3, yp), _rel_err(y3, y1)]
             _check(torch.isfinite(y1).all().item(), f"{what}: not finite")
             _check(max(errs) <= TOL_KERNEL, f"{what}: {errs}")
         xi = _inf_at_padding(np, op, xt)
@@ -923,7 +935,7 @@ def phase_streamy(np, torch, plans, ops):
             inf = (f"Inf at a padding column: {n_nan} NaN rows, equal "
                    f"positions")
         print(f"[check] {name:40s} {dname:9s} {names} "
-              f"(N=1, N=3) vs plain, N=3 vs one: "
+              f"forward, N=1, 2, 3 vs plain, N=3 vs one: "
               f"{', '.join(f'{e:.3e}' for e in errs) or 'phase 2 above'}; "
               f"{inf} (chunk {op.plan.chunk}, WT {op.plan.window_tiles}, "
               f"lidx {str(op.lidx.dtype)[6:]})", flush=True)
@@ -965,18 +977,22 @@ def phase_streamy(np, torch, plans, ops):
         _check(op32.lidx.dtype == torch.int32, "LIDX32=1 kept int8 lanes")
         xt = op32._x_tiles(x)
         y32 = S.sell_spmv(*op32._planes(), xt, **op32._kw())
+        y32b = S.sell_bench_loop(*op32._planes(), xt, iterations=3,
+                                 **op32._kw())
         y32p = S.sell_spmv_plain(*op32._planes(), xt, **op32._kw())
         torch.cuda.synchronize()
         e, e32 = _rel_err(y, yp), _rel_err(y32, y32p)
-        del op32, y32, y32p
+        e32b = _rel_err(y32b, y32p)
+        del op32, y32, y32b, y32p
         _check(n == SPLIT_N, f"smoke under SPLIT={SPLIT_N}: {n} K1 launches")
         _check(e <= TOL_KERNEL, f"K1 on smoke {dname} under SPLIT={SPLIT_N} "
                f"vs plain: {e}")
-        _check(e32 <= TOL_KERNEL, f"K1 on smoke {dname} under LIDX32=1 vs "
-               f"plain: {e32}")
+        _check(e32 <= TOL_KERNEL and e32b <= TOL_KERNEL, f"K1 and K2 (N = 3) "
+               f"on smoke {dname} under LIDX32=1 vs plain: {e32}, {e32b}")
         print(f"[check] smoke {dname}: {n} sell_spmv_kernel launches under "
               f"SMVP_SELL_SPLIT={SPLIT_N} vs plain {e:.3e}; on int32 lanes "
-              f"(SMVP_SELL_LIDX32=1) vs plain {e32:.3e}", flush=True)
+              f"(SMVP_SELL_LIDX32=1) K1 vs plain {e32:.3e}, K2 (N = 3) vs "
+              f"plain {e32b:.3e}", flush=True)
 
 
 def _oracle(np, torch, triplets, dname):
@@ -1418,6 +1434,10 @@ def phase_timings(np, torch, ops, errs, launches, configs, bw):
                 fn = S._ROUTE_FNS[route][bench]
                 plain = getattr(S, fn.__name__ + "_plain")
                 if bench:
+                    e = _rel_err(fn(*planes, xt, iterations=n_iter, **kw),
+                                 plain(*planes, xt, iterations=1, **kw))
+                    _check(e <= TOL_KERNEL, f"{kname} on {name} {dname} at "
+                           f"N = {n_iter} vs one plain SpMV: {e}")
                     ms = _time_ms(lambda: fn(*planes, xt, iterations=n_iter,
                                              **kw), reps=3, warmup=1)
                     plain_ms = _time_ms(lambda: plain(
@@ -1449,8 +1469,7 @@ def phase_timings(np, torch, ops, errs, launches, configs, bw):
                     plain_ms=plain_ms, lib_ms=lib_ms,
                     nbytes=plan.traffic_bytes(vb, x_bytes=vb),
                     flops=2.0 * plan.nnz * iters, bw=bw, iters=iters,
-                    body=("warp-per-sublane" if kname in WARP_PER_SUBLANE
-                          else "thread-per-slot"),
+                    body="warp-per-sublane",
                     g_slots_per_s=plan.slots() * iters / ms * 1e-6, **extra))
             if route in MERGED_ROUTES:
                 _sublane_grid(torch, name, op)
@@ -2795,9 +2814,22 @@ def phase_switch_timings(np, torch, ops, ccs, errs, launches, configs, bw):
         cc, xp = ccs[dname]
         inner = cc.inner
         xpt = inner._x_tiles(xp)
+        e = _rel_err(S.sell_bench_loop(*inner._planes(), xpt,
+                                       iterations=n_iter, **inner._kw()),
+                     S.sell_spmv_plain(*inner._planes(), xpt, **inner._kw()))
+        _check(e <= TOL_KERNEL, f"K2-cocluster {dname} at N = {n_iter} vs "
+               f"one plain SpMV: {e}")
         ms = _time_ms(lambda: S.sell_bench_loop(
             *inner._planes(), xpt, iterations=n_iter, **inner._kw()),
             reps=3, warmup=1)
+        k1_ms = _time_ms(lambda: S.sell_spmv(*inner._planes(), xpt,
+                                             **inner._kw()),
+                         reps=20, queued=True)
+        print(f"[time] smoke-cc {dname}: sell_bench_kernel "
+              f"{ms / n_iter:.6f} ms per iteration = "
+              f"{ms / n_iter / k1_ms:.3f} x one sell_spmv_kernel launch "
+              f"({k1_ms:.6f} ms, queued); N = {n_iter} vs plain {e:.3e}",
+              flush=True)
         plain_ms = _time_ms(lambda: S.sell_bench_loop_plain(
             *inner._planes(), xpt, iterations=n_iter, **inner._kw()),
             reps=1, warmup=0)
@@ -3265,8 +3297,11 @@ def phase_dist_timings(np, torch, configs, dist_shards, dp1, launches, bw):
                     print(f"[time] smoke-dp4 shard {s.rank} {dname}: "
                           f"sell_spmv_kernel (warp per sublane, "
                           f"{_sublane_blocks(o.plan)} blocks) {k1_ms:.6f} ms "
-                          f"per launch; sell_bench_kernel (thread per slot) "
-                          f"{ms / n_iter:.6f} ms per iteration", flush=True)
+                          f"per launch; sell_bench_kernel (warp per sublane) "
+                          f"{ms / n_iter:.6f} ms per iteration = "
+                          f"{ms / n_iter / k1_ms:.3f} x one sell_spmv_kernel "
+                          f"launch; {n_iter} x K1 {n_iter * k1_ms:.6f} ms "
+                          f"against {ms:.6f} ms", flush=True)
                 plain_ms = _time_ms(lambda: S.sell_bench_loop_plain(
                     *planes, xt, **kw), reps=1, warmup=0)
                 yk = S.sell_bench_loop(*planes, xt, **kw)
@@ -3313,11 +3348,11 @@ def main() -> int:
         print(f"[build] {len(logs)} source(s) built: {sorted(logs)}; "
               f"registers per thread: {regs}; spill stores {spills} bytes "
               f"(most in one type instance: {spilled})", flush=True)
-        print("[regs] warp-per-sublane forward kernels (most over their "
-              "value and index types): " + "; ".join(
+        print("[regs] warp-per-sublane kernels, forward and N-iteration "
+              "(most over their value and index types): " + "; ".join(
                   f"{k} {regs.get(k)} registers, spill stores "
-                  f"{spilled.get(k, 0)} bytes" for k in WARP_PER_SUBLANE
-                  if "bench" not in k), flush=True)
+                  f"{spilled.get(k, 0)} bytes" for k in WARP_PER_SUBLANE),
+              flush=True)
         from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
         grid = {(r, d): S.bench_blocks(getattr(torch, d), torch.int8,
@@ -3341,11 +3376,18 @@ def main() -> int:
         grid["sell_bench_df64_kernel"] = bench_df64_blocks(torch.int8)
         print(f"[grid] bench kernels' cooperative grid (blocks of 256 "
               f"threads, int8 lane indices): {grid}", flush=True)
-        split_grid = {(d, str(lt)[6:]): S.bench_blocks(getattr(torch, d), lt,
-                                                       route="split")
-                      for d in DTYPE_NAMES for lt in (torch.int8, torch.int32)}
-        print(f"[grid] sell_bench_split_kernel (K2 split, warp per sublane): "
-              f"{split_grid} blocks of 256 threads", flush=True)
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        for r in S.ROUTES:
+            rgrid = {(d, str(lt)[6:]): S.bench_blocks(getattr(torch, d), lt,
+                                                      route=r)
+                     for d in DTYPE_NAMES for lt in (torch.int8, torch.int32)}
+            _check(all(b == SUBLANE_BLOCKS_PER_SM * sms
+                       for b in rgrid.values()),
+                   f"{S.KERNEL_NAMES[(r, True)]} grid {rgrid}, not "
+                   f"{SUBLANE_BLOCKS_PER_SM} blocks on each of {sms} SMs")
+            print(f"[grid] {S.KERNEL_NAMES[(r, True)]} (warp per sublane): "
+                  f"{rgrid} blocks of 256 threads, "
+                  f"{SUBLANE_BLOCKS_PER_SM} per SM", flush=True)
 
     with _Phase("plans"):
         configs = _configs()

@@ -8,26 +8,36 @@
 //   sell_bench_streamy_relsl_kernel relsl branch, streamed y
 //   sell_bench_split_kernel         split-plane branch, resident y
 //   sell_bench_streamy_kernel       split-plane branch, streamed y
-// Each iteration computes the forward sweep of csrc/sell_spmv.cu: one
-// thread per slot for the two merged-word branches (sell_common.cuh,
-// bench_sweeps; their forward kernels K1 and K3-relsl run one warp per
-// sublane), one warp per sublane for the two split-plane branches
-// (sublane_bench_sweeps under the split staging: the (chunk, run) work
-// items of K3-split and K4, walked in a grid-stride loop). The TPU grid runs in
-// order, so the TPU kernel re-zeroes y when an iteration (or, streamed, a
-// y block) starts; on Hopper blocks run in no order, so each iteration
-// here zeroes ALL of y in a grid-stride loop, grid.sync(), sweeps,
-// grid.sync(). Zeroing all of y (not only the visited blocks) keeps a
-// block that no chunk visits at zero.
+// Each iteration computes the forward sweep of csrc/sell_spmv.cu in its
+// body, the warp per sublane (sell_common.cuh, sublane_bench_sweeps under
+// the route's staging and y policy: the (chunk, run) work items of K1,
+// K3-relsl, K3-split and K4, walked in a grid-stride loop), built under
+// __launch_bounds__(kThreads, kSublaneMinBlocks). The TPU grid runs in
+// order, so the TPU kernel re-zeroes y when an iteration (or, streamed, a y
+// block) starts; on Hopper blocks run in no order, so every iteration here
+// zeroes ALL of a y buffer behind a grid barrier (not only the visited
+// blocks, so that a block that no chunk visits stays zero). K2 takes two
+// y buffers in turn, one grid.sync() an iteration: it sweeps into y[it %
+// 2] while it zeroes y[(it + 1) % 2]. The other three zero their one y
+// between two grid.sync()s. Timed on the H100 against each other
+// (smvp_toolkit_tpu_torch/bench/bench_variants.py), the one barrier won
+// on K2 in both value types (2.8-5.3% at smoke, 15-20% on a smoke-dp4
+// shard) and lost somewhere on each of the other three (L1 f32, L2 bf16,
+// L3 f32). The caller passes bench_y_buffers(route) * n_out floats and
+// reads the result in buffer (N - 1) % bench_y_buffers(route).
 // The grid is SMs x co-resident blocks (a larger cooperative grid fails at
 // launch, not at the sync); the occupancy query that sizes it sees each
-// kernel's registers and static shared memory, and the warp-per-sublane
-// kernel's launch bound (kSublaneMinBlocks) holds it at eight blocks an SM.
+// kernel's registers and static shared memory, and the launch bound
+// (kSublaneMinBlocks) holds it at eight blocks an SM: 1,056 on an H100.
+// The grid-stride walk is static: smoke's 2,944 work items are 2.79 per
+// block, so some blocks take three and some two.
 //
 // Bound on this card: bytes, as the forward kernels; the planes are
 // re-read every iteration, as in the TPU kernel, and at the benchmark
 // sizes they exceed the 50 MB L2, so the rate is a memory rate: N times
-// the planes' bytes over the memory rate is the least time.
+// the planes' bytes over the memory rate is the least time. On top of the
+// forward sweep an iteration pays one buffer's zeroing (smoke 4.0 MB, L1
+// 16.8 MB), one or two grid.sync()s and the walk's static tail.
 //
 // K2-subwin (sell_bench_subwin_kernel) is the relsl branch with
 // per-sub-chain windows (SMVP_SELL_SUBWIN=1; _sub_windows :223 through
@@ -42,10 +52,13 @@
 // slice id fall outside every window) contributes nothing, as the TPU's
 // windowed one-hot products drop it. The column equals K2's whatever stb
 // is, so only this window rule lets a wrong stb or ssb show in y. The same
-// N-iteration loop (zero y, grid.sync(), sweep, grid.sync()).
+// N-iteration loop as the one-thread-per-slot body (zero the one y,
+// grid.sync(), sweep, grid.sync()); its y holds n_out floats.
 //
-// C interface (ctypes) as in sell_spmv.cu, misaligned planes and planes
-// of no sublane on the split-plane routes included.
+// C interface (ctypes) as in sell_spmv.cu: on all four routes a plane not
+// aligned for the vector loads returns cudaErrorMisalignedAddress, and
+// planes that are not whole chunks (or hold no sublane)
+// cudaErrorInvalidValue; neither launches anything.
 
 #include "sell_common.cuh"
 
@@ -53,28 +66,35 @@ namespace {
 
 using namespace sell;
 
-template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
-    sell_bench_kernel(const Args<V, L> a) {
-  bench_sweeps<MergedWord, ResidentY>(a);
+// y buffers of each route's N-iteration kernel (ops/spmv_sell.py,
+// BENCH_Y_BUFFERS, allocates them).
+__host__ __device__ constexpr int bench_y_buffers(int route) {
+  return route == kRelsl ? 2 : 1;
 }
 
 template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
+    sell_bench_kernel(const Args<V, L> a) {
+  sublane_bench_sweeps<MergedWord, ResidentY, bench_y_buffers(kRelsl)>(a);
+}
+
+template <typename V, typename L>
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_bench_streamy_relsl_kernel(const Args<V, L> a) {
-  bench_sweeps<MergedWord, StreamedY>(a);
+  sublane_bench_sweeps<MergedWord, StreamedY,
+                       bench_y_buffers(kStreamyRelsl)>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_bench_streamy_kernel(const Args<V, L> a) {
-  sublane_bench_sweeps<SplitPlanes, StreamedY>(a);
+  sublane_bench_sweeps<SplitPlanes, StreamedY, bench_y_buffers(kStreamy)>(a);
 }
 
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_bench_split_kernel(const Args<V, L> a) {
-  sublane_bench_sweeps<SplitPlanes, ResidentY>(a);
+  sublane_bench_sweeps<SplitPlanes, ResidentY, bench_y_buffers(kSplit)>(a);
 }
 
 // K2-subwin's arguments: the relsl planes (Args) and the sub-chain
@@ -151,11 +171,9 @@ cudaError_t launch_bench(int route, Args<V, L> a, int device,
       a.iterations < 1) {
     return cudaErrorInvalidValue;
   }
-  if (split) {  // the warp-per-sublane body
-    if (!sublane_aligned(a)) return cudaErrorMisalignedAddress;
-    long long items = 0;
-    if (!sublane_items(a, &items) || a.n_out % 4) return cudaErrorInvalidValue;
-  }
+  if (!sublane_aligned(a)) return cudaErrorMisalignedAddress;
+  long long items = 0;
+  if (!sublane_items(a, &items) || a.n_out % 4) return cudaErrorInvalidValue;
   Kernel<V, L> kernel = route_kernel<V, L>(route);
   int blocks = 0;
   cudaError_t err = cooperative_grid(kernel, device, &blocks);
@@ -170,8 +188,9 @@ cudaError_t launch_bench(int route, Args<V, L> a, int device,
 
 }  // namespace
 
-// Arguments as sell_spmv_launch, plus n_out (the y length, all of which is
-// zeroed each iteration) and the iteration count.
+// Arguments as sell_spmv_launch, plus n_out (the length of one y buffer)
+// and the iteration count; y holds bench_y_buffers(route) buffers of n_out
+// floats, and the result is buffer (iterations - 1) % bench_y_buffers(route).
 extern "C" int sell_bench_launch(int route, const void* vals, const void* lidx,
                                  const void* meta, const void* slice,
                                  const void* tile_base, const void* y_block_id,

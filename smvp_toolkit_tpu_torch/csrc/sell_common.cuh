@@ -1,13 +1,13 @@
 // The two bodies of the SELL-T1 SpMV that the forward and bench kernels
 // (csrc/sell_spmv.cu, csrc/sell_bench.cu, csrc/sell_packed.cu) run: one
-// warp per sublane (`sublane_run`: every k = 1 forward kernel of the four
-// routes, K1 and K3-relsl on the merged word, K3-split and K4 on the split
-// planes, and the split routes' N-iteration kernels) and one thread per
-// slot (`slot`: the merged-word routes' N-iteration kernels K2 and K2
-// streamed, the packed route, K2-subwin). The decode policies, the slot
-// coordinates, the warp walk over k columns and the cooperative grid also
-// serve the k-column kernels (csrc/sell_spmm.cu, csrc/sell_vals_grad.cu)
-// and the fused solvers (csrc/sell_solvers.cu).
+// warp per sublane (`sublane_run`: every k = 1 kernel of the four routes,
+// forward and N-iteration: K1, K2, K3-relsl and K2 streamed on the merged
+// word, K3-split, K2 streamed split, K4 and K2 split on the split planes)
+// and one thread per slot (`slot`: the packed route, K2-packed among it,
+// and the fused solvers). The decode policies, the slot coordinates, the
+// warp walk over k columns and the cooperative grid also serve the
+// k-column kernels (csrc/sell_spmm.cu, csrc/sell_vals_grad.cu) and the
+// fused solvers (csrc/sell_solvers.cu).
 //
 // Per live slot (s, l) of the (S, 128) planes, with c = s / chunk:
 //   y[(ybase(c) + slice(s)) * 128 + l] +=
@@ -223,11 +223,12 @@ __device__ __forceinline__ void forward_sweep(const Args<V, L>& a) {
   if (i < a.n_slots) slot<Decode, YAddr>(a, i);
 }
 
-// The N-iteration kernels' body (one cooperative launch): each iteration
-// zeroes ALL of y in a grid-stride loop, grid.sync(), sweeps every slot,
-// grid.sync(). The TPU grid runs in order and re-zeroes y when an
-// iteration (or, streamed, a y block) starts; on Hopper blocks run in no
-// order, and zeroing all of y keeps a block that no chunk visits at zero.
+// The one-thread-per-slot N-iteration body (one cooperative launch;
+// K2-packed): each iteration zeroes ALL of y in a grid-stride loop,
+// grid.sync(), sweeps every slot, grid.sync(). The TPU grid runs in order
+// and re-zeroes y when an iteration (or, streamed, a y block) starts; on
+// Hopper blocks run in no order, and zeroing all of y keeps a block that no
+// chunk visits at zero.
 template <class Decode, class YAddr, typename V, typename L>
 __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
@@ -245,10 +246,10 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 }
 
 // ---------------------------------------------------------------------------
-// One warp per sublane, under a staging policy (MergedWord: K1 on a
-// resident y, K3-relsl on a streamed one; SplitPlanes: K3-split and K2
-// streamed split on a streamed y, K4 and K2 split on a resident one) and a
-// y policy.
+// One warp per sublane, under a staging policy (MergedWord: K1 and K2 on a
+// resident y, K3-relsl and K2 streamed on a streamed one; SplitPlanes:
+// K3-split and K2 streamed split on a streamed y, K4 and K2 split on a
+// resident one) and a y policy.
 //
 // Work item `item` is run r = item % runs of chunk c = item / runs: up to
 // kRun consecutive sublanes of one chunk (chunks never straddle a y block
@@ -267,8 +268,8 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 // padding (v = 0) included, so Inf or NaN in x at a padding lane's column
 // lands NaN in its row, as in the one-thread-per-slot body; padding lanes
 // carry lane index 0, so their gathers read one address per sublane. The
-// plane loads are streaming (__ldcs: read once, kept out of L1, where the
-// gathered x tiles stay).
+// plane loads are streaming (the Streaming policy: read once, kept out of
+// L1, where the gathered x tiles stay).
 //
 // Planes must be aligned for the vector loads (values to 4 elements, lane
 // indices to 4 elements, y to 16 bytes), and whole chunks: the launchers
@@ -285,8 +286,19 @@ __host__ __device__ inline int runs_per_chunk(int chunk) {
   return (chunk + kRun - 1) / kRun;
 }
 
+// The plane loads' cache policy. Streaming: __ldcs, evict-first in L1
+// and L2, since a sweep reads each plane byte once and the gathered x
+// tiles should keep the caches.
+struct Streaming {
+  template <typename T>
+  __device__ __forceinline__ static T load(const T* p) {
+    return __ldcs(p);
+  }
+};
+
+template <class Load>
 __device__ __forceinline__ void load_values(const float* p, float (&v)[4]) {
-  const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+  const float4 q = Load::load(reinterpret_cast<const float4*>(p));
   v[0] = q.x;
   v[1] = q.y;
   v[2] = q.z;
@@ -294,23 +306,26 @@ __device__ __forceinline__ void load_values(const float* p, float (&v)[4]) {
 }
 
 // bf16 bits are the high half of the float32 with the same value.
+template <class Load>
 __device__ __forceinline__ void load_values(const __nv_bfloat16* p,
                                             float (&v)[4]) {
-  const uint2 q = __ldcs(reinterpret_cast<const uint2*>(p));
+  const uint2 q = Load::load(reinterpret_cast<const uint2*>(p));
   v[0] = __uint_as_float(q.x << 16);
   v[1] = __uint_as_float(q.x & 0xffff0000u);
   v[2] = __uint_as_float(q.y << 16);
   v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
 
+template <class Load>
 __device__ __forceinline__ void load_lanes(const int8_t* p, int (&l)[4]) {
-  const int w = __ldcs(reinterpret_cast<const int*>(p));
+  const int w = Load::load(reinterpret_cast<const int*>(p));
 #pragma unroll
   for (int i = 0; i < 4; ++i) l[i] = static_cast<int8_t>(w >> (8 * i));
 }
 
+template <class Load>
 __device__ __forceinline__ void load_lanes(const int32_t* p, int (&l)[4]) {
-  const int4 q = __ldcs(reinterpret_cast<const int4*>(p));
+  const int4 q = Load::load(reinterpret_cast<const int4*>(p));
   l[0] = q.x;
   l[1] = q.y;
   l[2] = q.z;
@@ -323,10 +338,13 @@ __device__ __forceinline__ void add_rows4(float* y, const float (&p)[4]) {
   atomicAdd(reinterpret_cast<float4*>(y), make_float4(p[0], p[1], p[2], p[3]));
 }
 
-// All kThreads threads of the block call it with the same item.
-template <class Stage, class YAddr, typename V, typename L>
-__device__ __forceinline__ void sublane_run(const Args<V, L>& a, int runs,
-                                            int item, int* s_rel,
+// All kThreads threads of the block call it with the same item; the
+// products land in `out` (a.y, or one of the N-iteration body's two y
+// buffers). `Load` is the plane loads' cache policy.
+template <class Stage, class YAddr, class Load = Streaming, typename V,
+          typename L>
+__device__ __forceinline__ void sublane_run(const Args<V, L>& a, float* out,
+                                            int runs, int item, int* s_rel,
                                             int* s_slice) {
   const int c = item / runs;
   const int first = (item - c * runs) * kRun;
@@ -342,15 +360,15 @@ __device__ __forceinline__ void sublane_run(const Args<V, L>& a, int runs,
   const int lane4 = 4 * (threadIdx.x & 31);
   const V* vals = a.vals + s0 * kLanes + lane4;
   const L* lidx = a.lidx + s0 * kLanes + lane4;
-  float* y = a.y + ybase * kLanes + lane4;
+  float* y = out + ybase * kLanes + lane4;
   for (int j = threadIdx.x >> 5; j < n; j += kWarps) {
     const int rel = s_rel[j];
     const int slice = s_slice[j];
     if (rel < 0 || slice < 0) continue;
     float v[4];
     int l[4];
-    load_values(vals + j * kLanes, v);
-    load_lanes(lidx + j * kLanes, l);
+    load_values<Load>(vals + j * kLanes, v);
+    load_lanes<Load>(lidx + j * kLanes, l);
     const V* xt = a.x + (tile0 + rel) * kLanes;
     float p[4];
 #pragma unroll
@@ -364,15 +382,25 @@ __device__ __forceinline__ void sublane_run(const Args<V, L>& a, int runs,
 template <class Stage, class YAddr, typename V, typename L>
 __device__ __forceinline__ void sublane_sweep(const Args<V, L>& a) {
   __shared__ int s_rel[kRun], s_slice[kRun];
-  sublane_run<Stage, YAddr>(a, runs_per_chunk(a.chunk), blockIdx.x, s_rel,
-                            s_slice);
+  sublane_run<Stage, YAddr>(a, a.y, runs_per_chunk(a.chunk), blockIdx.x,
+                            s_rel, s_slice);
 }
 
-// The N-iteration body (one cooperative launch), as bench_sweeps: each
-// iteration zeroes all of y (float4 stores), grid.sync(), walks the work
-// items in a grid-stride loop, grid.sync().
-template <class Stage, class YAddr, typename V, typename L>
+// The N-iteration body (one cooperative launch), in one of two forms.
+// YBuffers = 1: each iteration zeroes all of y (float4 stores),
+// grid.sync(), walks the work items in a grid-stride loop, grid.sync():
+// two barriers an iteration. YBuffers = 2: two y buffers, y[0] = a.y and
+// y[1] = a.y + n_out, taken in turn: y[0] is zeroed before the first
+// iteration, grid.sync(); iteration `it` zeroes y[(it + 1) % 2] and walks
+// the work items into y[it % 2], and one grid.sync() ends it: one barrier
+// an iteration, and the result in y[(N - 1) % 2]. Neither form has a
+// barrier after the last iteration. Zeroing all of a buffer (not only the
+// y blocks that chunks visit) keeps a block that no chunk visits at zero.
+// Which form a kernel takes was measured (csrc/sell_bench.cu).
+template <class Stage, class YAddr, int YBuffers, class Load = Streaming,
+          typename V, typename L>
 __device__ __forceinline__ void sublane_bench_sweeps(const Args<V, L>& a) {
+  static_assert(YBuffers == 1 || YBuffers == 2, "one or two y buffers");
   __shared__ int s_rel[kRun], s_slice[kRun];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   const int runs = runs_per_chunk(a.chunk);
@@ -381,16 +409,30 @@ __device__ __forceinline__ void sublane_bench_sweeps(const Args<V, L>& a) {
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long n4 = a.n_out / 4;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   float4* y4 = reinterpret_cast<float4*>(a.y);
+  if (YBuffers == 2) {
+    for (long long i = tid; i < n4; i += stride) y4[i] = zero;
+    grid.sync();
+  }
   for (int it = 0; it < a.iterations; ++it) {
-    for (long long i = tid; i < a.n_out / 4; i += stride) {
-      y4[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const bool more = it + 1 < a.iterations;
+    float* out = a.y;
+    if (YBuffers == 2) {
+      if (more) {
+        float4* next = y4 + ((it + 1) & 1) * n4;
+        for (long long i = tid; i < n4; i += stride) next[i] = zero;
+      }
+      out += (it & 1) * a.n_out;
+    } else {
+      for (long long i = tid; i < n4; i += stride) y4[i] = zero;
+      grid.sync();
     }
-    grid.sync();
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
-      sublane_run<Stage, YAddr>(a, runs, item, s_rel, s_slice);
+      sublane_run<Stage, YAddr, Load>(a, out, runs, item, s_rel, s_slice);
     }
-    grid.sync();
+    if (more) grid.sync();
   }
 }
 

@@ -126,6 +126,8 @@ __all__ = [
     "sell_bench_streamy_plain",
     "sell_bench_split",
     "sell_bench_split_plain",
+    "BENCH_Y_BUFFERS",
+    "bench_buffer",
     "sell_spmm",
     "sell_spmm_plain",
     "sell_split_spmm",
@@ -593,12 +595,29 @@ def _launch_device(vals: torch.Tensor) -> torch.device:
     return vals.device
 
 
+# y buffers of each route's N-iteration kernel (csrc/sell_bench.cu,
+# ``bench_y_buffers``): K2 takes two in turn, one grid barrier an
+# iteration; the others zero one y between two barriers.
+BENCH_Y_BUFFERS = {"relsl": 2, "streamy_relsl": 1, "streamy": 1, "split": 1}
+
+
+def bench_buffer(route: str, iterations: int) -> int:
+    """Which y buffer an N-iteration launch of ``route`` leaves its result
+    in: iteration ``it`` sweeps into buffer ``it % BENCH_Y_BUFFERS[route]``
+    (``sell_common.cuh``, ``sublane_bench_sweeps``)."""
+    if iterations < 1:
+        raise ValueError("iterations must be >= 1")
+    return (iterations - 1) % BENCH_Y_BUFFERS[route]
+
+
 def _launch(route: str, *, vals, lidx, tile_base, x, n_slices: int,
             chunk: int, relsl=None, rel=None, slice_of=None,
             y_block_id=None, nsb: int = 0,
             iterations: Optional[int] = None) -> torch.Tensor:
     """One launch of the route's forward kernel (``iterations`` None) or
-    its bench kernel; returns y (float32, ``n_slices * 128``)."""
+    its bench kernel; returns y (float32, ``n_slices * 128``). The bench
+    kernel gets ``BENCH_Y_BUFFERS[route]`` y buffers, and y is a view of
+    the one its last iteration wrote (``bench_buffer``)."""
     dev = _launch_device(vals)
     vk, lk = _kinds(vals, lidx)
     n_out = n_slices * LANES
@@ -610,12 +629,14 @@ def _launch(route: str, *, vals, lidx, tile_base, x, n_slices: int,
     name = KERNEL_NAMES[(route, bench)]
     if bench:
         lib = _build.load("sell_bench", _BENCH_SIGNATURES)
-        y = torch.empty(n_out, dtype=torch.float32, device=dev)
+        ys = torch.empty(BENCH_Y_BUFFERS[route], n_out, dtype=torch.float32,
+                         device=dev)
         rc = lib.sell_bench_launch(
-            _ROUTE_IDS[route], *planes, x.data_ptr(), y.data_ptr(),
+            _ROUTE_IDS[route], *planes, x.data_ptr(), ys.data_ptr(),
             vals.numel(), n_out, chunk, nsb, iterations, vk, lk, dev.index,
             stream)
         _check_rc(lib, rc, f"{name} cooperative launch")
+        y = ys[bench_buffer(route, iterations)]
     else:
         lib = _build.load("sell_spmv", _SPMV_SIGNATURES)
         y = torch.zeros(n_out, dtype=torch.float32, device=dev)
@@ -700,7 +721,12 @@ def sell_split(vals, lidx, rel, slice_of, tile_base, x, *, n_slices: int,
 
 def sell_bench_loop(vals, lidx, relsl, tile_base, x, *, n_slices: int,
                     chunk: int, iterations: int) -> torch.Tensor:
-    """K2: ``iterations`` K1 SpMVs in one cooperative launch; the last y."""
+    """K2: ``iterations`` K1 SpMVs in one cooperative launch; the last y.
+
+    Its kernel runs K1's body (one warp per sublane, the merged word) in
+    every iteration, with K1's alignment rule: a values or lane-index
+    plane not aligned to four elements raises, and so do planes of no
+    sublane."""
     return _dispatch(sell_bench_loop, sell_bench_loop_plain, "relsl",
                      dict(vals=vals, lidx=lidx, relsl=relsl,
                           tile_base=tile_base),
@@ -712,7 +738,8 @@ def sell_bench_streamy_relsl(vals, lidx, relsl, tile_base, y_block_id, x, *,
                              n_slices: int, chunk: int, nsb: int,
                              iterations: int) -> torch.Tensor:
     """K2 on the streamed merged-word route: ``iterations`` K3-relsl SpMVs
-    in one cooperative launch; the last y."""
+    in one cooperative launch, in K3-relsl's body and alignment rule (planes
+    of no sublane raise too); the last y."""
     return _dispatch(sell_bench_streamy_relsl, sell_bench_streamy_relsl_plain,
                      "streamy_relsl",
                      dict(vals=vals, lidx=lidx, relsl=relsl,

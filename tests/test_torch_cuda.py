@@ -157,10 +157,10 @@ def _split_fns(route):
 def test_streamy_kernels_contract(card, name, dtype, route):
     """The kernels of every route on the contract plans against their
     plain versions: the warp-per-sublane forward kernels (K3-split, K4,
-    and on the merged word K3-relsl and K1) and the N-iteration kernels
-    (K2 streamed split and K2 split warp per sublane, K2 streamed and K2
-    thread per slot); N = 3 against one launch; Inf at a padding lane's
-    column: NaN in the same rows as the plain version, and only there."""
+    and on the merged word K3-relsl and K1) and N-iteration kernels (K2
+    streamed split, K2 split, K2 streamed and K2); N = 3 against one
+    launch; Inf at a padding lane's column: NaN in the same rows as the
+    plain version, and only there."""
     plan = streamy_plans.contract_plan(name, route)
     op = S.SellSpMV(plan, value_dtype=dtype, device=card)
     fwd, bench, plain = _split_fns(route)
@@ -189,10 +189,10 @@ def test_streamy_kernels_contract(card, name, dtype, route):
 @pytest.mark.parametrize("route", streamy_plans.ROUTES)
 @pytest.mark.parametrize("plane", ["vals", "lidx"])
 def test_streamy_misaligned_plane_raises(card, plane, route):
-    """A plane view at an odd offset: the launch is refused, never run on
-    another body or the plain version. The merged routes' N-iteration
-    kernels run one thread per slot, which reads any offset: only their
-    forward kernels are held to it."""
+    """A plane view at an odd offset: the launches of the forward and the
+    N-iteration kernel (both on the warp-per-sublane body, whose vector
+    loads need four-element alignment) are refused, never run on another
+    body or the plain version, and count no launch."""
     plan = streamy_plans.contract_plan("dead-run-ends-chunk", route)
     op = S.SellSpMV(plan, device=card)
     fwd, bench, _ = _split_fns(route)
@@ -207,8 +207,6 @@ def test_streamy_misaligned_plane_raises(card, plane, route):
     with pytest.raises(RuntimeError, match="misaligned"):
         fwd(*planes, xt, **kw)
     assert fwd.launches == before[0]
-    if route in streamy_plans.MERGED:
-        return
     with pytest.raises(RuntimeError, match="misaligned"):
         bench(*planes, xt, iterations=2, **kw)
     assert (fwd.launches, bench.launches) == before
@@ -230,9 +228,9 @@ def test_split_no_live_sublane_zero(card, route):
 
 @pytest.mark.parametrize("route", streamy_plans.ROUTES)
 def test_split_planes_of_no_sublane(card, route):
-    """Planes of no sublane at all: the launches of the warp-per-sublane
-    kernels are refused (no work item), with no launch counted; on the
-    merged routes that is the forward kernel."""
+    """Planes of no sublane at all: the launches of both warp-per-sublane
+    kernels, forward and N-iteration, are refused (no work item), with no
+    launch counted."""
     plan = streamy_plans.contract_plan("dead-run-ends-chunk", route)
     op = S.SellSpMV(plan, device=card)
     fwd, bench, _ = _split_fns(route)
@@ -242,8 +240,6 @@ def test_split_planes_of_no_sublane(card, route):
     with pytest.raises(RuntimeError, match="invalid argument"):
         fwd(*planes, xt, **op._kw())
     assert fwd.launches == before[0]
-    if route in streamy_plans.MERGED:
-        return
     with pytest.raises(RuntimeError, match="invalid argument"):
         bench(*planes, xt, iterations=2, **op._kw())
     assert (fwd.launches, bench.launches) == before
@@ -436,6 +432,38 @@ def test_bench_spmm_grid_is_coresident(card):
     blocks = S.bench_spmm_blocks(torch.float32, torch.int8, card)
     sms = torch.cuda.get_device_properties(card).multi_processor_count
     assert blocks >= sms and blocks % sms == 0
+
+
+@pytest.mark.parametrize("route", S.ROUTES)
+@pytest.mark.parametrize("lidx", [torch.int8, torch.int32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bench_grid_is_coresident(card, route, dtype, lidx):
+    """Every route's N-iteration kernel runs the warp-per-sublane body
+    under its launch bound: eight co-resident blocks on each SM."""
+    blocks = S.bench_blocks(dtype, lidx, card, route=route)
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert blocks == 8 * sms
+
+
+@pytest.mark.parametrize("route", S.ROUTES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bench_two_buffers_match_plain(card, route, dtype):
+    """K2 takes two y buffers in turn (odd N end in the first, even N in
+    the second), the other N-iteration kernels one: on every route N = 1,
+    2, 3 and 4 each return y equal to one plain SpMV."""
+    plan = _route_plan(route)
+    op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+    _, bench, plain = _split_fns(route)
+    planes, kw = op._planes(route), op._kw()
+    x = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        plan.shape[1]).astype(np.float32)).to(card)
+    xt = op._x_tiles(x)
+    yp = plain(*planes, xt, **kw)
+    for n in (1, 2, 3, 4):
+        y = bench(*planes, xt, iterations=n, **kw)
+        torch.cuda.synchronize()
+        assert y.shape == yp.shape and y.is_contiguous()
+        assert _rel(y, yp) <= TOL, n
 
 
 def test_cli_spmm_launches_kcolumn_kernels(card, tmp_path):

@@ -1,15 +1,16 @@
 """The non-finite contract of the warp-per-sublane routes' plain versions.
 
 All four routes run the warp-per-sublane body (``sell_common.cuh``,
-``sublane_run``) in their forward kernels: the streamed split route
-(K3-split and K2 streamed split: ``sell_streamy``, ``sell_bench_streamy``),
-the resident split route (K4 and K2 split: ``sell_split``,
-``sell_bench_split``), and the two merged-word routes, whose forward
-kernels stage the merged rel‖slice word (K3-relsl: ``sell_streamy_relsl``;
-K1: ``sell_spmv``; their N-iteration kernels ``sell_bench_streamy_relsl``
-and ``sell_bench_loop`` run one thread per slot). Each is held on the card
-to its plain version (tests/test_torch_cuda.py), so these pin what the
-kernels must do: every slot of a live sublane contributes v · x[col],
+``sublane_run``) in their forward and N-iteration kernels: the streamed
+split route (K3-split and K2 streamed split: ``sell_streamy``,
+``sell_bench_streamy``), the resident split route (K4 and K2 split:
+``sell_split``, ``sell_bench_split``), and the two merged-word routes,
+which stage the merged rel‖slice word (K3-relsl and K2 streamed:
+``sell_streamy_relsl``, ``sell_bench_streamy_relsl``; K1 and K2:
+``sell_spmv``, ``sell_bench_loop``). K2 takes two y buffers in turn
+(``bench_buffer`` says which one holds the result). Each kernel is held
+on the card to its plain version (tests/test_torch_cuda.py), so these pin
+what the kernels must do: every slot of a live sublane contributes v · x[col],
 padding (v = 0) included, so Inf in x at a column that only padding lanes
 read lands NaN (0 · Inf) in exactly the rows of the live sublanes whose
 padding lanes read it; a dead sublane adds nothing, and every other row
@@ -290,3 +291,21 @@ def test_caller_vals_get_aligned_storage(route, dtype):
     x = torch.from_numpy(np.random.default_rng(12).standard_normal(
         (plan.shape[1], 1)).astype(np.float32))
     assert torch.equal(op.matmat(x, vals=odd), op.matmat(x, vals=v))
+
+
+@pytest.mark.parametrize("iterations, buffer",
+                         [(1, 0), (2, 1), (3, 0), (4, 1), (100, 1), (201, 0)])
+def test_bench_buffer_of_the_last_iteration(iterations, buffer):
+    """K2's iteration ``it`` sweeps into y buffer ``it % 2``, so the wrapper
+    returns buffer ``(N - 1) % 2``; the other routes' N-iteration kernels
+    have one y."""
+    assert S.BENCH_Y_BUFFERS == {"relsl": 2, "streamy_relsl": 1,
+                                 "streamy": 1, "split": 1}
+    assert S.bench_buffer("relsl", iterations) == buffer
+    for route in ("streamy_relsl", "streamy", "split"):
+        assert S.bench_buffer(route, iterations) == 0
+
+
+def test_bench_buffer_needs_an_iteration():
+    with pytest.raises(ValueError, match="iterations"):
+        S.bench_buffer("relsl", 0)
