@@ -10,7 +10,8 @@ Phases; any failure exits non-zero and prints no result line:
 1. The card's name and power limit, then the kernels' build from
    ``smvp_toolkit_tpu_torch/csrc`` (one nvcc per source, in parallel) with
    its time, the registers and spills of every warp-per-sublane kernel,
-   forward and N-iteration (``[regs]``), and each bench kernel's
+   forward and N-iteration, and of K1 and K4 with k columns (``[regs]``,
+   the most over their types and column shapes), and each bench kernel's
    cooperative grid (the four routes' N-iteration kernels for both value
    and lane-index types on a line of their own). The plans of the
    four full-size matrices and of the ``gcn_arxiv`` graph (its normalised
@@ -41,7 +42,15 @@ Phases; any failure exits non-zero and prints no result line:
    with N = 3 on merged-word plans, and the values-gradient kernel K7) on
    every resident-y small plan with k = 2, 8 and 17, on smoke and L2 with
    k = 8, and on gcn_arxiv's A (split planes: K4, K7) and Aᵀ (merged
-   word: K1, K2) with k = 8 and, in float32, k = 256, the GCN's width.
+   word: K1, K2) with k = 8 and, in float32, k = 256 and 40 (the GCN's
+   widths) and 6 (k % 4 != 0: the scalar column form). K1 and K4 with k
+   columns run the warp-per-sublane k-column body (``sublane_mat_run``);
+   each ``[check]`` line names the column shape (T threads a row, W
+   columns a load, P passes; ``spmv_sell.spmm_shape``). On smoke and L2
+   (both dtypes) the zero-value contract: X holds Inf in a column that
+   only zero-valued slots read (a padding lane's column, its real entries
+   zeroed through the values plane, as an edge step may): Y stays finite
+   and within the SpMM tolerance of the plain version.
    The fused solvers (K9 CG, K10 Chebyshev, K11 IC(0)-PCG at sweeps 2 and
    4) against their plain versions, 30 steps, on 2-D Poisson 64² and HPCG
    16³, float32 and bfloat16, and K9 on split planes (Poisson 256², its
@@ -215,8 +224,11 @@ Phases; any failure exits non-zero and prints no result line:
    library yardstick (``torch.sparse.mm`` on a float32 CSR tensor of the
    same matrix with the same k, and for K7 ``torch.sparse.sampled_addmm``
    on its pattern with beta 0; never called by the port). The k-column
-   kernels are timed at k = 8 on smoke and L2 and at k = 256 on
-   gcn_arxiv. The fused solvers at hpcg104 in float32 (K9 300 steps, K10
+   kernels are timed at k = 8 on smoke and L2 and at k = 256 and 40 on
+   gcn_arxiv; K1's and K4's forward launches with k columns and their
+   library calls queued behind the spin kernel as K1's (the host-paced
+   times beside), their entries naming their ``body`` and column
+   ``shape``. The fused solvers at hpcg104 in float32 (K9 300 steps, K10
    600, K11 100 at sweeps 4): bound = one step's bytes (the planes of each
    SpMV phase, K11: A + 3·(L + Lᵀ), and each state vector once) times the
    steps over the memory rate; yardstick: the same solve by the port's
@@ -312,15 +324,21 @@ KERNELS = {
 # (sell_common.cuh, sublane_run): every forward kernel (K1 and K3-relsl
 # staging the merged word, K3-split and K4 the split planes) and every
 # route's N-iteration kernel (K2 and K2 streamed on the merged word, K2
-# streamed split and K2 split); the packed, k-column and solver kernels
-# run one thread per slot. Phase 1 prints their registers and spills, and
-# a phase-4 entry names its body, so that a time can be told from the
+# streamed split and K2 split); and K1 and K4 with k columns, which run
+# its k-column form (sublane_mat_run). The packed, solver and other
+# k-column kernels (K2 with k columns, K5 with k columns, K7) run one
+# thread per slot. Phase 1 prints their registers and spills, and a
+# phase-4 entry names its body, so that a time can be told from the
 # thread-per-slot times these kernels had before.
 WARP_PER_SUBLANE = ("sell_spmv_kernel", "sell_bench_kernel",
                     "sell_streamy_relsl_kernel",
                     "sell_bench_streamy_relsl_kernel",
                     "sell_streamy_kernel", "sell_bench_streamy_kernel",
                     "sell_split_kernel", "sell_bench_split_kernel")
+KCOL_PER_SUBLANE = ("sell_spmm_kernel", "sell_split_spmm_kernel")
+# The k values phase 2 holds gcn_arxiv's k-column kernels to in float32:
+# the CLI's k, the GCN's widths, and one k % 4 != 0 (the scalar form).
+GCN_CHECK_KS = (SPMM_K, GCN_K, 40, 6)
 # Clock cycles of the spin kernel behind which ``_time_ms(queued=True)``
 # queues its calls: about 25 ms at the H100's clocks, far more than the
 # host takes to queue 20 calls of a wrapper.
@@ -683,7 +701,8 @@ def _spmm_tolerance(torch, S, op):
     sums and u = 2^-24: a float32 sum of n products in random order is off
     by about u·sqrt(n) of its size, and the kernel's atomics and the plain
     version's index_add_ are two such orders. Only a long row lifts it
-    above 1e-6 (n > 70): gcn_arxiv's Aᵀ has a hub row of about 490,000."""
+    above 1e-6 (n > 70): gcn_arxiv's Aᵀ has a hub row of 168,430 products
+    (counted from the plan here; each ``[check]`` line prints n)."""
     if op.relsl is not None:
         rel, sl = S._decode_word(op.relsl)
     else:
@@ -739,8 +758,53 @@ def _check_mat_kernels(np, torch, name, op, ks, errs):
         _check(not got["sell_vals_grad_kernel"][0].reshape(-1, 128)[
             dead].any(), f"K7 on {name} {dname}: a dead sublane is not 0")
         print(f"[check] {name:28s} {dname:9s} {op.route:5s} k={k:<3d} "
-              f"vs plain: {', '.join(line)} (SpMM tolerance {tol:.2e}: rows "
-              f"of up to {n_max} products)", flush=True)
+              f"shape {S.spmm_shape(k)} vs plain: {', '.join(line)} (SpMM "
+              f"tolerance {tol:.2e}: rows of up to {n_max} products)",
+              flush=True)
+
+
+def _check_zero_value_contract(np, torch, name, op):
+    """K1 / K4 with k columns skip zero-valued slots: X holds Inf in the
+    column of a padding lane (v = 0 in a live sublane), and every real
+    entry of that column is zeroed through the values plane (as an edge
+    step's values may be), so only zero-valued slots read it. Y must stay
+    finite and within the SpMM tolerance of the plain version, which
+    skips them too."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    plan, kw = op.plan, op._mat_kw()
+    vals = plan.vals.reshape(-1, 128)
+    live = (plan.rel_tile.reshape(-1) >= 0) & (plan.slice_of.reshape(-1) >= 0)
+    s = np.arange(vals.shape[0])
+    cols = ((plan.tile_base.astype(np.int64)[s // plan.chunk]
+             + plan.rel_tile.reshape(-1))[:, None] * 128
+            + plan.lane_idx.reshape(vals.shape))
+    pad = live[:, None] & (vals == 0)
+    _check(pad.any(), f"{name}: no padding lane in a live sublane")
+    col = int(cols[pad][0])
+    real = live[:, None] & (vals != 0) & (cols == col)
+    v = op.vals.clone().reshape(vals.shape)
+    v[torch.from_numpy(real).to(op.device)] = 0
+    v = v.reshape(op.vals.shape)
+    X = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (plan.n_coltiles * 128, SPMM_K)).astype(np.float32)).to(
+        op.device).to(op.value_dtype)
+    X[col] = float("inf")
+    fwd = op.spmm_kernel
+    plain = getattr(S, fwd.__name__ + "_plain")
+    planes = (v,) + tuple(op._planes()[1:])
+    y, yp = fwd(*planes, X, **kw), plain(*planes, X, **kw)
+    torch.cuda.synchronize()
+    tol, _ = _spmm_tolerance(torch, S, op)
+    e = _rel_err(y, yp)
+    dname = str(op.value_dtype)[6:]
+    what = f"{fwd.kernel} zero-value contract on {name} {dname}"
+    _check(torch.isfinite(y).all().item(), f"{what}: Y not finite")
+    _check(e <= tol, f"{what}: {e} > {tol}")
+    print(f"[check] {name:28s} {dname:9s} {fwd.kernel} k={SPMM_K}: Inf in "
+          f"X column {col}, read by {int((pad & (cols == col)).sum())} "
+          f"padding lanes and {int(real.sum())} zeroed entries: Y finite, "
+          f"vs plain {e:.3e}", flush=True)
 
 
 def phase_kernels(np, torch, plans, gcn):
@@ -789,12 +853,14 @@ def phase_kernels(np, torch, plans, gcn):
             if not plan.y_block_slices:
                 ks = (SPMM_K,) if name in ROUTE else (2, 8, 17)
                 _check_mat_kernels(np, torch, name, op, ks, errs)
+                if name in ROUTE:
+                    _check_zero_value_contract(np, torch, name, op)
     for label in ("A", "At"):
         base = gcn[label]
         for dname in DTYPE_NAMES:
             op = base if dname == "float32" else S.SellSpMV(
                 base.plan, value_dtype=torch.bfloat16, device=dev)
-            ks = (SPMM_K, GCN_K) if dname == "float32" else (SPMM_K,)
+            ks = GCN_CHECK_KS if dname == "float32" else (SPMM_K,)
             _check_mat_kernels(np, torch, f"gcn_arxiv:{label}", op, ks, errs)
     return ops, errs
 
@@ -1519,10 +1585,28 @@ def _packed_timings(torch, S, name, op, xt, a, x2, errs, launches, bw):
     return out
 
 
+def _mat_forward_times(torch, fn, planes, Xt, kw, a, X, reps):
+    """K1 / K4 with k columns and their library call: the card's times
+    queued behind the spin kernel (``ms``, ``lib_ms``) and the host-paced
+    ones, and the entry's ``body`` and column ``shape``."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    host = dict(host_paced_ms=_time_ms(lambda: fn(*planes, Xt, **kw),
+                                       reps=reps),
+                host_paced_library_ms=_time_ms(
+                    lambda: torch.sparse.mm(a, X), reps=reps))
+    ms = _time_ms(lambda: fn(*planes, Xt, **kw), reps=reps, queued=True)
+    lib_ms = _time_ms(lambda: torch.sparse.mm(a, X), reps=reps, queued=True)
+    k = Xt.shape[1]
+    return ms, lib_ms, dict(host, body="warp-per-sublane k-column",
+                            shape=list(S.spmm_shape(k)))
+
+
 def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
     """Phase 4 for the k-column kernels: at k = 8 on smoke and L2 (both
-    dtypes, the N-iteration kernel with the CLI's N), at k = 256 on
-    gcn_arxiv (float32)."""
+    dtypes, the N-iteration kernel with the CLI's N), at k = 256 and 40 on
+    gcn_arxiv (float32). K1's and K4's forward launches with k columns and
+    their library calls are timed queued behind the spin kernel."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
     dev = torch.device(DEVICE)
@@ -1550,11 +1634,12 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
                     lib_ms = _time_ms(lambda: [torch.sparse.mm(a, X)
                                                for _ in range(n)],
                                       reps=1, warmup=1)
+                    extra = dict(body="thread-per-slot")
                 else:
-                    ms = _time_ms(lambda: fn(*planes, Xt, **kw), reps=20)
+                    ms, lib_ms, extra = _mat_forward_times(
+                        torch, fn, planes, Xt, kw, a, X, reps=20)
                     plain_ms = _time_ms(lambda: plain(*planes, Xt, **kw),
                                         reps=3)
-                    lib_ms = _time_ms(lambda: torch.sparse.mm(a, X), reps=20)
                 entries.append(_entry(
                     fn.kernel, name, dname,
                     launches=launches[(fn.kernel, name, dname)],
@@ -1562,7 +1647,7 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
                     plain_ms=plain_ms, lib_ms=lib_ms,
                     nbytes=plan.traffic_bytes(vb, x_bytes=vb, k=SPMM_K),
                     flops=2.0 * plan.nnz * SPMM_K * n, bw=bw, iters=n,
-                    k=SPMM_K))
+                    k=SPMM_K, **extra))
             if dname == "bfloat16" and name in PACKED_CONFIGS:
                 pk, sl = op.packed_planes()
                 fn = S.sell_packed_spmm
@@ -1590,28 +1675,36 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
         plan, kw = o.plan, o._mat_kw()
         r, c, v = o._triplets
         a = _library_csr(np, torch, (r, c, v, o.shape))
-        Xt = o._block(X, plan.n_coltiles * 128, torch.float32, "X")
         fn = o.spmm_kernel
         plain = getattr(S, fn.__name__ + "_plain")
-        common = dict(launches=launches[(fn.kernel, "gcn_arxiv", "float32")],
-                      nbytes=plan.traffic_bytes(4, x_bytes=4, k=GCN_K),
-                      bw=bw, k=GCN_K, plan=label)
-        entries.append(_entry(
-            fn.kernel, "gcn_arxiv", "float32",
-            err=errs[(fn.kernel, f"gcn_arxiv:{label}", "float32", GCN_K)],
-            ms=_time_ms(lambda: fn(*o._planes(), Xt, **kw), reps=10),
-            plain_ms=_time_ms(lambda: plain(*o._planes(), Xt, **kw), reps=1,
-                              warmup=1),
-            lib_ms=_time_ms(lambda: torch.sparse.mm(a, X), reps=10),
-            flops=2.0 * plan.nnz * GCN_K, **common))
+        for k in (GCN_K, 40):  # the GCN's hidden and output widths
+            Xk = X[:, :k].contiguous()
+            Xt = o._block(Xk, plan.n_coltiles * 128, torch.float32, "X")
+            ms, lib_ms, extra = _mat_forward_times(
+                torch, fn, o._planes(), Xt, kw, a, Xk, reps=10)
+            common = dict(
+                launches=launches[(fn.kernel, "gcn_arxiv", "float32")],
+                nbytes=plan.traffic_bytes(4, x_bytes=4, k=k), bw=bw, k=k,
+                plan=label)
+            entries.append(_entry(
+                fn.kernel, "gcn_arxiv" if k == GCN_K else f"gcn_arxiv-k{k}",
+                "float32",
+                err=errs[(fn.kernel, f"gcn_arxiv:{label}", "float32", k)],
+                ms=ms,
+                plain_ms=_time_ms(lambda: plain(*o._planes(), Xt, **kw),
+                                  reps=1, warmup=1),
+                lib_ms=lib_ms, flops=2.0 * plan.nnz * k, **common, **extra))
         if label == "A":  # K7 runs on A's planes in the edge steps
             kname = "sell_vals_grad_kernel"
+            Xt = o._block(X, plan.n_coltiles * 128, torch.float32, "X")
             Gt = o._block(G, plan.n_slices * 128, torch.float32, "G")
             meta = dict(relsl=o.relsl, rel=o.rel, slice_of=o.slice_of)
             Xtr = X.t().contiguous()
             live = int(((plan.rel_tile.reshape(-1) >= 0)
                         & (plan.slice_of.reshape(-1) >= 0)).sum()) * 128
-            common["launches"] = launches[(kname, "gcn_arxiv", "float32")]
+            common = dict(launches=launches[(kname, "gcn_arxiv", "float32")],
+                          nbytes=plan.traffic_bytes(4, x_bytes=4, k=GCN_K),
+                          bw=bw, k=GCN_K, plan=label)
             entries.append(_entry(
                 kname, "gcn_arxiv", "float32",
                 err=errs[(kname, "gcn_arxiv:A", "float32", GCN_K)],
@@ -3348,11 +3441,12 @@ def main() -> int:
         print(f"[build] {len(logs)} source(s) built: {sorted(logs)}; "
               f"registers per thread: {regs}; spill stores {spills} bytes "
               f"(most in one type instance: {spilled})", flush=True)
-        print("[regs] warp-per-sublane kernels, forward and N-iteration "
-              "(most over their value and index types): " + "; ".join(
+        print("[regs] warp-per-sublane kernels, forward and N-iteration, "
+              "and the k-column ones (most over their value and index "
+              "types and column shapes): " + "; ".join(
                   f"{k} {regs.get(k)} registers, spill stores "
-                  f"{spilled.get(k, 0)} bytes" for k in WARP_PER_SUBLANE),
-              flush=True)
+                  f"{spilled.get(k, 0)} bytes"
+                  for k in WARP_PER_SUBLANE + KCOL_PER_SUBLANE), flush=True)
         from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
         grid = {(r, d): S.bench_blocks(getattr(torch, d), torch.int8,

@@ -1,13 +1,14 @@
-// The two bodies of the SELL-T1 SpMV that the forward and bench kernels
-// (csrc/sell_spmv.cu, csrc/sell_bench.cu, csrc/sell_packed.cu) run: one
-// warp per sublane (`sublane_run`: every k = 1 kernel of the four routes,
-// forward and N-iteration: K1, K2, K3-relsl and K2 streamed on the merged
-// word, K3-split, K2 streamed split, K4 and K2 split on the split planes)
-// and one thread per slot (`slot`: the packed route, K2-packed among it,
-// and the fused solvers). The decode policies, the slot coordinates, the
-// warp walk over k columns and the cooperative grid also serve the
-// k-column kernels (csrc/sell_spmm.cu, csrc/sell_vals_grad.cu) and the
-// fused solvers (csrc/sell_solvers.cu).
+// The bodies of the SELL-T1 SpMV and SpMM kernels (csrc/sell_spmv.cu,
+// csrc/sell_bench.cu, csrc/sell_spmm.cu, csrc/sell_packed.cu): one warp per
+// sublane (`sublane_run`: every k = 1 kernel of the four routes, forward
+// and N-iteration: K1, K2, K3-relsl and K2 streamed on the merged word,
+// K3-split, K2 streamed split, K4 and K2 split on the split planes), its
+// k-column form (`sublane_mat_run`: K1 and K4 with k columns), and one
+// thread per slot (`slot`: the packed route, K2-packed among it, and the
+// fused solvers; `warp_slots`, a warp walk over k columns: K2 with k
+// columns, K5 with k columns). The decode policies, the slot coordinates
+// and the cooperative grid also serve the values gradient
+// (csrc/sell_vals_grad.cu) and the fused solvers (csrc/sell_solvers.cu).
 //
 // Per live slot (s, l) of the (S, 128) planes, with c = s / chunk:
 //   y[(ybase(c) + slice(s)) * 128 + l] +=
@@ -437,9 +438,9 @@ __device__ __forceinline__ void sublane_bench_sweeps(const Args<V, L>& a) {
 }
 
 // The work items of a launch (chunks x runs per chunk); false unless the
-// planes are whole chunks and the items fit a grid.
-template <typename V, typename L>
-bool sublane_items(const Args<V, L>& a, long long* items) {
+// planes are whole chunks and the items fit a grid. A is Args or MatArgs.
+template <class A>
+bool sublane_items(const A& a, long long* items) {
   if (a.chunk < 1 || a.n_slots < 1) return false;
   const long long per_chunk = static_cast<long long>(kLanes) * a.chunk;
   if (a.n_slots % per_chunk) return false;
@@ -494,7 +495,9 @@ __device__ __forceinline__ bool slot_coords(const A& a, long long i,
 
 constexpr unsigned kFull = 0xffffffffu;
 
-// The k-column kernels' warp walk: the warp of slot i adds its live
+// The one-thread-per-slot k-column kernels' warp walk (K2 with k columns,
+// K5 with k columns; K1 and K4 ran it before sublane_mat_run): the warp of
+// slot i adds its live
 // nonzero slots' products into Y. One thread decodes each slot (the plane
 // loads stay coalesced); the warp ballots its live nonzero slots and walks
 // them one at a time, the slot's value, X row and Y row broadcast with
@@ -551,6 +554,291 @@ __device__ __forceinline__ void mat_bench_sweeps(const MatArgs<V, L>& a) {
     }
     grid.sync();
   }
+}
+
+// ---------------------------------------------------------------------------
+// The k-column body on one warp per sublane (`sublane_mat_run`: K1 and K4
+// with k columns, csrc/sell_spmm.cu), under a staging policy (MergedWord or
+// SplitPlanes), a column shape MatShape<T, W, P> and a resident Y.
+//
+// A block takes a work item of sublane_run (up to kRun sublanes of chunk c,
+// blockIdx.x) and a column block (blockIdx.y: kCols = T * W * P columns
+// from blockIdx.y * kCols), in three steps between __syncthreads():
+//  1. Stage. Thread t < n stages sublane s0 + t's rel and its key (the
+//     slice, -1 where rel or slice is dead); each warp then takes every
+//     kWarps-th sublane, skips a dead one before any plane load, and each
+//     thread loads four values with one vector load (16 bytes f32, 8 bf16)
+//     and ballots which are nonzero: the sublane's mask of nonzero lanes,
+//     four words, word w bit t = lane 4t + w.
+//  2. Runs. A live sublane whose key differs from the one before it heads
+//     a run of sublanes of one slice: the planner sorts sublanes by (tile,
+//     slice, duplicate), so a slice's duplicate sublanes in one tile are
+//     next to each other (ops/sell_plan.py). A run is also cut where the
+//     sublane's index in the item is a multiple of kMatRunCap (16). Warp 0
+//     ors each run's masks into the run's touched lanes and lays out its
+//     units, one per touched lane, with a prefix sum.
+//  3. Units. A unit is one row of Y, (the run's slice, lane l). A group of
+//     T threads takes units g, g + kGroups, ...: it walks the run's
+//     sublanes in plan order, and for each whose mask holds lane l loads
+//     the slot's value and lane index, gathers X[col, ...] (W elements a
+//     load: a float4 in f32, four bf16 in 8 bytes, or one element) and adds
+//     v * x into P * W float32 registers a thread; then adds the row's sums
+//     into Y once (red.global.add.v4.f32 per four columns, left out when
+//     all four are zero; float atomics in the scalar form).
+// So a run of d duplicate sublanes costs each touched row ceil(d / 16)
+// atomics or so, not d, and a hub row's runs of up to 129 sublanes are
+// units that groups walk side by side. A row's k columns are spread over
+// T threads of P loads each (csrc/sell_spmm.cu, with_mat_shape): at k = 8
+// in f32 one thread takes a row, two float4 (32 rows a warp step); at k =
+// 256 eight threads four float4 each, in two column blocks of 128 (the
+// blocks run column block by column block, which halves the X and Y rows
+// in flight). Only nonzero slots are multiplied: a zero
+// value (a padding lane) contributes nothing even against an Inf or NaN in
+// X. The values are loaded through the read-only path (L1-allocating), so
+// step 3's reloads of a nonzero slot's value and lane index hit the lines
+// step 1 brought in; X is gathered the same way, in plan (tile-major)
+// order across the grid, so a chunk's window of X rows is shared in L2.
+//
+// The vector form (W = 4) needs k % 4 == 0, X aligned to four elements and
+// Y to 16 bytes; the scalar form (W = 1) takes any k. Both need the values
+// plane aligned to four elements and planes of whole chunks: the launchers
+// return cudaErrorMisalignedAddress or cudaErrorInvalidValue and launch
+// nothing otherwise.
+
+// The k-column kernels fit this cap of 64 registers a thread without
+// spills (ptxas -v; chip_smoke.py's [regs] line), four to six blocks on an
+// SM. Eight (32 registers) was up to 9% faster at k = 8 and 21-55% slower
+// on gcn_arxiv (bench/bench_variants.py --kcol, variant blocks8).
+constexpr int kMatMinBlocks = 4;  // co-resident blocks per SM, k columns
+// A cap of 4 or 8 sublanes a unit cost up to 2.3x on gcn_arxiv's Aᵀ (its
+// hub runs), 64 up to 1.6x there; 16 was within 4% of the best on every
+// plan measured (variant shape, caps 4, 8, 16, 64).
+constexpr int kMatRunCap = 16;    // sublanes a unit sums at most
+static_assert(kRun == 64, "step 2 gives each lane of warp 0 two sublanes");
+
+template <int T, int W, int P>
+struct MatShape {
+  static_assert(T >= 1 && T <= 32 && (T & (T - 1)) == 0,
+                "T is a power of two up to a warp");
+  static_assert(W == 1 || W == 4, "scalar or four-element columns");
+  static_assert(P >= 1, "at least one pass");
+  static constexpr int kT = T;
+  static constexpr int kW = W;
+  static constexpr int kP = P;
+  static constexpr int kGroups = kThreads / T;  // units in flight a block
+  static constexpr int kCols = T * W * P;       // columns of a column block
+};
+
+// A block's staging of one work item.
+struct MatStage {
+  int rel[kRun];
+  int key[kRun];             // slice, -1 where the sublane is dead
+  unsigned mask[kRun][4];    // nonzero lanes: word w, bit t = lane 4t + w
+  unsigned lanes[kRun][4];   // at a run's head: the lanes the run touches
+  int off[kRun + 1];         // units before each sublane
+};
+
+// The read-only path: L1 and L2 allocating.
+struct ReadOnly {
+  template <typename T>
+  __device__ __forceinline__ static T load(const T* p) {
+    return __ldg(p);
+  }
+};
+
+__device__ __forceinline__ void load_x(const float* p, float (&x)[1]) {
+  x[0] = __ldg(p);
+}
+__device__ __forceinline__ void load_x(const __nv_bfloat16* p,
+                                       float (&x)[1]) {
+  x[0] = __bfloat162float(__ldg(p));
+}
+template <typename V>
+__device__ __forceinline__ void load_x(const V* p, float (&x)[4]) {
+  load_values<ReadOnly>(p, x);
+}
+
+__device__ __forceinline__ void add_row(float* y, const float (&p)[1]) {
+  if (p[0] != 0.0f) atomicAdd(y, p[0]);
+}
+__device__ __forceinline__ void add_row(float* y, const float (&p)[4]) {
+  add_rows4(y, p);
+}
+
+// All kThreads threads of the block call it with the same item and column
+// block. A unit sums at most Cap sublanes (a power of two): a run is cut
+// where the sublane index within the item is a multiple of Cap, so a hub
+// row's long run is several units that groups take side by side, not one
+// long serial walk. Cap = 1 flushes every sublane's rows on their own (a
+// variant, csrc/variants/sell_spmm_variants.cu).
+template <class Stage, class Shape, int Cap = kMatRunCap, typename V,
+          typename L>
+__device__ __forceinline__ void sublane_mat_run(const MatArgs<V, L>& a,
+                                                int runs, int item, int col0,
+                                                MatStage& st) {
+  constexpr int T = Shape::kT, W = Shape::kW, P = Shape::kP;
+  const int c = item / runs;
+  const int first = (item - c * runs) * kRun;
+  const int n = min(kRun, a.chunk - first);
+  const long long s0 = static_cast<long long>(c) * a.chunk + first;
+  const long long tile0 = a.tile_base[c];
+  const int lane = threadIdx.x & 31;
+  if (threadIdx.x < n) {
+    int rel, slice;
+    Stage::stage(a, s0 + threadIdx.x, &rel, &slice);
+    st.rel[threadIdx.x] = rel;
+    st.key[threadIdx.x] = rel < 0 || slice < 0 ? -1 : slice;
+  }
+  __syncthreads();
+  // 1. the nonzero lanes of each live sublane
+  const V* vals = a.vals + s0 * kLanes;
+  for (int j = threadIdx.x >> 5; j < n; j += kWarps) {
+    unsigned m[4] = {0u, 0u, 0u, 0u};
+    if (st.key[j] >= 0) {
+      float v[4];
+      load_values<ReadOnly>(vals + j * kLanes + 4 * lane, v);
+#pragma unroll
+      for (int w = 0; w < 4; ++w) m[w] = __ballot_sync(kFull, v[w] != 0.0f);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int w = 0; w < 4; ++w) st.mask[j][w] = m[w];
+    }
+  }
+  __syncthreads();
+  // 2. runs, their touched lanes and their units' offsets
+  if (threadIdx.x < 32) {
+    int count[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int j = 2 * lane + h;
+      count[h] = 0;
+      const int key = j < n ? st.key[j] : -1;
+      if (key >= 0 && (j % Cap == 0 || st.key[j - 1] != key)) {
+        unsigned u[4];
+#pragma unroll
+        for (int w = 0; w < 4; ++w) u[w] = st.mask[j][w];
+        for (int jj = j + 1; jj % Cap && jj < n && st.key[jj] == key; ++jj) {
+#pragma unroll
+          for (int w = 0; w < 4; ++w) u[w] |= st.mask[jj][w];
+        }
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          st.lanes[j][w] = u[w];
+          count[h] += __popc(u[w]);
+        }
+      }
+    }
+    const int pair = count[0] + count[1];
+    int incl = pair;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += t;
+    }
+    st.off[2 * lane] = incl - pair;
+    st.off[2 * lane + 1] = incl - pair + count[0];
+    if (lane == 31) st.off[kRun] = incl;
+  }
+  __syncthreads();
+  // 3. the units: one row each, its run's products summed in registers
+  const int total = st.off[kRun];
+  const int q = threadIdx.x % T;
+  const int cols = min(Shape::kCols, a.k - col0);
+  const L* lidx = a.lidx + s0 * kLanes;
+  for (int u = threadIdx.x / T; u < total; u += Shape::kGroups) {
+    int lo = 0, hi = kRun;  // st.off[lo] <= u < st.off[hi]
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (st.off[mid] <= u) lo = mid;
+      else hi = mid;
+    }
+    const int j = lo;  // the run's head
+    int r = u - st.off[j];
+    int w = 0;
+    unsigned word = st.lanes[j][0];
+    while (r >= __popc(word)) {
+      r -= __popc(word);
+      word = st.lanes[j][++w];
+    }
+    for (; r > 0; --r) word &= word - 1;
+    const int bit = __ffs(word) - 1;
+    const int l = 4 * bit + w;
+    const int key = st.key[j];
+    float acc[P][W];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+#pragma unroll
+      for (int i = 0; i < W; ++i) acc[p][i] = 0.0f;
+    }
+    for (int jj = j; jj < n && st.key[jj] == key && (jj == j || jj % Cap);
+         ++jj) {
+      if (!((st.mask[jj][w] >> bit) & 1u)) continue;
+      const int i = jj * kLanes + l;
+      const float v = to_f32(__ldg(vals + i));
+      const long long col = (tile0 + st.rel[jj]) * kLanes +
+                            static_cast<long long>(__ldg(lidx + i));
+      const V* xr = a.x + col * a.k + col0;
+#pragma unroll
+      for (int p = 0; p < P; ++p) {
+        const int cc = (p * T + q) * W;
+        if (cc < cols) {
+          float x[W];
+          load_x(xr + cc, x);
+#pragma unroll
+          for (int e = 0; e < W; ++e) acc[p][e] += v * x[e];
+        }
+      }
+    }
+    float* yr = a.out + (static_cast<long long>(key) * kLanes + l) * a.k +
+                col0;
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int cc = (p * T + q) * W;
+      if (cc < cols) add_row(yr + cc, acc[p]);
+    }
+  }
+  __syncthreads();  // a next item restages st
+}
+
+// The forward kernels' body: work item blockIdx.x, column block blockIdx.y.
+template <class Stage, class Shape, int Cap = kMatRunCap, typename V,
+          typename L>
+__device__ __forceinline__ void sublane_mat_sweep(const MatArgs<V, L>& a) {
+  __shared__ MatStage st;
+  sublane_mat_run<Stage, Shape, Cap>(a, runs_per_chunk(a.chunk), blockIdx.x,
+                                     blockIdx.y * Shape::kCols, st);
+}
+
+// The alignment a column shape's loads and atomics need: the values plane
+// to four elements (step 1's vector loads); in the vector form also X to
+// four elements and Y to 16 bytes (k % 4 == 0 keeps every row so).
+template <class Shape, typename V, typename L>
+bool mat_aligned(const MatArgs<V, L>& a) {
+  const auto at = [](const void* p, size_t n) {
+    return reinterpret_cast<uintptr_t>(p) % n == 0;
+  };
+  if (!at(a.vals, 4 * sizeof(V))) return false;
+  return Shape::kW == 1 ||
+         (a.k % 4 == 0 && at(a.x, 4 * sizeof(V)) && at(a.out, 16));
+}
+
+// One block per work item and column block of the k-column body.
+template <class Shape, typename V, typename L>
+cudaError_t launch_mat(void (*kernel)(MatArgs<V, L>), MatArgs<V, L> a,
+                       cudaStream_t stream) {
+  if (!mat_aligned<Shape>(a)) return cudaErrorMisalignedAddress;
+  long long items = 0;
+  if (a.k < 1 || !sublane_items(a, &items)) return cudaErrorInvalidValue;
+  const long long col_blocks = (a.k + Shape::kCols - 1) / Shape::kCols;
+  if (col_blocks > 65535) return cudaErrorInvalidValue;
+  void* params[] = {&a};
+  cudaError_t err = cudaLaunchKernel(
+      reinterpret_cast<const void*>(kernel),
+      dim3(static_cast<unsigned>(items), static_cast<unsigned>(col_blocks)),
+      dim3(kThreads), params, 0, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
 }
 
 // Blocks of a cooperative launch of `kernel` with kThreads threads: SMs x

@@ -20,23 +20,46 @@
 // nothing, even against an Inf or NaN in X: the k = 1 kernels land such a
 // NaN product, these skip the slot.
 //
-// Design (sell_common.cuh::warp_slots): one thread per slot decodes its
-// slot, so the plane loads are coalesced as in K1. The warp then ballots
-// its live nonzero slots and walks them one at a time: the slot's value,
-// X row and Y row are broadcast with __shfl_sync, and the 32 lanes cover
-// the k columns 32 at a time, so each step reads 32 consecutive X values
-// and adds into 32 consecutive Y values (float atomics; compare Y with a
-// tolerance, never bitwise). Lanes past k idle when k is not a multiple
-// of 32. Every index is 64-bit: X of 169,343 x 256 already passes 2^31 / 64
-// rows.
+// Design. K1 and K4 with k columns run the warp-per-sublane k-column body
+// (sell_common.cuh, sublane_mat_run; the merged word and the split planes):
+// a block per work item (64 sublanes of one chunk) and column block, the
+// item's rel and slice staged in shared memory, dead sublanes skipped
+// before any plane load, each live sublane's nonzero lanes found with one
+// vector load of values a thread and four ballots. A run of sublanes of
+// one slice (the planner's duplicate sublanes of a row's tile lie next to
+// each other) is summed per row in registers and each row it touches gets
+// one vector atomic, not one a sublane: on gcn_arxiv that cuts Y's row
+// updates from nnz (1,448,814) to about 0.5M a launch; a unit sums at most
+// 16 sublanes (kMatRunCap), so a hub row's runs of up to 129 sublanes are
+// several units side by side. T threads take a row's k columns, P loads
+// each (the column shape, with_mat_shape below, picked from k at launch):
+// X is gathered and Y updated four columns a load (a float4 in f32, four
+// bf16 in 8 bytes; red.global.add.v4.f32) where k % 4 == 0, else one
+// column a load in the same body. X, Y, the values
+// plane and whole chunks are checked at launch: a view not aligned for the
+// form returns cudaErrorMisalignedAddress, planes of no sublane
+// cudaErrorInvalidValue, and nothing launches. Sums are float32 in an order
+// that changes from run to run: compare Y with a tolerance, never bitwise.
+// Every index into X and Y is 64-bit: X of 169,343 x 256 already passes
+// 2^31 / 64 rows.
+//
+// The N-iteration kernel (sell_bench_spmm_kernel, K2 with k > 1) still runs
+// the one-thread-per-slot warp walk (sell_common.cuh, warp_slots); it can
+// take this body as it is (sublane_mat_run walks one item). The packed
+// k-column kernel (csrc/sell_packed.cu: its word carries rel per slot) and
+// the values gradient (csrc/sell_vals_grad.cu: another reduction) keep
+// their own bodies.
 //
 // Bound on this card: bytes at small k (the planes, as the k = 1 kernels),
 // then X and Y, which grow with k; the arithmetic is 2·nnz·k flops, far
-// below the card's rate. The planes are read once per launch whatever k.
+// below the card's rate. The planes are read once per launch and column
+// block (k <= 256 in f32 and bf16 is one column block). At k = 256 the
+// gathers read nnz · k · 4 bytes of X rows, 8.6x X itself on gcn_arxiv:
+// whether they come from L2 decides the time.
 //
-// The bench kernel runs N such sweeps in one cooperative launch, zeroing
-// all of Y between grid.sync()s before each, as the k = 1 bench kernels
-// (csrc/sell_bench.cu); merged word only, as the JAX bench_loop_mat.
+// The bench kernel runs N one-thread-per-slot sweeps in one cooperative
+// launch, zeroing all of Y between grid.sync()s before each; merged word
+// only, as the JAX bench_loop_mat.
 //
 // C interface (ctypes): each launch function returns a cudaError_t value,
 // 0 on success, from cudaGetLastError() right after the launch. The
@@ -49,16 +72,16 @@ namespace {
 
 using namespace sell;
 
-template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
+template <int T, int W, int P, typename V, typename L>
+__global__ void __launch_bounds__(kThreads, kMatMinBlocks)
     sell_spmm_kernel(const MatArgs<V, L> a) {
-  mat_sweep<MergedWord>(a);
+  sublane_mat_sweep<MergedWord, MatShape<T, W, P>>(a);
 }
 
-template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
+template <int T, int W, int P, typename V, typename L>
+__global__ void __launch_bounds__(kThreads, kMatMinBlocks)
     sell_split_spmm_kernel(const MatArgs<V, L> a) {
-  mat_sweep<SplitPlanes>(a);
+  sublane_mat_sweep<SplitPlanes, MatShape<T, W, P>>(a);
 }
 
 template <typename V, typename L>
@@ -88,23 +111,48 @@ MatArgs<V, L> make_mat_args(const void* vals, const void* lidx,
                        iterations};
 }
 
-template <typename V, typename L>
-cudaError_t launch_spmm(int route, MatArgs<V, L> a, cudaStream_t stream) {
-  void (*kernel)(MatArgs<V, L>) = nullptr;
-  if (route == kRelsl) kernel = sell_spmm_kernel<V, L>;
-  if (route == kSplit && a.slice != nullptr) {
-    kernel = sell_split_spmm_kernel<V, L>;
+// Calls fn(MatShape<T, W, P>{}) for k columns: four-element columns (W = 4)
+// where k % 4 == 0, else one (W = 1). A thread takes up to four loads of a
+// row (P), and T is the least power of two whose threads then cover it, at
+// most 8 (vector) or 32 (scalar): past that, more column blocks. Few
+// threads a row and several loads a thread keep more units and gathers in
+// flight per warp. At k = 8 in f32 one thread takes a row (two float4), at
+// k = 40 four threads, at k = 256 eight threads in two column blocks of
+// 128 (measured against other shapes: bench/bench_variants.py --kcol).
+// ops/spmv_sell.py (spmm_shape) mirrors this table.
+template <typename Fn>
+cudaError_t with_mat_shape(int k, Fn&& fn) {
+  if (k < 1) return cudaErrorInvalidValue;
+  if (k % 4 == 0) {
+    const int n4 = k / 4;
+    if (n4 <= 1) return fn(MatShape<1, 4, 1>{});
+    if (n4 <= 2) return fn(MatShape<1, 4, 2>{});
+    if (n4 <= 4) return fn(MatShape<1, 4, 4>{});
+    if (n4 <= 8) return fn(MatShape<2, 4, 4>{});
+    if (n4 <= 16) return fn(MatShape<4, 4, 4>{});
+    return fn(MatShape<8, 4, 4>{});
   }
-  const long long blocks = (a.n_slots + kThreads - 1) / kThreads;
-  if (kernel == nullptr || a.k < 1 || blocks < 1 || blocks > 0x7fffffffLL) {
+  if (k <= 4) return fn(MatShape<1, 1, 4>{});
+  if (k <= 8) return fn(MatShape<2, 1, 4>{});
+  if (k <= 16) return fn(MatShape<4, 1, 4>{});
+  if (k <= 32) return fn(MatShape<8, 1, 4>{});
+  if (k <= 64) return fn(MatShape<16, 1, 4>{});
+  return fn(MatShape<32, 1, 4>{});
+}
+
+template <typename V, typename L>
+cudaError_t launch_spmm(int route, const MatArgs<V, L>& a,
+                        cudaStream_t stream) {
+  if (route != kRelsl && !(route == kSplit && a.slice != nullptr)) {
     return cudaErrorInvalidValue;
   }
-  void* params[] = {&a};
-  cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel),
-                                     dim3(static_cast<unsigned>(blocks)),
-                                     dim3(kThreads), params, 0, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  return with_mat_shape(a.k, [&](auto shape) {
+    using Sh = decltype(shape);
+    void (*kernel)(MatArgs<V, L>) =
+        route == kRelsl ? sell_spmm_kernel<Sh::kT, Sh::kW, Sh::kP, V, L>
+                        : sell_split_spmm_kernel<Sh::kT, Sh::kW, Sh::kP, V, L>;
+    return launch_mat<Sh>(kernel, a, stream);
+  });
 }
 
 template <typename V, typename L>
@@ -128,6 +176,10 @@ cudaError_t launch_bench_spmm(MatArgs<V, L> a, int device,
 // route: sell::kRelsl (merged word; slice null) or sell::kSplit.
 // value_kind: 0 = float32, 1 = bfloat16 (vals and X). lidx_kind: 0 = int8,
 // 1 = int32. X has k columns, Y is (n_slices * 128, k) float32, zeroed.
+// A values plane not aligned to four elements, or (k % 4 == 0) X not
+// aligned to four elements or Y to 16 bytes, returns
+// cudaErrorMisalignedAddress; planes that are not whole chunks, or of no
+// sublane, cudaErrorInvalidValue. Neither launches anything.
 extern "C" int sell_spmm_launch(int route, const void* vals, const void* lidx,
                                 const void* meta, const void* slice,
                                 const void* tile_base, const void* x, void* y,

@@ -26,13 +26,6 @@ namespace {
 
 using namespace sell;
 
-struct Cached {
-  template <typename T>
-  __device__ __forceinline__ static T load(const T* p) {
-    return __ldg(p);
-  }
-};
-
 struct NoL1 {
   __device__ __forceinline__ static float4 load(const float4* p) {
     float4 r;
@@ -113,7 +106,7 @@ __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
   } else if constexpr (Variant == 1) {
     sublane_bench_sweeps<Stage, YAddr, 1>(w.a);
   } else if constexpr (Variant == 2) {
-    sublane_bench_sweeps<Stage, YAddr, 2, Cached>(w.a);
+    sublane_bench_sweeps<Stage, YAddr, 2, ReadOnly>(w.a);
   } else if constexpr (Variant == 3) {
     sublane_bench_sweeps<Stage, YAddr, 2, NoL1>(w.a);
   } else {

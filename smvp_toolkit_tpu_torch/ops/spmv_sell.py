@@ -25,9 +25,12 @@ The k-column kernels (``csrc/sell_spmm.cu``, ``csrc/sell_vals_grad.cu``)
 serve the SpMM and training path on resident-y plans:
 
 * ``sell_spmm`` (K1 with k > 1, merged word) and ``sell_split_spmm`` (K4
-  with k > 1, split planes): Y = A·X in one launch for all k columns;
-* ``sell_bench_spmm`` (K2 with k > 1, merged word): N of those sweeps in
-  one cooperative launch;
+  with k > 1, split planes): Y = A·X in one launch for all k columns, on
+  the warp-per-sublane k-column body (``sell_common.cuh::sublane_mat_run``:
+  a run of one slice's sublanes summed per row before one vector atomic,
+  the columns of a row over the threads of ``spmm_shape(k)``);
+* ``sell_bench_spmm`` (K2 with k > 1, merged word): N one-thread-per-slot
+  sweeps in one cooperative launch;
 * ``sell_vals_grad`` (K7): the cotangent of the values plane, on either
   kind of planes.
 
@@ -134,6 +137,7 @@ __all__ = [
     "sell_split_spmm_plain",
     "sell_bench_spmm",
     "sell_bench_spmm_plain",
+    "spmm_shape",
     "sell_vals_grad",
     "sell_vals_grad_plain",
     "packed_plane_host",
@@ -792,6 +796,28 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
+def spmm_shape(k: int):
+    """The column shape ``(T, W, P)`` that K1 and K4 with k columns launch
+    (``csrc/sell_spmm.cu::with_mat_shape``): T threads a row of Y, W
+    columns a load (4: a float4 of f32 or four bf16, where k % 4 == 0; else
+    1), P loads a thread; a launch has ``ceil(k / (T·W·P))`` column
+    blocks. The vector form (W = 4) needs X aligned to four elements and Y
+    to 16 bytes."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if k % 4 == 0:
+        n4 = k // 4
+        for bound, shape in ((1, (1, 4, 1)), (2, (1, 4, 2)), (4, (1, 4, 4)),
+                             (8, (2, 4, 4)), (16, (4, 4, 4))):
+            if n4 <= bound:
+                return shape
+        return 8, 4, 4
+    for t in (1, 2, 4, 8, 16):
+        if k <= 4 * t:
+            return t, 1, 4
+    return 32, 1, 4
+
+
 def _spmm_dispatch(wrapper, plain, route: str, planes: dict, X, *,
                    n_slices: int, n_coltiles: int, chunk: int,
                    iterations: Optional[int] = None) -> torch.Tensor:
@@ -837,7 +863,13 @@ def _spmm_dispatch(wrapper, plain, route: str, planes: dict, X, *,
 def sell_spmm(vals, lidx, relsl, tile_base, X, *, n_slices: int,
               n_coltiles: int, chunk: int) -> torch.Tensor:
     """K1 with k columns: Y = A·X over the merged-word planes; X is (at
-    least CT·128, k) in the value dtype, Y float32 (n_slices·128, k)."""
+    least CT·128, k) in the value dtype, Y float32 (n_slices·128, k).
+
+    Its kernel runs the warp-per-sublane k-column body: a values plane not
+    aligned to four elements raises "misaligned address", and so does an X
+    view not aligned to four elements when k % 4 == 0 (``spmm_shape``'s
+    vector form); planes of no sublane raise "invalid argument".
+    ``SellSpMV._block`` gives X new, aligned storage."""
     return _spmm_dispatch(sell_spmm, sell_spmm_plain, "relsl",
                           dict(vals=vals, lidx=lidx, relsl=relsl,
                                tile_base=tile_base),
@@ -848,7 +880,8 @@ def sell_spmm(vals, lidx, relsl, tile_base, X, *, n_slices: int,
 def sell_split_spmm(vals, lidx, rel, slice_of, tile_base, X, *,
                     n_slices: int, n_coltiles: int,
                     chunk: int) -> torch.Tensor:
-    """K4 with k columns: Y = A·X over the split planes."""
+    """K4 with k columns: Y = A·X over the split planes, on K1-with-k's
+    body and alignment rule."""
     return _spmm_dispatch(sell_split_spmm, sell_split_spmm_plain, "split",
                           dict(vals=vals, lidx=lidx, rel=rel,
                                slice_of=slice_of, tile_base=tile_base),

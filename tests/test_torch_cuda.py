@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from smvp_toolkit_tpu_torch.bench.bench_variants import spmm_tolerance
 from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 from smvp_toolkit_tpu_torch.ops.sell_plan import (
     build_sell_plan,
@@ -24,6 +25,7 @@ from smvp_toolkit_tpu_torch.ops.sell_plan import (
 )
 
 import test_torch_streamy_contract as streamy_plans
+import torch_kcol_plans as kcol_plans
 
 pytestmark = pytest.mark.cuda
 
@@ -336,7 +338,9 @@ def _block(card, rows, k, seed, dtype=torch.float32):
         (rows, k)).astype(np.float32)).to(card).to(dtype).contiguous()
 
 
-@pytest.mark.parametrize("k", [1, 2, 8, 17, 40])
+# k = 4, 8, 40, 256 and 300 take the vector column form (300: two column
+# blocks), 1, 2, 6 and 17 the scalar one (spmv_sell.spmm_shape).
+@pytest.mark.parametrize("k", [1, 2, 4, 6, 8, 17, 40, 256, 300])
 @pytest.mark.parametrize("route", ["relsl", "split"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kcolumn_kernels_match_plain(card, route, dtype, k):
@@ -368,6 +372,101 @@ def test_kcolumn_kernels_match_plain(card, route, dtype, k):
     assert not g1[torch.from_numpy(dead).to(card)].any()
     if route == "relsl":
         assert _rel(y2, yp) <= TOL
+
+
+@pytest.mark.parametrize("k", [6, 8, 40, 256])
+@pytest.mark.parametrize("route", ["relsl", "split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kcolumn_hub_row_matches_plain(card, route, dtype, k):
+    """A row of 200 entries in one column tile: its 200 duplicate sublanes
+    run past several 64-sublane work items, each piece summed per row and
+    flushed once; K1 / K4 with k columns equal the plain version."""
+    plan = kcol_plans.hub_row_plan(route)
+    op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+    assert op.route == route
+    X = _block(card, plan.n_coltiles * 128, k, 6, dtype)
+    fwd = op.spmm_kernel
+    plain = getattr(S, fwd.__name__ + "_plain")
+    before = fwd.launches
+    y = fwd(*op._planes(), X, **op._mat_kw())
+    yp = plain(*op._planes(), X, **op._mat_kw())
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    row = kcol_plans.HUB_ROW
+    tol, _ = spmm_tolerance(plan)  # the run's sums in another order
+    assert yp[row].abs().max() > 0
+    assert _rel(y, yp) <= tol
+    assert _rel(y[row], yp[row]) <= tol
+
+
+@pytest.mark.parametrize("k", [6, 8])
+@pytest.mark.parametrize("route", ["relsl", "split"])
+def test_kcolumn_zero_value_skips_inf(card, route, k):
+    """A zero-valued slot contributes nothing: X holds Inf in the column
+    of a padding lane, whose real entries are zeroed through the values
+    plane, so only zero-valued slots read it; Y stays finite and equals
+    the plain version (vector form at k = 8, scalar at k = 6)."""
+    plan = _route_plan(route)
+    op = S.SellSpMV(plan, device=card)
+    vals = plan.vals.reshape(-1, 128)
+    live = (plan.rel_tile.reshape(-1) >= 0) & (plan.slice_of.reshape(-1) >= 0)
+    s = np.arange(vals.shape[0])
+    cols = ((plan.tile_base.astype(np.int64)[s // plan.chunk]
+             + plan.rel_tile.reshape(-1))[:, None] * 128
+            + plan.lane_idx.reshape(vals.shape))
+    pad = live[:, None] & (vals == 0)
+    col = int(cols[pad][0])
+    v = op.vals.clone().reshape(vals.shape)
+    v[torch.from_numpy(live[:, None] & (cols == col)).to(card)] = 0
+    planes = (v.reshape(op.vals.shape),) + tuple(op._planes()[1:])
+    X = _block(card, plan.n_coltiles * 128, k, 9)
+    X[col] = float("inf")
+    fwd = op.spmm_kernel
+    plain = getattr(S, fwd.__name__ + "_plain")
+    y = fwd(*planes, X, **op._mat_kw())
+    yp = plain(*planes, X, **op._mat_kw())
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(yp).all()
+    assert _rel(y, yp) <= TOL
+
+
+@pytest.mark.parametrize("what", ["X", "vals"])
+@pytest.mark.parametrize("route", ["relsl", "split"])
+def test_kcolumn_misaligned_view_raises(card, route, what):
+    """An X view one element off its 16-byte alignment at k = 8 (the
+    vector form's float4 gathers), or a values plane one element off
+    (step 1's vector loads): the launch is refused with "misaligned
+    address" and counts none. At k = 6 (the scalar form) the same X view
+    launches and equals the plain version."""
+    plan = _route_plan(route)
+    op = S.SellSpMV(plan, device=card)
+    fwd = op.spmm_kernel
+    plain = getattr(S, fwd.__name__ + "_plain")
+    planes, kw = list(op._planes()), op._mat_kw()
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    for k in (8, 6):
+        X = _block(card, plan.n_coltiles * 128, k, 10)
+        args = list(planes)
+        if what == "X":
+            X = shifted(X)
+        else:
+            args[0] = shifted(args[0])
+        before = fwd.launches
+        if what == "X" and k == 6:
+            y = fwd(*args, X, **kw)
+            torch.cuda.synchronize()
+            assert fwd.launches == before + 1
+            assert _rel(y, plain(*args, X, **kw)) <= TOL
+            continue
+        with pytest.raises(RuntimeError, match="misaligned"):
+            fwd(*args, X, **kw)
+        assert fwd.launches == before
 
 
 def test_matmat_and_autograd_on_card(card):

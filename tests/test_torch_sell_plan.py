@@ -24,6 +24,8 @@ from smvp_toolkit_tpu_torch.ops import spmv_sell as tsp
 
 from conftest import random_coo
 
+import torch_kcol_plans as kcol
+
 
 def _triplets(name):
     if name == "synth":
@@ -202,3 +204,40 @@ def test_complex_values_refused():
     with pytest.raises(TypeError):
         tplan.build_sell_plan(np.array([0]), np.array([0]),
                               np.array([1j]), (1, 1))
+
+
+def _powerlaw():
+    from smvp_toolkit_tpu_torch.utils.synth import synth_powerlaw
+
+    r, c, v = synth_powerlaw(20000, 200000, seed=0, device="cpu").to_numpy()
+    return r, c, np.asarray(v), (20000, 20000)
+
+
+@pytest.mark.parametrize("planner", ["port", "jax"])
+@pytest.mark.parametrize("name,chunk", [("powerlaw", 2048), ("dups", 512),
+                                        ("dups", 64)])
+def test_cell_sublanes_adjacent_in_plan_order(planner, name, chunk):
+    """The premise of the k-column kernels' run-summing: every live
+    sublane of one (tile, slice) cell (a row's duplicate sublanes in one
+    column tile) lies next to the others in plan order, in the port's
+    planner and in the JAX planner, on a powerlaw plan (hub rows) and on
+    a plan with duplicate coordinates; and runs of several sublanes
+    occur."""
+    r, c, v, shape = _powerlaw() if name == "powerlaw" else _triplets(name)
+    build = (tplan if planner == "port" else jplan).build_sell_plan
+    plan = build(r, c, v, shape, chunk=chunk)
+    assert kcol.cells_adjacent(plan)
+    assert kcol.runs(plan)[:, 1].max() > 1
+
+
+@pytest.mark.parametrize("route", ["relsl", "split"])
+def test_hub_row_runs_past_a_work_item(route):
+    """``hub_row_plan``'s row of 200 entries in one tile is one run of at
+    least 200 sublanes (a random entry may join it) that crosses 64-sublane
+    work items, on the route named."""
+    plan = kcol.hub_row_plan(route)
+    assert tsp.SellSpMV(plan, device="cpu").route == route
+    rr = kcol.runs(plan)
+    first, length = rr[np.argmax(rr[:, 1])]
+    assert length >= kcol.HUB_ENTRIES
+    assert first // kcol.ITEM != (first + length - 1) // kcol.ITEM

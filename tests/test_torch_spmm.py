@@ -13,6 +13,8 @@ from __future__ import annotations
 import functools
 import json
 import os
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,6 +36,8 @@ from smvp_toolkit_tpu_torch.interop import (
 )
 from smvp_toolkit_tpu_torch.ops import spmv_sell as tsp
 from smvp_toolkit_tpu_torch.ops import spmv_torch
+
+import torch_kcol_plans as kcol
 
 TOL = 1e-5
 DTYPES = {"float32": (torch.float32, jnp.float32),
@@ -95,6 +99,69 @@ def test_matmat_matches_jax(route, k, dtype):
     assert Y.dtype == torch.float32 and Y.shape == (tp.shape[0], k)
     assert _rel(Y.numpy(), Yj) <= TOL
     assert {n: f.launches for n, f in tsp.MAT_KERNELS.items()} == before
+
+
+@pytest.mark.parametrize("k", [6, 8])
+@pytest.mark.parametrize("route", ["relsl", "split"])
+def test_hub_row_plan_matches_jax_and_oracle(route, k):
+    """A row of 200 entries in one column tile (200 duplicate sublanes, past
+    several 64-sublane work items of the k-column kernels): the plain
+    version against the JAX operator on the same plan and against a
+    float64 dense oracle (duplicates summed)."""
+    r, c, v, shape, chunk = kcol.hub_row_triplets(route)
+    tp = kcol.hub_row_plan(route)
+    jp = jplan.build_sell_plan(r, c, v, shape, chunk=chunk)
+    op = tsp.SellSpMV(tp, device="cpu")
+    assert op.route == route
+    X = _x(shape[1], k)
+    Y = op.matmat(torch.from_numpy(X)).numpy()
+    assert _rel(Y, jsp.SellSpMV(jp).matmat(jnp.asarray(X))) <= TOL
+    dense = np.zeros(shape)
+    np.add.at(dense, (r, c), np.asarray(v, np.float32))
+    assert _rel(Y, dense @ X.astype(np.float64)) <= TOL
+
+
+_SPMM_SRC = (Path(tsp.__file__).resolve().parent.parent / "csrc"
+             / "sell_spmm.cu").read_text()
+
+
+def _kernel_shape(k):
+    """The column shape csrc/sell_spmm.cu's with_mat_shape returns for k,
+    read from its table."""
+    body = _SPMM_SRC[_SPMM_SRC.index("cudaError_t with_mat_shape"):]
+    body = body[:body.index("\n}\n")]
+    vector, scalar = body.split("if (k <= 4)", 1)
+    scalar = "if (k <= 4)" + scalar
+    part, var = (vector, k // 4) if k % 4 == 0 else (scalar, k)
+    for bound, t, w, p in re.findall(
+            r"if \(\w+ <= (\d+)\) return fn\(MatShape<(\d+), (\d+), "
+            r"(\d+)>", part):
+        if var <= int(bound):
+            return int(t), int(w), int(p)
+    t, w, p = re.findall(r"return fn\(MatShape<(\d+), (\d+), (\d+)>",
+                         part)[-1]
+    return int(t), int(w), int(p)
+
+
+def test_spmm_shape_matches_the_kernel_table():
+    """``spmm_shape`` (the column shape K1 and K4 with k columns launch)
+    equals the kernel's own table for every k up to 700; the vector form
+    is taken exactly where k % 4 == 0; T is a power of two up to a warp, P
+    at most 4; one column block covers k up to 128 in either form."""
+    for k in range(1, 701):
+        t, w, p = tsp.spmm_shape(k)
+        assert (t, w, p) == _kernel_shape(k), k
+        assert (w == 4) == (k % 4 == 0) and t in (1, 2, 4, 8, 16, 32), k
+        assert 1 <= p <= 4, k
+        if k <= 128:
+            assert t * w * p >= k, k
+    assert tsp.spmm_shape(8) == (1, 4, 2)      # 32 rows a warp step
+    assert tsp.spmm_shape(40) == (4, 4, 4)
+    assert tsp.spmm_shape(256) == (8, 4, 4)    # two column blocks
+    assert tsp.spmm_shape(300) == (8, 4, 4)    # three column blocks
+    assert tsp.spmm_shape(6) == (2, 1, 4)
+    with pytest.raises(ValueError):
+        tsp.spmm_shape(0)
 
 
 @pytest.mark.parametrize("route", ROUTES)
