@@ -10,12 +10,14 @@ Phases; any failure exits non-zero and prints no result line:
 1. The card's name and power limit, then the kernels' build from
    ``smvp_toolkit_tpu_torch/csrc`` (one nvcc per source, in parallel) with
    its time, the registers and spills of every warp-per-sublane kernel,
-   forward and N-iteration, and of K1 and K4 with k columns (``[regs]``,
-   the most over their types and column shapes), and each bench kernel's
+   forward and N-iteration (K2-subwin among them), of K1 and K4 with k
+   columns and of K7 (``[regs]``, the most over their types and column
+   shapes), and each bench kernel's
    cooperative grid (the four routes' N-iteration kernels for both value
    and lane-index types on a line of their own). The plans of the
    four full-size matrices and of the ``gcn_arxiv`` graph (its normalised
-   adjacency A and its transpose).
+   adjacency A and its transpose), and K7's by-slice schedule of A (its
+   units, live sublanes per slice and build time on a ``[plan]`` line).
 2. Every kernel against its plain PyTorch version on the card, in float32
    and bfloat16: the forward kernel of the plan's route, its N-iteration
    kernel with N = 3, and the two against each other. Tolerance:
@@ -43,7 +45,13 @@ Phases; any failure exits non-zero and prints no result line:
    every resident-y small plan with k = 2, 8 and 17, on smoke and L2 with
    k = 8, and on gcn_arxiv's A (split planes: K4, K7) and Aᵀ (merged
    word: K1, K2) with k = 8 and, in float32, k = 256 and 40 (the GCN's
-   widths) and 6 (k % 4 != 0: the scalar column form). K1 and K4 with k
+   widths) and 6 (k % 4 != 0: the scalar column form); K7's dead
+   sublanes must be exactly 0 and its padding lanes of live sublanes must
+   carry nonzero partials (more nonzero words than nonzero values). K7 on
+   the hub-row plans (a row of 200 entries in one column tile, so that its
+   slice is cut into several units of the schedule; merged word and split
+   planes, both dtypes, k = 1, 8, 40, 256) against its plain version
+   (<= 1e-6), with the same two checks. K1 and K4 with k
    columns run the warp-per-sublane k-column body (``sublane_mat_run``);
    each ``[check]`` line names the column shape (T threads a row, W
    columns a load, P passes; ``spmv_sell.spmm_shape``). On smoke and L2
@@ -92,7 +100,8 @@ Phases; any failure exits non-zero and prints no result line:
    K6 (``sell_onehot``, the ``SMVP_SELL_COMPAT=1`` kernel, on the plan's
    dense one-hot operands) on every small resident plan and on smoke, and
    K2-subwin (``sell_bench_subwin``, N = 3, the ``SMVP_SELL_SUBWIN=1``
-   kernel) on the eligible small plan and on smoke, float32 and bfloat16:
+   kernel, K2's warp-per-sublane body under its window rule) on the
+   eligible small plan and on smoke, float32 and bfloat16:
    <= 1e-6 of max |y| against the plain version and against K1 (K2 relsl)
    on the same plan; a control, K2-subwin fed ``stb`` shifted by 16 tiles,
    must miss that tolerance.
@@ -228,7 +237,10 @@ Phases; any failure exits non-zero and prints no result line:
    gcn_arxiv; K1's and K4's forward launches with k columns and their
    library calls queued behind the spin kernel as K1's (the host-paced
    times beside), their entries naming their ``body`` and column
-   ``shape``. The fused solvers at hpcg104 in float32 (K9 300 steps, K10
+   ``shape``. K7 on gcn_arxiv's A at k = 256 and 40 on its by-slice
+   schedule (``body`` ``by-slice``, ``units``), its launches and its
+   library call queued behind the spin kernel, the host-paced times
+   beside. The fused solvers at hpcg104 in float32 (K9 300 steps, K10
    600, K11 100 at sweeps 4): bound = one step's bytes (the planes of each
    SpMV phase, K11: A + 3·(L + Lᵀ), and each state vector once) times the
    steps over the memory rate; yardstick: the same solve by the port's
@@ -246,7 +258,8 @@ Phases; any failure exits non-zero and prints no result line:
    operands' bytes (read once), the dense products' time at the float32
    rate printed beside it (``dense_flops_ms``; the kernel skips the
    one-hot zeros, so only 2 flops per non-zero bound it). K2-subwin on
-   smoke and K2-cocluster (``sell_bench_kernel`` on smoke-cc's permuted
+   smoke (``body`` ``warp-per-sublane``; a ``[time]`` line gives it over
+   K2 on the same plan and N) and K2-cocluster (``sell_bench_kernel`` on smoke-cc's permuted
    planes, replacing ``CoClusteredSellSpMV.bench_loop``; held at N = 200
    against the plain version, <= 1e-6) at N = 200: bound
    the plan's bytes or 2·nnz·N flops, the larger. Library: the natural
@@ -322,20 +335,30 @@ KERNELS = {
 }
 # The k = 1 route kernels, which all run the warp-per-sublane body
 # (sell_common.cuh, sublane_run): every forward kernel (K1 and K3-relsl
-# staging the merged word, K3-split and K4 the split planes) and every
+# staging the merged word, K3-split and K4 the split planes), every
 # route's N-iteration kernel (K2 and K2 streamed on the merged word, K2
-# streamed split and K2 split); and K1 and K4 with k columns, which run
-# its k-column form (sublane_mat_run). The packed, solver and other
-# k-column kernels (K2 with k columns, K5 with k columns, K7) run one
-# thread per slot. Phase 1 prints their registers and spills, and a
-# phase-4 entry names its body, so that a time can be told from the
+# streamed split and K2 split) and K2-subwin (K2's body under its window
+# rule); K1 and K4 with k columns, which run its k-column form
+# (sublane_mat_run); and K7, which walks the plan by slice. The packed,
+# solver and other k-column kernels (K2 with k columns, K5 with k columns)
+# run one thread per slot. Phase 1 prints their registers and spills, and
+# a phase-4 entry names its body, so that a time can be told from the
 # thread-per-slot times these kernels had before.
 WARP_PER_SUBLANE = ("sell_spmv_kernel", "sell_bench_kernel",
                     "sell_streamy_relsl_kernel",
                     "sell_bench_streamy_relsl_kernel",
                     "sell_streamy_kernel", "sell_bench_streamy_kernel",
-                    "sell_split_kernel", "sell_bench_split_kernel")
+                    "sell_split_kernel", "sell_bench_split_kernel",
+                    "sell_bench_subwin_kernel")
 KCOL_PER_SUBLANE = ("sell_spmm_kernel", "sell_split_spmm_kernel")
+BY_SLICE = ("sell_vals_grad_kernel",)
+# K7's hub-row plans (tests/torch_kcol_plans.py): a row of 200 entries in
+# one column tile beside random entries, so that its slice's 200 live
+# sublanes are cut into several units of the by-slice schedule; on the
+# merged word (3000 x 3000, chunk 2048) and the split planes (3000 x
+# 70000, chunk 1024), at these k.
+HUB_ROW, HUB_ENTRIES, HUB_TILE = 1000, 200, 3
+HUB_KS = (1, 8, 40, 256)
 # The k values phase 2 holds gcn_arxiv's k-column kernels to in float32:
 # the CLI's k, the GCN's widths, and one k % 4 != 0 (the scalar form).
 GCN_CHECK_KS = (SPMM_K, GCN_K, 40, 6)
@@ -604,6 +627,17 @@ def _gcn_graph(np, torch):
               f"{p.nnz / p.slots():.3f}; planned in {secs:.2f} s", flush=True)
     _check(op.route == "split" and op_t.route == "relsl",
            f"gcn_arxiv routes {op.route} / {op_t.route}, not split / relsl")
+    sched = op.vals_grad_schedule()
+    per_slice = torch.bincount(sched.unit_slice[sched.unit_slice >= 0].long(),
+                               weights=(sched.unit_start[1:]
+                                        - sched.unit_start[:-1])[
+                                   sched.unit_slice >= 0].double())
+    per_slice = per_slice[per_slice > 0]
+    print(f"[plan] gcn_arxiv A: K7 schedule of {sched.n_units} units of at "
+          f"most {sched.cap} sublanes: {int(per_slice.sum())} live sublanes "
+          f"in {per_slice.numel()} slices, {per_slice.mean().item():.1f} a "
+          f"slice on average, {int(per_slice.max())} at most; built in "
+          f"{sched.seconds:.4f} s", flush=True)
     return {"s": s, "A": op, "At": op_t}
 
 
@@ -755,12 +789,80 @@ def _check_mat_kernels(np, torch, name, op, ks, errs):
             _check(e <= t, f"{what}: {e} > {t}")
             errs[(kname, name, dname, k)] = (y - ref).abs().max().item()
             line.append(f"{kname} {e:.3e}")
-        _check(not got["sell_vals_grad_kernel"][0].reshape(-1, 128)[
-            dead].any(), f"K7 on {name} {dname}: a dead sublane is not 0")
+        g7 = got["sell_vals_grad_kernel"][0].reshape(-1, 128)
+        _check(not g7[dead].any(), f"K7 on {name} {dname}: a dead sublane "
+               "is not 0")
+        _check(not (~dead).any() or int((g7[~dead] != 0).sum()) > int(
+            (op.vals.reshape(-1, 128)[~dead] != 0).sum()), f"K7 on {name} "
+            f"{dname} k={k}: the padding lanes of live sublanes carry no "
+            "partials")
         print(f"[check] {name:28s} {dname:9s} {op.route:5s} k={k:<3d} "
               f"shape {S.spmm_shape(k)} vs plain: {', '.join(line)} (SpMM "
               f"tolerance {tol:.2e}: rows of up to {n_max} products)",
               flush=True)
+
+
+def _hub_row_plan(np, route):
+    """K7's hub-row plan of ``route`` (tests/torch_kcol_plans.py)."""
+    from smvp_toolkit_tpu_torch.ops.sell_plan import build_sell_plan
+
+    rng = np.random.RandomState(13)
+    if route == "relsl":
+        shape, nnz, chunk = (3000, 3000), 20000, 2048
+    else:
+        shape, nnz, chunk = (3000, 70000), 800, 1024
+    r = rng.randint(0, shape[0], nnz)
+    c = rng.randint(0, shape[1], nnz)
+    hc = rng.randint(HUB_TILE * 128, (HUB_TILE + 1) * 128, HUB_ENTRIES)
+    r = np.concatenate([r, np.full(HUB_ENTRIES, HUB_ROW)])
+    c = np.concatenate([c, hc])
+    return build_sell_plan(r, c, rng.randn(r.size), shape, chunk=chunk)
+
+
+def _check_vals_grad_hub(np, torch):
+    """K7 on the hub-row plans, both routes and dtypes, at ``HUB_KS``: the
+    hub slice cut into several units of the schedule; within TOL_KERNEL of
+    the plain version, dead sublanes 0, padding lanes carrying partials."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    for route in ("relsl", "split"):
+        plan = _hub_row_plan(np, route)
+        dead = torch.from_numpy((plan.rel_tile.reshape(-1) < 0)
+                                | (plan.slice_of.reshape(-1) < 0)).to(DEVICE)
+        for dname in DTYPE_NAMES:
+            op = S.SellSpMV(plan, value_dtype=getattr(torch, dname),
+                            device=DEVICE)
+            _check(op.route == route, f"hub-row plan on {op.route}")
+            sched = op.vals_grad_schedule()
+            units = int((sched.unit_slice == HUB_ROW // 128).sum())
+            _check(units > 1, f"hub-row {route}: the hub slice in {units} "
+                   "unit(s)")
+            meta = dict(relsl=op.relsl, rel=op.rel, slice_of=op.slice_of)
+            errs = []
+            for k in HUB_KS:
+                rng = np.random.default_rng(k)
+                X = torch.from_numpy(rng.standard_normal(
+                    (plan.n_coltiles * 128, k)).astype(np.float32)).to(
+                    DEVICE).to(op.value_dtype)
+                G = torch.from_numpy(rng.standard_normal(
+                    (plan.n_slices * 128, k)).astype(np.float32)).to(DEVICE)
+                g = S.sell_vals_grad(op.lidx, op.tile_base, X, G,
+                                     schedule=sched, **meta, **op._mat_kw())
+                gp = S.sell_vals_grad_plain(op.lidx, op.tile_base, X, G,
+                                            **meta, **op._mat_kw())
+                torch.cuda.synchronize()
+                e = _rel_err(g, gp)
+                what = f"K7 on hub-row-{route} {dname} k={k}"
+                _check(e <= TOL_KERNEL, f"{what}: {e} > {TOL_KERNEL}")
+                _check(not g[dead].any(), f"{what}: a dead sublane is not 0")
+                _check(int((g[~dead] != 0).sum()) > int(
+                    (op.vals[~dead] != 0).sum()), f"{what}: no partials on "
+                    "the padding lanes")
+                errs.append(f"k={k} {e:.3e}")
+            print(f"[check] hub-row-{route:22s} {dname:9s} "
+                  f"sell_vals_grad_kernel vs plain ({units} units of the hub "
+                  f"slice, {sched.n_units} in all): {', '.join(errs)}",
+                  flush=True)
 
 
 def _check_zero_value_contract(np, torch, name, op):
@@ -862,6 +964,7 @@ def phase_kernels(np, torch, plans, gcn):
                 base.plan, value_dtype=torch.bfloat16, device=dev)
             ks = GCN_CHECK_KS if dname == "float32" else (SPMM_K,)
             _check_mat_kernels(np, torch, f"gcn_arxiv:{label}", op, ks, errs)
+    _check_vals_grad_hub(np, torch)
     return ops, errs
 
 
@@ -1695,29 +1798,53 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
                                   reps=1, warmup=1),
                 lib_ms=lib_ms, flops=2.0 * plan.nnz * k, **common, **extra))
         if label == "A":  # K7 runs on A's planes in the edge steps
-            kname = "sell_vals_grad_kernel"
-            Xt = o._block(X, plan.n_coltiles * 128, torch.float32, "X")
-            Gt = o._block(G, plan.n_slices * 128, torch.float32, "G")
-            meta = dict(relsl=o.relsl, rel=o.rel, slice_of=o.slice_of)
-            Xtr = X.t().contiguous()
-            live = int(((plan.rel_tile.reshape(-1) >= 0)
-                        & (plan.slice_of.reshape(-1) >= 0)).sum()) * 128
-            common = dict(launches=launches[(kname, "gcn_arxiv", "float32")],
-                          nbytes=plan.traffic_bytes(4, x_bytes=4, k=GCN_K),
-                          bw=bw, k=GCN_K, plan=label)
-            entries.append(_entry(
-                kname, "gcn_arxiv", "float32",
-                err=errs[(kname, "gcn_arxiv:A", "float32", GCN_K)],
-                ms=_time_ms(lambda: S.sell_vals_grad(
-                    o.lidx, o.tile_base, Xt, Gt, **meta, **kw), reps=10),
-                plain_ms=_time_ms(lambda: S.sell_vals_grad_plain(
-                    o.lidx, o.tile_base, Xt, Gt, **meta, **kw), reps=1,
-                    warmup=1),
-                lib_ms=_time_ms(lambda: torch.sparse.sampled_addmm(
-                    a, G, Xtr, beta=0.0), reps=10),
-                flops=2.0 * live * GCN_K, **common))
+            entries += _vals_grad_timings(np, torch, o, a, X, G, errs,
+                                          launches, bw)
         del a
     return entries
+
+
+def _vals_grad_timings(np, torch, o, a, X, G, errs, launches, bw):
+    """K7 on gcn_arxiv's A at k = 256 and 40 (the widths of the edge steps'
+    launches), on the operator's by-slice schedule: its launches and its
+    library call (``sampled_addmm`` on A's pattern, beta 0) queued behind
+    the spin kernel, the host-paced times beside."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    kname = "sell_vals_grad_kernel"
+    plan, kw = o.plan, o._mat_kw()
+    meta = dict(relsl=o.relsl, rel=o.rel, slice_of=o.slice_of)
+    sched = o.vals_grad_schedule()
+    live = int(((plan.rel_tile.reshape(-1) >= 0)
+                & (plan.slice_of.reshape(-1) >= 0)).sum()) * 128
+    out = []
+    for k in (GCN_K, 40):
+        Xt = o._block(X[:, :k], plan.n_coltiles * 128, torch.float32, "X")
+        Gt = o._block(G[:, :k], plan.n_slices * 128, torch.float32, "G")
+        Gk, Xtr = G[:, :k].contiguous(), X[:, :k].t().contiguous()
+
+        def fn():
+            return S.sell_vals_grad(o.lidx, o.tile_base, Xt, Gt,
+                                    schedule=sched, **meta, **kw)
+
+        def lib():
+            return torch.sparse.sampled_addmm(a, Gk, Xtr, beta=0.0)
+
+        host = dict(host_paced_ms=_time_ms(fn, reps=10),
+                    host_paced_library_ms=_time_ms(lib, reps=10))
+        out.append(_entry(
+            kname, "gcn_arxiv" if k == GCN_K else f"gcn_arxiv-k{k}",
+            "float32", launches=launches[(kname, "gcn_arxiv", "float32")],
+            err=errs[(kname, "gcn_arxiv:A", "float32", k)],
+            ms=_time_ms(fn, reps=10, queued=True),
+            plain_ms=_time_ms(lambda: S.sell_vals_grad_plain(
+                o.lidx, o.tile_base, Xt, Gt, **meta, **kw), reps=1,
+                warmup=1),
+            lib_ms=_time_ms(lib, reps=10, queued=True),
+            nbytes=plan.traffic_bytes(4, x_bytes=4, k=k), bw=bw,
+            flops=2.0 * live * k, k=k, plan="A", body="by-slice",
+            units=sched.n_units, **host))
+    return out
 
 
 def _card_coo(np, torch, a, dtype=None):
@@ -2847,6 +2974,13 @@ def phase_headline():
     return rec
 
 
+def _k2_ms(S, op, xt, n_iter):
+    """K2's time per launch at ``n_iter`` on ``op``'s planes."""
+    return _time_ms(lambda: S.sell_bench_loop(*op._planes(), xt,
+                                              iterations=n_iter, **op._kw()),
+                    reps=3, warmup=1)
+
+
 def phase_switch_timings(np, torch, ops, ccs, errs, launches, configs, bw):
     """Phase 4 for K6 (smoke, both dtypes, one SpMV), K2-subwin (smoke,
     N = 200) and K2-cocluster (smoke-cc, N = 200). Library: the natural
@@ -2903,7 +3037,12 @@ def phase_switch_timings(np, torch, ops, ccs, errs, launches, configs, bw):
             plain_ms=plain_ms, lib_ms=lib_ms,
             nbytes=plan.traffic_bytes(vb, x_bytes=vb),
             flops=2.0 * plan.nnz * n_iter, bw=bw, iters=n_iter,
-            split=split, sub_wt=sub_wt, sub_nsw=sub_nsw))
+            split=split, sub_wt=sub_wt, sub_nsw=sub_nsw,
+            body="warp-per-sublane"))
+        print(f"[time] smoke-subwin {dname}: sell_bench_subwin_kernel "
+              f"{ms / n_iter:.6f} ms per iteration = "
+              f"{ms / _k2_ms(S, op, xt, n_iter):.3f} x sell_bench_kernel on "
+              f"the same plan and N", flush=True)
         cc, xp = ccs[dname]
         inner = cc.inner
         xpt = inner._x_tiles(xp)
@@ -3442,11 +3581,12 @@ def main() -> int:
               f"registers per thread: {regs}; spill stores {spills} bytes "
               f"(most in one type instance: {spilled})", flush=True)
         print("[regs] warp-per-sublane kernels, forward and N-iteration, "
-              "and the k-column ones (most over their value and index "
-              "types and column shapes): " + "; ".join(
+              "the k-column ones and K7 by slice (most over their value "
+              "and index types and column shapes): " + "; ".join(
                   f"{k} {regs.get(k)} registers, spill stores "
                   f"{spilled.get(k, 0)} bytes"
-                  for k in WARP_PER_SUBLANE + KCOL_PER_SUBLANE), flush=True)
+                  for k in WARP_PER_SUBLANE + KCOL_PER_SUBLANE + BY_SLICE),
+              flush=True)
         from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
         grid = {(r, d): S.bench_blocks(getattr(torch, d), torch.int8,

@@ -13,6 +13,25 @@ L1-bypassing plane loads instead of streaming ones, a dynamic walk of the
 work items, and, on the merged-word routes, the one-thread-per-slot body
 those kernels ran before.
 
+With ``--vgrad`` it times the values-gradient kernel K7 against its
+variants (``csrc/variants/sell_vals_grad_variants.cu``: the
+one-thread-per-slot walk K7 ran before, a per-run form on the k-column
+body's staging, the by-slice body without the shared-memory copy of G,
+with its gathers per column block as first written, with eight column
+blocks a load round, and walking the lanes with G held in registers)
+and the kept kernel and the by-slice variants on schedules of other unit
+caps (64, 32 and 16 sublanes),
+against ``torch.sparse.sampled_addmm`` on A's pattern (beta 0), on
+gcn_arxiv's A at k = 256 and 40 (float32), all queued behind a spin
+kernel; each first held to the plain version within 1e-6 of max |plane|.
+With ``--subwin`` it times K2-subwin's forms on smoke's plan under its
+sub-chain windows (split 4) at N = 200, float32 and bfloat16: the kept
+kernel (two y buffers, one barrier an iteration), the same body with one
+buffer and two barriers, and the one-thread-per-slot walk it ran before,
+against K2 (``sell_bench_loop``) on the same plan and N calls of
+``torch.sparse.mm``; each form first held at N = 3 to the plain version
+(<= 1e-6 of max |y|).
+
 With ``--kcol`` it times the k-column body's variants instead
 (``csrc/variants/sell_spmm_variants.cu``: another column shape, no
 run-summing, eight blocks an SM, and the one-thread-per-slot warp walk K1
@@ -58,7 +77,10 @@ from typing import Dict, List, Optional
 import numpy as np
 
 __all__ = ["VARIANTS", "ONE_BUFFER", "KCOL_VARIANTS", "KCOL_SHAPES",
-           "plane_pointers", "kcol_cases", "spmm_tolerance", "main"]
+           "VGRAD_VARIANTS", "VGRAD_CAPS", "VGRAD_SCHEDULED", "VGRAD_K",
+           "SUBWIN_FORMS",
+           "plane_pointers", "vgrad_pointers", "kcol_cases",
+           "spmm_tolerance", "main"]
 
 # Variant ids of sell_bench_variants.cu.
 VARIANTS = {"barrier1": 0, "barrier2": 1, "cached": 2, "nol1": 3,
@@ -75,6 +97,20 @@ SPIN_CYCLES = 50_000_000  # about 25 ms: longer than the host takes to queue
 _VARIANTS_DIR = Path(__file__).resolve().parent.parent / "csrc" / "variants"
 _SRC = _VARIANTS_DIR / "sell_bench_variants.cu"
 _KCOL_SRC = _VARIANTS_DIR / "sell_spmm_variants.cu"
+_VGRAD_SRC = _VARIANTS_DIR / "sell_vals_grad_variants.cu"
+# Variant ids of sell_vals_grad_variants.cu; the schedule caps timed on
+# the kept kernel beside its own (spmv_sell.VG_CAP); the k values timed.
+VGRAD_VARIANTS = {"walk": 0, "run": 1, "nostage": 2, "block": 3, "rows8": 4,
+                  "lanes": 5}
+VGRAD_CAPS = (64, 32, 16)
+# The variants on the by-slice schedule, timed on every cap beside the
+# kept one too.
+VGRAD_SCHEDULED = ("nostage", "block", "rows8", "lanes")
+VGRAD_K = (256, 40)
+# K2-subwin's forms of sell_bench_variants.cu (sell_bench_subwin_variant_
+# launch) and the y buffer each leaves its result in (None: buffer 0).
+SUBWIN_FORMS = {"walk": 0, "buffers1": 1, "buffers2": 2}
+SUBWIN_N = 200
 # Variant ids of sell_spmm_variants.cu; per k the column shapes (T, P)
 # timed beside the kept one (``spmv_sell.spmm_shape``) at the kept run cap,
 # and the run caps timed beside it at the kept shape; with ``--sweep``,
@@ -100,6 +136,17 @@ _SIGNATURES = {
         ctypes.POINTER(ctypes.c_int)]),
     "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
+_VGRAD_SIGNATURES = {
+    "sell_vals_grad_variant_launch": (ctypes.c_int, [
+        ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_longlong] + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]),
+    "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+_SIGNATURES["sell_bench_subwin_variant_launch"] = (ctypes.c_int, [
+    ctypes.c_int] + [ctypes.c_void_p] * 8 + [
+    ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 7 + [
+    ctypes.c_void_p])
 _KCOL_SIGNATURES = {
     "sell_spmm_variant_launch": (ctypes.c_int, [ctypes.c_int] * 5 + [
         ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
@@ -459,6 +506,194 @@ def run_kcol(names: List[str], sweep: bool = False) -> dict:
     return out
 
 
+def vgrad_pointers(op, X, G, out, schedule) -> list:
+    """The ten pointers of ``sell_vals_grad_variant_launch`` (the order of
+    ``sell_vals_grad_launch``): lidx, the merged word or rel_tile,
+    slice_of (None on the merged word), tile_base, X, G, the output plane
+    and the schedule's order, unit_start and unit_slice."""
+    meta = (op.relsl,) if op.relsl is not None else op.split_planes()
+    planes = [op.lidx, meta[0], meta[1] if len(meta) > 1 else None,
+              op.tile_base, X, G, out, schedule.order, schedule.unit_start,
+              schedule.unit_slice]
+    return [None if t is None else t.data_ptr() for t in planes]
+
+
+def _gcn_a(torch):
+    """gcn_arxiv's A (``chip_smoke.py``'s graph) on the card."""
+    from smvp_toolkit_tpu_torch.models import gcn_norm
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.utils.synth import synth_powerlaw
+
+    t0 = time.perf_counter()
+    op = S.sell_op_csr(gcn_norm(synth_powerlaw(
+        GCN_NODES, GCN_EDGES, seed=0, device=torch.device("cuda", 0))))
+    print(f"[plan] gcn_arxiv:A: S {op.plan.n_sublanes}, route {op.route}, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return op
+
+
+def run_vgrad(ks=VGRAD_K) -> dict:
+    """K7's variants on gcn_arxiv's A (float32) at each k of ``ks``."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.ops import _build
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    _build.build(["sell_vals_grad"])
+    lib, log = _build_variants(_VGRAD_SRC, _VGRAD_SIGNATURES)
+    print(f"[regs] vgrad variants: {_registers(log)}", flush=True)
+    stream = torch.cuda.current_stream().cuda_stream
+    op = _gcn_a(torch)
+    plan, kw = op.plan, op._mat_kw()
+    meta = dict(relsl=op.relsl, rel=op.rel, slice_of=op.slice_of)
+    route = "relsl" if op.relsl is not None else "split"
+    kept = op.vals_grad_schedule()
+    rel, sl = (S._decode_word(op.relsl) if op.relsl is not None
+               else op.split_planes())
+    scheds = {cap: S.vals_grad_schedule(rel, sl, cap=cap)
+              for cap in VGRAD_CAPS}
+    print(f"[plan] gcn_arxiv:A K7 schedule: {kept.n_units} units of at most "
+          f"{kept.cap} sublanes, built in {kept.seconds:.4f} s; " + ", ".join(
+              f"cap {c}: {v.n_units} units" for c, v in scheds.items()),
+          flush=True)
+    r, c, v = op._triplets
+    a = _library_csr(torch, (r, c, v, op.shape), op.device)
+    out = {}
+    for k in ks:
+        rng = np.random.default_rng(k)
+        X = torch.from_numpy(rng.standard_normal(
+            (plan.n_coltiles * S.LANES, k)).astype(np.float32)).to(op.device)
+        G = torch.from_numpy(rng.standard_normal(
+            (plan.n_slices * S.LANES, k)).astype(np.float32)).to(op.device)
+        Xtr = X[: op.shape[1]].t().contiguous()
+        Gr = G[: op.shape[0]].contiguous()
+
+        def launch(variant, sched=kept):
+            o = torch.empty(op.lidx.shape, dtype=torch.float32,
+                            device=op.device)
+            rc = lib.sell_vals_grad_variant_launch(
+                VGRAD_VARIANTS[variant], S._ROUTE_IDS[route],
+                *vgrad_pointers(op, X, G, o, sched), sched.n_units,
+                op.lidx.numel(), kw["chunk"], k, 0,
+                int(op.lidx.dtype == torch.int32), op.device.index or 0,
+                stream)
+            if rc:
+                raise RuntimeError(f"vgrad variant {variant}: CUDA error {rc} "
+                                   f"({lib.sell_error_string(rc).decode()})")
+            return o
+
+        fns = {"kept": lambda: S.sell_vals_grad(
+            op.lidx, op.tile_base, X, G, schedule=kept, **meta, **kw)}
+        fns.update({f"cap{cap}": (lambda sc=sc: S.sell_vals_grad(
+            op.lidx, op.tile_base, X, G, schedule=sc, **meta, **kw))
+            for cap, sc in scheds.items() if cap != kept.cap})
+        fns.update({name: (lambda name=name: launch(name))
+                    for name in VGRAD_VARIANTS})
+        fns.update({f"{name}@{cap}": (lambda name=name, sc=sc:
+                                      launch(name, sc))
+                    for name in VGRAD_SCHEDULED
+                    for cap, sc in scheds.items() if cap != kept.cap})
+        fns["library"] = lambda: torch.sparse.sampled_addmm(a, Gr, Xtr,
+                                                            beta=0.0)
+        ref = S.sell_vals_grad_plain(op.lidx, op.tile_base, X, G, **meta,
+                                     **kw)
+        errs = {name: _rel(f(), ref) for name, f in fns.items()
+                if name != "library"}
+        torch.cuda.synchronize()
+        bad = {name: e for name, e in errs.items() if not e <= TOL}
+        if bad:
+            raise SystemExit(f"bench_variants: vgrad k={k}: {bad} > {TOL}")
+        times = {name: [] for name in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                times[name].append(_time_ms(torch, fns[name], FORWARD_REPS,
+                                            queued=True))
+        best = min(times["kept"])
+        print(f"[vgrad] gcn_arxiv:A float32 k={k} ({route}; errors "
+              f"{max(errs.values()):.3e} <= {TOL})", flush=True)
+        for name, t in times.items():
+            print(f"[vgrad]   {name:10s} {' / '.join(f'{x:.6f}' for x in t)}"
+                  f" ms; {min(t) / best:.3f} x kept", flush=True)
+        out[f"gcn_arxiv:A/float32/k{k}"] = dict(route=route, ms=times,
+                                                errors=errs)
+        del X, G, Xtr, Gr, ref
+    return out
+
+
+def run_subwin() -> dict:
+    """K2-subwin's forms on smoke's plan under its windows, against K2."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.ops import _build
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.utils.synth import parse_synth_spec
+
+    _build.build(["sell_bench"])
+    lib, _ = _build_variants()
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    coo = parse_synth_spec(SMOKE_SPEC, device="cpu")
+    rr, cc, vv = coo.to_numpy()
+    plan = S._auto_plan(rr, cc, vv, coo.shape)
+    split = S.subwin_split(plan.chunk)
+    stb, ssb, sub_wt, sub_nsw = S._sub_windows(plan, split)
+    stb = torch.from_numpy(stb).to(dev)
+    ssb = torch.from_numpy(ssb).to(dev)
+    print(f"[plan] smoke-subwin: split {split}, sub_wt {sub_wt}, sub_nsw "
+          f"{sub_nsw}", flush=True)
+    a = _library_csr(torch, (rr, cc, vv, coo.shape), dev)
+    wkw = dict(split=split, sub_wt=sub_wt, sub_nsw=sub_nsw)
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        op = S.SellSpMV(plan, value_dtype=getattr(torch, dname), device=dev)
+        planes, kw = (op.vals, op.lidx, op.relsl, op.tile_base), op._kw()
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            plan.shape[1]).astype(np.float32)).to(dev)
+        xt, x2 = op._x_tiles(x), x[:, None]
+        n_out = kw["n_slices"] * S.LANES
+
+        def form(name, n):
+            ys = torch.empty(2, n_out, dtype=torch.float32, device=dev)
+            rc = lib.sell_bench_subwin_variant_launch(
+                SUBWIN_FORMS[name], *(t.data_ptr() for t in planes),
+                stb.data_ptr(), ssb.data_ptr(), xt.data_ptr(), ys.data_ptr(),
+                op.vals.numel(), n_out, kw["chunk"], split, sub_wt, sub_nsw,
+                n, int(dname == "bfloat16"), 0, stream)
+            if rc:
+                raise RuntimeError(f"subwin form {name}: CUDA error {rc} "
+                                   f"({lib.sell_error_string(rc).decode()})")
+            return ys[(n - 1) % 2 if name == "buffers2" else 0]
+
+        fns = {"kept": lambda n: S.sell_bench_subwin(
+            *planes, stb, ssb, xt, iterations=n, **wkw, **kw)}
+        fns.update({name: (lambda n, name=name: form(name, n))
+                    for name in SUBWIN_FORMS})
+        fns["K2"] = lambda n: S.sell_bench_loop(*planes, xt, iterations=n,
+                                                **kw)
+        ref = S.sell_bench_subwin_plain(*planes, stb, ssb, xt, iterations=1,
+                                        **wkw, **kw)
+        errs = {name: _rel(f(3), ref) for name, f in fns.items()}
+        torch.cuda.synchronize()
+        bad = {name: e for name, e in errs.items() if not e <= TOL}
+        if bad:
+            raise SystemExit(f"bench_variants: subwin {dname}: {bad}")
+        fns["library"] = lambda n: [torch.sparse.mm(a, x2) for _ in range(n)]
+        times = {name: [] for name in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for name in order:
+                times[name].append(_time_ms(
+                    torch, lambda: fns[name](SUBWIN_N), REPS))
+        best = min(times["kept"])
+        print(f"[subwin] smoke {dname} (N = {SUBWIN_N}; errors "
+              f"{max(errs.values()):.3e} <= {TOL})", flush=True)
+        for name, t in times.items():
+            print(f"[subwin]   {name:9s} {' / '.join(f'{v:.6f}' for v in t)}"
+                  f" ms; {min(t) / best:.3f} x kept", flush=True)
+        out[f"smoke-subwin/{dname}"] = dict(ms=times, errors=errs)
+        del op
+    return out
+
+
 def _blocks(lib, variant: int, route: int, vk: int) -> int:
     n = ctypes.c_int(0)
     rc = lib.sell_bench_variant_blocks(variant, route, vk, 0,
@@ -480,6 +715,10 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="time the k-column body's variants instead")
     p.add_argument("--sweep", action="store_true",
                    help="with --kcol: every shape at every run cap")
+    p.add_argument("--vgrad", action="store_true",
+                   help="time K7's variants on gcn_arxiv's A instead")
+    p.add_argument("--subwin", action="store_true",
+                   help="time K2-subwin's forms on smoke instead")
     p.add_argument("--out", help="write every time to this JSON file")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -492,7 +731,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(card, flush=True)
     default = ",".join(KCOL_K) if args.kcol else "smoke,L1,L2,L3,smoke-dp4"
     names = (args.configs or default).split(",")
-    out = run_kcol(names, args.sweep) if args.kcol else run(names)
+    if args.vgrad:
+        out = run_vgrad()
+    elif args.subwin:
+        out = run_subwin()
+    else:
+        out = run_kcol(names, args.sweep) if args.kcol else run(names)
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(dict(card=card, cases=out)))

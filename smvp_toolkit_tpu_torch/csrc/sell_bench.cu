@@ -50,10 +50,20 @@
 // only when 0 <= rel_adj < sub_wt and ssb[c, h] <= slice < ssb[c, h] +
 // sub_nsw; any other slot (dead sublanes included: rel 511 and the dead
 // slice id fall outside every window) contributes nothing, as the TPU's
-// windowed one-hot products drop it. The column equals K2's whatever stb
-// is, so only this window rule lets a wrong stb or ssb show in y. The same
-// N-iteration loop as the one-thread-per-slot body (zero the one y,
-// grid.sync(), sweep, grid.sync()); its y holds n_out floats.
+// windowed one-hot products drop it. Every quantity of that rule (h, the
+// window bases, the test, the column) is the same for a whole sublane, and
+// the column equals K2's, so K2-subwin is K2's function with more sublanes
+// marked dead: it runs K2's body (sublane_bench_sweeps) under its own
+// staging policy, SubwinWord, which applies the rule once per sublane and
+// stages K2's rel and slice or -1. Only the window rule lets a wrong stb or
+// ssb show in y. It takes two y buffers and one barrier an iteration, as
+// K2 does (kSubwinYBuffers; one buffer and two barriers is a variant in
+// csrc/variants/sell_bench_variants.cu, timed against it by
+// bench/bench_variants.py), under the same launch bounds and checks.
+// Before, it ran one thread per slot, paying per slot a 64-bit divide for
+// h, the window loads and the word's decoding, and a scalar atomic: 32.4 ms
+// at smoke, N = 200, against K2's 10.5 ms (NVIDIA H100 80GB HBM3, 700 W,
+// chip_smoke.py).
 //
 // C interface (ctypes) as in sell_spmv.cu: on all four routes a plane not
 // aligned for the vector loads returns cudaErrorMisalignedAddress, and
@@ -97,54 +107,14 @@ __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
   sublane_bench_sweeps<SplitPlanes, ResidentY, bench_y_buffers(kSplit)>(a);
 }
 
-// K2-subwin's arguments: the relsl planes (Args) and the sub-chain
-// windows, stb and ssb of shape (n_chunks, split), int32.
-template <typename V, typename L>
-struct SubwinArgs {
-  Args<V, L> a;
-  const int* stb;
-  const int* ssb;
-  int split;
-  int sub_wt;
-  int sub_nsw;
-};
+// y buffers of K2-subwin (ops/spmv_sell.py, SUBWIN_Y_BUFFERS, allocates
+// them; the result is buffer (N - 1) % kSubwinYBuffers).
+constexpr int kSubwinYBuffers = 2;
 
 template <typename V, typename L>
-__device__ __forceinline__ void subwin_slot(const SubwinArgs<V, L>& w,
-                                            long long i) {
-  const Args<V, L>& a = w.a;
-  const long long s = i >> 7;
-  const long long c = s / a.chunk;
-  const long long h = (s - c * a.chunk) / (a.chunk / w.split);
-  const long long stb = w.stb[c * w.split + h];
-  const long long ssb = w.ssb[c * w.split + h];
-  const unsigned word = static_cast<unsigned>(a.meta[s]);
-  const long long rel_adj = static_cast<long long>(word & kRelDead) -
-                            (stb - static_cast<long long>(a.tile_base[c]));
-  const long long slice = word >> kSliceShift;
-  if (rel_adj < 0 || rel_adj >= w.sub_wt || slice < ssb ||
-      slice >= ssb + w.sub_nsw) {
-    return;
-  }
-  const long long col =
-      (stb + rel_adj) * kLanes + static_cast<long long>(a.lidx[i]);
-  const float p = to_f32(a.vals[i]) * to_f32(a.x[col]);
-  if (p != 0.0f) atomicAdd(a.y + slice * kLanes + (i & (kLanes - 1)), p);
-}
-
-template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
-    sell_bench_subwin_kernel(const SubwinArgs<V, L> w) {
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (int it = 0; it < w.a.iterations; ++it) {
-    for (long long i = tid; i < w.a.n_out; i += stride) w.a.y[i] = 0.0f;
-    grid.sync();
-    for (long long i = tid; i < w.a.n_slots; i += stride) subwin_slot(w, i);
-    grid.sync();
-  }
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
+    sell_bench_subwin_kernel(const SubwinArgs<V, L> a) {
+  sublane_bench_sweeps<SubwinWord, ResidentY, kSubwinYBuffers>(a);
 }
 
 template <typename V, typename L>
@@ -215,7 +185,11 @@ extern "C" int sell_bench_launch(int route, const void* vals, const void* lidx,
 }
 
 // K2-subwin: arguments as sell_bench_launch on the relsl route, plus the
-// (n_chunks, split) int32 window bases stb and ssb and the window sizes.
+// (n_chunks, split) int32 window bases stb and ssb and the window sizes;
+// y holds kSubwinYBuffers buffers of n_out floats, and the result is
+// buffer (iterations - 1) % kSubwinYBuffers. Misaligned planes return
+// cudaErrorMisalignedAddress, planes that are not whole chunks (or hold
+// no sublane) cudaErrorInvalidValue, as sell_bench_launch.
 extern "C" int sell_bench_subwin_launch(
     const void* vals, const void* lidx, const void* relsl,
     const void* tile_base, const void* stb, const void* ssb, const void* x,
@@ -232,17 +206,20 @@ extern "C" int sell_bench_subwin_launch(
   err = sell::with_types(value_kind, lidx_kind, [&](auto v, auto l) {
     using V = typename decltype(v)::type;
     using L = typename decltype(l)::type;
-    SubwinArgs<V, L> w{
+    SubwinArgs<V, L> a{
         sell::make_args<V, L>(vals, lidx, relsl, nullptr, tile_base,
                               nullptr, x, y, n_slots, n_out, chunk, 0,
                               iterations),
         static_cast<const int*>(stb), static_cast<const int*>(ssb), split,
         sub_wt, sub_nsw};
+    if (!sublane_aligned(a)) return cudaErrorMisalignedAddress;
+    long long items = 0;
+    if (!sublane_items(a, &items) || n_out % 4) return cudaErrorInvalidValue;
     auto kernel = sell_bench_subwin_kernel<V, L>;
     int blocks = 0;
     cudaError_t e = cooperative_grid(kernel, device, &blocks);
     if (e != cudaSuccess) return e;
-    void* params[] = {&w};
+    void* params[] = {&a};
     e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
                                     dim3(blocks), dim3(kThreads), params, 0,
                                     st);

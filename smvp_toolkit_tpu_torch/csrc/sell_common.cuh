@@ -2,7 +2,8 @@
 // csrc/sell_bench.cu, csrc/sell_spmm.cu, csrc/sell_packed.cu): one warp per
 // sublane (`sublane_run`: every k = 1 kernel of the four routes, forward
 // and N-iteration: K1, K2, K3-relsl and K2 streamed on the merged word,
-// K3-split, K2 streamed split, K4 and K2 split on the split planes), its
+// K3-split, K2 streamed split, K4 and K2 split on the split planes, and
+// K2-subwin on the merged word under its window rule, SubwinWord), its
 // k-column form (`sublane_mat_run`: K1 and K4 with k columns), and one
 // thread per slot (`slot`: the packed route, K2-packed among it, and the
 // fused solvers; `warp_slots`, a warp walk over k columns: K2 with k
@@ -250,7 +251,7 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 // One warp per sublane, under a staging policy (MergedWord: K1 and K2 on a
 // resident y, K3-relsl and K2 streamed on a streamed one; SplitPlanes:
 // K3-split and K2 streamed split on a streamed y, K4 and K2 split on a
-// resident one) and a y policy.
+// resident one; SubwinWord: K2-subwin on a resident y) and a y policy.
 //
 // Work item `item` is run r = item % runs of chunk c = item / runs: up to
 // kRun consecutive sublanes of one chunk (chunks never straddle a y block
@@ -341,11 +342,12 @@ __device__ __forceinline__ void add_rows4(float* y, const float (&p)[4]) {
 
 // All kThreads threads of the block call it with the same item; the
 // products land in `out` (a.y, or one of the N-iteration body's two y
-// buffers). `Load` is the plane loads' cache policy.
-template <class Stage, class YAddr, class Load = Streaming, typename V,
-          typename L>
-__device__ __forceinline__ void sublane_run(const Args<V, L>& a, float* out,
-                                            int runs, int item, int* s_rel,
+// buffers). `Load` is the plane loads' cache policy. A is Args, or a type
+// derived from it that carries what its Stage reads beside the planes
+// (K2-subwin's SubwinArgs, csrc/sell_bench.cu).
+template <class Stage, class YAddr, class Load = Streaming, class A>
+__device__ __forceinline__ void sublane_run(const A& a, float* out, int runs,
+                                            int item, int* s_rel,
                                             int* s_slice) {
   const int c = item / runs;
   const int first = (item - c * runs) * kRun;
@@ -359,8 +361,8 @@ __device__ __forceinline__ void sublane_run(const Args<V, L>& a, float* out,
   }
   __syncthreads();
   const int lane4 = 4 * (threadIdx.x & 31);
-  const V* vals = a.vals + s0 * kLanes + lane4;
-  const L* lidx = a.lidx + s0 * kLanes + lane4;
+  const auto* vals = a.vals + s0 * kLanes + lane4;
+  const auto* lidx = a.lidx + s0 * kLanes + lane4;
   float* y = out + ybase * kLanes + lane4;
   for (int j = threadIdx.x >> 5; j < n; j += kWarps) {
     const int rel = s_rel[j];
@@ -370,7 +372,7 @@ __device__ __forceinline__ void sublane_run(const Args<V, L>& a, float* out,
     int l[4];
     load_values<Load>(vals + j * kLanes, v);
     load_lanes<Load>(lidx + j * kLanes, l);
-    const V* xt = a.x + (tile0 + rel) * kLanes;
+    const auto* xt = a.x + (tile0 + rel) * kLanes;
     float p[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[i] = v[i] * to_f32(__ldg(xt + l[i]));
@@ -378,6 +380,47 @@ __device__ __forceinline__ void sublane_run(const Args<V, L>& a, float* out,
   }
   __syncthreads();  // the next item restages s_rel and s_slice
 }
+
+// K2-subwin's arguments (csrc/sell_bench.cu): the relsl planes (Args)
+// and the sub-chain windows, stb and ssb of shape (n_chunks, split), int32.
+template <typename V, typename L>
+struct SubwinArgs : Args<V, L> {
+  const int* stb;
+  const int* ssb;
+  int split;
+  int sub_wt;
+  int sub_nsw;
+};
+
+// K2-subwin's staging of sublane s (csrc/sell_bench.cu): its
+// sub-chain h = (s mod chunk) / (chunk / split) and the window rule, once
+// per sublane, on the merged word's raw fields r and sl:
+//   rel_adj = r - (stb[c, h] - tile_base[c])
+//   live iff 0 <= rel_adj < sub_wt and ssb[c, h] <= sl < ssb[c, h] + sub_nsw
+// A live sublane stages K2's own rel and slice (its column, (tile_base[c]
+// + r)·128 + lidx, equals (stb + rel_adj)·128 + lidx); every other one -1
+// in both. Dead sublanes (r = 511 or the dead slice id) fall out of the
+// same rule (_sub_windows keeps 511 - (stb - tile_base) outside [0,
+// sub_wt), and the dead slice id lies above every slice window), so no
+// separate dead check can disagree with it.
+struct SubwinWord {
+  template <class A>
+  __device__ __forceinline__ static void stage(const A& a, long long s,
+                                               int* rel, int* slice) {
+    const unsigned word = static_cast<unsigned>(a.meta[s]);
+    const long long c = s / a.chunk;
+    const long long h = (s - c * a.chunk) / (a.chunk / a.split);
+    const long long stb = a.stb[c * a.split + h];
+    const long long ssb = a.ssb[c * a.split + h];
+    const long long r = word & kRelDead;
+    const long long sl = word >> kSliceShift;
+    const long long rel_adj = r - (stb - a.tile_base[c]);
+    const bool live = rel_adj >= 0 && rel_adj < a.sub_wt && sl >= ssb &&
+                      sl < ssb + a.sub_nsw;
+    *rel = live ? static_cast<int>(r) : -1;
+    *slice = live ? static_cast<int>(sl) : -1;
+  }
+};
 
 // The forward kernel's body: work item blockIdx.x.
 template <class Stage, class YAddr, typename V, typename L>
@@ -397,10 +440,11 @@ __device__ __forceinline__ void sublane_sweep(const Args<V, L>& a) {
 // an iteration, and the result in y[(N - 1) % 2]. Neither form has a
 // barrier after the last iteration. Zeroing all of a buffer (not only the
 // y blocks that chunks visit) keeps a block that no chunk visits at zero.
-// Which form a kernel takes was measured (csrc/sell_bench.cu).
+// Which form a kernel takes was measured (csrc/sell_bench.cu). A as in
+// sublane_run.
 template <class Stage, class YAddr, int YBuffers, class Load = Streaming,
-          typename V, typename L>
-__device__ __forceinline__ void sublane_bench_sweeps(const Args<V, L>& a) {
+          class A>
+__device__ __forceinline__ void sublane_bench_sweeps(const A& a) {
   static_assert(YBuffers == 1 || YBuffers == 2, "one or two y buffers");
   __shared__ int s_rel[kRun], s_slice[kRun];
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();

@@ -19,6 +19,14 @@
 //   5 slot      the one-thread-per-slot body (bench_sweeps over slot) that
 //               K2 and K2 streamed ran before; merged-word routes only
 // Variants 1 and 5 leave the result in y[0]; the others in y[(N - 1) % 2].
+//
+// K2-subwin's forms (sell_bench_subwin_variant_launch, int8 lane indices):
+// the warp-per-sublane body under SubwinWord with one y buffer and two
+// barriers an iteration (form 1) or two buffers and one barrier (form 2,
+// the kept kernel's), and the one-thread-per-slot walk it ran before (form
+// 0: a 64-bit divide, the window loads and the word's decoding per slot, a
+// scalar atomic, two barriers). Forms 0 and 1 leave the result in y[0],
+// form 2 in y[(N - 1) % 2].
 
 #include "../sell_common.cuh"
 
@@ -178,7 +186,106 @@ cudaError_t launch_variant(int variant, int route, VArgs<V, int8_t> w,
   return cudaGetLastError();
 }
 
+// K2-subwin's old walk: slot i of a one-thread-per-slot grid.
+template <typename V, typename L>
+__device__ __forceinline__ void subwin_slot(const SubwinArgs<V, L>& a,
+                                            long long i) {
+  const long long s = i >> 7;
+  const long long c = s / a.chunk;
+  const long long h = (s - c * a.chunk) / (a.chunk / a.split);
+  const long long stb = a.stb[c * a.split + h];
+  const long long ssb = a.ssb[c * a.split + h];
+  const unsigned word = static_cast<unsigned>(a.meta[s]);
+  const long long rel_adj = static_cast<long long>(word & kRelDead) -
+                            (stb - static_cast<long long>(a.tile_base[c]));
+  const long long slice = word >> kSliceShift;
+  if (rel_adj < 0 || rel_adj >= a.sub_wt || slice < ssb ||
+      slice >= ssb + a.sub_nsw) {
+    return;
+  }
+  const long long col =
+      (stb + rel_adj) * kLanes + static_cast<long long>(a.lidx[i]);
+  const float p = to_f32(a.vals[i]) * to_f32(a.x[col]);
+  if (p != 0.0f) atomicAdd(a.y + slice * kLanes + (i & (kLanes - 1)), p);
+}
+
+// Form 0, built as it was (__launch_bounds__(kThreads)).
+template <typename V, typename L>
+__global__ void __launch_bounds__(kThreads)
+    subwin_walk_kernel(const SubwinArgs<V, L> a) {
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (int it = 0; it < a.iterations; ++it) {
+    for (long long i = tid; i < a.n_out; i += stride) a.y[i] = 0.0f;
+    grid.sync();
+    for (long long i = tid; i < a.n_slots; i += stride) subwin_slot(a, i);
+    grid.sync();
+  }
+}
+
+// Forms 1 and 2: y buffers.
+template <int YBuffers, typename V, typename L>
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
+    subwin_form_kernel(const SubwinArgs<V, L> a) {
+  sublane_bench_sweeps<SubwinWord, ResidentY, YBuffers>(a);
+}
+
+template <typename V>
+cudaError_t launch_subwin_form(int form, SubwinArgs<V, int8_t> a, int device,
+                               cudaStream_t stream) {
+  if (a.split < 2 || a.chunk % a.split || a.sub_wt < 1 || a.sub_nsw < 1 ||
+      a.iterations < 1 || a.stb == nullptr || a.ssb == nullptr) {
+    return cudaErrorInvalidValue;
+  }
+  if (!sublane_aligned(a)) return cudaErrorMisalignedAddress;
+  long long items = 0;
+  if (!sublane_items(a, &items) || a.n_out % 4) return cudaErrorInvalidValue;
+  void (*kernel)(SubwinArgs<V, int8_t>) = nullptr;
+  if (form == 0) kernel = subwin_walk_kernel<V, int8_t>;
+  if (form == 1) kernel = subwin_form_kernel<1, V, int8_t>;
+  if (form == 2) kernel = subwin_form_kernel<2, V, int8_t>;
+  int blocks = 0;
+  cudaError_t err = cooperative_grid(kernel, device, &blocks);
+  if (err != cudaSuccess) return err;
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(blocks), dim3(kThreads), params, 0,
+                                    stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 }  // namespace
+
+// K2-subwin in one of its forms (0, 1, 2 above): arguments as
+// sell_bench_subwin_launch (int8 lane indices only), after the form; y
+// holds 2 * n_out floats.
+extern "C" int sell_bench_subwin_variant_launch(
+    int form, const void* vals, const void* lidx, const void* relsl,
+    const void* tile_base, const void* stb, const void* ssb, const void* x,
+    void* y, long long n_slots, long long n_out, int chunk, int split,
+    int sub_wt, int sub_nsw, int iterations, int value_kind, int device,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto go = [&](auto tag) {
+    using V = typename decltype(tag)::type;
+    SubwinArgs<V, int8_t> a{
+        sell::make_args<V, int8_t>(vals, lidx, relsl, nullptr, tile_base,
+                                   nullptr, x, y, n_slots, n_out, chunk, 0,
+                                   iterations),
+        static_cast<const int*>(stb), static_cast<const int*>(ssb), split,
+        sub_wt, sub_nsw};
+    return launch_subwin_form<V>(form, a, device, st);
+  };
+  if (value_kind == 0) err = go(sell::Tag<float>{});
+  else if (value_kind == 1) err = go(sell::Tag<__nv_bfloat16>{});
+  else err = cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
 
 // Arguments as sell_bench_launch (int8 lane indices only), plus the
 // variant and, for variant 4, two int32 counters; y holds 2 * n_out floats.

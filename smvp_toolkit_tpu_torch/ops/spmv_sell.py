@@ -32,7 +32,9 @@ serve the SpMM and training path on resident-y plans:
 * ``sell_bench_spmm`` (K2 with k > 1, merged word): N one-thread-per-slot
   sweeps in one cooperative launch;
 * ``sell_vals_grad`` (K7): the cotangent of the values plane, on either
-  kind of planes.
+  kind of planes, scheduled by slice (``vals_grad_schedule``: the live
+  sublanes grouped by slice, so that a block reads its slice's G block
+  once).
 
 The JAX operator lays k columns side by side in 128-lane groups
 (``pack_columns``/``unpack_columns``) and cuts k into launch groups of 8
@@ -76,7 +78,9 @@ path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
+import time
 import weakref
 from typing import Optional
 
@@ -140,6 +144,10 @@ __all__ = [
     "spmm_shape",
     "sell_vals_grad",
     "sell_vals_grad_plain",
+    "VG_RUN",
+    "VG_CAP",
+    "VgSchedule",
+    "vals_grad_schedule",
     "packed_plane_host",
     "sell_packed",
     "sell_packed_plain",
@@ -162,6 +170,7 @@ __all__ = [
     "onehot_xw",
     "sell_bench_subwin",
     "sell_bench_subwin_plain",
+    "SUBWIN_Y_BUFFERS",
     "SWITCH_KERNELS",
     "CoClusteredSellSpMV",
     "sell_op_coo_coclustered",
@@ -560,9 +569,9 @@ _SPMM_SIGNATURES = {
 }
 _VALS_GRAD_SIGNATURES = {
     "sell_vals_grad_launch": (ctypes.c_int, [
-        ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, _VP,
+        ctypes.c_int, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP,
     ]),
     "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -901,13 +910,107 @@ def sell_bench_spmm(vals, lidx, relsl, tile_base, X, *, n_slices: int,
                           chunk=chunk, iterations=iterations)
 
 
+# Sublanes of one slice a unit of K7's schedule holds at most
+# (csrc/sell_vals_grad.cu, ``kVgRun``): its shared memory holds that many
+# sublanes' 128 outputs.
+VG_RUN = 64
+# The units ``vals_grad_schedule`` cuts by default. On gcn_arxiv's A (NVIDIA
+# H100 80GB HBM3, 700 W; bench/bench_variants.py --vgrad) units of 32 took
+# K7 from 0.660 to 0.570 ms at k = 256 and from 0.253 to 0.258 ms at k =
+# 40 against units of 64 (a slice of 52 live sublanes on average, so about
+# two blocks a slice and twice as many blocks in flight), and units of 16
+# 0.631 / 0.285 ms.
+VG_CAP = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class VgSchedule:
+    """K7's by-slice schedule of a plan (``vals_grad_schedule``): int32
+    tensors on the planes' device. ``order`` lists every sublane once: the
+    live ones grouped by slice (ascending), in plan order within a slice,
+    then the dead ones in plan order. Unit u is ``order[unit_start[u] :
+    unit_start[u + 1]]``, at most ``cap`` sublanes of slice
+    ``unit_slice[u]`` (-1: dead sublanes, which the kernel zeroes).
+    ``seconds`` is its build time (host clock, synchronised)."""
+
+    order: torch.Tensor
+    unit_start: torch.Tensor
+    unit_slice: torch.Tensor
+    cap: int
+    seconds: float
+
+    @property
+    def n_units(self) -> int:
+        return self.unit_slice.numel()
+
+
+def vals_grad_schedule(rel, sl, cap: int = VG_CAP) -> VgSchedule:
+    """K7's schedule from the per-sublane ``rel`` and ``slice`` (-1 where
+    dead; ``_decode_word`` of the merged word, or the split planes), built
+    with torch ops on their device. A slice of more live sublanes than
+    ``cap`` (at most ``VG_RUN``; a hub row, and at ``VG_CAP`` most slices
+    of gcn_arxiv's A) is cut into several units, so that no block walks it
+    alone. It is the kernel's schedule; the plan is unchanged."""
+    if not 1 <= cap <= VG_RUN:
+        raise ValueError(f"cap must be in [1, {VG_RUN}], got {cap}")
+    t0 = time.perf_counter()
+    rel, sl = rel.reshape(-1).long(), sl.reshape(-1).long()
+    dev = sl.device
+    live = (rel >= 0) & (sl >= 0)
+    ids = live.nonzero().squeeze(1)
+    key, perm = torch.sort(sl[ids], stable=True)
+    ids = ids[perm]
+    head = torch.ones(ids.numel(), dtype=torch.bool, device=dev)
+    head[1:] = key[1:] != key[:-1]
+    first = head.nonzero().squeeze(1)  # each slice's first position
+    pos = (torch.arange(ids.numel(), device=dev)
+           - first[torch.cumsum(head.long(), 0) - 1])
+    live_units = (pos % cap == 0).nonzero().squeeze(1)
+    dead = (~live).nonzero().squeeze(1)
+    dead_units = ids.numel() + torch.arange(0, dead.numel(), cap,
+                                            device=dev)
+    n = ids.numel() + dead.numel()
+    order = torch.cat([ids, dead]).int()
+    unit_start = torch.cat([live_units, dead_units,
+                            torch.tensor([n], device=dev)]).int()
+    unit_slice = torch.cat([key[live_units], torch.full(
+        (dead_units.numel(),), -1, device=dev)]).int()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return VgSchedule(order, unit_start, unit_slice, cap,
+                      time.perf_counter() - t0)
+
+
+def _check_schedule(schedule: VgSchedule, n_sublanes: int,
+                    device: torch.device) -> None:
+    if schedule.cap > VG_RUN:
+        raise ValueError(f"schedule units of {schedule.cap} sublanes, the "
+                         f"kernel holds {VG_RUN}")
+    for name, t, n in (("order", schedule.order, n_sublanes),
+                       ("unit_start", schedule.unit_start,
+                        schedule.n_units + 1),
+                       ("unit_slice", schedule.unit_slice, None)):
+        if (t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous()
+                or t.device != device or (n is not None and t.numel() != n)):
+            raise ValueError(f"schedule {name} must be contiguous int32 of "
+                             f"{n if n is not None else 'n_units'} entries "
+                             f"on {device}")
+
+
 def sell_vals_grad(lidx, tile_base, X, G, *, n_slices: int, n_coltiles: int,
-                   chunk: int, relsl=None, rel=None,
-                   slice_of=None) -> torch.Tensor:
+                   chunk: int, relsl=None, rel=None, slice_of=None,
+                   schedule: Optional[VgSchedule] = None) -> torch.Tensor:
     """K7: the (S, 128) float32 cotangent of the values plane of Y = A·X
     for output cotangent G (float32, at least NS·128 rows, as many columns
     as X). It decodes whichever planes it is given: the merged ``relsl``
-    word or the split ``rel`` and ``slice_of``."""
+    word or the split ``rel`` and ``slice_of``.
+
+    Its kernel walks the plan by slice (``schedule``, built from the
+    planes by ``vals_grad_schedule`` when none is passed;
+    ``SellSpMV.vals_grad_schedule`` caches one per operator). A lane-index
+    plane not aligned to four elements raises "misaligned address", and so
+    does X not aligned to four elements or G not to 16 bytes where k % 4
+    == 0; planes that are not whole chunks raise "invalid argument"."""
     planes = dict(lidx=lidx, tile_base=tile_base, relsl=relsl, rel=rel,
                   slice_of=slice_of)
     check_planes(**planes, chunk=chunk)
@@ -917,6 +1020,8 @@ def sell_vals_grad(lidx, tile_base, X, G, *, n_slices: int, n_coltiles: int,
     if check_block("G", G, rows=n_slices * LANES, dtypes=(torch.float32,),
                    device=dev) != k:
         raise ValueError(f"X has {k} columns, G {G.shape[1]}")
+    if schedule is not None:
+        _check_schedule(schedule, lidx.shape[0], dev)
     kw = dict(n_slices=n_slices, n_coltiles=n_coltiles, chunk=chunk)
     if dev.type == "cpu":
         return sell_vals_grad_plain(lidx, tile_base, X, G, relsl=relsl,
@@ -926,6 +1031,9 @@ def sell_vals_grad(lidx, tile_base, X, G, *, n_slices: int, n_coltiles: int,
             f"the SELL kernels run on cuda tensors (got {dev}); only CPU "
             "tensors take the plain version"
         )
+    if schedule is None:
+        schedule = vals_grad_schedule(
+            *(_decode_word(relsl) if relsl is not None else (rel, slice_of)))
     vk, lk = _kinds(X, lidx)
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.load("sell_vals_grad", _VALS_GRAD_SIGNATURES)
@@ -935,7 +1043,9 @@ def sell_vals_grad(lidx, tile_base, X, G, *, n_slices: int, n_coltiles: int,
         _ROUTE_IDS[route], lidx.data_ptr(),
         (relsl if relsl is not None else rel).data_ptr(), _ptr(slice_of),
         tile_base.data_ptr(), X.data_ptr(), G.data_ptr(), out.data_ptr(),
-        lidx.numel(), chunk, k, vk, lk, dev.index, stream)
+        schedule.order.data_ptr(), schedule.unit_start.data_ptr(),
+        schedule.unit_slice.data_ptr(), schedule.n_units, lidx.numel(),
+        chunk, k, vk, lk, dev.index, stream)
     _check_rc(lib, rc, f"{sell_vals_grad.kernel} launch")
     sell_vals_grad.launches += 1
     return out
@@ -1181,16 +1291,15 @@ def sell_onehot(xw, vals, lidx, oht, seg) -> torch.Tensor:
     return y
 
 
-def _subwin_sweep_plain(vals, lidx, relsl, tile_base, stb, ssb, x, *,
-                        n_slices: int, chunk: int, split: int, sub_wt: int,
-                        sub_nsw: int) -> torch.Tensor:
-    """One K2-subwin sweep in plain PyTorch: the merged word decoded, each
-    sublane's sub-chain window applied (``rel_adj`` in ``[0, sub_wt)``,
-    slice in ``[ssb, ssb + sub_nsw)``), x read at ``(stb + rel_adj)·128 +
-    lidx``."""
+def _subwin_windowed(relsl, tile_base, stb, ssb, *, chunk: int, split: int,
+                     sub_wt: int, sub_nsw: int):
+    """K2-subwin's window rule per sublane: the merged word's raw slice
+    field, whether the sublane's sub-chain window keeps it (``rel_adj`` in
+    ``[0, sub_wt)``, slice in ``[ssb, ssb + sub_nsw)``; dead sublanes fall
+    outside both), and its x tile ``stb + rel_adj``, int64 each."""
     word = relsl.reshape(-1).long() & 0xFFFFFFFF
     rel, sl = word & REL_DEAD, word >> SLICE_SHIFT
-    s = torch.arange(rel.numel(), device=x.device)
+    s = torch.arange(rel.numel(), device=relsl.device)
     c = s // chunk
     h = c * split + (s % chunk) // (chunk // split)
     stb_s = stb.reshape(-1).long()[h]
@@ -1198,8 +1307,20 @@ def _subwin_sweep_plain(vals, lidx, relsl, tile_base, stb, ssb, x, *,
     rel_adj = rel - (stb_s - tile_base.long()[c])
     ok = ((rel_adj >= 0) & (rel_adj < sub_wt) & (sl >= ssb_s)
           & (sl < ssb_s + sub_nsw))
+    return sl, ok, stb_s + rel_adj
+
+
+def _subwin_sweep_plain(vals, lidx, relsl, tile_base, stb, ssb, x, *,
+                        n_slices: int, chunk: int, split: int, sub_wt: int,
+                        sub_nsw: int) -> torch.Tensor:
+    """One K2-subwin sweep in plain PyTorch: the merged word decoded, each
+    sublane's sub-chain window applied (``_subwin_windowed``), x read at
+    ``(stb + rel_adj)·128 + lidx``."""
+    sl, ok, tile = _subwin_windowed(relsl, tile_base, stb, ssb, chunk=chunk,
+                                    split=split, sub_wt=sub_wt,
+                                    sub_nsw=sub_nsw)
     live = ok.nonzero().squeeze(1)
-    col = ((stb_s + rel_adj)[live] * LANES)[:, None] + lidx[live].long()
+    col = (tile[live] * LANES)[:, None] + lidx[live].long()
     prod = vals[live].float() * x.reshape(-1)[col].float()
     row = (sl[live] * LANES)[:, None] + torch.arange(LANES, device=x.device)
     y = torch.zeros(n_slices * LANES, dtype=torch.float32, device=x.device)
@@ -1211,13 +1332,23 @@ def sell_bench_subwin_plain(*args, iterations: int, **kw) -> torch.Tensor:
     return _repeat(_subwin_sweep_plain, iterations, *args, **kw)
 
 
+# y buffers of K2-subwin (csrc/sell_bench.cu, ``kSubwinYBuffers``): two in
+# turn, one grid barrier an iteration, as K2.
+SUBWIN_Y_BUFFERS = 2
+
+
 def sell_bench_subwin(vals, lidx, relsl, tile_base, stb, ssb, x, *,
                       n_slices: int, chunk: int, split: int, sub_wt: int,
                       sub_nsw: int, iterations: int) -> torch.Tensor:
     """K2-subwin: ``iterations`` SpMVs over the merged-word planes in one
     cooperative launch, each sub-chain h of chunk c reading x from its
     window at ``stb[c, h]`` and reducing into its slices from
-    ``ssb[c, h]`` (``_sub_windows``); the last y."""
+    ``ssb[c, h]`` (``_sub_windows``); the last y.
+
+    Its kernel runs K2's warp-per-sublane body with the window rule
+    applied once per sublane (``SubwinWord``): a values or lane-index
+    plane not aligned to four elements raises "misaligned address", and
+    planes of no sublane "invalid argument"."""
     if iterations < 1:
         raise ValueError("iterations must be >= 1")
     check_planes(vals=vals, lidx=lidx, relsl=relsl, tile_base=tile_base,
@@ -1240,16 +1371,17 @@ def sell_bench_subwin(vals, lidx, relsl, tile_base, stb, ssb, x, *,
     vk, lk = _kinds(vals, lidx)
     n_out = n_slices * LANES
     lib = _build.load("sell_bench", _BENCH_SIGNATURES)
-    y = torch.empty(n_out, dtype=torch.float32, device=dev)
+    ys = torch.empty(SUBWIN_Y_BUFFERS, n_out, dtype=torch.float32,
+                     device=dev)
     rc = lib.sell_bench_subwin_launch(
         vals.data_ptr(), lidx.data_ptr(), relsl.data_ptr(),
         tile_base.data_ptr(), stb.data_ptr(), ssb.data_ptr(), x.data_ptr(),
-        y.data_ptr(), vals.numel(), n_out, chunk, split, sub_wt, sub_nsw,
+        ys.data_ptr(), vals.numel(), n_out, chunk, split, sub_wt, sub_nsw,
         iterations, vk, lk, dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     _check_rc(lib, rc, "sell_bench_subwin_kernel cooperative launch")
     sell_bench_subwin.launches += 1
-    return y
+    return ys[(iterations - 1) % SUBWIN_Y_BUFFERS]
 
 
 # The switch kernels' wrappers by kernel name, each with its launch counter.
@@ -1375,6 +1507,7 @@ class SellSpMV:
         self._t_op: Optional[SellSpMV] = None
         self._slot_map: Optional[np.ndarray] = None
         self._slot_index: Optional[torch.Tensor] = None
+        self._vg_schedule: Optional[VgSchedule] = None
 
     def packed_on(self, vals: Optional[torch.Tensor] = None) -> bool:
         """Whether a call takes the packed route: ``SMVP_SELL_PACK=1``,
@@ -1573,6 +1706,16 @@ class SellSpMV:
         return dict(n_slices=self.plan.n_slices,
                     n_coltiles=self.plan.n_coltiles, chunk=self.plan.chunk)
 
+    def vals_grad_schedule(self) -> VgSchedule:
+        """K7's by-slice schedule of this plan (``vals_grad_schedule``),
+        built on the operator's device from its planes at first use and
+        cached."""
+        if self._vg_schedule is None:
+            self._vg_schedule = vals_grad_schedule(
+                *(_decode_word(self.relsl) if self.relsl is not None
+                  else self.split_planes()))
+        return self._vg_schedule
+
     def _launch_range(self, route: str, a: int, b: int, xt: torch.Tensor,
                       vals: Optional[torch.Tensor]) -> torch.Tensor:
         """One forward launch of ``route`` over chunks ``[a, b)`` (views of
@@ -1748,8 +1891,9 @@ class SellSpMV:
 
     def vjp_vals_mat(self, X: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
         """Cotangent of Y = A·X w.r.t. the values plane, (S, 128) float32:
-        ``Σ_j G[row(s, l), j]·X[col(s, l), j]`` in one K7 launch. X is
-        rounded to the value dtype, G taken as float32."""
+        ``Σ_j G[row(s, l), j]·X[col(s, l), j]`` in one K7 launch on the
+        operator's cached schedule. X is rounded to the value dtype, G
+        taken as float32."""
         if self.plan.y_block_slices:
             raise ValueError(
                 "vals-grad needs a resident-y plan; streamed-y operators "
@@ -1761,7 +1905,9 @@ class SellSpMV:
         Gt = self._block(G, self.plan.n_slices * LANES, torch.float32, "G")
         return sell_vals_grad(self.lidx, self.tile_base, Xt, Gt,
                               relsl=self.relsl, rel=self.rel,
-                              slice_of=self.slice_of, **self._mat_kw())
+                              slice_of=self.slice_of,
+                              schedule=self.vals_grad_schedule(),
+                              **self._mat_kw())
 
     def differentiable(self):
         """``f(x) = A·x`` with a backward pass ``Aᵀ·g`` on the kernels."""

@@ -126,3 +126,78 @@ def test_kcol_tolerance_counts_the_longest_row():
     tol, n = BV.spmm_tolerance(plan)
     assert n == int(torch.bincount(row).max()) >= kcol.HUB_ENTRIES
     assert tol == max(BV.TOL, 2 * 2.0 ** -24 * n ** 0.5)
+
+
+# -- K7's variants (``--vgrad``) and K2-subwin's forms (``--subwin``) --------
+
+VGRAD_SOURCE = BV._VGRAD_SRC.read_text()
+
+
+def _c_params(source, fn):
+    """The parameter count of the C function ``fn`` in ``source``."""
+    head = source[source.index(f"int {fn}("):]
+    return len(head[: head.index(")")].split(","))
+
+
+def test_vgrad_variant_ids_match_the_source():
+    """Every K7 variant id is listed in the source's header under the same
+    name and dispatched by its launcher; the caps timed on the kept
+    kernel lie below its unit size."""
+    for name, vid in BV.VGRAD_VARIANTS.items():
+        assert re.search(rf"^//\s+{vid} {name}\s", VGRAD_SOURCE, re.M), name
+        assert f"variant == {vid}" in VGRAD_SOURCE, name
+    assert all(1 <= c <= S.VG_RUN for c in BV.VGRAD_CAPS)
+    assert set(BV.VGRAD_SCHEDULED) <= set(BV.VGRAD_VARIANTS)
+    assert set(BV.VGRAD_K) == {256, 40}
+    kept = (S.__file__.rsplit("/", 2)[0] + "/csrc/sell_vals_grad.cu")
+    assert f"constexpr int kVgRun = {S.VG_RUN};" in open(kept).read()
+
+
+def test_subwin_forms_match_the_source():
+    assert re.search(r"K2-subwin's forms \(sell_bench_subwin_variant_launch",
+                     SOURCE)
+    for name, form in BV.SUBWIN_FORMS.items():
+        assert f"if (form == {form}) kernel = " in SOURCE, name
+    assert "(form 1) or two buffers and one barrier (form 2" in SOURCE
+    assert "Forms 0 and 1 leave the result in y[0]" in SOURCE
+
+
+def test_variant_signatures_match_the_sources():
+    """ctypes gets as many arguments as each C launcher takes."""
+    for src, sigs, fn in (
+            (VGRAD_SOURCE, BV._VGRAD_SIGNATURES,
+             "sell_vals_grad_variant_launch"),
+            (SOURCE, BV._SIGNATURES, "sell_bench_subwin_variant_launch"),
+            (SOURCE, BV._SIGNATURES, "sell_bench_variant_launch")):
+        assert len(sigs[fn][1]) == _c_params(src, fn), fn
+    kept = open(S.__file__.rsplit("/", 2)[0]
+                + "/csrc/sell_vals_grad.cu").read()
+    assert len(S._VALS_GRAD_SIGNATURES["sell_vals_grad_launch"][1]) == (
+        _c_params(kept, "sell_vals_grad_launch"))
+    assert (_c_params(VGRAD_SOURCE, "sell_vals_grad_variant_launch")
+            == _c_params(kept, "sell_vals_grad_launch") + 1)
+
+
+@pytest.mark.parametrize("route", ["relsl", "split"])
+def test_vgrad_pointers_in_launch_order(route):
+    import test_torch_autograd as autograd
+
+    tp = autograd._plan_pair(route)[1]
+    op = S.SellSpMV(tp, device="cpu")
+    X = torch.zeros(tp.n_coltiles * 128, 4)
+    G = torch.zeros(tp.n_slices * 128, 4)
+    out = torch.empty(op.lidx.shape)
+    sched = op.vals_grad_schedule()
+    meta = (op.relsl, None) if route == "relsl" else op.split_planes()
+    want = [op.lidx, *meta, op.tile_base, X, G, out, sched.order,
+            sched.unit_start, sched.unit_slice]
+    assert BV.vgrad_pointers(op, X, G, out, sched) == [
+        None if t is None else t.data_ptr() for t in want]
+
+
+@pytest.mark.parametrize("flag", ["--vgrad", "--subwin"])
+def test_vgrad_and_subwin_refuse_without_a_card(flag, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: main would time the variants")
+    assert BV.main([flag]) == 1
+    assert "needs a CUDA card" in capsys.readouterr().err

@@ -399,6 +399,106 @@ def test_kcolumn_hub_row_matches_plain(card, route, dtype, k):
     assert _rel(y[row], yp[row]) <= tol
 
 
+@pytest.mark.parametrize("k", [1, 2, 6, 8, 40, 256])
+@pytest.mark.parametrize("route", ["relsl", "split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vals_grad_hub_row_matches_plain(card, route, dtype, k):
+    """K7 on the hub-row plan: the hub slice's 200 live sublanes are cut
+    into units of ``VG_CAP`` that several blocks take; the plane equals
+    the plain version, its padding lanes carry partials and its dead
+    sublanes are 0."""
+    plan = kcol_plans.hub_row_plan(route)
+    op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+    sched = op.vals_grad_schedule()
+    assert (sched.unit_slice == kcol_plans.HUB_ROW // 128).sum() > 1
+    X = _block(card, plan.n_coltiles * 128, k, 7, dtype)
+    G = _block(card, plan.n_slices * 128, k, 8)
+    meta = dict(relsl=op.relsl, rel=op.rel, slice_of=op.slice_of)
+    before = S.sell_vals_grad.launches
+    g = S.sell_vals_grad(op.lidx, op.tile_base, X, G, schedule=sched, **meta,
+                         **op._mat_kw())
+    gp = S.sell_vals_grad_plain(op.lidx, op.tile_base, X, G, **meta,
+                                **op._mat_kw())
+    torch.cuda.synchronize()
+    assert S.sell_vals_grad.launches == before + 1
+    assert _rel(g, gp) <= TOL
+    dead = (plan.rel_tile.reshape(-1) < 0) | (plan.slice_of.reshape(-1) < 0)
+    live = torch.from_numpy(~dead).to(card)
+    assert not g[~live].any()
+    nz = torch.from_numpy(plan.vals != 0).to(card)
+    assert (g[live] != 0).sum() > nz[live].sum()  # padding lanes' partials
+
+
+@pytest.mark.parametrize("k", [1, 8, 256])
+@pytest.mark.parametrize("route", ["relsl", "split"])
+def test_vals_grad_writes_every_word(card, route, k):
+    """The wrapper allocates the plane with torch.empty: launched into a
+    block the caching allocator has just freed full of NaN, every word
+    comes out written (dead sublanes exactly 0)."""
+    plan = _route_plan(route)
+    op = S.SellSpMV(plan, device=card)
+    X = _block(card, plan.n_coltiles * 128, k, 11)
+    G = _block(card, plan.n_slices * 128, k, 12)
+    meta = dict(relsl=op.relsl, rel=op.rel, slice_of=op.slice_of)
+    sched = op.vals_grad_schedule()
+    torch.cuda.synchronize()
+    poison = torch.full(op.lidx.shape, float("nan"), device=card)
+    ptr = poison.data_ptr()
+    del poison
+    g = S.sell_vals_grad(op.lidx, op.tile_base, X, G, schedule=sched, **meta,
+                         **op._mat_kw())
+    torch.cuda.synchronize()
+    assert g.data_ptr() == ptr  # the NaN block itself
+    assert torch.isfinite(g).all()
+    dead = (plan.rel_tile.reshape(-1) < 0) | (plan.slice_of.reshape(-1) < 0)
+    assert dead.any() and not g[torch.from_numpy(dead).to(card)].any()
+    gp = S.sell_vals_grad_plain(op.lidx, op.tile_base, X, G, **meta,
+                                **op._mat_kw())
+    assert _rel(g, gp) <= TOL
+
+
+@pytest.mark.parametrize("what", ["lidx", "X", "G", "empty", "chunks"])
+@pytest.mark.parametrize("route", ["relsl", "split"])
+def test_vals_grad_refusals(card, route, what):
+    """K7 refuses a lane-index plane, X or G one element off the alignment
+    its vector loads need (k = 8: "misaligned address"), planes of no
+    sublane ("invalid argument") and planes that are not whole chunks (the
+    wrapper's check), counting no launch."""
+    plan = _route_plan(route)
+    op = S.SellSpMV(plan, device=card)
+    kw = op._mat_kw()
+    X = _block(card, plan.n_coltiles * 128, 8, 13)
+    G = _block(card, plan.n_slices * 128, 8, 14)
+    meta = dict(relsl=op.relsl, rel=op.rel, slice_of=op.slice_of)
+    lidx, tile_base = op.lidx, op.tile_base
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    error, match = RuntimeError, "misaligned"
+    if what == "lidx":
+        lidx = shifted(lidx)
+    elif what == "X":
+        X = shifted(X)
+    elif what == "G":
+        G = shifted(G)
+    elif what == "empty":
+        lidx, tile_base = lidx[:0], tile_base[:0]
+        meta = {k: None if t is None else t[:0] for k, t in meta.items()}
+        match = "invalid argument"
+    else:
+        lidx = lidx[:-1]
+        meta = {k: None if t is None else t[:-1] for k, t in meta.items()}
+        error, match = ValueError, "chunks"
+    before = S.sell_vals_grad.launches
+    with pytest.raises(error, match=match):
+        S.sell_vals_grad(lidx, tile_base, X, G, **meta, **kw)
+    assert S.sell_vals_grad.launches == before
+
+
 @pytest.mark.parametrize("k", [6, 8])
 @pytest.mark.parametrize("route", ["relsl", "split"])
 def test_kcolumn_zero_value_skips_inf(card, route, k):
@@ -927,11 +1027,45 @@ def test_subwin_kernel_matches_plain_and_k2(card, chunk, dtype,
     yp = S.sell_bench_subwin_plain(*planes, stb, ssb, xt, **kw)
     y_k2 = S.sell_bench_loop(*planes, xt, iterations=3, **op._kw())
     bad = S.sell_bench_subwin(*planes, stb + 16, ssb, xt, **kw)
+    # N = 1 and 2 end in the two y buffers in turn
+    ys = [S.sell_bench_subwin(*planes, stb, ssb, xt, **{**kw, "iterations": n})
+          for n in (1, 2)]
     torch.cuda.synchronize()
-    assert S.sell_bench_subwin.launches == before + 3
+    assert S.sell_bench_subwin.launches == before + 5
     assert _rel(y, yp) <= TOL and _rel(y, y_k2) <= TOL
+    assert all(_rel(v, yp) <= TOL for v in ys)
     assert _rel(y_loop, y_k2[: op.shape[0]]) <= TOL
     assert _rel(bad, y_k2) > TOL
+
+
+@pytest.mark.parametrize("what", ["vals", "lidx", "empty"])
+def test_subwin_refusals(card, what, monkeypatch):
+    """K2-subwin refuses a values or lane-index plane one element off its
+    vector loads' alignment ("misaligned address") and planes of no
+    sublane ("invalid argument"), as K2 does, counting no launch."""
+    monkeypatch.setenv("SMVP_SELL_SUBWIN", "1")
+    op = S.SellSpMV(_subwin_plan(2048), device=card)
+    stb, ssb, split, sub_wt, sub_nsw = op.subwin_windows()
+    xt = op._x_tiles(torch.ones(op.plan.shape[1], device=card))
+    planes = [op.vals, op.lidx, op.relsl, op.tile_base]
+    match = "misaligned"
+    if what == "empty":
+        planes = [t[:0] for t in planes]
+        stb, ssb = stb[:0], ssb[:0]
+        match = "invalid argument"
+    else:
+        i = 0 if what == "vals" else 1
+        flat = torch.empty(planes[i].numel() + 1, dtype=planes[i].dtype,
+                           device=card)
+        view = flat[1:].view(planes[i].shape)
+        view.copy_(planes[i])
+        planes[i] = view
+    before = S.sell_bench_subwin.launches
+    with pytest.raises(RuntimeError, match=match):
+        S.sell_bench_subwin(*planes, stb, ssb, xt, split=split,
+                            sub_wt=sub_wt, sub_nsw=sub_nsw, iterations=2,
+                            **op._kw())
+    assert S.sell_bench_subwin.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
