@@ -10,9 +10,9 @@ Phases; any failure exits non-zero and prints no result line:
 1. The card's name and power limit, then the kernels' build from
    ``smvp_toolkit_tpu_torch/csrc`` (one nvcc per source, in parallel) with
    its time, the registers and spills of every warp-per-sublane kernel,
-   forward and N-iteration (K2-subwin among them), of K1 and K4 with k
-   columns and of K7 (``[regs]``, the most over their types and column
-   shapes), and each bench kernel's
+   forward and N-iteration (K2-subwin and K5 among them), of K1 and K4
+   with k columns, of K7 and of K8 on staged slice metadata (``[regs]``,
+   the most over their types and column shapes), and each bench kernel's
    cooperative grid (the four routes' N-iteration kernels for both value
    and lane-index types on a line of their own). The plans of the
    four full-size matrices and of the ``gcn_arxiv`` graph (its normalised
@@ -89,14 +89,20 @@ Phases; any failure exits non-zero and prints no result line:
    (``SMVP_SELL_LIDX32=1``).
    K8 (double-float) on every small resident merged-word plan, without
    and with a lo plane (the streamed and WT > 511 plans must be refused),
-   on the JAX suite's cancelling rows and on its edge scales (exact): its
-   N-iteration kernel with N = 3 bit for bit one launch, K8 against its
-   plain version (float64 in K8's order) <= 2^-50 of max |y|, against the
-   float64 oracle of the planes <= 5e-14 (tests/test_df64_pallas.py:37).
+   on the JAX suite's cancelling rows and on its edge scales (exact), and
+   on the hub-row plan (``tests/torch_kcol_plans.py``: 258 live sublanes
+   in one slice, three staging passes, 8 empty slices): its N-iteration
+   kernel with N = 3 bit for bit one launch, K8 bit for bit its plain
+   version (float64 in K8's order), against the float64 oracle of the
+   planes <= 5e-14 (tests/test_df64_pallas.py:37).
    K5 in bfloat16 on every small merged-word plan (resident: k = 1, 2, 8,
    17 and K2-packed with N = 3; streamed: k = 1) and on smoke (k = 1, 8,
    K2-packed) and L1 (streamed): <= 1e-6 of max |y| against its plain
-   version and against K1 (K3) bf16 on the same plan.
+   version and against K1 (K3) bf16 on the same plan; and K5 on each of
+   those plans' packed plane with lanes 1..127 rewritten to another rel
+   than lane 0's (``tests/torch_packed_plans.py``; odd lanes 511, even
+   lanes another tile): <= 1e-6 against the plain version on that plane,
+   which reads rel from lane 0 as the JAX ``_unpack_plane`` does.
    K6 (``sell_onehot``, the ``SMVP_SELL_COMPAT=1`` kernel, on the plan's
    dense one-hot operands) on every small resident plan and on smoke, and
    K2-subwin (``sell_bench_subwin``, N = 3, the ``SMVP_SELL_SUBWIN=1``
@@ -247,8 +253,13 @@ Phases; any failure exits non-zero and prints no result line:
    scan-loop solver (``models.solvers``) with ``torch.sparse.mm`` on
    float32 CSR tensors as its SpMV. K5, K5 with k = 8 and K2-packed (N =
    200) on smoke-packed and K5 on L1-packed: bound the packed route's
-   bytes (4 per slot); yardstick the float32 CSR call. K8 and its
-   N-iteration kernel on smoke-df64 (N = 200) and smoke-df64-f64 (N = 100):
+   bytes (4 per slot); yardstick the float32 CSR call; K5's launches and
+   its library call queued behind the spin kernel, the host-paced times
+   beside, its entry's ``body`` ``warp-per-sublane`` (K2-packed and K5
+   with k columns: ``thread-per-slot``). K8 and its
+   N-iteration kernel on smoke-df64 (N = 200) and smoke-df64-f64 (N = 100),
+   ``body`` ``staged-slices`` (K8's forward launches and their library
+   calls queued behind the spin kernel, the host-paced times beside):
    each first held at those shapes against its plain version (<= 2^-50 of
    max |y|; the N-iteration kernel with N = 3), that error its
    ``max_abs_err``; bound ``SellDf64SpMV.traffic_bytes`` or 4 (8 with a lo
@@ -337,21 +348,24 @@ KERNELS = {
 # (sell_common.cuh, sublane_run): every forward kernel (K1 and K3-relsl
 # staging the merged word, K3-split and K4 the split planes), every
 # route's N-iteration kernel (K2 and K2 streamed on the merged word, K2
-# streamed split and K2 split) and K2-subwin (K2's body under its window
-# rule); K1 and K4 with k columns, which run its k-column form
-# (sublane_mat_run); and K7, which walks the plan by slice. The packed,
-# solver and other k-column kernels (K2 with k columns, K5 with k columns)
-# run one thread per slot. Phase 1 prints their registers and spills, and
-# a phase-4 entry names its body, so that a time can be told from the
-# thread-per-slot times these kernels had before.
+# streamed split and K2 split), K2-subwin (K2's body under its window
+# rule) and K5 (the packed word, rel staged from lane 0); K1 and K4 with k
+# columns, which run its k-column form (sublane_mat_run); K7, which walks
+# the plan by slice; and K8 and its N-iteration kernel, which walk rows on
+# staged slice metadata. K2-packed, the solver and the other k-column
+# kernels (K2 with k columns, K5 with k columns) run one thread per slot.
+# Phase 1 prints their registers and spills, and a phase-4 entry names its
+# body, so that a time can be told from the thread-per-slot (or, K8,
+# per-row chain) times these kernels had before.
 WARP_PER_SUBLANE = ("sell_spmv_kernel", "sell_bench_kernel",
                     "sell_streamy_relsl_kernel",
                     "sell_bench_streamy_relsl_kernel",
                     "sell_streamy_kernel", "sell_bench_streamy_kernel",
                     "sell_split_kernel", "sell_bench_split_kernel",
-                    "sell_bench_subwin_kernel")
+                    "sell_bench_subwin_kernel", "sell_packed_kernel")
 KCOL_PER_SUBLANE = ("sell_spmm_kernel", "sell_split_spmm_kernel")
 BY_SLICE = ("sell_vals_grad_kernel",)
+STAGED_SLICES = ("sell_df64_kernel", "sell_bench_df64_kernel")
 # K7's hub-row plans (tests/torch_kcol_plans.py): a row of 200 entries in
 # one column tile beside random entries, so that its slice's 200 live
 # sublanes are cut into several units of the by-slice schedule; on the
@@ -1679,12 +1693,21 @@ def _packed_timings(torch, S, name, op, xt, a, x2, errs, launches, bw):
                             warmup=2 if n == 1 else 0)
         lib_ms = _time_ms(lambda: [torch.sparse.mm(a, x2) for _ in range(n)],
                           reps=20 if n == 1 else 1, warmup=1)
+        extra = {"body": "thread-per-slot"}
+        if n == 1:
+            # K5: the card's time alone, the host-paced times beside
+            extra = {"body": "warp-per-sublane", "host_paced_ms": ms,
+                     "host_paced_library_ms": lib_ms}
+            ms = _time_ms(lambda: fn(pk, sl, op.tile_base, xt, **kw),
+                          reps=20, queued=True)
+            lib_ms = _time_ms(lambda: torch.sparse.mm(a, x2), reps=20,
+                              queued=True)
         out.append(_entry(
             fn.kernel, config, "bfloat16",
             launches=launches[(fn.kernel, config, "bfloat16")],
             err=errs[(fn.kernel, name, "bfloat16")], ms=ms,
             plain_ms=plain_ms, lib_ms=lib_ms, nbytes=nbytes,
-            flops=2.0 * plan.nnz * n, bw=bw, iters=n))
+            flops=2.0 * plan.nnz * n, bw=bw, iters=n, **extra))
     return out
 
 
@@ -1766,7 +1789,8 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
                     lib_ms=_time_ms(lambda: torch.sparse.mm(a, X), reps=20),
                     nbytes=plan.traffic_bytes(2, x_bytes=2, k=SPMM_K,
                                               packed=True),
-                    flops=2.0 * plan.nnz * SPMM_K, bw=bw, k=SPMM_K))
+                    flops=2.0 * plan.nnz * SPMM_K, bw=bw, k=SPMM_K,
+                    body="thread-per-slot"))
         del a
     rng = np.random.default_rng(GCN_K)
     X = torch.from_numpy(rng.standard_normal((GCN_NODES, GCN_K)).astype(
@@ -2256,9 +2280,10 @@ def _plane_oracle(np, plan, vals64, x64):
 
 def _check_df64(np, torch, label, op, x64, vals64):
     """K8 and its N-iteration kernel (N = 3) on ``op`` against the plain
-    version (<= 2^-50 of max |y|) and the float64 oracle of the same
-    planes (``vals64``) and x pair (<= 5e-14); the N = 3 launch bit for
-    bit equal to one launch (the fixed summation order). Returns y."""
+    version (bit for bit: the same float64 operations in the same order)
+    and the float64 oracle of the same planes (``vals64``) and x pair
+    (<= 5e-14); the N = 3 launch bit for bit equal to one launch (the
+    fixed summation order). Returns y."""
     from smvp_toolkit_tpu_torch.ops import spmv_df64 as D
     from smvp_toolkit_tpu_torch.ops.precision import df_split, df_to_f64
 
@@ -2269,6 +2294,7 @@ def _check_df64(np, torch, label, op, x64, vals64):
     y3 = D.sell_bench_df64(*planes, iterations=3, **kw)
     yp = D.sell_df64_plain(*planes, **kw)
     torch.cuda.synchronize()
+    bits = torch.equal(y1[0], yp[0]) and torch.equal(y1[1], yp[1])
     n = op.shape[0]
     y, p = df_to_f64(y1[0][:n], y1[1][:n]), df_to_f64(yp[0][:n], yp[1][:n])
     want = _plane_oracle(np, op.plan, vals64, df_to_f64(xh, xl))
@@ -2277,12 +2303,13 @@ def _check_df64(np, torch, label, op, x64, vals64):
     same = torch.equal(y1[0], y3[0]) and torch.equal(y1[1], y3[1])
     what = f"sell_df64_kernel on {label}"
     _check(bool(np.isfinite(y).all()), f"{what}: not finite")
-    _check(e_plain <= TOL_DF64_PLAIN, f"{what} vs plain: {e_plain}")
+    _check(bits, f"{what}: not bit for bit its plain version (max rel "
+           f"{e_plain:.3e})")
     _check(e_oracle <= TOL_DF64_ORACLE, f"{what} vs float64: {e_oracle}")
     _check(same, f"sell_bench_df64_kernel (N = 3) on {label}: not bit for "
            "bit one launch")
     print(f"[check] {label:28s} df64, lo plane {op.vals_lo is not None}: "
-          f"sell_df64_kernel vs plain {e_plain:.3e}, vs float64 "
+          f"sell_df64_kernel bit-equal to plain, vs float64 "
           f"{e_oracle:.3e}; sell_bench_df64_kernel (N = 3) bit-equal",
           flush=True)
     return y
@@ -2340,6 +2367,62 @@ def _check_packed(np, torch, label, op, ks, errs, config=None):
           flush=True)
 
 
+def _disagreeing_lanes(np, packed, slice_of, tile_base, chunk, n_coltiles):
+    """A copy of the (S, 128) int32 packed plane whose live sublanes'
+    lanes 1..127 carry another rel than lane 0's: odd lanes 511 (dead),
+    even lanes tile 0 of the window (1 where lane 0's rel is 0 and the
+    column tiles reach that far; else 511); values and lane indices kept
+    (tests/torch_packed_plans.py)."""
+    w = packed.reshape(-1, 128).astype(np.int64) & 0xFFFFFFFF
+    rel_all = w >> 7 & 511
+    rel0 = rel_all[:, 0]
+    live = (rel0 != 511) & (slice_of.reshape(-1) >= 0)
+    s = np.arange(w.shape[0])
+    room = tile_base.astype(np.int64)[s // chunk] + 1 < n_coltiles
+    other = np.where(rel0 != 0, 0, np.where(room, 1, 511))
+    rel = np.where(np.arange(128) % 2 == 1, 511, other[:, None])
+    rel[:, 0] = rel0
+    rel = np.where(live[:, None], rel, rel_all)
+    out = (w & ~(511 << 7)) | (rel << 7)
+    return out.astype(np.uint32).view(np.int32).reshape(packed.shape)
+
+
+def _check_packed_lanes(np, torch, label, op):
+    """K5 on ``op``'s packed plane with lanes 1..127 rewritten to another
+    rel than lane 0's: within 1e-6 of the plain version on that plane
+    (rel from lane 0) and of the plane's own y. K5 decoding rel per slot,
+    as it did before, misses both."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    pk, sl = op.packed_planes()
+    plan = op.plan
+    bad = torch.from_numpy(_disagreeing_lanes(
+        np, pk.cpu().numpy(), sl.cpu().numpy(), op.tile_base.cpu().numpy(),
+        plan.chunk, plan.n_coltiles)).to(DEVICE)
+    changed = int((bad != pk).sum())
+    n_live = int(((pk.reshape(-1, 128)[:, 0] >> 7 & 511) != 511)
+                 .logical_and(sl.reshape(-1) >= 0).sum())
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        plan.shape[1]).astype(np.float32)).to(DEVICE)
+    xt = op._x_tiles(x)
+    kw = op._kw()
+    if plan.y_block_slices:
+        kw["y_block_id"] = op.y_block_id
+    y = S.sell_packed(bad, sl, op.tile_base, xt, **kw)
+    yp = S.sell_packed_plain(bad, sl, op.tile_base, xt, **kw)
+    y_own = S.sell_packed_plain(pk, sl, op.tile_base, xt, **kw)
+    torch.cuda.synchronize()
+    e, e_own = _rel_err(y, yp), _rel_err(y, y_own)
+    what = f"sell_packed_kernel on {label} with disagreeing lanes"
+    _check(changed > 0 or n_live == 0, f"{what}: no word rewritten")
+    _check(bool(torch.isfinite(y).all()), f"{what}: not finite")
+    _check(e <= TOL_KERNEL and e_own <= TOL_KERNEL,
+           f"{what}: vs plain {e}, vs the plane's own y {e_own}")
+    print(f"[check] {label:28s} bfloat16 packed, {changed} words with "
+          f"another rel than lane 0's: sell_packed_kernel vs plain {e:.3e}, "
+          f"vs the plane's own y {e_own:.3e}", flush=True)
+
+
 def phase_new_kernels(np, torch, plans, ops, errs):
     """Phase 2 for K8, K5 and K2-packed: K8 on every small resident
     merged-word plan with and without a lo plane (the others refused),
@@ -2349,7 +2432,10 @@ def phase_new_kernels(np, torch, plans, ops, errs):
     (streamed) bf16 operators, their errors kept for phase 4."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
     from smvp_toolkit_tpu_torch.ops.precision import df_split, df_to_f64
-    from smvp_toolkit_tpu_torch.ops.spmv_df64 import SellDf64SpMV
+    from smvp_toolkit_tpu_torch.ops.spmv_df64 import (
+        SellDf64SpMV,
+        slice_index,
+    )
 
     for name, plan in plans:
         if name in ROUTE:
@@ -2377,6 +2463,7 @@ def phase_new_kernels(np, torch, plans, ops, errs):
             op = S.SellSpMV(plan, value_dtype=torch.bfloat16, device=DEVICE)
             _check_packed(np, torch, name, op,
                           () if plan.y_block_slices else (2, 8, 17), errs)
+            _check_packed_lanes(np, torch, name, op)
     # the JAX suite's cancelling rows: pairs (b, -b + 1e-4 noise), b ~ 1e4
     rng = np.random.RandomState(3)
     base = rng.randn(128) * 1e4
@@ -2397,11 +2484,28 @@ def phase_new_kernels(np, torch, plans, ops, errs):
         _check(got == want, f"sell_df64_kernel on edge scales {v}: {got}")
     print("[check] edge scales (test_df64_edge_scales_no_nan): exact",
           flush=True)
+    # the hub-row plan: one slice of 258 live sublanes (three staging
+    # passes of K8's walk), 8 empty slices
+    hub = _hub_row_plan(np, "relsl")
+    ptr = np.diff(slice_index(hub)[0].astype(np.int64))
+    _check(ptr.max() == 258 and (ptr == 0).sum() == 8,
+           f"hub-row plan: {ptr.max()} live sublanes at most, "
+           f"{(ptr == 0).sum()} empty slices")
+    x64 = np.random.default_rng(6).standard_normal(hub.shape[1])
+    lo = (hub.vals * 2.0 ** -24 * np.random.default_rng(7).uniform(
+        -0.5, 0.5, hub.vals.shape)).astype(np.float32)
+    for vals_lo in (None, lo):
+        vals64 = hub.vals.astype(np.float64)
+        if vals_lo is not None:
+            vals64 = vals64 + vals_lo
+        _check_df64(np, torch, "hub-row", SellDf64SpMV(
+            hub, vals_lo=vals_lo, device=DEVICE), x64, vals64)
     for name in PACKED_CONFIGS:
         op, _ = ops[(name, "bfloat16")]
         _check_packed(np, torch, name, op,
                       () if op.plan.y_block_slices else (SPMM_K,), errs,
                       config=name)
+        _check_packed_lanes(np, torch, name, op)
 
 
 def _ulp_misses(np, y, ref) -> int:
@@ -2633,13 +2737,21 @@ def phase_df64_timings(np, torch, configs, df64, launches, bw):
             lib_ms = _time_ms(lambda: [torch.sparse.mm(a, x64)
                                        for _ in range(n)],
                               reps=1 if bench else 20, warmup=1)
+            extra = {"body": "staged-slices"}
+            if not bench:
+                # the card's time alone, the host-paced times beside
+                extra.update(host_paced_ms=ms, host_paced_library_ms=lib_ms)
+                ms = _time_ms(lambda: fn(*planes, **kw), reps=20,
+                              queued=True)
+                lib_ms = _time_ms(lambda: torch.sparse.mm(a, x64), reps=20,
+                                  queued=True)
             entries.append(_entry(
                 fn.kernel, config, "df64",
                 launches=launches[(fn.kernel, config, "df64")],
                 err=errs[fn.kernel], ms=ms, plain_ms=plain_ms, lib_ms=lib_ms,
                 nbytes=op.traffic_bytes(), flops=per_slot * op.plan.nnz * n,
                 bw=bw, iters=n, peak=F64_PEAK_FLOPS,
-                lo_plane=op.vals_lo is not None))
+                lo_plane=op.vals_lo is not None, **extra))
         del a
     return entries
 
@@ -3581,11 +3693,13 @@ def main() -> int:
               f"registers per thread: {regs}; spill stores {spills} bytes "
               f"(most in one type instance: {spilled})", flush=True)
         print("[regs] warp-per-sublane kernels, forward and N-iteration, "
-              "the k-column ones and K7 by slice (most over their value "
-              "and index types and column shapes): " + "; ".join(
+              "the k-column ones, K7 by slice and K8 on staged slices "
+              "(most over their value and index types, lo plane and "
+              "column shapes): " + "; ".join(
                   f"{k} {regs.get(k)} registers, spill stores "
                   f"{spilled.get(k, 0)} bytes"
-                  for k in WARP_PER_SUBLANE + KCOL_PER_SUBLANE + BY_SLICE),
+                  for k in WARP_PER_SUBLANE + KCOL_PER_SUBLANE + BY_SLICE
+                  + STAGED_SLICES),
               flush=True)
         from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
@@ -3609,7 +3723,8 @@ def main() -> int:
         grid["sell_bench_packed_kernel"] = S.bench_packed_blocks()
         grid["sell_bench_df64_kernel"] = bench_df64_blocks(torch.int8)
         print(f"[grid] bench kernels' cooperative grid (blocks of 256 "
-              f"threads, int8 lane indices): {grid}", flush=True)
+              f"threads, sell_bench_df64_kernel's of 128; int8 lane "
+              f"indices): {grid}", flush=True)
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         for r in S.ROUTES:
             rgrid = {(d, str(lt)[6:]): S.bench_blocks(getattr(torch, d), lt,

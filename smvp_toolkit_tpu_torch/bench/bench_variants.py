@@ -43,6 +43,21 @@ kernel: smoke and L2 at k = 8 (float32 and bfloat16) and gcn_arxiv's A
 is first held to the plain version within the SpMM tolerance of the plan
 (max(1e-6, 2·2^-24·√n), n the most products a row sums).
 
+With ``--packed`` it times K5 (``csrc/variants/sell_packed_variants.cu``:
+the one-thread-per-slot walk K5 ran before, the kept body built beside it,
+the warp-per-sublane body with rel decoded per slot instead of staged
+from lane 0, and rel taken from lane 0's loaded word by a warp shuffle
+instead of a staging load) against the kept kernel and
+``torch.sparse.mm`` on a float32 CSR tensor on smoke-packed (resident y)
+and L1-packed (streamed y), bf16, all queued behind a spin kernel; each
+first held to the plain version within 1e-6 of max |y|. With ``--df64`` it times K8
+(``csrc/variants/sell_df64_variants.cu``: the row walk K8 ran before and
+the staged body with U = 1, 2, 4, 8 steps in flight and one or two slices
+a block) against the kept kernel and ``torch.sparse.mm`` on a float64 CSR
+tensor on smoke-df64 (float32 values, no lo plane) and smoke-df64-f64
+(float64 values, a lo plane), queued behind a spin kernel; each first
+held to the plain version bit for bit.
+
 Configurations (``chip_smoke.py``'s full-size ones, chunk 2048): smoke
 (``synth:1000000:10000000``, resident y, merged word), L1
 (``synth:4194304:41943040``, streamed y, merged word), L2
@@ -78,8 +93,9 @@ import numpy as np
 
 __all__ = ["VARIANTS", "ONE_BUFFER", "KCOL_VARIANTS", "KCOL_SHAPES",
            "VGRAD_VARIANTS", "VGRAD_CAPS", "VGRAD_SCHEDULED", "VGRAD_K",
-           "SUBWIN_FORMS",
-           "plane_pointers", "vgrad_pointers", "kcol_cases",
+           "SUBWIN_FORMS", "PACKED_VARIANTS", "DF64_VARIANTS",
+           "DF64_FORMS", "plane_pointers", "vgrad_pointers",
+           "packed_pointers", "df64_pointers", "kcol_cases",
            "spmm_tolerance", "main"]
 
 # Variant ids of sell_bench_variants.cu.
@@ -98,6 +114,17 @@ _VARIANTS_DIR = Path(__file__).resolve().parent.parent / "csrc" / "variants"
 _SRC = _VARIANTS_DIR / "sell_bench_variants.cu"
 _KCOL_SRC = _VARIANTS_DIR / "sell_spmm_variants.cu"
 _VGRAD_SRC = _VARIANTS_DIR / "sell_vals_grad_variants.cu"
+_PACKED_SRC = _VARIANTS_DIR / "sell_packed_variants.cu"
+_DF64_SRC = _VARIANTS_DIR / "sell_df64_variants.cu"
+# Variant ids of sell_packed_variants.cu (K5) and its configurations: the
+# full-size plan each reuses.
+PACKED_VARIANTS = {"walk": 0, "body": 1, "perslot": 2, "shfl": 3}
+PACKED_CONFIGS = {"smoke-packed": "smoke", "L1-packed": "L1"}
+# Variant ids of sell_df64_variants.cu (K8) and the staged forms timed:
+# (U steps in flight, S slices a block).
+DF64_VARIANTS = {"walk": 0, "staged": 1}
+DF64_FORMS = tuple((u, sl) for sl in (1, 2) for u in (1, 2, 4, 8))
+DF64_CONFIGS = ("smoke-df64", "smoke-df64-f64")
 # Variant ids of sell_vals_grad_variants.cu; the schedule caps timed on
 # the kept kernel beside its own (spmv_sell.VG_CAP); the k values timed.
 VGRAD_VARIANTS = {"walk": 0, "run": 1, "nostage": 2, "block": 3, "rows8": 4,
@@ -147,6 +174,18 @@ _SIGNATURES["sell_bench_subwin_variant_launch"] = (ctypes.c_int, [
     ctypes.c_int] + [ctypes.c_void_p] * 8 + [
     ctypes.c_longlong, ctypes.c_longlong] + [ctypes.c_int] * 7 + [
     ctypes.c_void_p])
+_PACKED_SIGNATURES = {
+    "sell_packed_variant_launch": (ctypes.c_int, [ctypes.c_int] + [
+        ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]),
+    "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+_DF64_SIGNATURES = {
+    "sell_df64_variant_launch": (ctypes.c_int, [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]),
+    "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 _KCOL_SIGNATURES = {
     "sell_spmm_variant_launch": (ctypes.c_int, [ctypes.c_int] * 5 + [
         ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
@@ -367,13 +406,14 @@ def spmm_tolerance(plan) -> tuple:
     return max(TOL, 2 * 2.0 ** -24 * n ** 0.5), n
 
 
-def _library_csr(torch, triplets, dev):
-    """``torch.sparse.mm``'s float32 CSR operand of the triplets,
-    duplicates summed."""
+def _library_csr(torch, triplets, dev, dtype=None):
+    """``torch.sparse.mm``'s CSR operand of the triplets (float32, or
+    ``dtype``), duplicates summed."""
     import scipy.sparse as sp
 
     r, c, v, shape = triplets
-    a = sp.csr_matrix((np.asarray(v, np.float32), (r, c)), shape=shape)
+    npt = np.float64 if dtype == torch.float64 else np.float32
+    a = sp.csr_matrix((np.asarray(v, npt), (r, c)), shape=shape)
     a.sum_duplicates()
     return torch.sparse_csr_tensor(
         torch.from_numpy(a.indptr.astype(np.int64)).to(dev),
@@ -694,6 +734,184 @@ def run_subwin() -> dict:
     return out
 
 
+def packed_pointers(op, y) -> list:
+    """The pointers of ``sell_packed_variant_launch`` (the order of
+    ``sell_packed_launch``): the packed plane, slice_of, tile_base,
+    y_block_id (None on a resident plan), then x is passed apart, and
+    ``y``."""
+    pk, sl = op.packed_planes()
+    yb = op.y_block_id if op.plan.y_block_slices else None
+    return [t.data_ptr() if t is not None else None
+            for t in (pk, sl, op.tile_base, yb)] + [y.data_ptr()]
+
+
+def df64_pointers(planes, y_hi, y_lo) -> list:
+    """The eleven pointers of ``sell_df64_variant_launch`` (the order of
+    ``sell_df64_launch``): ``SellDf64SpMV._planes``'s nine (vals_lo None
+    without a lo plane) and the y pair."""
+    return [None if t is None else t.data_ptr()
+            for t in (*planes, y_hi, y_lo)]
+
+
+def _turns(torch, fns, reps=FORWARD_REPS):
+    """Every function timed queued behind the spin kernel, in turns
+    (forward order, then reversed)."""
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k].append(_time_ms(torch, fns[k], reps, queued=True))
+    return times
+
+
+def _print_times(tag, times, kept="kept"):
+    best = min(times[kept])
+    for k, t in times.items():
+        print(f"[{tag}]   {k:9s} {' / '.join(f'{v:.6f}' for v in t)} ms; "
+              f"{min(t) / best:.3f} x kept", flush=True)
+
+
+def _smoke_and_l1(names):
+    """(name, triplets, plan) of smoke and L1 (chip_smoke.py's plans)."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.utils.synth import parse_synth_spec
+
+    for name in names:
+        t0 = time.perf_counter()
+        coo = parse_synth_spec(SMOKE_SPEC if name == "smoke" else L1_SPEC,
+                               device="cpu")
+        rr, cc, vv = coo.to_numpy()
+        plan = S._auto_plan(rr, cc, vv, coo.shape)
+        print(f"[plan] {name}: S {plan.n_sublanes} in {plan.n_chunks} chunks "
+              f"of {plan.chunk}, streamed {bool(plan.y_block_slices)}, in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        yield name, (rr, cc, vv, coo.shape), plan
+
+
+def run_packed(names=tuple(PACKED_CONFIGS)) -> dict:
+    """K5's variants against the kept kernel and the float32 CSR call."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.ops import _build
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    _build.build(["sell_packed"])
+    lib, log = _build_variants(_PACKED_SRC, _PACKED_SIGNATURES)
+    print(f"[regs] packed variants: {_registers(log)}", flush=True)
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    wanted = {PACKED_CONFIGS[n]: n for n in names}
+    out = {}
+    for base, triplets, plan in _smoke_and_l1(list(wanted)):
+        name = wanted[base]
+        op = S.SellSpMV(plan, value_dtype=torch.bfloat16, device=dev)
+        pk, sl = op.packed_planes()
+        kw = op._kw()
+        if plan.y_block_slices:
+            kw["y_block_id"] = op.y_block_id
+        x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+            plan.shape[1]).astype(np.float32)).to(dev)
+        xt, x2 = op._x_tiles(x), x[:, None]
+        a = _library_csr(torch, triplets, dev)
+
+        def launch(variant):
+            y = torch.zeros(kw["n_slices"] * S.LANES, dtype=torch.float32,
+                            device=dev)
+            ptr = packed_pointers(op, y)
+            rc = lib.sell_packed_variant_launch(
+                PACKED_VARIANTS[variant], *ptr[:4], xt.data_ptr(), ptr[4],
+                pk.numel(), kw["chunk"], kw.get("nsb", 0), 0, stream)
+            if rc:
+                msg = lib.sell_error_string(rc).decode()
+                raise RuntimeError(f"packed variant {variant}: CUDA error "
+                                   f"{rc} ({msg})")
+            return y
+
+        fns = {"kept": lambda: S.sell_packed(pk, sl, op.tile_base, xt, **kw)}
+        fns.update({v: (lambda v=v: launch(v)) for v in PACKED_VARIANTS})
+        yp = S.sell_packed_plain(pk, sl, op.tile_base, xt, **kw)
+        errs = {v: _rel(f(), yp) for v, f in fns.items()}
+        torch.cuda.synchronize()
+        bad = {v: e for v, e in errs.items() if not e <= TOL}
+        if bad:
+            raise SystemExit(f"bench_variants: {name}: {bad}")
+        fns["library"] = lambda: torch.sparse.mm(a, x2)
+        times = _turns(torch, fns)
+        print(f"[packed] {name} bfloat16 ({op.route}; errors "
+              f"{max(errs.values()):.3e} <= {TOL})", flush=True)
+        _print_times("packed", times)
+        out[f"{name}/bfloat16"] = dict(route=op.route, ms=times, errors=errs)
+        del op, a, pk, sl
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_df64(names=DF64_CONFIGS) -> dict:
+    """K8's variants against the kept kernel and the float64 CSR call."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.ops import _build
+    from smvp_toolkit_tpu_torch.ops import spmv_df64 as D
+    from smvp_toolkit_tpu_torch.ops.precision import df_split
+
+    _build.build(["sell_df64"])
+    lib, log = _build_variants(_DF64_SRC, _DF64_SIGNATURES)
+    print(f"[regs] df64 variants: {_registers(log)}", flush=True)
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    (_, (r, c, v, shape), plan), = _smoke_and_l1(["smoke"])
+    out = {}
+    for name in names:
+        if name == "smoke-df64":
+            op, v64 = D.SellDf64SpMV(plan, device=dev), np.asarray(
+                v, np.float64)
+        else:
+            v64 = np.random.default_rng(0).standard_normal(len(r))
+            op = D.SellDf64SpMV.from_coo_f64(r, c, v64, shape, device=dev)
+        x64 = np.random.default_rng(1).standard_normal(shape[1])
+        xh, xl = df_split(x64, device=dev)
+        planes = op._planes(xh, xl)
+        kw = dict(n_slices=op.plan.n_slices, chunk=op.plan.chunk)
+        lk = int(op.lidx.dtype == torch.int32)
+        a = _library_csr(torch, (r, c, v64, shape), dev, torch.float64)
+        x2 = (xh.double() + xl.double())[: shape[1], None]
+
+        def launch(variant, u=0, slices=0):
+            n_rows = kw["n_slices"] * 128
+            yh = torch.empty(n_rows, dtype=torch.float32, device=dev)
+            yl = torch.empty(n_rows, dtype=torch.float32, device=dev)
+            rc = lib.sell_df64_variant_launch(
+                DF64_VARIANTS[variant], u, slices,
+                *df64_pointers(planes, yh, yl), n_rows, kw["chunk"], lk, 0,
+                stream)
+            if rc:
+                raise RuntimeError(f"df64 variant {variant} U{u} S{slices}: "
+                                   f"CUDA error {rc} "
+                                   f"({lib.sell_error_string(rc).decode()})")
+            return yh, yl
+
+        fns = {"kept": lambda: D.sell_df64(*planes, **kw),
+               "walk": lambda: launch("walk")}
+        fns.update({f"U{u}S{sl}": (lambda u=u, sl=sl: launch("staged", u, sl))
+                    for u, sl in DF64_FORMS})
+        ph, pl = D.sell_df64_plain(*planes, **kw)
+        got = {k: f() for k, f in fns.items()}
+        same = {k: bool(torch.equal(yh, ph) and torch.equal(yl, pl))
+                for k, (yh, yl) in got.items()}
+        del got
+        if not all(same.values()):
+            raise SystemExit(f"bench_variants: {name}: not bit for bit the "
+                             f"plain version: {same}")
+        fns["library"] = lambda: torch.sparse.mm(a, x2)
+        times = _turns(torch, fns)
+        print(f"[df64] {name} (lo plane {op.vals_lo is not None}; every form "
+              f"bit-equal to the plain version)", flush=True)
+        _print_times("df64", times)
+        out[name] = dict(lo_plane=op.vals_lo is not None, ms=times)
+        del op, a, planes
+        torch.cuda.empty_cache()
+    return out
+
+
 def _blocks(lib, variant: int, route: int, vk: int) -> int:
     n = ctypes.c_int(0)
     rc = lib.sell_bench_variant_blocks(variant, route, vk, 0,
@@ -710,7 +928,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--configs", default=None,
                    help="comma-separated: smoke, L1, L2, L3, smoke-dp4 "
                    "(default all); with --kcol: smoke, L2, gcn_arxiv:A, "
-                   "gcn_arxiv:At (default all)")
+                   "gcn_arxiv:At (default all); with --packed: "
+                   "smoke-packed, L1-packed; with --df64: smoke-df64, "
+                   "smoke-df64-f64")
     p.add_argument("--kcol", action="store_true",
                    help="time the k-column body's variants instead")
     p.add_argument("--sweep", action="store_true",
@@ -719,6 +939,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="time K7's variants on gcn_arxiv's A instead")
     p.add_argument("--subwin", action="store_true",
                    help="time K2-subwin's forms on smoke instead")
+    p.add_argument("--packed", action="store_true",
+                   help="time K5's variants on smoke-packed and L1-packed "
+                   "instead")
+    p.add_argument("--df64", action="store_true",
+                   help="time K8's variants on smoke-df64 and "
+                   "smoke-df64-f64 instead")
     p.add_argument("--out", help="write every time to this JSON file")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -735,6 +961,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         out = run_vgrad()
     elif args.subwin:
         out = run_subwin()
+    elif args.packed:
+        out = run_packed(tuple((args.configs or ",".join(PACKED_CONFIGS))
+                               .split(",")))
+    elif args.df64:
+        out = run_df64(tuple((args.configs or ",".join(DF64_CONFIGS))
+                             .split(",")))
     else:
         out = run_kcol(names, args.sweep) if args.kcol else run(names)
     if args.out:

@@ -2,14 +2,15 @@
 // csrc/sell_bench.cu, csrc/sell_spmm.cu, csrc/sell_packed.cu): one warp per
 // sublane (`sublane_run`: every k = 1 kernel of the four routes, forward
 // and N-iteration: K1, K2, K3-relsl and K2 streamed on the merged word,
-// K3-split, K2 streamed split, K4 and K2 split on the split planes, and
-// K2-subwin on the merged word under its window rule, SubwinWord), its
-// k-column form (`sublane_mat_run`: K1 and K4 with k columns), and one
-// thread per slot (`slot`: the packed route, K2-packed among it, and the
-// fused solvers; `warp_slots`, a warp walk over k columns: K2 with k
-// columns, K5 with k columns). The decode policies, the slot coordinates
+// K3-split, K2 streamed split, K4 and K2 split on the split planes,
+// K2-subwin on the merged word under its window rule, SubwinWord, and K5
+// on the packed word, PackedStage), its k-column form (`sublane_mat_run`:
+// K1 and K4 with k columns), and one thread per slot (`slot`: K2-packed
+// and the fused solvers; `warp_slots`, a warp walk over k columns: K2 with
+// k columns, K5 with k columns). The decode policies, the slot coordinates
 // and the cooperative grid also serve the values gradient
-// (csrc/sell_vals_grad.cu) and the fused solvers (csrc/sell_solvers.cu).
+// (csrc/sell_vals_grad.cu), the fused solvers (csrc/sell_solvers.cu) and
+// the double-float kernels (csrc/sell_df64.cu).
 //
 // Per live slot (s, l) of the (S, 128) planes, with c = s / chunk:
 //   y[(ybase(c) + slice(s)) * 128 + l] +=
@@ -43,9 +44,11 @@
 // One warp per sublane (the section below `sublane_run`): a block takes a
 // run of sublanes inside one chunk, reads the chunk's metadata once and
 // stages the run's rel and slice ids in shared memory (from the merged
-// word, one load per sublane, or from the two split planes); each thread
-// covers four consecutive lanes with one vector load of values and one of
-// lane indices, and adds its four products with one vector atomic.
+// word, one load per sublane, from the two split planes, or from the
+// packed word of lane 0 and slice_of); each thread covers four consecutive
+// lanes with one vector load of values and one of lane indices (on the
+// packed word one 16-byte load of four words), and adds its four products
+// with one vector atomic.
 
 #pragma once
 
@@ -94,7 +97,54 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// The values and lane-index planes (merged word and split planes).
+// The plane loads' cache policy. Streaming: __ldcs, evict-first in L1
+// and L2, since a sweep reads each plane byte once and the gathered x
+// tiles should keep the caches.
+struct Streaming {
+  template <typename T>
+  __device__ __forceinline__ static T load(const T* p) {
+    return __ldcs(p);
+  }
+};
+
+template <class Load>
+__device__ __forceinline__ void load_values(const float* p, float (&v)[4]) {
+  const float4 q = Load::load(reinterpret_cast<const float4*>(p));
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+
+// bf16 bits are the high half of the float32 with the same value.
+template <class Load>
+__device__ __forceinline__ void load_values(const __nv_bfloat16* p,
+                                            float (&v)[4]) {
+  const uint2 q = Load::load(reinterpret_cast<const uint2*>(p));
+  v[0] = __uint_as_float(q.x << 16);
+  v[1] = __uint_as_float(q.x & 0xffff0000u);
+  v[2] = __uint_as_float(q.y << 16);
+  v[3] = __uint_as_float(q.y & 0xffff0000u);
+}
+
+template <class Load>
+__device__ __forceinline__ void load_lanes(const int8_t* p, int (&l)[4]) {
+  const int w = Load::load(reinterpret_cast<const int*>(p));
+#pragma unroll
+  for (int i = 0; i < 4; ++i) l[i] = static_cast<int8_t>(w >> (8 * i));
+}
+
+template <class Load>
+__device__ __forceinline__ void load_lanes(const int32_t* p, int (&l)[4]) {
+  const int4 q = Load::load(reinterpret_cast<const int4*>(p));
+  l[0] = q.x;
+  l[1] = q.y;
+  l[2] = q.z;
+  l[3] = q.w;
+}
+
+// The values and lane-index planes (merged word, split planes and
+// K2-subwin's word).
 struct ValuePlanes {
   template <class A>
   __device__ __forceinline__ static float value(const A& a, long long i) {
@@ -104,6 +154,16 @@ struct ValuePlanes {
   __device__ __forceinline__ static long long lane_index(const A& a,
                                                          long long i) {
     return static_cast<long long>(a.lidx[i]);
+  }
+  // The warp-per-sublane body's slot loads: the four slots from slot p on
+  // (p a multiple of four), one vector load of values and one of lane
+  // indices.
+  template <class Load, class A>
+  __device__ __forceinline__ static void load_slots(const A& a, long long p,
+                                                    float (&v)[4],
+                                                    int (&l)[4]) {
+    load_values<Load>(a.vals + p, v);
+    load_lanes<Load>(a.lidx + p, l);
   }
 };
 
@@ -188,6 +248,44 @@ struct PackedWord {
   }
 };
 
+// K5's staging policy on the warp-per-sublane body (csrc/sell_packed.cu).
+// A sublane's rel is read from its lane-0 word only, as the JAX
+// _unpack_plane reads it (w[:, 0:1]) and as the plain version does, and its
+// slice from slice_of; -1 in both when either is dead. The planner writes
+// one rel into all 128 words of a sublane, so on the operator's own planes
+// this is the per-slot decode's result; on a plane whose lanes disagree
+// with lane 0 it is the reference's. The slot loads are one 16-byte load
+// of four words: value bits 16..31 (the bf16 value's float32 bits), lane
+// index bits 0..6.
+struct PackedStage {
+  template <class A>
+  __device__ __forceinline__ static void stage(const A& a, long long s,
+                                               int* rel, int* slice) {
+    const unsigned r =
+        (static_cast<unsigned>(a.meta[s * kLanes]) >> kPackRelShift) &
+        kRelDead;
+    const int sl = a.slice[s];
+    const bool dead = r == kRelDead || sl < 0;
+    *rel = dead ? -1 : static_cast<int>(r);
+    *slice = dead ? -1 : sl;
+  }
+  template <class Load, class A>
+  __device__ __forceinline__ static void load_slots(const A& a, long long p,
+                                                    float (&v)[4],
+                                                    int (&l)[4]) {
+    const int4 q = Load::load(reinterpret_cast<const int4*>(a.meta + p));
+    const unsigned w[4] = {static_cast<unsigned>(q.x),
+                           static_cast<unsigned>(q.y),
+                           static_cast<unsigned>(q.z),
+                           static_cast<unsigned>(q.w)};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[i] = __uint_as_float(w[i] & kPackValueMask);
+      l[i] = static_cast<int>(w[i] & kPackLaneMask);
+    }
+  }
+};
+
 struct ResidentY {
   template <class A>
   __device__ __forceinline__ static long long base(const A&, long long) {
@@ -217,14 +315,6 @@ __device__ __forceinline__ void slot(const Args<V, L>& a, long long i) {
   }
 }
 
-// The forward kernels' body: slot i of a one-thread-per-slot grid.
-template <class Decode, class YAddr, typename V, typename L>
-__device__ __forceinline__ void forward_sweep(const Args<V, L>& a) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < a.n_slots) slot<Decode, YAddr>(a, i);
-}
-
 // The one-thread-per-slot N-iteration body (one cooperative launch;
 // K2-packed): each iteration zeroes ALL of y in a grid-stride loop,
 // grid.sync(), sweeps every slot, grid.sync(). The TPU grid runs in order
@@ -251,7 +341,9 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 // One warp per sublane, under a staging policy (MergedWord: K1 and K2 on a
 // resident y, K3-relsl and K2 streamed on a streamed one; SplitPlanes:
 // K3-split and K2 streamed split on a streamed y, K4 and K2 split on a
-// resident one; SubwinWord: K2-subwin on a resident y) and a y policy.
+// resident one; SubwinWord: K2-subwin on a resident y; PackedStage: K5 on
+// either) and a y policy. The policy stages a sublane (stage) and loads
+// its slots (load_slots: the values and lane planes, or the packed words).
 //
 // Work item `item` is run r = item % runs of chunk c = item / runs: up to
 // kRun consecutive sublanes of one chunk (chunks never straddle a y block
@@ -264,7 +356,8 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 // kWarps-th sublane: a dead one (rel < 0 or slice < 0) is skipped before
 // any plane load; a live one costs each thread one 16-byte load of four
 // values (8 bytes in bf16), one load of four lane indices (4 bytes int8,
-// 16 bytes int32), four gathers of x and one float4 atomic into its four
+// 16 bytes int32) or one 16-byte load of four packed words, four gathers
+// of x and one float4 atomic into its four
 // consecutive rows (red.global.add.v4.f32, sm_90), left out when all four
 // products are exactly zero. Every slot of a live sublane is multiplied,
 // padding (v = 0) included, so Inf or NaN in x at a padding lane's column
@@ -274,7 +367,8 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 // L1, where the gathered x tiles stay).
 //
 // Planes must be aligned for the vector loads (values to 4 elements, lane
-// indices to 4 elements, y to 16 bytes), and whole chunks: the launchers
+// indices to 4 elements, the packed plane and y to 16 bytes), and whole
+// chunks: the launchers
 // return cudaErrorMisalignedAddress or cudaErrorInvalidValue and launch
 // nothing otherwise. The kernels are built with __launch_bounds__(kThreads,
 // kSublaneMinBlocks): 32 registers a thread, eight blocks on an SM.
@@ -286,52 +380,6 @@ static_assert(kRun <= kThreads, "one staging load per thread");
 
 __host__ __device__ inline int runs_per_chunk(int chunk) {
   return (chunk + kRun - 1) / kRun;
-}
-
-// The plane loads' cache policy. Streaming: __ldcs, evict-first in L1
-// and L2, since a sweep reads each plane byte once and the gathered x
-// tiles should keep the caches.
-struct Streaming {
-  template <typename T>
-  __device__ __forceinline__ static T load(const T* p) {
-    return __ldcs(p);
-  }
-};
-
-template <class Load>
-__device__ __forceinline__ void load_values(const float* p, float (&v)[4]) {
-  const float4 q = Load::load(reinterpret_cast<const float4*>(p));
-  v[0] = q.x;
-  v[1] = q.y;
-  v[2] = q.z;
-  v[3] = q.w;
-}
-
-// bf16 bits are the high half of the float32 with the same value.
-template <class Load>
-__device__ __forceinline__ void load_values(const __nv_bfloat16* p,
-                                            float (&v)[4]) {
-  const uint2 q = Load::load(reinterpret_cast<const uint2*>(p));
-  v[0] = __uint_as_float(q.x << 16);
-  v[1] = __uint_as_float(q.x & 0xffff0000u);
-  v[2] = __uint_as_float(q.y << 16);
-  v[3] = __uint_as_float(q.y & 0xffff0000u);
-}
-
-template <class Load>
-__device__ __forceinline__ void load_lanes(const int8_t* p, int (&l)[4]) {
-  const int w = Load::load(reinterpret_cast<const int*>(p));
-#pragma unroll
-  for (int i = 0; i < 4; ++i) l[i] = static_cast<int8_t>(w >> (8 * i));
-}
-
-template <class Load>
-__device__ __forceinline__ void load_lanes(const int32_t* p, int (&l)[4]) {
-  const int4 q = Load::load(reinterpret_cast<const int4*>(p));
-  l[0] = q.x;
-  l[1] = q.y;
-  l[2] = q.z;
-  l[3] = q.w;
 }
 
 // y[0..3] += p in one vector atomic, unless all four products are zero.
@@ -361,8 +409,7 @@ __device__ __forceinline__ void sublane_run(const A& a, float* out, int runs,
   }
   __syncthreads();
   const int lane4 = 4 * (threadIdx.x & 31);
-  const auto* vals = a.vals + s0 * kLanes + lane4;
-  const auto* lidx = a.lidx + s0 * kLanes + lane4;
+  const long long p0 = s0 * kLanes + lane4;
   float* y = out + ybase * kLanes + lane4;
   for (int j = threadIdx.x >> 5; j < n; j += kWarps) {
     const int rel = s_rel[j];
@@ -370,8 +417,7 @@ __device__ __forceinline__ void sublane_run(const A& a, float* out, int runs,
     if (rel < 0 || slice < 0) continue;
     float v[4];
     int l[4];
-    load_values<Load>(vals + j * kLanes, v);
-    load_lanes<Load>(lidx + j * kLanes, l);
+    Stage::template load_slots<Load>(a, p0 + j * kLanes, v, l);
     const auto* xt = a.x + (tile0 + rel) * kLanes;
     float p[4];
 #pragma unroll
@@ -403,7 +449,7 @@ struct SubwinArgs : Args<V, L> {
 // same rule (_sub_windows keeps 511 - (stb - tile_base) outside [0,
 // sub_wt), and the dead slice id lies above every slice window), so no
 // separate dead check can disagree with it.
-struct SubwinWord {
+struct SubwinWord : ValuePlanes {
   template <class A>
   __device__ __forceinline__ static void stage(const A& a, long long s,
                                                int* rel, int* slice) {
@@ -885,11 +931,12 @@ cudaError_t launch_mat(void (*kernel)(MatArgs<V, L>), MatArgs<V, L> a,
   return cudaGetLastError();
 }
 
-// Blocks of a cooperative launch of `kernel` with kThreads threads: SMs x
-// co-resident blocks per SM (a larger grid fails at launch, not at the
+// Blocks of a cooperative launch of `kernel` with `threads` threads a
+// block: SMs x co-resident blocks per SM (a larger grid fails at launch, not at the
 // grid.sync()).
 template <class Kernel>
-cudaError_t cooperative_grid(Kernel kernel, int device, int* blocks) {
+cudaError_t cooperative_grid(Kernel kernel, int device, int* blocks,
+                             int threads = kThreads) {
   if (kernel == nullptr) return cudaErrorInvalidValue;
   int coop = 0;
   cudaError_t err =
@@ -901,7 +948,7 @@ cudaError_t cooperative_grid(Kernel kernel, int device, int* blocks) {
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, reinterpret_cast<const void*>(kernel), kThreads, 0);
+      &per_sm, reinterpret_cast<const void*>(kernel), threads, 0);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   *blocks = sms * per_sm;

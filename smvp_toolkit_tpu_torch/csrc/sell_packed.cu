@@ -17,25 +17,41 @@
 // The value is __uint_as_float(w & 0xFFFF0000), exactly the bf16 value the
 // split planes hold, and x is bf16 as on every bf16 route, so each product
 // is bit-equal to K1 bf16's; only the summation order differs (float
-// atomics). The slot body, the y policies, the k-column warp walk and the
-// N-iteration loop are sell_common.cuh's, under its PackedWord decode
-// policy: this file only instantiates and launches them.
+// atomics).
+//
+// K5 (k = 1) runs the warp-per-sublane body of K1 (sell_common.cuh,
+// sublane_sweep) under the PackedStage policy: a block per run of 64
+// sublanes of one chunk stages each sublane's rel from its lane-0 word
+// (the JAX _unpack_plane reads rel from lane 0 only) and its slice from
+// slice_of, once per sublane; a warp per live sublane loads four words a
+// thread with one 16-byte streaming load, decodes value and lane, gathers
+// x in bf16 and adds four rows with one float4 atomic. Before, it ran one
+// thread per slot (slot over PackedWord, decoding rel per slot),
+// paying per slot a 64-bit divide, the slice and tile_base loads and a
+// scalar atomic: 0.114669 ms at smoke-packed and 0.517915 ms at L1-packed
+// against torch.sparse.mm's 0.061298 and 0.250741 (NVIDIA H100 80GB HBM3,
+// 700 W, chip_smoke.py). K5 with k columns (mat_sweep) and K2-packed
+// (bench_sweeps) still run one thread per slot under PackedWord.
 //
 // Bound on this card: bytes. One launch reads 4 bytes per slot (the word,
 // padding slots included), one slice id per sublane, tile_base (and
 // y_block_id when streamed) per chunk, x once, and writes y once
 // (SellPlan.traffic_bytes with packed=True). That is about 4.03 bytes per
 // slot against the merged word's 3.03 (bf16 value, int8 lane, one word per
-// 128 slots), so this route moves a third more bytes than K1 bf16. The
-// TPU packed the planes to cut its DMA stream count (spmv_pallas.py:
-// 109-114), which has no counterpart here; the route is kept for parity
-// and measured, not tuned.
+// 128 slots), so this route moves a third more bytes than K1 bf16 and is
+// not expected to beat it. The TPU packed the planes to cut its DMA stream
+// count (spmv_pallas.py:109-114), which has no counterpart here; the route
+// is kept for parity.
 //
 // C interface (ctypes): each launch function returns a cudaError_t value,
 // 0 on success, from cudaGetLastError() right after the launch. Pointers
 // and the stream come in as void*, sizes as long long. The caller's stream
 // is PyTorch's current stream; nothing here allocates or synchronises. The
-// caller zeroes y (Y) before a forward launch.
+// caller zeroes y (Y) before a forward launch. K5 refuses, launching
+// nothing, a packed plane or y not aligned to 16 bytes
+// (cudaErrorMisalignedAddress) and planes that are not whole chunks or
+// hold no sublane (cudaErrorInvalidValue); a view of the planes cut at
+// chunk boundaries stays aligned (512 bytes a sublane).
 
 #include "sell_common.cuh"
 
@@ -47,9 +63,9 @@ using X = __nv_bfloat16;  // x and X are bf16; the word carries the value
 using L = int8_t;         // unused: the lane index rides in the word
 
 template <class YAddr>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_packed_kernel(const Args<X, L> a) {
-  forward_sweep<PackedWord, YAddr>(a);
+  sublane_sweep<PackedStage, YAddr>(a);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -82,6 +98,23 @@ cudaError_t launch(const void* kernel, A a, long long n_slots,
   return cudaGetLastError();
 }
 
+// One block per work item of the warp-per-sublane body: the packed plane
+// and y aligned to 16 bytes, whole chunks.
+cudaError_t launch_packed(const void* kernel, Args<X, L> a,
+                          cudaStream_t stream) {
+  const auto at16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (!at16(a.meta) || !at16(a.y)) return cudaErrorMisalignedAddress;
+  long long items = 0;
+  if (!sublane_items(a, &items)) return cudaErrorInvalidValue;
+  void* params[] = {&a};
+  cudaError_t err = cudaLaunchKernel(kernel, dim3(static_cast<unsigned>(items)),
+                                     dim3(kThreads), params, 0, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 Args<X, L> packed_args(const void* packed, const void* slice_of,
                        const void* tile_base, const void* y_block_id,
                        const void* x, void* y, long long n_slots,
@@ -94,7 +127,9 @@ Args<X, L> packed_args(const void* packed, const void* slice_of,
 }  // namespace
 
 // k = 1: y = A·x. y_block_id null: resident y; else streamed y with nsb
-// slices per block (slice_of block-local).
+// slices per block (slice_of block-local). Misaligned planes return
+// cudaErrorMisalignedAddress, planes that are not whole chunks (or hold no
+// sublane) cudaErrorInvalidValue.
 extern "C" int sell_packed_launch(const void* packed, const void* slice_of,
                                   const void* tile_base,
                                   const void* y_block_id, const void* x,
@@ -102,7 +137,7 @@ extern "C" int sell_packed_launch(const void* packed, const void* slice_of,
                                   int nsb, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (y_block_id != nullptr && nsb < 1) {
+  if ((y_block_id != nullptr && nsb < 1) || slice_of == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args<X, L> a = packed_args(packed, slice_of, tile_base, y_block_id,
@@ -112,7 +147,7 @@ extern "C" int sell_packed_launch(const void* packed, const void* slice_of,
           ? reinterpret_cast<const void*>(sell_packed_kernel<ResidentY>)
           : reinterpret_cast<const void*>(sell_packed_kernel<StreamedY>);
   return static_cast<int>(
-      launch(kernel, a, n_slots, static_cast<cudaStream_t>(stream)));
+      launch_packed(kernel, a, static_cast<cudaStream_t>(stream)));
 }
 
 // k > 1, resident y: Y (n_slices * 128, k) float32, zeroed, from X (at

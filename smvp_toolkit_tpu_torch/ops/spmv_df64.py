@@ -16,8 +16,12 @@ expansions and quantized MXU sums; the card has float64, so the kernel
 takes each product and row sum in float64 (exact products, one rounding
 per cross term and per add) in a fixed order, one thread per row walking
 its slice's live sublanes through a host-built index (``slice_index``).
-The plain version (``sell_df64_plain``) is the same function in float64
-PyTorch over the same planes and index, in the same order.
+A block stages each slice's index entries once in shared memory (the
+sublane and its x tile, ``tile_base[s / chunk] + rel``) and its threads
+walk them a few steps at a time, so each step's loads are independent;
+the order of the adds is the index's. The plain version
+(``sell_df64_plain``) is the same function in float64 PyTorch over the
+same planes and index, in the same order.
 
 Each wrapper launches its kernel for CUDA tensors, or raises; only CPU
 tensors take the plain version. Each counts its launches in ``launches``.

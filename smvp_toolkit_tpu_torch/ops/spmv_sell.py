@@ -56,6 +56,11 @@ per-sublane ``slice_of`` plane:
   sweeps in one cooperative launch, resident y; a streamed plan's
   ``bench_loop`` raises under the switch, as the JAX one does).
 
+K5 runs K1's warp-per-sublane body and reads a sublane's rel from its
+lane-0 word, as the JAX ``_unpack_plane`` and ``sell_packed_plain`` do;
+it refuses a packed plane or y not aligned to 16 bytes and planes of no
+sublane.
+
 Two kernels serve the JAX operator's opt-in switches:
 
 * ``sell_onehot`` (K6, ``csrc/sell_onehot.cu``): y = A·x from the plan's

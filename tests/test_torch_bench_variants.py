@@ -201,3 +201,97 @@ def test_vgrad_and_subwin_refuse_without_a_card(flag, capsys):
         pytest.skip("a card is present: main would time the variants")
     assert BV.main([flag]) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
+
+
+# -- K5's variants (``--packed``) and K8's (``--df64``) ----------------------
+
+PACKED_SOURCE = BV._PACKED_SRC.read_text()
+DF64_SOURCE = BV._DF64_SRC.read_text()
+
+
+def test_packed_variant_ids_match_the_source():
+    """Every K5 variant id is listed in the source's header under the same
+    name and is a case of its launcher; the kept body is the kept
+    kernel's instantiation."""
+    for name, vid in BV.PACKED_VARIANTS.items():
+        assert re.search(rf"^//\s+{vid} {name}\s", PACKED_SOURCE, re.M), name
+        assert f"case {vid}:" in PACKED_SOURCE, name
+    assert "slot<PackedWord, YAddr>(a, i);" in PACKED_SOURCE
+    assert "sell_packed_kernel<YAddr>" in PACKED_SOURCE
+    assert set(BV.PACKED_CONFIGS) == {"smoke-packed", "L1-packed"}
+    assert set(BV.PACKED_CONFIGS.values()) == {"smoke", "L1"}
+
+
+def test_df64_variant_ids_and_forms_match_the_source():
+    """The row walk and the staged body are the source's two variants;
+    every (U, S) form timed is one the launcher instantiates, and the
+    kept kernel's constants are among them."""
+    for name, vid in BV.DF64_VARIANTS.items():
+        assert re.search(rf"^//\s+{vid} {name}\s", DF64_SOURCE, re.M), name
+    assert "if (variant == 1)" in DF64_SOURCE
+    forms = {(int(u), int(sl)) for u, sl in re.findall(
+        r"STAGED\((\d+), (\d+)\)\n", DF64_SOURCE)}
+    assert set(BV.DF64_FORMS) == forms
+    kept = open(S.__file__.rsplit("/", 2)[0] + "/csrc/sell_df64.cu").read()
+    u = int(kept.split("constexpr int kDf64Unroll = ")[1].split(";")[0])
+    sl = int(kept.split("constexpr int kDf64Slices = ")[1].split(";")[0])
+    assert (u, sl) in forms
+    assert set(BV.DF64_CONFIGS) == {"smoke-df64", "smoke-df64-f64"}
+
+
+def test_packed_and_df64_signatures_match_the_sources():
+    """ctypes gets as many arguments as each C launcher takes: one more
+    than the kept launcher (the variant id) for K5, three more (the
+    variant, U and S) for K8."""
+    from smvp_toolkit_tpu_torch.ops import spmv_df64 as D
+
+    csrc = S.__file__.rsplit("/", 2)[0] + "/csrc/"
+    for src, sigs, fn, kept_src, kept_sigs, kept_fn, extra in (
+            (PACKED_SOURCE, BV._PACKED_SIGNATURES,
+             "sell_packed_variant_launch", "sell_packed.cu",
+             S._PACKED_SIGNATURES, "sell_packed_launch", 1),
+            (DF64_SOURCE, BV._DF64_SIGNATURES, "sell_df64_variant_launch",
+             "sell_df64.cu", D._SIGNATURES, "sell_df64_launch", 3)):
+        kept = open(csrc + kept_src).read()
+        assert len(sigs[fn][1]) == _c_params(src, fn), fn
+        assert len(kept_sigs[kept_fn][1]) == _c_params(kept, kept_fn)
+        assert _c_params(src, fn) == _c_params(kept, kept_fn) + extra
+
+
+@pytest.mark.parametrize("route", ["relsl", "streamy_relsl"])
+def test_packed_pointers_in_launch_order(route):
+    plan = contract.contract_plan("dead-run-ends-chunk", route)
+    op = S.SellSpMV(plan, value_dtype=torch.bfloat16, device="cpu")
+    y = torch.zeros(4)
+    pk, sl = op.packed_planes()
+    want = [pk, sl, op.tile_base,
+            op.y_block_id if plan.y_block_slices else None, y]
+    assert BV.packed_pointers(op, y) == [
+        None if t is None else t.data_ptr() for t in want]
+
+
+@pytest.mark.parametrize("lo_plane", [True, False])
+def test_df64_pointers_in_launch_order(lo_plane):
+    from smvp_toolkit_tpu_torch.ops import spmv_df64 as D
+
+    rng = np.random.RandomState(3)
+    r, c = rng.randint(0, 300, 2000), rng.randint(0, 300, 2000)
+    v = rng.randn(2000)
+    if not lo_plane:
+        v = v.astype(np.float32).astype(np.float64)
+    op = D.SellDf64SpMV.from_coo_f64(r, c, v, (300, 300), chunk=64,
+                                     device="cpu")
+    planes = op._planes(torch.ones(300), None)
+    yh, yl = torch.zeros(4), torch.zeros(4)
+    ptr = BV.df64_pointers(planes, yh, yl)
+    assert len(ptr) == 11 and (ptr[1] is None) == (not lo_plane)
+    assert ptr == [None if t is None else t.data_ptr()
+                   for t in (*planes, yh, yl)]
+
+
+@pytest.mark.parametrize("flag", ["--packed", "--df64"])
+def test_packed_and_df64_refuse_without_a_card(flag, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: main would time the variants")
+    assert BV.main([flag]) == 1
+    assert "needs a CUDA card" in capsys.readouterr().err

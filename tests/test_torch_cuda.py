@@ -927,6 +927,195 @@ def test_packed_kernels_match_plain(card, route, monkeypatch):
             op.bench_loop(x, 2)
 
 
+@pytest.mark.parametrize("route", ["relsl", "streamy_relsl"])
+def test_packed_disagreeing_lanes_follow_lane_zero(card, route):
+    """K5 stages rel from lane 0's word: on a plane whose lanes 1..127
+    carry another rel (odd lanes 511, even lanes another tile) it equals
+    the plain version on that plane, which reads lane 0, and the plane's
+    own y."""
+    import torch_packed_plans as pp
+
+    op = S.SellSpMV(_route_plan(route), value_dtype=torch.bfloat16,
+                    device=card)
+    pk, sl = op.packed_planes()
+    bad = torch.from_numpy(pp.disagreeing_lanes(
+        pk.cpu().numpy(), sl.cpu().numpy(), op.tile_base.cpu().numpy(),
+        chunk=op.plan.chunk, n_coltiles=op.plan.n_coltiles)).to(card)
+    assert not torch.equal(bad, pk)
+    kw = op._kw()
+    if "nsb" in kw:
+        kw["y_block_id"] = op.y_block_id
+    xt = op._x_tiles(torch.from_numpy(np.random.default_rng(4).standard_normal(
+        op.plan.shape[1]).astype(np.float32)).to(card))
+    y = S.sell_packed(bad, sl, op.tile_base, xt, **kw)
+    yp = S.sell_packed_plain(bad, sl, op.tile_base, xt, **kw)
+    y_own = S.sell_packed(pk, sl, op.tile_base, xt, **kw)
+    torch.cuda.synchronize()
+    assert _rel(y, yp) <= TOL and _rel(y, y_own) <= TOL
+
+
+@pytest.mark.parametrize("chunk", [2048, 200])
+def test_packed_split_launch_views_match_plain(card, chunk, monkeypatch):
+    """SMVP_SELL_PACK=1 with SMVP_SELL_SPLIT=3: K5 launches on views of the
+    packed planes cut at chunk boundaries (512 bytes a sublane, so still
+    aligned for its 16-byte loads), summed to the plain version's y."""
+    plan = _plan(chunk)
+    op = S.SellSpMV(plan, value_dtype=torch.bfloat16, device=card)
+    monkeypatch.setenv("SMVP_SELL_PACK", "1")
+    assert op.route == "packed" and plan.n_chunks >= 3
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        plan.shape[1]).astype(np.float32)).to(card)
+    pk, sl = op.packed_planes()
+    yp = S.sell_packed_plain(pk, sl, op.tile_base, op._x_tiles(x),
+                             **op._kw())
+    monkeypatch.setenv("SMVP_SELL_SPLIT", "3")
+    before = S.sell_packed.launches
+    y = op(x)
+    torch.cuda.synchronize()
+    assert S.sell_packed.launches == before + 3
+    assert _rel(y, yp[: plan.shape[0]]) <= TOL
+
+
+@pytest.mark.parametrize("what", ["packed", "y", "empty"])
+@pytest.mark.parametrize("route", ["relsl", "streamy_relsl"])
+def test_packed_refusals(card, route, what):
+    """K5 refuses a packed plane or a y one word off 16 bytes ("misaligned
+    address") and planes of no sublane ("invalid argument"): nothing
+    launches, no launch is counted, nothing falls back."""
+    from smvp_toolkit_tpu_torch.ops import _build
+
+    op = S.SellSpMV(_route_plan(route), value_dtype=torch.bfloat16,
+                    device=card)
+    pk, sl = op.packed_planes()
+    tb, yb = op.tile_base, op.y_block_id
+    kw = op._kw()
+    xt = op._x_tiles(torch.ones(op.plan.shape[1], device=card))
+    n_out = kw["n_slices"] * 128
+    y = torch.zeros(n_out + 4, dtype=torch.float32, device=card)
+    match = "misaligned"
+    if what == "packed":
+        flat = torch.empty(pk.numel() + 1, dtype=pk.dtype, device=card)
+        pk = flat[1:].view(pk.shape)
+        pk.copy_(op.packed_planes()[0])
+    elif what == "empty":
+        pk, sl, tb = pk[:0], sl[:0], tb[:0]
+        yb = None if yb is None else yb[:0]
+        match = "invalid argument"
+    out = y[1:] if what == "y" else y
+    before = S.sell_packed.launches
+    if what != "y":
+        with pytest.raises(RuntimeError, match=match):
+            S.sell_packed(pk, sl, tb, xt, **kw,
+                          **({"y_block_id": yb} if yb is not None else {}))
+        assert S.sell_packed.launches == before
+    lib = _build.load("sell_packed", S._PACKED_SIGNATURES)
+    rc = lib.sell_packed_launch(
+        pk.data_ptr(), sl.data_ptr(), tb.data_ptr(),
+        None if yb is None else yb.data_ptr(), xt.data_ptr(),
+        out.data_ptr(), pk.numel(), kw["chunk"], kw.get("nsb", 0),
+        card.index or 0, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc != 0 and match in lib.sell_error_string(rc).decode()
+    assert not y.any()
+
+
+def _df64_plan_case(name, lo_plane):
+    """(operator maker, x64) of K8's edge plans: the hub row (258 live
+    sublanes in one slice, 8 empty slices, int32 lanes at its chunk of
+    1544), empty slices (chunk 256, int8 lanes), slices straddling chunks
+    (chunk 64) and int32 lanes at chunk 200."""
+    import torch_kcol_plans as kcol
+
+    from smvp_toolkit_tpu_torch.ops.spmv_df64 import SellDf64SpMV
+
+    rng = np.random.RandomState(sum(map(ord, name)))
+    if name == "hub-row":
+        r, c, v, shape, chunk = kcol.hub_row_triplets("relsl")
+    elif name == "empty-slices":
+        n, m, nnz = 2048, 1500, 9000
+        r = (rng.choice(np.arange(0, n // 128, 3), nnz) * 128
+             + rng.randint(0, 128, nnz))
+        c, v, shape, chunk = rng.randint(0, m, nnz), rng.randn(nnz), (
+            n, m), 256
+    else:
+        n, m, nnz = 900, 800, 12000
+        r, c, v = rng.randint(0, n, nnz), rng.randint(0, m, nnz), \
+            rng.randn(nnz)
+        shape, chunk = (n, m), (64 if name == "straddle" else 200)
+    if not lo_plane:
+        v = v.astype(np.float32).astype(np.float64)
+    return (lambda dev: SellDf64SpMV.from_coo_f64(
+        r, c, v, shape, chunk=chunk, device=dev)), rng.randn(shape[1])
+
+
+@pytest.mark.parametrize("name", ["hub-row", "empty-slices", "straddle",
+                                  "int32-lidx"])
+@pytest.mark.parametrize("lo_plane", [True, False])
+def test_df64_staged_walk_bit_equal(card, name, lo_plane):
+    """K8 on staged slice metadata on its edge plans: bit for bit its plain
+    version, with and without a lo plane, int8 and int32 lanes; its
+    N-iteration launch bit for bit one launch."""
+    from smvp_toolkit_tpu_torch.ops import spmv_df64 as D
+    from smvp_toolkit_tpu_torch.ops.precision import df_split
+
+    make, x64 = _df64_plan_case(name, lo_plane)
+    op = make(card)
+    assert (op.vals_lo is not None) == lo_plane
+    counts = torch.diff(op.slice_ptr.long())
+    if name == "hub-row":
+        assert counts.max() == 258 and (counts == 0).sum() == 8
+    if name in ("hub-row", "int32-lidx"):
+        assert op.lidx.dtype == torch.int32
+    xh, xl = df_split(x64, device=card)
+    planes = op._planes(xh, xl)
+    kw = dict(n_slices=op.plan.n_slices, chunk=op.plan.chunk)
+    y = D.sell_df64(*planes, **kw)
+    y3 = D.sell_bench_df64(*planes, iterations=3, **kw)
+    yp = D.sell_df64_plain(*planes, **kw)
+    torch.cuda.synchronize()
+    for a, b in ((y, yp), (y3, y)):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("lo_plane", [True, False])
+def test_df64_writes_every_word(card, lo_plane):
+    """Launched into y buffers full of NaN, K8 and its N-iteration kernel
+    write every word: equal to the plain version, the rows of empty slices
+    0."""
+    from smvp_toolkit_tpu_torch.ops import _build
+    from smvp_toolkit_tpu_torch.ops import spmv_df64 as D
+    from smvp_toolkit_tpu_torch.ops.precision import df_split
+
+    make, x64 = _df64_plan_case("hub-row", lo_plane)
+    op = make(card)
+    planes = op._planes(*df_split(x64, device=card))
+    kw = dict(n_slices=op.plan.n_slices, chunk=op.plan.chunk)
+    ph, pl = D.sell_df64_plain(*planes, **kw)
+    lib = _build.load("sell_df64", D._SIGNATURES)
+    ptrs = [None if t is None else t.data_ptr() for t in planes]
+    n_rows = op.plan.n_slices * 128
+    lk = int(op.lidx.dtype == torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+    empty = torch.diff(op.slice_ptr.long()) == 0
+    assert empty.any()
+    for bench in (False, True):
+        yh, yl = (torch.full((n_rows,), float("nan"), device=card)
+                  for _ in range(2))
+        if bench:
+            rc = lib.sell_bench_df64_launch(
+                *ptrs, yh.data_ptr(), yl.data_ptr(), n_rows, kw["chunk"], 2,
+                lk, card.index or 0, stream)
+        else:
+            rc = lib.sell_df64_launch(
+                *ptrs, yh.data_ptr(), yl.data_ptr(), n_rows, kw["chunk"], lk,
+                card.index or 0, stream)
+        torch.cuda.synchronize()
+        assert rc == 0
+        assert torch.isfinite(yh).all() and torch.isfinite(yl).all()
+        assert torch.equal(yh, ph) and torch.equal(yl, pl)
+        assert not yh.view(-1, 128)[empty].any()
+
+
 def test_packed_gates_on_card(card, monkeypatch):
     monkeypatch.setenv("SMVP_SELL_PACK", "1")
     split = S.SellSpMV(_route_plan("split"), value_dtype=torch.bfloat16,
