@@ -10,9 +10,11 @@ Phases; any failure exits non-zero and prints no result line:
 1. The card's name and power limit, then the kernels' build from
    ``smvp_toolkit_tpu_torch/csrc`` (one nvcc per source, in parallel) with
    its time, the registers and spills of every warp-per-sublane kernel,
-   forward and N-iteration (K2-subwin and K5 among them), of K1 and K4
-   with k columns, of K7 and of K8 on staged slice metadata (``[regs]``,
-   the most over their types and column shapes), and each bench kernel's
+   forward and N-iteration (K2-subwin, K5, K2-packed and K10, whose SpMV
+   phase runs that body, among them), of K1 and K4 with k columns, of K7
+   and of K8 on staged slice metadata, and of the thread-per-slot solvers
+   K9 and K11 beside K10 (``[regs]``, the most over their types and column
+   shapes), and each bench kernel's
    cooperative grid (the four routes' N-iteration kernels for both value
    and lane-index types on a line of their own). The plans of the
    four full-size matrices and of the ``gcn_arxiv`` graph (its normalised
@@ -98,11 +100,14 @@ Phases; any failure exits non-zero and prints no result line:
    K5 in bfloat16 on every small merged-word plan (resident: k = 1, 2, 8,
    17 and K2-packed with N = 3; streamed: k = 1) and on smoke (k = 1, 8,
    K2-packed) and L1 (streamed): <= 1e-6 of max |y| against its plain
-   version and against K1 (K3) bf16 on the same plan; and K5 on each of
-   those plans' packed plane with lanes 1..127 rewritten to another rel
-   than lane 0's (``tests/torch_packed_plans.py``; odd lanes 511, even
-   lanes another tile): <= 1e-6 against the plain version on that plane,
-   which reads rel from lane 0 as the JAX ``_unpack_plane`` does.
+   version and against K1 (K3) bf16 on the same plan; and K5, K2-packed
+   (N = 2 and 3, resident plans) and K5 with k columns (k = 1, 3, 8,
+   resident plans) on each of those plans' packed plane with lanes 1..127
+   rewritten to another rel than lane 0's
+   (``bench_variants.disagreeing_lanes``; odd lanes 511, even lanes
+   another tile): <= 1e-6 (k columns: the SpMM tolerance) against the
+   plain version on that plane, which reads rel from lane 0 as the JAX
+   ``_unpack_plane`` does.
    K6 (``sell_onehot``, the ``SMVP_SELL_COMPAT=1`` kernel, on the plan's
    dense one-hot operands) on every small resident plan and on smoke, and
    K2-subwin (``sell_bench_subwin``, N = 3, the ``SMVP_SELL_SUBWIN=1``
@@ -255,7 +260,7 @@ Phases; any failure exits non-zero and prints no result line:
    200) on smoke-packed and K5 on L1-packed: bound the packed route's
    bytes (4 per slot); yardstick the float32 CSR call; K5's launches and
    its library call queued behind the spin kernel, the host-paced times
-   beside, its entry's ``body`` ``warp-per-sublane`` (K2-packed and K5
+   beside, its entry's ``body`` ``warp-per-sublane`` (K2-packed too; K5
    with k columns: ``thread-per-slot``). K8 and its
    N-iteration kernel on smoke-df64 (N = 200) and smoke-df64-f64 (N = 100),
    ``body`` ``staged-slices`` (K8's forward launches and their library
@@ -352,20 +357,25 @@ KERNELS = {
 # rule) and K5 (the packed word, rel staged from lane 0); K1 and K4 with k
 # columns, which run its k-column form (sublane_mat_run); K7, which walks
 # the plan by slice; and K8 and its N-iteration kernel, which walk rows on
-# staged slice metadata. K2-packed, the solver and the other k-column
-# kernels (K2 with k columns, K5 with k columns) run one thread per slot.
-# Phase 1 prints their registers and spills, and a phase-4 entry names its
-# body, so that a time can be told from the thread-per-slot (or, K8,
-# per-row chain) times these kernels had before.
+# staged slice metadata. K2-packed runs K2's body (rel from the loaded
+# lane-0 word by a warp shuffle), and K10 its SpMV phase on the
+# warp-per-sublane body. K9, K11 and the other
+# k-column kernels (K2 with k columns, K5 with k columns) run one thread
+# per slot. Phase 1 prints their registers and spills, and a phase-4 entry
+# names its body, so that a time can be told from the thread-per-slot (or,
+# K8, per-row chain) times these kernels had before.
 WARP_PER_SUBLANE = ("sell_spmv_kernel", "sell_bench_kernel",
                     "sell_streamy_relsl_kernel",
                     "sell_bench_streamy_relsl_kernel",
                     "sell_streamy_kernel", "sell_bench_streamy_kernel",
                     "sell_split_kernel", "sell_bench_split_kernel",
-                    "sell_bench_subwin_kernel", "sell_packed_kernel")
+                    "sell_bench_subwin_kernel", "sell_packed_kernel",
+                    "sell_bench_packed_kernel", "sell_chebyshev_kernel")
 KCOL_PER_SUBLANE = ("sell_spmm_kernel", "sell_split_spmm_kernel")
 BY_SLICE = ("sell_vals_grad_kernel",)
 STAGED_SLICES = ("sell_df64_kernel", "sell_bench_df64_kernel")
+THREAD_PER_SLOT_SOLVERS = ("sell_cg_kernel", "sell_cg_split_kernel",
+                           "sell_pcg_ic0_kernel")
 # K7's hub-row plans (tests/torch_kcol_plans.py): a row of 200 entries in
 # one column tile beside random entries, so that its slice's 200 live
 # sublanes are cut into several units of the by-slice schedule; on the
@@ -1693,7 +1703,7 @@ def _packed_timings(torch, S, name, op, xt, a, x2, errs, launches, bw):
                             warmup=2 if n == 1 else 0)
         lib_ms = _time_ms(lambda: [torch.sparse.mm(a, x2) for _ in range(n)],
                           reps=20 if n == 1 else 1, warmup=1)
-        extra = {"body": "thread-per-slot"}
+        extra = {"body": "warp-per-sublane"}
         if n == 1:
             # K5: the card's time alone, the host-paced times beside
             extra = {"body": "warp-per-sublane", "host_paced_ms": ms,
@@ -2236,6 +2246,9 @@ def phase_solver_timings(np, torch, hp, launches, bw):
     )
     entries = []
     for kname, iters, fn, plain, lib, nbytes, flops, extra in cases:
+        extra = dict(extra, body=("warp-per-sublane"
+                                  if kname in WARP_PER_SUBLANE
+                                  else "thread-per-slot"))
         ms = _time_ms(fn, reps=2, warmup=1)
         x = fn()
         torch.cuda.synchronize()
@@ -2367,38 +2380,23 @@ def _check_packed(np, torch, label, op, ks, errs, config=None):
           flush=True)
 
 
-def _disagreeing_lanes(np, packed, slice_of, tile_base, chunk, n_coltiles):
-    """A copy of the (S, 128) int32 packed plane whose live sublanes'
-    lanes 1..127 carry another rel than lane 0's: odd lanes 511 (dead),
-    even lanes tile 0 of the window (1 where lane 0's rel is 0 and the
-    column tiles reach that far; else 511); values and lane indices kept
-    (tests/torch_packed_plans.py)."""
-    w = packed.reshape(-1, 128).astype(np.int64) & 0xFFFFFFFF
-    rel_all = w >> 7 & 511
-    rel0 = rel_all[:, 0]
-    live = (rel0 != 511) & (slice_of.reshape(-1) >= 0)
-    s = np.arange(w.shape[0])
-    room = tile_base.astype(np.int64)[s // chunk] + 1 < n_coltiles
-    other = np.where(rel0 != 0, 0, np.where(room, 1, 511))
-    rel = np.where(np.arange(128) % 2 == 1, 511, other[:, None])
-    rel[:, 0] = rel0
-    rel = np.where(live[:, None], rel, rel_all)
-    out = (w & ~(511 << 7)) | (rel << 7)
-    return out.astype(np.uint32).view(np.int32).reshape(packed.shape)
-
-
 def _check_packed_lanes(np, torch, label, op):
-    """K5 on ``op``'s packed plane with lanes 1..127 rewritten to another
-    rel than lane 0's: within 1e-6 of the plain version on that plane
-    (rel from lane 0) and of the plane's own y. K5 decoding rel per slot,
-    as it did before, misses both."""
+    """K5, and on a resident plan K2-packed (N = 2, 3) and K5 with k
+    columns (k = 1, 3, 8), on ``op``'s packed plane with lanes 1..127
+    rewritten to another rel than lane 0's: within 1e-6 (k columns: the
+    SpMM tolerance) of the plain version on that plane (rel from lane 0)
+    and of the plane's own y. A kernel decoding rel per slot, as all three
+    did before, misses both by about max |y|."""
+    from smvp_toolkit_tpu_torch.bench.bench_variants import (
+        disagreeing_lanes,
+    )
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
     pk, sl = op.packed_planes()
-    plan = op.plan
-    bad = torch.from_numpy(_disagreeing_lanes(
-        np, pk.cpu().numpy(), sl.cpu().numpy(), op.tile_base.cpu().numpy(),
-        plan.chunk, plan.n_coltiles)).to(DEVICE)
+    plan, tb = op.plan, op.tile_base
+    bad = torch.from_numpy(disagreeing_lanes(
+        pk.cpu().numpy(), sl.cpu().numpy(), tb.cpu().numpy(),
+        chunk=plan.chunk, n_coltiles=plan.n_coltiles)).to(DEVICE)
     changed = int((bad != pk).sum())
     n_live = int(((pk.reshape(-1, 128)[:, 0] >> 7 & 511) != 511)
                  .logical_and(sl.reshape(-1) >= 0).sum())
@@ -2408,19 +2406,40 @@ def _check_packed_lanes(np, torch, label, op):
     kw = op._kw()
     if plan.y_block_slices:
         kw["y_block_id"] = op.y_block_id
-    y = S.sell_packed(bad, sl, op.tile_base, xt, **kw)
-    yp = S.sell_packed_plain(bad, sl, op.tile_base, xt, **kw)
-    y_own = S.sell_packed_plain(pk, sl, op.tile_base, xt, **kw)
-    torch.cuda.synchronize()
-    e, e_own = _rel_err(y, yp), _rel_err(y, y_own)
-    what = f"sell_packed_kernel on {label} with disagreeing lanes"
+    runs = {"sell_packed_kernel": (
+        lambda p: S.sell_packed(p, sl, tb, xt, **kw),
+        lambda p: S.sell_packed_plain(p, sl, tb, xt, **kw), TOL_KERNEL)}
+    if not plan.y_block_slices:
+        for n in (2, 3):
+            runs[f"sell_bench_packed_kernel N={n}"] = (
+                lambda p, n=n: S.sell_bench_packed(p, sl, tb, xt,
+                                                   iterations=n, **kw),
+                lambda p, n=n: S.sell_bench_packed_plain(
+                    p, sl, tb, xt, iterations=n, **kw), TOL_KERNEL)
+        mkw = op._mat_kw()
+        tol = _spmm_tolerance(torch, S, op)[0]
+        for k in (1, 3, 8):
+            X = torch.from_numpy(np.random.default_rng(k).standard_normal(
+                (plan.n_coltiles * 128, k)).astype(np.float32)).to(
+                DEVICE).to(torch.bfloat16)
+            runs[f"sell_packed_spmm_kernel k={k}"] = (
+                lambda p, X=X: S.sell_packed_spmm(p, sl, tb, X, **mkw),
+                lambda p, X=X: S.sell_packed_spmm_plain(p, sl, tb, X, **mkw),
+                tol)
+    what = f"{label} with disagreeing lanes"
     _check(changed > 0 or n_live == 0, f"{what}: no word rewritten")
-    _check(bool(torch.isfinite(y).all()), f"{what}: not finite")
-    _check(e <= TOL_KERNEL and e_own <= TOL_KERNEL,
-           f"{what}: vs plain {e}, vs the plane's own y {e_own}")
+    line = []
+    for kname, (kernel, plain, tol) in runs.items():
+        y, yp, y_own = kernel(bad), plain(bad), plain(pk)
+        torch.cuda.synchronize()
+        e, e_own = _rel_err(y, yp), _rel_err(y, y_own)
+        _check(bool(torch.isfinite(y).all()), f"{kname} on {what}: not "
+               "finite")
+        _check(e <= tol and e_own <= tol, f"{kname} on {what}: vs plain "
+               f"{e}, vs the plane's own y {e_own} (tolerance {tol})")
+        line.append(f"{kname} vs plain {e:.3e}, vs own {e_own:.3e}")
     print(f"[check] {label:28s} bfloat16 packed, {changed} words with "
-          f"another rel than lane 0's: sell_packed_kernel vs plain {e:.3e}, "
-          f"vs the plane's own y {e_own:.3e}", flush=True)
+          f"another rel than lane 0's: " + "; ".join(line), flush=True)
 
 
 def phase_new_kernels(np, torch, plans, ops, errs):
@@ -3692,14 +3711,15 @@ def main() -> int:
         print(f"[build] {len(logs)} source(s) built: {sorted(logs)}; "
               f"registers per thread: {regs}; spill stores {spills} bytes "
               f"(most in one type instance: {spilled})", flush=True)
-        print("[regs] warp-per-sublane kernels, forward and N-iteration, "
-              "the k-column ones, K7 by slice and K8 on staged slices "
+        print("[regs] warp-per-sublane kernels, forward and N-iteration "
+              "(K10's SpMV phase among them), the k-column ones, K7 by "
+              "slice, K8 on staged slices and the thread-per-slot solvers "
               "(most over their value and index types, lo plane and "
               "column shapes): " + "; ".join(
                   f"{k} {regs.get(k)} registers, spill stores "
                   f"{spilled.get(k, 0)} bytes"
                   for k in WARP_PER_SUBLANE + KCOL_PER_SUBLANE + BY_SLICE
-                  + STAGED_SLICES),
+                  + STAGED_SLICES + THREAD_PER_SLOT_SOLVERS),
               flush=True)
         from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
@@ -3737,6 +3757,10 @@ def main() -> int:
             print(f"[grid] {S.KERNEL_NAMES[(r, True)]} (warp per sublane): "
                   f"{rgrid} blocks of 256 threads, "
                   f"{SUBLANE_BLOCKS_PER_SM} per SM", flush=True)
+        _check(grid["sell_bench_packed_kernel"] == SUBLANE_BLOCKS_PER_SM * sms,
+               f"sell_bench_packed_kernel grid "
+               f"{grid['sell_bench_packed_kernel']}, not "
+               f"{SUBLANE_BLOCKS_PER_SM} blocks on each of {sms} SMs")
 
     with _Phase("plans"):
         configs = _configs()

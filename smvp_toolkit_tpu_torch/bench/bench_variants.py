@@ -50,7 +50,23 @@ from lane 0, and rel taken from lane 0's loaded word by a warp shuffle
 instead of a staging load) against the kept kernel and
 ``torch.sparse.mm`` on a float32 CSR tensor on smoke-packed (resident y)
 and L1-packed (streamed y), bf16, all queued behind a spin kernel; each
-first held to the plain version within 1e-6 of max |y|. With ``--df64`` it times K8
+first held to the plain version within 1e-6 of max |y|. On smoke-packed
+it then times K2-packed's forms at N = 200 (the same file: the
+one-thread-per-slot walk it ran before, K2's body under K5's staging of
+lane 0's word, ``PackedStage``, and the kept body built beside them, rel
+from lane 0's loaded word by a warp shuffle, ``PackedShuffle``) against
+the kept kernel and N calls of
+``torch.sparse.mm``, each form first held at N = 1, 2 and 3 to the plain
+version, on the operator's plane and on one whose lanes 1..127 carry
+another rel than lane 0's (``disagreeing_lanes``; there the old walk must
+miss by more than 1e-3). With ``--solver`` it times K10
+(``csrc/variants/sell_solver_variants.cu``: the one-thread-per-slot SpMV
+phase it ran before, the kept warp-per-sublane phase built beside it, and
+that phase gathering through L2 only) at hpcg104 (HPCG's 27-point stencil
+on 104³, ``chip_smoke.py``'s matrix), 600 steps, float32, against the
+kept kernel, its plain version and the scan loop over ``torch.sparse.mm``
+(``models.solvers.chebyshev``), each first held at 30 steps to the plain
+version (<= 1e-4 of max |x|). With ``--df64`` it times K8
 (``csrc/variants/sell_df64_variants.cu``: the row walk K8 ran before and
 the staged body with U = 1, 2, 4, 8 steps in flight and one or two slices
 a block) against the kept kernel and ``torch.sparse.mm`` on a float64 CSR
@@ -93,10 +109,11 @@ import numpy as np
 
 __all__ = ["VARIANTS", "ONE_BUFFER", "KCOL_VARIANTS", "KCOL_SHAPES",
            "VGRAD_VARIANTS", "VGRAD_CAPS", "VGRAD_SCHEDULED", "VGRAD_K",
-           "SUBWIN_FORMS", "PACKED_VARIANTS", "DF64_VARIANTS",
-           "DF64_FORMS", "plane_pointers", "vgrad_pointers",
-           "packed_pointers", "df64_pointers", "kcol_cases",
-           "spmm_tolerance", "main"]
+           "SUBWIN_FORMS", "PACKED_VARIANTS", "PACKED_BENCH_FORMS",
+           "DF64_VARIANTS", "DF64_FORMS", "SOLVER_VARIANTS",
+           "plane_pointers", "vgrad_pointers", "packed_pointers",
+           "df64_pointers", "kcol_cases", "spmm_tolerance",
+           "disagreeing_lanes", "main"]
 
 # Variant ids of sell_bench_variants.cu.
 VARIANTS = {"barrier1": 0, "barrier2": 1, "cached": 2, "nol1": 3,
@@ -116,9 +133,17 @@ _KCOL_SRC = _VARIANTS_DIR / "sell_spmm_variants.cu"
 _VGRAD_SRC = _VARIANTS_DIR / "sell_vals_grad_variants.cu"
 _PACKED_SRC = _VARIANTS_DIR / "sell_packed_variants.cu"
 _DF64_SRC = _VARIANTS_DIR / "sell_df64_variants.cu"
+_SOLVER_SRC = _VARIANTS_DIR / "sell_solver_variants.cu"
+# Variant ids of sell_solver_variants.cu (K10), hpcg104's grid and steps.
+SOLVER_VARIANTS = {"walk": 0, "body": 1, "ldcg": 2}
+HPCG_N, SOLVER_STEPS, SOLVER_CHECK_STEPS = 104, 600, 30
+SOLVER_TOL = 1e-4
 # Variant ids of sell_packed_variants.cu (K5) and its configurations: the
-# full-size plan each reuses.
+# full-size plan each reuses; K2-packed's forms there and the y buffer
+# each leaves its result in (None: buffer 0).
 PACKED_VARIANTS = {"walk": 0, "body": 1, "perslot": 2, "shfl": 3}
+PACKED_BENCH_FORMS = {"walk": 0, "staged": 1, "shfl": 2}
+PACKED_BENCH_N = 200
 PACKED_CONFIGS = {"smoke-packed": "smoke", "L1-packed": "L1"}
 # Variant ids of sell_df64_variants.cu (K8) and the staged forms timed:
 # (U steps in flight, S slices a block).
@@ -178,6 +203,9 @@ _PACKED_SIGNATURES = {
     "sell_packed_variant_launch": (ctypes.c_int, [ctypes.c_int] + [
         ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
         ctypes.c_void_p]),
+    "sell_bench_packed_variant_launch": (ctypes.c_int, [ctypes.c_int] + [
+        ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _DF64_SIGNATURES = {
@@ -745,6 +773,29 @@ def packed_pointers(op, y) -> list:
             for t in (pk, sl, op.tile_base, yb)] + [y.data_ptr()]
 
 
+def disagreeing_lanes(packed, slice_of, tile_base, *, chunk: int,
+                      n_coltiles: int):
+    """A copy of the (S, 128) int32 packed word plane whose live sublanes'
+    lanes 1..127 carry a rel other than lane 0's: odd lanes 511 (dead),
+    even lanes tile 0 of the chunk's window (1 where lane 0's rel is 0 and
+    the column tiles reach that far; else 511). Values and lane indices
+    stay as they were, so a kernel that reads rel from lane 0, as the JAX
+    ``_unpack_plane`` and the plain versions do, gives the plane's own y,
+    and one that decodes rel per slot does not. numpy arrays in and out."""
+    w = packed.reshape(-1, 128).astype(np.int64) & 0xFFFFFFFF
+    rel_all = w >> 7 & 511
+    rel0 = rel_all[:, 0]
+    live = (rel0 != 511) & (slice_of.reshape(-1) >= 0)
+    s = np.arange(w.shape[0])
+    room = tile_base.astype(np.int64)[s // chunk] + 1 < n_coltiles
+    other = np.where(rel0 != 0, 0, np.where(room, 1, 511))
+    rel = np.where(np.arange(128) % 2 == 1, 511, other[:, None])
+    rel[:, 0] = rel0
+    rel = np.where(live[:, None], rel, rel_all)
+    out = (w & ~(511 << 7)) | (rel << 7)
+    return out.astype(np.uint32).view(np.int32).reshape(packed.shape)
+
+
 def df64_pointers(planes, y_hi, y_lo) -> list:
     """The eleven pointers of ``sell_df64_variant_launch`` (the order of
     ``sell_df64_launch``): ``SellDf64SpMV._planes``'s nine (vals_lo None
@@ -840,9 +891,145 @@ def run_packed(names=tuple(PACKED_CONFIGS)) -> dict:
               f"{max(errs.values()):.3e} <= {TOL})", flush=True)
         _print_times("packed", times)
         out[f"{name}/bfloat16"] = dict(route=op.route, ms=times, errors=errs)
+        if not plan.y_block_slices:
+            out[f"{name}/bfloat16/K2-packed"] = _packed_bench_forms(
+                torch, lib, S, op, xt, a, x2, stream)
         del op, a, pk, sl
         torch.cuda.empty_cache()
     return out
+
+
+def _packed_bench_forms(torch, lib, S, op, xt, a, x2, stream) -> dict:
+    """K2-packed's forms on ``op``'s resident packed planes: each held at
+    N = 1, 2, 3 to the plain version on the operator's plane and on
+    ``disagreeing_lanes``' (the old walk must miss there), then timed at
+    PACKED_BENCH_N in turns against the kept kernel and N library calls."""
+    pk, sl = op.packed_planes()
+    kw = op._kw()
+    bad = torch.from_numpy(disagreeing_lanes(
+        pk.cpu().numpy(), sl.cpu().numpy(), op.tile_base.cpu().numpy(),
+        chunk=op.plan.chunk, n_coltiles=op.plan.n_coltiles)).to(op.device)
+    n_out = kw["n_slices"] * S.LANES
+
+    def form(name, n, plane=pk):
+        ys = torch.empty(2, n_out, dtype=torch.float32, device=op.device)
+        rc = lib.sell_bench_packed_variant_launch(
+            PACKED_BENCH_FORMS[name], plane.data_ptr(), sl.data_ptr(),
+            op.tile_base.data_ptr(), xt.data_ptr(), ys.data_ptr(),
+            plane.numel(), n_out, kw["chunk"], n, 0, stream)
+        if rc:
+            raise RuntimeError(f"K2-packed form {name}: CUDA error {rc} "
+                               f"({lib.sell_error_string(rc).decode()})")
+        return ys[0 if name == "walk" else (n - 1) % 2]
+
+    def kept(n, plane=pk):
+        return S.sell_bench_packed(plane, sl, op.tile_base, xt,
+                                   iterations=n, **kw)
+
+    runs = {"kept": kept}
+    runs.update({f: (lambda n, plane=pk, f=f: form(f, n, plane))
+                 for f in PACKED_BENCH_FORMS})
+    errs, lanes = {}, {}
+    for k, fn in runs.items():
+        errs[k] = max(_rel(fn(n), S.sell_bench_packed_plain(
+            pk, sl, op.tile_base, xt, iterations=n, **kw)) for n in (1, 2, 3))
+        lanes[k] = max(_rel(fn(n, bad), S.sell_bench_packed_plain(
+            bad, sl, op.tile_base, xt, iterations=n, **kw)) for n in (2, 3))
+    torch.cuda.synchronize()
+    bad_errs = {k: e for k, e in errs.items() if not e <= TOL}
+    bad_lanes = {k: e for k, e in lanes.items()
+                 if not (e > 1e-3 if k == "walk" else e <= TOL)}
+    if bad_errs or bad_lanes:
+        raise SystemExit(f"bench_variants: K2-packed: {bad_errs}, on "
+                         f"disagreeing lanes {bad_lanes}")
+    n = PACKED_BENCH_N
+    fns = {k: (lambda fn=fn: fn(n)) for k, fn in runs.items()}
+    fns["library"] = lambda: [torch.sparse.mm(a, x2) for _ in range(n)]
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k].append(_time_ms(torch, fns[k], 2))
+    print(f"[packed] K2-packed, N = {n} (errors {max(errs.values()):.3e} "
+          f"<= {TOL}; on disagreeing lanes {lanes})", flush=True)
+    _print_times("packed", times)
+    return dict(iterations=n, ms=times, errors=errs, disagreeing_lanes=lanes)
+
+
+def run_solver() -> dict:
+    """K10's variants at hpcg104 against the kept kernel, its plain
+    version and the scan loop over the float32 CSR call."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.models import solvers as M
+    from smvp_toolkit_tpu_torch.ops import _build
+    from smvp_toolkit_tpu_torch.ops import cg_fused as C
+    from smvp_toolkit_tpu_torch.ops import pcg_fused as P
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.utils.synth import hpcg_stencil
+
+    _build.build(["sell_solvers"])
+    signatures = {
+        "sell_chebyshev_variant_launch": C._SIGNATURES["sell_solver_launch"],
+        "sell_error_string": (ctypes.c_char_p, [ctypes.c_int])}
+    lib, log = _build_variants(_SOLVER_SRC, signatures)
+    print(f"[regs] solver variants: {_registers(log)}", flush=True)
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    m = hpcg_stencil(HPCG_N).tocoo()
+    csr = csr_encode(COOMatrix.from_numpy(m.row, m.col, m.data,
+                                          shape=m.shape, pad_to=128,
+                                          device=dev))
+    op = S.sell_op_csr(csr)
+    print(f"[plan] hpcg104: {m.shape[0]} rows, {m.nnz} nnz; S "
+          f"{op.plan.n_sublanes} in {op.plan.n_chunks} chunks of "
+          f"{op.plan.chunk}, in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    n = m.shape[0]
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(n).astype(
+        np.float32)).to(dev)
+    v0 = torch.from_numpy(np.random.default_rng(0).standard_normal(n).astype(
+        np.float32)).to(dev)
+    lows, highs = M.lanczos_eigsh(csr, v0, num_iters=30, k=1)
+    lo, hi = float(lows[0]) * 0.3, float(highs[0]) * 1.1
+    a = _library_csr(torch, (m.row, m.col, m.data, m.shape), dev)
+
+    def mv(mat, v):
+        return torch.sparse.mm(mat, v[:, None])[:, 0]
+
+    def variant(name, steps):
+        return P.chebyshev_launch(
+            op, b, lo, hi, steps,
+            variant=(lib.sell_chebyshev_variant_launch,
+                     SOLVER_VARIANTS[name]))[:n]
+
+    runs = {"kept": lambda s: P.fused_chebyshev(op, b, lo, hi, s)}
+    runs.update({v: (lambda s, v=v: variant(v, s)) for v in SOLVER_VARIANTS})
+    xp = P.fused_chebyshev_plain(op, b, lo, hi, SOLVER_CHECK_STEPS)
+    errs = {k: _rel(fn(SOLVER_CHECK_STEPS), xp) for k, fn in runs.items()}
+    torch.cuda.synchronize()
+    bad = {k: e for k, e in errs.items() if not e <= SOLVER_TOL}
+    if bad:
+        raise SystemExit(f"bench_variants: K10 at hpcg104: {bad}")
+    s = SOLVER_STEPS
+    fns = {k: (lambda fn=fn: fn(s)) for k, fn in runs.items()}
+    fns["library"] = lambda: M.chebyshev(a, b, lo, hi, num_iters=s, spmv=mv)
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k].append(_time_ms(torch, fns[k], 1))
+    t0 = time.perf_counter()
+    P.fused_chebyshev_plain(op, b, lo, hi, s)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[solver] K10 hpcg104 float32, {s} steps, interval [{lo:.6g}, "
+          f"{hi:.6g}] (errors at {SOLVER_CHECK_STEPS} steps "
+          f"{max(errs.values()):.3e} <= {SOLVER_TOL}); plain "
+          f"{plain_ms:.3f} ms", flush=True)
+    _print_times("solver", times)
+    return {"hpcg104/float32": dict(steps=s, ms=times, errors=errs,
+                                    plain_ms=plain_ms)}
 
 
 def run_df64(names=DF64_CONFIGS) -> dict:
@@ -945,6 +1132,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--df64", action="store_true",
                    help="time K8's variants on smoke-df64 and "
                    "smoke-df64-f64 instead")
+    p.add_argument("--solver", action="store_true",
+                   help="time K10's variants at hpcg104 instead")
     p.add_argument("--out", help="write every time to this JSON file")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -967,6 +1156,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif args.df64:
         out = run_df64(tuple((args.configs or ",".join(DF64_CONFIGS))
                              .split(",")))
+    elif args.solver:
+        out = run_solver()
     else:
         out = run_kcol(names, args.sweep) if args.kcol else run(names)
     if args.out:

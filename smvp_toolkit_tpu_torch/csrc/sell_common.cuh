@@ -3,14 +3,16 @@
 // sublane (`sublane_run`: every k = 1 kernel of the four routes, forward
 // and N-iteration: K1, K2, K3-relsl and K2 streamed on the merged word,
 // K3-split, K2 streamed split, K4 and K2 split on the split planes,
-// K2-subwin on the merged word under its window rule, SubwinWord, and K5
-// on the packed word, PackedStage), its k-column form (`sublane_mat_run`:
-// K1 and K4 with k columns), and one thread per slot (`slot`: K2-packed
-// and the fused solvers; `warp_slots`, a warp walk over k columns: K2 with
-// k columns, K5 with k columns). The decode policies, the slot coordinates
-// and the cooperative grid also serve the values gradient
-// (csrc/sell_vals_grad.cu), the fused solvers (csrc/sell_solvers.cu) and
-// the double-float kernels (csrc/sell_df64.cu).
+// K2-subwin on the merged word under its window rule, SubwinWord, K5 and
+// K2-packed on the packed word, PackedStage and PackedShuffle; and the
+// SpMV phase of K10 in csrc/sell_solvers.cu), its k-column form
+// (`sublane_mat_run`: K1 and K4 with k columns), and one thread per slot
+// (`slot`: K9 and K11, the fused solvers' other two; `warp_slots`, a warp
+// walk over k columns: K2 with k columns, and K5 with k columns under
+// PackedLaneZero). The decode policies, the slot coordinates and the
+// cooperative grid also serve the values gradient (csrc/sell_vals_grad.cu),
+// the fused solvers (csrc/sell_solvers.cu) and the double-float kernels
+// (csrc/sell_df64.cu).
 //
 // Per live slot (s, l) of the (S, 128) planes, with c = s / chunk:
 //   y[(ybase(c) + slice(s)) * 128 + l] +=
@@ -65,6 +67,7 @@ constexpr unsigned kRelDead = 511u;
 constexpr int kSliceShift = 9;
 constexpr unsigned kSliceDead = (1u << 23) - 1u;
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;  // all lanes of a warp
 
 // Route ids shared with ops/spmv_sell.py (_ROUTE_IDS).
 enum Route : int {
@@ -107,6 +110,26 @@ struct Streaming {
   }
 };
 
+// The read-only path: L1 and L2 allocating. Non-coherent (ld.global.nc):
+// only for data that no thread writes while the kernel runs.
+struct ReadOnly {
+  template <typename T>
+  __device__ __forceinline__ static T load(const T* p) {
+    return __ldg(p);
+  }
+};
+
+// A plain load (ld.global, L1 allocating), as the one-thread-per-slot
+// body gathers x: coherent with what other blocks wrote before the last
+// grid.sync(). K10 gathers its SpMV input so, since the vector phase
+// rewrites that input between two SpMV phases of one launch.
+struct Coherent {
+  template <typename T>
+  __device__ __forceinline__ static T load(const T* p) {
+    return *p;
+  }
+};
+
 template <class Load>
 __device__ __forceinline__ void load_values(const float* p, float (&v)[4]) {
   const float4 q = Load::load(reinterpret_cast<const float4*>(p));
@@ -146,6 +169,9 @@ __device__ __forceinline__ void load_lanes(const int32_t* p, int (&l)[4]) {
 // The values and lane-index planes (merged word, split planes and
 // K2-subwin's word).
 struct ValuePlanes {
+  // The warp-per-sublane body takes rel from the staging (false), or from
+  // load_slots_rel after the slot load (sublane_run).
+  static constexpr bool kLateRel = false;
   template <class A>
   __device__ __forceinline__ static float value(const A& a, long long i) {
     return to_f32(a.vals[i]);
@@ -222,6 +248,11 @@ constexpr int kPackRelShift = 7;
 constexpr unsigned kPackLaneMask = 127u;
 constexpr unsigned kPackValueMask = 0xFFFF0000u;
 
+// The packed word decoded per slot: rel from slot i's own word. Only the
+// old one-thread-per-slot walks in csrc/variants/ run it (K5's and
+// K2-packed's, timed against the kept kernels); every kernel of the
+// package reads a sublane's rel from its lane-0 word (PackedStage,
+// PackedShuffle, PackedLaneZero).
 struct PackedWord {
   template <class A>
   __device__ __forceinline__ static bool decode(const A& a, long long i,
@@ -248,16 +279,38 @@ struct PackedWord {
   }
 };
 
+// K5 with k columns (mat_sweep, csrc/sell_packed.cu): the packed word with
+// rel read from the sublane's lane-0 word, as the JAX _unpack_plane reads
+// it (w[:, 0:1]) and as the plain version does; the slice from slice_of,
+// the value and lane index from the slot's own word. A warp's 32 slots lie
+// in one sublane, so the lane-0 load is one broadcast address a warp.
+struct PackedLaneZero : PackedWord {
+  template <class A>
+  __device__ __forceinline__ static bool decode(const A& a, long long i,
+                                                long long* rel,
+                                                long long* slice) {
+    const unsigned r =
+        (static_cast<unsigned>(a.meta[i & ~127LL]) >> kPackRelShift) &
+        kRelDead;
+    const int sl = a.slice[i >> 7];
+    if (r == kRelDead || sl < 0) return false;
+    *rel = r;
+    *slice = sl;
+    return true;
+  }
+};
+
 // K5's staging policy on the warp-per-sublane body (csrc/sell_packed.cu).
 // A sublane's rel is read from its lane-0 word only, as the JAX
-// _unpack_plane reads it (w[:, 0:1]) and as the plain version does, and its
-// slice from slice_of; -1 in both when either is dead. The planner writes
-// one rel into all 128 words of a sublane, so on the operator's own planes
-// this is the per-slot decode's result; on a plane whose lanes disagree
-// with lane 0 it is the reference's. The slot loads are one 16-byte load
-// of four words: value bits 16..31 (the bf16 value's float32 bits), lane
-// index bits 0..6.
+// _unpack_plane reads it (w[:, 0:1]) and as the plain version does, and
+// its slice from slice_of; -1 in both when either is dead. The planner
+// writes one rel into all 128 words of a sublane, so on the operator's own
+// planes this is the per-slot decode's result; on a plane whose lanes
+// disagree with lane 0 it is the reference's. The slot loads are one
+// 16-byte load of four words: value bits 16..31 (the bf16 value's float32
+// bits), lane index bits 0..6.
 struct PackedStage {
+  static constexpr bool kLateRel = false;
   template <class A>
   __device__ __forceinline__ static void stage(const A& a, long long s,
                                                int* rel, int* slice) {
@@ -269,11 +322,8 @@ struct PackedStage {
     *rel = dead ? -1 : static_cast<int>(r);
     *slice = dead ? -1 : sl;
   }
-  template <class Load, class A>
-  __device__ __forceinline__ static void load_slots(const A& a, long long p,
-                                                    float (&v)[4],
-                                                    int (&l)[4]) {
-    const int4 q = Load::load(reinterpret_cast<const int4*>(a.meta + p));
+  __device__ __forceinline__ static void unpack(const int4& q, float (&v)[4],
+                                                int (&l)[4]) {
     const unsigned w[4] = {static_cast<unsigned>(q.x),
                            static_cast<unsigned>(q.y),
                            static_cast<unsigned>(q.z),
@@ -283,6 +333,42 @@ struct PackedStage {
       v[i] = __uint_as_float(w[i] & kPackValueMask);
       l[i] = static_cast<int>(w[i] & kPackLaneMask);
     }
+  }
+  template <class Load, class A>
+  __device__ __forceinline__ static void load_slots(const A& a, long long p,
+                                                    float (&v)[4],
+                                                    int (&l)[4]) {
+    unpack(Load::load(reinterpret_cast<const int4*>(a.meta + p)), v, l);
+  }
+};
+
+// PackedStage without the staging load of lane 0's word: the block stages
+// the slice alone (rel 0 for a live slice, -1 in both for a dead one), and
+// each warp takes rel from the lane-0 word it has just loaded (thread 0's
+// first word) with one __shfl_sync (load_slots_rel, sublane_run's late-rel
+// hook); a dead lane-0 rel skips the sublane's products, not its load. The
+// same function as PackedStage on any plane; K2-packed's policy, 2.9%
+// faster than PackedStage there (csrc/sell_packed.cu).
+struct PackedShuffle : PackedStage {
+  static constexpr bool kLateRel = true;
+  template <class A>
+  __device__ __forceinline__ static void stage(const A& a, long long s,
+                                               int* rel, int* slice) {
+    const int sl = a.slice[s];
+    *rel = sl < 0 ? -1 : 0;
+    *slice = sl;
+  }
+  // The warp's rel, -1 when lane 0's rel is dead. All 32 lanes call it.
+  template <class Load, class A>
+  __device__ __forceinline__ static int load_slots_rel(const A& a,
+                                                       long long p,
+                                                       float (&v)[4],
+                                                       int (&l)[4]) {
+    const int4 q = Load::load(reinterpret_cast<const int4*>(a.meta + p));
+    unpack(q, v, l);
+    const unsigned r = __shfl_sync(
+        kFull, (static_cast<unsigned>(q.x) >> kPackRelShift) & kRelDead, 0);
+    return r == kRelDead ? -1 : static_cast<int>(r);
   }
 };
 
@@ -315,12 +401,12 @@ __device__ __forceinline__ void slot(const Args<V, L>& a, long long i) {
   }
 }
 
-// The one-thread-per-slot N-iteration body (one cooperative launch;
-// K2-packed): each iteration zeroes ALL of y in a grid-stride loop,
-// grid.sync(), sweeps every slot, grid.sync(). The TPU grid runs in order
-// and re-zeroes y when an iteration (or, streamed, a y block) starts; on
-// Hopper blocks run in no order, and zeroing all of y keeps a block that no
-// chunk visits at zero.
+// The one-thread-per-slot N-iteration body (one cooperative launch; only
+// csrc/variants/ runs it, as the walk K2 and K2-packed ran before): each
+// iteration zeroes ALL of y in a grid-stride loop, grid.sync(), sweeps
+// every slot, grid.sync(). The TPU grid runs in order and re-zeroes y when
+// an iteration (or, streamed, a y block) starts; on Hopper blocks run in no
+// order, and zeroing all of y keeps a block that no chunk visits at zero.
 template <class Decode, class YAddr, typename V, typename L>
 __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
@@ -339,11 +425,16 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 
 // ---------------------------------------------------------------------------
 // One warp per sublane, under a staging policy (MergedWord: K1 and K2 on a
-// resident y, K3-relsl and K2 streamed on a streamed one; SplitPlanes:
-// K3-split and K2 streamed split on a streamed y, K4 and K2 split on a
-// resident one; SubwinWord: K2-subwin on a resident y; PackedStage: K5 on
-// either) and a y policy. The policy stages a sublane (stage) and loads
-// its slots (load_slots: the values and lane planes, or the packed words).
+// resident y, K3-relsl and K2 streamed on a streamed one, and K10's SpMV
+// phase; SplitPlanes: K3-split and K2 streamed split on a streamed y, K4
+// and K2 split on a resident one; SubwinWord: K2-subwin on a resident y;
+// PackedStage: K5 on either; PackedShuffle: K2-packed on a resident one),
+// a y policy, the plane loads' cache policy (Load) and the x gathers'
+// (Gather). The
+// staging policy stages a sublane (stage) and loads its slots (load_slots:
+// the values and lane planes, or the packed words); a policy with kLateRel
+// stages only the slice and gives rel after the slot load (load_slots_rel:
+// PackedShuffle, rel from the loaded lane-0 word by a warp shuffle).
 //
 // Work item `item` is run r = item % runs of chunk c = item / runs: up to
 // kRun consecutive sublanes of one chunk (chunks never straddle a y block
@@ -351,27 +442,32 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 // per item in 32-bit index arithmetic, with one 64-bit base per run and
 // 32-bit offsets inside it. The block stages the run's rel and slice ids
 // in shared memory (Stage::stage: thread t loads sublane s0 + t's merged
-// word and decodes it, -1 in both where rel or slice is dead; or its two
-// split words), then each warp walks every
-// kWarps-th sublane: a dead one (rel < 0 or slice < 0) is skipped before
-// any plane load; a live one costs each thread one 16-byte load of four
-// values (8 bytes in bf16), one load of four lane indices (4 bytes int8,
-// 16 bytes int32) or one 16-byte load of four packed words, four gathers
-// of x and one float4 atomic into its four
-// consecutive rows (red.global.add.v4.f32, sm_90), left out when all four
-// products are exactly zero. Every slot of a live sublane is multiplied,
-// padding (v = 0) included, so Inf or NaN in x at a padding lane's column
-// lands NaN in its row, as in the one-thread-per-slot body; padding lanes
-// carry lane index 0, so their gathers read one address per sublane. The
-// plane loads are streaming (the Streaming policy: read once, kept out of
-// L1, where the gathered x tiles stay).
+// word and decodes it, -1 in both where rel or slice is dead; its two
+// split words; or its lane-0 packed word and slice_of), then each warp
+// walks every kWarps-th sublane: a dead one (rel < 0 or slice < 0) is
+// skipped before any plane load; a live one costs each thread one 16-byte
+// load of four values (8 bytes in bf16), one load of four lane indices (4
+// bytes int8, 16 bytes int32) or one 16-byte load of four packed words,
+// four gathers of x and one float4 atomic into its four consecutive rows
+// (red.global.add.v4.f32, sm_90), left out when all four products are
+// exactly zero. Every slot of a live sublane is multiplied, padding (v =
+// 0) included, so Inf or NaN in x at a padding lane's column lands NaN in
+// its row, as in the one-thread-per-slot body; padding lanes carry lane
+// index 0, so their gathers read one address per sublane. The plane loads
+// are streaming (the Streaming policy: read once, kept out of L1, where
+// the gathered x tiles stay). The gathers go through the read-only path
+// (ReadOnly, __ldg: ld.global.nc) where no thread writes x during the
+// launch, which holds for every forward and N-iteration kernel; K10
+// rewrites its SpMV input between grid.sync()s, and the non-coherent path
+// may then return the last step's x, so K10 gathers with plain loads
+// (Coherent).
 //
 // Planes must be aligned for the vector loads (values to 4 elements, lane
 // indices to 4 elements, the packed plane and y to 16 bytes), and whole
-// chunks: the launchers
-// return cudaErrorMisalignedAddress or cudaErrorInvalidValue and launch
-// nothing otherwise. The kernels are built with __launch_bounds__(kThreads,
-// kSublaneMinBlocks): 32 registers a thread, eight blocks on an SM.
+// chunks: the launchers return cudaErrorMisalignedAddress or
+// cudaErrorInvalidValue and launch nothing otherwise. The kernels are
+// built with __launch_bounds__(kThreads, kSublaneMinBlocks): 32 registers
+// a thread, eight blocks on an SM.
 
 constexpr int kWarps = kThreads / 32;
 constexpr int kRun = 64;              // sublanes per work item
@@ -390,10 +486,12 @@ __device__ __forceinline__ void add_rows4(float* y, const float (&p)[4]) {
 
 // All kThreads threads of the block call it with the same item; the
 // products land in `out` (a.y, or one of the N-iteration body's two y
-// buffers). `Load` is the plane loads' cache policy. A is Args, or a type
-// derived from it that carries what its Stage reads beside the planes
-// (K2-subwin's SubwinArgs, csrc/sell_bench.cu).
-template <class Stage, class YAddr, class Load = Streaming, class A>
+// buffers). `Load` is the plane loads' cache policy, `Gather` the x
+// gathers'. A is Args, or a type derived from it that carries what its
+// Stage reads beside the planes (K2-subwin's SubwinArgs,
+// csrc/sell_bench.cu).
+template <class Stage, class YAddr, class Load = Streaming,
+          class Gather = ReadOnly, class A>
 __device__ __forceinline__ void sublane_run(const A& a, float* out, int runs,
                                             int item, int* s_rel,
                                             int* s_slice) {
@@ -412,16 +510,23 @@ __device__ __forceinline__ void sublane_run(const A& a, float* out, int runs,
   const long long p0 = s0 * kLanes + lane4;
   float* y = out + ybase * kLanes + lane4;
   for (int j = threadIdx.x >> 5; j < n; j += kWarps) {
-    const int rel = s_rel[j];
+    int rel = s_rel[j];
     const int slice = s_slice[j];
     if (rel < 0 || slice < 0) continue;
     float v[4];
     int l[4];
-    Stage::template load_slots<Load>(a, p0 + j * kLanes, v, l);
+    if constexpr (Stage::kLateRel) {
+      rel = Stage::template load_slots_rel<Load>(a, p0 + j * kLanes, v, l);
+      if (rel < 0) continue;  // the same for the whole warp
+    } else {
+      Stage::template load_slots<Load>(a, p0 + j * kLanes, v, l);
+    }
     const auto* xt = a.x + (tile0 + rel) * kLanes;
     float p[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = v[i] * to_f32(__ldg(xt + l[i]));
+    for (int i = 0; i < 4; ++i) {
+      p[i] = v[i] * to_f32(Gather::load(xt + l[i]));
+    }
     add_rows4(y + static_cast<long long>(slice) * kLanes, p);
   }
   __syncthreads();  // the next item restages s_rel and s_slice
@@ -583,8 +688,6 @@ __device__ __forceinline__ bool slot_coords(const A& a, long long i,
   return true;
 }
 
-constexpr unsigned kFull = 0xffffffffu;
-
 // The one-thread-per-slot k-column kernels' warp walk (K2 with k columns,
 // K5 with k columns; K1 and K4 ran it before sublane_mat_run): the warp of
 // slot i adds its live
@@ -726,14 +829,6 @@ struct MatStage {
   unsigned mask[kRun][4];    // nonzero lanes: word w, bit t = lane 4t + w
   unsigned lanes[kRun][4];   // at a run's head: the lanes the run touches
   int off[kRun + 1];         // units before each sublane
-};
-
-// The read-only path: L1 and L2 allocating.
-struct ReadOnly {
-  template <typename T>
-  __device__ __forceinline__ static T load(const T* p) {
-    return __ldg(p);
-  }
 };
 
 __device__ __forceinline__ void load_x(const float* p, float (&x)[1]) {

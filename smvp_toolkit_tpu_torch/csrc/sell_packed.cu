@@ -30,8 +30,31 @@
 // paying per slot a 64-bit divide, the slice and tile_base loads and a
 // scalar atomic: 0.114669 ms at smoke-packed and 0.517915 ms at L1-packed
 // against torch.sparse.mm's 0.061298 and 0.250741 (NVIDIA H100 80GB HBM3,
-// 700 W, chip_smoke.py). K5 with k columns (mat_sweep) and K2-packed
-// (bench_sweeps) still run one thread per slot under PackedWord.
+// 700 W, chip_smoke.py).
+//
+// K2-packed runs K2's N-iteration body
+// (sublane_bench_sweeps<PackedShuffle, ResidentY, kPackedBenchYBuffers>,
+// the (chunk, run) work items in a grid-stride loop over a cooperative
+// grid of eight blocks an SM) with two y buffers in turn: iteration `it`
+// sweeps into buffer it % 2 while it zeroes the other, one grid.sync() an
+// iteration, the result in buffer (N - 1) % 2. Its policy, PackedShuffle,
+// is K5's function without K5's staging load of lane 0's word: the block
+// stages the slice alone, and each warp takes rel from the lane-0 word it
+// has just loaded by one __shfl_sync. Timed against the staged form on
+// smoke-packed at N = 200 (bench/bench_variants.py --packed), it was 2.9%
+// faster (9.18-9.24 against 9.47 ms, NVIDIA H100 80GB HBM3, 700 W), with
+// the same result on a plane whose lanes disagree with lane 0. Before, it
+// ran one thread per slot (bench_sweeps over PackedWord: rel decoded per
+// slot, one y zeroed between two grid.sync()s an iteration): 19.52 ms at
+// smoke-packed, N = 200, against 200 calls of torch.sparse.mm at 12.32 ms
+// (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py).
+//
+// K5 with k columns (mat_sweep under PackedLaneZero) still runs one thread
+// per slot, a warp walking its live slots over the k columns; it reads rel
+// from the sublane's lane-0 word too, as the reference does (one broadcast
+// load a warp). No kernel here decodes rel from a slot's own word any
+// more: on a plane whose lanes disagree with lane 0, that decode missed the
+// plain version by 1.36-1.43 of max |y|.
 //
 // Bound on this card: bytes. One launch reads 4 bytes per slot (the word,
 // padding slots included), one slice id per sublane, tile_base (and
@@ -41,17 +64,21 @@
 // 128 slots), so this route moves a third more bytes than K1 bf16 and is
 // not expected to beat it. The TPU packed the planes to cut its DMA stream
 // count (spmv_pallas.py:109-114), which has no counterpart here; the route
-// is kept for parity.
+// is kept for parity. K2-packed re-reads the planes every iteration (they
+// exceed the 50 MB L2 at smoke-packed's 103 MB), so N times those bytes
+// over the memory rate is its least time; on top an iteration pays one
+// buffer's zeroing, one grid.sync() and the walk's static tail.
 //
 // C interface (ctypes): each launch function returns a cudaError_t value,
 // 0 on success, from cudaGetLastError() right after the launch. Pointers
 // and the stream come in as void*, sizes as long long. The caller's stream
 // is PyTorch's current stream; nothing here allocates or synchronises. The
-// caller zeroes y (Y) before a forward launch. K5 refuses, launching
-// nothing, a packed plane or y not aligned to 16 bytes
+// caller zeroes y (Y) before a forward launch. K5 and K2-packed refuse,
+// launching nothing, a packed plane or y not aligned to 16 bytes
 // (cudaErrorMisalignedAddress) and planes that are not whole chunks or
-// hold no sublane (cudaErrorInvalidValue); a view of the planes cut at
-// chunk boundaries stays aligned (512 bytes a sublane).
+// hold no sublane (cudaErrorInvalidValue; K2-packed also a y length that
+// is not a multiple of four); a view of the planes cut at chunk
+// boundaries stays aligned (512 bytes a sublane).
 
 #include "sell_common.cuh"
 
@@ -70,12 +97,16 @@ __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
 
 __global__ void __launch_bounds__(kThreads)
     sell_packed_spmm_kernel(const MatArgs<X, L> a) {
-  mat_sweep<PackedWord>(a);
+  mat_sweep<PackedLaneZero>(a);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// y buffers of K2-packed (ops/spmv_sell.py, PACKED_BENCH_Y_BUFFERS,
+// allocates them; the result is buffer (N - 1) % kPackedBenchYBuffers).
+constexpr int kPackedBenchYBuffers = 2;
+
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_bench_packed_kernel(const Args<X, L> a) {
-  bench_sweeps<PackedWord, ResidentY>(a);
+  sublane_bench_sweeps<PackedShuffle, ResidentY, kPackedBenchYBuffers>(a);
 }
 
 cudaError_t grid_blocks(long long n_slots, unsigned* blocks) {
@@ -98,14 +129,20 @@ cudaError_t launch(const void* kernel, A a, long long n_slots,
   return cudaGetLastError();
 }
 
+// The warp-per-sublane body's 16-byte loads of the packed plane and its
+// float4 atomics into y.
+bool packed_aligned(const Args<X, L>& a) {
+  const auto at16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  return at16(a.meta) && at16(a.y);
+}
+
 // One block per work item of the warp-per-sublane body: the packed plane
 // and y aligned to 16 bytes, whole chunks.
 cudaError_t launch_packed(const void* kernel, Args<X, L> a,
                           cudaStream_t stream) {
-  const auto at16 = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  if (!at16(a.meta) || !at16(a.y)) return cudaErrorMisalignedAddress;
+  if (!packed_aligned(a)) return cudaErrorMisalignedAddress;
   long long items = 0;
   if (!sublane_items(a, &items)) return cudaErrorInvalidValue;
   void* params[] = {&a};
@@ -178,8 +215,12 @@ extern "C" int sell_packed_spmm_launch(const void* packed,
              n_slots, static_cast<cudaStream_t>(stream)));
 }
 
-// N k = 1 sweeps in one cooperative launch (resident y); n_out = the y
-// length, all of which is zeroed each iteration.
+// N k = 1 sweeps in one cooperative launch (resident y); n_out = the
+// length of one y buffer. y holds kPackedBenchYBuffers buffers of n_out
+// floats, and the result is buffer (iterations - 1) %
+// kPackedBenchYBuffers. A packed plane or y not aligned to 16 bytes
+// returns cudaErrorMisalignedAddress; planes that are not whole chunks (or
+// hold no sublane), or n_out % 4 != 0, cudaErrorInvalidValue.
 extern "C" int sell_bench_packed_launch(const void* packed,
                                         const void* slice_of,
                                         const void* tile_base, const void* x,
@@ -189,9 +230,16 @@ extern "C" int sell_bench_packed_launch(const void* packed,
                                         void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (iterations < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (iterations < 1 || slice_of == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Args<X, L> a = packed_args(packed, slice_of, tile_base, nullptr, x, y,
                              n_slots, n_out, chunk, 0, iterations);
+  if (!packed_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
+  long long items = 0;
+  if (!sublane_items(a, &items) || n_out % 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int blocks = 0;
   err = cooperative_grid(sell_bench_packed_kernel, device, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -1,6 +1,6 @@
 // Fused SPD solvers for Hopper (sm_90a): a whole fixed-iteration solve in
-// one cooperative launch, its SpMV phases on the slot body of
-// sell_common.cuh.
+// one cooperative launch, its SpMV phases on the bodies of sell_common.cuh
+// (K10 on one warp per sublane, K9 and K11 on one thread per slot).
 //
 // Replaces three Pallas kernels of the JAX package:
 //   sell_cg_kernel        <- ops/cg_fused.py:64 _make_cg_kernel (K9,
@@ -53,6 +53,28 @@
 // the slot body reads; the state and reductions stay float32. In float32
 // mode the SpMV reads the state vector itself.
 //
+// K10's SpMV phase walks the plan's work items (up to kRun = 64 sublanes of
+// one chunk each: hpcg104's A is 212 chunks of 2048, 6,784 items over a
+// grid of 1,056 blocks) in a block-uniform grid-stride loop, each item on
+// the warp-per-sublane body (sublane_run under MergedWord: the chunk's
+// metadata once per item, the run's rel and slice staged in shared
+// memory, a warp per live sublane, 16-byte plane loads, a float4 atomic per
+// four rows of q). That body gathers x through the read-only path (__ldg,
+// ld.global.nc) in every other kernel, which is correct only for data no
+// thread writes during the launch; here the vector phase of every step
+// rewrites the SpMV input (d in float32, its bf16 copy xin in bfloat16)
+// and only a grid.sync() separates those writes from the next step's
+// gathers, so K10 gathers with plain, coherent loads (the Coherent gather
+// policy, as the one-thread-per-slot body loads x); the plane loads stay
+// streaming (__ldcs: the planes are read-only for the whole launch).
+// Before, K10 ran one thread per slot (spmv_range over slot: a 64-bit
+// divide, the metadata loads and a scalar atomic per slot): 170.17 ms for
+// 600 steps at hpcg104 against its scan loop over torch.sparse.mm at
+// 111.45 ms (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py); on this body
+// 78.0-78.6 ms, 0.70x that loop, and 1-2% slower again with the gathers
+// through L2 only (__ldcg; bench/bench_variants.py --solver, same card).
+// K9 and K11 still run spmv_range.
+//
 // Bound on this card: bytes. Each step reads the planes of every SpMV
 // phase (A; K11: A + (sweeps−1)·(L + Lᵀ)) and a few state vectors; at the
 // HPCG 104³ size the planes (hundreds of MB) exceed the L2 and dominate,
@@ -63,7 +85,10 @@
 // C interface (ctypes): each launch function returns a cudaError_t value,
 // 0 on success, from cudaGetLastError() right after the launch; the
 // caller's stream is PyTorch's current stream; nothing here allocates or
-// synchronises.
+// synchronises. A K10 launch whose values or lane planes are not aligned
+// to four elements, or whose q is not aligned to 16 bytes, returns
+// cudaErrorMisalignedAddress, and one whose planes are not whole chunks
+// (or hold no sublane) cudaErrorInvalidValue; neither launches anything.
 
 #include <cooperative_groups.h>
 
@@ -234,9 +259,36 @@ __global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
   cg_solve<SplitPlanes>(a);
 }
 
-template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
-    sell_chebyshev_kernel(const SolverArgs<V, L> a) {
+// q += A·xin over the plan's work items in a block-uniform grid-stride
+// loop (sublane_run has __syncthreads()), each on the warp-per-sublane
+// body, the gathers of xin under Gather.
+template <class Gather, typename V, typename L>
+__device__ __forceinline__ void spmv_items(const Args<V, L>& a) {
+  __shared__ int s_rel[kRun], s_slice[kRun];
+  const int runs = runs_per_chunk(a.chunk);
+  const int items = static_cast<int>(
+      a.n_slots / (static_cast<long long>(kLanes) * a.chunk)) * runs;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    sublane_run<MergedWord, ResidentY, Streaming, Gather>(a, a.y, runs, item,
+                                                          s_rel, s_slice);
+  }
+}
+
+// K10's SpMV phase: the work items, the gathers of xin coherent (see
+// above).
+struct SublanePhase {
+  template <typename V, typename L>
+  __device__ __forceinline__ static void run(const Args<V, L>& a, long long,
+                                             long long) {
+    spmv_items<Coherent>(a);
+  }
+};
+
+// K10's solve with its SpMV phase on Phase (SublanePhase; the old
+// one-thread-per-slot phase is a variant in
+// csrc/variants/sell_solver_variants.cu).
+template <class Phase, typename V, typename L>
+__device__ __forceinline__ void chebyshev_solve(const SolverArgs<V, L>& a) {
   cg::grid_group grid = cg::this_grid();
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -252,7 +304,7 @@ __global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
   }
   grid.sync();
   for (int it = 0; it < a.iterations; ++it) {
-    spmv_range<MergedWord>(a.spmv, 0, a.spmv.n_slots, tid, stride);
+    Phase::run(a.spmv, tid, stride);
     grid.sync();
     const float ak = a.coef[2 * it], ck = a.coef[2 * it + 1];
     for (long long i = tid; i < a.n; i += stride) {
@@ -267,6 +319,12 @@ __global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
     }
     grid.sync();
   }
+}
+
+template <typename V, typename L>
+__global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
+    sell_chebyshev_kernel(const SolverArgs<V, L> a) {
+  chebyshev_solve<SublanePhase>(a);
 }
 
 template <typename V, typename L>
@@ -393,6 +451,11 @@ cudaError_t launch_solver(int solver, int route, SolverArgs<V, L> a,
                              a.sweeps < 2))) {
     return cudaErrorInvalidValue;
   }
+  if (solver == kChebyshev) {  // the warp-per-sublane SpMV phase
+    if (!sublane_aligned(a.spmv)) return cudaErrorMisalignedAddress;
+    long long items = 0;
+    if (!sublane_items(a.spmv, &items)) return cudaErrorInvalidValue;
+  }
   int blocks = 0;
   cudaError_t err = cooperative_grid(kernel, device, &blocks);
   if (err != cudaSuccess) return err;
@@ -403,6 +466,45 @@ cudaError_t launch_solver(int solver, int route, SolverArgs<V, L> a,
                                     stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// A solve's SolverArgs from sell_solver_launch's arguments (after solver
+// and route), handed to fn(a) for the value and lane-index types: fn is
+// launch_solver there, a variant's launcher in
+// csrc/variants/sell_solver_variants.cu.
+template <class Fn>
+cudaError_t with_solver_args(
+    const void* vals, const void* lidx, const void* meta, const void* slice,
+    const void* tile_base, const void* b, const void* coef, const void* invd,
+    void* x, void* r, void* p, void* q, void* z, void* xin, void* part,
+    long long part_cap, long long n_slots, long long slots_l0,
+    long long slots_lt0, long long n, int chunk, int iterations, int sweeps,
+    float inv_theta, int value_kind, int lidx_kind, Fn&& fn) {
+  return sell::with_types(value_kind, lidx_kind, [&](auto v, auto l) {
+    using V = typename decltype(v)::type;
+    using L = typename decltype(l)::type;
+    SolverArgs<V, L> a{};
+    a.spmv = sell::make_args<V, L>(vals, lidx, meta, slice, tile_base,
+                                   nullptr, xin, q, n_slots, n, chunk, 0, 0);
+    a.b = static_cast<const float*>(b);
+    a.coef = static_cast<const float*>(coef);
+    a.invd = static_cast<const float*>(invd);
+    a.x = static_cast<float*>(x);
+    a.r = static_cast<float*>(r);
+    a.p = static_cast<float*>(p);
+    a.z = static_cast<float*>(z);
+    a.xin = static_cast<V*>(xin);
+    a.part = static_cast<double*>(part);
+    a.part_cap = part_cap;
+    a.n = n;
+    a.slots_l0 = slots_l0;
+    a.slots_lt0 = slots_lt0;
+    a.slots_end = n_slots;
+    a.iterations = iterations;
+    a.sweeps = sweeps;
+    a.inv_theta = inv_theta;
+    return fn(a);
+  });
 }
 
 }  // namespace
@@ -426,31 +528,11 @@ extern "C" int sell_solver_launch(
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = sell::with_types(value_kind, lidx_kind, [&](auto v, auto l) {
-    using V = typename decltype(v)::type;
-    using L = typename decltype(l)::type;
-    SolverArgs<V, L> a{};
-    a.spmv = sell::make_args<V, L>(vals, lidx, meta, slice, tile_base,
-                                   nullptr, xin, q, n_slots, n, chunk, 0, 0);
-    a.b = static_cast<const float*>(b);
-    a.coef = static_cast<const float*>(coef);
-    a.invd = static_cast<const float*>(invd);
-    a.x = static_cast<float*>(x);
-    a.r = static_cast<float*>(r);
-    a.p = static_cast<float*>(p);
-    a.z = static_cast<float*>(z);
-    a.xin = static_cast<V*>(xin);
-    a.part = static_cast<double*>(part);
-    a.part_cap = part_cap;
-    a.n = n;
-    a.slots_l0 = slots_l0;
-    a.slots_lt0 = slots_lt0;
-    a.slots_end = n_slots;
-    a.iterations = iterations;
-    a.sweeps = sweeps;
-    a.inv_theta = inv_theta;
-    return launch_solver(solver, route, a, device, st);
-  });
+  err = with_solver_args(
+      vals, lidx, meta, slice, tile_base, b, coef, invd, x, r, p, q, z, xin,
+      part, part_cap, n_slots, slots_l0, slots_lt0, n, chunk, iterations,
+      sweeps, inv_theta, value_kind, lidx_kind,
+      [&](auto a) { return launch_solver(solver, route, a, device, st); });
   return static_cast<int>(err);
 }
 

@@ -1,6 +1,6 @@
-// Variants of K5 (csrc/sell_packed.cu, k = 1), built only by
+// Variants of K5 and K2-packed (csrc/sell_packed.cu, k = 1), built only by
 // smvp_toolkit_tpu_torch/bench/bench_variants.py (--packed), which times
-// them against the kept kernel and torch.sparse.mm on the same planes in
+// them against the kept kernels and torch.sparse.mm on the same planes in
 // one process; no entry point of the package launches them. Each computes
 // K5's function on the packed word plane, resident or streamed y:
 //   0 walk     the one-thread-per-slot walk K5 ran before (slot over
@@ -21,6 +21,20 @@
 //              sublane after its load
 // On the operator's planes (one rel in all 128 words of a sublane) the
 // four compute the same y up to the summation order.
+//
+// K2-packed's forms (sell_bench_packed_variant_launch, resident y, N
+// iterations in one cooperative launch):
+//   0 walk     the one-thread-per-slot walk K2-packed ran before
+//              (bench_sweeps over PackedWord: rel decoded per slot, one y
+//              zeroed between two grid.sync()s an iteration), built as it
+//              was (__launch_bounds__(kThreads)); result in y[0]
+//   1 staged   K2's body under K5's policy (sublane_bench_sweeps<
+//              PackedStage, ResidentY, 2>: rel staged from lane 0's word);
+//              result in y[(N - 1) % 2]
+//   2 shfl     the kept body (PackedShuffle: the slice staged alone, rel
+//              from lane 0's loaded word by __shfl_sync), built here beside
+//              the others; result in y[(N - 1) % 2]
+// Forms 1 and 2 read rel from lane 0 on any plane, form 0 from each slot.
 
 #include "../sell_packed.cu"
 
@@ -110,7 +124,51 @@ cudaError_t launch_variant(int variant, const Args<X, L>& a,
   }
 }
 
+__global__ void __launch_bounds__(kThreads)
+    bench_walk_kernel(const Args<X, L> a) {
+  bench_sweeps<PackedWord, ResidentY>(a);
+}
+
+template <class Stage>
+__global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
+    bench_form_kernel(const Args<X, L> a) {
+  sublane_bench_sweeps<Stage, ResidentY, 2>(a);
+}
+
 }  // namespace
+
+// K2-packed in one of its forms (0, 1, 2 above): arguments as
+// sell_bench_packed_launch, after the form; y holds 2 * n_out floats.
+extern "C" int sell_bench_packed_variant_launch(
+    int form, const void* packed, const void* slice_of,
+    const void* tile_base, const void* x, void* y, long long n_slots,
+    long long n_out, int chunk, int iterations, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (iterations < 1 || slice_of == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Args<X, L> a = packed_args(packed, slice_of, tile_base, nullptr, x, y,
+                             n_slots, n_out, chunk, 0, iterations);
+  if (!packed_aligned(a)) return static_cast<int>(cudaErrorMisalignedAddress);
+  long long items = 0;
+  if (!sublane_items(a, &items) || n_out % 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  void (*kernel)(Args<X, L>) = nullptr;
+  if (form == 0) kernel = bench_walk_kernel;
+  if (form == 1) kernel = bench_form_kernel<PackedStage>;
+  if (form == 2) kernel = bench_form_kernel<PackedShuffle>;
+  int blocks = 0;
+  err = cooperative_grid(kernel, device, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* params[] = {&a};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                    dim3(blocks), dim3(kThreads), params, 0,
+                                    static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Arguments as sell_packed_launch, after the variant id; y zeroed by the
 // caller.

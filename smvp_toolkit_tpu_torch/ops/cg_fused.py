@@ -152,12 +152,15 @@ def _check_state(n: int, dev, vectors: dict, xin, value_dtype) -> None:
 def launch(kernel: str, op, *, route: str, planes: dict, b, x, r, p, q,
            xin, iterations: int, coef=None, invd=None, z=None,
            slots_l0: int = 0, slots_lt0: int = 0, sweeps: int = 0,
-           inv_theta: float = 0.0) -> None:
+           inv_theta: float = 0.0, variant=None) -> None:
     """One cooperative launch of a solver kernel on the operator's device
     and PyTorch's current stream. ``planes`` are as ``check_planes`` takes
     them (``relsl``, or ``rel`` and ``slice_of``); the state vectors hold
     ``T·128`` entries. The reduction arrays are allocated here, sized by
-    the kernel's grid. Raises on any CUDA error."""
+    the kernel's grid. Raises on any CUDA error. ``variant`` = (fn, id):
+    call ``fn``, a variant's C launcher with the arguments of
+    ``sell_solver_launch``, with ``id`` in place of the solver id
+    (``bench/bench_variants.py``)."""
     dev = op.device
     vals, lidx = planes["vals"], planes["lidx"]
     check_planes(**planes, chunk=op.plan.chunk)
@@ -172,8 +175,10 @@ def launch(kernel: str, op, *, route: str, planes: dict, b, x, r, p, q,
     part = torch.empty(2 * blocks, dtype=torch.float64, device=dev)
     n_slots = vals.numel()
     meta = planes.get("relsl", planes.get("rel"))
-    rc = lib.sell_solver_launch(
-        _SOLVER_IDS[_SOLVER_OF[kernel]], S._ROUTE_IDS[route],
+    fn, ident = variant or (lib.sell_solver_launch,
+                            _SOLVER_IDS[_SOLVER_OF[kernel]])
+    rc = fn(
+        ident, S._ROUTE_IDS[route],
         vals.data_ptr(), lidx.data_ptr(), meta.data_ptr(),
         S._ptr(planes.get("slice_of")), planes["tile_base"].data_ptr(),
         b.data_ptr(), S._ptr(coef), S._ptr(invd), x.data_ptr(), r.data_ptr(),

@@ -62,6 +62,7 @@ __all__ = [
     "fused_pcg_ic0",
     "fused_pcg_ic0_plain",
     "chebyshev_coefficients",
+    "chebyshev_launch",
     "ic0_plans",
     "SOLVER_KERNELS",
 ]
@@ -131,6 +132,17 @@ def fused_chebyshev(op, b: torch.Tensor, lambda_min: float,
     if op.device.type == "cpu":
         return fused_chebyshev_plain(op, b, lambda_min, lambda_max,
                                      num_iters)
+    x = chebyshev_launch(op, b, lambda_min, lambda_max, num_iters)
+    fused_chebyshev.launches += 1
+    return x[:n]
+
+
+def chebyshev_launch(op, b: torch.Tensor, lambda_min: float,
+                     lambda_max: float, num_iters: int,
+                     variant=None) -> torch.Tensor:
+    """One launch of ``sell_chebyshev_kernel`` on a CUDA operator (checked
+    by the caller, ``num_iters >= 1``), or of a variant of it
+    (``cg_fused.launch``'s ``variant``); x on the padded state (T·128)."""
     coeffs, inv_theta = chebyshev_coefficients(lambda_min, lambda_max,
                                                num_iters)
     coef = torch.from_numpy(np.ascontiguousarray(coeffs.T)).to(op.device)
@@ -142,9 +154,8 @@ def fused_chebyshev(op, b: torch.Tensor, lambda_min: float,
            planes=dict(vals=op.vals, lidx=op.lidx, relsl=op.relsl,
                        tile_base=op.tile_base),
            b=bt, x=x, r=r, p=d, q=q, xin=xin, iterations=num_iters,
-           coef=coef, inv_theta=float(inv_theta))
-    fused_chebyshev.launches += 1
-    return x[:n]
+           coef=coef, inv_theta=float(inv_theta), variant=variant)
+    return x
 
 
 # ---------------------------------------------------------------------------

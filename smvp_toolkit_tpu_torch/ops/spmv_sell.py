@@ -56,10 +56,12 @@ per-sublane ``slice_of`` plane:
   sweeps in one cooperative launch, resident y; a streamed plan's
   ``bench_loop`` raises under the switch, as the JAX one does).
 
-K5 runs K1's warp-per-sublane body and reads a sublane's rel from its
-lane-0 word, as the JAX ``_unpack_plane`` and ``sell_packed_plain`` do;
-it refuses a packed plane or y not aligned to 16 bytes and planes of no
-sublane.
+K5 runs K1's warp-per-sublane body and K2-packed K2's (two y buffers,
+``PACKED_BENCH_Y_BUFFERS``); both read a sublane's rel from its lane-0
+word, as the JAX ``_unpack_plane`` and ``sell_packed_plain`` do, and
+refuse a packed plane or y not aligned to 16 bytes and planes of no
+sublane. K5 with k columns still runs one thread per slot and reads rel
+from the lane-0 word too.
 
 Two kernels serve the JAX operator's opt-in switches:
 
@@ -176,6 +178,7 @@ __all__ = [
     "sell_bench_subwin",
     "sell_bench_subwin_plain",
     "SUBWIN_Y_BUFFERS",
+    "PACKED_BENCH_Y_BUFFERS",
     "SWITCH_KERNELS",
     "CoClusteredSellSpMV",
     "sell_op_coo_coclustered",
@@ -1107,10 +1110,13 @@ def _packed_dispatch(wrapper, plain, packed, slice_of, tile_base, x, *,
         rc = lib.sell_packed_spmm_launch(*planes, x.data_ptr(), y.data_ptr(),
                                          n_slots, chunk, k, dev.index, stream)
     elif iterations is not None:
-        y = torch.empty(n_out, dtype=torch.float32, device=dev)
-        rc = lib.sell_bench_packed_launch(*planes, x.data_ptr(), y.data_ptr(),
-                                          n_slots, n_out, chunk, iterations,
-                                          dev.index, stream)
+        ys = torch.empty(PACKED_BENCH_Y_BUFFERS, n_out, dtype=torch.float32,
+                         device=dev)
+        rc = lib.sell_bench_packed_launch(*planes, x.data_ptr(),
+                                          ys.data_ptr(), n_slots, n_out,
+                                          chunk, iterations, dev.index,
+                                          stream)
+        y = ys[(iterations - 1) % PACKED_BENCH_Y_BUFFERS]
     else:
         y = torch.zeros(n_out, dtype=torch.float32, device=dev)
         rc = lib.sell_packed_launch(*planes, _ptr(y_block_id), x.data_ptr(),
@@ -1141,10 +1147,22 @@ def sell_packed_spmm(packed, slice_of, tile_base, X, *, n_slices: int,
                             chunk=chunk, n_coltiles=n_coltiles)
 
 
+# y buffers of K2-packed (csrc/sell_packed.cu, ``kPackedBenchYBuffers``):
+# two in turn, one grid barrier an iteration, as K2.
+PACKED_BENCH_Y_BUFFERS = 2
+
+
 def sell_bench_packed(packed, slice_of, tile_base, x, *, n_slices: int,
                       chunk: int, iterations: int) -> torch.Tensor:
     """K2-packed: ``iterations`` K5 SpMVs in one cooperative launch
-    (resident y); the last y."""
+    (resident y); the last y.
+
+    Its kernel runs K2's warp-per-sublane body, rel from each sublane's
+    lane-0 word (taken by a warp shuffle from the loaded word), with
+    ``PACKED_BENCH_Y_BUFFERS`` y buffers,
+    the result in buffer ``(iterations - 1) % 2``: a packed plane not
+    aligned to 16 bytes raises "misaligned address", and planes of no
+    sublane "invalid argument"."""
     return _packed_dispatch(sell_bench_packed, sell_bench_packed_plain,
                             packed, slice_of, tile_base, x,
                             n_slices=n_slices, chunk=chunk,

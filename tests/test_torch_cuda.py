@@ -799,6 +799,49 @@ def test_fused_solvers_zero_iterations_and_refusals(card):
         fused_cg(streamed, torch.ones(6000, device=card), 3)
 
 
+@pytest.mark.parametrize("what", ["q", "chunks"])
+def test_chebyshev_refusals(card, what):
+    """K10's warp-per-sublane SpMV phase refuses a q one word off 16 bytes
+    ("misaligned address") and planes that are not whole chunks ("invalid
+    argument"): nothing launches, no launch is counted, the state is left
+    as it was."""
+    from smvp_toolkit_tpu_torch.ops import cg_fused as C
+    from smvp_toolkit_tpu_torch.ops import pcg_fused as P
+
+    op = S.sell_op_csr(_stencil_csr("poisson64", card))
+    n = C.state_tiles(op.plan) * 128
+    b = torch.ones(n, device=card)
+    x, r, d = (torch.zeros(n, device=card) for _ in range(3))
+    qbuf = torch.zeros(n + 1, device=card)
+    q = qbuf[1:] if what == "q" else qbuf[:n]
+    coef = torch.ones(2 * 3, device=card)
+    before = P.fused_chebyshev.launches
+    if what == "q":
+        with pytest.raises(RuntimeError, match="misaligned"):
+            C.launch("sell_chebyshev_kernel", op, route="relsl",
+                     planes=dict(vals=op.vals, lidx=op.lidx, relsl=op.relsl,
+                                 tile_base=op.tile_base),
+                     b=b, x=x, r=r, p=d, q=q, xin=d, iterations=3,
+                     coef=coef, inv_theta=0.1)
+    else:  # a whole chunk's slots less one sublane: ctypes, past the checks
+        lib = C._lib()
+        part = torch.zeros(2, dtype=torch.float64, device=card)
+        rc = lib.sell_solver_launch(
+            1, 0, op.vals.data_ptr(), op.lidx.data_ptr(),
+            op.relsl.data_ptr(), None, op.tile_base.data_ptr(),
+            b.data_ptr(), coef.data_ptr(), None, x.data_ptr(), r.data_ptr(),
+            d.data_ptr(), q.data_ptr(), None, d.data_ptr(), part.data_ptr(),
+            1, op.vals.numel() - 128, op.vals.numel() - 128,
+            op.vals.numel() - 128, n, op.plan.chunk, 3, 0, 0.1, 0,
+            int(op.lidx.dtype == torch.int32), card.index or 0,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc != 0 and "invalid argument" in lib.sell_error_string(
+            rc).decode()
+    torch.cuda.synchronize()
+    assert P.fused_chebyshev.launches == before
+    assert not (x.any() or r.any() or d.any() or qbuf.any())
+
+
 def test_cli_solve_launches_fused_kernels(card, tmp_path):
     import scipy.sparse as sp
 
@@ -927,12 +970,35 @@ def test_packed_kernels_match_plain(card, route, monkeypatch):
             op.bench_loop(x, 2)
 
 
+@pytest.mark.parametrize("iterations", [1, 2, 3])
+def test_k2_packed_matches_plain_at_each_n(card, iterations):
+    """K2-packed's two y buffers: N = 1 and 3 end in buffer 0, N = 2 in
+    buffer 1; each equals the plain version and one K5 launch."""
+    op = S.SellSpMV(_route_plan("relsl"), value_dtype=torch.bfloat16,
+                    device=card)
+    pk, sl = op.packed_planes()
+    xt = op._x_tiles(torch.from_numpy(np.random.default_rng(
+        iterations).standard_normal(op.plan.shape[1]).astype(
+        np.float32)).to(card))
+    before = S.sell_bench_packed.launches
+    y = S.sell_bench_packed(pk, sl, op.tile_base, xt, iterations=iterations,
+                            **op._kw())
+    yp = S.sell_bench_packed_plain(pk, sl, op.tile_base, xt,
+                                   iterations=iterations, **op._kw())
+    y1 = S.sell_packed(pk, sl, op.tile_base, xt, **op._kw())
+    torch.cuda.synchronize()
+    assert S.sell_bench_packed.launches == before + 1
+    assert S.PACKED_BENCH_Y_BUFFERS == 2
+    assert y.shape == yp.shape and bool(torch.isfinite(y).all())
+    assert _rel(y, yp) <= TOL and _rel(y, y1) <= TOL
+
+
 @pytest.mark.parametrize("route", ["relsl", "streamy_relsl"])
 def test_packed_disagreeing_lanes_follow_lane_zero(card, route):
-    """K5 stages rel from lane 0's word: on a plane whose lanes 1..127
-    carry another rel (odd lanes 511, even lanes another tile) it equals
-    the plain version on that plane, which reads lane 0, and the plane's
-    own y."""
+    """K5 and K2-packed stage rel from lane 0's word, and K5 with k columns
+    decodes it from there: on a plane whose lanes 1..127 carry another rel
+    (odd lanes 511, even lanes another tile) each equals the plain version
+    on that plane, which reads lane 0, and the plane's own y."""
     import torch_packed_plans as pp
 
     op = S.SellSpMV(_route_plan(route), value_dtype=torch.bfloat16,
@@ -952,6 +1018,25 @@ def test_packed_disagreeing_lanes_follow_lane_zero(card, route):
     y_own = S.sell_packed(pk, sl, op.tile_base, xt, **kw)
     torch.cuda.synchronize()
     assert _rel(y, yp) <= TOL and _rel(y, y_own) <= TOL
+    if route != "relsl":
+        return
+    for n in (2, 3):
+        y = S.sell_bench_packed(bad, sl, op.tile_base, xt, iterations=n,
+                                **kw)
+        yp = S.sell_bench_packed_plain(bad, sl, op.tile_base, xt,
+                                       iterations=n, **kw)
+        torch.cuda.synchronize()
+        assert _rel(y, yp) <= TOL and _rel(y, y_own) <= TOL, n
+    tol = spmm_tolerance(op.plan)[0]
+    for k in (1, 3, 8):
+        X = _block(card, op.plan.n_coltiles * 128, k, k, torch.bfloat16)
+        Y = S.sell_packed_spmm(bad, sl, op.tile_base, X, **op._mat_kw())
+        Yp = S.sell_packed_spmm_plain(bad, sl, op.tile_base, X,
+                                      **op._mat_kw())
+        Y_own = S.sell_packed_spmm_plain(pk, sl, op.tile_base, X,
+                                         **op._mat_kw())
+        torch.cuda.synchronize()
+        assert _rel(Y, Yp) <= tol and _rel(Y, Y_own) <= tol, k
 
 
 @pytest.mark.parametrize("chunk", [2048, 200])
@@ -979,9 +1064,10 @@ def test_packed_split_launch_views_match_plain(card, chunk, monkeypatch):
 @pytest.mark.parametrize("what", ["packed", "y", "empty"])
 @pytest.mark.parametrize("route", ["relsl", "streamy_relsl"])
 def test_packed_refusals(card, route, what):
-    """K5 refuses a packed plane or a y one word off 16 bytes ("misaligned
-    address") and planes of no sublane ("invalid argument"): nothing
-    launches, no launch is counted, nothing falls back."""
+    """K5, and on the resident plan K2-packed, refuse a packed plane or a y
+    one word off 16 bytes ("misaligned address") and planes of no sublane
+    ("invalid argument"): nothing launches, no launch is counted, nothing
+    falls back."""
     from smvp_toolkit_tpu_torch.ops import _build
 
     op = S.SellSpMV(_route_plan(route), value_dtype=torch.bfloat16,
@@ -1017,6 +1103,22 @@ def test_packed_refusals(card, route, what):
     torch.cuda.synchronize()
     assert rc != 0 and match in lib.sell_error_string(rc).decode()
     assert not y.any()
+    if route != "relsl":
+        return
+    before = S.sell_bench_packed.launches
+    if what != "y":
+        with pytest.raises(RuntimeError, match=match):
+            S.sell_bench_packed(pk, sl, tb, xt, iterations=2, **kw)
+        assert S.sell_bench_packed.launches == before
+    ys = torch.zeros(2 * n_out + 4, dtype=torch.float32, device=card)
+    rc = lib.sell_bench_packed_launch(
+        pk.data_ptr(), sl.data_ptr(), tb.data_ptr(), xt.data_ptr(),
+        (ys[1:] if what == "y" else ys).data_ptr(), pk.numel(), n_out,
+        kw["chunk"], 2, card.index or 0,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc != 0 and match in lib.sell_error_string(rc).decode()
+    assert not ys.any()
 
 
 def _df64_plan_case(name, lo_plane):
