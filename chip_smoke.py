@@ -10,11 +10,11 @@ Phases; any failure exits non-zero and prints no result line:
 1. The card's name and power limit, then the kernels' build from
    ``smvp_toolkit_tpu_torch/csrc`` (one nvcc per source, in parallel) with
    its time, the registers and spills of every warp-per-sublane kernel,
-   forward and N-iteration (K2-subwin, K5, K2-packed and K10, whose SpMV
-   phase runs that body, among them), of K1 and K4 with k columns, of K7
-   and of K8 on staged slice metadata, and of the thread-per-slot solvers
-   K9 and K11 beside K10 (``[regs]``, the most over their types and column
-   shapes), and each bench kernel's
+   forward and N-iteration (K2-subwin, K5, K2-packed, and K10 and K11,
+   whose SpMV phases run that body, among them), of K1, K4 and K2 with k
+   columns, of K7 and of K8 on staged slice metadata, and of the
+   thread-per-slot solver K9 (``[regs]``, the most over their types and
+   column shapes), and each bench kernel's
    cooperative grid (the four routes' N-iteration kernels for both value
    and lane-index types on a line of their own). The plans of the
    four full-size matrices and of the ``gcn_arxiv`` graph (its normalised
@@ -47,20 +47,26 @@ Phases; any failure exits non-zero and prints no result line:
    every resident-y small plan with k = 2, 8 and 17, on smoke and L2 with
    k = 8, and on gcn_arxiv's A (split planes: K4, K7) and Aᵀ (merged
    word: K1, K2) with k = 8 and, in float32, k = 256 and 40 (the GCN's
-   widths) and 6 (k % 4 != 0: the scalar column form); K7's dead
+   widths) and 6 (k % 4 != 0: the scalar column form); K2 with k columns
+   at N = 1, 2 and 3 (its two Y buffers) against the plain version and
+   against one K1-with-k launch, there and on the hub-row plan (merged
+   word, both dtypes, k = 2, 8 and 17: 200 duplicate sublanes of one row
+   past several work items); K7's dead
    sublanes must be exactly 0 and its padding lanes of live sublanes must
    carry nonzero partials (more nonzero words than nonzero values). K7 on
    the hub-row plans (a row of 200 entries in one column tile, so that its
    slice is cut into several units of the schedule; merged word and split
    planes, both dtypes, k = 1, 8, 40, 256) against its plain version
    (<= 1e-6), with the same two checks. K1 and K4 with k
-   columns run the warp-per-sublane k-column body (``sublane_mat_run``);
+   columns run the warp-per-sublane k-column body (``sublane_mat_run``),
+   and K2 with k columns N sweeps of it in one cooperative launch;
    each ``[check]`` line names the column shape (T threads a row, W
    columns a load, P passes; ``spmv_sell.spmm_shape``). On smoke and L2
    (both dtypes) the zero-value contract: X holds Inf in a column that
    only zero-valued slots read (a padding lane's column, its real entries
    zeroed through the values plane, as an edge step may): Y stays finite
-   and within the SpMM tolerance of the plain version.
+   and within the SpMM tolerance of the plain version, for K2 with k
+   columns (N = 3) on smoke too.
    The fused solvers (K9 CG, K10 Chebyshev, K11 IC(0)-PCG at sweeps 2 and
    4) against their plain versions, 30 steps, on 2-D Poisson 64² and HPCG
    16³, float32 and bfloat16, and K9 on split planes (Poisson 256², its
@@ -247,12 +253,13 @@ Phases; any failure exits non-zero and prints no result line:
    kernels are timed at k = 8 on smoke and L2 and at k = 256 and 40 on
    gcn_arxiv; K1's and K4's forward launches with k columns and their
    library calls queued behind the spin kernel as K1's (the host-paced
-   times beside), their entries naming their ``body`` and column
-   ``shape``. K7 on gcn_arxiv's A at k = 256 and 40 on its by-slice
+   times beside), their entries, and K2 with k columns' (N = 200 on
+   smoke), naming their ``body`` and column ``shape``. K7 on gcn_arxiv's A at k = 256 and 40 on its by-slice
    schedule (``body`` ``by-slice``, ``units``), its launches and its
    library call queued behind the spin kernel, the host-paced times
    beside. The fused solvers at hpcg104 in float32 (K9 300 steps, K10
-   600, K11 100 at sweeps 4): bound = one step's bytes (the planes of each
+   600, K11 100 at sweeps 4; K10 and K11 ``body`` ``warp-per-sublane``,
+   K9 ``thread-per-slot``): bound = one step's bytes (the planes of each
    SpMV phase, K11: A + 3·(L + Lᵀ), and each state vector once) times the
    steps over the memory rate; yardstick: the same solve by the port's
    scan-loop solver (``models.solvers``) with ``torch.sparse.mm`` on
@@ -358,24 +365,25 @@ KERNELS = {
 # columns, which run its k-column form (sublane_mat_run); K7, which walks
 # the plan by slice; and K8 and its N-iteration kernel, which walk rows on
 # staged slice metadata. K2-packed runs K2's body (rel from the loaded
-# lane-0 word by a warp shuffle), and K10 its SpMV phase on the
-# warp-per-sublane body. K9, K11 and the other
-# k-column kernels (K2 with k columns, K5 with k columns) run one thread
-# per slot. Phase 1 prints their registers and spills, and a phase-4 entry
-# names its body, so that a time can be told from the thread-per-slot (or,
-# K8, per-row chain) times these kernels had before.
+# lane-0 word by a warp shuffle), K10 its SpMV phase and K11 its three on
+# the warp-per-sublane body, and K2 with k columns N sweeps of the
+# k-column form. K9 and K5 with k columns run one thread per slot. Phase 1
+# prints their registers and spills, and a phase-4 entry names its body,
+# so that a time can be told from the thread-per-slot (or, K8, per-row
+# chain) times these kernels had before.
 WARP_PER_SUBLANE = ("sell_spmv_kernel", "sell_bench_kernel",
                     "sell_streamy_relsl_kernel",
                     "sell_bench_streamy_relsl_kernel",
                     "sell_streamy_kernel", "sell_bench_streamy_kernel",
                     "sell_split_kernel", "sell_bench_split_kernel",
                     "sell_bench_subwin_kernel", "sell_packed_kernel",
-                    "sell_bench_packed_kernel", "sell_chebyshev_kernel")
-KCOL_PER_SUBLANE = ("sell_spmm_kernel", "sell_split_spmm_kernel")
+                    "sell_bench_packed_kernel", "sell_chebyshev_kernel",
+                    "sell_pcg_ic0_kernel")
+KCOL_PER_SUBLANE = ("sell_spmm_kernel", "sell_split_spmm_kernel",
+                    "sell_bench_spmm_kernel")
 BY_SLICE = ("sell_vals_grad_kernel",)
 STAGED_SLICES = ("sell_df64_kernel", "sell_bench_df64_kernel")
-THREAD_PER_SLOT_SOLVERS = ("sell_cg_kernel", "sell_cg_split_kernel",
-                           "sell_pcg_ic0_kernel")
+THREAD_PER_SLOT_SOLVERS = ("sell_cg_kernel", "sell_cg_split_kernel")
 # K7's hub-row plans (tests/torch_kcol_plans.py): a row of 200 entries in
 # one column tile beside random entries, so that its slice's 200 live
 # sublanes are cut into several units of the by-slice schedule; on the
@@ -796,23 +804,27 @@ def _check_mat_kernels(np, torch, name, op, ks, errs):
         fwd = op.spmm_kernel
         plain = getattr(S, fwd.__name__ + "_plain")
         yp = plain(*op._planes(), X, **kw)
-        got = {fwd.kernel: (fwd(*op._planes(), X, **kw), yp)}
+        y1 = fwd(*op._planes(), X, **kw)
+        got = {fwd.kernel: (y1, yp)}
         if op.base_route == "relsl":
-            got["sell_bench_spmm_kernel"] = (
-                S.sell_bench_spmm(*op._planes(), X, iterations=3, **kw), yp)
+            got.update(_kcol_bench_runs(S, op, X, yp, y1))
         got["sell_vals_grad_kernel"] = (
             S.sell_vals_grad(op.lidx, op.tile_base, X, G, **meta, **kw),
             S.sell_vals_grad_plain(op.lidx, op.tile_base, X, G, **meta, **kw))
         torch.cuda.synchronize()
         line = []
-        for kname, (y, ref) in got.items():
+        for label, (y, ref) in got.items():
+            kname = label.split("(")[0]
             e = _rel_err(y, ref)
-            what = f"{kname} vs plain on {name} {dname} k={k}"
+            what = f"{label} vs plain on {name} {dname} k={k}"
             _check(torch.isfinite(y).all().item(), f"{what}: not finite")
             t = TOL_KERNEL if kname == "sell_vals_grad_kernel" else tol
             _check(e <= t, f"{what}: {e} > {t}")
-            errs[(kname, name, dname, k)] = (y - ref).abs().max().item()
-            line.append(f"{kname} {e:.3e}")
+            if "vs K1" not in label:  # errs: the kernels against plain
+                key = (kname, name, dname, k)
+                errs[key] = max(errs.get(key, 0.0),
+                                (y - ref).abs().max().item())
+            line.append(f"{label} {e:.3e}")
         g7 = got["sell_vals_grad_kernel"][0].reshape(-1, 128)
         _check(not g7[dead].any(), f"K7 on {name} {dname}: a dead sublane "
                "is not 0")
@@ -822,6 +834,54 @@ def _check_mat_kernels(np, torch, name, op, ks, errs):
             "partials")
         print(f"[check] {name:28s} {dname:9s} {op.route:5s} k={k:<3d} "
               f"shape {S.spmm_shape(k)} vs plain: {', '.join(line)} (SpMM "
+              f"tolerance {tol:.2e}: rows of up to {n_max} products)",
+              flush=True)
+
+
+def _kcol_bench_runs(S, op, X, yp, y1):
+    """K2 with k columns at N = 1, 2 and 3 (N = 2 ends in its second Y
+    buffer) on the operator's merged-word planes, each against the plain
+    version ``yp`` and against one K1-with-k launch ``y1``: {label: (Y,
+    reference)}."""
+    kw, got = op._mat_kw(), {}
+    for n in (1, 2, 3):
+        y = S.sell_bench_spmm(*op._planes(), X, iterations=n, **kw)
+        got[f"sell_bench_spmm_kernel(N={n})"] = (y, yp)
+        got[f"sell_bench_spmm_kernel(N={n} vs K1)"] = (y, y1)
+    return got
+
+
+def _check_kcol_bench_hub(np, torch):
+    """K1 and K2 with k columns (N = 1, 2, 3) on the merged-word hub-row
+    plan, both dtypes, k = 2, 8 and 17: each within the plan's SpMM
+    tolerance of the plain version, and K2 of one K1 launch."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    plan = _hub_row_plan(np, "relsl")
+    for dname in DTYPE_NAMES:
+        op = S.SellSpMV(plan, value_dtype=getattr(torch, dname),
+                        device=DEVICE)
+        _check(op.route == "relsl", f"hub-row plan on {op.route}")
+        tol, n_max = _spmm_tolerance(torch, S, op)
+        line = []
+        for k in (2, 8, 17):
+            X = torch.from_numpy(np.random.default_rng(20 + k).standard_normal(
+                (plan.n_coltiles * 128, k)).astype(np.float32)).to(
+                DEVICE).to(op.value_dtype)
+            yp = S.sell_spmm_plain(*op._planes(), X, **op._mat_kw())
+            y1 = S.sell_spmm(*op._planes(), X, **op._mat_kw())
+            got = {"sell_spmm_kernel": (y1, yp),
+                   **_kcol_bench_runs(S, op, X, yp, y1)}
+            torch.cuda.synchronize()
+            e = max(_rel_err(y, ref) for y, ref in got.values())
+            what = f"K1 / K2 with k columns on hub-row {dname} k={k}"
+            _check(all(torch.isfinite(y).all().item()
+                       for y, _ in got.values()), f"{what}: not finite")
+            _check(e <= tol, f"{what}: {e} > {tol}")
+            line.append(f"k={k} {e:.3e}")
+        print(f"[check] hub-row-relsl                 {dname:9s} "
+              f"sell_spmm_kernel and sell_bench_spmm_kernel (N = 1, 2, 3) "
+              f"vs plain and K2 vs K1, worst: {', '.join(line)} (SpMM "
               f"tolerance {tol:.2e}: rows of up to {n_max} products)",
               flush=True)
 
@@ -919,18 +979,23 @@ def _check_zero_value_contract(np, torch, name, op):
     fwd = op.spmm_kernel
     plain = getattr(S, fwd.__name__ + "_plain")
     planes = (v,) + tuple(op._planes()[1:])
-    y, yp = fwd(*planes, X, **kw), plain(*planes, X, **kw)
+    yp = plain(*planes, X, **kw)
+    runs = {fwd.kernel: fwd(*planes, X, **kw)}
+    if op.base_route == "relsl":
+        runs["sell_bench_spmm_kernel(N=3)"] = S.sell_bench_spmm(
+            *planes, X, iterations=3, **kw)
     torch.cuda.synchronize()
     tol, _ = _spmm_tolerance(torch, S, op)
-    e = _rel_err(y, yp)
     dname = str(op.value_dtype)[6:]
-    what = f"{fwd.kernel} zero-value contract on {name} {dname}"
-    _check(torch.isfinite(y).all().item(), f"{what}: Y not finite")
-    _check(e <= tol, f"{what}: {e} > {tol}")
-    print(f"[check] {name:28s} {dname:9s} {fwd.kernel} k={SPMM_K}: Inf in "
-          f"X column {col}, read by {int((pad & (cols == col)).sum())} "
-          f"padding lanes and {int(real.sum())} zeroed entries: Y finite, "
-          f"vs plain {e:.3e}", flush=True)
+    for label, y in runs.items():
+        e = _rel_err(y, yp)
+        what = f"{label} zero-value contract on {name} {dname}"
+        _check(torch.isfinite(y).all().item(), f"{what}: Y not finite")
+        _check(e <= tol, f"{what}: {e} > {tol}")
+        print(f"[check] {name:28s} {dname:9s} {label} k={SPMM_K}: Inf in "
+              f"X column {col}, read by {int((pad & (cols == col)).sum())} "
+              f"padding lanes and {int(real.sum())} zeroed entries: Y "
+              f"finite, vs plain {e:.3e}", flush=True)
 
 
 def phase_kernels(np, torch, plans, gcn):
@@ -989,6 +1054,7 @@ def phase_kernels(np, torch, plans, gcn):
             ks = GCN_CHECK_KS if dname == "float32" else (SPMM_K,)
             _check_mat_kernels(np, torch, f"gcn_arxiv:{label}", op, ks, errs)
     _check_vals_grad_hub(np, torch)
+    _check_kcol_bench_hub(np, torch)
     return ops, errs
 
 
@@ -1760,6 +1826,7 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
             runs = [(op.spmm_kernel, 1)]
             if op.base_route == "relsl":
                 runs.append((S.sell_bench_spmm, ITERATIONS[name]))
+            fwd_ms = None
             for fn, n in runs:
                 plain = getattr(S, fn.__name__ + "_plain")
                 if n > 1:
@@ -1770,10 +1837,17 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
                     lib_ms = _time_ms(lambda: [torch.sparse.mm(a, X)
                                                for _ in range(n)],
                                       reps=1, warmup=1)
-                    extra = dict(body="thread-per-slot")
+                    extra = dict(body="warp-per-sublane k-column",
+                                 shape=list(S.spmm_shape(SPMM_K)))
+                    print(f"[time] {fn.kernel} {name} {dname} k={SPMM_K}: "
+                          f"an iteration {ms / n:.6f} ms, "
+                          f"{ms / n / fwd_ms:.3f}x one "
+                          f"{op.spmm_kernel.kernel} launch (queued "
+                          f"{fwd_ms:.6f} ms)", flush=True)
                 else:
                     ms, lib_ms, extra = _mat_forward_times(
                         torch, fn, planes, Xt, kw, a, X, reps=20)
+                    fwd_ms = ms
                     plain_ms = _time_ms(lambda: plain(*planes, Xt, **kw),
                                         reps=3)
                 entries.append(_entry(
@@ -3712,10 +3786,11 @@ def main() -> int:
               f"registers per thread: {regs}; spill stores {spills} bytes "
               f"(most in one type instance: {spilled})", flush=True)
         print("[regs] warp-per-sublane kernels, forward and N-iteration "
-              "(K10's SpMV phase among them), the k-column ones, K7 by "
-              "slice, K8 on staged slices and the thread-per-slot solvers "
-              "(most over their value and index types, lo plane and "
-              "column shapes): " + "; ".join(
+              "(K10's and K11's SpMV phases among them), the k-column ones "
+              "(K2 with k columns among them), K7 by slice, K8 on staged "
+              "slices and the thread-per-slot solver K9 (most over their "
+              "value and index types, lo plane and column shapes): "
+              + "; ".join(
                   f"{k} {regs.get(k)} registers, spill stores "
                   f"{spilled.get(k, 0)} bytes"
                   for k in WARP_PER_SUBLANE + KCOL_PER_SUBLANE + BY_SLICE

@@ -66,7 +66,20 @@ that phase gathering through L2 only) at hpcg104 (HPCG's 27-point stencil
 on 104³, ``chip_smoke.py``'s matrix), 600 steps, float32, against the
 kept kernel, its plain version and the scan loop over ``torch.sparse.mm``
 (``models.solvers.chebyshev``), each first held at 30 steps to the plain
-version (<= 1e-4 of max |x|). With ``--df64`` it times K8
+version (<= 1e-4 of max |x|); then K11 (the same file: its three SpMV
+phases on the old thread-per-slot walk, the kept warp-per-sublane item
+ranges, and those gathering through L2 only) at hpcg104, 100 steps,
+sweeps 4, against the kept kernel, its plain version and the scan loop
+over ``torch.sparse.mm`` (``models.solvers.pcg_precond`` with
+``ic0_preconditioner``), each first held at 30 steps to the plain version
+(<= 1e-4). With ``--kbench`` it times K2 with k columns
+(``csrc/variants/sell_spmm_variants.cu``: the one-thread-per-slot warp
+walk it ran before, the k-column body with one Y buffer and two barriers
+an iteration, and with two buffers and one barrier) at smoke, k = 8, N =
+200, float32 and bfloat16, against the kept kernel and N calls of
+``torch.sparse.mm`` on a float32 CSR tensor, each form first held at N =
+1, 2 and 3 to the plain version (the SpMM tolerance of the plan). With
+``--df64`` it times K8
 (``csrc/variants/sell_df64_variants.cu``: the row walk K8 ran before and
 the staged body with U = 1, 2, 4, 8 steps in flight and one or two slices
 a block) against the kept kernel and ``torch.sparse.mm`` on a float64 CSR
@@ -111,6 +124,7 @@ __all__ = ["VARIANTS", "ONE_BUFFER", "KCOL_VARIANTS", "KCOL_SHAPES",
            "VGRAD_VARIANTS", "VGRAD_CAPS", "VGRAD_SCHEDULED", "VGRAD_K",
            "SUBWIN_FORMS", "PACKED_VARIANTS", "PACKED_BENCH_FORMS",
            "DF64_VARIANTS", "DF64_FORMS", "SOLVER_VARIANTS",
+           "KBENCH_FORMS",
            "plane_pointers", "vgrad_pointers", "packed_pointers",
            "df64_pointers", "kcol_cases", "spmm_tolerance",
            "disagreeing_lanes", "main"]
@@ -134,10 +148,17 @@ _VGRAD_SRC = _VARIANTS_DIR / "sell_vals_grad_variants.cu"
 _PACKED_SRC = _VARIANTS_DIR / "sell_packed_variants.cu"
 _DF64_SRC = _VARIANTS_DIR / "sell_df64_variants.cu"
 _SOLVER_SRC = _VARIANTS_DIR / "sell_solver_variants.cu"
-# Variant ids of sell_solver_variants.cu (K10), hpcg104's grid and steps.
+# Variant ids of sell_solver_variants.cu (K10 and K11), hpcg104's grid and
+# steps (K10; K11 at IC0_STEPS, IC0_SWEEPS sweeps).
 SOLVER_VARIANTS = {"walk": 0, "body": 1, "ldcg": 2}
 HPCG_N, SOLVER_STEPS, SOLVER_CHECK_STEPS = 104, 600, 30
+IC0_STEPS, IC0_SWEEPS = 100, 4
 SOLVER_TOL = 1e-4
+# K2 with k columns' forms of sell_spmm_variants.cu
+# (sell_bench_spmm_variant_launch) and the Y buffer each leaves its result
+# in (None: buffer 0); smoke's k and N.
+KBENCH_FORMS = {"walk": 0, "buffers1": 1, "buffers2": 2}
+KBENCH_K, KBENCH_N = 8, 200
 # Variant ids of sell_packed_variants.cu (K5) and its configurations: the
 # full-size plan each reuses; K2-packed's forms there and the y buffer
 # each leaves its result in (None: buffer 0).
@@ -218,6 +239,9 @@ _KCOL_SIGNATURES = {
     "sell_spmm_variant_launch": (ctypes.c_int, [ctypes.c_int] * 5 + [
         ctypes.c_void_p] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]),
+    "sell_bench_spmm_variant_launch": (ctypes.c_int, [ctypes.c_int] + [
+        ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 5
+        + [ctypes.c_void_p]),
     "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
@@ -956,8 +980,8 @@ def _packed_bench_forms(torch, lib, S, op, xt, a, x2, stream) -> dict:
 
 
 def run_solver() -> dict:
-    """K10's variants at hpcg104 against the kept kernel, its plain
-    version and the scan loop over the float32 CSR call."""
+    """K10's and K11's variants at hpcg104 against the kept kernels,
+    their plain versions and the scan loops over the float32 CSR call."""
     import torch
 
     from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
@@ -972,6 +996,7 @@ def run_solver() -> dict:
     _build.build(["sell_solvers"])
     signatures = {
         "sell_chebyshev_variant_launch": C._SIGNATURES["sell_solver_launch"],
+        "sell_pcg_ic0_variant_launch": C._SIGNATURES["sell_solver_launch"],
         "sell_error_string": (ctypes.c_char_p, [ctypes.c_int])}
     lib, log = _build_variants(_SOLVER_SRC, signatures)
     print(f"[regs] solver variants: {_registers(log)}", flush=True)
@@ -1028,8 +1053,140 @@ def run_solver() -> dict:
           f"{max(errs.values()):.3e} <= {SOLVER_TOL}); plain "
           f"{plain_ms:.3f} ms", flush=True)
     _print_times("solver", times)
-    return {"hpcg104/float32": dict(steps=s, ms=times, errors=errs,
-                                    plain_ms=plain_ms)}
+    out = {"hpcg104/float32": dict(steps=s, ms=times, errors=errs,
+                                   plain_ms=plain_ms)}
+    out["hpcg104/float32/K11"] = _ic0_variants(torch, lib, M, P, csr, op, b,
+                                               (m.row, m.col, m.data,
+                                                m.shape), mv)
+    return out
+
+
+def _ic0_variants(torch, lib, M, P, csr, op, b, triplets, mv) -> dict:
+    """K11's variants at hpcg104 (IC0_STEPS steps, IC0_SWEEPS sweeps)
+    against the kept kernel, its plain version and the scan loop over the
+    float32 CSR call, each first held at SOLVER_CHECK_STEPS steps."""
+    from smvp_toolkit_tpu_torch.ops.ilu import ic0
+    from smvp_toolkit_tpu_torch.ops.spmv_sell import _triplets_from_csr_host
+
+    dev, n = op.device, csr.shape[0]
+    t0 = time.perf_counter()
+    factors = ic0(csr)
+    P._ic0_planes(op, factors)
+    print(f"[plan] hpcg104 IC(0) factors and their plans in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    a = _library_csr(torch, triplets, dev)
+
+    def library_op(c):
+        m = _library_csr(torch, _triplets_from_csr_host(c), dev)
+        return lambda v: mv(m, v)
+
+    pre = M.ic0_preconditioner(factors, sweeps=IC0_SWEEPS,
+                               op_builder=library_op)
+
+    def variant(name, steps):
+        return P.pcg_ic0_launch(
+            op, factors, b, steps, IC0_SWEEPS,
+            variant=(lib.sell_pcg_ic0_variant_launch,
+                     SOLVER_VARIANTS[name]))[:n]
+
+    runs = {"kept": lambda s: P.fused_pcg_ic0(op, factors, b, s,
+                                              IC0_SWEEPS)}
+    runs.update({v: (lambda s, v=v: variant(v, s)) for v in SOLVER_VARIANTS})
+    xp = P.fused_pcg_ic0_plain(op, factors, b, SOLVER_CHECK_STEPS,
+                               IC0_SWEEPS)
+    errs = {k: _rel(fn(SOLVER_CHECK_STEPS), xp) for k, fn in runs.items()}
+    torch.cuda.synchronize()
+    bad = {k: e for k, e in errs.items() if not e <= SOLVER_TOL}
+    if bad:
+        raise SystemExit(f"bench_variants: K11 at hpcg104: {bad}")
+    s = IC0_STEPS
+    fns = {k: (lambda fn=fn: fn(s)) for k, fn in runs.items()}
+    fns["library"] = lambda: M.pcg_precond(a, b, pre, num_iters=s, spmv=mv)
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k].append(_time_ms(torch, fns[k], 1))
+    t0 = time.perf_counter()
+    P.fused_pcg_ic0_plain(op, factors, b, s, IC0_SWEEPS)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[solver] K11 hpcg104 float32, {s} steps, sweeps {IC0_SWEEPS} "
+          f"(errors at {SOLVER_CHECK_STEPS} steps {max(errs.values()):.3e} "
+          f"<= {SOLVER_TOL}); plain {plain_ms:.3f} ms", flush=True)
+    _print_times("solver", times)
+    return dict(steps=s, sweeps=IC0_SWEEPS, ms=times, errors=errs,
+                plain_ms=plain_ms)
+
+
+def run_kbench() -> dict:
+    """K2 with k columns' forms at smoke (k = KBENCH_K, N = KBENCH_N)
+    against the kept kernel and N calls of the float32 CSR call."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.ops import _build
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    _build.build(["sell_spmm"])
+    lib, log = _build_variants(_KCOL_SRC, _KCOL_SIGNATURES)
+    print(f"[regs] k-column variants: {_registers(log)}", flush=True)
+    dev = torch.device("cuda", 0)
+    stream = torch.cuda.current_stream().cuda_stream
+    (_, triplets, plan), = _smoke_and_l1(["smoke"])
+    a = _library_csr(torch, triplets, dev)
+    tol, n_max = spmm_tolerance(plan)
+    k, n = KBENCH_K, KBENCH_N
+    X = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (plan.shape[1], k)).astype(np.float32)).to(dev)
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        op = S.SellSpMV(plan, value_dtype=getattr(torch, dname), device=dev)
+        planes, kw = op._planes(), op._mat_kw()
+        Xt = op._block(X, plan.n_coltiles * S.LANES, op.value_dtype, "X")
+        n_out = kw["n_slices"] * S.LANES * k
+
+        def form(name, iters):
+            ys = torch.empty(2, n_out, dtype=torch.float32, device=dev)
+            rc = lib.sell_bench_spmm_variant_launch(
+                KBENCH_FORMS[name], op.vals.data_ptr(), op.lidx.data_ptr(),
+                op.relsl.data_ptr(), op.tile_base.data_ptr(), Xt.data_ptr(),
+                ys.data_ptr(), op.vals.numel(), n_out, kw["chunk"], k, iters,
+                int(op.vals.dtype == torch.bfloat16), 0, stream)
+            if rc:
+                raise RuntimeError(f"K2 with k columns form {name}: CUDA "
+                                   f"error {rc} "
+                                   f"({lib.sell_error_string(rc).decode()})")
+            b = (iters - 1) % 2 if name == "buffers2" else 0
+            return ys[b].view(-1, k)
+
+        runs = {"kept": lambda iters: S.sell_bench_spmm(
+            *planes, Xt, iterations=iters, **kw)}
+        runs.update({f: (lambda iters, f=f: form(f, iters))
+                     for f in KBENCH_FORMS})
+        errs = {}
+        for name, fn in runs.items():
+            errs[name] = max(_rel(fn(i), S.sell_bench_spmm_plain(
+                *planes, Xt, iterations=i, **kw)) for i in (1, 2, 3))
+        torch.cuda.synchronize()
+        bad = {f: e for f, e in errs.items() if not e <= tol}
+        if bad:
+            raise SystemExit(f"bench_variants: K2 with k columns {dname}: "
+                             f"{bad} > {tol}")
+        fns = {f: (lambda fn=fn: fn(n)) for f, fn in runs.items()}
+        fns["library"] = lambda: [torch.sparse.mm(a, X) for _ in range(n)]
+        times = {f: [] for f in fns}
+        for order in (list(fns), list(fns)[::-1]):
+            for f in order:
+                times[f].append(_time_ms(torch, fns[f], 2))
+        print(f"[kbench] smoke {dname} k={k}, N = {n} (shape "
+              f"{S.spmm_shape(k)}, {S.MAT_BENCH_Y_BUFFERS} Y buffers kept; "
+              f"errors at N = 1-3 {max(errs.values()):.3e} <= {tol:.2e}, "
+              f"rows of up to {n_max} products)", flush=True)
+        _print_times("kbench", times)
+        out[f"smoke/{dname}/k{k}"] = dict(iterations=n, ms=times,
+                                          errors=errs)
+        del op, planes, Xt
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_df64(names=DF64_CONFIGS) -> dict:
@@ -1133,7 +1290,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help="time K8's variants on smoke-df64 and "
                    "smoke-df64-f64 instead")
     p.add_argument("--solver", action="store_true",
-                   help="time K10's variants at hpcg104 instead")
+                   help="time K10's and K11's variants at hpcg104 instead")
+    p.add_argument("--kbench", action="store_true",
+                   help="time K2 with k columns' forms on smoke instead")
     p.add_argument("--out", help="write every time to this JSON file")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1158,6 +1317,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                              .split(",")))
     elif args.solver:
         out = run_solver()
+    elif args.kbench:
+        out = run_kbench()
     else:
         out = run_kcol(names, args.sweep) if args.kcol else run(names)
     if args.out:

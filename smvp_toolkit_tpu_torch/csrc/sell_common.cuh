@@ -5,14 +5,14 @@
 // K3-split, K2 streamed split, K4 and K2 split on the split planes,
 // K2-subwin on the merged word under its window rule, SubwinWord, K5 and
 // K2-packed on the packed word, PackedStage and PackedShuffle; and the
-// SpMV phase of K10 in csrc/sell_solvers.cu), its k-column form
-// (`sublane_mat_run`: K1 and K4 with k columns), and one thread per slot
-// (`slot`: K9 and K11, the fused solvers' other two; `warp_slots`, a warp
-// walk over k columns: K2 with k columns, and K5 with k columns under
-// PackedLaneZero). The decode policies, the slot coordinates and the
-// cooperative grid also serve the values gradient (csrc/sell_vals_grad.cu),
-// the fused solvers (csrc/sell_solvers.cu) and the double-float kernels
-// (csrc/sell_df64.cu).
+// SpMV phases of K10 and K11 in csrc/sell_solvers.cu), its k-column form
+// (`sublane_mat_run`: K1 and K4 with k columns, and K2 with k columns in
+// its N-iteration walk `sublane_mat_bench_sweeps`), and one thread per slot
+// (`slot`: K9, the fused CG; `warp_slots`, a warp walk over k columns: K5
+// with k columns under PackedLaneZero). The decode policies, the slot
+// coordinates and the cooperative grid also serve the values gradient
+// (csrc/sell_vals_grad.cu), the fused solvers (csrc/sell_solvers.cu) and
+// the double-float kernels (csrc/sell_df64.cu).
 //
 // Per live slot (s, l) of the (S, 128) planes, with c = s / chunk:
 //   y[(ybase(c) + slice(s)) * 128 + l] +=
@@ -121,8 +121,8 @@ struct ReadOnly {
 
 // A plain load (ld.global, L1 allocating), as the one-thread-per-slot
 // body gathers x: coherent with what other blocks wrote before the last
-// grid.sync(). K10 gathers its SpMV input so, since the vector phase
-// rewrites that input between two SpMV phases of one launch.
+// grid.sync(). K10 and K11 gather their SpMV input so, since their vector
+// phases rewrite that input between two SpMV phases of one launch.
 struct Coherent {
   template <typename T>
   __device__ __forceinline__ static T load(const T* p) {
@@ -425,8 +425,8 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 
 // ---------------------------------------------------------------------------
 // One warp per sublane, under a staging policy (MergedWord: K1 and K2 on a
-// resident y, K3-relsl and K2 streamed on a streamed one, and K10's SpMV
-// phase; SplitPlanes: K3-split and K2 streamed split on a streamed y, K4
+// resident y, K3-relsl and K2 streamed on a streamed one, and the SpMV
+// phases of K10 and K11; SplitPlanes: K3-split and K2 streamed split on a streamed y, K4
 // and K2 split on a resident one; SubwinWord: K2-subwin on a resident y;
 // PackedStage: K5 on either; PackedShuffle: K2-packed on a resident one),
 // a y policy, the plane loads' cache policy (Load) and the x gathers'
@@ -457,9 +457,9 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 // are streaming (the Streaming policy: read once, kept out of L1, where
 // the gathered x tiles stay). The gathers go through the read-only path
 // (ReadOnly, __ldg: ld.global.nc) where no thread writes x during the
-// launch, which holds for every forward and N-iteration kernel; K10
-// rewrites its SpMV input between grid.sync()s, and the non-coherent path
-// may then return the last step's x, so K10 gathers with plain loads
+// launch, which holds for every forward and N-iteration kernel; K10 and
+// K11 rewrite their SpMV input between grid.sync()s, and the non-coherent
+// path may then return the last step's x, so they gather with plain loads
 // (Coherent).
 //
 // Planes must be aligned for the vector loads (values to 4 elements, lane
@@ -688,10 +688,10 @@ __device__ __forceinline__ bool slot_coords(const A& a, long long i,
   return true;
 }
 
-// The one-thread-per-slot k-column kernels' warp walk (K2 with k columns,
-// K5 with k columns; K1 and K4 ran it before sublane_mat_run): the warp of
-// slot i adds its live
-// nonzero slots' products into Y. One thread decodes each slot (the plane
+// The one-thread-per-slot k-column warp walk (K5 with k columns; K1, K4
+// and K2 with k columns ran it before sublane_mat_run, and the old walks in
+// csrc/variants/ still do): the warp of slot i adds its live nonzero
+// slots' products into Y. One thread decodes each slot (the plane
 // loads stay coalesced); the warp ballots its live nonzero slots and walks
 // them one at a time, the slot's value, X row and Y row broadcast with
 // __shfl_sync, its 32 lanes covering the k columns 32 at a time (float
@@ -730,29 +730,12 @@ __device__ __forceinline__ void mat_sweep(const MatArgs<V, L>& a) {
   if ((i & ~31LL) < a.n_slots) warp_slots<Decode>(a, i);
 }
 
-// The k-column N-iteration body (one cooperative launch), zeroing all of
-// Y between grid.sync()s before each sweep, as bench_sweeps.
-template <class Decode, typename V, typename L>
-__device__ __forceinline__ void mat_bench_sweeps(const MatArgs<V, L>& a) {
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (int it = 0; it < a.iterations; ++it) {
-    for (long long i = tid; i < a.n_out; i += stride) a.out[i] = 0.0f;
-    grid.sync();
-    // stride is a multiple of 32, so the lanes of a warp agree on the loop.
-    for (long long i = tid; (i & ~31LL) < a.n_slots; i += stride) {
-      warp_slots<Decode>(a, i);
-    }
-    grid.sync();
-  }
-}
-
 // ---------------------------------------------------------------------------
 // The k-column body on one warp per sublane (`sublane_mat_run`: K1 and K4
-// with k columns, csrc/sell_spmm.cu), under a staging policy (MergedWord or
-// SplitPlanes), a column shape MatShape<T, W, P> and a resident Y.
+// with k columns, and K2 with k columns in the N-iteration walk
+// sublane_mat_bench_sweeps, csrc/sell_spmm.cu), under a staging policy
+// (MergedWord or SplitPlanes), a column shape MatShape<T, W, P> and a
+// resident Y.
 //
 // A block takes a work item of sublane_run (up to kRun sublanes of chunk c,
 // blockIdx.x) and a column block (blockIdx.y: kCols = T * W * P columns
@@ -851,15 +834,17 @@ __device__ __forceinline__ void add_row(float* y, const float (&p)[4]) {
 }
 
 // All kThreads threads of the block call it with the same item and column
-// block. A unit sums at most Cap sublanes (a power of two): a run is cut
-// where the sublane index within the item is a multiple of Cap, so a hub
-// row's long run is several units that groups take side by side, not one
-// long serial walk. Cap = 1 flushes every sublane's rows on their own (a
-// variant, csrc/variants/sell_spmm_variants.cu).
+// block; the rows' sums land in `out` (a.out, or one of the N-iteration
+// walk's two Y buffers). A unit sums at most Cap sublanes (a power of
+// two): a run is cut where the sublane index within the item is a multiple
+// of Cap, so a hub row's long run is several units that groups take side
+// by side, not one long serial walk. Cap = 1 flushes every sublane's rows
+// on their own (a variant, csrc/variants/sell_spmm_variants.cu).
 template <class Stage, class Shape, int Cap = kMatRunCap, typename V,
           typename L>
 __device__ __forceinline__ void sublane_mat_run(const MatArgs<V, L>& a,
-                                                int runs, int item, int col0,
+                                                float* out, int runs,
+                                                int item, int col0,
                                                 MatStage& st) {
   constexpr int T = Shape::kT, W = Shape::kW, P = Shape::kP;
   const int c = item / runs;
@@ -975,7 +960,7 @@ __device__ __forceinline__ void sublane_mat_run(const MatArgs<V, L>& a,
         }
       }
     }
-    float* yr = a.out + (static_cast<long long>(key) * kLanes + l) * a.k +
+    float* yr = out + (static_cast<long long>(key) * kLanes + l) * a.k +
                 col0;
 #pragma unroll
     for (int p = 0; p < P; ++p) {
@@ -991,8 +976,63 @@ template <class Stage, class Shape, int Cap = kMatRunCap, typename V,
           typename L>
 __device__ __forceinline__ void sublane_mat_sweep(const MatArgs<V, L>& a) {
   __shared__ MatStage st;
-  sublane_mat_run<Stage, Shape, Cap>(a, runs_per_chunk(a.chunk), blockIdx.x,
-                                     blockIdx.y * Shape::kCols, st);
+  sublane_mat_run<Stage, Shape, Cap>(a, a.out, runs_per_chunk(a.chunk),
+                                     blockIdx.x, blockIdx.y * Shape::kCols,
+                                     st);
+}
+
+// The N-iteration body of the k-column form (K2 with k columns; one
+// cooperative launch), in one of two forms as sublane_bench_sweeps: each
+// iteration walks the items x column blocks pieces of work in a
+// block-uniform grid-stride loop, piece w being column block w / items
+// and item w % items (so the grid runs column block by column block, as
+// the forward launch does), each on sublane_mat_run. YBuffers = 1: zero
+// all of Y (float4 stores), grid.sync(), walk, grid.sync(). YBuffers = 2:
+// Y[0] = a.out and Y[1] = a.out + n_out taken in turn, the next zeroed
+// while this one is swept, one grid.sync() an iteration, the result in
+// Y[(N - 1) % 2]. Zeroing all of a buffer keeps rows that no chunk visits
+// at zero. n_out (NS * 128 * k) is a multiple of 4, Y 16-byte aligned and
+// the pieces of work fewer than 2^31 (the launcher checks).
+template <class Stage, class Shape, int YBuffers, typename V, typename L>
+__device__ __forceinline__ void sublane_mat_bench_sweeps(
+    const MatArgs<V, L>& a) {
+  static_assert(YBuffers == 1 || YBuffers == 2, "one or two Y buffers");
+  __shared__ MatStage st;
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  const int runs = runs_per_chunk(a.chunk);
+  const int items = static_cast<int>(
+      a.n_slots / (static_cast<long long>(kLanes) * a.chunk)) * runs;
+  const int work = items * ((a.k + Shape::kCols - 1) / Shape::kCols);
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long n4 = a.n_out / 4;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  float4* y4 = reinterpret_cast<float4*>(a.out);
+  if (YBuffers == 2) {
+    for (long long i = tid; i < n4; i += stride) y4[i] = zero;
+    grid.sync();
+  }
+  for (int it = 0; it < a.iterations; ++it) {
+    const bool more = it + 1 < a.iterations;
+    float* out = a.out;
+    if (YBuffers == 2) {
+      if (more) {
+        float4* next = y4 + ((it + 1) & 1) * n4;
+        for (long long i = tid; i < n4; i += stride) next[i] = zero;
+      }
+      out += (it & 1) * a.n_out;
+    } else {
+      for (long long i = tid; i < n4; i += stride) y4[i] = zero;
+      grid.sync();
+    }
+    for (int w = blockIdx.x; w < work; w += gridDim.x) {
+      const int cb = w / items;
+      sublane_mat_run<Stage, Shape>(a, out, runs, w - cb * items,
+                                    cb * Shape::kCols, st);
+    }
+    if (more) grid.sync();
+  }
 }
 
 // The alignment a column shape's loads and atomics need: the values plane
@@ -1008,17 +1048,27 @@ bool mat_aligned(const MatArgs<V, L>& a) {
          (a.k % 4 == 0 && at(a.x, 4 * sizeof(V)) && at(a.out, 16));
 }
 
+// The k-column launches' checks: the column shape's alignment, planes of
+// whole chunks and at least one sublane, at most 65,535 column blocks.
+// Gives the work items and column blocks.
+template <class Shape, typename V, typename L>
+cudaError_t mat_work(const MatArgs<V, L>& a, long long* items,
+                     long long* col_blocks) {
+  if (!mat_aligned<Shape>(a)) return cudaErrorMisalignedAddress;
+  if (a.k < 1 || !sublane_items(a, items)) return cudaErrorInvalidValue;
+  *col_blocks = (a.k + Shape::kCols - 1) / Shape::kCols;
+  return *col_blocks > 65535 ? cudaErrorInvalidValue : cudaSuccess;
+}
+
 // One block per work item and column block of the k-column body.
 template <class Shape, typename V, typename L>
 cudaError_t launch_mat(void (*kernel)(MatArgs<V, L>), MatArgs<V, L> a,
                        cudaStream_t stream) {
-  if (!mat_aligned<Shape>(a)) return cudaErrorMisalignedAddress;
-  long long items = 0;
-  if (a.k < 1 || !sublane_items(a, &items)) return cudaErrorInvalidValue;
-  const long long col_blocks = (a.k + Shape::kCols - 1) / Shape::kCols;
-  if (col_blocks > 65535) return cudaErrorInvalidValue;
+  long long items = 0, col_blocks = 0;
+  cudaError_t err = mat_work<Shape>(a, &items, &col_blocks);
+  if (err != cudaSuccess) return err;
   void* params[] = {&a};
-  cudaError_t err = cudaLaunchKernel(
+  err = cudaLaunchKernel(
       reinterpret_cast<const void*>(kernel),
       dim3(static_cast<unsigned>(items), static_cast<unsigned>(col_blocks)),
       dim3(kThreads), params, 0, stream);

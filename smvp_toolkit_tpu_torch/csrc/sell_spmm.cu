@@ -43,12 +43,20 @@
 // Every index into X and Y is 64-bit: X of 169,343 x 256 already passes
 // 2^31 / 64 rows.
 //
-// The N-iteration kernel (sell_bench_spmm_kernel, K2 with k > 1) still runs
-// the one-thread-per-slot warp walk (sell_common.cuh, warp_slots); it can
-// take this body as it is (sublane_mat_run walks one item). The packed
-// k-column kernel (csrc/sell_packed.cu: its word carries rel per slot) and
-// the values gradient (csrc/sell_vals_grad.cu: another reduction) keep
-// their own bodies.
+// The N-iteration kernel (sell_bench_spmm_kernel, K2 with k > 1) runs the
+// same body N times in one cooperative launch (sell_common.cuh,
+// sublane_mat_bench_sweeps): each iteration walks the items x column
+// blocks pieces of work in a block-uniform grid-stride loop over a grid of
+// co-resident blocks, column block by column block, and Y takes
+// kBenchMatYBuffers buffers (below). Before, it ran the one-thread-per-slot
+// warp walk (warp_slots: one thread decoding each slot, the warp walking
+// its live slots one at a time, a scalar atomic per product and column,
+// all of Y zeroed with scalar stores between two grid.sync()s): 186.4 ms
+// at smoke, k = 8, N = 200 (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py);
+// that walk is a variant now (csrc/variants/sell_spmm_variants.cu). The
+// packed k-column kernel (csrc/sell_packed.cu: its word carries rel per
+// slot) and the values gradient (csrc/sell_vals_grad.cu: another
+// reduction) keep their own bodies.
 //
 // Bound on this card: bytes at small k (the planes, as the k = 1 kernels),
 // then X and Y, which grow with k; the arithmetic is 2·nnz·k flops, far
@@ -57,9 +65,10 @@
 // gathers read nnz · k · 4 bytes of X rows, 8.6x X itself on gcn_arxiv:
 // whether they come from L2 decides the time.
 //
-// The bench kernel runs N one-thread-per-slot sweeps in one cooperative
-// launch, zeroing all of Y between grid.sync()s before each; merged word
-// only, as the JAX bench_loop_mat.
+// The bench kernel runs N sweeps of the k-column body in one cooperative
+// launch; merged word only, as the JAX bench_loop_mat. It takes the forward
+// kernels' checks (column shape's alignment, whole chunks, the column-block
+// limit) and Y aligned to 16 bytes for its float4 zeroing.
 //
 // C interface (ctypes): each launch function returns a cudaError_t value,
 // 0 on success, from cudaGetLastError() right after the launch. The
@@ -71,6 +80,9 @@
 namespace {
 
 using namespace sell;
+
+template <typename V, typename L>
+using MatKernel = void (*)(MatArgs<V, L>);
 
 template <int T, int W, int P, typename V, typename L>
 __global__ void __launch_bounds__(kThreads, kMatMinBlocks)
@@ -84,10 +96,17 @@ __global__ void __launch_bounds__(kThreads, kMatMinBlocks)
   sublane_mat_sweep<SplitPlanes, MatShape<T, W, P>>(a);
 }
 
-template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads)
+// Y buffers of the N-iteration kernel: two, taken in turn, one grid.sync()
+// an iteration, the result in Y[(N - 1) % 2] (ops/spmv_sell.py,
+// MAT_BENCH_Y_BUFFERS, mirrors it). The form with one buffer and two
+// barriers is a variant (csrc/variants/sell_spmm_variants.cu).
+constexpr int kBenchMatYBuffers = 2;
+
+template <int T, int W, int P, typename V, typename L>
+__global__ void __launch_bounds__(kThreads, kMatMinBlocks)
     sell_bench_spmm_kernel(const MatArgs<V, L> a) {
-  mat_bench_sweeps<MergedWord>(a);
+  sublane_mat_bench_sweeps<MergedWord, MatShape<T, W, P>, kBenchMatYBuffers>(
+      a);
 }
 
 template <typename V, typename L>
@@ -148,27 +167,43 @@ cudaError_t launch_spmm(int route, const MatArgs<V, L>& a,
   }
   return with_mat_shape(a.k, [&](auto shape) {
     using Sh = decltype(shape);
-    void (*kernel)(MatArgs<V, L>) =
+    MatKernel<V, L> kernel =
         route == kRelsl ? sell_spmm_kernel<Sh::kT, Sh::kW, Sh::kP, V, L>
                         : sell_split_spmm_kernel<Sh::kT, Sh::kW, Sh::kP, V, L>;
     return launch_mat<Sh>(kernel, a, stream);
   });
 }
 
+// The N-iteration kernel of a column shape.
+template <typename V, typename L, class Shape>
+MatKernel<V, L> bench_spmm_kernel(Shape) {
+  return sell_bench_spmm_kernel<Shape::kT, Shape::kW, Shape::kP, V, L>;
+}
+
 template <typename V, typename L>
 cudaError_t launch_bench_spmm(MatArgs<V, L> a, int device,
                               cudaStream_t stream) {
-  if (a.k < 1 || a.iterations < 1) return cudaErrorInvalidValue;
-  int blocks = 0;
-  cudaError_t err =
-      cooperative_grid(sell_bench_spmm_kernel<V, L>, device, &blocks);
-  if (err != cudaSuccess) return err;
-  void* params[] = {&a};
-  err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(sell_bench_spmm_kernel<V, L>),
-      dim3(blocks), dim3(kThreads), params, 0, stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  if (a.iterations < 1 || a.n_out % 4) return cudaErrorInvalidValue;
+  return with_mat_shape(a.k, [&](auto shape) {
+    using Sh = decltype(shape);
+    long long items = 0, col_blocks = 0;
+    cudaError_t err = mat_work<Sh>(a, &items, &col_blocks);
+    if (err != cudaSuccess) return err;
+    if (items * col_blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    if (reinterpret_cast<uintptr_t>(a.out) % 16) {
+      return cudaErrorMisalignedAddress;
+    }
+    const auto kernel = bench_spmm_kernel<V, L>(shape);
+    int blocks = 0;
+    err = cooperative_grid(kernel, device, &blocks);
+    if (err != cudaSuccess) return err;
+    void* params[] = {&a};
+    err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                      dim3(blocks), dim3(kThreads), params,
+                                      0, stream);
+    if (err != cudaSuccess) return err;
+    return cudaGetLastError();
+  });
 }
 
 }  // namespace
@@ -200,8 +235,11 @@ extern "C" int sell_spmm_launch(int route, const void* vals, const void* lidx,
   return static_cast<int>(err);
 }
 
-// The merged-word N-iteration kernel; n_out = n_slices * 128 * k, all of
-// which is zeroed each iteration.
+// The merged-word N-iteration kernel; n_out = n_slices * 128 * k, and y
+// holds kBenchMatYBuffers * n_out floats (the result in buffer
+// (iterations - 1) % kBenchMatYBuffers), all of each buffer zeroed before
+// it is swept. The forward kernel's refusals, and a y not aligned to 16
+// bytes returns cudaErrorMisalignedAddress.
 extern "C" int sell_bench_spmm_launch(const void* vals, const void* lidx,
                                       const void* relsl, const void* tile_base,
                                       const void* x, void* y,
@@ -223,15 +261,19 @@ extern "C" int sell_bench_spmm_launch(const void* vals, const void* lidx,
   return static_cast<int>(err);
 }
 
-// Blocks of one sell_bench_spmm_kernel launch on this device.
-extern "C" int sell_bench_spmm_blocks(int value_kind, int lidx_kind,
+// Blocks of one sell_bench_spmm_kernel launch with k columns on this
+// device (SMs x co-resident blocks of k's column shape).
+extern "C" int sell_bench_spmm_blocks(int k, int value_kind, int lidx_kind,
                                       int device, int* blocks) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = sell::with_types(value_kind, lidx_kind, [&](auto v, auto l) {
     using V = typename decltype(v)::type;
     using L = typename decltype(l)::type;
-    return cooperative_grid(sell_bench_spmm_kernel<V, L>, device, blocks);
+    return with_mat_shape(k, [&](auto shape) {
+      return cooperative_grid(bench_spmm_kernel<V, L>(shape), device,
+                              blocks);
+    });
   });
   return static_cast<int>(err);
 }

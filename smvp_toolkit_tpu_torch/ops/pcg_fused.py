@@ -63,6 +63,7 @@ __all__ = [
     "fused_pcg_ic0_plain",
     "chebyshev_coefficients",
     "chebyshev_launch",
+    "pcg_ic0_launch",
     "ic0_plans",
     "SOLVER_KERNELS",
 ]
@@ -296,12 +297,28 @@ def fused_pcg_ic0(op, factors, b: torch.Tensor, num_iters: int,
     by ``sweeps`` Neumann sweeps per triangle. The factor plans are
     planned and uploaded at the first call for these factors and kept on
     the operator. ``num_iters <= 0`` returns zeros.
+
+    The kernel runs its A, strict(L) and strict(L)ᵀ phases on the
+    warp-per-sublane body, each over its plan's work items: planes or q
+    not aligned for its vector loads raise "misaligned address", planes
+    that are not whole chunks, or factor bounds off a chunk boundary,
+    "invalid argument"; nothing falls back.
     """
     n = _pcg_ic0_checks(op, factors, b, sweeps)
     if num_iters <= 0:
         return torch.zeros(n, dtype=torch.float32, device=op.device)
     if op.device.type == "cpu":
         return fused_pcg_ic0_plain(op, factors, b, num_iters, sweeps)
+    x = pcg_ic0_launch(op, factors, b, num_iters, sweeps)
+    fused_pcg_ic0.launches += 1
+    return x[:n]
+
+
+def pcg_ic0_launch(op, factors, b: torch.Tensor, num_iters: int,
+                   sweeps: int, variant=None) -> torch.Tensor:
+    """One launch of ``sell_pcg_ic0_kernel`` on a CUDA operator (checked
+    by the caller, ``num_iters >= 1``), or of a variant of it
+    (``cg_fused.launch``'s ``variant``); x on the padded state (T·128)."""
     fp = _ic0_planes(op, factors)
     bt = pad_state(b, len(fp.invd) // LANES)
     x, r, p, q, z = (torch.empty_like(bt) for _ in range(5))
@@ -312,9 +329,8 @@ def fused_pcg_ic0(op, factors, b: torch.Tensor, num_iters: int,
                        tile_base=fp.tile_base),
            b=bt, x=x, r=r, p=p, q=q, xin=xin, iterations=num_iters,
            invd=fp.invd, z=z, slots_l0=s_a * LANES, slots_lt0=s_l * LANES,
-           sweeps=sweeps)
-    fused_pcg_ic0.launches += 1
-    return x[:n]
+           sweeps=sweeps, variant=variant)
+    return x
 
 
 for _fn, _name in ((fused_chebyshev, "sell_chebyshev_kernel"),

@@ -29,8 +29,10 @@ serve the SpMM and training path on resident-y plans:
   the warp-per-sublane k-column body (``sell_common.cuh::sublane_mat_run``:
   a run of one slice's sublanes summed per row before one vector atomic,
   the columns of a row over the threads of ``spmm_shape(k)``);
-* ``sell_bench_spmm`` (K2 with k > 1, merged word): N one-thread-per-slot
-  sweeps in one cooperative launch;
+* ``sell_bench_spmm`` (K2 with k > 1, merged word): N sweeps of that body
+  in one cooperative launch (``sublane_mat_bench_sweeps``: the work items
+  and column blocks in a grid-stride loop, ``MAT_BENCH_Y_BUFFERS`` Y
+  buffers);
 * ``sell_vals_grad`` (K7): the cotangent of the values plane, on either
   kind of planes, scheduled by slice (``vals_grad_schedule``: the live
   sublanes grouped by slice, so that a block reads its slice's G block
@@ -148,6 +150,7 @@ __all__ = [
     "sell_split_spmm_plain",
     "sell_bench_spmm",
     "sell_bench_spmm_plain",
+    "MAT_BENCH_Y_BUFFERS",
     "spmm_shape",
     "sell_vals_grad",
     "sell_vals_grad_plain",
@@ -570,7 +573,7 @@ _SPMM_SIGNATURES = {
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP,
     ]),
     "sell_bench_spmm_blocks": (ctypes.c_int, [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int),
     ]),
     "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
@@ -866,12 +869,14 @@ def _spmm_dispatch(wrapper, plain, route: str, planes: dict, X, *,
             planes["tile_base"].data_ptr(), X.data_ptr(), Y.data_ptr(),
             n_slots, chunk, k, vk, lk, dev.index, stream)
     else:
-        Y = torch.empty(n_slices * LANES, k, dtype=torch.float32, device=dev)
+        ys = torch.empty(MAT_BENCH_Y_BUFFERS, n_slices * LANES, k,
+                         dtype=torch.float32, device=dev)
         rc = lib.sell_bench_spmm_launch(
             vals.data_ptr(), planes["lidx"].data_ptr(), meta.data_ptr(),
-            planes["tile_base"].data_ptr(), X.data_ptr(), Y.data_ptr(),
-            n_slots, Y.numel(), chunk, k, iterations, vk, lk, dev.index,
+            planes["tile_base"].data_ptr(), X.data_ptr(), ys.data_ptr(),
+            n_slots, ys[0].numel(), chunk, k, iterations, vk, lk, dev.index,
             stream)
+        Y = ys[(iterations - 1) % MAT_BENCH_Y_BUFFERS]
     _check_rc(lib, rc, f"{wrapper.kernel} launch")
     wrapper.launches += 1
     return Y
@@ -906,11 +911,19 @@ def sell_split_spmm(vals, lidx, rel, slice_of, tile_base, X, *,
                           chunk=chunk)
 
 
+# Y buffers of K2 with k columns (``csrc/sell_spmm.cu``,
+# ``kBenchMatYBuffers``): iteration ``it`` sweeps into buffer ``it % 2``, so
+# the result is buffer ``(N - 1) % 2``.
+MAT_BENCH_Y_BUFFERS = 2
+
+
 def sell_bench_spmm(vals, lidx, relsl, tile_base, X, *, n_slices: int,
                     n_coltiles: int, chunk: int,
                     iterations: int) -> torch.Tensor:
     """K2 with k columns: ``iterations`` K1 SpMMs in one cooperative
-    launch (merged word); the last Y."""
+    launch (merged word), on K1-with-k's body and alignment rule; the last
+    Y, a view of the Y buffer the last iteration wrote
+    (``MAT_BENCH_Y_BUFFERS``)."""
     return _spmm_dispatch(sell_bench_spmm, sell_bench_spmm_plain, "relsl",
                           dict(vals=vals, lidx=lidx, relsl=relsl,
                                tile_base=tile_base),
@@ -1222,13 +1235,14 @@ def bench_blocks(value_dtype: torch.dtype, lidx_dt: torch.dtype,
 
 
 def bench_spmm_blocks(value_dtype: torch.dtype, lidx_dt: torch.dtype,
-                      device=None) -> int:
-    """Blocks of one ``sell_bench_spmm_kernel`` launch on ``device`` (SMs ×
-    co-resident blocks)."""
+                      device=None, k: int = 8) -> int:
+    """Blocks of one ``sell_bench_spmm_kernel`` launch with ``k`` columns
+    on ``device`` (SMs × co-resident blocks of ``spmm_shape(k)``'s
+    kernel)."""
     dev = resolve_device(device)
     lib = _build.load("sell_spmm", _SPMM_SIGNATURES)
     out = ctypes.c_int(0)
-    rc = lib.sell_bench_spmm_blocks(int(value_dtype == torch.bfloat16),
+    rc = lib.sell_bench_spmm_blocks(k, int(value_dtype == torch.bfloat16),
                                     int(lidx_dt == torch.int32), dev.index,
                                     ctypes.byref(out))
     _check_rc(lib, rc, "sell_bench_spmm_kernel occupancy query")

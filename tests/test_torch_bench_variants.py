@@ -295,3 +295,74 @@ def test_packed_and_df64_refuse_without_a_card(flag, capsys):
         pytest.skip("a card is present: main would time the variants")
     assert BV.main([flag]) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
+
+
+# -- K10's and K11's variants (``--solver``), K2 with k columns' forms
+# (``--kbench``) ---------------------------------------------------------------
+
+SOLVER_SOURCE = BV._SOLVER_SRC.read_text()
+
+
+def test_solver_variant_ids_match_the_source():
+    """Every solver variant id is listed in the source's header under the
+    same name and picks its phase for both K10 and K11, each solve the
+    kept kernel's with only its SpMV phase changed."""
+    phases = {"walk": "WalkPhase", "body": "SublanePhase",
+              "ldcg": "LdcgPhase"}
+    assert set(BV.SOLVER_VARIANTS) == set(phases)
+    for name, vid in BV.SOLVER_VARIANTS.items():
+        assert re.search(rf"^//\s+{vid} {name}\s", SOLVER_SOURCE, re.M), name
+        assert (f"if (variant == {vid}) kernel = variant_kernel<"
+                f"{phases[name]}, V, L>(solver);") in SOLVER_SOURCE, name
+    assert "chebyshev_solve<Phase>(a);" in SOLVER_SOURCE
+    assert "pcg_ic0_solve<Phase>(a);" in SOLVER_SOURCE
+    for fn, solver in (("sell_chebyshev_variant_launch", "kChebyshev"),
+                       ("sell_pcg_ic0_variant_launch", "kPcgIc0")):
+        assert f"SOLVER_VARIANT_LAUNCH({fn}, {solver})" in SOLVER_SOURCE
+    assert BV.IC0_STEPS == 100 and BV.IC0_SWEEPS == 4
+
+
+def test_kbench_forms_match_the_source():
+    """K2 with k columns' forms: each id is listed in the k-column
+    variants' header and dispatched by its launcher; forms 0 and 1 leave
+    the result in Y[0], form 2 in Y[(N - 1) % 2] (the kept kernel's two
+    buffers)."""
+    for name, form in BV.KBENCH_FORMS.items():
+        assert re.search(rf"^//\s+{form} {name}\s", KCOL_SOURCE, re.M), name
+    assert "form == 0   ? bench_spmm_walk_kernel<V>" in KCOL_SOURCE
+    assert ": form == 1 ? bench_spmm_form_kernel<1," in KCOL_SOURCE
+    assert ": bench_spmm_form_kernel<2," in KCOL_SOURCE
+    assert ("Forms 0 and 1 leave the result in Y[0], form 2 in "
+            "Y[(N - 1) % 2].") in KCOL_SOURCE
+    assert "mat_bench_sweeps<MergedWord>(a);" in KCOL_SOURCE
+    assert S.MAT_BENCH_Y_BUFFERS == 2
+    assert (BV.KBENCH_K, BV.KBENCH_N) == (8, 200)
+
+
+def test_solver_and_kbench_signatures_match_the_sources():
+    """ctypes gets as many arguments as each C launcher takes: the solver
+    variants the kept launcher's (the variant in place of the solver id),
+    K2 with k columns' forms one more than the kept launcher's less its
+    lane-index kind (int8 only); the kept blocks query takes k."""
+    from smvp_toolkit_tpu_torch.ops import cg_fused as C
+
+    csrc = S.__file__.rsplit("/", 2)[0] + "/csrc/"
+    solvers = open(csrc + "sell_solvers.cu").read()
+    n = _c_params(solvers, "sell_solver_launch")
+    assert len(C._SIGNATURES["sell_solver_launch"][1]) == n
+    assert _c_params(SOLVER_SOURCE, "name") == n  # the launchers' macro
+    spmm = open(csrc + "sell_spmm.cu").read()
+    fn = "sell_bench_spmm_variant_launch"
+    assert len(BV._KCOL_SIGNATURES[fn][1]) == _c_params(KCOL_SOURCE, fn)
+    assert _c_params(KCOL_SOURCE, fn) == _c_params(
+        spmm, "sell_bench_spmm_launch")
+    for kept in ("sell_bench_spmm_launch", "sell_bench_spmm_blocks"):
+        assert len(S._SPMM_SIGNATURES[kept][1]) == _c_params(spmm, kept)
+
+
+@pytest.mark.parametrize("flag", ["--solver", "--kbench"])
+def test_solver_and_kbench_refuse_without_a_card(flag, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: main would time the variants")
+    assert BV.main([flag]) == 1
+    assert "needs a CUDA card" in capsys.readouterr().err

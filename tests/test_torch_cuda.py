@@ -569,6 +569,113 @@ def test_kcolumn_misaligned_view_raises(card, route, what):
         assert fwd.launches == before
 
 
+# -- K2 with k columns: the k-column body N times in one cooperative launch
+
+@pytest.mark.parametrize("iterations", [1, 2, 3])
+@pytest.mark.parametrize("k", [2, 8, 17])
+@pytest.mark.parametrize("plan_name", ["small", "hub-row"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kcol_bench_matches_plain_and_k1(card, dtype, plan_name, k,
+                                         iterations):
+    """K2 with k columns takes two Y buffers in turn (N = 1 and 3 end in
+    buffer 0, N = 2 in buffer 1): on the small resident plan and the
+    hub-row plan (200 duplicate sublanes of one row past several work
+    items), each N equals the plain version and one K1-with-k launch within
+    the plan's SpMM tolerance (scalar columns at k = 2 and 17, vector at
+    8)."""
+    plan = (_route_plan("relsl") if plan_name == "small"
+            else kcol_plans.hub_row_plan("relsl"))
+    op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+    kw = op._mat_kw()
+    X = _block(card, plan.n_coltiles * 128, k, 20 + k, dtype)
+    before = S.sell_bench_spmm.launches
+    y = S.sell_bench_spmm(*op._planes(), X, iterations=iterations, **kw)
+    yp = S.sell_bench_spmm_plain(*op._planes(), X, iterations=iterations,
+                                 **kw)
+    y1 = S.sell_spmm(*op._planes(), X, **kw)
+    torch.cuda.synchronize()
+    assert S.sell_bench_spmm.launches == before + 1
+    assert S.MAT_BENCH_Y_BUFFERS == 2
+    tol, _ = spmm_tolerance(plan)
+    assert y.shape == yp.shape == (plan.n_slices * 128, k)
+    assert bool(torch.isfinite(y).all())
+    assert _rel(y, yp) <= tol and _rel(y, y1) <= tol
+
+
+@pytest.mark.parametrize("k", [2, 6, 8, 17, 40, 256])
+def test_kcol_bench_grid_is_coresident(card, k):
+    """K2 with k columns' cooperative grid for each column shape: at least
+    kMatMinBlocks (4) co-resident blocks on every SM."""
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        blocks = S.bench_spmm_blocks(dtype, torch.int8, card, k=k)
+        assert blocks >= 4 * sms and blocks % sms == 0
+
+
+@pytest.mark.parametrize("k", [6, 8])
+def test_kcol_bench_zero_value_skips_inf(card, k):
+    """K2 with k columns keeps the zero-value contract: X holds Inf in the
+    column of a padding lane whose real entries are zeroed through the
+    values plane; after N = 3 Y stays finite and equals the plain
+    version."""
+    plan = _route_plan("relsl")
+    op = S.SellSpMV(plan, device=card)
+    vals = plan.vals.reshape(-1, 128)
+    live = (plan.rel_tile.reshape(-1) >= 0) & (plan.slice_of.reshape(-1) >= 0)
+    s = np.arange(vals.shape[0])
+    cols = ((plan.tile_base.astype(np.int64)[s // plan.chunk]
+             + plan.rel_tile.reshape(-1))[:, None] * 128
+            + plan.lane_idx.reshape(vals.shape))
+    col = int(cols[live[:, None] & (vals == 0)][0])
+    v = op.vals.clone().reshape(vals.shape)
+    v[torch.from_numpy(live[:, None] & (cols == col)).to(card)] = 0
+    planes = (v.reshape(op.vals.shape),) + tuple(op._planes()[1:])
+    X = _block(card, plan.n_coltiles * 128, k, 9)
+    X[col] = float("inf")
+    y = S.sell_bench_spmm(*planes, X, iterations=3, **op._mat_kw())
+    yp = S.sell_bench_spmm_plain(*planes, X, iterations=3, **op._mat_kw())
+    torch.cuda.synchronize()
+    assert torch.isfinite(y).all() and torch.isfinite(yp).all()
+    assert _rel(y, yp) <= TOL
+
+
+@pytest.mark.parametrize("what", ["X", "vals"])
+def test_kcol_bench_misaligned_view_raises(card, what):
+    """K2 with k columns takes K1-with-k's alignment rule: an X view one
+    element off at k = 8, or a values plane one element off, is refused
+    with "misaligned address" and counts no launch; at k = 6 the same X
+    view launches and equals the plain version."""
+    plan = _route_plan("relsl")
+    op = S.SellSpMV(plan, device=card)
+    planes, kw = list(op._planes()), op._mat_kw()
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    fn = S.sell_bench_spmm
+    for k in (8, 6):
+        X = _block(card, plan.n_coltiles * 128, k, 10)
+        args = list(planes)
+        if what == "X":
+            X = shifted(X)
+        else:
+            args[0] = shifted(args[0])
+        before = fn.launches
+        if what == "X" and k == 6:
+            y = fn(*args, X, iterations=2, **kw)
+            torch.cuda.synchronize()
+            assert fn.launches == before + 1
+            assert _rel(y, S.sell_bench_spmm_plain(
+                *args, X, iterations=2, **kw)) <= TOL
+            continue
+        with pytest.raises(RuntimeError, match="misaligned"):
+            fn(*args, X, iterations=2, **kw)
+        assert fn.launches == before
+
+
 def test_matmat_and_autograd_on_card(card):
     rng = np.random.RandomState(5)
     n, m, nnz, k = 3000, 2500, 20000, 6
@@ -840,6 +947,42 @@ def test_chebyshev_refusals(card, what):
     torch.cuda.synchronize()
     assert P.fused_chebyshev.launches == before
     assert not (x.any() or r.any() or d.any() or qbuf.any())
+
+
+@pytest.mark.parametrize("what", ["q", "bounds"])
+def test_pcg_ic0_refusals(card, what):
+    """K11's warp-per-sublane SpMV phases refuse a q one word off 16 bytes
+    ("misaligned address") and a strict(L) bound one sublane past a chunk
+    boundary ("invalid argument"): nothing launches, no launch is counted,
+    the state is left as it was."""
+    from smvp_toolkit_tpu_torch.ops import cg_fused as C
+    from smvp_toolkit_tpu_torch.ops import pcg_fused as P
+    from smvp_toolkit_tpu_torch.ops.ilu import ic0
+
+    csr = _stencil_csr("poisson64", card)
+    op = S.sell_op_csr(csr)
+    fp = P._ic0_planes(op, ic0(csr))
+    n = len(fp.invd)
+    b = torch.ones(n, device=card)
+    x, r, p, z = (torch.zeros(n, device=card) for _ in range(4))
+    xin = torch.zeros(n, device=card)
+    qbuf = torch.zeros(n + 1, device=card)
+    q = qbuf[1:] if what == "q" else qbuf[:n]
+    s_a, s_l = fp.sublane_bounds[1] * 128, fp.sublane_bounds[2] * 128
+    if what == "bounds":
+        s_l += 128
+    before = P.fused_pcg_ic0.launches
+    with pytest.raises(RuntimeError, match=("misaligned" if what == "q"
+                                            else "invalid argument")):
+        C.launch("sell_pcg_ic0_kernel", op, route="relsl",
+                 planes=dict(vals=fp.vals, lidx=fp.lidx, relsl=fp.relsl,
+                             tile_base=fp.tile_base),
+                 b=b, x=x, r=r, p=p, q=q, xin=xin, iterations=3,
+                 invd=fp.invd, z=z, slots_l0=s_a, slots_lt0=s_l, sweeps=4)
+    torch.cuda.synchronize()
+    assert P.fused_pcg_ic0.launches == before
+    assert not (x.any() or r.any() or p.any() or z.any() or qbuf.any()
+                or xin.any())
 
 
 def test_cli_solve_launches_fused_kernels(card, tmp_path):
