@@ -10,11 +10,11 @@ Phases; any failure exits non-zero and prints no result line:
 1. The card's name and power limit, then the kernels' build from
    ``smvp_toolkit_tpu_torch/csrc`` (one nvcc per source, in parallel) with
    its time, the registers and spills of every warp-per-sublane kernel,
-   forward and N-iteration (K2-subwin, K5, K2-packed, and K10 and K11,
-   whose SpMV phases run that body, among them), of K1, K4 and K2 with k
-   columns, of K7 and of K8 on staged slice metadata, and of the
-   thread-per-slot solver K9 (``[regs]``, the most over their types and
-   column shapes), and each bench kernel's
+   forward and N-iteration (K2-subwin, K5, K2-packed, and K9 on both
+   routes, K10 and K11, whose SpMV phases run that body, among them), of
+   K1, K4, K5 and K2 with k columns, of K7 and of K8 on staged slice
+   metadata (``[regs]``, the most over their types and column shapes),
+   and each bench kernel's
    cooperative grid (the four routes' N-iteration kernels for both value
    and lane-index types on a line of their own). The plans of the
    four full-size matrices and of the ``gcn_arxiv`` graph (its normalised
@@ -258,8 +258,8 @@ Phases; any failure exits non-zero and prints no result line:
    schedule (``body`` ``by-slice``, ``units``), its launches and its
    library call queued behind the spin kernel, the host-paced times
    beside. The fused solvers at hpcg104 in float32 (K9 300 steps, K10
-   600, K11 100 at sweeps 4; K10 and K11 ``body`` ``warp-per-sublane``,
-   K9 ``thread-per-slot``): bound = one step's bytes (the planes of each
+   600, K11 100 at sweeps 4; ``body`` ``warp-per-sublane``): bound = one
+   step's bytes (the planes of each
    SpMV phase, K11: A + 3·(L + Lᵀ), and each state vector once) times the
    steps over the memory rate; yardstick: the same solve by the port's
    scan-loop solver (``models.solvers``) with ``torch.sparse.mm`` on
@@ -268,7 +268,8 @@ Phases; any failure exits non-zero and prints no result line:
    bytes (4 per slot); yardstick the float32 CSR call; K5's launches and
    its library call queued behind the spin kernel, the host-paced times
    beside, its entry's ``body`` ``warp-per-sublane`` (K2-packed too; K5
-   with k columns: ``thread-per-slot``). K8 and its
+   with k columns: ``warp-per-sublane k-column`` and its column
+   ``shape``, its launches and library call queued too). K8 and its
    N-iteration kernel on smoke-df64 (N = 200) and smoke-df64-f64 (N = 100),
    ``body`` ``staged-slices`` (K8's forward launches and their library
    calls queued behind the spin kernel, the host-paced times beside):
@@ -365,25 +366,26 @@ KERNELS = {
 # columns, which run its k-column form (sublane_mat_run); K7, which walks
 # the plan by slice; and K8 and its N-iteration kernel, which walk rows on
 # staged slice metadata. K2-packed runs K2's body (rel from the loaded
-# lane-0 word by a warp shuffle), K10 its SpMV phase and K11 its three on
-# the warp-per-sublane body, and K2 with k columns N sweeps of the
-# k-column form. K9 and K5 with k columns run one thread per slot. Phase 1
-# prints their registers and spills, and a phase-4 entry names its body,
-# so that a time can be told from the thread-per-slot (or, K8, per-row
-# chain) times these kernels had before.
+# lane-0 word by a warp shuffle), K9 its SpMV phase (merged word, and
+# sell_cg_split_kernel on split planes), K10 its SpMV phase and K11 its
+# three on the warp-per-sublane body; K5 with k columns the k-column form
+# on the packed word, and K2 with k columns N sweeps of it. No kernel runs
+# one thread per slot. Phase 1 prints their registers and spills, and a
+# phase-4 entry names its body, so that a time can be told from the
+# thread-per-slot (or, K8, per-row chain) times these kernels had before.
 WARP_PER_SUBLANE = ("sell_spmv_kernel", "sell_bench_kernel",
                     "sell_streamy_relsl_kernel",
                     "sell_bench_streamy_relsl_kernel",
                     "sell_streamy_kernel", "sell_bench_streamy_kernel",
                     "sell_split_kernel", "sell_bench_split_kernel",
                     "sell_bench_subwin_kernel", "sell_packed_kernel",
-                    "sell_bench_packed_kernel", "sell_chebyshev_kernel",
+                    "sell_bench_packed_kernel", "sell_cg_kernel",
+                    "sell_cg_split_kernel", "sell_chebyshev_kernel",
                     "sell_pcg_ic0_kernel")
 KCOL_PER_SUBLANE = ("sell_spmm_kernel", "sell_split_spmm_kernel",
-                    "sell_bench_spmm_kernel")
+                    "sell_packed_spmm_kernel", "sell_bench_spmm_kernel")
 BY_SLICE = ("sell_vals_grad_kernel",)
 STAGED_SLICES = ("sell_df64_kernel", "sell_bench_df64_kernel")
-THREAD_PER_SLOT_SOLVERS = ("sell_cg_kernel", "sell_cg_split_kernel")
 # K7's hub-row plans (tests/torch_kcol_plans.py): a row of 200 entries in
 # one column tile beside random entries, so that its slice's 200 live
 # sublanes are cut into several units of the by-slice schedule; on the
@@ -949,6 +951,21 @@ def _check_vals_grad_hub(np, torch):
                   flush=True)
 
 
+def _padding_column(np, name, plan):
+    """The zero-value contracts' column: that of the first padding lane (v
+    = 0) of a live sublane. Returns it with each slot's column, the live
+    sublanes' padding lanes and the live sublanes."""
+    vals = plan.vals.reshape(-1, 128)
+    live = (plan.rel_tile.reshape(-1) >= 0) & (plan.slice_of.reshape(-1) >= 0)
+    s = np.arange(vals.shape[0])
+    cols = ((plan.tile_base.astype(np.int64)[s // plan.chunk]
+             + plan.rel_tile.reshape(-1))[:, None] * 128
+            + plan.lane_idx.reshape(vals.shape))
+    pad = live[:, None] & (vals == 0)
+    _check(pad.any(), f"{name}: no padding lane in a live sublane")
+    return int(cols[pad][0]), cols, pad, live
+
+
 def _check_zero_value_contract(np, torch, name, op):
     """K1 / K4 with k columns skip zero-valued slots: X holds Inf in the
     column of a padding lane (v = 0 in a live sublane), and every real
@@ -960,14 +977,7 @@ def _check_zero_value_contract(np, torch, name, op):
 
     plan, kw = op.plan, op._mat_kw()
     vals = plan.vals.reshape(-1, 128)
-    live = (plan.rel_tile.reshape(-1) >= 0) & (plan.slice_of.reshape(-1) >= 0)
-    s = np.arange(vals.shape[0])
-    cols = ((plan.tile_base.astype(np.int64)[s // plan.chunk]
-             + plan.rel_tile.reshape(-1))[:, None] * 128
-            + plan.lane_idx.reshape(vals.shape))
-    pad = live[:, None] & (vals == 0)
-    _check(pad.any(), f"{name}: no padding lane in a live sublane")
-    col = int(cols[pad][0])
+    col, cols, pad, live = _padding_column(np, name, plan)
     real = live[:, None] & (vals != 0) & (cols == col)
     v = op.vals.clone().reshape(vals.shape)
     v[torch.from_numpy(real).to(op.device)] = 0
@@ -1788,7 +1798,7 @@ def _packed_timings(torch, S, name, op, xt, a, x2, errs, launches, bw):
 
 
 def _mat_forward_times(torch, fn, planes, Xt, kw, a, X, reps):
-    """K1 / K4 with k columns and their library call: the card's times
+    """K1, K4 or K5 with k columns and their library call: the card's times
     queued behind the spin kernel (``ms``, ``lib_ms``) and the host-paced
     ones, and the entry's ``body`` and column ``shape``."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
@@ -1807,8 +1817,9 @@ def _mat_forward_times(torch, fn, planes, Xt, kw, a, X, reps):
 def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
     """Phase 4 for the k-column kernels: at k = 8 on smoke and L2 (both
     dtypes, the N-iteration kernel with the CLI's N), at k = 256 and 40 on
-    gcn_arxiv (float32). K1's and K4's forward launches with k columns and
-    their library calls are timed queued behind the spin kernel."""
+    gcn_arxiv (float32), and K5 with k columns at k = 8 on smoke-packed.
+    K1's, K4's and K5's forward launches with k columns and their library
+    calls are timed queued behind the spin kernel."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
     dev = torch.device(DEVICE)
@@ -1862,19 +1873,23 @@ def phase_mat_timings(np, torch, ops, errs, launches, configs, gcn, bw):
                 pk, sl = op.packed_planes()
                 fn = S.sell_packed_spmm
                 config = PACKED_CONFIGS[name]
+                ms, lib_ms, extra = _mat_forward_times(
+                    torch, fn, (pk, sl, op.tile_base), Xt, kw, a, X,
+                    reps=20)
+                print(f"[time] {fn.kernel} {config} {dname} k={SPMM_K}: "
+                      f"{ms:.6f} ms queued, {ms / fwd_ms:.3f}x "
+                      f"{op.spmm_kernel.kernel} (queued {fwd_ms:.6f} ms) "
+                      f"on the same plan", flush=True)
                 entries.append(_entry(
                     fn.kernel, config, dname,
                     launches=launches[(fn.kernel, config, dname)],
-                    err=errs[(fn.kernel, name, dname, SPMM_K)],
-                    ms=_time_ms(lambda: fn(pk, sl, op.tile_base, Xt, **kw),
-                                reps=20),
+                    err=errs[(fn.kernel, name, dname, SPMM_K)], ms=ms,
                     plain_ms=_time_ms(lambda: S.sell_packed_spmm_plain(
                         pk, sl, op.tile_base, Xt, **kw), reps=3),
-                    lib_ms=_time_ms(lambda: torch.sparse.mm(a, X), reps=20),
+                    lib_ms=lib_ms,
                     nbytes=plan.traffic_bytes(2, x_bytes=2, k=SPMM_K,
                                               packed=True),
-                    flops=2.0 * plan.nnz * SPMM_K, bw=bw, k=SPMM_K,
-                    body="thread-per-slot"))
+                    flops=2.0 * plan.nnz * SPMM_K, bw=bw, k=SPMM_K, **extra))
         del a
     rng = np.random.default_rng(GCN_K)
     X = torch.from_numpy(rng.standard_normal((GCN_NODES, GCN_K)).astype(
@@ -2320,9 +2335,7 @@ def phase_solver_timings(np, torch, hp, launches, bw):
     )
     entries = []
     for kname, iters, fn, plain, lib, nbytes, flops, extra in cases:
-        extra = dict(extra, body=("warp-per-sublane"
-                                  if kname in WARP_PER_SUBLANE
-                                  else "thread-per-slot"))
+        extra = dict(extra, body="warp-per-sublane")
         ms = _time_ms(fn, reps=2, warmup=1)
         x = fn()
         torch.cuda.synchronize()
@@ -2454,6 +2467,43 @@ def _check_packed(np, torch, label, op, ks, errs, config=None):
           flush=True)
 
 
+def _check_packed_zero_value(np, torch, label, op):
+    """K5 with k columns skips zero-valued slots, as K1 with k columns
+    does: X holds Inf in the column of a padding lane (v = 0 in a live
+    sublane), and every real entry of that column gets value bits 0 in its
+    packed word (rel and lane kept), so only zero-valued slots read it. Y
+    must stay finite and within the SpMM tolerance of the plain version on
+    that plane, which skips them too."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    plan, kw = op.plan, op._mat_kw()
+    col, cols, pad, live = _padding_column(np, label, plan)
+    real = torch.from_numpy(live[:, None] & (plan.vals.reshape(-1, 128) != 0)
+                            & (cols == col)).to(op.device)
+    pk, sl = op.packed_planes()
+    zeroed = pk.clone().reshape(real.shape)
+    zeroed[real] = zeroed[real] & 0xFFFF  # value bits 0, rel and lane kept
+    zeroed = zeroed.reshape(pk.shape)
+    X = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (plan.n_coltiles * 128, SPMM_K)).astype(np.float32)).to(
+        op.device).to(torch.bfloat16)
+    X[col] = float("inf")
+    y = S.sell_packed_spmm(zeroed, sl, op.tile_base, X, **kw)
+    yp = S.sell_packed_spmm_plain(zeroed, sl, op.tile_base, X, **kw)
+    torch.cuda.synchronize()
+    tol, _ = _spmm_tolerance(torch, S, op)
+    e = _rel_err(y, yp)
+    what = f"sell_packed_spmm_kernel zero-value contract on {label}"
+    _check(bool(torch.isfinite(yp).all()), f"{what}: plain Y not finite")
+    _check(bool(torch.isfinite(y).all()), f"{what}: Y not finite")
+    _check(e <= tol, f"{what}: {e} > {tol}")
+    print(f"[check] {label:28s} bfloat16  sell_packed_spmm_kernel "
+          f"k={SPMM_K}: Inf in X column {col}, read by "
+          f"{int((pad & (cols == col)).sum())} padding lanes and "
+          f"{int(real.sum())} zeroed words: Y finite, vs plain {e:.3e}",
+          flush=True)
+
+
 def _check_packed_lanes(np, torch, label, op):
     """K5, and on a resident plan K2-packed (N = 2, 3) and K5 with k
     columns (k = 1, 3, 8), on ``op``'s packed plane with lanes 1..127
@@ -2521,7 +2571,8 @@ def phase_new_kernels(np, torch, plans, ops, errs):
     merged-word plan with and without a lo plane (the others refused),
     on cancelling rows and on the edge scales; K5 (k = 1, 2, 8, 17;
     streamed: k = 1) and K2-packed (N = 3) on every small merged-word
-    plan; K5 on the full-size smoke (k = 1, 8, K2-packed) and L1
+    plan; K5 on the full-size smoke (k = 1, 8, K2-packed; K5 with k
+    columns also with Inf in X at a padding lane's column) and L1
     (streamed) bf16 operators, their errors kept for phase 4."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
     from smvp_toolkit_tpu_torch.ops.precision import df_split, df_to_f64
@@ -2599,6 +2650,8 @@ def phase_new_kernels(np, torch, plans, ops, errs):
                       () if op.plan.y_block_slices else (SPMM_K,), errs,
                       config=name)
         _check_packed_lanes(np, torch, name, op)
+        if not op.plan.y_block_slices:
+            _check_packed_zero_value(np, torch, name, op)
 
 
 def _ulp_misses(np, y, ref) -> int:
@@ -3786,15 +3839,15 @@ def main() -> int:
               f"registers per thread: {regs}; spill stores {spills} bytes "
               f"(most in one type instance: {spilled})", flush=True)
         print("[regs] warp-per-sublane kernels, forward and N-iteration "
-              "(K10's and K11's SpMV phases among them), the k-column ones "
-              "(K2 with k columns among them), K7 by slice, K8 on staged "
-              "slices and the thread-per-slot solver K9 (most over their "
+              "(K9's on both routes, K10's and K11's SpMV phases among "
+              "them), the k-column ones (K5 and K2 with k columns among "
+              "them), K7 by slice and K8 on staged slices (most over their "
               "value and index types, lo plane and column shapes): "
               + "; ".join(
                   f"{k} {regs.get(k)} registers, spill stores "
                   f"{spilled.get(k, 0)} bytes"
                   for k in WARP_PER_SUBLANE + KCOL_PER_SUBLANE + BY_SLICE
-                  + STAGED_SLICES + THREAD_PER_SLOT_SOLVERS),
+                  + STAGED_SLICES),
               flush=True)
         from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 

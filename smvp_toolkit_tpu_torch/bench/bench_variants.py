@@ -59,14 +59,27 @@ the kept kernel and N calls of
 ``torch.sparse.mm``, each form first held at N = 1, 2 and 3 to the plain
 version, on the operator's plane and on one whose lanes 1..127 carry
 another rel than lane 0's (``disagreeing_lanes``; there the old walk must
-miss by more than 1e-3). With ``--solver`` it times K10
+miss by more than 1e-3). Then K5 with k columns' forms at k = 8 (the same
+file: the one-thread-per-slot warp walk it ran before, ``mat_sweep``
+under ``PackedLaneZero``, the k-column body under K5's staging of lane 0's
+word, ``PackedStage``, and the kept body built beside them, rel taken in
+step 1 from the loaded lane-0 word by a warp shuffle, ``PackedShuffle``)
+against the kept kernel and ``torch.sparse.mm`` on a float32 CSR
+tensor with k columns, all queued behind a spin kernel, each first held to
+the plain version within the plan's SpMM tolerance, on the operator's
+plane and on ``disagreeing_lanes``'. With ``--solver`` it times K9
 (``csrc/variants/sell_solver_variants.cu``: the one-thread-per-slot SpMV
 phase it ran before, the kept warp-per-sublane phase built beside it, and
 that phase gathering through L2 only) at hpcg104 (HPCG's 27-point stencil
-on 104³, ``chip_smoke.py``'s matrix), 600 steps, float32, against the
+on 104³, ``chip_smoke.py``'s matrix), 300 steps, float32, against the
 kept kernel, its plain version and the scan loop over ``torch.sparse.mm``
-(``models.solvers.chebyshev``), each first held at 30 steps to the plain
-version (<= 1e-4 of max |x|); then K11 (the same file: its three SpMV
+(``models.solvers.conjugate_gradient``), and on the split planes of
+Poisson 256² widened to a window of 512 tiles (``chip_smoke.py`` phase
+2's plan), 300 steps, against the kept kernel and its plain version; then
+K10 (the same file and forms) at hpcg104, 600 steps, against the kept
+kernel, its plain version and the scan loop (``models.solvers.
+chebyshev``); each first held at 30 steps to the plain version (<= 1e-4
+of max |x|); then K11 (the same file: its three SpMV
 phases on the old thread-per-slot walk, the kept warp-per-sublane item
 ranges, and those gathering through L2 only) at hpcg104, 100 steps,
 sweeps 4, against the kept kernel, its plain version and the scan loop
@@ -124,7 +137,7 @@ __all__ = ["VARIANTS", "ONE_BUFFER", "KCOL_VARIANTS", "KCOL_SHAPES",
            "VGRAD_VARIANTS", "VGRAD_CAPS", "VGRAD_SCHEDULED", "VGRAD_K",
            "SUBWIN_FORMS", "PACKED_VARIANTS", "PACKED_BENCH_FORMS",
            "DF64_VARIANTS", "DF64_FORMS", "SOLVER_VARIANTS",
-           "KBENCH_FORMS",
+           "SOLVER_LAUNCHERS", "PACKED_SPMM_FORMS", "KBENCH_FORMS",
            "plane_pointers", "vgrad_pointers", "packed_pointers",
            "df64_pointers", "kcol_cases", "spmm_tolerance",
            "disagreeing_lanes", "main"]
@@ -148,10 +161,17 @@ _VGRAD_SRC = _VARIANTS_DIR / "sell_vals_grad_variants.cu"
 _PACKED_SRC = _VARIANTS_DIR / "sell_packed_variants.cu"
 _DF64_SRC = _VARIANTS_DIR / "sell_df64_variants.cu"
 _SOLVER_SRC = _VARIANTS_DIR / "sell_solver_variants.cu"
-# Variant ids of sell_solver_variants.cu (K10 and K11), hpcg104's grid and
-# steps (K10; K11 at IC0_STEPS, IC0_SWEEPS sweeps).
+# Variant ids of sell_solver_variants.cu (K9, K10 and K11) and each
+# solver's launcher there, hpcg104's grid and steps (K10; K9 at CG_STEPS,
+# K11 at IC0_STEPS, IC0_SWEEPS sweeps), and K9's split-plane check: Poisson
+# POISSON_N² widened to a window of POISSON_WINDOW tiles.
 SOLVER_VARIANTS = {"walk": 0, "body": 1, "ldcg": 2}
+SOLVER_LAUNCHERS = {"K9": "sell_cg_variant_launch",
+                    "K10": "sell_chebyshev_variant_launch",
+                    "K11": "sell_pcg_ic0_variant_launch"}
 HPCG_N, SOLVER_STEPS, SOLVER_CHECK_STEPS = 104, 600, 30
+CG_STEPS = 300
+POISSON_N, POISSON_WINDOW = 256, 512
 IC0_STEPS, IC0_SWEEPS = 100, 4
 SOLVER_TOL = 1e-4
 # K2 with k columns' forms of sell_spmm_variants.cu
@@ -165,6 +185,9 @@ KBENCH_K, KBENCH_N = 8, 200
 PACKED_VARIANTS = {"walk": 0, "body": 1, "perslot": 2, "shfl": 3}
 PACKED_BENCH_FORMS = {"walk": 0, "staged": 1, "shfl": 2}
 PACKED_BENCH_N = 200
+# K5 with k columns' forms there (sell_packed_spmm_variant_launch) and k.
+PACKED_SPMM_FORMS = {"walk": 0, "staged": 1, "shfl": 2}
+PACKED_SPMM_K = 8
 PACKED_CONFIGS = {"smoke-packed": "smoke", "L1-packed": "L1"}
 # Variant ids of sell_df64_variants.cu (K8) and the staged forms timed:
 # (U steps in flight, S slices a block).
@@ -227,6 +250,9 @@ _PACKED_SIGNATURES = {
     "sell_bench_packed_variant_launch": (ctypes.c_int, [ctypes.c_int] + [
         ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_longlong] + [
         ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    "sell_packed_spmm_variant_launch": (ctypes.c_int, [ctypes.c_int] + [
+        ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]),
     "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _DF64_SIGNATURES = {
@@ -918,6 +944,8 @@ def run_packed(names=tuple(PACKED_CONFIGS)) -> dict:
         if not plan.y_block_slices:
             out[f"{name}/bfloat16/K2-packed"] = _packed_bench_forms(
                 torch, lib, S, op, xt, a, x2, stream)
+            out[f"{name}/bfloat16/K5-k{PACKED_SPMM_K}"] = _packed_spmm_forms(
+                torch, lib, S, op, a, stream)
         del op, a, pk, sl
         torch.cuda.empty_cache()
     return out
@@ -979,9 +1007,133 @@ def _packed_bench_forms(torch, lib, S, op, xt, a, x2, stream) -> dict:
     return dict(iterations=n, ms=times, errors=errs, disagreeing_lanes=lanes)
 
 
+def _packed_spmm_forms(torch, lib, S, op, a, stream) -> dict:
+    """K5 with k columns' forms on ``op``'s resident packed planes at k =
+    PACKED_SPMM_K: each held to the plain version within the plan's SpMM
+    tolerance on the operator's plane and on ``disagreeing_lanes``', then
+    timed queued in turns against the kept kernel and the float32 CSR
+    call with k columns."""
+    pk, sl = op.packed_planes()
+    kw = op._mat_kw()
+    k = PACKED_SPMM_K
+    bad = torch.from_numpy(disagreeing_lanes(
+        pk.cpu().numpy(), sl.cpu().numpy(), op.tile_base.cpu().numpy(),
+        chunk=op.plan.chunk, n_coltiles=op.plan.n_coltiles)).to(op.device)
+    X = torch.from_numpy(np.random.default_rng(k).standard_normal(
+        (op.plan.n_coltiles * S.LANES, k)).astype(np.float32)).to(op.device)
+    Xt = X.to(torch.bfloat16)
+    Xl = X[: op.plan.shape[1]]
+    n_out = kw["n_slices"] * S.LANES
+
+    def form(name, plane=pk):
+        Y = torch.zeros(n_out, k, dtype=torch.float32, device=op.device)
+        rc = lib.sell_packed_spmm_variant_launch(
+            PACKED_SPMM_FORMS[name], plane.data_ptr(), sl.data_ptr(),
+            op.tile_base.data_ptr(), Xt.data_ptr(), Y.data_ptr(),
+            plane.numel(), kw["chunk"], k, 0, stream)
+        if rc:
+            raise RuntimeError(f"K5 with k columns form {name}: CUDA error "
+                               f"{rc} ({lib.sell_error_string(rc).decode()})")
+        return Y
+
+    runs = {"kept": lambda plane=pk: S.sell_packed_spmm(
+        plane, sl, op.tile_base, Xt, **kw)}
+    runs.update({f: (lambda plane=pk, f=f: form(f, plane))
+                 for f in PACKED_SPMM_FORMS})
+    tol, _ = spmm_tolerance(op.plan)
+    errs = {}
+    for name, fn in runs.items():
+        errs[name] = max(_rel(fn(plane), S.sell_packed_spmm_plain(
+            plane, sl, op.tile_base, Xt, **kw)) for plane in (pk, bad))
+    torch.cuda.synchronize()
+    bad_errs = {name: e for name, e in errs.items() if not e <= tol}
+    if bad_errs:
+        raise SystemExit(f"bench_variants: K5 with k columns: {bad_errs} > "
+                         f"{tol}")
+    fns = {name: fn for name, fn in runs.items()}
+    fns["library"] = lambda: torch.sparse.mm(a, Xl)
+    times = _turns(torch, fns)
+    print(f"[packed] K5 with k columns, k = {k} (errors on the plane and "
+          f"on disagreeing lanes {max(errs.values()):.3e} <= {tol:.3e})",
+          flush=True)
+    _print_times("packed", times)
+    return dict(k=k, ms=times, errors=errs)
+
+
+def _solver_lib(C):
+    """The solver variants' library, its launchers typed as the kept one."""
+    signatures = {fn: C._SIGNATURES["sell_solver_launch"]
+                  for fn in SOLVER_LAUNCHERS.values()}
+    signatures["sell_error_string"] = (ctypes.c_char_p, [ctypes.c_int])
+    lib, log = _build_variants(_SOLVER_SRC, signatures)
+    print(f"[regs] solver variants: {_registers(log)}", flush=True)
+    return lib
+
+
+def _cg_variants(torch, lib, M, C, op, b, steps, mv=None, a=None) -> dict:
+    """K9's variants on ``op`` (its route: merged word or split planes)
+    against the kept kernel and its plain version, and, given the float32
+    CSR operand ``a``, the scan loop over it; each first held at
+    SOLVER_CHECK_STEPS steps to the plain version."""
+    n = op.shape[0]
+    launcher = getattr(lib, SOLVER_LAUNCHERS["K9"])
+
+    def variant(name, s):
+        return C.cg_launch(op, b, s, variant=(
+            launcher, SOLVER_VARIANTS[name]))[:n]
+
+    runs = {"kept": lambda s: C.fused_cg(op, b, s)}
+    runs.update({v: (lambda s, v=v: variant(v, s)) for v in SOLVER_VARIANTS})
+    xp = C.fused_cg_plain(op, b, SOLVER_CHECK_STEPS)
+    errs = {k: _rel(fn(SOLVER_CHECK_STEPS), xp) for k, fn in runs.items()}
+    torch.cuda.synchronize()
+    bad = {k: e for k, e in errs.items() if not e <= SOLVER_TOL}
+    if bad:
+        raise SystemExit(f"bench_variants: K9 on {op.route}: {bad}")
+    fns = {k: (lambda fn=fn: fn(steps)) for k, fn in runs.items()}
+    if a is not None:
+        fns["library"] = lambda: M.conjugate_gradient(a, b, num_iters=steps,
+                                                      spmv=mv)
+    times = {k: [] for k in fns}
+    for order in (list(fns), list(fns)[::-1]):
+        for k in order:
+            times[k].append(_time_ms(torch, fns[k], 1))
+    t0 = time.perf_counter()
+    C.fused_cg_plain(op, b, steps)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    print(f"[solver] K9 {op.route} float32, {steps} steps (errors at "
+          f"{SOLVER_CHECK_STEPS} steps {max(errs.values()):.3e} <= "
+          f"{SOLVER_TOL}); plain {plain_ms:.3f} ms", flush=True)
+    _print_times("solver", times)
+    return dict(route=op.route, steps=steps, ms=times, errors=errs,
+                plain_ms=plain_ms)
+
+
+def _poisson_split(torch, S, dev):
+    """K9's split-plane operator: Poisson POISSON_N² (float32) rewindowed to
+    POISSON_WINDOW tiles, past the merged word's 511, and b = 1."""
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.ops.sell_plan import rewindow_plan
+    from smvp_toolkit_tpu_torch.utils.synth import poisson2d
+
+    m = poisson2d(POISSON_N).tocoo()
+    csr = csr_encode(COOMatrix.from_numpy(
+        m.row, m.col, m.data.astype(np.float32), shape=m.shape, pad_to=128,
+        device=dev))
+    op = S.SellSpMV(rewindow_plan(S.sell_op_csr(csr).plan, POISSON_WINDOW),
+                    device=dev)
+    if op.route != "split":
+        raise SystemExit(f"bench_variants: Poisson {POISSON_N}² widened "
+                         f"runs on {op.route}")
+    return op, torch.ones(m.shape[0], device=dev)
+
+
 def run_solver() -> dict:
-    """K10's and K11's variants at hpcg104 against the kept kernels,
-    their plain versions and the scan loops over the float32 CSR call."""
+    """K9's, K10's and K11's variants at hpcg104 against the kept kernels,
+    their plain versions and the scan loops over the float32 CSR call,
+    and K9's on split planes."""
     import torch
 
     from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
@@ -994,12 +1146,7 @@ def run_solver() -> dict:
     from smvp_toolkit_tpu_torch.utils.synth import hpcg_stencil
 
     _build.build(["sell_solvers"])
-    signatures = {
-        "sell_chebyshev_variant_launch": C._SIGNATURES["sell_solver_launch"],
-        "sell_pcg_ic0_variant_launch": C._SIGNATURES["sell_solver_launch"],
-        "sell_error_string": (ctypes.c_char_p, [ctypes.c_int])}
-    lib, log = _build_variants(_SOLVER_SRC, signatures)
-    print(f"[regs] solver variants: {_registers(log)}", flush=True)
+    lib = _solver_lib(C)
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
     m = hpcg_stencil(HPCG_N).tocoo()
@@ -1022,6 +1169,13 @@ def run_solver() -> dict:
 
     def mv(mat, v):
         return torch.sparse.mm(mat, v[:, None])[:, 0]
+
+    out = {"hpcg104/float32/K9": _cg_variants(torch, lib, M, C, op, b,
+                                              CG_STEPS, mv, a)}
+    sop, sb = _poisson_split(torch, S, dev)
+    out[f"poisson{POISSON_N}-widened/float32/K9"] = _cg_variants(
+        torch, lib, M, C, sop, sb, CG_STEPS)
+    del sop, sb
 
     def variant(name, steps):
         return P.chebyshev_launch(
@@ -1053,8 +1207,8 @@ def run_solver() -> dict:
           f"{max(errs.values()):.3e} <= {SOLVER_TOL}); plain "
           f"{plain_ms:.3f} ms", flush=True)
     _print_times("solver", times)
-    out = {"hpcg104/float32": dict(steps=s, ms=times, errors=errs,
-                                   plain_ms=plain_ms)}
+    out["hpcg104/float32"] = dict(steps=s, ms=times, errors=errs,
+                                  plain_ms=plain_ms)
     out["hpcg104/float32/K11"] = _ic0_variants(torch, lib, M, P, csr, op, b,
                                                (m.row, m.col, m.data,
                                                 m.shape), mv)
@@ -1284,13 +1438,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--subwin", action="store_true",
                    help="time K2-subwin's forms on smoke instead")
     p.add_argument("--packed", action="store_true",
-                   help="time K5's variants on smoke-packed and L1-packed "
+                   help="time K5's variants on smoke-packed and L1-packed, "
+                   "K2-packed's and K5 with k columns' on smoke-packed, "
                    "instead")
     p.add_argument("--df64", action="store_true",
                    help="time K8's variants on smoke-df64 and "
                    "smoke-df64-f64 instead")
     p.add_argument("--solver", action="store_true",
-                   help="time K10's and K11's variants at hpcg104 instead")
+                   help="time K9's, K10's and K11's variants at hpcg104 "
+                   "(K9 also on split planes) instead")
     p.add_argument("--kbench", action="store_true",
                    help="time K2 with k columns' forms on smoke instead")
     p.add_argument("--out", help="write every time to this JSON file")

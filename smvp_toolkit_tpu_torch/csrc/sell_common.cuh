@@ -5,12 +5,13 @@
 // K3-split, K2 streamed split, K4 and K2 split on the split planes,
 // K2-subwin on the merged word under its window rule, SubwinWord, K5 and
 // K2-packed on the packed word, PackedStage and PackedShuffle; and the
-// SpMV phases of K10 and K11 in csrc/sell_solvers.cu), its k-column form
-// (`sublane_mat_run`: K1 and K4 with k columns, and K2 with k columns in
-// its N-iteration walk `sublane_mat_bench_sweeps`), and one thread per slot
-// (`slot`: K9, the fused CG; `warp_slots`, a warp walk over k columns: K5
-// with k columns under PackedLaneZero). The decode policies, the slot
-// coordinates and the cooperative grid also serve the values gradient
+// SpMV phases of K9, K10 and K11 in csrc/sell_solvers.cu) and its k-column
+// form (`sublane_mat_run`: K1 and K4 with k columns, K5 with k columns on
+// the packed word, and K2 with k columns in its N-iteration walk
+// `sublane_mat_bench_sweeps`). No kernel of the package walks one thread
+// per slot any more: those walks live in csrc/variants/slot_walks.cuh,
+// where only the variants include them. The decode policies and the
+// cooperative grid also serve the values gradient
 // (csrc/sell_vals_grad.cu), the fused solvers (csrc/sell_solvers.cu) and
 // the double-float kernels (csrc/sell_df64.cu).
 //
@@ -31,17 +32,11 @@
 // padding sublanes the last real tile, so their rel is live and only the
 // slice marks them.
 //
-// One thread per slot: 128 consecutive threads cover one sublane, so the
-// plane loads are coalesced and the sublane's metadata is one broadcast
-// load. The x value is gathered directly and the product lands in y with
-// a float atomicAdd (summation order varies from run to run: compare y
-// with a tolerance, never bitwise). Zero products (padding slots) skip
-// the atomic; NaN and Inf products still land. Values are f32 or bf16
-// storage, products and sums f32. Tile, column, slot and row indices are
-// 64-bit: a window may span the whole column range (rel then needs the
-// full int32) and plans of 180M slots occur. Each slot pays for that: a
-// 64-bit divide for its chunk, its chunk's and sublane's metadata loads
-// and 64-bit address arithmetic.
+// Values are f32 or bf16 storage, products and sums f32, and the atomics
+// make the summation order vary from run to run: compare y with a
+// tolerance, never bitwise. Tile, column, slot and row indices are 64-bit
+// where they can pass 2^31: a window may span the whole column range (rel
+// then needs the full int32) and plans of 180M slots occur.
 //
 // One warp per sublane (the section below `sublane_run`): a block takes a
 // run of sublanes inside one chunk, reads the chunk's metadata once and
@@ -119,10 +114,10 @@ struct ReadOnly {
   }
 };
 
-// A plain load (ld.global, L1 allocating), as the one-thread-per-slot
-// body gathers x: coherent with what other blocks wrote before the last
-// grid.sync(). K10 and K11 gather their SpMV input so, since their vector
-// phases rewrite that input between two SpMV phases of one launch.
+// A plain load (ld.global, L1 allocating): coherent with what other blocks
+// wrote before the last grid.sync(). K9, K10 and K11 gather their SpMV
+// input so, since their vector phases rewrite that input between two SpMV
+// phases of one launch.
 struct Coherent {
   template <typename T>
   __device__ __forceinline__ static T load(const T* p) {
@@ -191,10 +186,36 @@ struct ValuePlanes {
     load_values<Load>(a.vals + p, v);
     load_lanes<Load>(a.lidx + p, l);
   }
+  // The k-column body's slot loads (sublane_mat_run), at slot base + off of
+  // the planes. Step 1: the four values from slot base + off on (off a
+  // multiple of four), one vector load through the read-only path, for the
+  // nonzero ballot. Step 3: slot base + i's value and lane index, through
+  // the read-only path, so that they hit the line step 1 brought into L1.
+  template <class A>
+  __device__ __forceinline__ static void mat_values(const A& a,
+                                                    long long base, int off,
+                                                    float (&v)[4]) {
+    load_values<ReadOnly>(a.vals + base + off, v);
+  }
+  template <class A>
+  __device__ __forceinline__ static float mat_slot(const A& a, long long base,
+                                                   int i, int* lane) {
+    const float v = to_f32(__ldg(a.vals + base + i));
+    *lane = __ldg(a.lidx + base + i);
+    return v;
+  }
+  // The planes' alignment for step 1's vector loads: the values plane to
+  // four elements.
+  template <class A>
+  static bool mat_planes_aligned(const A& a) {
+    return reinterpret_cast<uintptr_t>(a.vals) % (4 * sizeof(*a.vals)) == 0;
+  }
 };
 
 // Each policy decodes slot i: false when its sublane is dead, else its
-// rel and slice; value() and lane_index() read the slot's value and lane.
+// rel and slice (the values gradient's staging, csrc/sell_vals_grad.cu);
+// value() and lane_index() read the slot's value and lane (the old
+// one-thread-per-slot walks, csrc/variants/slot_walks.cuh).
 struct MergedWord : ValuePlanes {
   template <class A>
   __device__ __forceinline__ static bool decode(const A& a, long long i,
@@ -248,67 +269,19 @@ constexpr int kPackRelShift = 7;
 constexpr unsigned kPackLaneMask = 127u;
 constexpr unsigned kPackValueMask = 0xFFFF0000u;
 
-// The packed word decoded per slot: rel from slot i's own word. Only the
-// old one-thread-per-slot walks in csrc/variants/ run it (K5's and
-// K2-packed's, timed against the kept kernels); every kernel of the
-// package reads a sublane's rel from its lane-0 word (PackedStage,
-// PackedShuffle, PackedLaneZero).
-struct PackedWord {
-  template <class A>
-  __device__ __forceinline__ static bool decode(const A& a, long long i,
-                                                long long* rel,
-                                                long long* slice) {
-    const unsigned r =
-        (static_cast<unsigned>(a.meta[i]) >> kPackRelShift) & kRelDead;
-    const int sl = a.slice[i >> 7];
-    if (r == kRelDead || sl < 0) return false;
-    *rel = r;
-    *slice = sl;
-    return true;
-  }
-  template <class A>
-  __device__ __forceinline__ static float value(const A& a, long long i) {
-    return __uint_as_float(static_cast<unsigned>(a.meta[i]) &
-                           kPackValueMask);
-  }
-  template <class A>
-  __device__ __forceinline__ static long long lane_index(const A& a,
-                                                         long long i) {
-    return static_cast<long long>(static_cast<unsigned>(a.meta[i]) &
-                                  kPackLaneMask);
-  }
-};
-
-// K5 with k columns (mat_sweep, csrc/sell_packed.cu): the packed word with
-// rel read from the sublane's lane-0 word, as the JAX _unpack_plane reads
-// it (w[:, 0:1]) and as the plain version does; the slice from slice_of,
-// the value and lane index from the slot's own word. A warp's 32 slots lie
-// in one sublane, so the lane-0 load is one broadcast address a warp.
-struct PackedLaneZero : PackedWord {
-  template <class A>
-  __device__ __forceinline__ static bool decode(const A& a, long long i,
-                                                long long* rel,
-                                                long long* slice) {
-    const unsigned r =
-        (static_cast<unsigned>(a.meta[i & ~127LL]) >> kPackRelShift) &
-        kRelDead;
-    const int sl = a.slice[i >> 7];
-    if (r == kRelDead || sl < 0) return false;
-    *rel = r;
-    *slice = sl;
-    return true;
-  }
-};
-
-// K5's staging policy on the warp-per-sublane body (csrc/sell_packed.cu).
-// A sublane's rel is read from its lane-0 word only, as the JAX
+// K5's staging policy on the warp-per-sublane body (csrc/sell_packed.cu),
+// and the base of PackedShuffle, K5 with k columns' and K2-packed's. A
+// sublane's rel is read from its lane-0 word only, as the JAX
 // _unpack_plane reads it (w[:, 0:1]) and as the plain version does, and
-// its slice from slice_of; -1 in both when either is dead. The planner
-// writes one rel into all 128 words of a sublane, so on the operator's own
-// planes this is the per-slot decode's result; on a plane whose lanes
-// disagree with lane 0 it is the reference's. The slot loads are one
-// 16-byte load of four words: value bits 16..31 (the bf16 value's float32
-// bits), lane index bits 0..6.
+// its slice from slice_of; -1 in both when either is dead. The planner writes one rel into all 128
+// words of a sublane, so on the operator's own planes this is the per-slot
+// decode's result; on a plane whose lanes disagree with lane 0 it is the
+// reference's. The slot loads are one 16-byte load of four words: value
+// bits 16..31 (the bf16 value's float32 bits), lane index bits 0..6; in
+// the k-column form step 1 loads four words through the read-only path
+// and keeps their value bits, and step 3 loads one slot's word there (the
+// form with PackedStage's staging is a variant,
+// csrc/variants/sell_packed_variants.cu).
 struct PackedStage {
   static constexpr bool kLateRel = false;
   template <class A>
@@ -340,15 +313,37 @@ struct PackedStage {
                                                     int (&l)[4]) {
     unpack(Load::load(reinterpret_cast<const int4*>(a.meta + p)), v, l);
   }
+  template <class A>
+  __device__ __forceinline__ static void mat_values(const A& a,
+                                                    long long base, int off,
+                                                    float (&v)[4]) {
+    int l[4];
+    unpack(__ldg(reinterpret_cast<const int4*>(a.meta + base + off)), v, l);
+  }
+  template <class A>
+  __device__ __forceinline__ static float mat_slot(const A& a, long long base,
+                                                   int i, int* lane) {
+    const unsigned w = static_cast<unsigned>(__ldg(a.meta + base + i));
+    *lane = static_cast<int>(w & kPackLaneMask);
+    return __uint_as_float(w & kPackValueMask);
+  }
+  // The packed plane to 16 bytes (step 1's loads of four words).
+  template <class A>
+  static bool mat_planes_aligned(const A& a) {
+    return reinterpret_cast<uintptr_t>(a.meta) % 16 == 0;
+  }
 };
 
 // PackedStage without the staging load of lane 0's word: the block stages
 // the slice alone (rel 0 for a live slice, -1 in both for a dead one), and
 // each warp takes rel from the lane-0 word it has just loaded (thread 0's
 // first word) with one __shfl_sync (load_slots_rel, sublane_run's late-rel
-// hook); a dead lane-0 rel skips the sublane's products, not its load. The
-// same function as PackedStage on any plane; K2-packed's policy, 2.9%
-// faster than PackedStage there (csrc/sell_packed.cu).
+// hook; mat_values_rel, sublane_mat_run's, in its step 1 through the
+// read-only path); a dead lane-0 rel skips the sublane's products (in the
+// k-column form: clears its mask), not its load. The same function as
+// PackedStage on any plane; K2-packed's policy, 2.9% faster than
+// PackedStage there, and K5 with k columns', 0.9-1.0% faster
+// (csrc/sell_packed.cu).
 struct PackedShuffle : PackedStage {
   static constexpr bool kLateRel = true;
   template <class A>
@@ -370,6 +365,14 @@ struct PackedShuffle : PackedStage {
         kFull, (static_cast<unsigned>(q.x) >> kPackRelShift) & kRelDead, 0);
     return r == kRelDead ? -1 : static_cast<int>(r);
   }
+  template <class A>
+  __device__ __forceinline__ static int mat_values_rel(const A& a,
+                                                       long long base,
+                                                       int off,
+                                                       float (&v)[4]) {
+    int l[4];
+    return load_slots_rel<ReadOnly>(a, base + off, v, l);
+  }
 };
 
 struct ResidentY {
@@ -386,52 +389,15 @@ struct StreamedY {
   }
 };
 
-template <class Decode, class YAddr, typename V, typename L>
-__device__ __forceinline__ void slot(const Args<V, L>& a, long long i) {
-  const long long lane = i & (kLanes - 1);
-  long long rel, slice;
-  if (!Decode::decode(a, i, &rel, &slice)) return;
-  const long long c = (i >> 7) / a.chunk;
-  const long long col =
-      (static_cast<long long>(a.tile_base[c]) + rel) * kLanes +
-      Decode::lane_index(a, i);
-  const float p = Decode::value(a, i) * to_f32(a.x[col]);
-  if (p != 0.0f) {
-    atomicAdd(a.y + (YAddr::base(a, c) + slice) * kLanes + lane, p);
-  }
-}
-
-// The one-thread-per-slot N-iteration body (one cooperative launch; only
-// csrc/variants/ runs it, as the walk K2 and K2-packed ran before): each
-// iteration zeroes ALL of y in a grid-stride loop, grid.sync(), sweeps
-// every slot, grid.sync(). The TPU grid runs in order and re-zeroes y when
-// an iteration (or, streamed, a y block) starts; on Hopper blocks run in no
-// order, and zeroing all of y keeps a block that no chunk visits at zero.
-template <class Decode, class YAddr, typename V, typename L>
-__device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
-  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
-  const long long tid =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (int it = 0; it < a.iterations; ++it) {
-    for (long long i = tid; i < a.n_out; i += stride) a.y[i] = 0.0f;
-    grid.sync();
-    for (long long i = tid; i < a.n_slots; i += stride) {
-      slot<Decode, YAddr>(a, i);
-    }
-    grid.sync();
-  }
-}
-
 // ---------------------------------------------------------------------------
 // One warp per sublane, under a staging policy (MergedWord: K1 and K2 on a
 // resident y, K3-relsl and K2 streamed on a streamed one, and the SpMV
-// phases of K10 and K11; SplitPlanes: K3-split and K2 streamed split on a streamed y, K4
-// and K2 split on a resident one; SubwinWord: K2-subwin on a resident y;
-// PackedStage: K5 on either; PackedShuffle: K2-packed on a resident one),
-// a y policy, the plane loads' cache policy (Load) and the x gathers'
-// (Gather). The
-// staging policy stages a sublane (stage) and loads its slots (load_slots:
+// phases of K9, K10 and K11; SplitPlanes: K3-split and K2 streamed split
+// on a streamed y, K4, K2 split and K9's SpMV phase on a resident one;
+// SubwinWord: K2-subwin on a resident y; PackedStage: K5 on either;
+// PackedShuffle: K2-packed on a resident one), a y policy, the plane
+// loads' cache policy (Load) and the x gathers' (Gather). The staging
+// policy stages a sublane (stage) and loads its slots (load_slots:
 // the values and lane planes, or the packed words); a policy with kLateRel
 // stages only the slice and gives rel after the slot load (load_slots_rel:
 // PackedShuffle, rel from the loaded lane-0 word by a warp shuffle).
@@ -452,15 +418,15 @@ __device__ __forceinline__ void bench_sweeps(const Args<V, L>& a) {
 // (red.global.add.v4.f32, sm_90), left out when all four products are
 // exactly zero. Every slot of a live sublane is multiplied, padding (v =
 // 0) included, so Inf or NaN in x at a padding lane's column lands NaN in
-// its row, as in the one-thread-per-slot body; padding lanes carry lane
+// its row, as the one-thread-per-slot walk did; padding lanes carry lane
 // index 0, so their gathers read one address per sublane. The plane loads
 // are streaming (the Streaming policy: read once, kept out of L1, where
 // the gathered x tiles stay). The gathers go through the read-only path
 // (ReadOnly, __ldg: ld.global.nc) where no thread writes x during the
-// launch, which holds for every forward and N-iteration kernel; K10 and
-// K11 rewrite their SpMV input between grid.sync()s, and the non-coherent
-// path may then return the last step's x, so they gather with plain loads
-// (Coherent).
+// launch, which holds for every forward and N-iteration kernel; K9, K10
+// and K11 rewrite their SpMV input between grid.sync()s, and the
+// non-coherent path may then return the last step's x, so they gather with
+// plain loads (Coherent).
 //
 // Planes must be aligned for the vector loads (values to 4 elements, lane
 // indices to 4 elements, the packed plane and y to 16 bytes), and whole
@@ -656,11 +622,11 @@ bool sublane_aligned(const Args<V, L>& a) {
 
 // ---------------------------------------------------------------------------
 // Everything a k-column kernel reads (csrc/sell_spmm.cu,
-// csrc/sell_vals_grad.cu). X, Y and G are row-major (rows, k): row r's k
+// csrc/sell_packed.cu, csrc/sell_vals_grad.cu). X, Y and G are row-major (rows, k): row r's k
 // values are contiguous, element (r, j) at r * k + j. Resident y only.
 template <typename V, typename L>
 struct MatArgs {
-  const V* vals;          // null for the values-gradient kernel
+  const V* vals;          // null for the values gradient and packed planes
   const L* lidx;
   const int* meta;        // merged word, rel_tile (split) or packed word
   const int* slice;       // slice_of (split and packed planes only)
@@ -675,67 +641,17 @@ struct MatArgs {
   int iterations;         // bench kernel only
 };
 
-// Column and row of slot i, false when its sublane is dead.
-template <class Decode, class A>
-__device__ __forceinline__ bool slot_coords(const A& a, long long i,
-                                            long long* col, long long* row) {
-  long long rel, slice;
-  if (!Decode::decode(a, i, &rel, &slice)) return false;
-  const long long c = (i >> 7) / a.chunk;
-  *col = (static_cast<long long>(a.tile_base[c]) + rel) * kLanes +
-         Decode::lane_index(a, i);
-  *row = slice * kLanes + (i & (kLanes - 1));
-  return true;
-}
-
-// The one-thread-per-slot k-column warp walk (K5 with k columns; K1, K4
-// and K2 with k columns ran it before sublane_mat_run, and the old walks in
-// csrc/variants/ still do): the warp of slot i adds its live nonzero
-// slots' products into Y. One thread decodes each slot (the plane
-// loads stay coalesced); the warp ballots its live nonzero slots and walks
-// them one at a time, the slot's value, X row and Y row broadcast with
-// __shfl_sync, its 32 lanes covering the k columns 32 at a time (float
-// atomics). All 32 lanes must call it (n_slots is a multiple of 128, so a
-// warp's slots are all in range or all out of range).
-template <class Decode, typename V, typename L>
-__device__ __forceinline__ void warp_slots(const MatArgs<V, L>& a,
-                                           long long i) {
-  const int lane = threadIdx.x & 31;
-  long long col = 0, row = 0;
-  float v = 0.0f;
-  bool live = slot_coords<Decode>(a, i, &col, &row);
-  if (live) {
-    v = Decode::value(a, i);
-    live = v != 0.0f;
-  }
-  const long long k = a.k;
-  unsigned todo = __ballot_sync(kFull, live);
-  while (todo) {
-    const int t = __ffs(todo) - 1;
-    todo &= todo - 1;
-    const float vt = __shfl_sync(kFull, v, t);
-    const V* xr = a.x + __shfl_sync(kFull, col, t) * k;
-    float* yr = a.out + __shfl_sync(kFull, row, t) * k;
-    for (long long j = lane; j < k; j += 32) {
-      atomicAdd(yr + j, vt * to_f32(xr[j]));
-    }
-  }
-}
-
-// The k-column forward sweep: the warps of a one-thread-per-slot grid.
-template <class Decode, typename V, typename L>
-__device__ __forceinline__ void mat_sweep(const MatArgs<V, L>& a) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if ((i & ~31LL) < a.n_slots) warp_slots<Decode>(a, i);
-}
-
 // ---------------------------------------------------------------------------
 // The k-column body on one warp per sublane (`sublane_mat_run`: K1 and K4
 // with k columns, and K2 with k columns in the N-iteration walk
-// sublane_mat_bench_sweeps, csrc/sell_spmm.cu), under a staging policy
-// (MergedWord or SplitPlanes), a column shape MatShape<T, W, P> and a
-// resident Y.
+// sublane_mat_bench_sweeps, csrc/sell_spmm.cu; K5 with k columns,
+// csrc/sell_packed.cu), under a staging policy (MergedWord, SplitPlanes or
+// PackedShuffle), a column shape MatShape<T, W, P> and a resident Y. The
+// policy stages a sublane (stage) and loads its slots (mat_values in step
+// 1, mat_slot in step 3: the values and lane planes, or the packed words);
+// a policy with kLateRel stages only the slice and gives rel from step 1's
+// load (mat_values_rel: PackedShuffle, rel from the loaded lane-0 word by
+// a warp shuffle; a dead one clears the sublane's mask).
 //
 // A block takes a work item of sublane_run (up to kRun sublanes of chunk c,
 // blockIdx.x) and a column block (blockIdx.y: kCols = T * W * P columns
@@ -743,8 +659,8 @@ __device__ __forceinline__ void mat_sweep(const MatArgs<V, L>& a) {
 //  1. Stage. Thread t < n stages sublane s0 + t's rel and its key (the
 //     slice, -1 where rel or slice is dead); each warp then takes every
 //     kWarps-th sublane, skips a dead one before any plane load, and each
-//     thread loads four values with one vector load (16 bytes f32, 8 bf16)
-//     and ballots which are nonzero: the sublane's mask of nonzero lanes,
+//     thread loads four values with one vector load (16 bytes f32, 8 bf16,
+//     16 of packed words) and ballots which are nonzero: the sublane's mask of nonzero lanes,
 //     four words, word w bit t = lane 4t + w.
 //  2. Runs. A live sublane whose key differs from the one before it heads
 //     a run of sublanes of one slice: the planner sorts sublanes by (tile,
@@ -764,20 +680,21 @@ __device__ __forceinline__ void mat_sweep(const MatArgs<V, L>& a) {
 // So a run of d duplicate sublanes costs each touched row ceil(d / 16)
 // atomics or so, not d, and a hub row's runs of up to 129 sublanes are
 // units that groups walk side by side. A row's k columns are spread over
-// T threads of P loads each (csrc/sell_spmm.cu, with_mat_shape): at k = 8
+// T threads of P loads each (with_mat_shape below): at k = 8
 // in f32 one thread takes a row, two float4 (32 rows a warp step); at k =
 // 256 eight threads four float4 each, in two column blocks of 128 (the
 // blocks run column block by column block, which halves the X and Y rows
 // in flight). Only nonzero slots are multiplied: a zero
 // value (a padding lane) contributes nothing even against an Inf or NaN in
-// X. The values are loaded through the read-only path (L1-allocating), so
-// step 3's reloads of a nonzero slot's value and lane index hit the lines
-// step 1 brought in; X is gathered the same way, in plan (tile-major)
+// X. The values (the packed words) are loaded through the read-only path
+// (L1-allocating), so step 3's reloads of a nonzero slot's value and lane
+// index (word) hit the lines step 1 brought in; X is gathered the same way, in plan (tile-major)
 // order across the grid, so a chunk's window of X rows is shared in L2.
 //
 // The vector form (W = 4) needs k % 4 == 0, X aligned to four elements and
 // Y to 16 bytes; the scalar form (W = 1) takes any k. Both need the values
-// plane aligned to four elements and planes of whole chunks: the launchers
+// plane aligned to four elements (the packed plane to 16 bytes) and planes
+// of whole chunks: the launchers
 // return cudaErrorMisalignedAddress or cudaErrorInvalidValue and launch
 // nothing otherwise.
 
@@ -852,6 +769,7 @@ __device__ __forceinline__ void sublane_mat_run(const MatArgs<V, L>& a,
   const int n = min(kRun, a.chunk - first);
   const long long s0 = static_cast<long long>(c) * a.chunk + first;
   const long long tile0 = a.tile_base[c];
+  const long long base = s0 * kLanes;  // the item's first slot
   const int lane = threadIdx.x & 31;
   if (threadIdx.x < n) {
     int rel, slice;
@@ -861,14 +779,24 @@ __device__ __forceinline__ void sublane_mat_run(const MatArgs<V, L>& a,
   }
   __syncthreads();
   // 1. the nonzero lanes of each live sublane
-  const V* vals = a.vals + s0 * kLanes;
   for (int j = threadIdx.x >> 5; j < n; j += kWarps) {
     unsigned m[4] = {0u, 0u, 0u, 0u};
     if (st.key[j] >= 0) {
       float v[4];
-      load_values<ReadOnly>(vals + j * kLanes + 4 * lane, v);
+      bool live = true;
+      if constexpr (Stage::kLateRel) {
+        // rel from the loaded lane-0 word; a dead one clears the mask
+        const int rel = Stage::mat_values_rel(a, base, j * kLanes + 4 * lane,
+                                              v);
+        if (lane == 0) st.rel[j] = rel;
+        live = rel >= 0;  // the same for the whole warp
+      } else {
+        Stage::mat_values(a, base, j * kLanes + 4 * lane, v);
+      }
 #pragma unroll
-      for (int w = 0; w < 4; ++w) m[w] = __ballot_sync(kFull, v[w] != 0.0f);
+      for (int w = 0; w < 4; ++w) {
+        m[w] = __ballot_sync(kFull, live && v[w] != 0.0f);
+      }
     }
     if (lane == 0) {
 #pragma unroll
@@ -915,7 +843,6 @@ __device__ __forceinline__ void sublane_mat_run(const MatArgs<V, L>& a,
   const int total = st.off[kRun];
   const int q = threadIdx.x % T;
   const int cols = min(Shape::kCols, a.k - col0);
-  const L* lidx = a.lidx + s0 * kLanes;
   for (int u = threadIdx.x / T; u < total; u += Shape::kGroups) {
     int lo = 0, hi = kRun;  // st.off[lo] <= u < st.off[hi]
     while (hi - lo > 1) {
@@ -944,10 +871,9 @@ __device__ __forceinline__ void sublane_mat_run(const MatArgs<V, L>& a,
     for (int jj = j; jj < n && st.key[jj] == key && (jj == j || jj % Cap);
          ++jj) {
       if (!((st.mask[jj][w] >> bit) & 1u)) continue;
-      const int i = jj * kLanes + l;
-      const float v = to_f32(__ldg(vals + i));
-      const long long col = (tile0 + st.rel[jj]) * kLanes +
-                            static_cast<long long>(__ldg(lidx + i));
+      int li;
+      const float v = Stage::mat_slot(a, base, jj * kLanes + l, &li);
+      const long long col = (tile0 + st.rel[jj]) * kLanes + li;
       const V* xr = a.x + col * a.k + col0;
 #pragma unroll
       for (int p = 0; p < P; ++p) {
@@ -1035,15 +961,16 @@ __device__ __forceinline__ void sublane_mat_bench_sweeps(
   }
 }
 
-// The alignment a column shape's loads and atomics need: the values plane
-// to four elements (step 1's vector loads); in the vector form also X to
+// The alignment a column shape's loads and atomics need: the staging
+// policy's planes for step 1's vector loads (the values plane to four
+// elements, the packed plane to 16 bytes); in the vector form also X to
 // four elements and Y to 16 bytes (k % 4 == 0 keeps every row so).
-template <class Shape, typename V, typename L>
+template <class Shape, class Stage = ValuePlanes, typename V, typename L>
 bool mat_aligned(const MatArgs<V, L>& a) {
   const auto at = [](const void* p, size_t n) {
     return reinterpret_cast<uintptr_t>(p) % n == 0;
   };
-  if (!at(a.vals, 4 * sizeof(V))) return false;
+  if (!Stage::mat_planes_aligned(a)) return false;
   return Shape::kW == 1 ||
          (a.k % 4 == 0 && at(a.x, 4 * sizeof(V)) && at(a.out, 16));
 }
@@ -1051,21 +978,21 @@ bool mat_aligned(const MatArgs<V, L>& a) {
 // The k-column launches' checks: the column shape's alignment, planes of
 // whole chunks and at least one sublane, at most 65,535 column blocks.
 // Gives the work items and column blocks.
-template <class Shape, typename V, typename L>
+template <class Shape, class Stage = ValuePlanes, typename V, typename L>
 cudaError_t mat_work(const MatArgs<V, L>& a, long long* items,
                      long long* col_blocks) {
-  if (!mat_aligned<Shape>(a)) return cudaErrorMisalignedAddress;
+  if (!mat_aligned<Shape, Stage>(a)) return cudaErrorMisalignedAddress;
   if (a.k < 1 || !sublane_items(a, items)) return cudaErrorInvalidValue;
   *col_blocks = (a.k + Shape::kCols - 1) / Shape::kCols;
   return *col_blocks > 65535 ? cudaErrorInvalidValue : cudaSuccess;
 }
 
 // One block per work item and column block of the k-column body.
-template <class Shape, typename V, typename L>
+template <class Shape, class Stage = ValuePlanes, typename V, typename L>
 cudaError_t launch_mat(void (*kernel)(MatArgs<V, L>), MatArgs<V, L> a,
                        cudaStream_t stream) {
   long long items = 0, col_blocks = 0;
-  cudaError_t err = mat_work<Shape>(a, &items, &col_blocks);
+  cudaError_t err = mat_work<Shape, Stage>(a, &items, &col_blocks);
   if (err != cudaSuccess) return err;
   void* params[] = {&a};
   err = cudaLaunchKernel(
@@ -1074,6 +1001,36 @@ cudaError_t launch_mat(void (*kernel)(MatArgs<V, L>), MatArgs<V, L> a,
       dim3(kThreads), params, 0, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// Calls fn(MatShape<T, W, P>{}) for k columns: four-element columns (W = 4)
+// where k % 4 == 0, else one (W = 1). A thread takes up to four loads of a
+// row (P), and T is the least power of two whose threads then cover it, at
+// most 8 (vector) or 32 (scalar): past that, more column blocks. Few
+// threads a row and several loads a thread keep more units and gathers in
+// flight per warp. At k = 8 in f32 one thread takes a row (two float4), at
+// k = 40 four threads, at k = 256 eight threads in two column blocks of
+// 128 (measured against other shapes: bench/bench_variants.py --kcol).
+// Every k-column kernel takes its shape here (csrc/sell_spmm.cu,
+// csrc/sell_packed.cu); ops/spmv_sell.py (spmm_shape) mirrors this table.
+template <typename Fn>
+cudaError_t with_mat_shape(int k, Fn&& fn) {
+  if (k < 1) return cudaErrorInvalidValue;
+  if (k % 4 == 0) {
+    const int n4 = k / 4;
+    if (n4 <= 1) return fn(MatShape<1, 4, 1>{});
+    if (n4 <= 2) return fn(MatShape<1, 4, 2>{});
+    if (n4 <= 4) return fn(MatShape<1, 4, 4>{});
+    if (n4 <= 8) return fn(MatShape<2, 4, 4>{});
+    if (n4 <= 16) return fn(MatShape<4, 4, 4>{});
+    return fn(MatShape<8, 4, 4>{});
+  }
+  if (k <= 4) return fn(MatShape<1, 1, 4>{});
+  if (k <= 8) return fn(MatShape<2, 1, 4>{});
+  if (k <= 16) return fn(MatShape<4, 1, 4>{});
+  if (k <= 32) return fn(MatShape<8, 1, 4>{});
+  if (k <= 64) return fn(MatShape<16, 1, 4>{});
+  return fn(MatShape<32, 1, 4>{});
 }
 
 // Blocks of a cooperative launch of `kernel` with `threads` threads a

@@ -8,7 +8,8 @@
 //                               :1256 resident x, :1283 prefetch x) and
 //                               streamed y (:1239)
 //   sell_packed_spmm_kernel  <- _make_sell_kernel_packed with k > 1,
-//                               resident y (K5 fused SpMM)
+//                               resident y (K5 fused SpMM; launched
+//                               resident :1256 and :1283)
 //   sell_bench_packed_kernel <- _make_sell_kernel_bench, packed branch
 //                               :765-771 (launched :2297; K2-packed)
 // The word (SellSpMV packed_plane_host): bf16 value bits in 16..31, rel in
@@ -49,12 +50,29 @@
 // smoke-packed, N = 200, against 200 calls of torch.sparse.mm at 12.32 ms
 // (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py).
 //
-// K5 with k columns (mat_sweep under PackedLaneZero) still runs one thread
-// per slot, a warp walking its live slots over the k columns; it reads rel
-// from the sublane's lane-0 word too, as the reference does (one broadcast
-// load a warp). No kernel here decodes rel from a slot's own word any
-// more: on a plane whose lanes disagree with lane 0, that decode missed the
-// plain version by 1.36-1.43 of max |y|.
+// K5 with k columns runs the k-column body of K1 with k columns
+// (sell_common.cuh, sublane_mat_sweep under PackedShuffle, the column
+// shape of with_mat_shape, __launch_bounds__(kThreads, kMatMinBlocks): 64
+// registers): a block per work item and column block stages each
+// sublane's slice; step 1 loads four words a thread with one 16-byte
+// read-only load, takes rel from the lane-0 word by one __shfl_sync (a
+// dead one clears the sublane's mask) and ballots the nonzero value bits,
+// step 2 cuts runs of one slice's sublanes, and step 3 sums
+// each unit's products (one read-only load of the slot's word, hitting
+// the line step 1 brought into L1; X gathered four bf16 in 8 bytes where
+// k % 4 == 0) in registers before one vector atomic a row and four
+// columns. Only nonzero values are multiplied, so an Inf in X at a padding
+// lane's column never reaches Y. Before, it ran one thread per slot (a
+// warp walking its live slots one at a time, a scalar atomic per product
+// and column, rel from the lane-0 word: mat_sweep under PackedLaneZero, a
+// variant now, csrc/variants/sell_packed_variants.cu): 0.741034 ms at
+// smoke-packed, k = 8, against torch.sparse.mm's 0.645816 (NVIDIA H100
+// 80GB HBM3, 700 W, chip_smoke.py); on this body 0.1336 ms, 0.21x the
+// library (bench/bench_variants.py --packed, same card), and 0.9-1.0%
+// slower again with rel staged from lane 0's word (PackedStage, as K5),
+// the form timed against it. No kernel here decodes rel from a slot's own
+// word: on a plane whose lanes disagree with lane 0, that decode missed
+// the plain version by 1.36-1.43 of max |y|.
 //
 // Bound on this card: bytes. One launch reads 4 bytes per slot (the word,
 // padding slots included), one slice id per sublane, tile_base (and
@@ -67,7 +85,10 @@
 // is kept for parity. K2-packed re-reads the planes every iteration (they
 // exceed the 50 MB L2 at smoke-packed's 103 MB), so N times those bytes
 // over the memory rate is its least time; on top an iteration pays one
-// buffer's zeroing, one grid.sync() and the walk's static tail.
+// buffer's zeroing, one grid.sync() and the walk's static tail. K5 with k
+// columns also gathers X rows and adds into Y rows of k columns; at k = 8
+// the latency of those gathers and atomics, not the bytes, sets its time,
+// as it sets K1 with k columns' (csrc/sell_spmm.cu).
 //
 // C interface (ctypes): each launch function returns a cudaError_t value,
 // 0 on success, from cudaGetLastError() right after the launch. Pointers
@@ -77,8 +98,12 @@
 // launching nothing, a packed plane or y not aligned to 16 bytes
 // (cudaErrorMisalignedAddress) and planes that are not whole chunks or
 // hold no sublane (cudaErrorInvalidValue; K2-packed also a y length that
-// is not a multiple of four); a view of the planes cut at chunk
-// boundaries stays aligned (512 bytes a sublane).
+// is not a multiple of four); K5 with k columns a packed plane not aligned
+// to 16 bytes or, where k % 4 == 0, X not aligned to four elements or Y to
+// 16 bytes (cudaErrorMisalignedAddress), and planes that are not whole
+// chunks or hold no sublane, or more than 65,535 column blocks
+// (cudaErrorInvalidValue). A view of the planes cut at chunk boundaries
+// stays aligned (512 bytes a sublane).
 
 #include "sell_common.cuh"
 
@@ -95,9 +120,10 @@ __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
   sublane_sweep<PackedStage, YAddr>(a);
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <int T, int W, int P>
+__global__ void __launch_bounds__(kThreads, kMatMinBlocks)
     sell_packed_spmm_kernel(const MatArgs<X, L> a) {
-  mat_sweep<PackedLaneZero>(a);
+  sublane_mat_sweep<PackedShuffle, MatShape<T, W, P>>(a);
 }
 
 // y buffers of K2-packed (ops/spmv_sell.py, PACKED_BENCH_Y_BUFFERS,
@@ -107,26 +133,6 @@ constexpr int kPackedBenchYBuffers = 2;
 __global__ void __launch_bounds__(kThreads, kSublaneMinBlocks)
     sell_bench_packed_kernel(const Args<X, L> a) {
   sublane_bench_sweeps<PackedShuffle, ResidentY, kPackedBenchYBuffers>(a);
-}
-
-cudaError_t grid_blocks(long long n_slots, unsigned* blocks) {
-  const long long b = (n_slots + kThreads - 1) / kThreads;
-  if (b < 1 || b > 0x7fffffffLL) return cudaErrorInvalidValue;
-  *blocks = static_cast<unsigned>(b);
-  return cudaSuccess;
-}
-
-template <class A>
-cudaError_t launch(const void* kernel, A a, long long n_slots,
-                   cudaStream_t stream) {
-  unsigned blocks = 0;
-  cudaError_t err = grid_blocks(n_slots, &blocks);
-  if (err != cudaSuccess) return err;
-  void* params[] = {&a};
-  err = cudaLaunchKernel(kernel, dim3(blocks), dim3(kThreads), params, 0,
-                         stream);
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
 }
 
 // The warp-per-sublane body's 16-byte loads of the packed plane and its
@@ -150,6 +156,35 @@ cudaError_t launch_packed(const void* kernel, Args<X, L> a,
                                      dim3(kThreads), params, 0, stream);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+MatArgs<X, L> packed_mat_args(const void* packed, const void* slice_of,
+                              const void* tile_base, const void* x, void* y,
+                              long long n_slots, int chunk, int k) {
+  return MatArgs<X, L>{nullptr,
+                       nullptr,
+                       static_cast<const int*>(packed),
+                       static_cast<const int*>(slice_of),
+                       static_cast<const int*>(tile_base),
+                       static_cast<const X*>(x),
+                       nullptr,
+                       static_cast<float*>(y),
+                       n_slots,
+                       0,
+                       chunk,
+                       k,
+                       0};
+}
+
+// One block per work item and column block of the k-column body at k's
+// column shape (the checks of mat_work on the packed plane).
+cudaError_t launch_packed_spmm(const MatArgs<X, L>& a, cudaStream_t stream) {
+  if (a.slice == nullptr) return cudaErrorInvalidValue;
+  return with_mat_shape(a.k, [&](auto shape) {
+    using Sh = decltype(shape);
+    return launch_mat<Sh, PackedShuffle>(
+        sell_packed_spmm_kernel<Sh::kT, Sh::kW, Sh::kP>, a, stream);
+  });
 }
 
 Args<X, L> packed_args(const void* packed, const void* slice_of,
@@ -188,7 +223,11 @@ extern "C" int sell_packed_launch(const void* packed, const void* slice_of,
 }
 
 // k > 1, resident y: Y (n_slices * 128, k) float32, zeroed, from X (at
-// least CT * 128 rows, k columns, bf16).
+// least CT * 128 rows, k columns, bf16). A packed plane not aligned to 16
+// bytes, or (k % 4 == 0) X not aligned to four elements or Y to 16 bytes,
+// returns cudaErrorMisalignedAddress; planes that are not whole chunks (or
+// hold no sublane), or more than 65,535 column blocks,
+// cudaErrorInvalidValue. Neither launches anything.
 extern "C" int sell_packed_spmm_launch(const void* packed,
                                        const void* slice_of,
                                        const void* tile_base, const void* x,
@@ -196,23 +235,9 @@ extern "C" int sell_packed_spmm_launch(const void* packed,
                                        int k, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const MatArgs<X, L> a{nullptr,
-                        nullptr,
-                        static_cast<const int*>(packed),
-                        static_cast<const int*>(slice_of),
-                        static_cast<const int*>(tile_base),
-                        static_cast<const X*>(x),
-                        nullptr,
-                        static_cast<float*>(y),
-                        n_slots,
-                        0,
-                        chunk,
-                        k,
-                        0};
-  return static_cast<int>(
-      launch(reinterpret_cast<const void*>(sell_packed_spmm_kernel), a,
-             n_slots, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_packed_spmm(
+      packed_mat_args(packed, slice_of, tile_base, x, y, n_slots, chunk, k),
+      static_cast<cudaStream_t>(stream)));
 }
 
 // N k = 1 sweeps in one cooperative launch (resident y); n_out = the

@@ -1,6 +1,6 @@
 // Fused SPD solvers for Hopper (sm_90a): a whole fixed-iteration solve in
-// one cooperative launch, its SpMV phases on the bodies of sell_common.cuh
-// (K10 and K11 on one warp per sublane, K9 on one thread per slot).
+// one cooperative launch, its SpMV phases on the warp-per-sublane body of
+// sell_common.cuh.
 //
 // Replaces three Pallas kernels of the JAX package:
 //   sell_cg_kernel        <- ops/cg_fused.py:64 _make_cg_kernel (K9,
@@ -50,16 +50,17 @@
 // bf16 value mode rounds the SpMV's input vector (p, d, or the sweep
 // input) to bf16, as cg_fused.py:70-71 and pcg_fused.py:80-81 round the x
 // window: the phase that writes the input also writes its bf16 copy, which
-// the slot body reads; the state and reductions stay float32. In float32
+// the SpMV phase gathers; the state and reductions stay float32. In float32
 // mode the SpMV reads the state vector itself.
 //
-// K10's and K11's SpMV phases walk the plan's work items (up to kRun = 64
-// sublanes of one chunk each: hpcg104's A is 212 chunks of 2048, 6,784
-// items over a grid of 1,056 blocks) in a block-uniform grid-stride loop,
-// each item on the warp-per-sublane body (sublane_run under MergedWord: the
-// chunk's metadata once per item, the run's rel and slice staged in shared
-// memory, a warp per live sublane, 16-byte plane loads, a float4 atomic
-// per four rows of q). K10 walks all of them; K11 walks one range of items
+// The SpMV phases walk the plan's work items (up to kRun = 64 sublanes of
+// one chunk each: hpcg104's A is 212 chunks of 2048, 6,784 items over a
+// grid of 1,056 blocks) in a block-uniform grid-stride loop, each item on
+// the warp-per-sublane body (sublane_run under the route's staging policy,
+// MergedWord or, K9 on split planes, SplitPlanes: the chunk's metadata once
+// per item, the run's rel and slice staged in shared memory, a warp per
+// live sublane, 16-byte plane loads, a float4 atomic per four rows of q).
+// K9 and K10 walk all of them; K11 walks one range of items
 // per phase (spmv_items over [lo, hi)): A's, strict(L)'s and
 // strict(L)ᵀ's, whose plans are concatenated whole chunks at one chunk
 // size, so tile_base[c] with the global chunk index c is each plan's own
@@ -67,22 +68,24 @@
 // body gathers x through the read-only path (__ldg, ld.global.nc) in every
 // other kernel, which is correct only for data no thread writes during the
 // launch; here the vector phases rewrite the SpMV input between SpMV
-// phases (K10: d in float32, its bf16 copy xin in bfloat16; K11: xin, its
+// phases (K9: p in float32, its bf16 copy xin in bfloat16, in the set-up
+// and the last vector phase of every step; K10: d in float32, its bf16
+// copy xin in bfloat16; K11: xin, its
 // own buffer in both modes, in _a_end, _l_sweep, _l_last, _lt_sweep and
 // after _lt_last) and only a grid.sync() separates those writes from the
-// next phase's gathers, so both gather with plain, coherent loads (the
-// Coherent gather policy, as the one-thread-per-slot body loads x); the
-// plane loads stay streaming (__ldcs: the planes are read-only for the
-// whole launch).
-// Before, K10 and K11 ran one thread per slot (spmv_range over slot: a
-// 64-bit divide, the metadata loads and a scalar atomic per slot): K10
-// 170.17 ms for 600 steps at hpcg104 against its scan loop over
-// torch.sparse.mm at 111.45 ms (NVIDIA H100 80GB HBM3, 700 W,
-// chip_smoke.py); on this body 78.0-78.6 ms, 0.70x that loop, and 1-2%
-// slower again with the gathers through L2 only (__ldcg;
-// bench/bench_variants.py --solver, same card). K11 took 132.27 ms for
-// 100 steps at hpcg104 on the old walk, 1.58x its scan loop's 83.70 ms.
-// K9 still runs spmv_range.
+// next phase's gathers, so all three gather with plain, coherent loads
+// (the Coherent gather policy); the plane loads stay streaming (__ldcs:
+// the planes are read-only for the whole launch).
+// Before, all three ran one thread per slot (spmv_range over slot: a
+// 64-bit divide, the metadata loads and a scalar atomic per slot; a
+// variant now, csrc/variants/slot_walks.cuh): K10 170.17 ms for 600 steps
+// at hpcg104 against its scan loop over torch.sparse.mm at 111.45 ms
+// (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py); on this body 78.0-78.6
+// ms, 0.70x that loop, and 1-2% slower again with the gathers through L2
+// only (__ldcg; bench/bench_variants.py --solver, same card). K11 took
+// 132.27 ms for 100 steps at hpcg104 on the old walk, 1.58x its scan
+// loop's 83.70 ms; K9 88.49 ms for 300 steps, 1.02x its scan loop's
+// 86.82 ms.
 //
 // Bound on this card: bytes. Each step reads the planes of every SpMV
 // phase (A; K11: A + (sweeps−1)·(L + Lᵀ)) and a few state vectors; at the
@@ -94,8 +97,8 @@
 // C interface (ctypes): each launch function returns a cudaError_t value,
 // 0 on success, from cudaGetLastError() right after the launch; the
 // caller's stream is PyTorch's current stream; nothing here allocates or
-// synchronises. A K10 or K11 launch whose values or lane planes are not
-// aligned to four elements, or whose q is not aligned to 16 bytes, returns
+// synchronises. A launch whose values or lane planes are not aligned to
+// four elements, or whose q is not aligned to 16 bytes, returns
 // cudaErrorMisalignedAddress, and one whose planes are not whole chunks
 // (or hold no sublane), or (K11) whose factor bounds slots_l0 <= slots_lt0
 // <= n_slots do not fall on chunk boundaries, cudaErrorInvalidValue;
@@ -194,19 +197,11 @@ __device__ __forceinline__ double grid_total(const double* part) {
   return t;
 }
 
-// q += A·xin over the slots [lo, hi), one thread per slot: K9's SpMV
-// phase, and the old walk of K10 and K11 (csrc/variants/).
-template <class Decode, typename V, typename L>
-__device__ __forceinline__ void spmv_range(const Args<V, L>& a, long long lo,
-                                           long long hi, long long tid,
-                                           long long stride) {
-  for (long long i = lo + tid; i < hi; i += stride) {
-    slot<Decode, ResidentY>(a, i);
-  }
-}
-
-template <class Decode, typename V, typename L>
-__device__ void cg_solve(const SolverArgs<V, L>& a) {
+// K9's solve with its SpMV phase on Phase (SublanePhase<MergedWord> or
+// <SplitPlanes>; the old one-thread-per-slot phase is a variant in
+// csrc/variants/sell_solver_variants.cu) over all slots.
+template <class Phase, typename V, typename L>
+__device__ __forceinline__ void cg_solve(const SolverArgs<V, L>& a) {
   cg::grid_group grid = cg::this_grid();
   const long long tid =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -227,7 +222,7 @@ __device__ void cg_solve(const SolverArgs<V, L>& a) {
   grid.sync();
   float rs = static_cast<float>(grid_total(part_rr));
   for (int it = 0; it < a.iterations; ++it) {
-    spmv_range<Decode>(a.spmv, 0, a.spmv.n_slots, tid, stride);
+    Phase::run(a.spmv, 0, a.spmv.n_slots, tid, stride);
     grid.sync();
     acc = 0.0;
     for (long long i = tid; i < a.n; i += stride) {
@@ -260,29 +255,18 @@ __device__ void cg_solve(const SolverArgs<V, L>& a) {
   }
 }
 
-template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
-    sell_cg_kernel(const SolverArgs<V, L> a) {
-  cg_solve<MergedWord>(a);
-}
-
-template <typename V, typename L>
-__global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
-    sell_cg_split_kernel(const SolverArgs<V, L> a) {
-  cg_solve<SplitPlanes>(a);
-}
-
 // q += A·xin over the work items [lo, hi) of the plan in a block-uniform
 // grid-stride loop (sublane_run has __syncthreads()), each on the
-// warp-per-sublane body, the gathers of xin under Gather.
-template <class Gather, typename V, typename L>
+// warp-per-sublane body under the staging policy Stage (MergedWord, or
+// SplitPlanes for K9 on split planes), the gathers of xin under Gather.
+template <class Stage, class Gather, typename V, typename L>
 __device__ __forceinline__ void spmv_items(const Args<V, L>& a, int lo,
                                            int hi) {
   __shared__ int s_rel[kRun], s_slice[kRun];
   const int runs = runs_per_chunk(a.chunk);
   for (int item = lo + blockIdx.x; item < hi; item += gridDim.x) {
-    sublane_run<MergedWord, ResidentY, Streaming, Gather>(a, a.y, runs, item,
-                                                          s_rel, s_slice);
+    sublane_run<Stage, ResidentY, Streaming, Gather>(a, a.y, runs, item,
+                                                     s_rel, s_slice);
   }
 }
 
@@ -295,22 +279,36 @@ __device__ __forceinline__ int items_before(const Args<V, L>& a,
                                    a.chunk)) * runs_per_chunk(a.chunk);
 }
 
-// The SpMV phase of K10 and K11 over the slots [lo, hi) (whole chunks): the
-// work items there, the gathers of xin coherent (see above). A phase
-// policy's run(a, lo, hi, tid, stride) adds the slots [lo, hi) of a's
-// planes times xin into q; the one-thread-per-slot phase and an
-// L2-only-gather phase are variants (csrc/variants/sell_solver_variants.cu).
+// The SpMV phase over the slots [lo, hi) (whole chunks) under the staging
+// policy Stage: the work items there, the gathers of xin coherent (see
+// above). A phase policy's run(a, lo, hi, tid, stride) adds the slots
+// [lo, hi) of a's planes times xin into q; the one-thread-per-slot phase
+// and an L2-only-gather phase are variants
+// (csrc/variants/sell_solver_variants.cu).
+template <class Stage>
 struct SublanePhase {
   template <typename V, typename L>
   __device__ __forceinline__ static void run(const Args<V, L>& a,
                                              long long lo, long long hi,
                                              long long, long long) {
-    spmv_items<Coherent>(a, items_before(a, lo), items_before(a, hi));
+    spmv_items<Stage, Coherent>(a, items_before(a, lo), items_before(a, hi));
   }
 };
 
-// K10's solve with its SpMV phase on Phase (SublanePhase; the old
-// one-thread-per-slot phase is a variant in
+template <typename V, typename L>
+__global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
+    sell_cg_kernel(const SolverArgs<V, L> a) {
+  cg_solve<SublanePhase<MergedWord>>(a);
+}
+
+template <typename V, typename L>
+__global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
+    sell_cg_split_kernel(const SolverArgs<V, L> a) {
+  cg_solve<SublanePhase<SplitPlanes>>(a);
+}
+
+// K10's solve with its SpMV phase on Phase (SublanePhase<MergedWord>; the
+// old one-thread-per-slot phase is a variant in
 // csrc/variants/sell_solver_variants.cu) over all slots.
 template <class Phase, typename V, typename L>
 __device__ __forceinline__ void chebyshev_solve(const SolverArgs<V, L>& a) {
@@ -349,7 +347,7 @@ __device__ __forceinline__ void chebyshev_solve(const SolverArgs<V, L>& a) {
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
     sell_chebyshev_kernel(const SolverArgs<V, L> a) {
-  chebyshev_solve<SublanePhase>(a);
+  chebyshev_solve<SublanePhase<MergedWord>>(a);
 }
 
 // K11's solve with its three SpMV phases on Phase: A over the slots [0,
@@ -451,7 +449,7 @@ __device__ __forceinline__ void pcg_ic0_solve(const SolverArgs<V, L>& a) {
 template <typename V, typename L>
 __global__ void __launch_bounds__(kThreads, kSolverMinBlocks)
     sell_pcg_ic0_kernel(const SolverArgs<V, L> a) {
-  pcg_ic0_solve<SublanePhase>(a);
+  pcg_ic0_solve<SublanePhase<MergedWord>>(a);
 }
 
 template <typename V, typename L>
@@ -473,10 +471,11 @@ Kernel<V, L> solver_kernel(int solver, int route) {
   }
 }
 
-// The warp-per-sublane SpMV phases' checks (K10, K11): planes aligned for
+// The warp-per-sublane SpMV phases' checks (K9-K11): planes aligned for
 // the vector loads and q for the float4 atomics, whole chunks of at least
 // one sublane, and K11's factor bounds 0 <= slots_l0 <= slots_lt0 <=
-// n_slots on chunk boundaries (slots_l0 = slots_lt0 = n_slots for K10).
+// n_slots on chunk boundaries (slots_l0 = slots_lt0 = n_slots for K9 and
+// K10).
 template <typename V, typename L>
 cudaError_t sublane_phase_checks(const SolverArgs<V, L>& a) {
   if (!sublane_aligned(a.spmv)) return cudaErrorMisalignedAddress;
@@ -501,12 +500,10 @@ cudaError_t launch_solver(int solver, int route, SolverArgs<V, L> a,
                              a.sweeps < 2))) {
     return cudaErrorInvalidValue;
   }
-  if (solver != kCg) {
-    const cudaError_t err = sublane_phase_checks(a);
-    if (err != cudaSuccess) return err;
-  }
+  cudaError_t err = sublane_phase_checks(a);
+  if (err != cudaSuccess) return err;
   int blocks = 0;
-  cudaError_t err = cooperative_grid(kernel, device, &blocks);
+  err = cooperative_grid(kernel, device, &blocks);
   if (err != cudaSuccess) return err;
   if (solver != kChebyshev && blocks > a.part_cap) return cudaErrorInvalidValue;
   void* params[] = {&a};

@@ -32,11 +32,11 @@
 // updates from nnz (1,448,814) to about 0.5M a launch; a unit sums at most
 // 16 sublanes (kMatRunCap), so a hub row's runs of up to 129 sublanes are
 // several units side by side. T threads take a row's k columns, P loads
-// each (the column shape, with_mat_shape below, picked from k at launch):
-// X is gathered and Y updated four columns a load (a float4 in f32, four
-// bf16 in 8 bytes; red.global.add.v4.f32) where k % 4 == 0, else one
-// column a load in the same body. X, Y, the values
-// plane and whole chunks are checked at launch: a view not aligned for the
+// each (the column shape, sell_common.cuh's with_mat_shape, picked from k
+// at launch): X is gathered and Y updated four columns a load (a float4 in
+// f32, four bf16 in 8 bytes; red.global.add.v4.f32) where k % 4 == 0, else
+// one column a load in the same body. X, Y, the values plane and whole
+// chunks are checked at launch: a view not aligned for the
 // form returns cudaErrorMisalignedAddress, planes of no sublane
 // cudaErrorInvalidValue, and nothing launches. Sums are float32 in an order
 // that changes from run to run: compare Y with a tolerance, never bitwise.
@@ -54,9 +54,9 @@
 // all of Y zeroed with scalar stores between two grid.sync()s): 186.4 ms
 // at smoke, k = 8, N = 200 (NVIDIA H100 80GB HBM3, 700 W, chip_smoke.py);
 // that walk is a variant now (csrc/variants/sell_spmm_variants.cu). The
-// packed k-column kernel (csrc/sell_packed.cu: its word carries rel per
-// slot) and the values gradient (csrc/sell_vals_grad.cu: another
-// reduction) keep their own bodies.
+// packed k-column kernel (csrc/sell_packed.cu) runs this body too, under
+// PackedStage; the values gradient (csrc/sell_vals_grad.cu: another
+// reduction) keeps its own.
 //
 // Bound on this card: bytes at small k (the planes, as the k = 1 kernels),
 // then X and Y, which grow with k; the arithmetic is 2·nnz·k flops, far
@@ -128,35 +128,6 @@ MatArgs<V, L> make_mat_args(const void* vals, const void* lidx,
                        chunk,
                        k,
                        iterations};
-}
-
-// Calls fn(MatShape<T, W, P>{}) for k columns: four-element columns (W = 4)
-// where k % 4 == 0, else one (W = 1). A thread takes up to four loads of a
-// row (P), and T is the least power of two whose threads then cover it, at
-// most 8 (vector) or 32 (scalar): past that, more column blocks. Few
-// threads a row and several loads a thread keep more units and gathers in
-// flight per warp. At k = 8 in f32 one thread takes a row (two float4), at
-// k = 40 four threads, at k = 256 eight threads in two column blocks of
-// 128 (measured against other shapes: bench/bench_variants.py --kcol).
-// ops/spmv_sell.py (spmm_shape) mirrors this table.
-template <typename Fn>
-cudaError_t with_mat_shape(int k, Fn&& fn) {
-  if (k < 1) return cudaErrorInvalidValue;
-  if (k % 4 == 0) {
-    const int n4 = k / 4;
-    if (n4 <= 1) return fn(MatShape<1, 4, 1>{});
-    if (n4 <= 2) return fn(MatShape<1, 4, 2>{});
-    if (n4 <= 4) return fn(MatShape<1, 4, 4>{});
-    if (n4 <= 8) return fn(MatShape<2, 4, 4>{});
-    if (n4 <= 16) return fn(MatShape<4, 4, 4>{});
-    return fn(MatShape<8, 4, 4>{});
-  }
-  if (k <= 4) return fn(MatShape<1, 1, 4>{});
-  if (k <= 8) return fn(MatShape<2, 1, 4>{});
-  if (k <= 16) return fn(MatShape<4, 1, 4>{});
-  if (k <= 32) return fn(MatShape<8, 1, 4>{});
-  if (k <= 64) return fn(MatShape<16, 1, 4>{});
-  return fn(MatShape<32, 1, 4>{});
 }
 
 template <typename V, typename L>

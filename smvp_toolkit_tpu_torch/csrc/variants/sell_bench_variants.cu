@@ -29,6 +29,7 @@
 // form 2 in y[(N - 1) % 2].
 
 #include "../sell_common.cuh"
+#include "slot_walks.cuh"
 
 namespace {
 

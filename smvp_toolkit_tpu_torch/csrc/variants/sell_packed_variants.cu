@@ -35,10 +35,58 @@
 //              from lane 0's loaded word by __shfl_sync), built here beside
 //              the others; result in y[(N - 1) % 2]
 // Forms 1 and 2 read rel from lane 0 on any plane, form 0 from each slot.
+//
+// K5 with k columns' forms (sell_packed_spmm_variant_launch, resident Y,
+// the column shape of with_mat_shape):
+//   0 walk     the one-thread-per-slot warp walk it ran before (mat_sweep
+//              under PackedLaneZero: rel from the lane-0 word, a warp
+//              walking its live slots one at a time, a scalar atomic per
+//              product and column), built as it was
+//              (__launch_bounds__(kThreads))
+//   1 staged   the k-column body under K5's policy (PackedStage: rel
+//              staged from lane 0's word)
+//   2 shfl     the kept body (PackedShuffle: the slice staged alone, rel
+//              taken in step 1 from the lane-0 word just loaded, thread
+//              0's first word, by __shfl_sync; a dead rel clears the
+//              sublane's mask), built here beside the others
+// All three read rel from lane 0 on any plane and multiply only nonzero
+// values.
 
 #include "../sell_packed.cu"
+#include "slot_walks.cuh"
 
 namespace {
+
+__global__ void __launch_bounds__(kThreads)
+    spmm_walk_kernel(const MatArgs<X, L> a) {
+  mat_sweep<PackedLaneZero>(a);
+}
+
+template <class Stage, int T, int W, int P>
+__global__ void __launch_bounds__(kThreads, kMatMinBlocks)
+    spmm_form_kernel(const MatArgs<X, L> a) {
+  sublane_mat_sweep<Stage, MatShape<T, W, P>>(a);
+}
+
+cudaError_t launch_spmm_variant(int form, const MatArgs<X, L>& a,
+                                cudaStream_t stream) {
+  if (a.slice == nullptr || a.k < 1) return cudaErrorInvalidValue;
+  if (form == 0) {
+    return launch_slots(reinterpret_cast<const void*>(spmm_walk_kernel), a,
+                        a.n_slots, stream);
+  }
+  if (form != 1 && form != 2) return cudaErrorInvalidValue;
+  return with_mat_shape(a.k, [&](auto shape) {
+    using Sh = decltype(shape);
+    return form == 1
+               ? launch_mat<Sh, PackedStage>(
+                     spmm_form_kernel<PackedStage, Sh::kT, Sh::kW, Sh::kP>,
+                     a, stream)
+               : launch_mat<Sh, PackedShuffle>(
+                     spmm_form_kernel<PackedShuffle, Sh::kT, Sh::kW, Sh::kP>,
+                     a, stream);
+  });
+}
 
 template <class YAddr>
 __global__ void __launch_bounds__(kThreads)
@@ -108,8 +156,8 @@ cudaError_t launch_variant(int variant, const Args<X, L>& a,
                            cudaStream_t stream) {
   switch (variant) {
     case 0:
-      return launch(reinterpret_cast<const void*>(walk_kernel<YAddr>), a,
-                    a.n_slots, stream);
+      return launch_slots(reinterpret_cast<const void*>(walk_kernel<YAddr>),
+                          a, a.n_slots, stream);
     case 1:
       return launch_packed(
           reinterpret_cast<const void*>(sell_packed_kernel<YAddr>), a,
@@ -190,4 +238,18 @@ extern "C" int sell_packed_variant_launch(int variant, const void* packed,
   return static_cast<int>(y_block_id == nullptr
                               ? launch_variant<ResidentY>(variant, a, st)
                               : launch_variant<StreamedY>(variant, a, st));
+}
+
+// K5 with k columns in one of its forms (0, 1, 2 above): arguments as
+// sell_packed_spmm_launch, after the form; Y zeroed by the caller.
+extern "C" int sell_packed_spmm_variant_launch(
+    int form, const void* packed, const void* slice_of, const void* tile_base,
+    const void* x, void* y, long long n_slots, int chunk, int k, int device,
+    void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_spmm_variant(
+      form,
+      packed_mat_args(packed, slice_of, tile_base, x, y, n_slots, chunk, k),
+      static_cast<cudaStream_t>(stream)));
 }

@@ -30,6 +30,7 @@
 // Forms 0 and 1 leave the result in Y[0], form 2 in Y[(N - 1) % 2].
 
 #include "../sell_spmm.cu"
+#include "slot_walks.cuh"
 
 namespace {
 

@@ -32,6 +32,7 @@
 // cap), not here.
 
 #include "../sell_vals_grad.cu"
+#include "slot_walks.cuh"
 
 namespace {
 

@@ -10,9 +10,13 @@ re-association of the reductions:
     β = r'·r' / max(r·r, 1e-30);  p = r + β·p
 
 The kernel (``csrc/sell_solvers.cu``) is one cooperative launch: the
-SpMV phase runs the operator's route (merged word or split planes) on the
-slot body of the SELL kernels, the vector phases and the two reductions
-per step run between grid-wide barriers. The state (b, x, r, p, q) lives
+SpMV phase walks the plan's work items on the warp-per-sublane body of the
+SELL kernels under the operator's route (merged word, ``sell_cg_kernel``,
+or split planes, ``sell_cg_split_kernel``), gathering the SpMV input with
+coherent loads, and the vector phases and the two reductions per step run
+between grid-wide barriers. Planes not aligned for its vector loads (or a
+q not aligned to 16 bytes) raise "misaligned address", planes that are
+not whole chunks "invalid argument". The state (b, x, r, p, q) lives
 in device memory as five ``T·128`` float32 vectors, ``T = max(NS, CT)``;
 rows past the matrix stay exactly 0. The JAX kernel keeps that state in
 VMEM and refuses systems past about 460k rows unless its VMEM budget is
@@ -38,7 +42,7 @@ from smvp_toolkit_tpu_torch.ops.plan_checks import check_planes
 from smvp_toolkit_tpu_torch.ops.sell_plan import LANES, SellPlan
 from smvp_toolkit_tpu_torch.utils.device import resolve_device
 
-__all__ = ["fused_cg", "fused_cg_plain", "solver_blocks"]
+__all__ = ["cg_launch", "fused_cg", "fused_cg_plain", "solver_blocks"]
 
 _VP = ctypes.c_void_p
 _SIGNATURES = {
@@ -228,15 +232,24 @@ def fused_cg(op, b: torch.Tensor, num_iters: int) -> torch.Tensor:
         return torch.zeros(n, dtype=torch.float32, device=op.device)
     if op.device.type == "cpu":
         return fused_cg_plain(op, b, num_iters)
+    x = cg_launch(op, b, num_iters)
+    fused_cg.launches += 1
+    return x[:n]
+
+
+def cg_launch(op, b: torch.Tensor, num_iters: int,
+              variant=None) -> torch.Tensor:
+    """One launch of ``sell_cg_kernel`` on a CUDA operator (checked by the
+    caller, ``num_iters >= 1``), or of a variant of it (``launch``'s
+    ``variant``); x on the padded state (T·128)."""
     bt = pad_state(b, state_tiles(op.plan))
     x, r, p, q = (torch.empty_like(bt) for _ in range(4))
     xin = p if op.value_dtype == torch.float32 else torch.empty(
         bt.numel(), dtype=op.value_dtype, device=op.device)
     launch("sell_cg_kernel", op, route=op.base_route,
            planes=_route_planes(op), b=bt, x=x, r=r, p=p, q=q, xin=xin,
-           iterations=num_iters)
-    fused_cg.launches += 1
-    return x[:n]
+           iterations=num_iters, variant=variant)
+    return x
 
 
 fused_cg.launches = 0

@@ -62,8 +62,9 @@ K5 runs K1's warp-per-sublane body and K2-packed K2's (two y buffers,
 ``PACKED_BENCH_Y_BUFFERS``); both read a sublane's rel from its lane-0
 word, as the JAX ``_unpack_plane`` and ``sell_packed_plain`` do, and
 refuse a packed plane or y not aligned to 16 bytes and planes of no
-sublane. K5 with k columns still runs one thread per slot and reads rel
-from the lane-0 word too.
+sublane. K5 with k columns runs the k-column body of K1 with k columns,
+rel from the lane-0 word too, and refuses a packed plane not aligned to 16
+bytes and, where k % 4 == 0, an X not aligned to four elements.
 
 Two kernels serve the JAX operator's opt-in switches:
 
@@ -817,8 +818,8 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def spmm_shape(k: int):
-    """The column shape ``(T, W, P)`` that K1 and K4 with k columns launch
-    (``csrc/sell_spmm.cu::with_mat_shape``): T threads a row of Y, W
+    """The column shape ``(T, W, P)`` that K1, K4 and K5 with k columns
+    launch (``csrc/sell_common.cuh::with_mat_shape``): T threads a row of Y, W
     columns a load (4: a float4 of f32 or four bf16, where k % 4 == 0; else
     1), P loads a thread; a launch has ``ceil(k / (T·W·P))`` column
     blocks. The vector form (W = 4) needs X aligned to four elements and Y
@@ -1154,7 +1155,14 @@ def sell_packed(packed, slice_of, tile_base, x, *, n_slices: int, chunk: int,
 def sell_packed_spmm(packed, slice_of, tile_base, X, *, n_slices: int,
                      n_coltiles: int, chunk: int) -> torch.Tensor:
     """K5 with k columns: Y = A·X over the packed word plane, resident y; X
-    is (at least CT·128, k) bf16, Y float32 (n_slices·128, k)."""
+    is (at least CT·128, k) bf16, Y float32 (n_slices·128, k).
+
+    Its kernel runs the k-column body of K1 with k columns (rel from each
+    sublane's lane-0 word, taken from the loaded word by a warp shuffle)
+    at the column shape ``spmm_shape(k)``: a
+    packed plane not aligned to 16 bytes, or X not aligned to four
+    elements where k % 4 == 0, raises "misaligned address", and planes of
+    no sublane "invalid argument"."""
     return _packed_dispatch(sell_packed_spmm, sell_packed_spmm_plain, packed,
                             slice_of, tile_base, X, n_slices=n_slices,
                             chunk=chunk, n_coltiles=n_coltiles)

@@ -258,6 +258,34 @@ def test_packed_and_df64_signatures_match_the_sources():
         assert _c_params(src, fn) == _c_params(kept, kept_fn) + extra
 
 
+def test_packed_spmm_forms_match_the_source():
+    """K5 with k columns' forms: each id is listed under its name in that
+    section of the packed variants' header, form 0 is the old warp walk
+    under the lane-0 decode, forms 1 and 2 the k-column body under K5's
+    staging and under the kept shuffle-rel policy, both at the kept
+    kernel's column shapes and checks; the launcher takes the kept
+    launcher's arguments and the form."""
+    section = PACKED_SOURCE[PACKED_SOURCE.index(
+        "K5 with k columns' forms"):PACKED_SOURCE.index("#include")]
+    for name, form in BV.PACKED_SPMM_FORMS.items():
+        assert re.search(rf"^//\s+{form} {name}\s", section, re.M), name
+    assert "mat_sweep<PackedLaneZero>(a);" in PACKED_SOURCE
+    assert "if (form == 0) {" in PACKED_SOURCE
+    assert ("spmm_form_kernel<PackedStage, Sh::kT, Sh::kW, Sh::kP>"
+            in PACKED_SOURCE)
+    assert ("spmm_form_kernel<PackedShuffle, Sh::kT, Sh::kW, Sh::kP>"
+            in PACKED_SOURCE)
+    assert "launch_mat<Sh, PackedStage>(" in PACKED_SOURCE
+    assert "launch_mat<Sh, PackedShuffle>(" in PACKED_SOURCE
+    assert BV.PACKED_SPMM_K == 8
+    csrc = S.__file__.rsplit("/", 2)[0] + "/csrc/"
+    kept = open(csrc + "sell_packed.cu").read()
+    fn, kept_fn = "sell_packed_spmm_variant_launch", "sell_packed_spmm_launch"
+    assert len(BV._PACKED_SIGNATURES[fn][1]) == _c_params(PACKED_SOURCE, fn)
+    assert len(S._PACKED_SIGNATURES[kept_fn][1]) == _c_params(kept, kept_fn)
+    assert _c_params(PACKED_SOURCE, fn) == _c_params(kept, kept_fn) + 1
+
+
 @pytest.mark.parametrize("route", ["relsl", "streamy_relsl"])
 def test_packed_pointers_in_launch_order(route):
     plan = contract.contract_plan("dead-run-ends-chunk", route)
@@ -305,21 +333,29 @@ SOLVER_SOURCE = BV._SOLVER_SRC.read_text()
 
 def test_solver_variant_ids_match_the_source():
     """Every solver variant id is listed in the source's header under the
-    same name and picks its phase for both K10 and K11, each solve the
-    kept kernel's with only its SpMV phase changed."""
+    same name and picks its phase for K9 (both routes), K10 and K11, each
+    solve the kept kernel's with only its SpMV phase changed; the old
+    walk decodes the route's planes, the others stage them."""
     phases = {"walk": "WalkPhase", "body": "SublanePhase",
               "ldcg": "LdcgPhase"}
     assert set(BV.SOLVER_VARIANTS) == set(phases)
     for name, vid in BV.SOLVER_VARIANTS.items():
         assert re.search(rf"^//\s+{vid} {name}\s", SOLVER_SOURCE, re.M), name
         assert (f"if (variant == {vid}) kernel = variant_kernel<"
-                f"{phases[name]}, V, L>(solver);") in SOLVER_SOURCE, name
-    assert "chebyshev_solve<Phase>(a);" in SOLVER_SOURCE
-    assert "pcg_ic0_solve<Phase>(a);" in SOLVER_SOURCE
-    for fn, solver in (("sell_chebyshev_variant_launch", "kChebyshev"),
+                f"{phases[name]}, V, L>(solver, route);") in SOLVER_SOURCE, name
+    for solve in ("cg_solve", "chebyshev_solve", "pcg_ic0_solve"):
+        assert f"{solve}<Phase>(a);" in SOLVER_SOURCE, solve
+    assert "cg_variant_kernel<PhaseOf<SplitPlanes>, V, L>" in SOLVER_SOURCE
+    assert "using Phase = PhaseOf<MergedWord>;" in SOLVER_SOURCE
+    assert "spmv_range<Decode>(a, lo, hi, tid, stride);" in SOLVER_SOURCE
+    for fn, solver in (("sell_cg_variant_launch", "kCg"),
+                       ("sell_chebyshev_variant_launch", "kChebyshev"),
                        ("sell_pcg_ic0_variant_launch", "kPcgIc0")):
         assert f"SOLVER_VARIANT_LAUNCH({fn}, {solver})" in SOLVER_SOURCE
+        assert fn in BV.SOLVER_LAUNCHERS.values()
+    assert set(BV.SOLVER_LAUNCHERS) == {"K9", "K10", "K11"}
     assert BV.IC0_STEPS == 100 and BV.IC0_SWEEPS == 4
+    assert BV.CG_STEPS == 300
 
 
 def test_kbench_forms_match_the_source():

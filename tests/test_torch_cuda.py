@@ -985,6 +985,104 @@ def test_pcg_ic0_refusals(card, what):
                 or xin.any())
 
 
+def _shifted(t, card):
+    """A copy of ``t`` one element off its storage's alignment."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _cg_operator(route, card):
+    """K9's operator on ``route``: Poisson 64² on the merged word, or
+    Poisson 256² widened to a window of 512 tiles on the split planes."""
+    from smvp_toolkit_tpu_torch.ops.sell_plan import rewindow_plan
+
+    if route == "relsl":
+        return S.sell_op_csr(_stencil_csr("poisson64", card))
+    csr = _stencil_csr("poisson256", card)
+    return S.SellSpMV(rewindow_plan(S.sell_op_csr(csr).plan, 512),
+                      device=card)
+
+
+@pytest.mark.parametrize("what", ["q", "vals", "chunks"])
+@pytest.mark.parametrize("route", ["relsl", "split"])
+def test_cg_refusals(card, route, what):
+    """K9's warp-per-sublane SpMV phase, on both routes, refuses a q or a
+    values plane one element off its alignment ("misaligned address") and
+    planes that are not whole chunks ("invalid argument"): nothing
+    launches, no launch is counted, the state is left as it was."""
+    from smvp_toolkit_tpu_torch.ops import cg_fused as C
+
+    op = _cg_operator(route, card)
+    assert op.route == route
+    n = C.state_tiles(op.plan) * 128
+    b = torch.ones(n, device=card)
+    x, r, p = (torch.zeros(n, device=card) for _ in range(3))
+    qbuf = torch.zeros(n + 1, device=card)
+    q = qbuf[1:] if what == "q" else qbuf[:n]
+    planes = C._route_planes(op)
+    if what == "vals":
+        planes["vals"] = _shifted(planes["vals"], card)
+    before = C.fused_cg.launches
+    if what != "chunks":
+        with pytest.raises(RuntimeError, match="misaligned"):
+            C.launch("sell_cg_kernel", op, route=route, planes=planes, b=b,
+                     x=x, r=r, p=p, q=q, xin=p, iterations=3)
+    else:  # a whole chunk's slots less one sublane: ctypes, past the checks
+        lib = C._lib()
+        part = torch.zeros(2 * 4096, dtype=torch.float64, device=card)
+        meta = planes.get("relsl", planes.get("rel"))
+        slice_of = planes.get("slice_of")
+        m = op.vals.numel() - 128
+        rc = lib.sell_solver_launch(
+            0, S._ROUTE_IDS[route], op.vals.data_ptr(), op.lidx.data_ptr(),
+            meta.data_ptr(), None if slice_of is None else
+            slice_of.data_ptr(), op.tile_base.data_ptr(), b.data_ptr(),
+            None, None, x.data_ptr(), r.data_ptr(), p.data_ptr(),
+            q.data_ptr(), None, p.data_ptr(), part.data_ptr(), 4096, m, m,
+            m, n, op.plan.chunk, 3, 0, 0.0, 0,
+            int(op.lidx.dtype == torch.int32), card.index or 0,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc != 0 and "invalid argument" in lib.sell_error_string(
+            rc).decode()
+    torch.cuda.synchronize()
+    assert C.fused_cg.launches == before
+    assert not (x.any() or r.any() or p.any() or qbuf.any())
+
+
+@pytest.mark.parametrize("steps, tol", [(1, SOLVER_TOL),
+                                        (30, SOLVER_TOL_BF16)])
+def test_fused_cg_split_planes_bf16_matches_plain(card, steps, tol):
+    """K9 on split planes in bfloat16 (the SpMV input rounded to bf16)
+    against its plain version, one launch of ``sell_cg_kernel`` counted.
+    After one step the SpMV input is b rounded, the same in both, so the
+    two differ by the summation order only (1e-4); after 30 the fused
+    solvers' drift bound. Three steps are no binding check at this size:
+    with 65,536 state entries a one-ulp difference between summation
+    orders flips the bf16 rounding of some SpMV input entry within three
+    steps, and one-ulp noise on the plain version's q alone moves x by
+    1e-4 to 9e-4 there (numpy, Poisson 256²)."""
+    import dataclasses
+
+    from smvp_toolkit_tpu_torch.ops.cg_fused import fused_cg, fused_cg_plain
+    from smvp_toolkit_tpu_torch.ops.sell_plan import rewindow_plan
+
+    csr = _stencil_csr("poisson256", card)
+    csr = dataclasses.replace(csr, vals=csr.vals.to(torch.bfloat16))
+    op = S.SellSpMV(rewindow_plan(S.sell_op_csr(csr).plan, 512),
+                    value_dtype=torch.bfloat16, device=card)
+    assert op.route == "split"
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        csr.shape[0]).astype(np.float32)).to(card)
+    before = fused_cg.launches
+    got, want = fused_cg(op, b, steps), fused_cg_plain(op, b, steps)
+    torch.cuda.synchronize()
+    assert fused_cg.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    assert _solver_rel(got, want) <= tol
+
+
 def test_cli_solve_launches_fused_kernels(card, tmp_path):
     import scipy.sparse as sp
 
@@ -1262,6 +1360,124 @@ def test_packed_refusals(card, route, what):
     torch.cuda.synchronize()
     assert rc != 0 and match in lib.sell_error_string(rc).decode()
     assert not ys.any()
+
+
+def _packed_spmm_case(name, card):
+    """A bf16 operator for K5 with k columns: the small resident plan, or
+    the hub-row plan (200 duplicate sublanes of one row, runs cut at 16
+    and across work items)."""
+    plan = (_route_plan("relsl") if name == "small"
+            else kcol_plans.hub_row_plan("relsl"))
+    return S.SellSpMV(plan, value_dtype=torch.bfloat16, device=card)
+
+
+@pytest.mark.parametrize("k", [2, 8, 17])
+@pytest.mark.parametrize("plan_name", ["small", "hub-row"])
+def test_packed_spmm_matches_plain_and_k1(card, plan_name, k):
+    """K5 with k columns on the k-column body: one launch, equal to its
+    plain version and to K1 with k columns in bf16 on the same plan within
+    the plan's SpMM tolerance (the products are bit-equal; only the
+    summation order differs)."""
+    op = _packed_spmm_case(plan_name, card)
+    pk, sl = op.packed_planes()
+    kw = op._mat_kw()
+    X = _block(card, op.plan.n_coltiles * 128, k, k, torch.bfloat16)
+    tol = spmm_tolerance(op.plan)[0]
+    before = S.sell_packed_spmm.launches
+    Y = S.sell_packed_spmm(pk, sl, op.tile_base, X, **kw)
+    Yp = S.sell_packed_spmm_plain(pk, sl, op.tile_base, X, **kw)
+    Y1 = op.spmm_kernel(*op._planes(), X, **kw)
+    torch.cuda.synchronize()
+    assert S.sell_packed_spmm.launches == before + 1
+    assert Y.shape == (op.plan.n_slices * 128, k)
+    assert bool(torch.isfinite(Y).all())
+    assert _rel(Y, Yp) <= tol and _rel(Y, Y1) <= tol
+
+
+@pytest.mark.parametrize("plane", ["disagreeing-lanes", "dead-lane-zero"])
+@pytest.mark.parametrize("k", [6, 8])
+def test_packed_spmm_disagreeing_lanes_skip_inf(card, k, plane):
+    """On a plane whose lanes 1..127 carry another rel than lane 0's, or
+    whose every third live sublane has a dead lane-0 rel (the reference
+    drops it; the kernel's shuffle clears its mask), with Inf in X at a
+    padding lane's column and every real entry of that column given value
+    bits 0 in its word: Y stays finite and equals the plain version on
+    that plane (rel from lane 0; zero values never multiplied), in the
+    vector (k = 8) and scalar (k = 6) forms."""
+    import torch_packed_plans as pp
+
+    op = _packed_spmm_case("small", card)
+    plan = op.plan
+    pk, sl = op.packed_planes()
+    if plane == "disagreeing-lanes":
+        bad = pp.disagreeing_lanes(
+            pk.cpu().numpy(), sl.cpu().numpy(), op.tile_base.cpu().numpy(),
+            chunk=plan.chunk, n_coltiles=plan.n_coltiles).reshape(-1, 128)
+    else:
+        bad = pk.cpu().numpy().reshape(-1, 128).copy()
+        dead = np.flatnonzero((pp.word_rel(bad)[:, 0] != pp.REL_DEAD)
+                              & (sl.cpu().numpy() >= 0))[::3]
+        bad[dead, 0] |= pp.REL_DEAD << pp.REL_SHIFT
+    vals = plan.vals.reshape(-1, 128)
+    live = (plan.rel_tile.reshape(-1) >= 0) & (plan.slice_of.reshape(-1) >= 0)
+    s = np.arange(vals.shape[0])
+    cols = ((plan.tile_base.astype(np.int64)[s // plan.chunk]
+             + plan.rel_tile.reshape(-1))[:, None] * 128
+            + plan.lane_idx.reshape(vals.shape))
+    col = int(cols[live[:, None] & (vals == 0)][0])
+    bad[live[:, None] & (vals != 0) & (cols == col)] &= 0xFFFF
+    bad = torch.from_numpy(bad.reshape(pk.shape)).to(card)
+    X = _block(card, plan.n_coltiles * 128, k, 9, torch.bfloat16)
+    X[col] = float("inf")
+    Y = S.sell_packed_spmm(bad, sl, op.tile_base, X, **op._mat_kw())
+    Yp = S.sell_packed_spmm_plain(bad, sl, op.tile_base, X, **op._mat_kw())
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(Y).all()) and bool(torch.isfinite(Yp).all())
+    assert _rel(Y, Yp) <= spmm_tolerance(plan)[0]
+
+
+@pytest.mark.parametrize("what", ["packed", "X", "empty"])
+def test_packed_spmm_refusals(card, what):
+    """K5 with k columns refuses a packed plane one word off 16 bytes and,
+    at k = 8 (the vector form), an X one element off four
+    ("misaligned address"), and planes of no sublane ("invalid
+    argument"): nothing launches, no launch is counted. At k = 6 (the
+    scalar form) the shifted X launches and equals the plain version."""
+    from smvp_toolkit_tpu_torch.ops import _build
+
+    op = _packed_spmm_case("small", card)
+    pk, sl = op.packed_planes()
+    tb = op.tile_base
+    kw = op._mat_kw()
+    match = "invalid argument" if what == "empty" else "misaligned"
+    if what == "packed":
+        pk = _shifted(pk, card)
+    elif what == "empty":
+        pk, sl, tb = pk[:0], sl[:0], tb[:0]
+    X = _block(card, op.plan.n_coltiles * 128, 8, 3, torch.bfloat16)
+    if what == "X":
+        X = _shifted(X, card)
+    before = S.sell_packed_spmm.launches
+    with pytest.raises(RuntimeError, match=match):
+        S.sell_packed_spmm(pk, sl, tb, X, **kw)
+    assert S.sell_packed_spmm.launches == before
+    Y = torch.zeros(kw["n_slices"] * 128, 8, device=card)
+    lib = _build.load("sell_packed", S._PACKED_SIGNATURES)
+    rc = lib.sell_packed_spmm_launch(
+        pk.data_ptr(), sl.data_ptr(), tb.data_ptr(), X.data_ptr(),
+        Y.data_ptr(), pk.numel(), kw["chunk"], 8, card.index or 0,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc != 0 and match in lib.sell_error_string(rc).decode()
+    assert not Y.any()
+    if what == "X":
+        X6 = _shifted(_block(card, op.plan.n_coltiles * 128, 6, 3,
+                             torch.bfloat16), card)
+        Y6 = S.sell_packed_spmm(pk, sl, tb, X6, **kw)
+        torch.cuda.synchronize()
+        assert S.sell_packed_spmm.launches == before + 1
+        assert _rel(Y6, S.sell_packed_spmm_plain(pk, sl, tb, X6, **kw)) <= (
+            spmm_tolerance(op.plan)[0])
 
 
 def _df64_plan_case(name, lo_plane):

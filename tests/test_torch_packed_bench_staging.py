@@ -13,10 +13,12 @@ on the resident plans it equals ``sell_bench_packed_plain`` and the JAX
 operator's ``bench_loop`` under ``SMVP_SELL_PACK=1`` (interpret mode)
 within 1e-6 of max |y|.
 
-K5 with k columns (``sell_packed_spmm_kernel``) keeps its one-thread-per-
-slot warp walk (``warp_slots``) under ``PackedLaneZero``: rel from the
+K5 with k columns (``sell_packed_spmm_kernel``) runs the k-column body
+under ``PackedShuffle`` (emulated in ``test_torch_packed_kcol_staging``);
+the one-thread-per-slot warp walk it ran before (``warp_slots`` under
+``PackedLaneZero``, a variant in ``csrc/variants/``: rel from the
 sublane's lane-0 word, value and lane from the slot's own word, only
-nonzero values multiplied. ``_mat_walk`` emulates it.
+nonzero values multiplied) is what ``_mat_walk`` emulates.
 
 On a plane whose lanes 1..127 carry another rel than lane 0's
 (``torch_packed_plans.disagreeing_lanes``) both emulations equal the plain
@@ -181,15 +183,46 @@ def test_packed_bench_buffers_match_the_source():
 
 
 def test_k_column_decode_reads_lane_zero():
-    """``sell_packed_spmm_kernel`` decodes under ``PackedLaneZero``, whose
-    rel comes from the sublane's lane-0 word; no kernel outside
-    ``csrc/variants/`` instantiates the per-slot ``PackedWord`` decode."""
+    """``sell_packed_spmm_kernel`` runs the k-column body under
+    ``PackedShuffle`` (K1 with k columns' cap of 64 registers), whose rel
+    comes from the sublane's lane-0 word (the word step 1 loads, by a warp
+    shuffle) and whose step 1 and step 3 read the slot's own word through
+    the read-only path (``PackedStage``'s hooks); its launch takes the
+    column shape of ``with_mat_shape`` and the checks of ``mat_work`` on
+    the packed plane. The per-slot decodes ``PackedWord`` and
+    ``PackedLaneZero`` are defined and instantiated only in
+    ``csrc/variants/``."""
     text = (CSRC / "sell_packed.cu").read_text()
-    assert ("sell_packed_spmm_kernel(const MatArgs<X, L> a) {\n"
-            "  mat_sweep<PackedLaneZero>(a);" in text)
+    assert ("template <int T, int W, int P>\n"
+            "__global__ void __launch_bounds__(kThreads, kMatMinBlocks)\n"
+            "    sell_packed_spmm_kernel(const MatArgs<X, L> a) {\n"
+            "  sublane_mat_sweep<PackedShuffle, MatShape<T, W, P>>(a);"
+            in text)
+    assert "return with_mat_shape(a.k, [&](auto shape) {" in text
+    assert "launch_mat<Sh, PackedShuffle>(" in text
     common = (CSRC / "sell_common.cuh").read_text()
-    body = common[common.index("struct PackedLaneZero : PackedWord {"):]
-    body = body[: body.index("};")]
-    assert "a.meta[i & ~127LL]" in body
+    body = common[common.index("struct PackedStage {"):]
+    body = body[: body.index("\n};")]
+    assert "a.meta[s * kLanes]" in body
+    assert ("__ldg(reinterpret_cast<const int4*>(a.meta + base + off))"
+            in body)
+    assert "__ldg(a.meta + base + i)" in body
+    assert "reinterpret_cast<uintptr_t>(a.meta) % 16 == 0" in body
+    shuffle = common[common.index("struct PackedShuffle : PackedStage {"):]
+    shuffle = shuffle[: shuffle.index("\n};")]
+    assert "*rel = sl < 0 ? -1 : 0;" in shuffle
+    assert "return load_slots_rel<ReadOnly>(a, base + off, v, l);" in shuffle
+    assert "(static_cast<unsigned>(q.x) >> kPackRelShift) & kRelDead, 0)" in (
+        shuffle)
+    run = common[common.index("void sublane_mat_run("):]
+    assert "Stage::mat_values(a, base, j * kLanes + 4 * lane, v);" in run
+    assert "Stage::mat_slot(a, base, jj * kLanes + l, &li);" in run
     for src in [*CSRC.glob("*.cu"), CSRC / "sell_common.cuh"]:
-        assert not re.search(r"<\s*PackedWord\s*[,>]", src.read_text()), src
+        text = src.read_text()
+        assert not re.search(r"<\s*Packed(Word|LaneZero)\s*[,>]", text), src
+        assert not re.search(r"struct Packed(Word|LaneZero)\b", text), src
+    walks = (CSRC / "variants" / "slot_walks.cuh").read_text()
+    assert "struct PackedLaneZero : PackedWord {" in walks
+    assert "a.meta[i & ~127LL]" in walks
+    assert "mat_sweep<PackedLaneZero>(a);" in (
+        CSRC / "variants" / "sell_packed_variants.cu").read_text()

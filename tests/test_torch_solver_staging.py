@@ -1,6 +1,24 @@
-"""K10's and K11's SpMV phases on the warp-per-sublane body, emulated in
-numpy, against the port's plain sweeps and the JAX package's fused
-Chebyshev and IC(0)-PCG.
+"""K9's, K10's and K11's SpMV phases on the warp-per-sublane body,
+emulated in numpy, against the port's plain sweeps and the JAX package's
+fused CG, Chebyshev and IC(0)-PCG.
+
+``sell_cg_kernel`` (``csrc/sell_solvers.cu``) runs ``cg_solve`` with the
+same walk as K10 over all work items (``SublanePhase<MergedWord>``), and
+``sell_cg_split_kernel`` the walk under the split planes' staging
+(``SublanePhase<SplitPlanes>``: rel and slice from ``rel_tile`` and
+``slice_of`` per sublane, -1 = dead). Thirty emulated float32 CG steps in
+K9's order (r = p = b; per step q = A·xin(p), α = r·r / max(p·q, 1e-30),
+x += α·p, r −= α·q, β = r'·r' / max(r·r, 1e-30), p = r + β·p; the dot
+products in float64 over float32 products) on that walk equal the JAX
+``fused_cg`` (interpret mode) and the port's CPU path within 1e-4 of max
+|x|, the tolerance of ``test_torch_fused_solvers``, on the systems below;
+in bfloat16 the emulated walk equals the plain sweep in the same
+recurrence within 1e-4 after 3 steps and 2^-7 after 30. Under the split
+staging the walk equals the plain split sweep within 1e-6 of max |q| on
+``tests/torch_kcol_plans.py``'s split plan (3000 x 70000, chunk 1024, a
+window of 547 tiles), and thirty CG steps on it equal the JAX ``fused_cg``
+on the split planes of a tridiagonal system widened past 511 tiles
+(``test_torch_fused_solvers``'s).
 
 ``sell_chebyshev_kernel`` (``csrc/sell_solvers.cu``) runs its SpMV phase,
 q += A·xin on the padded state vectors of T·128 entries, over the plan's
@@ -40,10 +58,11 @@ within 1e-4 after 3 steps and 2^-7 after 30.
 The kernels' gathers of xin are plain loads (``Coherent``), never
 ``__ldg``: the vector phases rewrite xin between SpMV phases of one
 launch, and the read-only path may return the last step's values, which a
-few steps at a small size need not show. A source test pins that for K10
-and K11's three phases, that K9 still runs ``spmv_range``, and that K2
-with k columns runs the k-column body's N-iteration walk (the old
-``mat_bench_sweeps`` lives only in ``csrc/variants/``).
+few steps at a small size need not show. A source test pins that for K9
+(both routes), K10 and K11's three phases, that K2 with k columns runs the
+k-column body's N-iteration walk, and that the one-thread-per-slot walks
+(``spmv_range``, ``slot``, ``warp_slots``, ``mat_sweep``, the old
+``mat_bench_sweeps``) live only in ``csrc/variants/``.
 """
 
 from __future__ import annotations
@@ -54,6 +73,7 @@ from pathlib import Path
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.sparse as sp
 import torch
 
 from smvp_toolkit_tpu.formats.coo import COOMatrix as JCOO
@@ -61,6 +81,7 @@ from smvp_toolkit_tpu.formats.csr import csr_encode as jcsr_encode
 from smvp_toolkit_tpu.ops import ilu as jilu
 from smvp_toolkit_tpu.ops import sell_plan as jplan
 from smvp_toolkit_tpu.ops import spmv_pallas as jsp
+from smvp_toolkit_tpu.ops.cg_fused import fused_cg as jfused_cg
 from smvp_toolkit_tpu.ops.pcg_fused import (
     fused_chebyshev as jfused_chebyshev,
     fused_pcg_ic0 as jfused_pcg_ic0,
@@ -73,11 +94,15 @@ from smvp_toolkit_tpu_torch.interop import (
 from smvp_toolkit_tpu_torch.ops import pcg_fused as P
 from smvp_toolkit_tpu_torch.ops import spmv_sell as tsp
 from smvp_toolkit_tpu_torch.ops.cg_fused import (
+    fused_cg,
     pad_state,
     plain_spmv,
     state_tiles,
 )
+from smvp_toolkit_tpu_torch.ops.sell_plan import rewindow_plan
 from smvp_toolkit_tpu_torch.utils.synth import hpcg_stencil, poisson2d
+
+import torch_kcol_plans as kcol
 
 LANES = 128
 RUN = 64  # sublanes of a work item (sell_common.cuh, kRun)
@@ -127,15 +152,29 @@ def system(request):
     return request.param, jp, plan_from_arrays(plan_fields(jp)), b, lo, hi
 
 
+def _staging(planes):
+    """Per sublane (rel, slice, live) as the staging policy gives them:
+    ``MergedWord`` from the merged word of (vals, lidx, relsl, tile_base),
+    ``SplitPlanes`` from rel_tile and slice_of of (vals, lidx, rel_tile,
+    slice_of, tile_base)."""
+    if len(planes) == 4:
+        word = planes[2].numpy().astype(np.int64) & 0xFFFFFFFF
+        rel, sl = word & REL_DEAD, word >> SLICE_SHIFT
+        return rel, sl, (rel != REL_DEAD) & (sl != SLICE_DEAD)
+    rel = planes[2].numpy().astype(np.int64)
+    sl = planes[3].numpy().astype(np.int64)
+    return rel, sl, (rel >= 0) & (sl >= 0)
+
+
 def _range_walk(planes, chunk, lo, hi):
-    """The slots [lo, hi) (chunk boundaries) of merged-word planes (vals,
-    lidx, relsl, tile_base), walked as the kernels' SpMV phases walk them:
-    the work items from lo's to hi's, item = c·runs + r staging up to 64
-    sublanes (chunk c, run r) from the merged word, the live ones' 128
+    """The slots [lo, hi) (chunk boundaries) of merged-word or split
+    planes, walked as the kernels' SpMV phases walk them: the work items
+    from lo's to hi's, item = c·runs + r staging up to 64 sublanes (chunk
+    c, run r) under the planes' policy (``_staging``), the live ones' 128
     lanes each taken with the chunk's ``tile_base[c]``. Returns the rows,
     columns and values of every slot multiplied, item by item."""
-    vals_p, lidx_p, relsl, tile_base = planes
-    word = relsl.numpy().astype(np.int64) & 0xFFFFFFFF
+    vals_p, lidx_p, tile_base = planes[0], planes[1], planes[-1]
+    rel_all, sl_all, live_all = _staging(planes)
     vals = vals_p.float().numpy().reshape(-1, LANES)
     lidx = lidx_p.numpy().astype(np.int64).reshape(-1, LANES)
     tb = tile_base.numpy().astype(np.int64)
@@ -146,9 +185,8 @@ def _range_walk(planes, chunk, lo, hi):
         c, r = divmod(item, runs)
         first = r * RUN
         s = c * chunk + first + np.arange(min(RUN, chunk - first))
-        rel, sl = word[s] & REL_DEAD, word[s] >> SLICE_SHIFT
-        live = (rel != REL_DEAD) & (sl != SLICE_DEAD)
-        s, rel, sl = s[live], rel[live], sl[live]
+        live = live_all[s]
+        s, rel, sl = s[live], rel_all[s][live], sl_all[s][live]
         cols.append(((tb[c] + rel)[:, None] * LANES + lidx[s]).ravel())
         rows.append((sl[:, None] * LANES + np.arange(LANES)).ravel())
         vs.append(vals[s].ravel())
@@ -168,7 +206,8 @@ def _apply(walk, xin):
 
 def _spmv_items(op, xin):
     """q = A·xin on the state vectors (``len(xin)`` = T·128), walked as
-    K10's SpMV phase walks it: every work item of the plan."""
+    K9's and K10's SpMV phases walk it: every work item of the plan, under
+    the route's staging."""
     return _apply(_range_walk(op._planes(), op.plan.chunk, 0,
                               op.vals.numel()), xin)
 
@@ -255,6 +294,104 @@ def test_emulated_bf16_chebyshev_matches_the_plain_sweep(system, steps,
         xp = P.fused_chebyshev(op, torch.from_numpy(b), lo, hi, steps)
         xp = xp.numpy()
         assert np.abs(x - xp).max() <= tol * np.abs(xp).max()
+
+
+# -- K9: the CG recurrence over the same walk, merged word and split planes
+
+
+def _cg(op, b, steps, spmv=_spmv_items):
+    """K9's solve in float32 with the emulated SpMV phase (or ``spmv``),
+    in the kernel's order: x = 0, r = p = b, r·r; per step q = A·xin(p),
+    α = r·r / max(p·q, 1e-30), x += α·p, r −= α·q, β = r'·r' / max(r·r,
+    1e-30), p = r + β·p (dot products: float64 sums of float32
+    products)."""
+    f32 = np.float32
+    bt = np.zeros(state_tiles(op.plan) * LANES, f32)
+    bt[: len(b)] = b
+    x, r, p = np.zeros_like(bt), bt.copy(), bt.copy()
+    rs = f32(np.sum((bt * bt).astype(np.float64)))
+    for _ in range(steps):
+        q = spmv(op, _xin(op, p)).astype(f32)
+        pq = f32(np.sum((p * q).astype(np.float64)))
+        alpha = f32(rs / np.maximum(pq, f32(1e-30)))
+        x = x + alpha * p
+        r = r - alpha * q
+        rs2 = f32(np.sum((r * r).astype(np.float64)))
+        beta = f32(rs2 / np.maximum(rs, f32(1e-30)))
+        p = r + beta * p
+        rs = rs2
+    return x[: len(b)]
+
+
+def test_emulated_cg_matches_jax(system):
+    """Float32: 30 emulated K9 steps against the JAX kernel (interpret
+    mode) and the port's CPU path."""
+    _, jp, tp, b, _, _ = system
+    op = _operator(tp, torch.float32)
+    x = _cg(op, b, STEPS)
+    xj = np.asarray(jfused_cg(jsp.SellSpMV(jp), jnp.asarray(b), STEPS))
+    assert np.isfinite(x).all() and x.shape == xj.shape
+    assert np.abs(x - xj).max() <= TOL_SOLVER * np.abs(xj).max()
+    xp = fused_cg(op, torch.from_numpy(b), STEPS).numpy()
+    assert np.abs(x - xp).max() <= TOL_SOLVER * np.abs(xp).max()
+
+
+@pytest.mark.parametrize("steps, tol", [(3, TOL_SOLVER),
+                                        (STEPS, TOL_SOLVER_BF16)])
+def test_emulated_bf16_cg_matches_the_plain_sweep(system, steps, tol):
+    """bfloat16: the emulated walk against the plain sweep in the same
+    recurrence, at the card checks' limits; after 30 steps also against
+    the port's CPU path."""
+    _, _, tp, b, _, _ = system
+    op = _operator(tp, torch.bfloat16)
+    x = _cg(op, b, steps)
+    xs = _cg(op, b, steps, spmv=_plain_sweep)
+    assert np.isfinite(x).all()
+    assert np.abs(x - xs).max() <= tol * np.abs(xs).max()
+    if steps == STEPS:
+        xp = fused_cg(op, torch.from_numpy(b), steps).numpy()
+        assert np.abs(x - xp).max() <= tol * np.abs(xp).max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_items_match_the_plain_split_sweep(dtype):
+    """The walk under the split planes' staging equals the plain split
+    sweep on the split plan of ``torch_kcol_plans`` (a window of 547 tiles,
+    rel past the merged word's 511, 200 duplicate sublanes of one row)."""
+    tp = kcol.hub_row_plan("split")
+    op = _operator(tp, dtype)
+    assert op.route == "split" and tp.window_tiles > 511
+    assert len(op._planes()) == 5
+    v = np.random.default_rng(2).standard_normal(
+        state_tiles(tp) * LANES).astype(np.float32)
+    q = _spmv_items(op, _xin(op, v))
+    want = _plain_sweep(op, v)
+    assert q.shape == want.shape
+    scale = np.abs(want).max()
+    assert scale > 0 and np.abs(q - want).max() <= TOL_SPMV * scale
+
+
+def test_emulated_split_cg_matches_jax(monkeypatch):
+    """Float32: 30 emulated K9 steps under the split staging, on a
+    tridiagonal system of 513·128 rows whose plan is widened to a window
+    of 512 tiles, against the JAX kernel on its split planes (interpret
+    mode) and the port's CPU path."""
+    n = 513 * LANES
+    a = sp.diags([-1.0, 4.0, -1.0], [-1, 0, 1], (n, n)).tocoo()
+    r, c, v = a.row.astype(np.int32), a.col.astype(np.int32), a.data
+    jop = jsp.SellSpMV.from_coo(JCOO.from_numpy(
+        r, c, v.astype(np.float32), shape=a.shape, pad_to=128))
+    tp = rewindow_plan(plan_from_arrays(plan_fields(jop.plan)), 512)
+    op = _operator(tp, torch.float32)
+    assert op.route == "split"
+    b = np.random.RandomState(1).rand(n).astype(np.float32)
+    x = _cg(op, b, STEPS)
+    monkeypatch.setenv("SMVP_SELL_RELSL", "0")
+    xj = np.asarray(jfused_cg(jop, jnp.asarray(b), STEPS))
+    assert np.isfinite(x).all()
+    assert np.abs(x - xj).max() <= TOL_SOLVER * np.abs(xj).max()
+    xp = fused_cg(op, torch.from_numpy(b), STEPS).numpy()
+    assert np.abs(x - xp).max() <= TOL_SOLVER * np.abs(xp).max()
 
 
 # -- K11: the three SpMV phases over item ranges of the concatenated planes
@@ -432,39 +569,49 @@ def _function(text, name):
 
 
 def test_k10_gathers_are_coherent_and_k9_k11_keep_spmv_range():
-    """K10's phase and K11's three phases run the item-range walk with
-    coherent gathers (``SublanePhase``: ``spmv_items<Coherent>``, plain
-    loads, never ``__ldg``); K9 still runs ``spmv_range``; K2 with k
-    columns runs the k-column body's N-iteration walk, and the old
-    ``mat_bench_sweeps`` is left only in ``csrc/variants/``."""
+    """K9's phase (both routes), K10's and K11's three phases run the
+    item-range walk with coherent gathers (``SublanePhase<Stage>``:
+    ``spmv_items<Stage, Coherent>``, plain loads, never ``__ldg``); K9's
+    launch takes the warp-per-sublane checks; K2 with k columns runs the
+    k-column body's N-iteration walk. No kernel of the package keeps a
+    one-thread-per-slot walk: ``spmv_range``, ``slot``, ``warp_slots``,
+    ``mat_sweep`` and the old ``mat_bench_sweeps`` are defined and called
+    only in ``csrc/variants/``."""
     solvers = (CSRC / "sell_solvers.cu").read_text()
     common = (CSRC / "sell_common.cuh").read_text()
-    assert "chebyshev_solve<SublanePhase>(a);" in _function(
-        solvers, "    sell_chebyshev_kernel")
-    assert "pcg_ic0_solve<SublanePhase>(a);" in _function(
-        solvers, "    sell_pcg_ic0_kernel")
-    cheb = _function(solvers, "void chebyshev_solve")
-    assert "Phase::run(a.spmv, 0, a.spmv.n_slots, tid, stride);" in cheb
-    assert "spmv_range" not in cheb
+    for kernel, solve in (("sell_cg_kernel", "cg_solve<SublanePhase<"
+                           "MergedWord>>(a);"),
+                          ("sell_cg_split_kernel", "cg_solve<SublanePhase<"
+                           "SplitPlanes>>(a);"),
+                          ("sell_chebyshev_kernel", "chebyshev_solve<"
+                           "SublanePhase<MergedWord>>(a);"),
+                          ("sell_pcg_ic0_kernel", "pcg_ic0_solve<"
+                           "SublanePhase<MergedWord>>(a);")):
+        assert solve in _function(solvers, "    " + kernel), kernel
+    for solve in ("void cg_solve", "void chebyshev_solve"):
+        body = _function(solvers, solve)
+        assert "Phase::run(a.spmv, 0, a.spmv.n_slots, tid, stride);" in body
+        assert "spmv_range" not in body
     ic0 = _function(solvers, "void pcg_ic0_solve")
     assert "spmv_range" not in ic0
     for lo, hi in (("0", "a.slots_l0"), ("a.slots_l0", "a.slots_lt0"),
                    ("a.slots_lt0", "a.slots_end")):
         assert f"Phase::run(a.spmv, {lo}, {hi}, tid, stride);" in ic0
     phase = solvers[solvers.index("struct SublanePhase {"):]
-    assert ("spmv_items<Coherent>(a, items_before(a, lo), "
+    assert ("spmv_items<Stage, Coherent>(a, items_before(a, lo), "
             "items_before(a, hi));") in phase[: phase.index("};")]
     items = _function(solvers, "void spmv_items")
     assert "item = lo + blockIdx.x; item < hi; item += gridDim.x" in items
-    assert re.search(r"sublane_run<MergedWord, ResidentY, Streaming, "
+    assert re.search(r"sublane_run<Stage, ResidentY, Streaming, "
                      r"Gather>\(", items)
     coherent = common[common.index("struct Coherent {"):]
     coherent = coherent[: coherent.index("};")]
     assert "return *p;" in coherent and "__ldg" not in coherent
     run = _function(common, "void sublane_run")
     assert "Gather::load(" in run and "__ldg" not in run
-    assert "spmv_range<Decode>(a.spmv, 0, a.spmv.n_slots" in _function(
-        solvers, "void cg_solve")
+    launch = _function(solvers, "cudaError_t launch_solver")
+    assert "cudaError_t err = sublane_phase_checks(a);" in launch
+    assert "kCg" not in launch
     checks = _function(solvers, "cudaError_t sublane_phase_checks")
     assert "a.slots_l0 % chunk_slots == 0" in checks
     assert "a.slots_lt0 % chunk_slots == 0" in checks
@@ -476,9 +623,17 @@ def test_k10_gathers_are_coherent_and_k9_k11_keep_spmv_range():
             f"{tsp.MAT_BENCH_Y_BUFFERS};") in spmm
     assert "sublane_mat_run<Stage, Shape>(a, out," in _function(
         common, "void sublane_mat_bench_sweeps")
+    walks = ("spmv_range", "slot", "warp_slots", "mat_sweep",
+             "mat_bench_sweeps", "bench_sweeps")
     for path in CSRC.glob("*.cu*"):
-        assert "mat_bench_sweeps<" not in path.read_text().replace(
-            "sublane_mat_bench_sweeps<", ""), path.name
-        assert "void mat_bench_sweeps(" not in path.read_text(), path.name
+        text = path.read_text()
+        for walk in walks:
+            assert not re.search(rf"(?<![\w]){walk}\s*<", text), (path.name,
+                                                                  walk)
+            assert not re.search(rf"void {walk}\(", text), (path.name, walk)
+    variants = (CSRC / "variants" / "slot_walks.cuh").read_text()
+    for walk in ("spmv_range", "slot", "warp_slots", "mat_sweep",
+                 "bench_sweeps", "slot_coords"):
+        assert re.search(rf"void {walk}\(|bool {walk}\(", variants), walk
     assert "void mat_bench_sweeps(" in (
         CSRC / "variants" / "sell_spmm_variants.cu").read_text()

@@ -122,12 +122,13 @@ def test_hub_row_plan_matches_jax_and_oracle(route, k):
 
 
 _SPMM_SRC = (Path(tsp.__file__).resolve().parent.parent / "csrc"
-             / "sell_spmm.cu").read_text()
+             / "sell_common.cuh").read_text()
 
 
 def _kernel_shape(k):
-    """The column shape csrc/sell_spmm.cu's with_mat_shape returns for k,
-    read from its table."""
+    """The column shape csrc/sell_common.cuh's with_mat_shape (the table
+    every k-column kernel launches with) returns for k, read from its
+    table."""
     body = _SPMM_SRC[_SPMM_SRC.index("cudaError_t with_mat_shape"):]
     body = body[:body.index("\n}\n")]
     vector, scalar = body.split("if (k <= 4)", 1)
@@ -144,7 +145,7 @@ def _kernel_shape(k):
 
 
 def test_spmm_shape_matches_the_kernel_table():
-    """``spmm_shape`` (the column shape K1 and K4 with k columns launch)
+    """``spmm_shape`` (the column shape K1, K4 and K5 with k columns launch)
     equals the kernel's own table for every k up to 700; the vector form
     is taken exactly where k % 4 == 0; T is a power of two up to a warp, P
     at most 4; one column block covers k up to 128 in either form."""
