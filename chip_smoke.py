@@ -16,10 +16,17 @@ Phases; any failure exits non-zero and prints no result line:
    metadata (``[regs]``, the most over their types and column shapes),
    and each bench kernel's
    cooperative grid (the four routes' N-iteration kernels for both value
-   and lane-index types on a line of their own). The plans of the
-   four full-size matrices and of the ``gcn_arxiv`` graph (its normalised
-   adjacency A and its transpose), and K7's by-slice schedule of A (its
-   units, live sublanes per slice and build time on a ``[plan]`` line).
+   and lane-index types on a line of their own). The build covers the
+   host sources too (``csrc/*.cpp``: the IC(0) and co-clustering passes,
+   the CISR scheduler, the planner's sort, the MatrixMarket reader and the
+   encode orders, with the host compiler). The plans of the
+   four full-size matrices (the planner's native pass) and of the
+   ``gcn_arxiv`` graph (its normalised adjacency A and its transpose), and
+   K7's by-slice schedule of A (its units, live sublanes per slice and
+   build time on a ``[plan]`` line); smoke's and L2's plans, and later
+   hpcg104's A, are planned again by the numpy flow
+   (``SMVP_NO_NATIVE_PLAN=1``) and must equal the native plans element for
+   element, both times printed.
 2. Every kernel against its plain PyTorch version on the card, in float32
    and bfloat16: the forward kernel of the plan's route, its N-iteration
    kernel with N = 3, and the two against each other. Tolerance:
@@ -136,6 +143,17 @@ Phases; any failure exits non-zero and prints no result line:
      directory (its write and read times printed);
    - L3 through the operator API (``SellSpMV.from_coo``, ``__call__``,
      ``bench_loop`` with N = 100), float32 and bfloat16;
+   - smoke-cisr: smoke's matrix scheduled on 16 CISR channels on the host
+     (``formats/cisr.py``; its decode round trip bit for bit, the ``.coe``
+     text's build timed), then the CLI's ``-a -n 10 --x random:1
+     --decode-check --coe-out --lut-out --save-encoded --out-dir`` on the
+     card, per call and ``--fused`` (K1 only; K2 only): CSR, TJDS and CISR
+     decode bit-exact, CISR's y (``cisr.npy``) within 1e-5 of the float64
+     oracle and 1e-6 of CSR's y (``y.npy``), TJDS's report within 1e-5, the
+     ``.coe`` byte-equal to the host's text with its start word, end word
+     and word count (one value word per beat and channel, one row-length
+     word per two rows), one LUT line per non-zero, the CSR checkpoint
+     loadable;
    - gcn_arxiv: a 3-layer GCN at the width of the OGB ogbn-arxiv GCN
      baseline (169,343 nodes, dims [128, 256, 256, 40]) on
      ``gcn_norm(synth_powerlaw(169_343, 2_315_598, seed=0))``, features
@@ -461,6 +479,10 @@ DIST_CHUNK = 1024
 DIST_CHECK_N = 3
 DIST_REPLACES = "smvp_toolkit_tpu/parallel/sell_dist.py:419"
 LAUNCH_N = 100      # -n of the torchrun parallel.launch runs
+# smoke-cisr: the CLI's -a at smoke's size (-n, -s), and the full-size
+# plans whose native pass is held to the numpy flow (hpcg104's A too).
+CISR_N, CISR_SLOTS = 10, 16
+NATIVE_PLAN_CHECK = ("smoke", "L2")
 
 
 def _card_line() -> str:
@@ -601,7 +623,7 @@ def _spmm_kernel_name(route, fused):
     return "sell_split_spmm_kernel"  # --fused: N matmat calls
 
 
-def _configs():
+def _configs(np):
     """Host triplets of the four full-size configurations and their plans."""
     from smvp_toolkit_tpu_torch.ops.spmv_sell import _auto_plan
     from smvp_toolkit_tpu_torch.utils.synth import (
@@ -622,6 +644,9 @@ def _configs():
         t1 = time.perf_counter()
         plan = _auto_plan(rr, cc, vv, coo.shape)
         t2 = time.perf_counter()
+        if name in NATIVE_PLAN_CHECK:
+            _native_vs_numpy(np, name, plan, t2 - t1,
+                             lambda: _auto_plan(rr, cc, vv, coo.shape))
         occ = coo.nnz / plan.slots()
         live = float(((plan.rel_tile.reshape(-1) >= 0)
                       & (plan.slice_of.reshape(-1) >= 0)).mean())
@@ -633,6 +658,36 @@ def _configs():
               f"in {t1 - t0:.2f} s, planned in {t2 - t1:.2f} s", flush=True)
         out[name] = (plan, (rr, cc, vv, coo.shape))
     return out
+
+
+def _same_plan(np, a, b) -> bool:
+    """Every field of two SellPlans equal, arrays element for element and
+    of one dtype."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            if x is None or y is None or x.dtype != y.dtype \
+                    or x.shape != y.shape or not np.array_equal(x, y):
+                return False
+        elif x != y:
+            return False
+    return True
+
+
+def _native_vs_numpy(np, name, plan, native_s, replan):
+    """The numpy flow's plan (``SMVP_NO_NATIVE_PLAN=1``) against ``plan``
+    from the native pass, element for element, both times printed."""
+    t0 = time.perf_counter()
+    with _env(SMVP_NO_NATIVE_PLAN="1"):
+        ref = replan()
+    numpy_s = time.perf_counter() - t0
+    _check(_same_plan(np, plan, ref),
+           f"{name}: native plan differs from the numpy plan")
+    print(f"[plan] {name}: native pass (csrc/sellplan.cpp) {native_s:.2f} s, "
+          f"numpy flow {numpy_s:.2f} s, plans equal element for element",
+          flush=True)
 
 
 def _gcn_graph(np, torch):
@@ -1419,6 +1474,113 @@ def _operator_runs(np, torch, name, triplets, launches):
                   f"launches {n}, vs float64 oracle {err:.3e}", flush=True)
             _check(err <= TOL_ORACLE, f"{what} oracle error {err}")
         del op, coo
+
+
+def phase_cisr(np, torch, configs, launches):
+    """Phase 3, smoke-cisr: the schedule of smoke's matrix on the host
+    (decode round trip, ``.coe`` write timed), then the CLI's ``-a`` at
+    full size, per call and ``--fused``."""
+    from smvp_toolkit_tpu_torch.cli import main as cli_main
+    from smvp_toolkit_tpu_torch.formats.cisr import (
+        cisr_decode,
+        cisr_encode,
+        write_coe,
+    )
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.utils.checkpoint import load_matrix
+
+    trip = configs["smoke"][1]
+    r, c, v, shape = trip
+    coo = COOMatrix.from_numpy(r, c, v, shape=shape, device="cpu")
+    t0 = time.perf_counter()
+    cisr = cisr_encode(coo, CISR_SLOTS)
+    t1 = time.perf_counter()
+    rd, cd, vd = cisr_decode(cisr, device="cpu").to_numpy()
+    R, C, V = coo.canonical_order().to_numpy()
+    _check(rd.tobytes() == R.tobytes() and cd.tobytes() == C.tobytes()
+           and vd.tobytes() == V.astype(np.float64).tobytes(),
+           "smoke CISR decode round trip")
+    t2 = time.perf_counter()
+    coe = write_coe(cisr).encode()
+    t3 = time.perf_counter()
+    n_val = cisr.num_groups * CISR_SLOTS
+    n_len = -(-shape[0] // 2)
+    print(f"[cisr] smoke: {CISR_SLOTS} slots, {cisr.num_groups} beats, "
+          f"{n_val} value words, {n_len} row-length words; scheduled in "
+          f"{t1 - t0:.2f} s (csrc/cisr.cpp), decode round trip bit-exact, "
+          f".coe text ({len(coe)} bytes) built in {t3 - t2:.2f} s",
+          flush=True)
+    del coo, rd, cd, vd, R, C, V
+    ref, _ = _oracle(np, torch, trip, "float32")
+    scale = float(np.abs(ref).max())
+    for fused in (False, True):
+        kname = S.KERNEL_NAMES[("relsl", fused)]
+        with tempfile.TemporaryDirectory() as tmp:
+            paths = {k: os.path.join(tmp, k) for k in (
+                "smoke.coe", "smoke.lut", "enc", "run.jsonl")}
+            argv = ["-a", "-n", str(CISR_N), "--x", "random:1",
+                    "--decode-check", "--coe-out", paths["smoke.coe"],
+                    "--lut-out", paths["smoke.lut"], "--save-encoded",
+                    paths["enc"], "-d", tmp, "--out-dir", tmp, "--json-out",
+                    paths["run.jsonl"], "--device",
+                    torch.device(DEVICE).type]
+            argv += ["--fused"] if fused else []
+            log = io.StringIO()
+            _zero_counts(S)
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(log):
+                rc = cli_main(argv + [SMOKE_SPEC])
+            wall = time.perf_counter() - t0
+            counts = _counts(S)
+            what = f"smoke-cisr CLI -a fused={fused}"
+            _check(rc == 0, f"{what} returned {rc}:\n{log.getvalue()}")
+            for alg in ("CSR", "TJDS", "CISR"):
+                _check(f"{alg} decode round-trip: bit-exact" in log.getvalue(),
+                       f"{what}: {alg} decode")
+            got = _check_only(counts, [kname], what)
+            launches[(kname, "smoke-cisr", "float32")] = got[kname]
+            y_csr = np.load(os.path.join(tmp, "y.npy")).astype(np.float64)
+            y_cisr = np.load(os.path.join(tmp, "cisr.npy")).astype(np.float64)
+            errs = {"CISR vs oracle": float(np.abs(y_cisr - ref).max()) / scale,
+                    "CISR vs CSR": float(np.abs(y_cisr - y_csr).max())
+                    / float(np.abs(y_csr).max())}
+            (tpath,) = glob.glob(os.path.join(
+                tmp, "smvp-toolbox_report_TJDS_*"))
+            errs["TJDS vs oracle"] = float(np.abs(
+                _report_vector(np, tpath) - ref).max()) / scale
+            with open(paths["smoke.coe"], "rb") as f:
+                text = f.read()
+            # from the newline before the start word: every word's line
+            # ends in one
+            body = text[text.index(b"\n00aaaaaaaa,\n"):]
+            words = (body.count(b"\n01"), body.count(b"\n02"),
+                     body.count(b"\n") - 1)
+            _check(text == coe and text.endswith(b"\n03ffffffff;\n")
+                   and words == (n_val, n_len, n_val + n_len + 2),
+                   f"{what}: .coe words {words}, want {n_val} value and "
+                   f"{n_len} row-length words between the start and end "
+                   f"words")
+            with open(paths["smoke.lut"], "rb") as f:
+                lut_lines = f.read().count(b"\n")
+            _check(lut_lines == len(r), f"{what}: LUT lines {lut_lines}")
+            back = load_matrix(paths["enc"] + "_csr.npz", device="cpu")
+            _check(back.nnz == len(r) and back.shape == shape,
+                   f"{what}: CSR checkpoint {back}")
+            with open(paths["run.jsonl"]) as f:
+                recs = [json.loads(ln) for ln in f]
+        rates = ", ".join(f"{q['alg']} avg {q['avg_ms']:.6f} ms/iter"
+                          for q in recs)
+        print(f"[main] smoke-cisr -a{' --fused' if fused else ''}: rc 0, "
+              f"{wall:.1f} s, {rates}, launches {got}, "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+              + f"; .coe {len(text)} bytes, LUT {lut_lines} lines",
+              flush=True)
+        _check(errs["CISR vs oracle"] <= TOL_ORACLE
+               and errs["TJDS vs oracle"] <= TOL_ORACLE,
+               f"{what} oracle errors {errs}")
+        _check(errs["CISR vs CSR"] <= TOL_KERNEL,
+               f"{what}: CISR y vs CSR y {errs['CISR vs CSR']}")
 
 
 def phase_main_path(np, torch, configs):
@@ -2215,6 +2377,8 @@ def phase_hpcg(np, torch, launches):
         t2 = time.perf_counter()
         print(f"[hpcg] A planned in {t1 - t0:.1f} s; ic0 (csrc/ilu.cpp) in "
               f"{t2 - t1:.2f} s", flush=True)
+        _native_vs_numpy(np, "hpcg104 A", op.plan, t1 - t0, lambda: (
+            S._auto_plan(*S._triplets_from_csr_host(csr))))
     bt = torch.from_numpy(b).to(DEVICE)
     api = {}
     _hpcg_solve(torch, S, "cg:300", lambda: M.conjugate_gradient(
@@ -3891,7 +4055,7 @@ def main() -> int:
                f"{SUBLANE_BLOCKS_PER_SM} blocks on each of {sms} SMs")
 
     with _Phase("plans"):
-        configs = _configs()
+        configs = _configs(np)
         wait_cc = _start_cocluster(configs["smoke"][1])
         plans = _small_plans(np) + [(n, p) for n, (p, _) in configs.items()]
         gcn = _gcn_graph(np, torch)
@@ -3907,6 +4071,8 @@ def main() -> int:
     with _Phase("solver kernels vs plain"):
         phase_solver_kernels(np, torch)
     launches = phase_main_path(np, torch, configs)
+    with _Phase("main path: smoke-cisr"):
+        phase_cisr(np, torch, configs, launches)
     with _Phase("main path: smoke-df64, smoke-df64-f64"):
         df64 = phase_df64(np, torch, configs, ops, launches)
     with _Phase("main path: smoke-packed, L1-packed, L2 gate"):

@@ -11,10 +11,16 @@ which runs each kernel's plain PyTorch version instead.
 Module layout follows the JAX package so each module's counterpart is
 found under the same name:
 
-* ``io.mtx`` — MatrixMarket reading and writing.
+* ``io.mtx`` / ``io.native`` — MatrixMarket reading (the native parser
+  ``csrc/mtxio.cpp`` by default) and writing.
 * ``formats.coo`` / ``formats.csr`` / ``formats.tjds`` — COO triplets and
-  the CSR and TJDS codecs.
-* ``ops.sell_plan`` — the SELL-T1 planner, flat and streamed-y (host, numpy).
+  the CSR and TJDS codecs (``formats.encode_native``: the host counting
+  sorts of ``csrc/encode.cpp``).
+* ``formats.cisr`` / ``formats.vivado`` — the CISR channel schedule
+  (``csrc/cisr.cpp``), its Vivado ``.coe`` image and the TJDS LUT;
+  ``ops.spmv_cisr`` — the SpMV from the schedule, channel per lane.
+* ``ops.sell_plan`` — the SELL-T1 planner, flat and streamed-y (host: the
+  native pass ``csrc/sellplan.cpp`` or the numpy flow).
 * ``ops.spmv_sell`` — the SELL operator over the CUDA kernels (SpMV,
   SpMM, the values gradient; the packed bf16 plane under
   ``SMVP_SELL_PACK=1``).
@@ -33,9 +39,10 @@ found under the same name:
   process group, one rank per device (NCCL on cards, gloo on the CPU):
   CSR row blocks, TJDS stripes, a 2-D grid, the SELL kernels per rank
   (K2-sharded: ``bench_loop_sharded``), the traffic model, ``launch``.
-* ``bench`` — timing, roofline and report files.
-* ``cli`` — the ``-c`` / ``-t`` / ``--spmm`` / ``--solve`` / ``--kernel
-  df64`` / ``--shards`` command line.
+* ``bench`` — timing, roofline and report files; ``utils.debug`` and
+  ``utils.checkpoint`` — debug dumps and ``.npz`` checkpoints.
+* ``cli`` — the ``-a`` / ``-c`` / ``-t`` / ``-g`` / ``--spmm`` /
+  ``--solve`` / ``--kernel df64`` / ``--shards`` command line.
 
 Exports are lazy: importing the package imports neither the kernels'
 build machinery nor the formats.
@@ -63,6 +70,12 @@ _EXPORTS = {
     "SellSpMV": "smvp_toolkit_tpu_torch.ops.spmv_sell",
     "spmv_csr_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
     "spmv_tjds_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
+    "spmv_cisr_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
+    "CISRMatrix": "smvp_toolkit_tpu_torch.formats.cisr",
+    "cisr_encode": "smvp_toolkit_tpu_torch.formats.cisr",
+    "cisr_decode": "smvp_toolkit_tpu_torch.formats.cisr",
+    "write_coe": "smvp_toolkit_tpu_torch.formats.cisr",
+    "CisrSpMV": "smvp_toolkit_tpu_torch.ops.spmv_cisr",
     "GCN": "smvp_toolkit_tpu_torch.models.graph",
     "gcn_norm": "smvp_toolkit_tpu_torch.models.graph",
     "gcn_train_step": "smvp_toolkit_tpu_torch.models.graph",

@@ -15,6 +15,7 @@ __all__ = [
     "hbm_bandwidth_gbs",
     "spmv_bytes_csr",
     "spmv_bytes_tjds",
+    "spmv_bytes_cisr",
     "roofline_fraction",
 ]
 
@@ -60,6 +61,20 @@ def spmv_bytes_tjds(nnz: int, nrows: int, ndiags: int,
     """
     return (nnz * (value_bytes + 4 + value_bytes) + (ndiags + 1) * 4
             + nrows * value_bytes)
+
+
+def spmv_bytes_cisr(num_groups: int, slot_count: int, nrows: int,
+                    value_bytes: int = 4) -> float:
+    """Bytes touched per CISR-schedule SpMV iteration.
+
+    Every beat×slot cell is read (val + col + row_of + x-gather),
+    including the zero padding of idle channels — that traffic is the
+    cost of the interleaved layout; y write per row. ``row_of`` is the
+    reduction key (``ops/spmv_cisr.CisrSpMV`` streams it beside the
+    values), the analog of CSR's row_ptr read.
+    """
+    cells = num_groups * slot_count
+    return cells * (value_bytes + 2 * 4 + value_bytes) + nrows * value_bytes
 
 
 def roofline_fraction(gbs: float, device=None) -> float:

@@ -1,15 +1,39 @@
-"""Command line: the reference's CSR and TJDS benchmarks on the port.
+"""Command line: the reference's CSR, TJDS and CISR workflow on the port.
 
 Counterpart of the JAX package's ``cli.py`` for the flags the port has:
-positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``), ``-c``, ``-t``,
-``-n``, ``-d``, ``--no-report``, ``--decode-check``, ``--dtype``,
+positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``), ``-a``, ``-c``,
+``-t``, ``-g``, ``-n``, ``-s``, ``-d``, ``--no-report``, ``--decode-check``,
+``--coe-out``, ``--debug``, ``--lut-out``, ``--save-encoded``, ``--dtype``,
 ``--kernel``, ``--fused``, ``--x``, ``--json-out``, ``--spmm``,
-``--solve``, ``--expand-symmetry``, ``--cocluster``, ``--analyze``, ``--shards``,
-``--shard-balance`` and ``--device``, plus the port's
-``--out-dir``, which writes the run's results as float32 ``.npy`` files.
-Validation and exit codes match the JAX CLI for those flags (``-n 0`` and
-``-d /nope`` give 2, a missing or unreadable file 1, a failed decode
-check 3); argparse rejects every other flag (``-a``, ``-g``, ...) with 2.
+``--solve``, ``--expand-symmetry``, ``--cocluster``, ``--analyze``,
+``--shards``, ``--shard-balance`` and ``--device``, plus the port's
+``--out-dir``, which writes the run's results as float32 ``.npy`` files
+(the CSR and CISR output vectors, the SpMM result, the solution).
+Validation and exit codes match the JAX CLI for those flags (``-a`` with
+``-c``, ``-t`` or ``-g``, ``-n 0``, ``-s`` outside 1..255, ``--lut-out``
+without TJDS, ``--save-encoded`` without ``-c``, ``-t`` or ``-a``, and ``-d
+/nope`` give 2; a missing or unreadable file and a failed ``.coe`` export
+1; a failed decode check 3); argparse rejects the JAX CLI's other flags
+(``--eigs``, ``--export-aot``, ``--profile``) with 2.
+
+``-a`` runs CSR, TJDS and CISR; ``-g`` CISR alone, the reference's
+``smvp_cisr_coegen`` (main-cli.c:542-728): the rows are scheduled onto
+``-s`` channels (``formats/cisr.py``, the C++ scheduler
+``csrc/cisr.cpp``), the Vivado ``.coe`` image goes to ``--coe-out`` or to
+stdout, and then the SpMV from the schedule is timed: ``--kernel auto``
+replans the schedule's live cells into SELL (``spmv_sell.spmv_cisr_sell``:
+K1 per call, K2 under ``--fused``, or whatever kernel the plan's route
+demands), ``--kernel torch`` runs it channel per lane (``ops/spmv_cisr.py``,
+plain PyTorch, as the JAX CLI runs its XLA CISR path), and so does
+``--kernel df64``, which has no CISR variant; the record names the kernel
+that ran. ``--decode-check`` also holds the schedule's decode
+(``cisr_decode``) to the input, which the JAX CLI does not. ``--debug``
+(or ``SMVP_DEBUG=1``) dumps the COO, CSR and TJDS arrays to stderr
+(``utils/debug.py``), ``--save-encoded PREFIX`` writes ``PREFIX_csr.npz``
+and ``PREFIX_tjds.npz`` (``utils/checkpoint.py``, loadable by either
+package) and ``--lut-out`` the TJDS Verilog LUT (``formats/vivado.py``),
+at the JAX CLI's points of the run. ``--kernel`` also takes the JAX names
+``pallas`` (= ``auto``) and ``xla`` (= ``torch``).
 
 ``--kernel auto`` runs the SELL CUDA kernels: CSR and TJDS are both
 replanned into SELL and run on the route their plan demands (K1, K3 or K4
@@ -90,6 +114,13 @@ __all__ = ["main", "build_parser"]
 
 ALG_CSR = "CSR"
 ALG_TJDS = "TJDS"
+ALG_CISR = "CISR"
+
+# The --out-dir file of each format's output vector.
+OUT_NAMES = {ALG_CSR: "y.npy", ALG_CISR: "cisr.npy"}
+
+# The JAX CLI's --kernel names for the port's kernels.
+KERNEL_ALIASES = {"pallas": "auto", "xla": "torch"}
 
 # The JAX CLI's --solve methods (its cli.py SOLVE_METHODS) and the ones
 # the port has.
@@ -105,19 +136,26 @@ PORTED_SOLVE_METHODS = ("cg", "cg-fused", "pcg", "pcg-ic0", "pcg-ic0-fused",
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="smvp-toolkit-tpu-torch",
-        description="Sparse-matrix codec + SpMV benchmark (CSR / TJDS, "
-                    "PyTorch/CUDA)",
+        description="Sparse-matrix codec + SpMV benchmark (CSR / TJDS / "
+                    "CISR, PyTorch/CUDA)",
     )
     p.add_argument("file", help="input MatrixMarket (.mtx) file, or "
                    "synth:N:NNZ for a synthetic banded matrix")
+    p.add_argument("-a", "--all-algs", action="store_true",
+                   help="benchmark all algorithms (CSR + TJDS + CISR export)")
     p.add_argument("-c", "--csr", action="store_true",
                    help="benchmark CSR SpMV")
     p.add_argument("-t", "--tjds", action="store_true",
                    help="benchmark TJDS SpMV")
+    p.add_argument("-g", "--cisr-gen", action="store_true",
+                   help="generate a CISR .coe memory image and benchmark "
+                        "the SpMV from its schedule")
     p.add_argument(
         "-n", "--iter", type=int, default=1000, metavar="ITERATIONS",
         help="number of timed SpMV iterations (default 1000)",
     )
+    p.add_argument("-s", "--slots", type=int, default=16, metavar="SLOTS",
+                   help="CISR slot/channel count (default 16)")
     p.add_argument(
         "-d", "--dir", default="", metavar="DIR",
         help="report output directory (default: current directory)",
@@ -136,12 +174,31 @@ def build_parser() -> argparse.ArgumentParser:
              "(the reference multiplies stored entries only)",
     )
     p.add_argument(
-        "--kernel", choices=["auto", "torch", "df64"], default="auto",
-        help="SpMV implementation (auto: the SELL CUDA kernels; torch: "
-             "plain-PyTorch CSR gather + index_add_; df64: double-float "
-             "CSR SpMV on the df64 SELL kernel, SMVP_DF64_XLA=1 for the "
-             "plain-PyTorch float64 CSR path; TJDS and --spmm then run "
-             "their ordinary kernels)",
+        "--coe-out", default=None, metavar="FILE",
+        help="write the CISR .coe image to FILE instead of stdout",
+    )
+    p.add_argument(
+        "--debug", action="store_true",
+        help="dump encoded-format internals to stderr (reference "
+             "SMVP_CSR_DEBUG/SMVP_TJDS_DEBUG printf harness analog)",
+    )
+    p.add_argument(
+        "--lut-out", default=None, metavar="FILE",
+        help="write the TJDS Verilog LUT image to FILE (needs -t or -a)",
+    )
+    p.add_argument(
+        "--save-encoded", default=None, metavar="PREFIX",
+        help="checkpoint encoded matrices to PREFIX_{csr,tjds}.npz",
+    )
+    p.add_argument(
+        "--kernel", choices=["auto", "torch", "df64", *KERNEL_ALIASES],
+        default="auto",
+        help="SpMV implementation (auto or pallas: the SELL CUDA kernels; "
+             "torch or xla: plain-PyTorch CSR gather + index_add_, and the "
+             "CISR schedule channel per lane; df64: double-float CSR SpMV "
+             "on the df64 SELL kernel, SMVP_DF64_XLA=1 for the "
+             "plain-PyTorch float64 CSR path; TJDS, CISR and --spmm then "
+             "run their ordinary kernels)",
     )
     p.add_argument(
         "--fused", action="store_true",
@@ -173,9 +230,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--out-dir", default=None, metavar="DIR",
         help="write the run's results in full float32 precision as .npy "
-             "files in DIR: the CSR output vector (y.npy), the --spmm "
-             "result Y (spmm.npy, nrows x K) and the --solve solution "
-             "(solve.npy); needs -c",
+             "files in DIR: the CSR output vector (y.npy), the CISR one "
+             "(cisr.npy, with -a), the --spmm result Y (spmm.npy, nrows x "
+             "K) and the --solve solution (solve.npy); needs -c or -a",
     )
     p.add_argument(
         "--cocluster", action="store_true",
@@ -208,38 +265,58 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _algs(args):
+    """(run CSR, run TJDS, run CISR): ``-a`` runs all three."""
+    return (args.csr or args.all_algs, args.tjds or args.all_algs,
+            args.cisr_gen or args.all_algs)
+
+
 def _validate(args) -> Optional[str]:
-    """Reference-equivalent validation (main-cli.c:1274-1386)."""
-    if not (args.csr or args.tjds):
-        return "no algorithm selected (use -c and/or -t)"
+    """Reference-equivalent validation (main-cli.c:1274-1386), in the JAX
+    CLI's order, then the port's own checks."""
+    if args.all_algs and (args.csr or args.tjds or args.cisr_gen):
+        return "--all-algs cannot be combined with individual algorithm flags"
+    if not (args.all_algs or args.csr or args.tjds or args.cisr_gen):
+        return "no algorithm selected (use -a, -c, -t and/or -g)"
     if args.iter < 1:
         return "iteration count must be >= 1"
+    if args.slots < 1 or args.slots > 255:
+        return "slot count must be in 1..255 (8-bit field in the COE format)"
     if args.dir and not os.path.isdir(args.dir):
         return f"report directory does not exist: {args.dir}"
     if args.shards < 1:
         return "shard count must be >= 1"
     if args.fused and args.shards > 1:
         return "--fused is not supported together with --shards"
+    run_csr, run_tjds, _ = _algs(args)
+    if args.lut_out and not run_tjds:
+        return "--lut-out requires the TJDS algorithm (-t or -a)"
+    if args.save_encoded and not (run_csr or run_tjds):
+        return "--save-encoded requires -c, -t or -a"
     if args.fused and args.kernel == "torch":
         return "--fused needs the SELL kernels (--kernel auto or df64)"
-    if args.out_dir and not args.csr:
-        return "--out-dir needs the CSR algorithm (-c)"
+    if args.out_dir and not run_csr:
+        return "--out-dir needs the CSR algorithm (-c or -a)"
     if args.out_dir and not os.path.isdir(args.out_dir):
         return f"--out-dir does not exist: {args.out_dir}"
     if args.spmm is not None:
         if args.spmm < 1:
             return "--spmm K must be >= 1"
-        if not args.csr:
-            return "--spmm requires the CSR algorithm (-c)"
+        if not run_csr:
+            return "--spmm requires the CSR algorithm (-c or -a)"
     if args.solve:
-        return _validate_solve(args)
+        err = _validate_solve(args, run_csr)
+        if err:
+            return err
+    if args.decode_check and not (run_csr or run_tjds):
+        return "--decode-check requires -c, -t or -a"
     return None
 
 
-def _validate_solve(args) -> Optional[str]:
+def _validate_solve(args, run_csr: bool) -> Optional[str]:
     """The JAX CLI's --solve checks, then the port's method list."""
-    if not args.csr:
-        return "--solve requires the CSR encoding (-c)"
+    if not run_csr:
+        return "--solve requires the CSR encoding (-c or -a)"
     parts = args.solve.split(":")
     method = parts[0].lower()
     if method not in SOLVE_METHODS:
@@ -281,6 +358,7 @@ def _make_x(mode: str, n: int, dtype, device):
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = build_parser().parse_args(argv)
+    args.kernel = KERNEL_ALIASES.get(args.kernel, args.kernel)
     joined = []
     try:
         return _main(args, joined)
@@ -311,6 +389,7 @@ def _main(args, joined: list) -> int:
     from smvp_toolkit_tpu_torch.bench.report import write_report
     from smvp_toolkit_tpu_torch.bench.roofline import (
         roofline_fraction,
+        spmv_bytes_cisr,
         spmv_bytes_csr,
         spmv_bytes_tjds,
     )
@@ -414,6 +493,21 @@ def _main(args, joined: list) -> int:
     vbytes = torch.finfo(dtype).bits // 8
     on_card = device.type == "cuda"
     sell_kernel = "sell-cuda" if on_card else "sell-plain"
+    run_csr, run_tjds, run_cisr = _algs(args)
+
+    from smvp_toolkit_tpu_torch.utils import debug
+
+    debug_on = args.debug or debug.debug_enabled()
+    if debug_on:
+        debug.dump_coo(coo)
+
+    def save_encoded(alg, encoded):
+        if args.save_encoded and lead:
+            from smvp_toolkit_tpu_torch.utils.checkpoint import save_matrix
+
+            path = f"{args.save_encoded}_{alg.lower()}.npz"
+            save_matrix(path, encoded)
+            log("FILE", f"{alg} checkpoint: {path}")
 
     def run(alg_name, encoded, spmv_fn, loop_fn, bytes_per_iter, kernel,
             shardable=True):
@@ -442,8 +536,8 @@ def _main(args, joined: list) -> int:
             stats = bench_spmv(spmv_fn, encoded, x, iterations=args.iter)
             y = spmv_fn(encoded, x)
         y = y.float().cpu().numpy()
-        if args.out_dir and alg_name == ALG_CSR and lead:
-            _save(args.out_dir, "y.npy", y[: coo.shape[0]], log)
+        if args.out_dir and alg_name in OUT_NAMES and lead:
+            _save(args.out_dir, OUT_NAMES[alg_name], y[: coo.shape[0]], log)
         nnzs = stats.nnz_per_s(coo.nnz)
         gbs = stats.gb_per_s(bytes_per_iter)
         frac = roofline_fraction(gbs, device)
@@ -504,11 +598,14 @@ def _main(args, joined: list) -> int:
             log("ERROR", why)
         return bool(why)
 
-    if args.csr:
+    if run_csr:
         csr = csr_encode(coo)
+        if debug_on:
+            debug.dump_csr(csr)
         if args.decode_check and not _decode_check(ALG_CSR, csr_decode(csr),
                                                    coo, log):
             return 3
+        save_encoded(ALG_CSR, csr)
         nbytes = spmv_bytes_csr(coo.nnz, coo.shape[0], vbytes)
         if args.kernel == "torch":
             spmv_fn, loop_fn, kernel = spmv_torch.spmv_csr, None, "torch"
@@ -547,11 +644,19 @@ def _main(args, joined: list) -> int:
             if rc:
                 return rc
 
-    if args.tjds:
+    if run_tjds:
         tj = tjds_encode(coo)
+        if debug_on:
+            debug.dump_tjds(tj)
         if args.decode_check and not _decode_check(ALG_TJDS, tjds_decode(tj),
                                                    coo, log):
             return 3
+        save_encoded(ALG_TJDS, tj)
+        if args.lut_out and lead:
+            from smvp_toolkit_tpu_torch.formats.vivado import write_tjds_lut
+
+            write_tjds_lut(tj, args.lut_out)
+            log("FILE", f"TJDS Verilog LUT image saved as:\n\t{args.lut_out}")
         if args.kernel == "torch":
             spmv_fn, loop_fn, kernel = spmv_torch.spmv_tjds, None, "torch"
         else:
@@ -567,6 +672,52 @@ def _main(args, joined: list) -> int:
         run(ALG_TJDS, tj, spmv_fn, loop_fn,
             spmv_bytes_tjds(coo.nnz, coo.shape[0], tj.num_diags, vbytes),
             kernel)
+
+    if run_cisr:
+        # The schedule, its .coe image, then the SpMV from the schedule.
+        from smvp_toolkit_tpu_torch.formats.cisr import (
+            cisr_decode,
+            cisr_encode,
+            write_coe,
+        )
+        from smvp_toolkit_tpu_torch.ops import spmv_cisr
+
+        log("INFO", f"Generating CISR schedule with {args.slots} slots.")
+        cisr = cisr_encode(coo, slot_count=args.slots)
+        if lead:
+            try:
+                text = write_coe(cisr, args.coe_out)
+            except ValueError as e:
+                log("ERROR", f"COE export failed: {e}")
+                return 1
+            if args.coe_out:
+                log("FILE", f"CISR COE image saved as:\n\t{args.coe_out}")
+            else:
+                print(text)
+        if args.decode_check and not _decode_check(
+                ALG_CISR, cisr_decode(cisr, device="cpu"), coo, log):
+            return 3
+        if args.kernel == "auto":
+            spmv_fn, kernel = spmv_sell.spmv_cisr_sell, sell_kernel
+
+            def loop_fn(xx, n):
+                return spmv_sell.sell_op_cisr(cisr, device).bench_loop(xx, n)
+            if refused(lambda: spmv_sell.sell_op_cisr(cisr, device)):
+                return 2
+        else:
+            if args.kernel == "df64":
+                log("INFO", "df64 is CSR-only; CISR runs the plain-PyTorch "
+                    "schedule SpMV.")
+            spmv_fn, kernel = spmv_cisr.spmv_cisr, "torch"
+
+            def loop_fn(xx, n):
+                for _ in range(n):
+                    y = spmv_cisr.spmv_cisr(cisr, xx)
+                return y
+        run(ALG_CISR, cisr, spmv_fn, loop_fn,
+            spmv_bytes_cisr(cisr.num_groups, cisr.slot_count, coo.shape[0],
+                            vbytes),
+            kernel, shardable=False)
 
     log("STOP", "smvp-toolkit-tpu-torch run complete.")
     return 0
@@ -871,9 +1022,12 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
 
 def _decode_check(alg, decoded, coo, log) -> bool:
     """Decoded triplets against the input, both in canonical row-major
-    order: indices equal and values equal bit for bit."""
+    order: indices equal and values equal bit for bit (a CISR schedule
+    holds float64 values: the input's widen to float64 exactly)."""
     r, c, v = decoded.canonical_order().to_numpy()
     R, C, V = coo.canonical_order().to_numpy()
+    if v.dtype == np.float64 != V.dtype:
+        V = V.astype(np.float64)
     ok = (np.array_equal(r, R) and np.array_equal(c, C)
           and v.dtype == V.dtype and v.tobytes() == V.tobytes())
     if ok:

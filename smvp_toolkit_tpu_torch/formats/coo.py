@@ -18,7 +18,7 @@ import torch
 from smvp_toolkit_tpu_torch.io.mtx import MMTypeCode
 from smvp_toolkit_tpu_torch.utils.device import resolve_device
 
-__all__ = ["COOMatrix", "host_tensor", "values_to_tensor"]
+__all__ = ["COOMatrix", "host_array", "host_tensor", "values_to_tensor"]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -29,6 +29,14 @@ def host_tensor(a, dtype) -> torch.Tensor:
     """A CPU tensor of a numpy array, copied only where it must be
     (another dtype, non-contiguous or read-only input)."""
     return torch.from_numpy(np.require(a, dtype=dtype, requirements="CW"))
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array; bfloat16, which numpy lacks, as its
+    exact float32."""
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.detach().cpu().numpy()
 
 
 def values_to_tensor(v: np.ndarray, dtype: torch.dtype) -> torch.Tensor:

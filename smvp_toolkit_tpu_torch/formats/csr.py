@@ -4,7 +4,9 @@ Counterpart of the JAX package's ``formats/csr.py``: encode is one stable
 sort on the int64 key ``row·ncols + col`` (the same order as the JAX
 package's ``lexsort((cols, rows))`` and its native counting sort) plus a
 ``searchsorted`` prefix build of ``row_ptr``, which handles empty rows by
-construction. Decode recovers row ids from ``row_ptr`` and is bit-exact
+construction. A COO on the CPU takes the native counting sort instead
+(``formats/encode_native.py``), as the JAX encoder does for host arrays;
+both give the same arrays. Decode recovers row ids from ``row_ptr`` and is bit-exact
 on indices and stored values. ``col_ind``/``vals`` may be padded beyond
 ``nnz``; padded entries carry ``col = 0, val = 0`` past ``row_ptr[nrows]``.
 """
@@ -64,8 +66,31 @@ class CSRMatrix:
         )
 
 
+def _csr_encode_native(coo: COOMatrix) -> CSRMatrix:
+    """Host fast path: native stable counting sort (the same order)."""
+    from smvp_toolkit_tpu_torch.formats import encode_native as en
+
+    r, c, v = en.host_triplets(coo)
+    order, row_ptr = en.csr_order(r, c, coo.nnz, coo.shape[0], coo.shape[1])
+    dev = coo.device
+    idx = torch.from_numpy(order)
+    return CSRMatrix(
+        row_ptr=torch.from_numpy(row_ptr).to(dev),
+        col_ind=torch.from_numpy(c[order]).to(dev),
+        vals=v[idx].to(dev),
+        shape=coo.shape,
+        nnz=coo.nnz,
+        row_ids=torch.from_numpy(r[order]).to(dev),
+    )
+
+
 def csr_encode(coo: COOMatrix) -> CSRMatrix:
-    """Encode COO → CSR on the COO's device."""
+    """Encode COO → CSR on the COO's device: the native counting sort for
+    a COO on the CPU (``encode_native.use_native``), else torch sorts."""
+    from smvp_toolkit_tpu_torch.formats import encode_native as en
+
+    if en.use_native(coo):
+        return _csr_encode_native(coo)
     nrows, ncols = coo.shape
     dev = coo.device
     # Padding entries carry row == nrows; force that invariant so they

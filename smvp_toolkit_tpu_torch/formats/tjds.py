@@ -13,7 +13,9 @@ pack), with the JAX package's fixes:
 
 Encode is two stable torch sorts plus prefix builds on the COO's device,
 the same keys in the same order as the JAX encoder, so every array is
-bit-identical to it. Decode recovers columns from ``start_pos`` and
+bit-identical to it; a COO on the CPU takes the native counting sorts
+instead (``formats/encode_native.py``), as the JAX encoder does for host
+arrays, with the same arrays. Decode recovers columns from ``start_pos`` and
 ``perm`` alone and is bit-exact on indices and stored values.
 """
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
@@ -101,14 +104,38 @@ def _max_col_count(coo: COOMatrix) -> int:
     return int(torch.bincount(cols, minlength=ncols).max())
 
 
+def _tjds_encode_native(coo: COOMatrix, diag_bound: int) -> TJDSMatrix:
+    """Host fast path: native counting-sort pack (the same order)."""
+    from smvp_toolkit_tpu_torch.formats import encode_native as en
+
+    r, c, v = en.host_triplets(coo)
+    order, offsets, perm, start_pos, num_diags = en.tjds_order(
+        r, c, coo.nnz, coo.shape[0], coo.shape[1], diag_bound)
+    dev = coo.device
+    return TJDSMatrix(
+        vals=v[torch.from_numpy(order)].to(dev),
+        row_ind=torch.from_numpy(r[order]).to(dev),
+        start_pos=torch.from_numpy(start_pos).to(dev),
+        perm=torch.from_numpy(np.ascontiguousarray(perm)).to(dev),
+        offsets=torch.from_numpy(offsets).to(dev),
+        num_diags=num_diags,
+        shape=coo.shape,
+        nnz=coo.nnz,
+    )
+
+
 def tjds_encode(coo: COOMatrix) -> TJDSMatrix:
     """Encode COO → TJDS on the COO's device.
 
     ``start_pos`` is sized by the measured diagonal count rounded up to a
     multiple of 8 (at least 8), as the JAX encoder sizes it.
     """
+    from smvp_toolkit_tpu_torch.formats import encode_native as en
+
     nd = _max_col_count(coo)
     diag_bound = max(-(-nd // 8) * 8, 8)
+    if en.use_native(coo):
+        return _tjds_encode_native(coo, diag_bound)
     nrows, ncols = coo.shape
     nnz, npad, dev = coo.nnz, coo.nnz_padded, coo.device
 

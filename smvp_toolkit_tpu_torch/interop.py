@@ -22,7 +22,7 @@ from smvp_toolkit_tpu_torch.ops.sell_plan import SellPlan
 from smvp_toolkit_tpu_torch.utils.device import resolve_device
 
 __all__ = ["plan_from_arrays", "plan_fields", "coo_from_triplets",
-           "gcn_params_from_arrays", "csr_from_arrays",
+           "gcn_params_from_arrays", "csr_from_arrays", "cisr_from_arrays",
            "ic0_factors_from_arrays", "df64_from_arrays"]
 
 _ARRAY_FIELDS = ("vals", "lane_idx", "rel_tile", "slice_of", "tile_base",
@@ -104,6 +104,24 @@ def csr_from_arrays(fields: Dict[str, object], *, dtype=None,
         row_ptr=index(fields["row_ptr"]), col_ind=index(fields["col_ind"]),
         vals=torch.from_numpy(np.array(fields["vals"], dtype=np.float32)).to(
             dtype).to(dev),
+        shape=(int(shape[0]), int(shape[1])), nnz=int(fields["nnz"]),
+    )
+
+
+def cisr_from_arrays(fields: Dict[str, object]):
+    """The port's CISRMatrix from a JAX CISRMatrix's fields: ``vals``,
+    ``col_ind``, ``row_of`` and ``row_lengths`` as numpy arrays (host data
+    in both packages, copied as they are), ``slot_count``, ``shape`` and
+    ``nnz``."""
+    from smvp_toolkit_tpu_torch.formats.cisr import CISRMatrix
+
+    shape = fields["shape"]
+    return CISRMatrix(
+        vals=np.array(fields["vals"]),
+        col_ind=np.array(fields["col_ind"], dtype=np.int32),
+        row_of=np.array(fields["row_of"], dtype=np.int32),
+        row_lengths=np.array(fields["row_lengths"], dtype=np.int32),
+        slot_count=int(fields["slot_count"]),
         shape=(int(shape[0]), int(shape[1])), nnz=int(fields["nnz"]),
     )
 

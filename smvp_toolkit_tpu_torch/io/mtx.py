@@ -8,8 +8,11 @@ writers mmio.c:172-178,372-425) plus the CLI-side staging loop
 1-based→0-based index shift).
 
 The port keeps its own copy of the JAX package's parser (numpy only) so
-that it never imports that package. Its triplets are bit-identical to the
-JAX reader's, native or Python path.
+that it never imports that package, and its own native parser
+(``io/native.py`` over ``csrc/mtxio.cpp``), which ``read_mtx`` takes by
+default for uncompressed coordinate real, integer and pattern files, as
+the JAX reader takes its own. Its triplets are bit-identical to the JAX
+reader's, native or Python path.
 
 Design differences from the reference (intentional):
 
@@ -399,9 +402,15 @@ def read_mtx(
     expand_symmetry: bool = False,
     dtype=None,
     device=None,
+    use_native: bool = True,
 ):
     """Read a ``.mtx`` file into a
     :class:`~smvp_toolkit_tpu_torch.formats.coo.COOMatrix` on ``device``.
+
+    ``use_native=True`` reads a path that does not end in ``.gz`` with the
+    native parser (``io/native.py``); files it does not take (array,
+    complex) go to the Python parser, as in the JAX reader. An empty file
+    then reads as the JAX native reader words it, "truncated header".
 
     ``expand_symmetry=False`` reproduces the reference's literal behavior of
     multiplying only stored entries (SURVEY.md §B7); ``True`` performs
@@ -415,7 +424,25 @@ def read_mtx(
 
     from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
 
-    typecode, nrows, ncols, r, c, v = read_mtx_raw(source)
+    result = None
+    if (use_native and isinstance(source, (str, os.PathLike))
+            and not os.fspath(source).endswith(".gz")):
+        from smvp_toolkit_tpu_torch.io import native
+
+        try:
+            result = native.read_mtx_raw_native(os.fspath(source))
+        except native.NativeUnavailable:
+            result = None
+    if result is None:
+        result = read_mtx_raw(source)
+    typecode, nrows, ncols, r, c, v = result
+    if not typecode.is_general and nrows != ncols:
+        # The Python parser refuses this at the size line; the native one
+        # does not, so the gate is repeated here, as in the JAX reader.
+        raise MTXError(
+            f"{typecode.symmetry} matrix must be square, "
+            f"got {nrows}x{ncols}"
+        )
     if expand_symmetry:
         r, c, v = expand_symmetric(typecode, r, c, v)
         # The triplets now hold the FULL matrix: retype as general, or

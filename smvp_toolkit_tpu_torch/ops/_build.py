@@ -9,10 +9,12 @@ sources build in parallel: one compiler process each, all started
 together. A failed build raises with the compiler's output; there is no
 fallback.
 
-The host sources build wherever a C++ compiler is (the CPU tests build
-and run them); ``-ffp-contract=off`` keeps the compiler from fusing a
-multiply and an add into one rounding, so a host pass stays bit-identical
-to the numpy loop it copies.
+The host sources (the IC(0) and co-clustering passes, the CISR scheduler,
+the SELL planner's sort, the MatrixMarket reader and the CSR / TJDS encode
+orders) build wherever a C++ compiler is (the CPU tests build and run
+them); ``-ffp-contract=off`` keeps the compiler from fusing a multiply and
+an add into one rounding, so a host pass stays bit-identical to the numpy
+loop it copies, and ``-pthread`` links the planner's sorting threads.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
@@ -47,7 +49,8 @@ NVCC_FLAGS = (
     "-Xptxas=-v",  # registers, shared memory and spills into the log
 )
 
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-ffp-contract=off")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
+             "-ffp-contract=off")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

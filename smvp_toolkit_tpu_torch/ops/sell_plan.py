@@ -1,9 +1,13 @@
-"""SELL-T1 execution plan (host-side planner, numpy).
+"""SELL-T1 execution plan (host-side planner).
 
-A copy of the numpy path of the JAX package's planner (``ops/sell_plan.py``
-there): every plan array it builds is
-equal to the JAX planner's, whose native C++ path is bit-identical to its
-numpy path.
+A copy of the JAX package's planner (``ops/sell_plan.py`` there), both of
+its paths: the native pass (``csrc/sellplan.cpp``, one threaded sort and
+linear scans, built by ``ops/_build.py`` on first use) by default, and the
+numpy flow where the caller asks for it (``use_native=False`` or
+``SMVP_NO_NATIVE_PLAN=1``) or where a field of the native sort key would
+overflow. Both feed one windowing tail, and every plan array equals the
+JAX planner's element for element on either path. A native pass that
+cannot be built raises; it never falls back to numpy quietly.
 
 Layout rule — one **slot** per nonzero:
 
@@ -28,6 +32,7 @@ ids and ``ybase[c] = y_block_id[c] · y_block_slices``.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 from typing import Optional, Tuple
@@ -205,10 +210,15 @@ def build_sell_plan(
     chunk: int = 1024,
     min_window_tiles: int = 8,
     allow_small_chunk: bool = True,
+    use_native: Optional[bool] = None,
+    threads: Optional[int] = None,
 ) -> SellPlan:
     """Build the SELL-T1 plan from COO triplets (host, encode-time).
 
-    ``min_window_tiles`` forces WT at least that wide.
+    ``min_window_tiles`` forces WT at least that wide. ``use_native``
+    (default: unless ``SMVP_NO_NATIVE_PLAN=1``) takes the native pass on
+    ``threads`` sorting threads (default ``min(cpu_count, 8)``, the JAX
+    planner's); the numpy flow gives the same plan.
     """
     nrows, ncols = shape
     nnz = len(rows)
@@ -244,6 +254,18 @@ def build_sell_plan(
             slice_window=min(16, NS),
         )
 
+    if use_native is None:
+        use_native = os.environ.get("SMVP_NO_NATIVE_PLAN") != "1"
+    if use_native:
+        # The native pass; None only where a key field would overflow.
+        native = _build_native(
+            rows, cols, v, shape, nnz, CT, NS, chunk=chunk,
+            min_window_tiles=min_window_tiles,
+            allow_small_chunk=allow_small_chunk, threads=threads,
+        )
+        if native is not None:
+            return native
+
     slice_ = rows >> 7
     lane = rows & 127
     tile = cols >> 7
@@ -269,11 +291,8 @@ def build_sell_plan(
     # sublane key = (tile, slice, dup): tile-major so each chunk of
     # consecutive sublanes covers a narrow column-tile window.
     # Field widths: tile 24b, slice 24b, dup 16b — guarded, not assumed.
-    if dup.size and int(dup.max()) >= (1 << 16):
-        raise ValueError(
-            "more than 65535 duplicate entries share one (row, col-tile); "
-            "coalesce duplicates before encoding"
-        )
+    if dup.size:
+        _check_dup(int(dup.max()))
     if int(sl_s.max()) >= (1 << 24) or int(tl_s.max()) >= (1 << 24):
         raise ValueError("matrix dimensions exceed 2^31 rows/cols")
     sub_key = (
@@ -301,6 +320,77 @@ def build_sell_plan(
     if S > S_true:  # dead padding sublanes adopt the last real tile
         u_tile[S_true:] = u_tile[S_true - 1]
 
+    return _finish_plan(
+        vals_a, lidx_a, u_tile, u_slice, S_true, S, chunk,
+        CT=CT, NS=NS, shape=shape, nnz=nnz,
+        min_window_tiles=min_window_tiles,
+    )
+
+
+def _check_dup(max_dup: int) -> None:
+    if max_dup >= (1 << 16):
+        raise ValueError(
+            "more than 65535 duplicate entries share one (row, col-tile); "
+            "coalesce duplicates before encoding"
+        )
+
+
+_LL = ctypes.c_longlong
+_VP = ctypes.c_void_p
+_I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+_I32P = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
+_F32P = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+_PLAN_SIGNATURES = {
+    "sell_plan_create": (_VP, [_I64P, _I64P, _LL, _LL, _LL, ctypes.c_int]),
+    "sell_plan_sublanes": (_LL, [_VP]),
+    "sell_plan_max_dup": (_LL, [_VP]),
+    "sell_plan_fill": (None, [_VP, _I64P, _F32P, _LL, _F32P, _I32P, _I64P,
+                              _I64P]),
+    "sell_plan_free": (None, [_VP]),
+}
+
+
+def _plan_lib() -> ctypes.CDLL:
+    """The library of ``csrc/sellplan.cpp``, built on first use
+    (``KernelBuildError`` when no host compiler is found or it fails)."""
+    from smvp_toolkit_tpu_torch.ops import _build
+
+    return _build.load("sellplan", _PLAN_SIGNATURES)
+
+
+def _build_native(
+    rows, cols, v, shape, nnz, CT, NS, *,
+    chunk, min_window_tiles, allow_small_chunk, threads=None,
+):
+    """Plan via the C++ pass; None where its key fields (tile 26 bits,
+    slice 31 bits, triplet index 32 bits) overflow, as in the JAX
+    planner's ``_build_native``."""
+    if nnz >= (1 << 32):
+        return None
+    lib = _plan_lib()
+    rows64 = np.ascontiguousarray(rows, dtype=np.int64)
+    cols64 = np.ascontiguousarray(cols, dtype=np.int64)
+    v32 = np.ascontiguousarray(v, dtype=np.float32)
+    if threads is None:
+        threads = min(os.cpu_count() or 1, 8)
+    handle = lib.sell_plan_create(rows64, cols64, nnz, shape[0], shape[1],
+                                  int(threads))
+    if not handle:
+        return None
+    try:
+        _check_dup(int(lib.sell_plan_max_dup(handle)))
+        S_true = int(lib.sell_plan_sublanes(handle))
+        if allow_small_chunk and S_true <= chunk:
+            chunk = _round_up(S_true, 8)
+        S = _round_up(S_true, chunk)
+        vals_a = np.zeros((S, LANES), dtype=np.float32)
+        lidx_a = np.zeros((S, LANES), dtype=np.int32)
+        u_tile = np.empty(S, dtype=np.int64)
+        u_slice = np.empty(S, dtype=np.int64)
+        lib.sell_plan_fill(handle, cols64, v32, S, vals_a.reshape(-1),
+                           lidx_a.reshape(-1), u_tile, u_slice)
+    finally:
+        lib.sell_plan_free(handle)
     return _finish_plan(
         vals_a, lidx_a, u_tile, u_slice, S_true, S, chunk,
         CT=CT, NS=NS, shape=shape, nnz=nnz,
@@ -367,6 +457,8 @@ def build_streamed_sell_plan(
     *,
     chunk: int = 1024,
     y_block_rows: int = 512 * LANES,
+    use_native: Optional[bool] = None,
+    threads: Optional[int] = None,
 ) -> SellPlan:
     """SELL-T1 plan whose y is cut into blocks of ``y_block_rows`` rows.
 
@@ -400,7 +492,8 @@ def build_streamed_sell_plan(
             build_sell_plan(
                 rows[sel] - g * y_block_rows, cols[sel], v[sel],
                 (y_block_rows, ncols), chunk=chunk,
-                allow_small_chunk=False,
+                allow_small_chunk=False, use_native=use_native,
+                threads=threads,
             )
         )
     subs, wt_common, nsw_common, sub_bases = common_window(subs, nsb)

@@ -3,7 +3,8 @@
 Counterpart of the main-path part of the JAX package's
 ``ops/spmv_pallas.py``
 (``relsl_plane_host``, ``SellSpMV``, ``_auto_plan``, ``_cached_op``,
-``spmv_csr_pallas``/``sell_op_csr``, ``spmv_tjds_pallas``). The operator
+``spmv_csr_pallas``/``sell_op_csr``, ``spmv_tjds_pallas``,
+``spmv_cisr_pallas``). The operator
 picks one of four routes from its plan, as the JAX operator's
 ``_apply_tiles`` and ``bench_loop`` do; each route has a forward wrapper
 (one y = A·x) and a bench wrapper (N SpMVs in one launch):
@@ -97,7 +98,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from smvp_toolkit_tpu_torch.formats.coo import host_tensor
+from smvp_toolkit_tpu_torch.formats.coo import host_array, host_tensor
 from smvp_toolkit_tpu_torch.ops import _build, spmv_autograd
 from smvp_toolkit_tpu_torch.ops.autotune import chain_split
 from smvp_toolkit_tpu_torch.ops.plan_checks import (
@@ -176,6 +177,8 @@ __all__ = [
     "sell_op_csr",
     "spmv_tjds_sell",
     "sell_op_tjds",
+    "spmv_cisr_sell",
+    "sell_op_cisr",
     "sell_onehot",
     "sell_onehot_plain",
     "onehot_xw",
@@ -2039,16 +2042,12 @@ _CACHE: "weakref.WeakKeyDictionary[object, SellSpMV]" = (
 )
 
 
-def _host_vals(t: torch.Tensor) -> np.ndarray:
-    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
-
-
 def _triplets_from_csr_host(csr):
     """Host (numpy) CSR → COO triplets."""
     row_ptr = csr.row_ptr.cpu().numpy().astype(np.int64)
     col = csr.col_ind[: csr.nnz].cpu().numpy()
     rows = np.repeat(np.arange(csr.nrows, dtype=np.int64), np.diff(row_ptr))
-    return rows, col, _host_vals(csr.vals[: csr.nnz]), csr.shape
+    return rows, col, host_array(csr.vals[: csr.nnz]), csr.shape
 
 
 def _triplets_from_tjds_host(tjds):
@@ -2061,20 +2060,42 @@ def _triplets_from_tjds_host(tjds):
     perm = tjds.perm.cpu().numpy()
     cols = perm[np.clip(offset, 0, max(tjds.ncols - 1, 0))]
     rows = tjds.row_ind[: tjds.nnz].cpu().numpy()
-    return rows, cols, _host_vals(tjds.vals[: tjds.nnz]), tjds.shape
+    return rows, cols, host_array(tjds.vals[: tjds.nnz]), tjds.shape
 
 
-def _cached_op(matrix, triplets_fn=_triplets_from_csr_host) -> SellSpMV:
+def _triplets_from_cisr_host(cisr):
+    """Host CISR schedule → COO triplets (live cells only, in beat-major
+    order: a channel emits a row's entries in CSR order, so the stable
+    planner gives the CSR replan's plan)."""
+    rows = np.asarray(cisr.row_of)
+    mask = rows >= 0
+    return (
+        rows[mask].astype(np.int64),
+        np.asarray(cisr.col_ind)[mask].astype(np.int64),
+        np.asarray(cisr.vals)[mask],
+        cisr.shape,
+    )
+
+
+def _cached_op(matrix, triplets_fn=_triplets_from_csr_host,
+               device=None) -> SellSpMV:
     """Per-matrix operator cache keyed weakly: a collected matrix drops
-    its operator and the operator's device planes with it."""
+    its operator and the operator's device planes with it. The operator
+    lives on the matrix's device, or on ``device`` for a host matrix (a
+    CISR schedule); a schedule asked for on another device is replanned
+    there."""
     op = _CACHE.get(matrix)
-    if op is None:
+    if op is not None and (device is None or op.device == device):
+        return op
+    dev = resolve_device(matrix.device if device is None else device)
+    if op is None or op.device != dev:
         r, c, v, shape = triplets_fn(matrix)
         # A bfloat16 matrix runs the kernels in bf16 value mode.
-        vdt = (torch.bfloat16 if matrix.dtype == torch.bfloat16
+        vdt = (torch.bfloat16
+               if getattr(matrix, "dtype", None) == torch.bfloat16
                else torch.float32)
         op = SellSpMV(_auto_plan(r, c, v, shape), value_dtype=vdt,
-                      device=matrix.device, triplets=(r, c, v))
+                      device=dev, triplets=(r, c, v))
         _CACHE[matrix] = op
     return op
 
@@ -2099,6 +2120,21 @@ def spmv_tjds_sell(tjds, x: torch.Tensor) -> torch.Tensor:
 def sell_op_tjds(tjds) -> SellSpMV:
     """The cached SELL operator for a TJDS matrix."""
     return _cached_op(tjds, _triplets_from_tjds_host)
+
+
+def spmv_cisr_sell(cisr, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x from a CISR schedule via the SELL kernels, on x's device:
+    the schedule's live cells are replanned into SELL (cached per
+    schedule), so CISR runs on whichever kernel its plan's route demands,
+    under the same ``SMVP_SELL_*`` switches as CSR. The schedule-faithful
+    lane-per-channel SpMV is ``ops/spmv_cisr.py``."""
+    return _cached_op(cisr, _triplets_from_cisr_host, x.device)(x)
+
+
+def sell_op_cisr(cisr, device=None) -> SellSpMV:
+    """The cached SELL operator for a CISR schedule on ``device``
+    (default: the card)."""
+    return _cached_op(cisr, _triplets_from_cisr_host, device)
 
 
 class CoClusteredSellSpMV:

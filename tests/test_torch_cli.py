@@ -169,7 +169,14 @@ def test_error_probes(tmp_path):
     assert tcli.main(["-c", "-n", "1", "--x", "random:q", *base, SPEC]) == 2
     assert tcli.main(["-c", "--fused", "--kernel", "torch", *base,
                       SPEC]) == 2
-    for flag in (["-a"], ["-g"], ["--kernel", "pallas"]):
+    # -a with -c is refused as the JAX CLI refuses it; -g and the JAX
+    # kernel names are ported (tests/test_torch_cli_cisr.py); a JAX flag the
+    # port lacks is refused by argparse
+    assert tcli.main(["-c", "-a", *base, SPEC]) == 2
+    assert jcli.main(["-c", "-a", SPEC]) == 2
+    assert tcli.main(["-c", "-g", "-n", "1", "--no-report", "--kernel",
+                      "pallas", *base, SPEC]) == 0
+    for flag in (["--eigs", "2"], ["--profile", "p"]):
         with pytest.raises(SystemExit) as e:
             tcli.main(["-c", *flag, *base, SPEC])
         assert e.value.code == 2

@@ -1869,3 +1869,37 @@ def test_one_rank_nccl_group(card, monkeypatch):
                     want) <= 1e-5
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("slots", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cisr_replan_on_card(card, slots, dtype):
+    """spmv_cisr_sell on the card (K1 per call, K2 in bench_loop) against
+    the schedule's own SpMV (CisrSpMV) and CSR's y on the same matrix."""
+    from smvp_toolkit_tpu_torch.formats.cisr import cisr_encode
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.ops.spmv_cisr import CisrSpMV
+
+    rng = np.random.default_rng(slots)
+    n, m, nnz = 20000, 15000, 200000
+    r = rng.integers(0, n // 3, nnz) * 3  # two rows of three empty
+    c = rng.integers(0, m, nnz)
+    coo = COOMatrix.from_numpy(r, c, rng.standard_normal(nnz), shape=(n, m),
+                               dtype=dtype, device=card).pad(128)
+    cisr = cisr_encode(coo, slots)
+    x = torch.from_numpy(rng.standard_normal(m).astype(np.float32)).to(
+        dtype).to(card)
+    k1 = S.KERNEL_NAMES[("relsl", False)]
+    fn = S._ROUTE_FNS["relsl"][0]
+    fn.launches = 0
+    y = S.spmv_cisr_sell(cisr, x)
+    torch.cuda.synchronize()
+    assert fn.launches == 1, k1
+    assert y.shape == (n,) and y.device == card
+    y_sched = CisrSpMV(cisr, device=card)(x.float())
+    assert _rel(y.float(), y_sched) <= TOL
+    y_csr = S.spmv_csr_sell(csr_encode(coo), x)
+    assert _rel(y.float(), y_csr.float()) <= TOL
+    op = S.sell_op_cisr(cisr, card)
+    assert _rel(op.bench_loop(x, 3).float(), y_sched) <= TOL

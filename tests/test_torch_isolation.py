@@ -43,7 +43,11 @@ def test_package_sources_found():
             "bench/bench_variants.py", "csrc/variants/sell_bench_variants.cu",
             "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
             "parallel/spmv_dist.py", "parallel/spmv_2d.py",
-            "parallel/sell_dist.py", "parallel/traffic.py"} <= names
+            "parallel/sell_dist.py", "parallel/traffic.py",
+            "formats/cisr.py", "formats/vivado.py", "formats/encode_native.py",
+            "ops/spmv_cisr.py", "io/native.py", "utils/debug.py",
+            "utils/checkpoint.py", "csrc/cisr.cpp", "csrc/sellplan.cpp",
+            "csrc/mtxio.cpp", "csrc/encode.cpp"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
