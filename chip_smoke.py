@@ -179,6 +179,33 @@ Phases; any failure exits non-zero and prints no result line:
      be <= 1e-4 (``cg:100`` is only compared), each fused solve within 3x
      of its scan loop (or both <= 1e-5), and IC(0)-PCG below CG at 100
      steps. The A, L and Lᵀ plans and their common window are printed.
+   - the solver family through the CLI in this process (``-c -n 1
+     --expand-symmetry --x random:1 --json-out --out-dir``), each run with
+     the launch counts zeroed before and read after: only the solver
+     kernels (K1 or K4 for each factor's, part's or level's plan, K1 or K4
+     with k columns for LOBPCG and the block V-cycle) may launch, K1 must.
+     On hpcg104's ``.mtx``: ``pcg-cheb``, ``pcg-neumann``, ``pcg-ssor``,
+     ``pcg-bjac``, ``minres``, ``bicgstab``, ``bicgstab-ilu``, ``gmres``
+     and ``gmres-ilu``, each to its tolerance (``FAMILY_HPCG``), each
+     solution's float64 relative residual <= 1e-4; then ``--eigs 4
+     --solve pcg-amg:60``: LOBPCG runs unpreconditioned (the AMG set-up
+     declines: HPCG has no strong connection at θ = 0.08) and PCG-AMG is
+     refused with exit 2 ("coarsening stalled"), as in the JAX CLI. On
+     poisson1024 (``utils/synth.poisson2d(1024)``: 1,048,576 rows,
+     5,238,784 nnz, the 2-D model problem of smoothed-aggregation AMG,
+     written as a symmetric ``.mtx``): the hierarchy set up through the
+     API first (its levels, nnz, each level's A, P and Pᵀ route and the
+     set-up time on ``[amg]`` lines), then ``pcg-amg``, ``bicgstab-amg``
+     and ``gmres-amg`` at 1e-6 (residual <= 1e-4), ``--eigs 4:60`` with
+     AMG beside a ``cg:400:1e-6`` control that must not stop within its
+     count, LOBPCG unpreconditioned through the API (the AMG run's last
+     residual norms must fall below its), and ``pcg-amg:60:1e-6`` on
+     Poisson 128², whose count plus 2 bounds poisson1024's. Every Ritz
+     value lies at or above its analytic eigenvalue less 2^-20 of
+     lambda_max (hpcg104: 27 − Π(1 + 2cos(kᵢπ/105)); Poisson:
+     4 − 2cos(iπ/1025) − 2cos(jπ/1025)). Each run's set-up time (the
+     CLI's ``set-up`` lines: factorizations, hierarchies and their
+     operators' plans) is printed with it.
    - smoke-df64: the CLI with ``-c -t --kernel df64 -n 200 --x random:1
      --out-dir`` on the smoke matrix, per call and ``--fused``: CSR only on
      K8 (its N-iteration kernel), TJDS on its SELL kernel; every CSR entry
@@ -479,6 +506,29 @@ DIST_CHUNK = 1024
 DIST_CHECK_N = 3
 DIST_REPLACES = "smvp_toolkit_tpu/parallel/sell_dist.py:419"
 LAUNCH_N = 100      # -n of the torchrun parallel.launch runs
+# The solver family through the CLI: hpcg104's runs (METHOD:ITERS:TOL,
+# each stopped by its tolerance) and poisson1024's AMG runs; -n of their
+# benchmark; LOBPCG's K and steps; the unpreconditioned CG control that
+# must not stop at 1e-6 within its count on poisson1024; the grid whose
+# PCG-AMG count bounds poisson1024's (plus 2); a Ritz value may fall below
+# its eigenvalue by float32 noise, 2^-20 of lambda_max.
+FAMILY_HPCG = ("pcg-cheb:200:1e-6", "pcg-neumann:400:1e-6",
+               "pcg-ssor:400:1e-6", "pcg-bjac:600:1e-6", "minres:1000:1e-6",
+               "bicgstab:800:1e-6", "bicgstab-ilu:400:1e-6",
+               "gmres:2000:1e-6", "gmres-ilu:800:1e-6")
+FAMILY_POISSON = ("pcg-amg:60:1e-6", "bicgstab-amg:60:1e-6",
+                  "gmres-amg:60:1e-6")
+FAMILY_BENCH_N = 1
+EIGS_K, EIGS_ITERS = 4, 60
+CG_CONTROL = 400
+POISSON_N, POISSON_SMALL_N = 1024, 128
+POISSON_ROWS, POISSON_NNZ = 1_048_576, 5_238_784
+RITZ_SLACK = 2.0 ** -20
+# The kernels a solver-family run may launch: the SpMV of whatever route
+# each level's or factor's plan takes, and the k-column SpMM (LOBPCG, the
+# block V-cycle).
+FAMILY_KERNELS = ("sell_spmv_kernel", "sell_split_kernel",
+                  "sell_spmm_kernel", "sell_split_spmm_kernel")
 # smoke-cisr: the CLI's -a at smoke's size (-n, -s), and the full-size
 # plans whose native pass is held to the numpy flow (hpcg104's A too).
 CISR_N, CISR_SLOTS = 10, 16
@@ -2288,14 +2338,28 @@ def _hpcg_solve(torch, S, label, fn, want, relres, out):
     return x, res, counts
 
 
-def phase_hpcg(np, torch, launches):
+def _write_symmetric_mtx(sp, name, a, path):
+    """Write scipy matrix ``a`` as a symmetric ``.mtx`` (its lower
+    triangle), its size and time printed; the number of stored entries."""
+    from smvp_toolkit_tpu_torch.io.mtx import write_mtx
+
+    low = sp.tril(a).tocoo()
+    t0 = time.perf_counter()
+    write_mtx(path, low.row, low.col, low.data, a.shape, symmetry="symmetric")
+    print(f"[mtx] {name} {path}: {os.path.getsize(path)} bytes, "
+          f"{low.nnz} stored entries (symmetric), written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return low.nnz
+
+
+def phase_hpcg(np, torch, launches, work):
     """Phase 3 on the solver path at hpcg104: the CLI's fused solves from a
-    symmetric .mtx, then the API's scan-loop and fused solves on the same
-    matrix, each held to a float64 residual."""
+    symmetric .mtx (written into ``work``, where the solver family reads it
+    again), then the API's scan-loop and fused solves on the same matrix,
+    each held to a float64 residual."""
     import scipy.sparse as sp
 
     from smvp_toolkit_tpu_torch.cli import main as cli_main
-    from smvp_toolkit_tpu_torch.io.mtx import write_mtx
     from smvp_toolkit_tpu_torch.models import solvers as M
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
     from smvp_toolkit_tpu_torch.ops.algebra import diagonal
@@ -2323,17 +2387,10 @@ def phase_hpcg(np, torch, launches):
 
     res = {}
     k1 = S.KERNEL_NAMES[("relsl", False)]
+    path = os.path.join(work, "hpcg104.mtx")
+    stored = _write_symmetric_mtx(sp, "hpcg104", a, path)
+    _check(stored == HPCG_STORED, f"hpcg104 stores {stored} entries")
     with tempfile.TemporaryDirectory() as tmp:
-        low = sp.tril(a).tocoo()
-        _check(low.nnz == HPCG_STORED, f"hpcg104 stores {low.nnz} entries")
-        path = os.path.join(tmp, "hpcg104.mtx")
-        t0 = time.perf_counter()
-        write_mtx(path, low.row, low.col, low.data, a.shape,
-                  symmetry="symmetric")
-        print(f"[mtx] hpcg104 {path}: {os.path.getsize(path)} bytes, "
-              f"{low.nnz} stored entries (symmetric), written in "
-              f"{time.perf_counter() - t0:.1f} s", flush=True)
-        del low
         for method, iters in HPCG_CLI:
             kname = {"cg-fused": "sell_cg_kernel",
                      "pcg-ic0-fused": "sell_pcg_ic0_kernel"}[method]
@@ -2439,7 +2496,8 @@ def phase_hpcg(np, torch, launches):
            f"hpcg104 pcg-ic0:100 {api['pcg-ic0:100']} not below cg:100 "
            f"{api['cg:100']}")
     print(f"[hpcg] residuals: fused {res}, API {api}", flush=True)
-    return dict(a=a, csr=csr, op=op, factors=factors, b=bt, lo=lo, hi=hi)
+    return dict(a=a, csr=csr, op=op, factors=factors, b=bt, lo=lo, hi=hi,
+                path=path)
 
 
 def _plane_bytes(plan, vb):
@@ -2994,6 +3052,247 @@ def phase_refine(np, torch, hp):
           f"{', '.join(f'{v:.6e}' for v in norms)} (|b| "
           f"{np.linalg.norm(b64):.6e}), float64 relative residual "
           f"{rr:.3e}, launches {counts}", flush=True)
+
+
+def _check_within(counts, required, allowed, what):
+    """Each kernel in ``required`` launched, none outside ``allowed``;
+    the launched kernels' counts."""
+    for name in required:
+        _check(counts[name] >= 1, f"{name} never launched in {what}")
+    others = {k: v for k, v in counts.items() if k not in allowed and v}
+    _check(not others, f"{what} launched other kernels: {others}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def _family_run(S, torch, what, argv, path, tmp, required, expect_rc=0):
+    """One in-process CLI run of the solver family, launch counts zeroed
+    before and read after: (its log, its SOLVE/EIGS records, the launched
+    kernels' counts, wall s)."""
+    from smvp_toolkit_tpu_torch.cli import main as cli_main
+
+    jpath = os.path.join(tmp, "family.jsonl")
+    for f in (jpath, os.path.join(tmp, "solve.npy")):
+        if os.path.exists(f):
+            os.remove(f)
+    argv = ["-c", "-n", str(FAMILY_BENCH_N), "--expand-symmetry", "--x",
+            "random:1", "--no-report", "--json-out", jpath, "--out-dir", tmp,
+            *argv, path]
+    log = io.StringIO()
+    _zero_counts(S)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    text = log.getvalue()
+    _check(rc == expect_rc, f"{what} returned {rc}, not {expect_rc}:\n"
+           f"{text[-3000:]}")
+    got = _check_within(_counts(S), required, FAMILY_KERNELS, what)
+    with open(jpath) as f:
+        recs = [json.loads(ln) for ln in f if ln.strip()]
+    recs = [r for r in recs if r["alg"] != "CSR"]
+    setups = [ln.split("\t", 1)[-1] for ln in text.splitlines()
+              if "set-up" in ln]
+    return text, recs, got, wall, setups
+
+
+def _hpcg_lowest(np, k):
+    """The k smallest eigenvalues of HPCG's matrix on 104³ and its largest:
+    27 − c_i·c_j·c_l with c = 1 + 2cos(mπ/105), m = 1..104."""
+    import itertools
+
+    c = 1.0 + 2.0 * np.cos(np.arange(1, HPCG_N + 1) * np.pi / (HPCG_N + 1))
+    top = np.sort(c)[::-1][:8]
+    prods = np.sort([x * y * z for x, y, z in itertools.product(top,
+                                                                 repeat=3)])
+    lam_max = 27.0 - min(x * y * z for x, y, z in itertools.product(
+        (c.min(), c.max()), repeat=3))
+    return 27.0 - prods[::-1][:k], lam_max
+
+
+def _poisson_lowest(np, nx, k):
+    """The k smallest eigenvalues of 2-D Poisson on nx² and its largest:
+    4 − 2cos(iπ/(nx+1)) − 2cos(jπ/(nx+1))."""
+    lam = 2.0 - 2.0 * np.cos(np.arange(1, nx + 1) * np.pi / (nx + 1))
+    low = np.sort(np.add.outer(lam[:8], lam[:8]).ravel())[:k]
+    return low, 2.0 * lam.max()
+
+
+def _check_ritz(np, what, rec, lam, lam_max):
+    theta = np.asarray(rec["eigenvalues"], np.float64)
+    floor = lam - RITZ_SLACK * lam_max
+    _check(theta.shape == lam.shape and np.isfinite(theta).all()
+           and (theta >= floor).all(),
+           f"{what}: Ritz values {theta.tolist()} below the analytic "
+           f"{lam.tolist()} less 2^-20 lambda_max")
+    return theta
+
+
+def phase_solver_family(np, torch, hpcg):
+    """Phase 3 for the solver family through the CLI: hpcg104's twelve
+    runs (nine methods, ``--eigs`` with its AMG decline and ``pcg-amg``'s
+    refusal) from the symmetric .mtx the hpcg104 phase wrote, then
+    poisson1024's AMG runs, ``--eigs`` with AMG and the CG control, and
+    Poisson 128²'s PCG-AMG count; every solve held to a float64 residual,
+    every run to the solver kernels."""
+    import scipy.sparse as sp
+
+    from smvp_toolkit_tpu_torch.models import amg as G
+    from smvp_toolkit_tpu_torch.models import solvers as M
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.utils.synth import poisson2d
+
+    k1 = S.KERNEL_NAMES[("relsl", False)]
+    totals = {}
+
+    def add(got):
+        for k, v in got.items():
+            totals[k] = totals.get(k, 0) + v
+
+    def relres(a, b64, tmp):
+        x = np.load(os.path.join(tmp, "solve.npy")).astype(np.float64)
+        return float(np.linalg.norm(b64 - a @ x) / np.linalg.norm(b64))
+
+    def solve_line(name, spec, rec, rr, wall, got, setups):
+        print(f"[main] {name} CLI --solve {spec}: {rec['iterations']} "
+              f"iterations, solve {rec['wall_ms']:.1f} ms ({wall:.1f} s in "
+              f"all), CLI relative residual {rec['relative_residual']:.3e}, "
+              f"float64 {rr:.3e}, launches {got}"
+              + (f"; {'; '.join(setups)}" if setups else ""), flush=True)
+
+    a = hpcg["a"]
+    b64 = np.random.default_rng(1).standard_normal(a.shape[0]).astype(
+        np.float32).astype(np.float64)
+    with tempfile.TemporaryDirectory() as tmp:
+        for spec in FAMILY_HPCG:
+            what = f"hpcg104 CLI --solve {spec}"
+            _, recs, got, wall, setups = _family_run(
+                S, torch, what, ["--solve", spec], hpcg["path"], tmp, [k1])
+            rr = relres(a, b64, tmp)
+            _check(np.isfinite(rr) and rr <= SOLVE_RESIDUAL,
+                   f"{what}: residual {rr}")
+            add(got)
+            solve_line("hpcg104", spec, recs[-1], rr, wall, got, setups)
+        # --eigs first (its AMG set-up declines: no strong connection at
+        # theta 0.08), then pcg-amg's refusal, as the JAX CLI runs them
+        what = f"hpcg104 CLI --eigs {EIGS_K} --solve pcg-amg:60"
+        text, recs, got, wall, _ = _family_run(
+            S, torch, what, ["--eigs", str(EIGS_K), "--solve", "pcg-amg:60"],
+            hpcg["path"], tmp, [k1, "sell_spmm_kernel"], expect_rc=2)
+        _check("AMG setup declined" in text and "coarsening stalled" in text,
+               f"{what}: no AMG decline or refusal:\n{text[-3000:]}")
+        (rec,) = recs
+        _check(rec["preconditioner"] == "none", f"{what}: {rec}")
+        lam, lam_max = _hpcg_lowest(np, EIGS_K)
+        theta = _check_ritz(np, what, rec, lam, lam_max)
+        add(got)
+        print(f"[main] {what}: rc 2 (pcg-amg: coarsening stalled), {wall:.1f} "
+              f"s; LOBPCG unpreconditioned {rec['iterations']} iterations in "
+              f"{rec['wall_ms']:.1f} ms, Ritz values {theta.tolist()} "
+              f"(analytic {lam.tolist()}), residual norms "
+              f"{rec['residual_norms']}, launches {got}", flush=True)
+
+        ap = poisson2d(POISSON_N)
+        _check(ap.shape[0] == POISSON_ROWS and ap.nnz == POISSON_NNZ,
+               f"poisson1024 shape {ap.shape}, nnz {ap.nnz}")
+        ppath = os.path.join(tmp, "poisson1024.mtx")
+        _write_symmetric_mtx(sp, "poisson1024", ap, ppath)
+        pb64 = np.random.default_rng(1).standard_normal(
+            ap.shape[0]).astype(np.float32).astype(np.float64)
+        csr = _card_csr(np, torch, ap)
+        t0 = time.perf_counter()
+        levels = G.amg_setup(csr)
+        t_setup = time.perf_counter() - t0
+        routes = []
+        for lv in levels[:-1]:
+            ops = [S.sell_op_csr(c) for c in (lv.a_csr, lv.p_csr, lv.pt_csr)]
+            routes.append("/".join(o.route for o in ops))
+            print(f"[amg] poisson1024 level n {lv.n}: A nnz {lv.a_csr.nnz}, "
+                  f"P {lv.p_csr.shape} nnz {lv.p_csr.nnz}, routes A/P/Pt "
+                  f"{routes[-1]} (WT {[o.plan.window_tiles for o in ops]})",
+                  flush=True)
+        p0 = S.sell_op_csr(csr).plan
+        print(f"[plan] poisson1024 A: S {p0.n_sublanes} in {p0.n_chunks} "
+              f"chunks of {p0.chunk}, WT {p0.window_tiles}, NS {p0.n_slices}, "
+              f"CT {p0.n_coltiles}, occupancy {p0.nnz / p0.slots():.3f}, "
+              f"{p0.traffic_bytes(4, x_bytes=4)} bytes per f32 SpMV",
+              flush=True)
+        print(f"[amg] poisson1024 hierarchy {[lv.n for lv in levels]} set up "
+              f"in {t_setup:.2f} s (scipy and csrc/amg.cpp, the levels' "
+              f"plans {time.perf_counter() - t0 - t_setup:.2f} s)", flush=True)
+        counts = {}
+        for spec in FAMILY_POISSON:
+            what = f"poisson1024 CLI --solve {spec}"
+            _, recs, got, wall, setups = _family_run(
+                S, torch, what, ["--solve", spec], ppath, tmp, [k1])
+            rr = relres(ap, pb64, tmp)
+            _check(np.isfinite(rr) and rr <= SOLVE_RESIDUAL,
+                   f"{what}: residual {rr}")
+            counts[spec] = recs[-1]["iterations"]
+            add(got)
+            solve_line("poisson1024", spec, recs[-1], rr, wall, got, setups)
+        what = (f"poisson1024 CLI --eigs {EIGS_K}:{EIGS_ITERS} --solve "
+                f"cg:{CG_CONTROL}:1e-6")
+        text, recs, got, wall, _ = _family_run(
+            S, torch, what, ["--eigs", f"{EIGS_K}:{EIGS_ITERS}", "--solve",
+                      f"cg:{CG_CONTROL}:1e-6"], ppath, tmp,
+            [k1, "sell_spmm_kernel"])
+        eig, cg = recs
+        _check(eig["preconditioner"] == "amg", f"{what}: {eig}")
+        lam, lam_max = _poisson_lowest(np, POISSON_N, EIGS_K)
+        theta = _check_ritz(np, what, eig, lam, lam_max)
+        _check(cg["iterations"] == CG_CONTROL,
+               f"{what}: CG stopped after {cg['iterations']} steps")
+        add(got)
+        print(f"[main] {what}: {wall:.1f} s; LOBPCG with AMG "
+              f"{eig['iterations']} iterations in {eig['wall_ms']:.1f} ms, "
+              f"Ritz values {theta.tolist()} (analytic {lam.tolist()}), "
+              f"residual norms {eig['residual_norms']}; CG control "
+              f"{cg['iterations']} steps without stopping, relative "
+              f"residual {cg['relative_residual']:.3e}; launches {got}",
+              flush=True)
+        # the same LOBPCG unpreconditioned, through the API
+        X0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (POISSON_ROWS, EIGS_K)).astype(np.float32)).to(DEVICE)
+        _zero_counts(S)
+        t0 = time.perf_counter()
+        theta0, _, res0 = M.lobpcg(csr, X0, num_iters=EIGS_ITERS)
+        plain = res0[-1].double().cpu().numpy()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = _check_within(_counts(S), ["sell_spmm_kernel"],
+                            FAMILY_KERNELS, "poisson1024 LOBPCG API")
+        amg_res = np.asarray(eig["residual_norms"])
+        _check((amg_res < plain).all(),
+               f"poisson1024 LOBPCG: AMG residual norms {amg_res} not below "
+               f"the unpreconditioned {plain}")
+        print(f"[main] poisson1024 API lobpcg k {EIGS_K}, {EIGS_ITERS} "
+              f"iterations unpreconditioned: {ms:.1f} ms, Ritz values "
+              f"{theta0.tolist()}, residual norms {plain.tolist()} (AMG: "
+              f"{amg_res.tolist()}), launches {got}", flush=True)
+        del csr, levels, X0
+
+        small = poisson2d(POISSON_SMALL_N)
+        spath = os.path.join(tmp, "poisson128.mtx")
+        _write_symmetric_mtx(sp, "poisson128", small, spath)
+        spec = FAMILY_POISSON[0]
+        what = f"poisson128 CLI --solve {spec}"
+        _, recs, got, wall, setups = _family_run(
+            S, torch, what, ["--solve", spec], spath, tmp, [k1])
+        sb64 = np.random.default_rng(1).standard_normal(
+            small.shape[0]).astype(np.float32).astype(np.float64)
+        rr = relres(small, sb64, tmp)
+        _check(rr <= SOLVE_RESIDUAL, f"{what}: residual {rr}")
+        add(got)
+        solve_line("poisson128", spec, recs[-1], rr, wall, got, setups)
+        c128, c1024 = recs[-1]["iterations"], counts[spec]
+        _check(c1024 <= c128 + 2, f"PCG-AMG took {c1024} steps on "
+               f"poisson1024 against {c128} on poisson128")
+        ratio = (POISSON_N // POISSON_SMALL_N) ** 2
+        print(f"[amg] PCG-AMG at 1e-6: {c128} steps on poisson128, {c1024} "
+              f"on poisson1024 ({ratio}x the rows); CG: more than "
+              f"{CG_CONTROL}", flush=True)
+    print(f"[main] solver family launches per kernel (all runs): {totals}",
+          flush=True)
 
 
 def phase_df64_timings(np, torch, configs, df64, launches, bw):
@@ -4079,10 +4378,14 @@ def main() -> int:
         phase_packed(np, torch, configs, ops, launches)
     with _Phase("main path: gcn_arxiv"):
         phase_gcn(np, torch, gcn, launches)
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     with _Phase("main path: hpcg104"):
-        hpcg = phase_hpcg(np, torch, launches)
+        hpcg = phase_hpcg(np, torch, launches, work.name)
     with _Phase("main path: hpcg104-refine"):
         phase_refine(np, torch, hpcg)
+    with _Phase("main path: solver family"):
+        phase_solver_family(np, torch, hpcg)
+    work.cleanup()
     with _Phase("main path: smoke-cc"):
         ccs = phase_cocluster(np, torch, configs, wait_cc, launches, errs)
     with _Phase("main path: switches"):

@@ -5,7 +5,8 @@ positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``), ``-a``, ``-c``,
 ``-t``, ``-g``, ``-n``, ``-s``, ``-d``, ``--no-report``, ``--decode-check``,
 ``--coe-out``, ``--debug``, ``--lut-out``, ``--save-encoded``, ``--dtype``,
 ``--kernel``, ``--fused``, ``--x``, ``--json-out``, ``--spmm``,
-``--solve``, ``--expand-symmetry``, ``--cocluster``, ``--analyze``,
+``--solve``, ``--eigs``, ``--expand-symmetry``, ``--cocluster``,
+``--analyze``,
 ``--shards``, ``--shard-balance`` and ``--device``, plus the port's
 ``--out-dir``, which writes the run's results as float32 ``.npy`` files
 (the CSR and CISR output vectors, the SpMM result, the solution).
@@ -14,7 +15,7 @@ Validation and exit codes match the JAX CLI for those flags (``-a`` with
 without TJDS, ``--save-encoded`` without ``-c``, ``-t`` or ``-a``, and ``-d
 /nope`` give 2; a missing or unreadable file and a failed ``.coe`` export
 1; a failed decode check 3); argparse rejects the JAX CLI's other flags
-(``--eigs``, ``--export-aot``, ``--profile``) with 2.
+(``--export-aot``, ``--profile``) with 2.
 
 ``-a`` runs CSR, TJDS and CISR; ``-g`` CISR alone, the reference's
 ``smvp_cisr_coegen`` (main-cli.c:542-728): the rows are scheduled onto
@@ -76,14 +77,32 @@ merged-word plan, and N ``matmat`` calls between one pair of CUDA events
 on any other.
 
 ``--solve METHOD[:ITERS[:TOL]]`` (with ``-c``) then solves A x = b, b the
-``--x`` vector, with one of the SPD methods the port has (``cg``,
-``cg-fused``, ``pcg``, ``pcg-ic0``, ``pcg-ic0-fused``, ``chebyshev``,
-``chebyshev-fused``); the JAX CLI's other methods exit 2 as not ported
-yet. The scan-loop methods launch one SpMV per step (``--kernel auto``:
-the SELL kernels; ``torch``: the plain-PyTorch CSR SpMV), the ``-fused``
-ones the whole solve in one launch of their CUDA kernel. The relative
-residual is checked in float64 through the run's SpMV kernel, and a
-``SOLVE-<METHOD>`` report and JSON record are written.
+``--x`` vector, with any of the JAX CLI's nineteen methods: CG and its
+preconditioned forms (``pcg`` Jacobi, ``pcg-cheb`` and ``pcg-neumann``
+polynomials, ``pcg-ic0``, ``pcg-ssor``, ``pcg-bjac`` block Jacobi,
+``pcg-amg``), ``chebyshev``, ``minres``, ``bicgstab`` and ``gmres`` (20
+steps a restart; its count is rounded up to whole restarts), the latter
+two right-preconditioned by ILU(0) (``-ilu``) or by AMG on the symmetric
+part (A + Aᵀ)/2 (``-amg``), and the fused ``cg-fused``,
+``pcg-ic0-fused`` and ``chebyshev-fused``. The scan-loop methods launch
+one SpMV per step (``--kernel auto``: the SELL kernels, the triangular
+factors, SSOR's parts and every AMG level on their own SELL operators;
+``torch``: the plain-PyTorch CSR SpMV throughout), the ``-fused`` ones
+the whole solve in one launch of their CUDA kernel. The relative residual
+is checked in float64 through the run's SpMV kernel, and a
+``SOLVE-<METHOD>`` report and JSON record are written. ``--eigs
+K[:ITERS]`` (with ``-c``; 60 iterations by default) runs LOBPCG for the K
+smallest eigenpairs before the solve, AMG-preconditioned when the
+hierarchy builds (its SpMMs on the k-column SELL kernels) and
+unpreconditioned when the set-up refuses the matrix; the JAX CLI falls
+back on any exception there, the port only on the set-up's own refusal
+(a ValueError), so a kernel's build or launch failure still stops the
+run. A refused solve or ``--eigs`` exits 2 with the JAX CLI's message
+(a non-square system, an ILU shift ladder or an AMG coarsening that
+fails, K above the dimension); on a complex matrix, which the port
+cannot read (exit 1), a ``--solve`` method or ``--eigs`` that the JAX
+CLI refuses for complex systems exits 2 with the JAX message, as the JAX
+CLI does after its benchmark.
 
 ``--shards N`` (N > 1) times the CSR and TJDS SpMVs sharded over N ranks
 of a process group, one per device (``parallel/``): run it under
@@ -122,15 +141,21 @@ OUT_NAMES = {ALG_CSR: "y.npy", ALG_CISR: "cisr.npy"}
 # The JAX CLI's --kernel names for the port's kernels.
 KERNEL_ALIASES = {"pallas": "auto", "xla": "torch"}
 
-# The JAX CLI's --solve methods (its cli.py SOLVE_METHODS) and the ones
-# the port has.
+# The JAX CLI's --solve methods (its cli.py SOLVE_METHODS).
 SOLVE_METHODS = ("cg", "cg-fused", "pcg", "pcg-amg", "pcg-cheb",
                  "pcg-neumann", "pcg-ic0", "pcg-ic0-fused",
                  "pcg-ssor", "pcg-bjac", "bicgstab", "bicgstab-ilu",
                  "bicgstab-amg", "gmres", "gmres-ilu", "gmres-amg",
                  "minres", "chebyshev", "chebyshev-fused")
-PORTED_SOLVE_METHODS = ("cg", "cg-fused", "pcg", "pcg-ic0", "pcg-ic0-fused",
-                        "chebyshev", "chebyshev-fused")
+# The methods the JAX CLI runs on SPD systems only, and its right-
+# preconditioned general ones (their refusals and non-convergence hints).
+SPD_METHODS = ("cg", "cg-fused", "pcg", "pcg-amg", "pcg-cheb", "pcg-neumann",
+               "pcg-ic0", "pcg-ssor", "pcg-bjac", "chebyshev")
+PRECONDITIONED_GENERAL = ("bicgstab-ilu", "bicgstab-amg", "gmres-ilu",
+                          "gmres-amg")
+# The methods the JAX CLI also solves in complex arithmetic.
+COMPLEX_METHODS = ("cg", "pcg", "bicgstab", "gmres", "minres")
+GMRES_RESTART = 20  # the JAX CLI's GMRES(m)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -223,9 +248,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--solve", default=None, metavar="METHOD[:ITERS[:TOL]]",
         help="after benchmarking, solve A x = b (b = the --x vector) with "
-             f"one of {', '.join(PORTED_SOLVE_METHODS)}; default 100 "
-             "iterations; an optional relative-residual target stops the "
-             "scan-loop methods early (e.g. cg:200:1e-6); needs -c",
+             f"one of {', '.join(SOLVE_METHODS)}; default 100 iterations; "
+             "an optional relative-residual target stops the scan-loop "
+             "methods early (per step; per restart for gmres), e.g. "
+             "cg:200:1e-6; needs -c",
+    )
+    p.add_argument(
+        "--eigs", default=None, metavar="K[:ITERS]",
+        help="after benchmarking, compute the K smallest eigenpairs of the "
+             "(symmetric) matrix with LOBPCG (default 60 iterations), "
+             "AMG-preconditioned when the hierarchy builds; logs the Ritz "
+             "values and eigen-residuals; needs -c",
     )
     p.add_argument(
         "--out-dir", default=None, metavar="DIR",
@@ -304,6 +337,17 @@ def _validate(args) -> Optional[str]:
             return "--spmm K must be >= 1"
         if not run_csr:
             return "--spmm requires the CSR algorithm (-c or -a)"
+    if args.eigs is not None:
+        parts = args.eigs.split(":")
+        if len(parts) > 2:
+            return f"--eigs takes K[:ITERS] (got {args.eigs!r})"
+        try:
+            if int(parts[0]) < 1 or (len(parts) > 1 and int(parts[1]) < 1):
+                return f"bad --eigs spec: {args.eigs!r}"
+        except ValueError:
+            return f"bad --eigs spec: {args.eigs!r}"
+        if not run_csr:
+            return "--eigs requires the CSR algorithm (-c or -a)"
     if args.solve:
         err = _validate_solve(args, run_csr)
         if err:
@@ -314,7 +358,7 @@ def _validate(args) -> Optional[str]:
 
 
 def _validate_solve(args, run_csr: bool) -> Optional[str]:
-    """The JAX CLI's --solve checks, then the port's method list."""
+    """The JAX CLI's --solve checks."""
     if not run_csr:
         return "--solve requires the CSR encoding (-c or -a)"
     parts = args.solve.split(":")
@@ -336,10 +380,22 @@ def _validate_solve(args, run_csr: bool) -> Optional[str]:
                 return f"bad --solve tolerance: {args.solve!r}"
         except ValueError:
             return f"bad --solve tolerance: {args.solve!r}"
-    if method not in PORTED_SOLVE_METHODS:
-        return (f"--solve {method} is not ported yet; the port has "
-                f"{', '.join(PORTED_SOLVE_METHODS)}")
     return None
+
+
+def _complex_refusal(args) -> Optional[str]:
+    """The JAX CLI's refusal of this run's ``--eigs`` or ``--solve`` on a
+    complex system (in its order: the eigenpairs first), or None."""
+    if args.eigs is not None:
+        return "--eigs supports real symmetric systems only"
+    if not args.solve:
+        return None
+    method = args.solve.split(":", 1)[0].lower()
+    if method in COMPLEX_METHODS:
+        return None
+    if method in PRECONDITIONED_GENERAL:
+        return f"--solve {method} supports real systems only"
+    return f"--solve {method} needs a real SPD system"
 
 
 def _make_x(mode: str, n: int, dtype, device):
@@ -457,6 +513,11 @@ def _main(args, joined: list) -> int:
             if "complex" not in str(e):
                 log("ERROR", f"MatrixMarket read failed: {e}")
                 return 1
+            refusal = (_complex_refusal(args)
+                       if args.csr or args.all_algs else None)
+            if refusal:
+                log("ERROR", refusal)
+                return 2
             log("ERROR", "complex matrices are not supported: the port's "
                 "SELL kernels are real-valued")
             return 1
@@ -567,9 +628,7 @@ def _main(args, joined: list) -> int:
             }
             if sharded:
                 rec["shards"] = args.shards
-            with open(args.json_out, "a") as f:
-                f.write(json.dumps(rec) + "\n")
-            log("FILE", f"JSON record appended: {args.json_out}")
+            _append_json(args.json_out, rec, log)
         if not args.no_report and lead:
             path = write_report(
                 args.dir,
@@ -635,12 +694,19 @@ def _main(args, joined: list) -> int:
             shardable=args.kernel != "df64")
         if args.spmm:
             _run_spmm(args, coo, csr, device, label, log)
+        # The solves and LOBPCG step with the run's CSR SpMV; df64 runs
+        # solve on the SELL kernels, as the JAX CLI solves df64 runs on
+        # its default kernel.
+        solve_spmv = (spmv_sell.spmv_csr_sell
+                      if args.kernel == "df64" or spmv_fn is None
+                      else spmv_fn)
+        if args.eigs:
+            rc = _run_eigs(args, coo, csr, label, log, solve_spmv)
+            if rc:
+                return rc
         if args.solve:
-            # The solves step with the run's CSR SpMV; df64 solves on the
-            # SELL kernels, as the JAX CLI solves df64 runs on its default.
             rc = _run_solve(args, coo, csr, x, device, label, log,
-                            spmv_sell.spmv_csr_sell
-                            if args.kernel == "df64" else spmv_fn)
+                            solve_spmv)
             if rc:
                 return rc
 
@@ -868,18 +934,26 @@ def _run_spmm(args, coo, csr, device, label, log) -> None:
             "avg_ms": stats.avg_ms,
             "nnz_per_s_krhs": nnzs,
         }
-        with open(args.json_out, "a") as f:
-            f.write(json.dumps(rec) + "\n")
-        log("FILE", f"JSON record appended: {args.json_out}")
+        _append_json(args.json_out, rec, log)
+
+
+def _append_json(path: str, record: dict, log) -> None:
+    """Append one JSON line to the metrics sink (``--json-out``)."""
+    with open(path, "a") as f:
+        f.write(json.dumps(record) + "\n")
+    log("FILE", f"JSON record appended: {path}")
 
 
 def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
     """``--solve METHOD[:ITERS[:TOL]]``: solve A x = b, b = the --x vector
-    (the JAX CLI's ``_run_solve`` for the ported methods).
+    (the JAX CLI's ``_run_solve``).
 
     ``spmv`` is the run's CSR SpMV (the SELL kernels or the plain-PyTorch
     one): the scan-loop methods step with it and the residual check uses
-    it. The fused methods run on the matrix's cached SELL operator.
+    it. The fused methods run on the matrix's cached SELL operator. On
+    the SELL path the triangular factors, SSOR's parts and every AMG level
+    get SELL operators of their own (``spmv_sell.sell_op_csr``); the
+    plain-PyTorch path applies them with its CSR SpMV.
     """
     import time
 
@@ -895,8 +969,10 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
     method = spec[0].lower()
     iters = int(spec[1]) if len(spec) > 1 else 100
     tol = float(spec[2]) if len(spec) > 2 else None
+    per = 1  # iterations per residual-history entry (GMRES: a restart)
     n = coo.shape[0]
     b = x[:n].float()
+    op_builder = None if args.kernel == "torch" else spmv_sell.sell_op_csr
 
     def lanczos_bounds(safety_lo=0.3, safety_hi=1.1):
         """Chebyshev's spectrum bounds: 30 Lanczos steps from a random
@@ -910,14 +986,19 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
                                             k=1, spmv=spmv)
         return float(lows[0]) * safety_lo, float(highs[0]) * safety_hi
 
-    def factors():
-        from smvp_toolkit_tpu_torch.ops.ilu import ic0
-
+    def setup(build):
+        """A preconditioner's set-up (a factorization, a hierarchy, its
+        operators' plans), its time logged, or None after logging its
+        refusal (a ValueError: a shift or ridge ladder exhausted, an AMG
+        coarsening stalled)."""
+        t = time.perf_counter()
         try:
-            return ic0(csr)
-        except ValueError as e:  # shift ladder exhausted: nowhere near SPD
+            out = build()
+        except ValueError as e:
             log("ERROR", str(e))
             return None
+        log("INFO", f"{method} set-up: {time.perf_counter() - t:.3f} s")
+        return out
 
     def sync():
         if device.type == "cuda":
@@ -934,18 +1015,82 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
 
         xs, res = solvers.pcg(csr, b, diagonal(coo), num_iters=iters,
                               spmv=spmv, tol=tol)
-    elif method == "pcg-ic0":
-        f = factors()
-        if f is None:
+    elif method in SPD_METHODS and method.startswith("pcg-"):
+        # The preconditioned CG family: the preconditioner, then PCG.
+        if method == "pcg-cheb":
+            m = setup(lambda: solvers.chebyshev_preconditioner(
+                csr, *lanczos_bounds(), degree=8, spmv=spmv))
+        elif method == "pcg-neumann":
+            from smvp_toolkit_tpu_torch.ops.algebra import diagonal
+
+            m = solvers.jacobi_preconditioner(csr, diagonal(coo), order=3,
+                                              spmv=spmv)
+        elif method == "pcg-ic0":
+            from smvp_toolkit_tpu_torch.ops.ilu import ic0
+
+            m = setup(lambda: solvers.ic0_preconditioner(
+                ic0(csr), sweeps=4, spmv=spmv, op_builder=op_builder))
+        elif method == "pcg-amg":
+            from smvp_toolkit_tpu_torch.models.amg import amg_preconditioner
+
+            m = setup(lambda: amg_preconditioner(
+                csr, sweeps=1, op_builder=op_builder, spmv=spmv))
+        elif method == "pcg-ssor":
+            m = setup(lambda: solvers.ssor_preconditioner(
+                csr, omega=1.0, sweeps=4, op_builder=op_builder, spmv=spmv))
+        else:  # pcg-bjac
+            m = setup(lambda: solvers.block_jacobi_preconditioner(
+                csr, block=64))
+        if m is None:
             return 2
-        # The factors get their own SELL operators on the SELL path; the
-        # plain-PyTorch path applies them with its CSR SpMV.
-        m = solvers.ic0_preconditioner(
-            f, sweeps=4, spmv=spmv,
-            op_builder=None if args.kernel == "torch"
-            else spmv_sell.sell_op_csr)
         xs, res = solvers.pcg_precond(csr, b, m, num_iters=iters, spmv=spmv,
                                       tol=tol)
+    elif method in PRECONDITIONED_GENERAL:
+        # Right-preconditioned Krylov: solve (A·M⁻¹) u = b, then x = M⁻¹u;
+        # the residual b − A·M⁻¹·u the solver tracks is x's true residual.
+        # The -ilu methods factor A, the -amg ones build the hierarchy on
+        # the symmetric part (A + Aᵀ)/2.
+        if method.endswith("-ilu"):
+            from smvp_toolkit_tpu_torch.ops.ilu import ilu0
+
+            m_apply = setup(lambda: solvers.ilu_preconditioner(
+                ilu0(csr), sweeps=4, spmv=spmv, op_builder=op_builder))
+        else:
+            from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+            from smvp_toolkit_tpu_torch.models.amg import amg_preconditioner
+            from smvp_toolkit_tpu_torch.ops.algebra import (
+                _as_general,
+                add,
+                scale,
+                transpose,
+            )
+
+            def build():
+                # One-triangle storage is expanded first: the transpose of
+                # a symmetric-typecode COO transposes only the stored
+                # triangle.
+                g = _as_general(coo)
+                sym = csr_encode(scale(add(g, transpose(g)), 0.5))
+                return amg_preconditioner(sym, op_builder=op_builder,
+                                          spmv=spmv)
+
+            m_apply = setup(build)
+        if m_apply is None:
+            return 2
+        wrapped = lambda mat, v: spmv(mat, m_apply(v))  # noqa: E731
+        if method.startswith("gmres"):
+            iters, per, us, res = _gmres(csr, b, iters, wrapped, tol)
+        else:
+            us, res = solvers.bicgstab(csr, b, num_iters=iters, spmv=wrapped,
+                                       tol=tol)
+        xs = m_apply(us)
+    elif method == "bicgstab":
+        xs, res = solvers.bicgstab(csr, b, num_iters=iters, spmv=spmv,
+                                   tol=tol)
+    elif method == "minres":
+        xs, res = solvers.minres(csr, b, num_iters=iters, spmv=spmv, tol=tol)
+    elif method == "gmres":
+        iters, per, xs, res = _gmres(csr, b, iters, spmv, tol)
     elif method == "chebyshev":
         lo, hi = lanczos_bounds()
         xs, _ = solvers.chebyshev(csr, b, lo, hi, num_iters=iters, spmv=spmv)
@@ -960,7 +1105,9 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
         if method == "cg-fused":
             xs = fused_cg(op, b, iters)
         elif method == "pcg-ic0-fused":
-            f = factors()
+            from smvp_toolkit_tpu_torch.ops.ilu import ic0
+
+            f = setup(lambda: ic0(csr))
             if f is None:
                 return 2
             xs = fused_pcg_ic0(op, f, b, iters, sweeps=4)
@@ -977,7 +1124,7 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
         rn = res.double().cpu().numpy()
         tgt = tol * max(float(torch.linalg.vector_norm(b)), 1e-30)
         hit = np.nonzero(rn <= tgt * (1.0 + 1e-6))[0]
-        iters = int(hit[0]) + 1 if hit.size else rn.shape[0]
+        iters = (int(hit[0]) + 1 if hit.size else rn.shape[0]) * per
 
     b64 = b.double().cpu().numpy()
     r = b64 - spmv(csr, xs).double().cpu().numpy()
@@ -987,19 +1134,23 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
     if args.out_dir:
         _save(args.out_dir, "solve.npy", xs.float().cpu().numpy(), log)
     if not np.isfinite(relres) or relres > 1.0:
-        log("INFO", f"solve did not converge — {method} assumes an SPD "
-            "system; try more iterations")
+        hint = ("more iterations, a tighter preconditioner (larger ILU "
+                "sweeps), or gmres" if method in PRECONDITIONED_GENERAL
+                else "bicgstab or gmres for general matrices")
+        log("INFO", f"solve did not converge — {method} assumes "
+            + ("an SPD system" if method in SPD_METHODS + ("cg-fused",)
+               else "a symmetric system" if method == "minres"
+               else "a well-conditioned system")
+            + f"; try {hint}")
     if args.json_out:
-        with open(args.json_out, "a") as f:
-            f.write(json.dumps({
-                "alg": f"SOLVE-{method.upper()}",
-                "file": args.file,
-                "iterations": iters,
-                "wall_ms": ms,
-                "relative_residual": relres,
-                "device": label,
-            }) + "\n")
-        log("FILE", f"JSON record appended: {args.json_out}")
+        _append_json(args.json_out, {
+            "alg": f"SOLVE-{method.upper()}",
+            "file": args.file,
+            "iterations": iters,
+            "wall_ms": ms,
+            "relative_residual": relres,
+            "device": label,
+        }, log)
     if not args.no_report:
         from smvp_toolkit_tpu_torch.bench.harness import TimingStats
         from smvp_toolkit_tpu_torch.bench.report import write_report
@@ -1017,6 +1168,88 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
                            "Relative residual": f"{relres:.6g}"},
         )
         log("FILE", f"Solve report saved as:\n\t{path}")
+    return 0
+
+
+def _gmres(csr, b, iters: int, spmv, tol):
+    """GMRES(20) with the count rounded up to whole restarts, as the JAX
+    CLI runs it: ``(iterations, per, x, residual per restart)``."""
+    from smvp_toolkit_tpu_torch.models import solvers
+
+    restart = min(GMRES_RESTART, iters)
+    num_restarts = max(1, -(-iters // restart))
+    x, res = solvers.gmres(csr, b, restart=restart,
+                           num_restarts=num_restarts, spmv=spmv, tol=tol)
+    return restart * num_restarts, restart, x, res
+
+
+def _run_eigs(args, coo, csr, label, log, spmv) -> int:
+    """``--eigs K[:ITERS]``: the K smallest eigenpairs by LOBPCG (the JAX
+    CLI's ``_run_eigs``).
+
+    AMG-preconditioned when the hierarchy builds; when its set-up refuses
+    the matrix (a ValueError), LOBPCG runs unpreconditioned. The JAX CLI
+    falls back on any exception; the port lets any other one (a kernel's
+    build or launch) stop the run. On the SELL path the SpMMs run on the
+    k-column kernels and the AMG levels on SELL operators of their own;
+    ``--kernel torch`` runs the plain-PyTorch CSR SpMV and SpMM.
+    """
+    import time
+
+    import torch
+
+    from smvp_toolkit_tpu_torch.models import solvers
+    from smvp_toolkit_tpu_torch.models.amg import amg_preconditioner
+    from smvp_toolkit_tpu_torch.ops import spmv_sell, spmv_torch
+
+    if coo.shape[0] != coo.shape[1]:
+        log("ERROR", "--eigs needs a square (symmetric) matrix")
+        return 2
+    spec = args.eigs.split(":")
+    k = int(spec[0])
+    iters = int(spec[1]) if len(spec) > 1 else 60
+    n = coo.shape[0]
+    if k > n:
+        log("ERROR", f"--eigs K={k} exceeds the matrix dimension {n}")
+        return 2
+    on_sell = args.kernel != "torch"
+    spmm = None if on_sell else spmv_torch.spmm_csr
+    m = None
+    t0 = time.perf_counter()
+    try:
+        m = amg_preconditioner(
+            csr, op_builder=spmv_sell.sell_op_csr if on_sell else None,
+            spmv=spmv)
+        log("INFO", "LOBPCG preconditioner: smoothed-aggregation AMG "
+            f"(set-up: {time.perf_counter() - t0:.3f} s)")
+    except ValueError as e:
+        log("INFO", f"AMG setup declined ({str(e)[:120]}); "
+            "running unpreconditioned LOBPCG")
+    dev = csr.device
+    X0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (n, k)).astype(np.float32)).to(dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    theta, _, res = solvers.lobpcg(csr, X0, num_iters=iters, m=m, spmm=spmm)
+    tvals = theta.double().cpu().numpy()
+    ms = (time.perf_counter() - t0) * 1e3
+    rlast = res[-1].double().cpu().numpy()
+    log("DATA", f"EIGS k={k}: {iters} LOBPCG iterations in {ms:.2f} ms; "
+        "smallest Ritz values " + " ".join(f"{t:.6g}" for t in tvals)
+        + "  (residual norms " + " ".join(f"{r:.2e}" for r in rlast) + ")")
+    if args.json_out:
+        _append_json(args.json_out, {
+            "alg": "EIGS-LOBPCG",
+            "file": args.file,
+            "k": k,
+            "iterations": iters,
+            "wall_ms": ms,
+            "eigenvalues": [float(t) for t in tvals],
+            "residual_norms": [float(r) for r in rlast],
+            "preconditioner": "amg" if m is not None else "none",
+            "device": label,
+        }, log)
     return 0
 
 

@@ -1,15 +1,19 @@
-"""Incomplete Cholesky (IC(0)) and the fixed-sweep triangular apply.
+"""Incomplete factorizations (ILU(0), IC(0)), the triangular split and the
+fixed-sweep triangular apply.
 
-Counterpart of the IC(0) half of the JAX package's ``ops/ilu.py``.
+Counterpart of the JAX package's ``ops/ilu.py``.
 
 * **Factorization is host-side, encode-time**: a sequential row
   elimination in float64, run once per matrix like the SELL planner. By
-  default it runs the port's C++ copy of the JAX package's native pass
-  (``csrc/ilu.cpp``, built by ``ops/_build.py`` with the host compiler);
-  :func:`_ic0_pass` is the numpy loop it copies, bit for bit, and runs
-  only when asked (``ic0(csr, native=False)``). If the C++ pass cannot be
-  built, :func:`ic0` raises rather than run an interpreted loop over
-  every row and its coupled rows at a million rows.
+  default it runs the port's C++ copies of the JAX package's native passes
+  (``csrc/ilu.cpp``: ``ilu0_pass`` and ``ic0_pass``, built by
+  ``ops/_build.py`` with the host compiler); :func:`_ilu0_pass` and
+  :func:`_ic0_pass` are the numpy loops they copy, bit for bit, and run
+  only when asked (``native=False``). If the C++ pass cannot be built,
+  :func:`ilu0` and :func:`ic0` raise rather than run an interpreted loop
+  over every row and its coupled rows at a million rows.
+* **The triangular split** (:func:`split_triangular`, SSOR's feed) is
+  plain submatrices of A: no elimination.
 * **Application is a fixed-sweep truncated Neumann solve**: for a
   triangular ``T = D + N`` (``N`` strictly triangular, nilpotent),
   ``z_s = sum_{k<s} (-D⁻¹N)^k D⁻¹ r`` as ``s`` SpMV sweeps. With equal
@@ -35,10 +39,35 @@ import torch
 from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
 from smvp_toolkit_tpu_torch.formats.csr import CSRMatrix, csr_encode
 
-__all__ = ["IC0Factors", "ic0", "trisolve_neumann"]
+__all__ = [
+    "ILU0Factors",
+    "IC0Factors",
+    "ilu0",
+    "ic0",
+    "split_triangular",
+    "trisolve_neumann",
+]
 
 _PAD = 128  # entry padding of the factor CSRs
 _F32_SAFE = 1e30  # factor-entry magnitude cap (float32 storage)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ILU0Factors:
+    """A ≈ (I + L)·(D_u + U): unit lower and upper incomplete factors.
+
+    ``l_strict`` and ``u_strict`` hold the strictly triangular parts as
+    CSR matrices (any SpMV applies them); ``u_diag`` is U's diagonal. The
+    product matches A exactly on A's sparsity pattern.
+    """
+
+    l_strict: CSRMatrix
+    u_strict: CSRMatrix
+    u_diag: torch.Tensor  # [nrows]
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return self.l_strict.shape
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -99,6 +128,49 @@ def _factors_usable(arrays, repaired: int, n: int) -> bool:
     )
 
 
+def _ilu0_pass(rp, ci, v, n: int, shift: float, floor: float):
+    """One IKJ elimination sweep of A + shift·I, in place on A's pattern.
+
+    Returns ``(fac, u_diag, fixed_pivots)``: ``fac`` holds the factor
+    value at every CSR slot (cols < row: L, cols > row: strict U; the
+    diagonal slot keeps its pre-shift value, the pivot lives in
+    ``u_diag``). ``csrc/ilu.cpp`` mirrors it operation for operation
+    (bit-identical).
+    """
+    fac = v.copy()
+    u_diag = np.empty(n, np.float64)
+    # u_start[k]: first strict-U slot of finished row k.
+    u_start = np.empty(n, np.int64)
+    fixed_pivots = 0
+
+    for i in range(n):
+        lo, hi = int(rp[i]), int(rp[i + 1])
+        cols_i = ci[lo:hi]  # ascending (csr_encode sorts by (row, col))
+        pos = {int(c): t for t, c in enumerate(cols_i)}
+        for t in range(cols_i.size):
+            k = int(cols_i[t])
+            if k >= i:
+                break
+            w = fac[lo + t] / u_diag[k]
+            fac[lo + t] = w
+            for s in range(int(u_start[k]), int(rp[k + 1])):
+                tj = pos.get(int(ci[s]))
+                if tj is not None:
+                    fac[lo + tj] -= w * fac[s]
+        split = int(np.searchsorted(cols_i, i))
+        if split < cols_i.size and cols_i[split] == i:
+            piv = fac[lo + split] + shift
+            u_start[i] = lo + split + 1
+        else:  # structurally missing diagonal
+            piv = shift
+            u_start[i] = lo + split
+        if abs(piv) < floor:
+            piv = floor if piv >= 0 else -floor
+            fixed_pivots += 1
+        u_diag[i] = piv
+    return fac, u_diag, fixed_pivots
+
+
 def _ic0_pass(rp, ci, v, n: int, shift: float, piv_floor: float):
     """One IC(0) sweep of A + shift·I, in place on the lower pattern.
 
@@ -146,6 +218,10 @@ def _ic0_pass(rp, ci, v, n: int, shift: float, piv_floor: float):
 _I64P = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
 _F64P = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
 _ILU_SIGNATURES = {
+    "ilu0_pass": (ctypes.c_longlong, [
+        _I64P, _I64P, ctypes.c_longlong, ctypes.c_double, ctypes.c_double,
+        _F64P, _F64P,
+    ]),
     "ic0_pass": (ctypes.c_longlong, [
         _I64P, _I64P, _F64P, ctypes.c_longlong, ctypes.c_double,
         ctypes.c_double, _F64P, _I64P, _F64P,
@@ -153,12 +229,29 @@ _ILU_SIGNATURES = {
 }
 
 
+def _ilu_lib():
+    from smvp_toolkit_tpu_torch.ops import _build
+
+    return _build.load("ilu", _ILU_SIGNATURES)
+
+
+def _native_ilu0_pass(rp, ci, v, n: int, shift: float, floor: float):
+    """:func:`_ilu0_pass` in ``csrc/ilu.cpp`` (built on first use; raises
+    if it cannot be built)."""
+    lib = _ilu_lib()
+    fac = np.ascontiguousarray(v, dtype=np.float64).copy()
+    u_diag = np.empty(n, np.float64)
+    fixed = lib.ilu0_pass(
+        np.ascontiguousarray(rp, np.int64), np.ascontiguousarray(ci, np.int64),
+        n, shift, floor, fac, u_diag,
+    )
+    return fac, u_diag, int(fixed)
+
+
 def _native_ic0_pass(rp, ci, v, n: int, shift: float, piv_floor: float):
     """:func:`_ic0_pass` in ``csrc/ilu.cpp`` (built on first use; raises
     if it cannot be built)."""
-    from smvp_toolkit_tpu_torch.ops import _build
-
-    lib = _build.load("ilu", _ILU_SIGNATURES)
+    lib = _ilu_lib()
     v64 = np.ascontiguousarray(v, dtype=np.float64)
     fac = v64.copy()
     lo_cut = np.empty(n, np.int64)
@@ -168,6 +261,65 @@ def _native_ic0_pass(rp, ci, v, n: int, shift: float, piv_floor: float):
         v64, n, shift, piv_floor, fac, lo_cut, diag,
     )
     return fac, lo_cut, diag, int(breakdowns)
+
+
+def _host_vector(a: np.ndarray, dtype, device) -> torch.Tensor:
+    """A float64 host vector in ``dtype`` on ``device`` (through float32,
+    as the factors' other values)."""
+    return torch.from_numpy(a.astype(np.float32)).to(dtype).to(device)
+
+
+def ilu0(csr: CSRMatrix, *, native: bool = True) -> ILU0Factors:
+    """ILU(0): incomplete LU with zero fill-in (the pattern of A).
+
+    Host-side IKJ row elimination in float64. A handful of zero or tiny
+    pivots is repaired by a scale-relative static floor; if the repair
+    cascades (>1% of rows) or factor entries pass the float32-safe range,
+    the factorization restarts on ``A + αI`` with an escalating Manteuffel
+    shift and warns with the shift it settled on (the shifted factors still
+    precondition the original system). ``native=False`` runs the numpy pass
+    instead of the C++ copy (the two are bit-identical).
+    """
+    n, m = csr.shape
+    if n != m:
+        raise ValueError(f"ilu0 needs a square matrix, got {csr.shape}")
+    rp, ci, v = _csr_host(csr)
+
+    scale = float(np.max(np.abs(v))) if v.size else 1.0
+    floor = max(scale, 1e-30) * 1e-4
+    pass_fn = _native_ilu0_pass if native else _ilu0_pass
+    with np.errstate(over="ignore", invalid="ignore"):
+        for shift in _shift_ladder(scale):
+            fac, u_diag, fixed = pass_fn(rp, ci, v, n, shift, floor)
+            if _factors_usable((fac, u_diag), fixed, n):
+                break
+        else:
+            raise ValueError(
+                "ilu0: factorization kept producing unusable factors "
+                "even at the largest diagonal shift — the matrix is "
+                "numerically singular at working precision"
+            )
+    if shift or fixed:
+        what = []
+        if shift:
+            what.append(f"diagonal shift {shift:g}")
+        if fixed:
+            what.append(f"{fixed} static-floored pivot(s)")
+        warnings.warn(
+            "ilu0: input is far from regular; completed with "
+            + " and ".join(what)
+            + " — the preconditioner stays usable but is weakened",
+            stacklevel=2,
+        )
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp[: n + 1]))
+    low = ci < rows
+    up = ci > rows
+    dtype, dev = csr.dtype, csr.device
+    return ILU0Factors(
+        l_strict=_tri_csr(rows[low], ci[low], fac[low], n, dtype, dev),
+        u_strict=_tri_csr(rows[up], ci[up], fac[up], n, dtype, dev),
+        u_diag=_host_vector(u_diag, dtype, dev),
+    )
 
 
 def ic0(csr: CSRMatrix, *, native: bool = True) -> IC0Factors:
@@ -221,11 +373,37 @@ def ic0(csr: CSRMatrix, *, native: bool = True) -> IC0Factors:
         )
     l_rows, l_cols, l_vals = rows[low], ci[low], fac[low]
     dtype, dev = csr.dtype, csr.device
-    diag_t = torch.from_numpy(diag.astype(np.float32)).to(dtype).to(dev)
     return IC0Factors(
         strict=_tri_csr(l_rows, l_cols, l_vals, n, dtype, dev),
         strict_t=_tri_csr(l_cols, l_rows, l_vals, n, dtype, dev),
-        diag=diag_t,
+        diag=_host_vector(diag, dtype, dev),
+    )
+
+
+def split_triangular(
+    csr: CSRMatrix,
+) -> Tuple[CSRMatrix, torch.Tensor, CSRMatrix]:
+    """Host-side split of A into (strict lower, diagonal, strict upper),
+    SSOR's feed: the parts are submatrices of A (no elimination), as CSR
+    matrices and a dense diagonal (a structurally missing diagonal entry
+    reads 0), on A's device and in its value dtype."""
+    n, m = csr.shape
+    if n != m:
+        raise ValueError(
+            f"split_triangular needs a square matrix, got {csr.shape}"
+        )
+    rp, ci, v = _csr_host(csr)
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(rp[: n + 1]))
+    low = ci < rows
+    up = ci > rows
+    dia = ci == rows
+    d = np.zeros(n, np.float64)
+    d[rows[dia]] = v[dia]
+    dtype, dev = csr.dtype, csr.device
+    return (
+        _tri_csr(rows[low], ci[low], v[low], n, dtype, dev),
+        _host_vector(d, dtype, dev),
+        _tri_csr(rows[up], ci[up], v[up], n, dtype, dev),
     )
 
 

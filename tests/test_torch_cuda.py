@@ -1903,3 +1903,55 @@ def test_cisr_replan_on_card(card, slots, dtype):
     assert _rel(y.float(), y_csr.float()) <= TOL
     op = S.sell_op_cisr(cisr, card)
     assert _rel(op.bench_loop(x, 3).float(), y_sched) <= TOL
+
+
+def _poisson_csr(nx, device):
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.interop import coo_from_triplets
+    from smvp_toolkit_tpu_torch.utils.synth import poisson2d
+
+    a = poisson2d(nx).tocoo()
+    return csr_encode(coo_from_triplets(a.row, a.col, a.data, a.shape,
+                                        device=device).pad(128))
+
+
+@pytest.mark.parametrize("smoother", ["jacobi", "chebyshev"])
+def test_amg_apply_on_card_matches_cpu(card, smoother):
+    """The V-cycle on the SELL kernels (every level's A, P and Pᵀ, vector
+    and k = 4 block) against the same hierarchy's plain versions on the
+    CPU; the rectangular P and Pᵀ plans run on the card."""
+    from smvp_toolkit_tpu_torch.models.amg import amg_preconditioner
+
+    counts = {}
+    for dev in (card, torch.device("cpu")):
+        m = amg_preconditioner(_poisson_csr(64, dev), smoother=smoother,
+                               sweeps=2, op_builder=S.sell_op_csr)
+        r = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (4096, 4)).astype(np.float32)).to(dev)
+        before = {k: f.launches for k, f in S.MAT_KERNELS.items()}
+        counts[dev.type] = (m(r[:, 0]).cpu(), m(r).cpu())
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert any(f.launches > before[k]
+                       for k, f in S.MAT_KERNELS.items())
+    (zc, Zc), (zp, Zp) = counts["cuda"], counts["cpu"]
+    assert _rel(zc, zp) <= 1e-5 and _rel(Zc, Zp) <= 1e-5
+    assert _rel(Zc[:, 0], zc) <= 1e-5
+
+
+def test_krylov_and_lobpcg_on_card_match_cpu(card):
+    from smvp_toolkit_tpu_torch.models import solvers as M
+
+    b = np.random.default_rng(1).standard_normal(4096).astype(np.float32)
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        csr = _poisson_csr(64, dev)
+        bt = torch.from_numpy(b).to(dev)
+        x1, _ = M.bicgstab(csr, bt, num_iters=8)
+        x2, _ = M.gmres(csr, bt, restart=10, num_restarts=2)
+        x3, _ = M.minres(csr, bt, num_iters=20)
+        th, _, _ = M.lobpcg(csr, torch.eye(4096, 3, device=dev) + 0.1,
+                            num_iters=10)
+        out[dev.type] = [t.cpu() for t in (x1, x2, x3, th)]
+    for c, p in zip(out["cuda"], out["cpu"]):
+        assert _rel(c, p) <= 1e-4

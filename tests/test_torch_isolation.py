@@ -47,7 +47,8 @@ def test_package_sources_found():
             "formats/cisr.py", "formats/vivado.py", "formats/encode_native.py",
             "ops/spmv_cisr.py", "io/native.py", "utils/debug.py",
             "utils/checkpoint.py", "csrc/cisr.cpp", "csrc/sellplan.cpp",
-            "csrc/mtxio.cpp", "csrc/encode.cpp"} <= names
+            "csrc/mtxio.cpp", "csrc/encode.cpp", "models/amg.py",
+            "csrc/amg.cpp"} <= names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -105,6 +106,19 @@ xh, xl, norms = refine_solve(csr, np.ones(2000), num_refinements=2,
                              inner=lambda r: fused_cg(op, r, 5))
 assert main(["-c", "-t", "-n", "1", "--no-report", "--device", "cpu",
              "--kernel", "df64", "--fused", "synth:500:2000"]) == 0
+from smvp_toolkit_tpu_torch.interop import coo_from_triplets
+from smvp_toolkit_tpu_torch.models import amg_preconditioner, gmres, lobpcg
+from smvp_toolkit_tpu_torch.ops.ilu import ilu0
+from smvp_toolkit_tpu_torch.utils.synth import poisson2d
+p = poisson2d(16).tocoo()
+pc = csr_encode(coo_from_triplets(p.row, p.col, p.data, p.shape,
+                                  device="cpu").pad(128))
+m = amg_preconditioner(pc, coarse_size=32)
+theta, X, _ = lobpcg(pc, torch.eye(256, 2) + 1.0, num_iters=3, m=m)
+x, _ = gmres(pc, torch.ones(256), restart=5, num_restarts=2)
+assert ilu0(pc).u_diag.shape == (256,) and X.shape == (256, 2)
+assert main(["-c", "-n", "1", "--no-report", "--device", "cpu", "--eigs",
+             "2:3", "--solve", "bicgstab-ilu:3", "synth:500:2000"]) == 0
 import os
 os.environ["SMVP_SELL_PACK"] = "1"
 assert main(["-c", "-n", "1", "--no-report", "--device", "cpu", "--dtype",
