@@ -4278,6 +4278,548 @@ def phase_dist_timings(np, torch, configs, dist_shards, dp1, launches, bw):
     return entries
 
 
+# The last modules (served plan, native backend, complex path, AOT export,
+# profiler, interactive front end, examples): smoke's plan through the plan
+# checkpoint and 50 power-iteration steps on K1; poisson1024's hierarchy
+# through the hierarchy checkpoint, PCG-AMG to 1e-6 on both hierarchies;
+# the native host backend's CLI run at smoke's size; smoke's pattern with
+# complex64 values from a seed; hpcg104 with a Peierls phase (its grid for
+# the CLI's written Hermitian .mtx); the ten examples on the card, their
+# .mtx a banded matrix of this many rows.
+SERVED_POWER_STEPS = 50
+NATIVE_N = 200
+COMPLEX_N = 20
+COMPLEX_SOLVES = ("cg:400:1e-6", "pcg:400:1e-6", "bicgstab:400:1e-6",
+                  "gmres:400:1e-6", "minres:400:1e-6")
+COMPLEX_CLI_SPEC = "synth:100000:1000000"
+PEIERLS_CLI_N = 24
+TOL_SERVED = 1e-6
+DEMO_ROWS = 16_384
+PROFILE_N = 5
+_AOT_LOAD = r"""
+import sys
+import numpy as np
+import torch
+call = torch.export.load(sys.argv[1]).module().to(sys.argv[4])
+x = torch.from_numpy(np.load(sys.argv[2])).to(sys.argv[4])
+np.save(sys.argv[3], call(x).cpu().numpy())
+bad = sorted(m for m in sys.modules if m.startswith(("smvp", "jax")))
+assert not bad, bad
+print("LOADED")
+"""
+
+
+# Two CLI runs in one process: the arguments before and after "--then".
+_CLI_RUNS = r"""
+import sys
+from smvp_toolkit_tpu_torch.cli import main
+args = sys.argv[1:]
+cut = args.index("--then")
+for argv in (args[:cut], args[cut + 1:]):
+    rc = main(argv)
+    if rc:
+        sys.exit(rc)
+"""
+
+
+def _host_cpu():
+    """The host CPU's model and logical CPU count, from ``lscpu`` (its
+    vendor and family where it names no model)."""
+    out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                         timeout=60).stdout
+    info = {k.strip(): v.strip() for k, v in (
+        ln.split(":", 1) for ln in out.splitlines() if ":" in ln)}
+    model = info.get("Model name", "")
+    if model.lower() in ("", "unknown", "-"):
+        model = (f"{info.get('Vendor ID', '?')} family "
+                 f"{info.get('CPU family', '?')} model "
+                 f"{info.get('Model', '?')}")
+    return model, info.get("CPU(s)", "?")
+
+
+def _cli(argv, what, expect_rc=0):
+    """One in-process CLI run on ``DEVICE``'s type: (its log, wall s)."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.cli import main as cli_main
+
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        rc = cli_main(["--device", torch.device(DEVICE).type, *argv])
+    wall = time.perf_counter() - t0
+    _check(rc == expect_rc, f"{what} returned {rc}, not {expect_rc}:\n"
+           f"{log.getvalue()[-3000:]}")
+    return log.getvalue(), wall
+
+
+def _complex_cells(np, path):
+    with open(path) as f:
+        lines = f.read().splitlines()
+    start = lines.index("[")
+    return np.array([complex(t) for t in lines[start + 1:
+                                               lines.index("]", start)]])
+
+
+def _slice21_served(np, torch, S, configs, tmp):
+    """smoke's plan through ``save_plan`` / ``load_plan``, K1 on the served
+    plan against K1 on the fresh one, then 50 power-iteration steps; then
+    poisson1024's hierarchy through ``save_hierarchy`` /
+    ``load_hierarchy``, PCG-AMG to 1e-6 on both."""
+    from smvp_toolkit_tpu_torch.models import amg as G
+    from smvp_toolkit_tpu_torch.models import solvers as M
+    from smvp_toolkit_tpu_torch.utils.checkpoint import (
+        load_hierarchy,
+        load_plan,
+        save_hierarchy,
+        save_plan,
+    )
+    from smvp_toolkit_tpu_torch.utils.synth import poisson2d
+
+    k1 = S.KERNEL_NAMES[("relsl", False)]
+    plan = configs["smoke"][0]
+    path = os.path.join(tmp, "smoke_plan.npz")
+    t0 = time.perf_counter()
+    save_plan(path, plan)
+    t1 = time.perf_counter()
+    loaded = load_plan(path)
+    t2 = time.perf_counter()
+    _check(_same_plan(np, loaded, plan), "smoke plan checkpoint round trip")
+    fresh, served = (S.SellSpMV(p, device=DEVICE) for p in (plan, loaded))
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        plan.shape[1]).astype(np.float32)).to(DEVICE)
+    _zero_counts(S)
+    y, want = served(x), fresh(x)
+    torch.cuda.synchronize()
+    _check_only(_counts(S), [k1], "served plan K1")
+    err = _rel_err(y, want)
+    _check(err <= TOL_SERVED, f"served plan y vs the fresh plan's: {err}")
+    _zero_counts(S)
+    t3 = time.perf_counter()
+    lam, _ = M.power_iteration(None, torch.ones_like(x),
+                               num_iters=SERVED_POWER_STEPS,
+                               spmv=lambda _m, v: served(v))
+    lam = float(lam)
+    t4 = time.perf_counter()
+    got = _check_only(_counts(S), [k1], "served plan power iteration")
+    _check(got[k1] == SERVED_POWER_STEPS and np.isfinite(lam),
+           f"served power iteration: {got}, lambda {lam}")
+    print(f"[slice21] served plan (smoke): save_plan {t1 - t0:.2f} s "
+          f"({os.path.getsize(path)} bytes), load_plan {t2 - t1:.2f} s, "
+          f"K1 y vs the fresh plan's {err:.3e}; power_iteration "
+          f"{SERVED_POWER_STEPS} steps in {(t4 - t3) * 1e3:.1f} ms, "
+          f"|lambda| {lam:.6g}, launches {got}", flush=True)
+
+    ap = poisson2d(POISSON_N)
+    csr = _card_csr(np, torch, ap)
+    levels = G.amg_setup(csr)
+    hpath = os.path.join(tmp, "poisson1024_amg.npz")
+    t0 = time.perf_counter()
+    save_hierarchy(hpath, levels)
+    t1 = time.perf_counter()
+    back = load_hierarchy(hpath, device=DEVICE)
+    t2 = time.perf_counter()
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        ap.shape[0]).astype(np.float32)).to(DEVICE)
+    target = 1e-6 * float(torch.linalg.vector_norm(b))
+    counts, rel = {}, {}
+    for name, lv in (("fresh", levels), ("loaded", back)):
+        m = G.amg_preconditioner(csr, levels=lv, op_builder=S.sell_op_csr)
+        _zero_counts(S)
+        xs, res = M.pcg_precond(csr, b, m, num_iters=60, tol=1e-6)
+        torch.cuda.synchronize()
+        _check_within(_counts(S), [k1], FAMILY_KERNELS,
+                      f"poisson1024 PCG-AMG ({name} hierarchy)")
+        rn = res.double().cpu().numpy()
+        hit = np.nonzero(rn <= target * (1 + 1e-6))[0]
+        _check(hit.size > 0, f"PCG-AMG ({name}) never reached 1e-6")
+        counts[name] = int(hit[0]) + 1
+        r = b.double().cpu().numpy() - ap @ xs.double().cpu().numpy()
+        rel[name] = float(np.linalg.norm(r) / np.linalg.norm(
+            b.double().cpu().numpy()))
+        _check(rel[name] <= SOLVE_RESIDUAL, f"PCG-AMG ({name}) {rel[name]}")
+    _check(counts["loaded"] == counts["fresh"],
+           f"PCG-AMG counts {counts}: the loaded hierarchy differs")
+    print(f"[slice21] served hierarchy (poisson1024, levels "
+          f"{[lv.n for lv in levels]}): save_hierarchy {t1 - t0:.2f} s "
+          f"({os.path.getsize(hpath)} bytes), load_hierarchy {t2 - t1:.2f} s;"
+          f" PCG-AMG to 1e-6: {counts['fresh']} steps fresh, "
+          f"{counts['loaded']} loaded, float64 relative residuals {rel}",
+          flush=True)
+    del csr, levels, back
+
+
+def _slice21_native(np, torch, S, configs, tmp):
+    """``-c -t --kernel native -n 200 --x random:1`` at smoke's size: both
+    reports' y against the float64 oracle, no card kernel launched, the
+    host ms per iteration beside the host CPU."""
+    ref, _ = _oracle(np, torch, configs["smoke"][1], "float32")
+    scale = float(np.abs(ref).max())
+    jpath = os.path.join(tmp, "native.jsonl")
+    _zero_counts(S)
+    _, wall = _cli(["-c", "-t", "--kernel", "native", "-n", str(NATIVE_N),
+                    "--x", "random:1", "-d", tmp, "--json-out", jpath,
+                    SMOKE_SPEC], "native CLI")
+    got = {k: v for k, v in _counts(S).items() if v}
+    _check(not got, f"native CLI launched card kernels: {got}")
+    with open(jpath) as f:
+        recs = {r["alg"]: r for r in map(json.loads, f)}
+    errs = {}
+    for alg in ("CSR", "TJDS"):
+        _check(recs[alg]["kernel"] == "native", f"native {alg}: {recs[alg]}")
+        (path,) = glob.glob(os.path.join(tmp, f"smvp-toolbox_report_{alg}_*"))
+        y = _report_vector(np, path)
+        errs[alg] = float(np.abs(y - ref).max()) / scale
+        _check(errs[alg] <= TOL_ORACLE, f"native {alg}: {errs[alg]}")
+        os.remove(path)
+    from smvp_toolkit_tpu_torch.ops.spmv_native import _threads
+
+    model, cpus = _host_cpu()
+    print(f"[slice21] native host backend (smoke, -n {NATIVE_N}, host CPU "
+          f"{model}, {cpus} CPUs, {_threads(None, configs['smoke'][0].nnz)} "
+          f"threads): CSR {recs['CSR']['avg_ms']:.6f} ms/iter, TJDS "
+          f"{recs['TJDS']['avg_ms']:.6f} ms/iter (host wall time, not the "
+          f"card's); {wall:.1f} s in all; vs float64 oracle CSR "
+          f"{errs['CSR']:.3e}, TJDS {errs['TJDS']:.3e}", flush=True)
+
+
+def _slice21_complex(np, torch, S, configs, tmp):
+    """smoke's pattern with complex64 values from a seed through the API
+    (CSR and TJDS, 20 timed calls each), then a smaller written complex
+    .mtx through the CLI's ``-c -t``; y against complex128 oracles."""
+    import scipy.sparse as sp
+
+    from smvp_toolkit_tpu_torch.bench.harness import bench_spmv
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.formats.tjds import tjds_encode
+    from smvp_toolkit_tpu_torch.io.mtx import write_mtx
+    from smvp_toolkit_tpu_torch.ops import spmv_torch
+    from smvp_toolkit_tpu_torch.utils.synth import parse_synth_spec
+
+    def complex_of(r, c, v, seed):
+        return (np.asarray(v, np.float64) + 1j * np.random.default_rng(
+            seed).standard_normal(len(v))).astype(np.complex64)
+
+    def oracle(r, c, vc, shape):
+        x = np.random.default_rng(1).standard_normal(shape[1]).astype(
+            np.float32).astype(np.complex64)
+        a = sp.csr_matrix((vc.astype(np.complex128), (r, c)), shape=shape)
+        return a @ x.astype(np.complex128), x
+
+    r, c, v, shape = configs["smoke"][1]
+    vc = complex_of(r, c, v, 7)
+    ref, x = oracle(r, c, vc, shape)
+    coo = COOMatrix.from_numpy(r, c, vc, shape=shape, dtype=torch.complex64,
+                               pad_to=128, device=DEVICE)
+    xd = torch.from_numpy(x).to(DEVICE)
+    parts = []
+    for alg, enc, fn in (("CSR", csr_encode, spmv_torch.spmv_csr),
+                         ("TJDS", tjds_encode, spmv_torch.spmv_tjds)):
+        m = enc(coo)
+        _zero_counts(S)
+        st = bench_spmv(fn, m, xd, iterations=COMPLEX_N)
+        y = fn(m, xd).cpu().numpy()
+        got = {k: n for k, n in _counts(S).items() if n}
+        _check(not got, f"complex {alg} launched SELL kernels: {got}")
+        err = float(np.abs(y - ref).max() / np.abs(ref).max())
+        _check(y.dtype == np.complex64 and err <= TOL_ORACLE,
+               f"complex smoke {alg}: {err}")
+        parts.append(f"{alg} {st.avg_ms:.6f} ms/call, vs complex128 oracle "
+                     f"{err:.3e}")
+        del m
+    print(f"[slice21] complex smoke ({len(vc)} nnz complex64, plain "
+          f"PyTorch SpMVs, API, {COMPLEX_N} calls): " + "; ".join(parts),
+          flush=True)
+    del coo, xd
+
+    small = parse_synth_spec(COMPLEX_CLI_SPEC, device="cpu")
+    r, c, v = small.to_numpy()
+    vc = complex_of(r, c, v, 8)
+    ref, _ = oracle(r, c, vc, small.shape)
+    path = os.path.join(tmp, "complex.mtx")
+    t0 = time.perf_counter()
+    write_mtx(path, r, c, vc, small.shape)
+    t1 = time.perf_counter()
+    _zero_counts(S)
+    text, wall = _cli(["-c", "-t", "-n", str(COMPLEX_N), "--x", "random:1",
+                       "-d", tmp, path], "complex CLI")
+    got = {k: n for k, n in _counts(S).items() if n}
+    _check(not got, f"complex CLI launched SELL kernels: {got}")
+    _check("complex matrix: using complex64 values." in text,
+           "complex CLI: no promotion logged")
+    errs = {}
+    for alg in ("CSR", "TJDS"):
+        (rp,) = glob.glob(os.path.join(tmp, f"smvp-toolbox_report_{alg}_*"))
+        y = _complex_cells(np, rp)
+        errs[alg] = float(np.abs(y - ref).max() / np.abs(ref).max())
+        _check(errs[alg] <= TOL_ORACLE, f"complex CLI {alg}: {errs[alg]}")
+        os.remove(rp)
+    print(f"[slice21] complex CLI -c -t -n {COMPLEX_N} on a written complex "
+          f".mtx ({COMPLEX_CLI_SPEC}'s pattern, {small.nnz} nnz, written in "
+          f"{t1 - t0:.1f} s): rc 0, {wall:.1f} s, report cells vs complex128 "
+          f"oracle {errs}", flush=True)
+
+
+def _slice21_complex_solves(np, torch, S, tmp):
+    """hpcg104 with a Peierls phase (Hermitian positive definite): the five
+    complex methods through the API at full size, then through the CLI's
+    ``--solve`` on the written 24³ grid; each held to a complex128
+    relative residual of 1e-4."""
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.io.mtx import write_mtx
+    from smvp_toolkit_tpu_torch.models import solvers as M
+    from smvp_toolkit_tpu_torch.ops import spmv_torch
+    from smvp_toolkit_tpu_torch.ops.algebra import diagonal
+    from smvp_toolkit_tpu_torch.utils.synth import hpcg_stencil, peierls_phase
+
+    t0 = time.perf_counter()
+    a = peierls_phase(hpcg_stencil(HPCG_N), seed=0).tocoo()
+    _check(a.shape[0] == HPCG_ROWS and a.nnz == HPCG_NNZ,
+           f"hpcg104-peierls shape {a.shape}, nnz {a.nnz}")
+    coo = COOMatrix.from_numpy(a.row, a.col, a.data, shape=a.shape,
+                               dtype=torch.complex64, pad_to=128,
+                               device=DEVICE)
+    csr = csr_encode(coo)
+    a = a.tocsr()
+    t1 = time.perf_counter()
+    b = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        a.shape[0]).astype(np.float32)).to(torch.complex64).to(DEVICE)
+    b128 = b.cpu().numpy().astype(np.complex128)
+    spmv = spmv_torch.spmv_csr
+    runs = {
+        "cg": lambda n, t: M.conjugate_gradient(csr, b, num_iters=n,
+                                                spmv=spmv, tol=t),
+        "pcg": lambda n, t: M.pcg(csr, b, diagonal(coo), num_iters=n,
+                                  spmv=spmv, tol=t),
+        "bicgstab": lambda n, t: M.bicgstab(csr, b, num_iters=n, spmv=spmv,
+                                            tol=t),
+        "gmres": lambda n, t: M.gmres(csr, b, restart=20,
+                                      num_restarts=-(-n // 20), spmv=spmv,
+                                      tol=t),
+        "minres": lambda n, t: M.minres(csr, b, num_iters=n, spmv=spmv,
+                                        tol=t),
+    }
+    lines = []
+    for spec in COMPLEX_SOLVES:
+        method, n, tol = spec.split(":")
+        _zero_counts(S)
+        torch.cuda.synchronize()
+        s0 = time.perf_counter()
+        xs, res = runs[method](int(n), float(tol))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - s0) * 1e3
+        got = {k: v for k, v in _counts(S).items() if v}
+        _check(not got, f"complex {method} launched SELL kernels: {got}")
+        x128 = xs.cpu().numpy().astype(np.complex128)
+        rr = float(np.linalg.norm(b128 - a @ x128) / np.linalg.norm(b128))
+        _check(xs.dtype == torch.complex64 and np.isfinite(rr)
+               and rr <= SOLVE_RESIDUAL, f"hpcg104-peierls {method}: {rr}")
+        rn = res.double().cpu().numpy()
+        hit = np.nonzero(rn <= float(tol) * np.linalg.norm(b128)
+                         * (1 + 1e-6))[0]
+        steps = (int(hit[0]) + 1 if hit.size else rn.shape[0]) * (
+            20 if method == "gmres" else 1)
+        lines.append(f"{method} {steps} steps {ms:.1f} ms complex128 "
+                     f"{rr:.3e}")
+    print(f"[slice21] hpcg104-peierls API ({a.shape[0]} rows, {a.nnz} nnz "
+          f"complex64, built in {t1 - t0:.1f} s; plain PyTorch SpMV): "
+          + "; ".join(lines), flush=True)
+    del csr, coo, a
+
+    small = peierls_phase(hpcg_stencil(PEIERLS_CLI_N), seed=0).tocoo()
+    path = os.path.join(tmp, "hpcg24_peierls.mtx")
+    write_mtx(path, small.row, small.col, small.data, small.shape)
+    sa = small.tocsr()
+    sb = np.random.default_rng(1).standard_normal(sa.shape[0]).astype(
+        np.float32).astype(np.complex128)
+    lines = []
+    for spec in COMPLEX_SOLVES:
+        jpath = os.path.join(tmp, "solve.jsonl")
+        _zero_counts(S)
+        _, wall = _cli(["-c", "-n", "1", "--x", "random:1", "--no-report",
+                        "--json-out", jpath, "--out-dir", tmp, "--solve",
+                        spec, path], f"hpcg24-peierls CLI --solve {spec}")
+        got = {k: v for k, v in _counts(S).items() if v}
+        _check(not got, f"complex CLI {spec} launched SELL kernels: {got}")
+        with open(jpath) as f:
+            rec = [json.loads(s) for s in f if "SOLVE" in s][-1]
+        os.remove(jpath)
+        xs = np.load(os.path.join(tmp, "solve.npy")).astype(np.complex128)
+        rr = float(np.linalg.norm(sb - sa @ xs) / np.linalg.norm(sb))
+        _check(rr <= SOLVE_RESIDUAL, f"hpcg24-peierls CLI {spec}: {rr}")
+        lines.append(f"{spec} {rec['iterations']} iterations, complex128 "
+                     f"{rr:.3e}")
+    print(f"[slice21] hpcg24-peierls CLI --solve ({small.shape[0]} rows, "
+          f"{small.nnz} nnz, written complex .mtx): " + "; ".join(lines),
+          flush=True)
+
+
+def _trace_kernels(path, name):
+    """The device kernel events of ``name`` in a ``--profile`` trace; at
+    least one, or the check fails naming the kernels the trace holds."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e.get("name", "") for e in events
+               if e.get("cat") == "kernel"]
+    n = sum(name in k for k in kernels)
+    _check(n > 0, f"the trace {path} names no {name}: its "
+           f"{len(kernels)} kernel events are "
+           f"{sorted({k[:80] for k in kernels})[:20]}")
+    return n
+
+
+def _slice21_aot_profile(np, torch, S, configs, tmp):
+    """``--export-aot`` and ``--profile`` on smoke (per call), then
+    ``--fused --profile``, both CLI runs in one fresh process: the exported
+    CSR program loaded in a fresh process that imports only torch, y on the
+    card against K1's; the traces hold K1's and K2's device events (in this
+    long-lived process a profiler session can record none: PERF.md §7)."""
+    k1 = S.KERNEL_NAMES[("relsl", False)]
+    k2 = S.KERNEL_NAMES[("relsl", True)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    dev = torch.device(DEVICE).type
+    prefix = os.path.join(tmp, "smoke")
+    prof, prof2 = os.path.join(tmp, "prof"), os.path.join(tmp, "prof_fused")
+    common = ["--device", dev, "-c", "-n", str(PROFILE_N), "--no-report"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", _CLI_RUNS, *common, "--x", "random:1",
+         "--export-aot", prefix, "--profile", prof, SMOKE_SPEC, "--then",
+         *common, "--fused", "--profile", prof2, SMOKE_SPEC],
+        cwd=tmp, env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    _check(proc.returncode == 0, f"smoke CLI --export-aot --profile, then "
+           f"--fused --profile: rc {proc.returncode}\n"
+           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    trace1 = os.path.join(prof, "CSR", "trace.json")
+    n_k1 = _trace_kernels(trace1, k1)
+    n_k2 = _trace_kernels(os.path.join(prof2, "CSR", "trace.json"), k2)
+    pt2 = f"{prefix}_csr.pt2"
+    xin, yout = os.path.join(tmp, "x.npy"), os.path.join(tmp, "y_aot.npy")
+    plan = configs["smoke"][0]
+    x = np.random.default_rng(1).standard_normal(plan.shape[1]).astype(
+        np.float32)
+    np.save(xin, x)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _AOT_LOAD, pt2, xin, yout,
+                           dev], capture_output=True, text=True, timeout=600,
+                          cwd=tmp)
+    t_load = time.perf_counter() - t0
+    _check(proc.returncode == 0 and "LOADED" in proc.stdout,
+           f"AOT program in a fresh process: {proc.stderr[-3000:]}")
+    y = torch.from_numpy(np.load(yout))
+    op = S.SellSpMV(plan, device=DEVICE)
+    xd = torch.from_numpy(x).to(DEVICE)
+    want = op(xd).cpu()[: plan.shape[0]]
+    err = _rel_err(y, want)
+    _check(err <= TOL_SERVED, f"AOT y vs K1's: {err}")
+    # The same profiler in this process, recorded and not checked: its
+    # kernel events per session (PERF.md §7).
+    from smvp_toolkit_tpu_torch.bench.profile import profile_fn
+
+    seen = {}
+    for name, fn, args, calls in (("K1 x10", op, (xd,), 10),
+                                  ("K2 x1", op.bench_loop, (xd, PROFILE_N), 1),
+                                  ("K2 x10", op.bench_loop, (xd, PROFILE_N),
+                                   10)):
+        where = os.path.join(tmp, "inproc", name.replace(" ", "_"))
+        profile_fn(fn, *args, log_dir=where, iterations=calls)
+        with open(os.path.join(where, "trace.json")) as f:
+            seen[name] = sum(e.get("cat") == "kernel"
+                             for e in json.load(f).get("traceEvents", []))
+    print(f"[slice21] torch.profiler sessions in this process (not checked):"
+          f" kernel events {seen}", flush=True)
+    print(f"[slice21] smoke CLI --export-aot --profile, then --fused "
+          f"--profile, in one fresh process: rc 0, {wall:.1f} s; "
+          f"{os.path.basename(pt2)} {os.path.getsize(pt2)} bytes, loaded and "
+          f"run in a fresh process importing only torch in {t_load:.1f} s, y "
+          f"vs K1's {err:.3e}; traces: {n_k1} device events of {k1} (trace "
+          f"{os.path.getsize(trace1)} bytes), {n_k2} of {k2}", flush=True)
+
+
+def _slice21_front_ends(np, torch, S, tmp):
+    """The interactive dialog with a scripted stdin, then the ten
+    ``examples/torch`` scripts in this process on the card, their
+    ``SMVP_DEMO_MTX`` a written banded matrix."""
+    import runpy
+
+    from smvp_toolkit_tpu_torch import interactive
+    from smvp_toolkit_tpu_torch.io.mtx import write_mtx
+    from smvp_toolkit_tpu_torch.utils.synth import synth_banded
+
+    demo = synth_banded(DEMO_ROWS, nnz_per_row=8, bandwidth=64, seed=0,
+                        device="cpu")
+    path = os.path.join(tmp, "demo.mtx")
+    write_mtx(path, *demo.to_numpy(), demo.shape)
+    rdir = os.path.join(tmp, "interactive")
+    os.makedirs(rdir)
+    _zero_counts(S)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = interactive.main(stdin=io.StringIO(
+            f"{path}\ny\ny\n10\n{rdir}\n{torch.device(DEVICE).type}\n"),
+            stdout=out)
+    _check(rc == 0, f"interactive returned {rc}:\n{out.getvalue()[-2000:]}")
+    got = _check_only(_counts(S), [S.KERNEL_NAMES[("relsl", False)]],
+                      "interactive")
+    _check(len(os.listdir(rdir)) == 2, f"interactive reports "
+           f"{os.listdir(rdir)}")
+    print(f"[slice21] interactive (scripted stdin, {DEMO_ROWS}-row banded "
+          f".mtx, CSR + TJDS, -n 10, {DEVICE}): rc 0, launches {got}",
+          flush=True)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    demos = sorted(glob.glob(os.path.join(root, "examples", "torch", "*.py")))
+    _check(len(demos) == 10, f"examples/torch holds {len(demos)} examples")
+    os.environ["SMVP_DEMO_MTX"] = path
+    argv0 = sys.argv
+    try:
+        for d in demos:
+            name = os.path.basename(d)
+            sys.argv = [d, "--device", torch.device(DEVICE).type]
+            _zero_counts(S)
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                try:
+                    runpy.run_path(d, run_name="__main__")
+                except SystemExit as e:
+                    _check(e.code in (0, None), f"{name} exited {e.code}")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            text = out.getvalue().strip()
+            _check(bool(text), f"{name} printed nothing")
+            got = {k: v for k, v in _counts(S).items() if v}
+            _check(bool(got), f"{name} launched no kernel")
+            print(f"[slice21] example {name}: {wall:.1f} s, launches {got}; "
+                  f"last line: {text.splitlines()[-1][:160]}", flush=True)
+    finally:
+        sys.argv = argv0
+        del os.environ["SMVP_DEMO_MTX"]
+
+
+def phase_slice21(np, torch, configs):
+    """The last modules on the card (``SERVED_POWER_STEPS`` and below)."""
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with _Phase("slice 21: served plan and hierarchy"):
+            _slice21_served(np, torch, S, configs, tmp)
+        with _Phase("slice 21: native host backend"):
+            _slice21_native(np, torch, S, configs, tmp)
+        with _Phase("slice 21: complex SpMVs"):
+            _slice21_complex(np, torch, S, configs, tmp)
+        with _Phase("slice 21: complex solves"):
+            _slice21_complex_solves(np, torch, S, tmp)
+        with _Phase("slice 21: AOT export and profiler"):
+            _slice21_aot_profile(np, torch, S, configs, tmp)
+        with _Phase("slice 21: interactive and examples"):
+            _slice21_front_ends(np, torch, S, tmp)
+
+
 def main() -> int:
     import torch
 
@@ -4400,6 +4942,8 @@ def main() -> int:
         phase_dist_entry_points(np, torch, configs)
     with _Phase("main path: L2 load balance"):
         phase_dist_balance(np, torch, configs)
+    with _Phase("main path: slice 21"):
+        phase_slice21(np, torch, configs)
     with _Phase("timings"):
         from smvp_toolkit_tpu_torch.bench.roofline import hbm_bandwidth_gbs
 

@@ -39,10 +39,19 @@ found under the same name:
   process group, one rank per device (NCCL on cards, gloo on the CPU):
   CSR row blocks, TJDS stripes, a 2-D grid, the SELL kernels per rank
   (K2-sharded: ``bench_loop_sharded``), the traffic model, ``launch``.
-* ``bench`` — timing, roofline and report files; ``utils.debug`` and
-  ``utils.checkpoint`` — debug dumps and ``.npz`` checkpoints.
+* ``ops.spmv_native`` — the host C++ CSR and TJDS backend
+  (``csrc/spmv.cpp``), the CLI's ``--kernel native``.
+* ``bench`` — timing, roofline and report files, ``bench.profile`` the
+  ``torch.profiler`` traces; ``utils.debug`` and ``utils.checkpoint`` —
+  debug dumps and ``.npz`` checkpoints of matrices, SELL plans and AMG
+  hierarchies; ``utils.aot`` — ``torch.export`` programs of the SpMV
+  (``.pt2``); ``utils.padding`` and ``utils.reorder`` — padding helpers,
+  RCM and the symmetric permute.
 * ``cli`` — the ``-a`` / ``-c`` / ``-t`` / ``-g`` / ``--spmm`` /
-  ``--solve`` / ``--kernel df64`` / ``--shards`` command line.
+  ``--solve`` / ``--kernel df64|native`` / ``--shards`` / ``--export-aot``
+  / ``--profile`` command line; ``interactive`` — its terminal dialog;
+  ``io.readtest`` / ``io.writetest`` — the reference's ``.mtx`` test
+  programs.
 
 Exports are lazy: importing the package imports neither the kernels'
 build machinery nor the formats.

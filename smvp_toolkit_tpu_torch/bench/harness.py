@@ -24,6 +24,7 @@ __all__ = [
     "time_fn",
     "bench_spmv",
     "bench_fused",
+    "bench_native_batched",
 ]
 
 
@@ -179,3 +180,47 @@ def bench_fused(
     stats = TimingStats(times_ms=per_iter, iterations=iterations,
                         per_launch=True)
     return stats, y
+
+
+def bench_native_batched(
+    op,
+    x,
+    *,
+    iterations: int = 1000,
+    repeats: int = 8,
+    warmup: int = 1,
+) -> TimingStats:
+    """Time a native (ctypes) operator with the iterations batched inside
+    the C loop (the native operators take ``iterations=``).
+
+    The Python-to-ctypes call costs a few microseconds, which would
+    dominate small matrices if every iteration were a call of its own;
+    ``repeats`` calls of about ``iterations / repeats`` iterations each
+    time the C hot loop itself, like the reference's in-process timed
+    loop (main-cli.c:402-420). Host wall time; one sample per iteration,
+    each the average of its call (``per_launch`` when a call batches more
+    than one).
+    """
+    xn = np.ascontiguousarray(
+        x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+        else np.asarray(x), dtype=np.float32)
+    repeats = max(min(repeats, iterations), 1)
+    per = iterations // repeats
+    for _ in range(max(warmup, 0)):
+        op(xn, iterations=max(min(per, 20), 1))
+
+    samples = []
+    left = iterations
+    for i in range(repeats):
+        k = per if i < repeats - 1 else left
+        left -= k
+        t0 = time.perf_counter_ns()
+        op(xn, iterations=k)
+        t1 = time.perf_counter_ns()
+        samples.append((t1 - t0) / 1e6 / k)
+    per_iter = np.repeat(np.asarray(samples), max(per, 1))[:iterations]
+    if per_iter.size < iterations:
+        per_iter = np.pad(per_iter, (0, iterations - per_iter.size),
+                          mode="edge")
+    return TimingStats(times_ms=per_iter, iterations=iterations,
+                       per_launch=per > 1)

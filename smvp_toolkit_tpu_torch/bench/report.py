@@ -76,8 +76,15 @@ def generate_report_text(
         lines.append("")
     lines.append("Output vector (one cell per line):")
     lines.append("[")
-    for v in np.asarray(output_vector).reshape(-1):
-        lines.append(_g(float(v)))
+    vec = np.asarray(output_vector).reshape(-1)
+    if np.iscomplexobj(vec):
+        # Complex cells print as re+imj with the same %g formatting (the
+        # JAX report's extension of the reference format).
+        for v in vec:
+            lines.append(f"{_g(float(v.real))}{float(v.imag):+g}j")
+    else:
+        for v in vec:
+            lines.append(_g(float(v)))
     lines.append("]")
     lines.append("")
     return "\n".join(lines) + "\n"

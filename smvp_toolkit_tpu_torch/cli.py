@@ -6,16 +6,44 @@ positional ``file`` (a ``.mtx`` path or ``synth:N:NNZ``), ``-a``, ``-c``,
 ``--coe-out``, ``--debug``, ``--lut-out``, ``--save-encoded``, ``--dtype``,
 ``--kernel``, ``--fused``, ``--x``, ``--json-out``, ``--spmm``,
 ``--solve``, ``--eigs``, ``--expand-symmetry``, ``--cocluster``,
-``--analyze``,
+``--analyze``, ``--export-aot``, ``--profile``,
 ``--shards``, ``--shard-balance`` and ``--device``, plus the port's
-``--out-dir``, which writes the run's results as float32 ``.npy`` files
-(the CSR and CISR output vectors, the SpMM result, the solution).
-Validation and exit codes match the JAX CLI for those flags (``-a`` with
-``-c``, ``-t`` or ``-g``, ``-n 0``, ``-s`` outside 1..255, ``--lut-out``
-without TJDS, ``--save-encoded`` without ``-c``, ``-t`` or ``-a``, and ``-d
-/nope`` give 2; a missing or unreadable file and a failed ``.coe`` export
-1; a failed decode check 3); argparse rejects the JAX CLI's other flags
-(``--export-aot``, ``--profile``) with 2.
+``--out-dir``, which writes the run's results as ``.npy`` files (the CSR
+and CISR output vectors, the SpMM result, the solution; float32, or
+complex64 for a complex matrix). Validation and exit codes match the JAX
+CLI (``-a`` with ``-c``, ``-t`` or ``-g``, ``-n 0``, ``-s`` outside
+1..255, ``--lut-out`` without TJDS, ``--save-encoded`` or ``--export-aot``
+without ``-c``, ``-t`` or ``-a``, and ``-d /nope`` give 2; a missing or
+unreadable file and a failed ``.coe`` export 1; a failed decode check 3).
+
+``--kernel native`` runs CSR and TJDS on the host C++ backend
+(``ops/spmv_native.py`` over ``csrc/spmv.cpp``, built ``-O3
+-march=native`` at first use): the user's explicit request for the host,
+as in the JAX CLI, with the iterations batched inside the C loop, per
+call and under ``--fused`` alike (``bench.harness.bench_native_batched``;
+host wall time). CISR, ``--spmm`` and ``--shards`` have no native variant:
+CISR and ``--spmm`` run the plain PyTorch kernels and ``--shards`` the
+sharded plain PyTorch kernels, each logged, as the JAX CLI runs its XLA
+kernels there; the solves run on the SELL kernels.
+
+A complex ``.mtx`` is read in complex64 (the JAX CLI's promotion, logged)
+and x is complex64. The SELL kernels are real-valued, so CSR and TJDS run
+the plain PyTorch SpMVs (``ops/spmv_torch.py``) on the run's device,
+logged, and the reports name the ``torch`` kernel and print ``re+imj``
+cells; ``--fused`` times N of those calls between one pair of events.
+``--solve cg|pcg|bicgstab|gmres|minres`` run in complex arithmetic
+(``models/solvers.py``'s inner products conjugate); the other methods and
+``--eigs`` exit 2 with the JAX CLI's message after the CSR benchmark, as
+the JAX CLI refuses them (``_complex_refusal``).
+
+``--export-aot PREFIX`` writes each format's SpMV program with the matrix
+in it as ``PREFIX_csr.pt2`` / ``PREFIX_tjds.pt2`` (``utils/aot.py`` on
+``torch.export``; the JAX CLI writes ``.jaxexport`` files): the plain
+PyTorch SpMV of the format, since the SELL kernels' ctypes launches cannot
+be traced, on the run's device. ``--profile DIR`` records each format's
+SpMV, ten calls after the timed ones (the N-iteration kernel under
+``--fused``), with ``torch.profiler`` into ``DIR/<ALG>/trace.json``
+(``bench/profile.py``).
 
 ``-a`` runs CSR, TJDS and CISR; ``-g`` CISR alone, the reference's
 ``smvp_cisr_coegen`` (main-cli.c:542-728): the rows are scheduled onto
@@ -99,10 +127,9 @@ back on any exception there, the port only on the set-up's own refusal
 (a ValueError), so a kernel's build or launch failure still stops the
 run. A refused solve or ``--eigs`` exits 2 with the JAX CLI's message
 (a non-square system, an ILU shift ladder or an AMG coarsening that
-fails, K above the dimension); on a complex matrix, which the port
-cannot read (exit 1), a ``--solve`` method or ``--eigs`` that the JAX
-CLI refuses for complex systems exits 2 with the JAX message, as the JAX
-CLI does after its benchmark.
+fails, K above the dimension); on a complex matrix, a ``--solve``
+method or ``--eigs`` that the JAX CLI refuses for complex systems exits 2
+with the JAX message, as the JAX CLI does after its benchmark.
 
 ``--shards N`` (N > 1) times the CSR and TJDS SpMVs sharded over N ranks
 of a process group, one per device (``parallel/``): run it under
@@ -216,14 +243,16 @@ def build_parser() -> argparse.ArgumentParser:
         help="checkpoint encoded matrices to PREFIX_{csr,tjds}.npz",
     )
     p.add_argument(
-        "--kernel", choices=["auto", "torch", "df64", *KERNEL_ALIASES],
+        "--kernel", choices=["auto", "torch", "df64", "native",
+                             *KERNEL_ALIASES],
         default="auto",
         help="SpMV implementation (auto or pallas: the SELL CUDA kernels; "
              "torch or xla: plain-PyTorch CSR gather + index_add_, and the "
              "CISR schedule channel per lane; df64: double-float CSR SpMV "
              "on the df64 SELL kernel, SMVP_DF64_XLA=1 for the "
              "plain-PyTorch float64 CSR path; TJDS, CISR and --spmm then "
-             "run their ordinary kernels)",
+             "run their ordinary kernels; native: the host C++ CSR and TJDS "
+             "backend, iterations batched in the C loop)",
     )
     p.add_argument(
         "--fused", action="store_true",
@@ -273,6 +302,17 @@ def build_parser() -> argparse.ArgumentParser:
              "coordinates (ops/cocluster.py; minutes of host work for a "
              "10M-nnz matrix); --fused then times the N-iteration kernel on "
              "the permuted planes",
+    )
+    p.add_argument(
+        "--export-aot", default=None, metavar="PREFIX",
+        help="export each format's SpMV program (matrix inside) with "
+             "torch.export to PREFIX_{csr,tjds}.pt2; a serving process "
+             "loads it with torch.export.load alone",
+    )
+    p.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="record a torch.profiler trace of each format's SpMV into "
+             "DIR/<ALG>/trace.json",
     )
     p.add_argument(
         "--analyze", action="store_true",
@@ -326,6 +366,8 @@ def _validate(args) -> Optional[str]:
         return "--lut-out requires the TJDS algorithm (-t or -a)"
     if args.save_encoded and not (run_csr or run_tjds):
         return "--save-encoded requires -c, -t or -a"
+    if args.export_aot and not (run_csr or run_tjds):
+        return "--export-aot requires -c, -t or -a"
     if args.fused and args.kernel == "torch":
         return "--fused needs the SELL kernels (--kernel auto or df64)"
     if args.out_dir and not run_csr:
@@ -399,7 +441,8 @@ def _complex_refusal(args) -> Optional[str]:
 
 
 def _make_x(mode: str, n: int, dtype, device):
-    """x = ones (the reference protocol) or the JAX CLI's random stream."""
+    """x = ones (the reference protocol) or the JAX CLI's random stream
+    (a complex dtype takes the same draws as its real parts)."""
     import torch
 
     if mode == "ones":
@@ -440,6 +483,7 @@ def _main(args, joined: list) -> int:
 
     from smvp_toolkit_tpu_torch.bench.harness import (
         bench_fused,
+        bench_native_batched,
         bench_spmv,
     )
     from smvp_toolkit_tpu_torch.bench.report import write_report
@@ -504,22 +548,21 @@ def _main(args, joined: list) -> int:
     else:
         log("FILE", f"Loading matrix: {args.file}")
         try:
-            coo = read_mtx(args.file, expand_symmetry=args.expand_symmetry,
-                           dtype=dtype, device=device)
+            try:
+                coo = read_mtx(args.file,
+                               expand_symmetry=args.expand_symmetry,
+                               dtype=dtype, device=device)
+            except MTXUnsupportedType as e:
+                if "complex" not in str(e):
+                    raise
+                # A complex matrix under a real --dtype: promote, as the
+                # JAX CLI does.
+                log("INFO", "complex matrix: using complex64 values.")
+                coo = read_mtx(args.file,
+                               expand_symmetry=args.expand_symmetry,
+                               dtype=None, device=device)
         except FileNotFoundError:
             log("ERROR", f"could not open file: {args.file}")
-            return 1
-        except MTXUnsupportedType as e:
-            if "complex" not in str(e):
-                log("ERROR", f"MatrixMarket read failed: {e}")
-                return 1
-            refusal = (_complex_refusal(args)
-                       if args.csr or args.all_algs else None)
-            if refusal:
-                log("ERROR", refusal)
-                return 2
-            log("ERROR", "complex matrices are not supported: the port's "
-                "SELL kernels are real-valued")
             return 1
         except MTXError as e:
             log("ERROR", f"MatrixMarket read failed: {e}")
@@ -534,8 +577,10 @@ def _main(args, joined: list) -> int:
     label = device_label(device)
     log("INFO", f"Device: {label}")
 
+    is_complex = coo.dtype.is_complex
     try:
-        x = _make_x(args.x, coo.shape[1], dtype, device)
+        x = _make_x(args.x, coo.shape[1],
+                    torch.complex64 if is_complex else dtype, device)
     except ValueError:
         log("ERROR", f"bad --x mode (want ones, random or random:INT): "
             f"{args.x!r}")
@@ -550,6 +595,16 @@ def _main(args, joined: list) -> int:
         log("DATA", "Matrix analysis:")
         for line in format_analysis(analyze(coo)).splitlines():
             print(f"\t{line}")
+
+    if is_complex:
+        # The SELL, df64 and native kernels are real-valued: CSR and TJDS
+        # run the plain PyTorch SpMVs, as the JAX CLI runs its XLA ones.
+        if args.kernel not in ("auto", "torch"):
+            log("INFO", f"complex matrix: --kernel {args.kernel} "
+                "unsupported, using the plain PyTorch kernels.")
+        else:
+            log("INFO", "complex matrix: the SELL kernels are real-valued; "
+                "CSR and TJDS run the plain PyTorch kernels.")
 
     vbytes = torch.finfo(dtype).bits // 8
     on_card = device.type == "cuda"
@@ -571,14 +626,20 @@ def _main(args, joined: list) -> int:
             log("FILE", f"{alg} checkpoint: {path}")
 
     def run(alg_name, encoded, spmv_fn, loop_fn, bytes_per_iter, kernel,
-            shardable=True):
+            shardable=True, native_op=None):
         """Benchmark one format; ``loop_fn(x, n)`` runs ``--fused``'s N
-        iterations. With ``--shards > 1`` a shardable format runs its
-        sharded SpMV."""
+        iterations, ``native_op`` (``--kernel native``) batches them in its
+        C loop. With ``--shards > 1`` a shardable format runs its sharded
+        SpMV (the plain PyTorch one for ``torch``, ``native`` and complex
+        runs)."""
         sharded = mesh is not None and shardable
         if mesh is not None and not shardable:
             log("INFO", f"{alg_name} SpMV runs on the {kernel} kernel (no "
                 "sharded variant).")
+        if sharded and native_op is not None:
+            native_op, kernel = None, "torch"
+            log("INFO", "--shards does not support the native backend; "
+                "benchmarking the torch kernel instead.")
         log("INFO", f"Benchmarking {alg_name} SpMV ({kernel} kernel"
             f"{f', {args.shards} shards' if sharded else ''}), "
             f"{args.iter} iterations.")
@@ -589,14 +650,27 @@ def _main(args, joined: list) -> int:
 
             stats, y = shard_and_bench(
                 alg_name, encoded, x, args.shards, iterations=args.iter,
-                kernel="torch" if args.kernel == "torch" else "auto",
+                kernel="torch" if kernel == "torch" else "auto",
                 balance=args.shard_balance, mesh=mesh)
+        elif native_op is not None:
+            stats = bench_native_batched(native_op, x, iterations=args.iter)
+            y = torch.from_numpy(native_op(x))
         elif args.fused:
             stats, y = bench_fused(loop_fn, x, iterations=args.iter)
         else:
             stats = bench_spmv(spmv_fn, encoded, x, iterations=args.iter)
             y = spmv_fn(encoded, x)
-        y = y.float().cpu().numpy()
+        if args.profile and lead:
+            from smvp_toolkit_tpu_torch.bench.profile import profile_fn
+
+            where = os.path.join(args.profile, alg_name)
+            if args.fused and native_op is None and not sharded:
+                profile_fn(loop_fn, x, args.iter, log_dir=where,
+                           iterations=1)
+            else:
+                profile_fn(spmv_fn, encoded, x, log_dir=where)
+            log("FILE", f"Profiler trace: {where}")
+        y = (y if y.is_complex() else y.float()).cpu().numpy()
         if args.out_dir and alg_name in OUT_NAMES and lead:
             _save(args.out_dir, OUT_NAMES[alg_name], y[: coo.shape[0]], log)
         nnzs = stats.nnz_per_s(coo.nnz)
@@ -666,8 +740,17 @@ def _main(args, joined: list) -> int:
             return 3
         save_encoded(ALG_CSR, csr)
         nbytes = spmv_bytes_csr(coo.nnz, coo.shape[0], vbytes)
-        if args.kernel == "torch":
+        if args.export_aot and lead:
+            _export_aot(args.export_aot, ALG_CSR, csr, log)
+        native_op = None
+        if is_complex:
+            spmv_fn, kernel = spmv_torch.spmv_csr, "torch"
+            loop_fn = _calls(spmv_fn, csr)
+        elif args.kernel == "torch":
             spmv_fn, loop_fn, kernel = spmv_torch.spmv_csr, None, "torch"
+        elif args.kernel == "native":
+            spmv_fn, native_op = _native(ALG_CSR, csr)
+            loop_fn, kernel = None, "native"
         elif args.kernel == "df64":
             spmv_fn, loop_fn, kernel, nb = _df64_csr(csr, on_card)
             nbytes = nb or nbytes
@@ -687,19 +770,26 @@ def _main(args, joined: list) -> int:
                 return spmv_sell.sell_op_csr(csr).bench_loop(xx, n)
             if refused(lambda: spmv_sell.sell_op_csr(csr)):
                 return 2
-        if args.cocluster and args.kernel != "auto":
+        if args.cocluster and (args.kernel != "auto" or is_complex):
             log("INFO", "--cocluster applies to the SELL kernels (--kernel "
                 "auto) only; ignored on this path.")
         run(ALG_CSR, csr, spmv_fn, loop_fn, nbytes, kernel,
-            shardable=args.kernel != "df64")
+            shardable=is_complex or args.kernel != "df64",
+            native_op=native_op)
         if args.spmm:
             _run_spmm(args, coo, csr, device, label, log)
-        # The solves and LOBPCG step with the run's CSR SpMV; df64 runs
-        # solve on the SELL kernels, as the JAX CLI solves df64 runs on
-        # its default kernel.
-        solve_spmv = (spmv_sell.spmv_csr_sell
-                      if args.kernel == "df64" or spmv_fn is None
-                      else spmv_fn)
+        if is_complex:
+            refusal = _complex_refusal(args)
+            if refusal:
+                log("ERROR", refusal)
+                return 2
+        # The solves and LOBPCG step with the run's CSR SpMV; df64 and
+        # native runs solve on the SELL kernels, as the JAX CLI solves
+        # them on its default kernel.
+        solve_spmv = spmv_fn
+        if spmv_fn is None or (args.kernel in ("df64", "native")
+                               and not is_complex):
+            solve_spmv = spmv_sell.spmv_csr_sell
         if args.eigs:
             rc = _run_eigs(args, coo, csr, label, log, solve_spmv)
             if rc:
@@ -723,8 +813,17 @@ def _main(args, joined: list) -> int:
 
             write_tjds_lut(tj, args.lut_out)
             log("FILE", f"TJDS Verilog LUT image saved as:\n\t{args.lut_out}")
-        if args.kernel == "torch":
+        if args.export_aot and lead:
+            _export_aot(args.export_aot, ALG_TJDS, tj, log)
+        native_op = None
+        if is_complex:
+            spmv_fn, kernel = spmv_torch.spmv_tjds, "torch"
+            loop_fn = _calls(spmv_fn, tj)
+        elif args.kernel == "torch":
             spmv_fn, loop_fn, kernel = spmv_torch.spmv_tjds, None, "torch"
+        elif args.kernel == "native":
+            spmv_fn, native_op = _native(ALG_TJDS, tj)
+            loop_fn, kernel = None, "native"
         else:
             if args.kernel == "df64":
                 log("INFO", "df64 is CSR-only; TJDS runs its ordinary SELL "
@@ -737,7 +836,7 @@ def _main(args, joined: list) -> int:
                 return 2
         run(ALG_TJDS, tj, spmv_fn, loop_fn,
             spmv_bytes_tjds(coo.nnz, coo.shape[0], tj.num_diags, vbytes),
-            kernel)
+            kernel, native_op=native_op)
 
     if run_cisr:
         # The schedule, its .coe image, then the SpMV from the schedule.
@@ -763,7 +862,7 @@ def _main(args, joined: list) -> int:
         if args.decode_check and not _decode_check(
                 ALG_CISR, cisr_decode(cisr, device="cpu"), coo, log):
             return 3
-        if args.kernel == "auto":
+        if args.kernel == "auto" and not is_complex:
             spmv_fn, kernel = spmv_sell.spmv_cisr_sell, sell_kernel
 
             def loop_fn(xx, n):
@@ -774,12 +873,11 @@ def _main(args, joined: list) -> int:
             if args.kernel == "df64":
                 log("INFO", "df64 is CSR-only; CISR runs the plain-PyTorch "
                     "schedule SpMV.")
+            elif args.kernel == "native":
+                log("INFO", "CISR SpMV runs on the torch kernel (no "
+                    "sharded/native variant).")
             spmv_fn, kernel = spmv_cisr.spmv_cisr, "torch"
-
-            def loop_fn(xx, n):
-                for _ in range(n):
-                    y = spmv_cisr.spmv_cisr(cisr, xx)
-                return y
+            loop_fn = _calls(spmv_fn, cisr)
         run(ALG_CISR, cisr, spmv_fn, loop_fn,
             spmv_bytes_cisr(cisr.num_groups, cisr.slot_count, coo.shape[0],
                             vbytes),
@@ -790,10 +888,51 @@ def _main(args, joined: list) -> int:
 
 
 def _save(out_dir: str, name: str, arr: np.ndarray, log) -> None:
-    """One ``--out-dir`` result as a float32 ``.npy`` file."""
+    """One ``--out-dir`` result as a float32 (complex: complex64) ``.npy``
+    file."""
     path = os.path.join(out_dir, name)
-    np.save(path, np.asarray(arr, dtype=np.float32))
+    np.save(path, np.asarray(
+        arr, dtype=np.complex64 if np.iscomplexobj(arr) else np.float32))
     log("FILE", f"Result saved as:\n\t{path}")
+
+
+def _calls(spmv_fn, encoded):
+    """``--fused``'s loop on a kernel with no N-iteration launch: N calls
+    (between one pair of CUDA events in ``bench_fused``)."""
+    def loop(xx, n):
+        for _ in range(n):
+            y = spmv_fn(encoded, xx)
+        return y
+    return loop
+
+
+def _native(alg: str, encoded):
+    """``--kernel native``: ``(spmv_fn, operator)`` over the host C++
+    backend, the operator built once (it copies the format's arrays to the
+    host); ``spmv_fn`` returns y as a host tensor."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.ops.spmv_native import (
+        NativeCsrSpMV,
+        NativeTjdsSpMV,
+    )
+
+    op = (NativeCsrSpMV if alg == ALG_CSR else NativeTjdsSpMV)(encoded)
+
+    def spmv_native(_encoded, xx):
+        return torch.from_numpy(op(xx))
+
+    return spmv_native, op
+
+
+def _export_aot(prefix: str, alg: str, matrix, log) -> None:
+    """``--export-aot``: the format's plain PyTorch SpMV with the matrix
+    inside, as ``PREFIX_<alg>.pt2`` (``utils/aot.py``)."""
+    from smvp_toolkit_tpu_torch.utils.aot import export_spmv, write_blob
+
+    path = f"{prefix}_{alg.lower()}.pt2"
+    write_blob(path, export_spmv(matrix))
+    log("FILE", f"{alg} AOT program: {path}")
 
 
 def _cocluster_csr(csr, log):
@@ -844,12 +983,7 @@ def _df64_csr(csr, on_card: bool):
             hi, lo = spmv_csr_df64(encoded, xx, xx.new_zeros(xx.shape))
             return hi + lo
 
-        def loop(xx, n):
-            for _ in range(n):
-                y = csr_df64(csr, xx)
-            return y
-
-        return csr_df64, loop, "df64-torch", None
+        return csr_df64, _calls(csr_df64, csr), "df64-torch", None
     r, c, v, shape = spmv_sell._triplets_from_csr_host(csr)
     op = SellDf64SpMV.from_coo_f64(r, c, v, shape, device=csr.device)
 
@@ -884,11 +1018,11 @@ def _run_spmm(args, coo, csr, device, label, log) -> None:
         (coo.shape[1], k)).astype(np.float32)).to(device)
     timing = "per call"
     op = None
-    if args.kernel in ("torch", "df64"):
+    if args.kernel in ("torch", "df64", "native") or csr.dtype.is_complex:
         kernel = "torch"
-        if args.kernel == "df64":
-            log("INFO", "--spmm runs on the plain-PyTorch kernel (no df64 "
-                "SpMM variant).")
+        if args.kernel in ("df64", "native"):
+            log("INFO", "--spmm runs on the plain-PyTorch kernel (no "
+                f"{args.kernel} SpMM variant).")
 
         def spmm(XX):
             return spmv_torch.spmm_csr(csr, XX)
@@ -919,7 +1053,8 @@ def _run_spmm(args, coo, csr, device, label, log) -> None:
     log("DATA", f"SPMM k={k}: avg {stats.avg_ms:.6f} ms  "
         f"({nnzs/1e9:.3f} Gnnz/s across {k} RHS)")
     if args.out_dir:
-        _save(args.out_dir, "spmm.npy", Y.float().cpu().numpy(), log)
+        _save(args.out_dir, "spmm.npy",
+              (Y if Y.is_complex() else Y.float()).cpu().numpy(), log)
     if args.json_out:
         rec = {
             "alg": "SPMM-CSR",
@@ -971,7 +1106,9 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
     tol = float(spec[2]) if len(spec) > 2 else None
     per = 1  # iterations per residual-history entry (GMRES: a restart)
     n = coo.shape[0]
-    b = x[:n].float()
+    # A complex system solves in complex64 (the JAX CLI's b dtype).
+    is_complex = csr.dtype.is_complex
+    b = x[:n] if is_complex else x[:n].float()
     op_builder = None if args.kernel == "torch" else spmv_sell.sell_op_csr
 
     def lanczos_bounds(safety_lo=0.3, safety_hi=1.1):
@@ -1126,13 +1263,15 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
         hit = np.nonzero(rn <= tgt * (1.0 + 1e-6))[0]
         iters = (int(hit[0]) + 1 if hit.size else rn.shape[0]) * per
 
-    b64 = b.double().cpu().numpy()
-    r = b64 - spmv(csr, xs).double().cpu().numpy()
+    wide = torch.complex128 if is_complex else torch.float64
+    b64 = b.to(wide).cpu().numpy()
+    r = b64 - spmv(csr, xs).to(wide).cpu().numpy()
     relres = float(np.linalg.norm(r) / max(np.linalg.norm(b64), 1e-30))
     log("DATA", f"SOLVE {method}: {iters} iterations in {ms:.2f} ms, "
         f"relative residual {relres:.3e}")
+    xs_host = (xs if is_complex else xs.float()).cpu().numpy()
     if args.out_dir:
-        _save(args.out_dir, "solve.npy", xs.float().cpu().numpy(), log)
+        _save(args.out_dir, "solve.npy", xs_host, log)
     if not np.isfinite(relres) or relres > 1.0:
         hint = ("more iterations, a tighter preconditioner (larger ILU "
                 "sweeps), or gmres" if method in PRECONDITIONED_GENERAL
@@ -1163,7 +1302,7 @@ def _run_solve(args, coo, csr, x, device, label, log, spmv) -> int:
             iterations=iters,
             stats=TimingStats(times_ms=np.asarray([ms]), iterations=1,
                               per_launch=True),
-            output_vector=xs.float().cpu().numpy(),
+            output_vector=xs_host,
             extra_metrics={"Device": label,
                            "Relative residual": f"{relres:.6g}"},
         )

@@ -29,6 +29,15 @@ norm, so ``res[-1]`` is the last residual either way (the JAX
 own targets (the change of the eigenvalue estimate, the L1 change of the
 rank vector).
 
+Inner products are ``torch.vdot``, which conjugates its first argument as
+``jnp.vdot`` does (``torch.dot`` does not: on a complex vector it gives
+Σ v², not |v|²), so CG, Jacobi-PCG, BiCGSTAB, GMRES and MINRES also solve
+complex (Hermitian, for CG and MINRES) systems, as the JAX CLI runs them.
+On real vectors ``vdot`` is ``dot``. The denominator guards that the JAX
+functions take with ``jnp.maximum(·, 1e-30)`` go through :func:`_floor`,
+which orders a complex value as ``jnp.maximum`` does; on real values it is
+the ``torch.clamp`` they always were.
+
 Two departures from the JAX functions, both stated where they are tested
 (``tests/test_torch_krylov.py``, ``tests/test_torch_lobpcg.py``): GMRES
 solves its small least-squares problem by the pseudo-inverse (an SVD with
@@ -94,9 +103,20 @@ def _norm(v: torch.Tensor) -> torch.Tensor:
 
 
 def _rdt(t: torch.Tensor) -> torch.dtype:
-    """The dtype of residual norms: float64 for float64 systems (the JAX
-    functions' real dtype), float32 otherwise."""
-    return torch.float64 if t.dtype == torch.float64 else torch.float32
+    """The dtype of residual norms: float64 for float64 and complex128
+    systems (the JAX functions' real dtype), float32 otherwise."""
+    return (torch.float64 if t.dtype in (torch.float64, torch.complex128)
+            else torch.float32)
+
+
+def _floor(v: torch.Tensor) -> torch.Tensor:
+    """``max(v, 1e-30)`` as ``jnp.maximum`` takes it: on a complex ``v``
+    the order is lexicographic (real part, then imaginary part), which
+    ``torch.clamp`` refuses; on a real ``v`` it is the clamp itself."""
+    if not v.is_complex():
+        return torch.clamp(v, min=1e-30)
+    keep = (v.real > 1e-30) | ((v.real == 1e-30) & (v.imag > 0))
+    return torch.where(keep, v, torch.full_like(v, 1e-30))
 
 
 def _nonzero(v: torch.Tensor) -> torch.Tensor:
@@ -195,16 +215,16 @@ def conjugate_gradient(matrix, b: torch.Tensor,
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - spmv(matrix, x)
     p = r
-    rs = torch.dot(r, r)
+    rs = torch.vdot(r, r)
 
     def step(carry):
         x, r, p, rs = carry
         ap = spmv(matrix, p)
-        alpha = rs / torch.clamp(torch.dot(p, ap), min=1e-30)
+        alpha = rs / _floor(torch.vdot(p, ap))
         x = x + alpha * p
         r = r - alpha * ap
-        rs_new = torch.dot(r, r)
-        beta = rs_new / torch.clamp(rs, min=1e-30)
+        rs_new = torch.vdot(r, r)
+        beta = rs_new / _floor(rs)
         p = r + beta * p
         return (x, r, p, rs_new), torch.sqrt(torch.abs(rs_new))
 
@@ -220,19 +240,19 @@ def bicgstab(matrix, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - spmv(matrix, x)
     r_hat = r
-    rho = torch.dot(r_hat, r)
+    rho = torch.vdot(r_hat, r)
     p = r
 
     def step(carry):
         x, r, p, rho = carry
         v = spmv(matrix, p)
-        alpha = rho / _nonzero(torch.dot(r_hat, v))
+        alpha = rho / _nonzero(torch.vdot(r_hat, v))
         s = r - alpha * v
         t = spmv(matrix, s)
-        omega = torch.dot(t, s) / _nonzero(torch.dot(t, t))
+        omega = torch.vdot(t, s) / _nonzero(torch.vdot(t, t))
         x = x + alpha * p + omega * s
         r = s - omega * t
-        rho_new = torch.dot(r_hat, r)
+        rho_new = torch.vdot(r_hat, r)
         beta = (rho_new / _nonzero(rho)) * (alpha / _nonzero(omega))
         p = r + beta * (p - omega * v)
         return (x, r, p, rho_new), _norm(r)
@@ -252,7 +272,7 @@ def lanczos(matrix, v0: torch.Tensor, num_iters: int = 30,
     alphas, betas, basis = [], [], []
     for _ in range(num_iters):
         w = spmv(matrix, v) - beta * v_prev
-        alpha = torch.dot(v, w)
+        alpha = torch.vdot(v, w)
         w = w - alpha * v
         beta = _norm(w)
         alphas.append(alpha)
@@ -292,15 +312,15 @@ def cgls(matrix, matrix_t, b: torch.Tensor, num_iters: int = 50,
     r = b
     s = spmv_t(matrix_t, r)
     p = s
-    gamma = torch.dot(s, s)
+    gamma = torch.vdot(s, s)
     norms = torch.zeros(num_iters, dtype=_rdt(b), device=b.device)
     for k in range(num_iters):
         q = spmv(matrix, p)
-        alpha = gamma / torch.clamp(torch.dot(q, q), min=1e-30)
+        alpha = gamma / torch.clamp(torch.vdot(q, q), min=1e-30)
         x = x + alpha * p
         r = r - alpha * q
         s = spmv_t(matrix_t, r)
-        gamma_new = torch.dot(s, s)
+        gamma_new = torch.vdot(s, s)
         beta = gamma_new / torch.clamp(gamma, min=1e-30)
         p = s + beta * p
         gamma = gamma_new
@@ -412,7 +432,7 @@ def minres(matrix, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         # Lanczos step.
         av = spmv(matrix, v)
         w = av - beta * v_prev
-        alpha = torch.dot(v, w)
+        alpha = torch.vdot(v, w)
         w = w - alpha * v
         beta_new = _norm(w)
         v_next = w / torch.clamp(beta_new, min=1e-30)
@@ -422,7 +442,7 @@ def minres(matrix, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
         rho2 = s1 * alpha + g0 * g1 * beta
         rho3 = s0 * beta
         # The new rotation, annihilating beta_new.
-        rho1c = torch.clamp(rho1, min=1e-30)
+        rho1c = _floor(rho1)
         g_new = delta / rho1c
         s_new = beta_new / rho1c
         w_new = (v - rho3 * w2 - rho2 * w1) / rho1c
@@ -527,7 +547,7 @@ def gmres(matrix, b: torch.Tensor, x0: Optional[torch.Tensor] = None,
             # Modified Gram-Schmidt against the rows filled so far (the
             # JAX loop's masked projections onto the zero rows are no-ops).
             for i in range(j + 1):
-                h = torch.dot(V[i], w)
+                h = torch.vdot(V[i], w)
                 w = w - h * V[i]
                 H[i, j] = h
             hnorm = _norm(w)
@@ -554,17 +574,17 @@ def pcg_precond(matrix, b: torch.Tensor, precond: Callable,
     r = b - spmv(matrix, x)
     z = precond(r)
     p = z
-    rz = torch.dot(r, z)
+    rz = torch.vdot(r, z)
 
     def step(carry):
         x, r, z, p, rz = carry
         ap = spmv(matrix, p)
-        alpha = rz / torch.clamp(torch.dot(p, ap), min=1e-30)
+        alpha = rz / _floor(torch.vdot(p, ap))
         x = x + alpha * p
         r = r - alpha * ap
         z = precond(r)
-        rz_new = torch.dot(r, z)
-        beta = rz_new / torch.clamp(rz, min=1e-30)
+        rz_new = torch.vdot(r, z)
+        beta = rz_new / _floor(rz)
         p = z + beta * p
         return (x, r, z, p, rz_new), _norm(r)
 

@@ -14,7 +14,12 @@ the SELL planner's sort, the MatrixMarket reader and the CSR / TJDS encode
 orders) build wherever a C++ compiler is (the CPU tests build and run
 them); ``-ffp-contract=off`` keeps the compiler from fusing a multiply and
 an add into one rounding, so a host pass stays bit-identical to the numpy
-loop it copies, and ``-pthread`` links the planner's sorting threads.
+loop it copies, and ``-pthread`` links the planner's sorting threads. The
+one exception is ``csrc/spmv.cpp``, the host SpMV backend: it builds with
+the JAX package's Makefile flags (``SPMV_CXX_FLAGS``: ``-O3
+-march=native``, contraction left to the compiler), because its AVX2
+8-wide sums and any contracted multiply-add change the last bits, and it
+is held bit for bit to the JAX library built on the same host.
 
 Nothing here runs at import time: the CPU tests import every module on a
 machine with no ``nvcc``.
@@ -35,6 +40,7 @@ __all__ = [
     "KernelBuildError",
     "CXX_FLAGS",
     "NVCC_FLAGS",
+    "SPMV_CXX_FLAGS",
     "build",
     "build_dir",
     "load",
@@ -51,6 +57,10 @@ NVCC_FLAGS = (
 
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread",
              "-ffp-contract=off")
+
+# The JAX package's native/Makefile flags, for csrc/spmv.cpp alone.
+SPMV_CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-shared",
+                  "-pthread")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -100,18 +110,38 @@ def _cxx() -> str:
     return cxx
 
 
+def _flags(name: str) -> Tuple[str, ...]:
+    if _source(name).suffix == ".cu":
+        return NVCC_FLAGS
+    return SPMV_CXX_FLAGS if name == "spmv" else CXX_FLAGS
+
+
 def _command(name: str, out: Path) -> list:
     src = _source(name)
-    if src.suffix == ".cu":
-        return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]
-    return [_cxx(), *CXX_FLAGS, "-o", str(out), str(src)]
+    cc = _nvcc() if src.suffix == ".cu" else _cxx()
+    return [cc, *_flags(name), "-o", str(out), str(src)]
+
+
+def _host_isa() -> str:
+    """The host CPU's feature flags: a ``-march=native`` library built on
+    one host must not load on another."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("flags", "Features")):
+                    return line
+    except OSError:
+        pass
+    return ""
 
 
 def _lib_path(name: str) -> Path:
     src = _source(name)
     cuda = src.suffix == ".cu"
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS if cuda else CXX_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
+    if "-march=native" in _flags(name):
+        h.update(_host_isa().encode())
     for p in [src, *(sorted(_CSRC.glob("*.cuh")) if cuda else ())]:
         h.update(p.name.encode())
         h.update(p.read_bytes())

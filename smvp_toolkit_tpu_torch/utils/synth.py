@@ -120,3 +120,22 @@ def hpcg_stencil(nx: int):
 
     b1 = sp.diags([1.0, 1.0, 1.0], [-1, 0, 1], (nx, nx))
     return (27.0 * sp.eye(nx ** 3) - sp.kron(b1, sp.kron(b1, b1))).tocsr()
+
+
+def peierls_phase(a, seed: int = 0):
+    """A real symmetric scipy matrix made Hermitian by a Peierls phase:
+    each off-diagonal pair (i, j), i < j, is multiplied by e^{iφ} and
+    (j, i) by e^{−iφ}, φ uniform in [−π, π) from ``seed``, the diagonal
+    kept. Where the off-diagonal entries are ≤ 0 (Poisson, HPCG), the
+    diamagnetic inequality keeps the smallest eigenvalue at or above the
+    real matrix's, so an SPD stencil stays Hermitian positive definite.
+    Returns a complex128 scipy CSR."""
+    import scipy.sparse as sp
+
+    a = sp.csr_matrix(a)
+    up = sp.triu(a, k=1).tocoo()
+    phi = np.random.default_rng(seed).uniform(-np.pi, np.pi, up.nnz)
+    u = sp.csr_matrix((up.data * np.exp(1j * phi), (up.row, up.col)),
+                      shape=a.shape)
+    return (sp.diags(a.diagonal().astype(np.complex128)) + u
+            + u.conj().T).tocsr()

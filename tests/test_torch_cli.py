@@ -170,17 +170,14 @@ def test_error_probes(tmp_path):
     assert tcli.main(["-c", "--fused", "--kernel", "torch", *base,
                       SPEC]) == 2
     # -a with -c is refused as the JAX CLI refuses it; -g and the JAX
-    # kernel names are ported (tests/test_torch_cli_cisr.py), and so is
-    # --eigs (tests/test_torch_cli_solve.py); a JAX flag the port lacks is
-    # refused by argparse
+    # kernel names are ported (tests/test_torch_cli_cisr.py), and so are
+    # --eigs (tests/test_torch_cli_solve.py), --profile and --export-aot
+    # (tests/test_torch_frontends.py, tests/test_torch_aot.py)
     assert tcli.main(["-c", "-a", *base, SPEC]) == 2
     assert jcli.main(["-c", "-a", SPEC]) == 2
     assert tcli.main(["-c", "-g", "-n", "1", "--no-report", "--kernel",
                       "pallas", *base, SPEC]) == 0
-    for flag in (["--profile", "p"],):
-        with pytest.raises(SystemExit) as e:
-            tcli.main(["-c", *flag, *base, SPEC])
-        assert e.value.code == 2
+    assert tcli.main(["-g", "--export-aot", "p", *base, SPEC]) == 2
     # --shards is ported: more shards than ranks exits 1, a count below 1
     # exits 2, as in the JAX CLI (tests/test_torch_dist.py)
     assert tcli.main(["-c", "--shards", "2", *base, SPEC]) == 1
@@ -193,10 +190,23 @@ def test_error_probes(tmp_path):
 
 
 def test_complex_matrix_refused(tmp_path):
+    """A complex matrix runs (complex64, the plain PyTorch SpMVs); what
+    the JAX CLI refuses on it, and only that, still exits 2
+    (tests/test_torch_complex.py holds the results to the JAX CLI's)."""
     path = str(tmp_path / "c.mtx")
     write_mtx(path, np.array([0, 1]), np.array([1, 0]),
               np.array([1 + 2j, -3j]), (2, 2))
-    assert tcli.main(["-c", "-n", "1", "--device", "cpu", path]) == 1
+    base = ["-c", "-n", "1", "--device", "cpu", "--no-report"]
+    assert tcli.main([*base, "-t", path]) == 0
+    for refused in (["--eigs", "1"], ["--solve", "chebyshev"],
+                    ["--solve", "cg-fused"], ["--solve", "pcg-amg"],
+                    ["--solve", "gmres-ilu"]):
+        assert tcli.main([*base, *refused, path]) == 2
+        assert tcli._complex_refusal(tcli.build_parser().parse_args(
+            [*base, *refused, path]))
+    for method in tcli.COMPLEX_METHODS:
+        assert tcli._complex_refusal(tcli.build_parser().parse_args(
+            [*base, "--solve", method, path])) is None
 
 
 def test_default_device_needs_a_card(tmp_path):

@@ -1939,6 +1939,57 @@ def test_amg_apply_on_card_matches_cpu(card, smoother):
     assert _rel(Zc[:, 0], zc) <= 1e-5
 
 
+@pytest.mark.parametrize("smoother", ["jacobi", "chebyshev"])
+def test_amg_apply_on_split_planes_matches_cpu(card, smoother, monkeypatch):
+    """The V-cycle with every level's A, P and Pᵀ (the rectangular ones
+    too) on the split planes: K4 for the vector apply, K4 with k columns
+    for the k = 4 block, against the same hierarchy's plain versions on
+    the CPU. The planner keeps every level's window far under 512 tiles
+    at a test size (it compacts each chunk's tiles), so the split route is
+    taken through ``SMVP_SELL_RELSL=0``, the switch that puts every plan on
+    the split planes; K4 must launch for both applies."""
+    from smvp_toolkit_tpu_torch.models.amg import amg_preconditioner
+
+    monkeypatch.setenv("SMVP_SELL_RELSL", "0")
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        m = amg_preconditioner(_poisson_csr(64, dev), smoother=smoother,
+                               sweeps=2, op_builder=S.sell_op_csr)
+        r = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (4096, 4)).astype(np.float32)).to(dev)
+        split0 = S.sell_split.launches
+        mat0 = S.MAT_KERNELS["sell_split_spmm_kernel"].launches
+        z = m(r[:, 0])
+        split1 = S.sell_split.launches
+        Z = m(r)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert split1 > split0
+            assert S.MAT_KERNELS["sell_split_spmm_kernel"].launches > mat0
+        out[dev.type] = (z.cpu(), Z.cpu())
+    (zc, Zc), (zp, Zp) = out["cuda"], out["cpu"]
+    assert _rel(zc, zp) <= 1e-5 and _rel(Zc, Zp) <= 1e-5
+    assert _rel(Zc[:, 0], zc) <= 1e-5
+
+
+def test_repeated_profile_sessions_record_the_kernel(card, tmp_path):
+    """Five ``bench.profile`` sessions in one process each record all ten
+    of K1's launches as device events (the CLI's ``-a --profile`` runs one
+    session per format)."""
+    import json
+
+    from smvp_toolkit_tpu_torch.bench.profile import TRACE_FILE, profile_fn
+
+    csr = _poisson_csr(64, card)
+    x = torch.ones(csr.shape[1], device=card)
+    for i in range(5):
+        where = tmp_path / str(i)
+        profile_fn(S.spmv_csr_sell, csr, x, log_dir=str(where))
+        events = json.loads((where / TRACE_FILE).read_text())["traceEvents"]
+        assert sum("sell_spmv_kernel" in e.get("name", "")
+                   for e in events) == 10, i
+
+
 def test_krylov_and_lobpcg_on_card_match_cpu(card):
     from smvp_toolkit_tpu_torch.models import solvers as M
 

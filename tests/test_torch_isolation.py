@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package, no quiet CPU.
 
-(a) No source file of ``smvp_toolkit_tpu_torch`` imports ``jax`` or names
-the JAX package. (b) A fresh interpreter imports the port, plans a matrix
+(a) No source file of ``smvp_toolkit_tpu_torch``, no example of
+``examples/torch`` and not ``chip_smoke.py`` imports ``jax`` or names the
+JAX package. (b) A fresh interpreter imports the port, plans a matrix
 and runs the CPU path without ``jax`` or ``smvp_toolkit_tpu`` entering
 ``sys.modules``. (c) With no CUDA device, every entry point that is not
 asked for the CPU raises.
@@ -25,6 +26,7 @@ PKG = Path(smvp_toolkit_tpu_torch.__file__).resolve().parent
 ROOT = PKG.parent
 SOURCES = sorted(p for p in PKG.rglob("*") if p.suffix in (".py", ".cu",
                                                             ".cuh", ".cpp"))
+EXAMPLES = sorted((ROOT / "examples" / "torch").glob("*.py"))
 
 
 def test_package_sources_found():
@@ -48,15 +50,36 @@ def test_package_sources_found():
             "ops/spmv_cisr.py", "io/native.py", "utils/debug.py",
             "utils/checkpoint.py", "csrc/cisr.cpp", "csrc/sellplan.cpp",
             "csrc/mtxio.cpp", "csrc/encode.cpp", "models/amg.py",
-            "csrc/amg.cpp"} <= names
+            "csrc/amg.cpp", "csrc/spmv.cpp", "ops/spmv_native.py",
+            "ops/spmv_torch.py", "utils/aot.py", "bench/profile.py",
+            "interactive.py", "utils/padding.py", "utils/reorder.py",
+            "io/readtest.py", "io/writetest.py"} <= names
+    assert {p.name for p in EXAMPLES} == {
+        "edge_train_demo.py", "eigs_demo.py", "gcn_demo.py",
+        "occupancy_demo.py", "pagerank_demo.py", "precond_demo.py",
+        "scaling_demo.py", "serving_demo.py", "solve_demo.py",
+        "spectral_demo.py"}
 
 
-@pytest.mark.parametrize("path", SOURCES,
-                         ids=[p.relative_to(PKG).as_posix() for p in SOURCES])
+@pytest.mark.parametrize(
+    "path", SOURCES + EXAMPLES,
+    ids=[p.relative_to(PKG).as_posix() for p in SOURCES]
+    + [p.relative_to(ROOT).as_posix() for p in EXAMPLES])
 def test_no_jax_or_jax_package_reference(path):
     text = path.read_text()
     assert not re.search(r"^\s*(import|from)\s+jax", text, re.M)
     assert not re.search(r"smvp_toolkit_tpu(?!_torch)", text)
+
+
+def test_chip_smoke_imports_no_jax():
+    """``chip_smoke.py`` names the TPU kernels' files (its ``replaces``
+    fields) but imports neither JAX nor the JAX package."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(import|from)\s+jax", text, re.M)
+    assert not re.search(
+        r"^\s*(import|from)\s+smvp_toolkit_tpu(?!_torch)\b", text, re.M)
+    assert not re.search(r"import_module\(\s*[\"']smvp_toolkit_tpu[\"'.]",
+                         text)
 
 
 _PROBE = r"""
@@ -135,6 +158,20 @@ assert pick_plan(r, c, v, (900, 900))[0].nnz == len(r)
 os.environ["SMVP_SELL_COMPAT"] = "1"
 assert main(["-c", "-n", "1", "--no-report", "--device", "cpu",
              "synth:900:4000"]) == 0
+os.environ["SMVP_SELL_COMPAT"] = "0"
+import tempfile
+with tempfile.TemporaryDirectory() as tmp:
+    assert main(["-c", "-t", "-n", "2", "--no-report", "--device", "cpu",
+                 "--kernel", "native", "--export-aot", tmp + "/p",
+                 "--profile", tmp, "synth:900:4000"]) == 0
+from smvp_toolkit_tpu_torch import interactive
+from smvp_toolkit_tpu_torch.io import readtest, writetest
+from smvp_toolkit_tpu_torch.utils import checkpoint, padding, reorder
+import smvp_toolkit_tpu_torch.ops, smvp_toolkit_tpu_torch.bench
+import smvp_toolkit_tpu_torch.io
+for pkg in (smvp_toolkit_tpu_torch.ops, smvp_toolkit_tpu_torch.bench,
+            smvp_toolkit_tpu_torch.io):
+    [getattr(pkg, name) for name in pkg.__all__]
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "smvp_toolkit_tpu" or m.startswith("smvp_toolkit_tpu."))
