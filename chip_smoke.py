@@ -12,8 +12,10 @@ Phases; any failure exits non-zero and prints no result line:
    its time, the registers and spills of every warp-per-sublane kernel,
    forward and N-iteration (K2-subwin, K5, K2-packed, and K9 on both
    routes, K10 and K11, whose SpMV phases run that body, among them), of
-   K1, K4, K5 and K2 with k columns, of K7 and of K8 on staged slice
-   metadata (``[regs]``, the most over their types and column shapes),
+   K1, K4, K5 and K2 with k columns, of K7 and of K6 and K8 on staged
+   slice metadata (``[regs]``, the most over their types and column
+   shapes), the dense-operand kernel K6 ran before
+   (``csrc/variants/sell_onehot_variants.cu``, built at the same time),
    and each bench kernel's
    cooperative grid (the four routes' N-iteration kernels for both value
    and lane-index types on a line of their own). The build covers the
@@ -122,13 +124,20 @@ Phases; any failure exits non-zero and prints no result line:
    plain version on that plane, which reads rel from lane 0 as the JAX
    ``_unpack_plane`` does.
    K6 (``sell_onehot``, the ``SMVP_SELL_COMPAT=1`` kernel, on the plan's
-   dense one-hot operands) on every small resident plan and on smoke, and
-   K2-subwin (``sell_bench_subwin``, N = 3, the ``SMVP_SELL_SUBWIN=1``
-   kernel, K2's warp-per-sublane body under its window rule) on the
-   eligible small plan and on smoke, float32 and bfloat16:
-   <= 1e-6 of max |y| against the plain version and against K1 (K2 relsl)
-   on the same plan; a control, K2-subwin fed ``stb`` shifted by 16 tiles,
-   must miss that tolerance.
+   own planes, rows summed by slice in plan order) on every small resident
+   plan, on the hub-row plan (258 live sublanes in one slice), on smoke
+   and on L2, float32 and bfloat16: <= 1e-6 of max |y| against its plain
+   version (the JAX kernel's one-hot products) and against K1 (K4) on the
+   same plan, two launches equal bit for bit, and bit for bit the
+   dense-operand kernel it replaced
+   (``csrc/variants/sell_onehot_variants.cu``, built beside the package's
+   kernels in phase 1); a control, ``slice_of`` with one live sublane moved
+   to the next slice, must miss that tolerance. K2-subwin
+   (``sell_bench_subwin``, N = 3, the ``SMVP_SELL_SUBWIN=1`` kernel, K2's
+   warp-per-sublane body under its window rule) on the eligible small plan
+   and on smoke, float32 and bfloat16: <= 1e-6 of max |y| against the
+   plain version and against K2 relsl on the same plan; a control,
+   K2-subwin fed ``stb`` shifted by 16 tiles, must miss that tolerance.
 3. The main path at full size, each run with every launch count zeroed
    just before it and read just after; a run fails unless its route's
    kernels launched and no other kernel did:
@@ -233,7 +242,9 @@ Phases; any failure exits non-zero and prints no result line:
      ``SMVP_SELL_SUBWIN=1`` (K2-subwin only); one CLI run ``-c --cocluster
      -n 200 --x random:1 --fused`` in bf16 (K2 only, reusing the result);
    - the JAX operator's switches on smoke's CLI: smoke-compat (``-c -n
-     10`` under ``SMVP_SELL_COMPAT=1``, both dtypes: K6 only, 13 launches),
+     10`` under ``SMVP_SELL_COMPAT=1``, both dtypes: K6 only, 13 launches,
+     the peak card memory of the two runs printed; then L2's operator
+     under the switch, ``__call__`` 13 times in each dtype: K6 only),
      smoke-subwin (``-c --fused -n 200`` under ``SMVP_SELL_SUBWIN=1``, both
      dtypes: K2-subwin only), and ``-c -n 10`` in float32 under
      ``SMVP_SELL_RELSL=0`` (K4 only), ``SMVP_SELL_SPLIT=4`` (four K1 launches
@@ -323,10 +334,12 @@ Phases; any failure exits non-zero and prints no result line:
    ``max_abs_err``; bound ``SellDf64SpMV.traffic_bytes`` or 4 (8 with a lo
    plane) float64 flops per non-zero over the float64 rate; yardstick
    ``torch.sparse.mm`` on a float64 CSR tensor with x = x_hi + x_lo.
-   K6 on smoke (both dtypes, launches from smoke-compat): bound its dense
-   operands' bytes (read once), the dense products' time at the float32
-   rate printed beside it (``dense_flops_ms``; the kernel skips the
-   one-hot zeros, so only 2 flops per non-zero bound it). K2-subwin on
+   K6 on smoke and L2 (both dtypes, launches from smoke-compat and
+   L2-compat; the kernel and its library call queued behind the spin
+   kernel): bound the bytes of what it reads, each once (the values and
+   lane planes, rel and the index entry of each live sublane, the slice
+   offsets, tile_base, x and y), or 2 flops per slot of a live sublane,
+   the larger. K2-subwin on
    smoke (``body`` ``warp-per-sublane``; a ``[time]`` line gives it over
    K2 on the same plan and N) and K2-cocluster (``sell_bench_kernel`` on smoke-cc's permuted
    planes, replacing ``CoClusteredSellSpMV.bench_loop``; held at N = 200
@@ -356,6 +369,7 @@ import re
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 SMOKE_SPEC = "synth:1000000:10000000"
@@ -430,7 +444,8 @@ WARP_PER_SUBLANE = ("sell_spmv_kernel", "sell_bench_kernel",
 KCOL_PER_SUBLANE = ("sell_spmm_kernel", "sell_split_spmm_kernel",
                     "sell_packed_spmm_kernel", "sell_bench_spmm_kernel")
 BY_SLICE = ("sell_vals_grad_kernel",)
-STAGED_SLICES = ("sell_df64_kernel", "sell_bench_df64_kernel")
+STAGED_SLICES = ("sell_onehot_kernel", "sell_df64_kernel",
+                 "sell_bench_df64_kernel")
 # K7's hub-row plans (tests/torch_kcol_plans.py): a row of 200 entries in
 # one column tile beside random entries, so that its slice's 200 live
 # sublanes are cut into several units of the by-slice schedule; on the
@@ -3426,17 +3441,41 @@ def _subwin_planes(S, op):
     return win
 
 
-def _check_onehot(np, torch, S, label, op, errs=None):
-    """K6 on ``op``'s dense operands against its plain version and against
-    the route's K1 (K4) kernel, <= 1e-6 of max |y|."""
+def _onehot_args(op, xt):
+    """K6's positional operands on ``op``'s planes: the values and lane
+    planes, the split planes, tile_base and the x tiles."""
+    return (op.vals, op.lidx, *op.split_planes(), op.tile_base, xt)
+
+
+def _check_onehot(np, torch, S, label, op, dense_lib, errs=None):
+    """K6 on ``op``'s planes against its plain version and against the
+    route's K1 (K4) kernel, <= 1e-6 of max |y|; two launches equal bit for
+    bit, and bit for bit the dense-operand kernel it replaced. The control:
+    ``slice_of`` with the live sublane of the largest value moved to the
+    next slice (the index rebuilt from it) must miss the tolerance."""
+    from smvp_toolkit_tpu_torch.bench.bench_variants import (
+        onehot_dense_launcher,
+    )
+
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         op.plan.shape[1]).astype(np.float32)).to(DEVICE)
     xt = op._x_tiles(x)
-    vals, lidx, oht, seg = op.onehot_planes()
-    xw = S.onehot_xw(xt, op.tile_base, op.plan.window_tiles)
-    y = S.sell_onehot(xw, vals, lidx, oht, seg)
-    yp = S.sell_onehot_plain(xw, vals, lidx, oht, seg)
+    args, kw = _onehot_args(op, xt), op._onehot_kw()
+    y = S.sell_onehot(*args, **kw)
+    y2 = S.sell_onehot(*args, **kw)
+    yp = S.sell_onehot_plain(*args, **kw)
+    yd = onehot_dense_launcher(dense_lib, *args, **kw)()
     y1 = op.kernel(*op._planes(), xt, **op._kw())
+    rel, sl = op.split_planes()
+    live = (rel >= 0) & (sl >= 0)
+    mag = op.vals.float().abs().amax(1).masked_fill(~live, -1.0)
+    s = int(mag.argmax())
+    bad = None
+    if float(mag[s]) > 0:
+        moved = sl.clone()
+        moved[s] = (sl[s] + 1) % op.plan.n_slices
+        bad = S.sell_onehot(op.vals, op.lidx, rel, moved, op.tile_base, xt,
+                            **{**kw, "index": None})
     torch.cuda.synchronize()
     e, e1 = _rel_err(y, yp), _rel_err(y, y1)
     dname = str(op.value_dtype).replace("torch.", "")
@@ -3444,13 +3483,23 @@ def _check_onehot(np, torch, S, label, op, errs=None):
     _check(bool(torch.isfinite(y).all()), f"{what}: not finite")
     _check(e <= TOL_KERNEL, f"{what} vs plain: {e}")
     _check(e1 <= TOL_KERNEL, f"{what} vs {op.base_route}: {e1}")
+    _check(bool(torch.equal(y, y2)), f"{what}: two launches differ")
+    _check(bool(torch.equal(y, yd)), f"{what}: not bit for bit the "
+           f"dense-operand kernel (max diff {(y - yd).abs().max().item()})")
+    eb = None if bad is None else _rel_err(bad, y)
+    _check(eb is None or eb > TOL_KERNEL,
+           f"{what}: slice_of moved at sublane {s} still within {TOL_KERNEL}")
     if errs is not None:
         errs[("sell_onehot_kernel", label, dname)] = (y - yp).abs().max(
             ).item()
+    ptr = kw["index"][0]
+    longest = int((ptr[1:] - ptr[:-1]).max()) if ptr.numel() > 1 else 0
     print(f"[check] {label:28s} {dname:9s} sell_onehot_kernel vs plain "
-          f"{e:.3e}, vs {op.base_route} {e1:.3e} (oht {tuple(oht.shape)}, seg "
-          f"{tuple(seg.shape)}, {(oht.numel() + seg.numel()) * 4} bytes)",
-          flush=True)
+          f"{e:.3e}, vs {op.base_route} {e1:.3e}; two launches and the "
+          f"dense-operand kernel bit for bit; control slice_of moved at "
+          f"sublane {s}: {'no live value' if eb is None else f'{eb:.3e}'} "
+          f"(must exceed {TOL_KERNEL}); {kw['index'][1].numel()} live "
+          f"sublanes, {longest} in the longest slice", flush=True)
 
 
 def _check_subwin(np, torch, S, label, op, errs=None):
@@ -3486,26 +3535,29 @@ def _check_subwin(np, torch, S, label, op, errs=None):
           flush=True)
 
 
-def phase_switch_kernels(np, torch, plans, ops, errs):
-    """Phase 2 for K6 and K2-subwin: K6 on every small resident plan and
-    on smoke (float32 and bfloat16), K2-subwin on the eligible small plan
-    and on smoke, each with its control."""
+def phase_switch_kernels(np, torch, plans, ops, errs, dense_lib):
+    """Phase 2 for K6 and K2-subwin: K6 on every small resident plan, the
+    hub-row plan, smoke and L2 (float32 and bfloat16), K2-subwin on the
+    eligible small plan and on smoke, each with its control."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
-    for name, plan in plans:
+    hub = _hub_row_plan(np, "relsl")
+    for name, plan in [*plans, ("hub-row", hub)]:
         if name in ROUTE or plan.y_block_slices:
             continue
         for dname in DTYPE_NAMES:
             op = S.SellSpMV(plan, value_dtype=getattr(torch, dname),
                             device=DEVICE)
-            _check_onehot(np, torch, S, name, op)
+            _check_onehot(np, torch, S, name, op, dense_lib)
             if name == "random-rect-empty-rows":
                 _check_subwin(np, torch, S, name, op)
-    for dname in DTYPE_NAMES:
-        op, _ = ops[("smoke", dname)]
-        _check_onehot(np, torch, S, "smoke", op, errs)
-        op._onehot = None  # 6 GB of dense operands; phase 4 rebuilds them
-        _check_subwin(np, torch, S, "smoke", op, errs)
+    for name in ("smoke", "L2"):
+        for dname in DTYPE_NAMES:
+            op, _ = ops[(name, dname)]
+            _check_onehot(np, torch, S, name, op, dense_lib, errs)
+            if name == "smoke":
+                _check_subwin(np, torch, S, "smoke", op, errs)
+    torch.cuda.empty_cache()
 
 
 def _cc_operators(np, torch, triplets, result):
@@ -3618,9 +3670,11 @@ def phase_cocluster(np, torch, configs, wait_cc, launches, errs):
     return out
 
 
-def phase_switches(np, torch, configs, launches):
+def phase_switches(np, torch, configs, ops, launches):
     """Phase 3 under the JAX operator's switches, the smoke CLI each time:
-    smoke-compat (``-c -n 10``, COMPAT=1: K6 only), smoke-subwin (``-c
+    smoke-compat (``-c -n 10``, COMPAT=1: K6 only, the runs' peak card
+    memory printed) and L2-compat (L2's operator, ``__call__`` under
+    COMPAT=1: K6 only), smoke-subwin (``-c
     --fused -n 200``, SUBWIN=1: K2-subwin only), then ``-c -n 10`` under
     RELSL=0 (K4 only), SPLIT=4 (four K1 launches per call), SPMM=0 with
     ``--spmm 8`` (eight K1 launches per SpMM call) and LIDX32=1 (int32
@@ -3632,10 +3686,42 @@ def phase_switches(np, torch, configs, launches):
     nch = plan.n_chunks
     ranges = -(-nch // -(-nch // min(SPLIT_N, nch)))  # 4 at smoke's 92
     with _env(SMVP_SELL_COMPAT="1"):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         _cli_runs(np, torch, "smoke-compat", SMOKE_SPEC, ["-c"], trip,
                   launches, config="smoke", n=SWITCH_N, fused_modes=(False,),
                   want=lambda fused: ["sell_onehot_kernel"],
                   count=lambda fused: {"sell_onehot_kernel": calls})
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[main] smoke-compat: peak card memory {peak} bytes "
+              f"(torch.cuda.max_memory_allocated over both CLI runs), "
+              f"{peak - base} above the {base} allocated before them",
+              flush=True)
+        l2_trip = configs["L2"][1]
+        for dname in DTYPE_NAMES:
+            op, _ = ops[("L2", dname)]
+            _check(op.route == "onehot", f"L2 under COMPAT: {op.route}")
+            r, xh = _oracle(np, torch, l2_trip, dname)
+            x = torch.from_numpy(xh).to(DEVICE)
+            _zero_counts(S)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                y = op(x)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = _check_only(_counts(S), ["sell_onehot_kernel"],
+                              f"L2-compat {dname}")
+            _check(got == {"sell_onehot_kernel": calls},
+                   f"L2-compat {dname}: launches {got}")
+            launches[("sell_onehot_kernel", "L2-compat", dname)] = calls
+            e = float(np.abs(y.cpu().numpy().astype(np.float64) - r).max()
+                      / np.abs(r).max())
+            _check(bool(torch.isfinite(y).all()) and e <= TOL_ORACLE,
+                   f"L2-compat {dname} vs float64 oracle: {e}")
+            print(f"[main] L2-compat {dname}: SellSpMV.__call__ x {calls} "
+                  f"under SMVP_SELL_COMPAT=1, {wall:.3f} s, launches {got}, "
+                  f"vs float64 oracle {e:.3e}", flush=True)
     with _env(SMVP_SELL_SUBWIN="1"):
         _cli_runs(np, torch, "smoke-subwin", SMOKE_SPEC, ["-c"], trip,
                   launches, config="smoke", fused_modes=(True,),
@@ -3702,44 +3788,68 @@ def _k2_ms(S, op, xt, n_iter):
                     reps=3, warmup=1)
 
 
+def _onehot_bytes(op) -> int:
+    """K6's bytes on ``op``'s plan, each input read once and each output
+    written once: the values and lane planes, rel and the index entry of
+    each live sublane, the slice offsets, tile_base, x and y."""
+    ptr, sub = op.slice_index()
+    plan, live = op.plan, sub.numel()
+    return int(live * 128 * (op.vals.element_size() + op.lidx.element_size())
+               + live * 4 * 2 + ptr.numel() * 4 + plan.n_chunks * 4
+               + plan.n_coltiles * 128 * op.vals.element_size()
+               + plan.n_slices * 128 * 4)
+
+
+def _onehot_timings(np, torch, S, configs, ops, errs, launches, bw):
+    """K6's entries: smoke-compat and L2-compat, both dtypes, the kernel
+    and the float32 CSR ``torch.sparse.mm`` queued behind the spin
+    kernel (the host-paced kernel time printed beside)."""
+    entries = []
+    for name in ("smoke", "L2"):
+        a = _library_csr(np, torch, configs[name][1])
+        for dname in DTYPE_NAMES:
+            op, x = ops[(name, dname)]
+            xt = op._x_tiles(x)
+            x2 = x.float()[:, None]
+            args, kw = _onehot_args(op, xt), op._onehot_kw()
+            ms = _time_ms(lambda: S.sell_onehot(*args, **kw), reps=20,
+                          queued=True)
+            paced = _time_ms(lambda: S.sell_onehot(*args, **kw), reps=20)
+            plain_ms = _time_ms(lambda: S.sell_onehot_plain(*args, **kw),
+                                reps=2, warmup=1)
+            lib_ms = _time_ms(lambda: torch.sparse.mm(a, x2), reps=20,
+                              queued=True)
+            ptr, sub = kw["index"]
+            entries.append(_entry(
+                "sell_onehot_kernel", f"{name}-compat", dname,
+                launches=launches[("sell_onehot_kernel", f"{name}-compat",
+                                   dname)],
+                err=errs[("sell_onehot_kernel", name, dname)], ms=ms,
+                plain_ms=plain_ms, lib_ms=lib_ms, nbytes=_onehot_bytes(op),
+                flops=2.0 * sub.numel() * 128, bw=bw, body="warp-per-slice",
+                host_paced_ms=paced, live_sublanes=sub.numel(),
+                longest_slice=int((ptr[1:] - ptr[:-1]).max())))
+            torch.cuda.empty_cache()
+        del a
+    return entries
+
+
 def phase_switch_timings(np, torch, ops, ccs, errs, launches, configs, bw):
-    """Phase 4 for K6 (smoke, both dtypes, one SpMV), K2-subwin (smoke,
-    N = 200) and K2-cocluster (smoke-cc, N = 200). Library: the natural
-    float32 CSR ``torch.sparse.mm``, N calls for N iterations. K6's bound
-    is its bytes (the dense operands read once); its dense products'
-    time at the float32 rate is printed beside it, but the kernel skips
-    the one-hot zeros, so only the 2 flops per non-zero bound it."""
+    """Phase 4 for K6 (smoke and L2, both dtypes, one SpMV;
+    ``_onehot_timings``), K2-subwin (smoke, N = 200) and K2-cocluster
+    (smoke-cc, N = 200). Library: the natural float32 CSR
+    ``torch.sparse.mm``, N calls for N iterations."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
+    entries = _onehot_timings(np, torch, S, configs, ops, errs, launches, bw)
     plan, triplets = configs["smoke"]
     a = _library_csr(np, torch, triplets)
     n_iter = ITERATIONS["smoke"]
-    entries = []
     for dname in DTYPE_NAMES:
         op, x = ops[("smoke", dname)]
         x2 = x.float()[:, None]
         xt = op._x_tiles(x)
         vb = op.vals.element_size()
-        vals, lidx, oht, seg = op.onehot_planes()
-        xw = S.onehot_xw(xt, op.tile_base, plan.window_tiles)
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (xw, vals, lidx, oht, seg)) + (
-            plan.n_slices * 128 * 4)
-        dense = 2.0 * plan.n_sublanes * 128 * (plan.window_tiles
-                                               + plan.n_slices)
-        ms = _time_ms(lambda: S.sell_onehot(xw, vals, lidx, oht, seg), reps=5)
-        plain_ms = _time_ms(lambda: S.sell_onehot_plain(
-            xw, vals, lidx, oht, seg), reps=2, warmup=1)
-        lib_ms = _time_ms(lambda: torch.sparse.mm(a, x2), reps=20)
-        entries.append(_entry(
-            "sell_onehot_kernel", "smoke-compat", dname,
-            launches=launches[("sell_onehot_kernel", "smoke-compat", dname)],
-            err=errs[("sell_onehot_kernel", "smoke", dname)], ms=ms,
-            plain_ms=plain_ms, lib_ms=lib_ms, nbytes=nbytes,
-            flops=2.0 * plan.nnz, bw=bw,
-            dense_flops_ms=dense / F32_PEAK_FLOPS * 1e3))
-        op._onehot = None  # the dense operands: 6 GB at smoke
-        del vals, lidx, oht, seg, xw
         stb, ssb, split, sub_wt, sub_nsw = _subwin_planes(S, op)
         planes = (op.vals, op.lidx, op.relsl, op.tile_base)
         kw = dict(split=split, sub_wt=sub_wt, sub_nsw=sub_nsw,
@@ -4838,16 +4948,37 @@ def main() -> int:
           flush=True)
 
     with _Phase("build"):
+        from smvp_toolkit_tpu_torch.bench import bench_variants as BV
+
+        dense = {}
+
+        def build_dense():
+            try:
+                dense["lib"], dense["log"] = BV.build_onehot_variants()
+            except Exception as e:  # re-raised below
+                dense["err"] = e
+
+        th = threading.Thread(target=build_dense, name="onehot-variants")
+        th.start()
         logs = _build.build()
+        th.join()
+        if "err" in dense:
+            raise dense["err"]
         regs, spills, spilled = _ptxas_summary(logs)
         print(f"[build] {len(logs)} source(s) built: {sorted(logs)}; "
               f"registers per thread: {regs}; spill stores {spills} bytes "
               f"(most in one type instance: {spilled})", flush=True)
+        dense_regs = [n for k, n in BV._registers(dense["log"]).items()
+                      if "sell_onehot_dense_kernel" in k]
+        print(f"[build] csrc/variants/sell_onehot_variants.cu: the "
+              f"dense-operand kernel K6 ran before, {max(dense_regs)} "
+              f"registers", flush=True)
         print("[regs] warp-per-sublane kernels, forward and N-iteration "
               "(K9's on both routes, K10's and K11's SpMV phases among "
               "them), the k-column ones (K5 and K2 with k columns among "
-              "them), K7 by slice and K8 on staged slices (most over their "
-              "value and index types, lo plane and column shapes): "
+              "them), K7 by slice, K6 (a warp per slice) and K8 on staged "
+              "slice metadata (most over "
+              "their value and index types, lo plane and column shapes): "
               + "; ".join(
                   f"{k} {regs.get(k)} registers, spill stores "
                   f"{spilled.get(k, 0)} bytes"
@@ -4907,7 +5038,7 @@ def main() -> int:
     with _Phase("df64 and packed kernels vs plain"):
         phase_new_kernels(np, torch, plans, ops, errs)
     with _Phase("one-hot and sub-window kernels vs plain"):
-        phase_switch_kernels(np, torch, plans, ops, errs)
+        phase_switch_kernels(np, torch, plans, ops, errs, dense["lib"])
     del plans
     with _Phase("solver kernels vs plain"):
         phase_solver_kernels(np, torch)
@@ -4931,7 +5062,7 @@ def main() -> int:
     with _Phase("main path: smoke-cc"):
         ccs = phase_cocluster(np, torch, configs, wait_cc, launches, errs)
     with _Phase("main path: switches"):
-        phase_switches(np, torch, configs, launches)
+        phase_switches(np, torch, configs, ops, launches)
     with _Phase("main path: headline"):
         phase_headline()
     with _Phase("distribution: smoke-dp4 kernels vs plain"):

@@ -98,7 +98,18 @@ the staged body with U = 1, 2, 4, 8 steps in flight and one or two slices
 a block) against the kept kernel and ``torch.sparse.mm`` on a float64 CSR
 tensor on smoke-df64 (float32 values, no lo plane) and smoke-df64-f64
 (float64 values, a lo plane), queued behind a spin kernel; each first
-held to the plain version bit for bit.
+held to the plain version bit for bit. With ``--onehot`` it times K6
+(``csrc/variants/sell_onehot_variants.cu``: the dense-operand kernel K6
+ran before, on the JAX launch's one-hot operands built once on the card,
+the walk K6 was first written with, K8's staged body, with U = 1, 2, 4, 8
+steps in flight and one or two slices a block, and the kept body, one warp
+per slice with four rows a thread, at U = 1, 2, 4, 8)
+against the kept kernel and ``torch.sparse.mm`` on a float32 CSR tensor
+on smoke (merged word) and L2 (split planes, a window of 2,000 tiles),
+float32 and bfloat16, all queued behind a spin kernel; the kept kernel
+and the dense one are first held to the plain version within 1e-6 of max
+|y|, and the kept kernel to the dense one and every form to the kept
+kernel bit for bit.
 
 Configurations (``chip_smoke.py``'s full-size ones, chunk 2048): smoke
 (``synth:1000000:10000000``, resident y, merged word), L1
@@ -140,7 +151,9 @@ __all__ = ["VARIANTS", "ONE_BUFFER", "KCOL_VARIANTS", "KCOL_SHAPES",
            "SOLVER_LAUNCHERS", "PACKED_SPMM_FORMS", "KBENCH_FORMS",
            "plane_pointers", "vgrad_pointers", "packed_pointers",
            "df64_pointers", "kcol_cases", "spmm_tolerance",
-           "disagreeing_lanes", "main"]
+           "disagreeing_lanes", "ONEHOT_VARIANTS", "ONEHOT_FORMS",
+           "ONEHOT_CONFIGS", "build_onehot_variants", "onehot_dense_launcher",
+           "onehot_variant_launcher", "main"]
 
 # Variant ids of sell_bench_variants.cu.
 VARIANTS = {"barrier1": 0, "barrier2": 1, "cached": 2, "nol1": 3,
@@ -161,6 +174,7 @@ _VGRAD_SRC = _VARIANTS_DIR / "sell_vals_grad_variants.cu"
 _PACKED_SRC = _VARIANTS_DIR / "sell_packed_variants.cu"
 _DF64_SRC = _VARIANTS_DIR / "sell_df64_variants.cu"
 _SOLVER_SRC = _VARIANTS_DIR / "sell_solver_variants.cu"
+_ONEHOT_SRC = _VARIANTS_DIR / "sell_onehot_variants.cu"
 # Variant ids of sell_solver_variants.cu (K9, K10 and K11) and each
 # solver's launcher there, hpcg104's grid and steps (K10; K9 at CG_STEPS,
 # K11 at IC0_STEPS, IC0_SWEEPS sweeps), and K9's split-plane check: Poisson
@@ -194,6 +208,13 @@ PACKED_CONFIGS = {"smoke-packed": "smoke", "L1-packed": "L1"}
 DF64_VARIANTS = {"walk": 0, "staged": 1}
 DF64_FORMS = tuple((u, sl) for sl in (1, 2) for u in (1, 2, 4, 8))
 DF64_CONFIGS = ("smoke-df64", "smoke-df64-f64")
+# Variant ids of sell_onehot_variants.cu's sell_onehot_variant_launch (K6)
+# and the forms timed: (variant, U steps in flight, S slices a block; the
+# warp form takes no S); its configurations.
+ONEHOT_VARIANTS = {"staged": 0, "warp": 1}
+ONEHOT_FORMS = (tuple(("staged", u, sl) for sl in (1, 2) for u in (1, 2, 4, 8))
+                + tuple(("warp", u, 0) for u in (1, 2, 4, 8)))
+ONEHOT_CONFIGS = ("smoke", "L2")
 # Variant ids of sell_vals_grad_variants.cu; the schedule caps timed on
 # the kept kernel beside its own (spmv_sell.VG_CAP); the k values timed.
 VGRAD_VARIANTS = {"walk": 0, "run": 1, "nostage": 2, "block": 3, "rows8": 4,
@@ -258,6 +279,14 @@ _PACKED_SIGNATURES = {
 _DF64_SIGNATURES = {
     "sell_df64_variant_launch": (ctypes.c_int, [ctypes.c_int] * 3 + [
         ctypes.c_void_p] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]),
+    "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+_ONEHOT_SIGNATURES = {
+    "sell_onehot_dense_launch": (ctypes.c_int, [ctypes.c_void_p] * 6 + [
+        ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    "sell_onehot_variant_launch": (ctypes.c_int, [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]),
     "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
@@ -1410,6 +1439,132 @@ def run_df64(names=DF64_CONFIGS) -> dict:
     return out
 
 
+def build_onehot_variants():
+    """The library of ``csrc/variants/sell_onehot_variants.cu`` (built
+    with the package's nvcc flags into ``build/kernels``) and ptxas's
+    report of its kernels."""
+    return _build_variants(_ONEHOT_SRC, _ONEHOT_SIGNATURES)
+
+
+def _onehot_rc(lib, rc: int, what: str) -> None:
+    if rc:
+        raise RuntimeError(f"{what}: CUDA error {rc} "
+                           f"({lib.sell_error_string(rc).decode()})")
+
+
+def onehot_dense_launcher(lib, vals, lidx, rel, slice_of, tile_base, x, *,
+                          n_slices: int, chunk: int, window_tiles: int,
+                          index=None):
+    """fn() -> y of the dense-operand kernel K6 ran before, on ``sell_
+    onehot``'s operands: the JAX launch's operands (``onehot_dense``,
+    ``onehot_xw``, vals as float32, lidx as int32) built once on the card,
+    then one launch a call. ``index`` is not read."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    oht, seg = S.onehot_dense(rel, slice_of, n_slices=n_slices, chunk=chunk,
+                              window_tiles=window_tiles)
+    xw = S.onehot_xw(x, tile_base, window_tiles)
+    v32, l32 = vals.float().contiguous(), lidx.int().contiguous()
+    dev = vals.device
+
+    def run():
+        y = torch.empty(n_slices * S.LANES, dtype=torch.float32, device=dev)
+        _onehot_rc(lib, lib.sell_onehot_dense_launch(
+            xw.data_ptr(), v32.data_ptr(), l32.data_ptr(), oht.data_ptr(),
+            seg.data_ptr(), y.data_ptr(), tile_base.numel(), chunk,
+            window_tiles, n_slices, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream),
+            "sell_onehot_dense_kernel")
+        return y
+
+    return run
+
+
+def onehot_variant_launcher(lib, vals, lidx, rel, slice_of, tile_base, x, *,
+                            n_slices: int, chunk: int, window_tiles: int,
+                            index):
+    """fn(variant, u, slices) -> y of one of ``ONEHOT_FORMS`` on ``sell_
+    onehot``'s operands and slice index (``slice_of`` and ``window_tiles``
+    are not read)."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    slice_ptr, sublanes = index
+    vk, lk = S._kinds(vals, lidx)
+    dev = vals.device
+
+    def run(variant: str, u: int, slices: int):
+        y = torch.empty(n_slices * S.LANES, dtype=torch.float32, device=dev)
+        _onehot_rc(lib, lib.sell_onehot_variant_launch(
+            ONEHOT_VARIANTS[variant], u, slices, vals.data_ptr(),
+            lidx.data_ptr(), rel.data_ptr(), tile_base.data_ptr(),
+            slice_ptr.data_ptr(), sublanes.data_ptr(), x.data_ptr(),
+            y.data_ptr(), n_slices * S.LANES, chunk, vk, lk, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream),
+            f"onehot variant {variant} U{u} S{slices}")
+        return y
+
+    return run
+
+
+def run_onehot(names=ONEHOT_CONFIGS) -> dict:
+    """K6's variants against the kept kernel and the float32 CSR call."""
+    import torch
+
+    from smvp_toolkit_tpu_torch.ops import _build
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    _build.build(["sell_onehot"])
+    lib, log = build_onehot_variants()
+    print(f"[regs] onehot variants: {_registers(log)}", flush=True)
+    dev = torch.device("cuda", 0)
+    out = {}
+    for name, ops, triplets, _ in kcol_cases(torch, list(names)):
+        a = _library_csr(torch, triplets, dev)
+        for dname, op in ops.items():
+            x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+                op.plan.shape[1]).astype(np.float32)).to(dev)
+            xt = op._x_tiles(x)
+            x2 = xt.float()[: op.plan.shape[1], None]
+            args = (op.vals, op.lidx, *op.split_planes(), op.tile_base, xt)
+            kw = op._onehot_kw()
+            dense = onehot_dense_launcher(lib, *args, **kw)
+            form = onehot_variant_launcher(lib, *args, **kw)
+            y = S.sell_onehot(*args, **kw)
+            yp = S.sell_onehot_plain(*args, **kw)
+            errs = {"kept": _rel(y, yp), "dense": _rel(dense(), yp)}
+            same = {"dense": bool(torch.equal(dense(), y))}
+            same.update({f"{v}U{u}S{sl}": bool(torch.equal(form(v, u, sl), y))
+                         for v, u, sl in ONEHOT_FORMS})
+            del yp
+            if not all(e <= TOL for e in errs.values()) or not all(
+                    same.values()):
+                raise SystemExit(f"bench_variants: {name} {dname}: errors "
+                                 f"{errs}, bit for bit the kept kernel "
+                                 f"{same}")
+            fns = {"kept": lambda: S.sell_onehot(*args, **kw),
+                   "dense": dense}
+            fns.update({f"{v}U{u}S{sl}": (lambda v=v, u=u, sl=sl:
+                                          form(v, u, sl))
+                        for v, u, sl in ONEHOT_FORMS})
+            fns["library"] = lambda: torch.sparse.mm(a, x2)
+            times = _turns(torch, fns)
+            longest = int(torch.diff(kw["index"][0]).max())
+            print(f"[onehot] {name} {dname} (errors {errs}; the dense kernel "
+                  f"and every form bit-equal to the kept one; {longest} "
+                  f"live sublanes in the longest slice)", flush=True)
+            _print_times("onehot", times)
+            out[f"{name}/{dname}"] = dict(ms=times, errors=errs,
+                                          longest_slice=longest)
+            del dense, fns
+            torch.cuda.empty_cache()
+        del a
+    return out
+
+
 def _blocks(lib, variant: int, route: int, vk: int) -> int:
     n = ctypes.c_int(0)
     rc = lib.sell_bench_variant_blocks(variant, route, vk, 0,
@@ -1428,7 +1583,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                    "(default all); with --kcol: smoke, L2, gcn_arxiv:A, "
                    "gcn_arxiv:At (default all); with --packed: "
                    "smoke-packed, L1-packed; with --df64: smoke-df64, "
-                   "smoke-df64-f64")
+                   "smoke-df64-f64; with --onehot: smoke, L2")
     p.add_argument("--kcol", action="store_true",
                    help="time the k-column body's variants instead")
     p.add_argument("--sweep", action="store_true",
@@ -1449,6 +1604,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                    "(K9 also on split planes) instead")
     p.add_argument("--kbench", action="store_true",
                    help="time K2 with k columns' forms on smoke instead")
+    p.add_argument("--onehot", action="store_true",
+                   help="time K6's variants on smoke and L2 instead")
     p.add_argument("--out", help="write every time to this JSON file")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -1475,6 +1632,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         out = run_solver()
     elif args.kbench:
         out = run_kbench()
+    elif args.onehot:
+        out = run_onehot(tuple((args.configs or ",".join(ONEHOT_CONFIGS))
+                               .split(",")))
     else:
         out = run_kcol(names, args.sweep) if args.kcol else run(names)
     if args.out:

@@ -176,8 +176,9 @@ class SellPlan:
             + k * self.n_slices * LANES * 4         # y (f32), k columns
         )
 
-    # Dense one-hot views of the plan: the operands of the one-hot kernel
-    # (K6, ``spmv_sell.sell_onehot``), which takes them per chunk. They are
+    # Dense one-hot views of the plan: the JAX one-hot kernel's operands,
+    # which K6's plain version builds per chunk on the device
+    # (``spmv_sell.onehot_dense``; the kernel reads the planes). They are
     # O(S × WT) and O(NS × S), the JAX planner's views bit for bit.
     def oht_dense(self) -> np.ndarray:
         """(S, WT) float32: 1 at (s, rel_tile[s]) for every sublane whose

@@ -15,7 +15,8 @@ The TPU kernel reaches double-float accuracy through exact bf16
 expansions and quantized MXU sums; the card has float64, so the kernel
 takes each product and row sum in float64 (exact products, one rounding
 per cross term and per add) in a fixed order, one thread per row walking
-its slice's live sublanes through a host-built index (``slice_index``).
+its slice's live sublanes through a host-built index (``slice_index``,
+the one K6 walks, re-exported here from ``spmv_sell``).
 A block stages each slice's index entries once in shared memory (the
 sublane and its x tile, ``tile_base[s / chunk] + rel``) and its threads
 walk them a few steps at a time, so each step's loads are independent;
@@ -50,6 +51,7 @@ from smvp_toolkit_tpu_torch.ops.spmv_sell import (
     _repeat,
     lidx_dtype,
     relsl_plane_host,
+    slice_index,
 )
 from smvp_toolkit_tpu_torch.utils.device import resolve_device
 
@@ -66,20 +68,6 @@ __all__ = [
 ]
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
-
-
-def slice_index(plan: SellPlan) -> Tuple[np.ndarray, np.ndarray]:
-    """``(slice_ptr, sublanes)``, int32: the live sublanes of each slice in
-    plan order, ``sublanes[slice_ptr[s]:slice_ptr[s + 1]]`` for slice s
-    (dead sublanes left out)."""
-    rel = plan.rel_tile.reshape(-1)
-    sl = plan.slice_of.reshape(-1)
-    live = np.flatnonzero((rel >= 0) & (sl >= 0))
-    order = np.argsort(sl[live], kind="stable")
-    sublanes = live[order]
-    ptr = np.zeros(plan.n_slices + 1, dtype=np.int64)
-    np.cumsum(np.bincount(sl[live], minlength=plan.n_slices), out=ptr[1:])
-    return ptr.astype(np.int32), sublanes.astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -69,8 +69,11 @@ bytes and, where k % 4 == 0, an X not aligned to four elements.
 
 Two kernels serve the JAX operator's opt-in switches:
 
-* ``sell_onehot`` (K6, ``csrc/sell_onehot.cu``): y = A·x from the plan's
-  dense one-hot operands, under ``SMVP_SELL_COMPAT=1``;
+* ``sell_onehot`` (K6, ``csrc/sell_onehot.cu``): y = A·x on the plan's
+  own planes (the split ``rel`` plane), each row summed over its slice's
+  live sublanes in plan order (``device_slice_index``), under
+  ``SMVP_SELL_COMPAT=1``; the JAX kernel's dense one-hot operands are
+  built only by its plain version (``onehot_dense``);
 * ``sell_bench_subwin`` (K2-subwin, ``csrc/sell_bench.cu``): K2 with
   per-sub-chain x and y windows (``_sub_windows``), under
   ``SMVP_SELL_SUBWIN=1``.
@@ -182,6 +185,9 @@ __all__ = [
     "sell_onehot",
     "sell_onehot_plain",
     "onehot_xw",
+    "onehot_dense",
+    "device_slice_index",
+    "slice_index",
     "sell_bench_subwin",
     "sell_bench_subwin_plain",
     "SUBWIN_Y_BUFFERS",
@@ -969,6 +975,44 @@ class VgSchedule:
         return self.unit_slice.numel()
 
 
+def _by_slice(rel, sl):
+    """``(ids, key)``, int64 on the planes' device: the live sublanes (rel
+    and slice both >= 0) grouped by slice, ascending, in plan order within
+    a slice, and their slices. The one sort behind K7's schedule and the
+    slice index that K6 and K8 walk."""
+    rel, sl = rel.reshape(-1).long(), sl.reshape(-1).long()
+    ids = ((rel >= 0) & (sl >= 0)).nonzero().squeeze(1)
+    key, perm = torch.sort(sl[ids], stable=True)
+    return ids[perm], key
+
+
+def device_slice_index(rel, sl, n_slices: int):
+    """``(slice_ptr, sublanes)``, int32 on the planes' device, built with
+    torch ops from the per-sublane ``rel`` and ``slice`` (-1 where dead):
+    the live sublanes of slice k are ``sublanes[slice_ptr[k] :
+    slice_ptr[k + 1]]``, in plan order, which within a slice is (chunk,
+    sublane) order. Dead sublanes are left out; a slice id of
+    ``n_slices`` or more raises."""
+    ids, key = _by_slice(rel, sl)
+    counts = torch.bincount(key, minlength=n_slices)
+    if counts.numel() != n_slices:
+        raise ValueError(f"a live sublane names slice {counts.numel() - 1}, "
+                         f"the plan has {n_slices}")
+    ptr = torch.zeros(n_slices + 1, dtype=torch.int64, device=ids.device)
+    torch.cumsum(counts, 0, out=ptr[1:])
+    return ptr.int(), ids.int()
+
+
+def slice_index(plan: SellPlan):
+    """``device_slice_index`` of a plan's planes on the host, as int32
+    numpy arrays ``(slice_ptr, sublanes)``."""
+    ptr, sub = device_slice_index(
+        torch.from_numpy(np.ascontiguousarray(plan.rel_tile.reshape(-1))),
+        torch.from_numpy(np.ascontiguousarray(plan.slice_of.reshape(-1))),
+        plan.n_slices)
+    return ptr.numpy(), sub.numpy()
+
+
 def vals_grad_schedule(rel, sl, cap: int = VG_CAP) -> VgSchedule:
     """K7's schedule from the per-sublane ``rel`` and ``slice`` (-1 where
     dead; ``_decode_word`` of the merged word, or the split planes), built
@@ -982,9 +1026,7 @@ def vals_grad_schedule(rel, sl, cap: int = VG_CAP) -> VgSchedule:
     rel, sl = rel.reshape(-1).long(), sl.reshape(-1).long()
     dev = sl.device
     live = (rel >= 0) & (sl >= 0)
-    ids = live.nonzero().squeeze(1)
-    key, perm = torch.sort(sl[ids], stable=True)
-    ids = ids[perm]
+    ids, key = _by_slice(rel, sl)
     head = torch.ones(ids.numel(), dtype=torch.bool, device=dev)
     head[1:] = key[1:] != key[:-1]
     first = head.nonzero().squeeze(1)  # each slice's first position
@@ -1268,72 +1310,122 @@ def bench_spmm_blocks(value_dtype: torch.dtype, lidx_dt: torch.dtype,
 
 def onehot_xw(x_tiles: torch.Tensor, tile_base: torch.Tensor,
               window_tiles: int) -> torch.Tensor:
-    """K6's x operand, (n_chunks, WT, 128) float32: each chunk's window of
-    ``WT`` x tiles from ``tile_base[c]``, x cast to float32 first (in bf16
-    value mode x is already rounded to bf16), as the JAX launch stacks it
-    (spmv_pallas.py:1340-1347)."""
+    """The JAX K6's x operand, (n_chunks, WT, 128) float32: each chunk's
+    window of ``WT`` x tiles from ``tile_base[c]``, x cast to float32 first
+    (in bf16 value mode x is already rounded to bf16), as the JAX launch
+    stacks it (spmv_pallas.py:1340-1347)."""
     xt = x_tiles.reshape(-1, LANES).float()
     tiles = tile_base.long()[:, None] + torch.arange(
         window_tiles, device=xt.device)
     return xt[tiles]
 
 
-def sell_onehot_plain(xw, vals, lidx, oht, seg) -> torch.Tensor:
-    """K6's function in plain PyTorch, the JAX kernel's three products per
-    chunk: ``table = OHT_c·xw_c``, ``g = table[s, lidx]``, ``y += SEG_c·
-    (vals ∘ g)``, as batched float32 matrix products (no TF32) summed over
-    chunks; y float32 of ``NS·128``."""
-    n_chunks, chunk, _ = oht.shape
+def onehot_dense(rel, slice_of, *, n_slices: int, chunk: int,
+                 window_tiles: int):
+    """The JAX K6's one-hot operands from the split planes, as its launch
+    builds them (spmv_pallas.py:1348-1355): ``oht`` (n_chunks, chunk, WT)
+    float32, 1 at (s, rel[s]), and ``seg`` (n_chunks, NS, chunk) float32,
+    1 at (slice_of[s], s); a dead rel or slice gives a zero row or column.
+    Only the plain version and the checks against the dense kernel K6 ran
+    before build them: S·(WT + NS)·4 bytes."""
+    dev = rel.device
+    n_chunks = rel.numel() // chunk
+    oht = (rel.reshape(n_chunks, chunk, 1).long() == torch.arange(
+        window_tiles, device=dev)).float()
+    seg = (torch.arange(n_slices, device=dev)[None, :, None]
+           == slice_of.reshape(n_chunks, 1, chunk).long()).float()
+    return oht, seg
+
+
+def sell_onehot_plain(vals, lidx, rel, slice_of, tile_base, x, *,
+                      n_slices: int, chunk: int, window_tiles: int,
+                      index=None) -> torch.Tensor:
+    """K6's function in plain PyTorch, the JAX kernel's way: ``xw``
+    (``onehot_xw``) and the one-hot operands (``onehot_dense``) built from
+    the planes, then per chunk ``table = OHT_c·xw_c``, ``g = table[s,
+    lidx]``, ``y += SEG_c·(vals ∘ g)``, as batched float32 matrix products
+    (no TF32) summed over chunks; y float32 of ``NS·128``. The slice index
+    is the kernel's schedule and is not read here."""
+    n_chunks = tile_base.numel()
+    xw = onehot_xw(x, tile_base, window_tiles)
+    oht, seg = onehot_dense(rel, slice_of, n_slices=n_slices, chunk=chunk,
+                            window_tiles=window_tiles)
     table = torch.bmm(oht, xw)
     g = torch.gather(table, 2, lidx.reshape(n_chunks, chunk, LANES).long())
-    prod = vals.reshape(n_chunks, chunk, LANES) * g
+    prod = vals.float().reshape(n_chunks, chunk, LANES) * g
     return torch.bmm(seg, prod).sum(0).reshape(-1)
 
 
-def _check_onehot(xw, vals, lidx, oht, seg) -> None:
-    if oht.dim() != 3 or seg.dim() != 3 or xw.dim() != 3:
-        raise ValueError("oht, seg and xw must be 3-D per-chunk operands")
-    n_chunks, chunk, wt = oht.shape
-    ns = seg.shape[1]
-    want = {"xw": (xw, (n_chunks, wt, LANES), torch.float32),
-            "vals": (vals, (n_chunks * chunk, LANES), torch.float32),
-            "lidx": (lidx, (n_chunks * chunk, LANES), torch.int32),
-            "oht": (oht, (n_chunks, chunk, wt), torch.float32),
-            "seg": (seg, (n_chunks, ns, chunk), torch.float32)}
-    for name, (t, shape, dtype) in want.items():
-        if tuple(t.shape) != shape or t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype} of shape {shape}, got "
-                             f"{t.dtype} {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != oht.device:
-            raise ValueError(f"{name} is on {t.device}, oht on {oht.device}")
+def _check_onehot(vals, lidx, rel, slice_of, tile_base, x, *, n_slices: int,
+                  chunk: int, window_tiles: int, index) -> None:
+    """The planes as ``check_planes`` takes them; x whole tiles; the
+    index's types and sizes and, on CPU tensors, its entries
+    (``device_slice_index`` of the planes)."""
+    check_planes(vals=vals, lidx=lidx, rel=rel, slice_of=slice_of,
+                 tile_base=tile_base, x=x, chunk=chunk)
+    if n_slices < 1 or window_tiles < 1:
+        raise ValueError(f"n_slices {n_slices} and window_tiles "
+                         f"{window_tiles} must be >= 1")
+    if x.dim() != 1 or x.numel() % LANES:
+        raise ValueError(f"x must be whole tiles of {LANES}, got "
+                         f"{tuple(x.shape)}")
+    if index is None:
+        return
+    slice_ptr, sublanes = index
+    for name, t in (("slice_ptr", slice_ptr), ("sublanes", sublanes)):
+        if (t.dtype != torch.int32 or t.dim() != 1 or not t.is_contiguous()
+                or t.device != lidx.device):
+            raise ValueError(f"{name} must be contiguous 1-D int32 on "
+                             f"{lidx.device}")
+    if slice_ptr.numel() != n_slices + 1 or sublanes.numel() > rel.numel():
+        raise ValueError(f"the index has {slice_ptr.numel()} slice offsets "
+                         f"and {sublanes.numel()} sublanes, the planes "
+                         f"{n_slices} slices and {rel.numel()} sublanes")
+    if lidx.device.type == "cpu":
+        ptr, sub = device_slice_index(rel, slice_of, n_slices)
+        if not (torch.equal(slice_ptr, ptr) and torch.equal(sublanes, sub)):
+            raise ValueError("the index does not list the planes' live "
+                             "sublanes by slice in plan order")
 
 
 _ONEHOT_SIGNATURES = {
-    "sell_onehot_launch": (ctypes.c_int, [
-        _VP, _VP, _VP, _VP, _VP, _VP, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, _VP]),
+    "sell_onehot_launch": (ctypes.c_int, [_VP] * 8 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, _VP]),
     "sell_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
-def sell_onehot(xw, vals, lidx, oht, seg) -> torch.Tensor:
-    """K6: y = A·x from the dense one-hot operands (``onehot_xw``, vals as
-    float32, lidx as int32, oht (n_chunks, chunk, WT), seg (n_chunks, NS,
-    chunk)); y float32 of ``NS·128``."""
-    _check_onehot(xw, vals, lidx, oht, seg)
-    if oht.device.type == "cpu":
-        return sell_onehot_plain(xw, vals, lidx, oht, seg)
-    dev = _launch_device(oht)
-    n_chunks, chunk, wt = oht.shape
-    ns = seg.shape[1]
+def sell_onehot(vals, lidx, rel, slice_of, tile_base, x, *, n_slices: int,
+                chunk: int, window_tiles: int, index=None) -> torch.Tensor:
+    """K6: y = A·x on the plan's own planes (values f32 or bf16, lane
+    indices int8 or int32, the split ``rel`` and ``slice_of``, tile_base,
+    x tiles in the value dtype); y float32 of ``NS·128``, each row summed
+    over its slice's live sublanes in plan order, so a launch gives the
+    same bits every time.
+
+    ``index`` is the ``(slice_ptr, sublanes)`` the kernel walks
+    (``device_slice_index`` of ``rel`` and ``slice_of``, built here when
+    none is passed; ``SellSpMV.slice_index`` caches one per operator). A
+    values or lane-index plane not aligned to four elements raises
+    "misaligned address"."""
+    kw = dict(n_slices=n_slices, chunk=chunk, window_tiles=window_tiles)
+    _check_onehot(vals, lidx, rel, slice_of, tile_base, x, index=index, **kw)
+    if lidx.device.type == "cpu":
+        return sell_onehot_plain(vals, lidx, rel, slice_of, tile_base, x,
+                                 **kw)
+    dev = _launch_device(vals)
+    if index is None:
+        index = device_slice_index(rel, slice_of, n_slices)
+    slice_ptr, sublanes = index
+    vk, lk = _kinds(vals, lidx)
     lib = _build.load("sell_onehot", _ONEHOT_SIGNATURES)
-    y = torch.empty(ns * LANES, dtype=torch.float32, device=dev)
+    y = torch.empty(n_slices * LANES, dtype=torch.float32, device=dev)
     rc = lib.sell_onehot_launch(
-        xw.data_ptr(), vals.data_ptr(), lidx.data_ptr(), oht.data_ptr(),
-        seg.data_ptr(), y.data_ptr(), n_chunks, chunk, wt, ns, dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        vals.data_ptr(), lidx.data_ptr(), rel.data_ptr(),
+        tile_base.data_ptr(), slice_ptr.data_ptr(), sublanes.data_ptr(),
+        x.data_ptr(), y.data_ptr(), n_slices * LANES, chunk, vk, lk,
+        dev.index, torch.cuda.current_stream(dev).cuda_stream)
     _check_rc(lib, rc, "sell_onehot_kernel launch")
     sell_onehot.launches += 1
     return y
@@ -1484,8 +1576,9 @@ class SellSpMV:
       (K4 resident, K3-split streamed; ``split_planes``, uploaded at first
       use);
     * ``SMVP_SELL_COMPAT=1``: ``__call__`` on a resident-y plan runs K6,
-      ``onehot``, on the dense operands (``onehot_planes``, built on the
-      device at first use; S·(WT + NS)·4 bytes); a streamed plan leaves
+      ``onehot``, on the split planes (``split_planes``) and the slice
+      index (``slice_index``, built on the device at first use: one word
+      per live sublane and per slice); a streamed plan leaves
       the merged word for the split planes, as the JAX gates do; ``matmat``
       runs one k = 1 call per column; ``bench_loop`` ignores the switch
       (the JAX bench kernel has no one-hot branch);
@@ -1549,7 +1642,7 @@ class SellSpMV:
         self.spmm_kernel = _SPMM_FNS.get(self.base_route)
         self._packed: Optional[tuple] = None
         self._split: Optional[tuple] = None
-        self._onehot: Optional[tuple] = None
+        self._slice_index: Optional[tuple] = None
         self._subwin: dict = {}
         self._triplets = triplets
         self._t_op: Optional[SellSpMV] = None
@@ -1626,32 +1719,20 @@ class SellSpMV:
                 for a in (self.plan.rel_tile, self.plan.slice_of))
         return self._split
 
-    def onehot_planes(self):
-        """K6's plan operands on the operator's device, built there at
-        first use: (vals float32 (S, 128), lidx int32 (S, 128), oht
-        (n_chunks, chunk, WT), seg (n_chunks, NS, chunk)), the JAX
-        launch's one-hot planes (``SellPlan.oht_dense`` and ``seg_dense``
-        per chunk)."""
-        if self._onehot is None:
-            plan, dev = self.plan, self.device
-            nch, chunk, wt = plan.n_chunks, plan.chunk, plan.window_tiles
-            ns = plan.n_slices
-            s = torch.arange(plan.n_sublanes, device=dev)
-            rel = torch.from_numpy(
-                plan.rel_tile.reshape(-1).astype(np.int64)).to(dev)
-            ok = (rel >= 0) & (rel < wt)
-            oht = torch.zeros(plan.n_sublanes, wt, dtype=torch.float32,
-                              device=dev)
-            oht[s[ok], rel[ok]] = 1.0
-            sl = torch.from_numpy(
-                plan.slice_of.reshape(-1).astype(np.int64)).to(dev)
-            ok = (sl >= 0) & (sl < ns)
-            seg = torch.zeros(nch, ns, chunk, dtype=torch.float32,
-                              device=dev)
-            seg[(s // chunk)[ok], sl[ok], (s % chunk)[ok]] = 1.0
-            self._onehot = (self.vals.float(), self.lidx.int(),
-                            oht.reshape(nch, chunk, wt), seg)
-        return self._onehot
+    def slice_index(self):
+        """K6's ``(slice_ptr, sublanes)`` on this plan
+        (``device_slice_index`` of ``split_planes``), built on the
+        operator's device at first use and cached."""
+        if self._slice_index is None:
+            self._slice_index = device_slice_index(*self.split_planes(),
+                                                   self.plan.n_slices)
+        return self._slice_index
+
+    def _onehot_kw(self):
+        """K6's keywords on this plan, the cached slice index among them."""
+        return dict(n_slices=self.plan.n_slices, chunk=self.plan.chunk,
+                    window_tiles=self.plan.window_tiles,
+                    index=self.slice_index())
 
     def subwin_windows(self):
         """K2-subwin's windows now: ``(stb, ssb, split, sub_wt, sub_nsw)``
@@ -1787,11 +1868,9 @@ class SellSpMV:
         route = self._route(vals)
         xt = self._x_tiles(x)
         if route == "onehot":
-            v, lidx, oht, seg = self.onehot_planes()
-            if vals is not None:
-                v = self._vals_plane(vals).float()
-            xw = onehot_xw(xt, self.tile_base, self.plan.window_tiles)
-            return sell_onehot(xw, v, lidx, oht, seg)[: self.shape[0]]
+            return sell_onehot(self._vals_plane(vals), self.lidx,
+                               *self.split_planes(), self.tile_base, xt,
+                               **self._onehot_kw())[: self.shape[0]]
         # SMVP_SELL_SPLIT=N: N launches over chunk ranges, then a sum (the
         # JAX gates: resident y, no COMPAT, the operator's own values).
         nch = self.plan.n_chunks

@@ -262,9 +262,8 @@ def _local_spmv(sh: ShardedSell, x: torch.Tensor) -> torch.Tensor:
     op = sh.op
     xt = op._x_tiles(x)
     if S._compat():
-        vals, lidx, oht, seg = op.onehot_planes()
-        xw = S.onehot_xw(xt, op.tile_base, sh.WT)
-        return S.sell_onehot(xw, vals, lidx, oht, seg)
+        return S.sell_onehot(op.vals, op.lidx, *op.split_planes(),
+                             op.tile_base, xt, **op._onehot_kw())
     kw = dict(n_slices=sh.NSl, chunk=sh.chunk)
     if _relsl_route(sh):
         return S.sell_spmv(op.vals, op.lidx, op.relsl, op.tile_base, xt,

@@ -402,3 +402,50 @@ def test_solver_and_kbench_refuse_without_a_card(flag, capsys):
         pytest.skip("a card is present: main would time the variants")
     assert BV.main([flag]) == 1
     assert "needs a CUDA card" in capsys.readouterr().err
+
+
+# -- K6's variants (``--onehot``) --------------------------------------------
+
+ONEHOT_SOURCE = BV._ONEHOT_SRC.read_text()
+
+
+def test_onehot_variant_ids_and_forms_match_the_source():
+    """The staged and warp bodies are the source's two variant ids, each
+    dispatched by its launcher; every staged (U, S) and warp U timed is
+    one the launcher instantiates, and the kept kernel's unroll is among
+    the warp ones."""
+    for name, vid in BV.ONEHOT_VARIANTS.items():
+        assert re.search(rf"^//\s+{vid} {name}\s", ONEHOT_SOURCE, re.M), name
+        assert f"if (variant == {vid})" in ONEHOT_SOURCE, name
+    staged = {(int(u), int(sl)) for u, sl in re.findall(
+        r"STAGED\((\d+), (\d+)\)", ONEHOT_SOURCE)}
+    warp = {int(u) for u in re.findall(r"if \(u == (\d+)\) return "
+                                       r"launch_onehot<", ONEHOT_SOURCE)}
+    assert {(u, sl) for v, u, sl in BV.ONEHOT_FORMS if v == "staged"} \
+        == staged
+    assert {u for v, u, _ in BV.ONEHOT_FORMS if v == "warp"} == warp
+    kept = open(S.__file__.rsplit("/", 2)[0] + "/csrc/sell_onehot.cu").read()
+    u = int(kept.split("constexpr int kOnehotUnroll = ")[1].split(";")[0])
+    assert u in warp
+    assert set(BV.ONEHOT_CONFIGS) == {"smoke", "L2"}
+
+
+def test_onehot_signatures_match_the_sources():
+    """ctypes gets as many arguments as each C launcher takes: the
+    variant launcher three more (variant, U, S) than the kept one, the
+    dense kernel the twelve of the launcher K6 had before."""
+    kept = open(S.__file__.rsplit("/", 2)[0] + "/csrc/sell_onehot.cu").read()
+    fn, kept_fn = "sell_onehot_variant_launch", "sell_onehot_launch"
+    assert len(BV._ONEHOT_SIGNATURES[fn][1]) == _c_params(ONEHOT_SOURCE, fn)
+    assert len(S._ONEHOT_SIGNATURES[kept_fn][1]) == _c_params(kept, kept_fn)
+    assert _c_params(ONEHOT_SOURCE, fn) == _c_params(kept, kept_fn) + 3
+    dense = "sell_onehot_dense_launch"
+    assert len(BV._ONEHOT_SIGNATURES[dense][1]) == _c_params(
+        ONEHOT_SOURCE, dense) == 12
+
+
+def test_onehot_refuses_without_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: main would time the variants")
+    assert BV.main(["--onehot"]) == 1
+    assert "needs a CUDA card" in capsys.readouterr().err

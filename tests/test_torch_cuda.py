@@ -1618,6 +1618,11 @@ def test_cli_df64_and_packed_launch_their_kernels(card, tmp_path,
 # co-clustered operator and the other switches ------------------------------
 
 
+def _onehot_args(op, x):
+    return (op.vals, op.lidx, *op.split_planes(), op.tile_base,
+            op._x_tiles(x))
+
+
 @pytest.mark.parametrize("chunk", [2048, 200])  # int8 / int32 lane indices
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_onehot_kernel_matches_plain(card, chunk, dtype, monkeypatch):
@@ -1627,24 +1632,104 @@ def test_onehot_kernel_matches_plain(card, chunk, dtype, monkeypatch):
     assert op.route == "onehot"
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         plan.shape[1]).astype(np.float32)).to(card)
-    vals, lidx, oht, seg = op.onehot_planes()
-    xw = S.onehot_xw(op._x_tiles(x), op.tile_base, plan.window_tiles)
+    args, kw = _onehot_args(op, x), op._onehot_kw()
     before = S.sell_onehot.launches
-    y = S.sell_onehot(xw, vals, lidx, oht, seg)
+    y = S.sell_onehot(*args, **kw)
     y_call = op(x)
-    yp = S.sell_onehot_plain(xw, vals, lidx, oht, seg)
+    yp = S.sell_onehot_plain(*args, **kw)
     y_k1 = op.kernel(*op._planes(), op._x_tiles(x), **op._kw())
     torch.cuda.synchronize()
     assert S.sell_onehot.launches == before + 2
     assert _rel(y, yp) <= TOL and _rel(y, y_k1) <= TOL
     assert torch.equal(y_call, y[: plan.shape[0]])  # one fixed order
-    # a wrong dense operand shows
+    # a wrong slice_of shows (the index is rebuilt from it)
+    rel, sl = op.split_planes()
     s = int(np.nonzero(plan.slice_of.reshape(-1) >= 0)[0][3])
-    c, j = divmod(s, plan.chunk)
-    sl = int(plan.slice_of.reshape(-1)[s])
-    bad = seg.clone()
-    bad[c, sl, j], bad[c, (sl + 1) % plan.n_slices, j] = 0.0, 1.0
-    assert _rel(S.sell_onehot(xw, vals, lidx, oht, bad), yp) > 1e-4
+    bad = sl.clone()
+    bad[s] = (sl[s] + 1) % plan.n_slices
+    assert _rel(S.sell_onehot(op.vals, op.lidx, rel, bad, op.tile_base,
+                              args[-1], **{**kw, "index": None}), yp) > 1e-4
+
+
+@pytest.fixture(scope="module")
+def onehot_variants():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from smvp_toolkit_tpu_torch.bench.bench_variants import (
+        build_onehot_variants,
+    )
+
+    return build_onehot_variants()[0]
+
+
+@pytest.mark.parametrize("chunk", [2048, 200])  # int8 / int32 lane indices
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_onehot_kernel_bit_for_bit_the_dense_kernel(card, onehot_variants,
+                                                     chunk, dtype):
+    """K6 on the plan's planes equals, bit for bit, the dense-operand
+    kernel it replaced (csrc/variants/sell_onehot_variants.cu), and so do
+    the variants' staged and warp forms."""
+    from smvp_toolkit_tpu_torch.bench.bench_variants import (
+        ONEHOT_FORMS,
+        onehot_dense_launcher,
+        onehot_variant_launcher,
+    )
+
+    plan = _plan(chunk)
+    op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        plan.shape[1]).astype(np.float32)).to(card)
+    args, kw = _onehot_args(op, x), op._onehot_kw()
+    y = S.sell_onehot(*args, **kw)
+    yd = onehot_dense_launcher(onehot_variants, *args, **kw)()
+    form = onehot_variant_launcher(onehot_variants, *args, **kw)
+    forms = [form(*f) for f in ONEHOT_FORMS]
+    torch.cuda.synchronize()
+    assert torch.equal(y, yd)
+    assert all(torch.equal(y, f) for f in forms)
+
+
+def test_onehot_hub_slice_matches_plain(card, onehot_variants):
+    """A plan with one slice of 2,100 live sublanes (a row of 2,100
+    products): one block walks it in passes of 128 entries, against the plain version
+    and, bit for bit, the dense-operand kernel."""
+    from smvp_toolkit_tpu_torch.bench.bench_variants import (
+        onehot_dense_launcher,
+    )
+
+    rng = np.random.RandomState(5)
+    r, c = rng.randint(0, 3000, 20000), rng.randint(0, 3000, 20000)
+    r = np.concatenate([r, np.full(2100, 1000)])
+    c = np.concatenate([c, rng.choice(3000, 2100, replace=False)])
+    plan = build_sell_plan(r, c, rng.randn(r.size), (3000, 3000), chunk=256)
+    for dtype in (torch.float32, torch.bfloat16):
+        op = S.SellSpMV(plan, value_dtype=dtype, device=card)
+        ptr = op.slice_index()[0]
+        assert int((ptr[1:] - ptr[:-1]).max()) >= 2000
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            3000).astype(np.float32)).to(card)
+        args, kw = _onehot_args(op, x), op._onehot_kw()
+        y = S.sell_onehot(*args, **kw)
+        yp = S.sell_onehot_plain(*args, **kw)
+        yd = onehot_dense_launcher(onehot_variants, *args, **kw)()
+        torch.cuda.synchronize()
+        assert _rel(y, yp) <= TOL and torch.equal(y, yd)
+
+
+def test_onehot_refuses_misaligned_vals(card):
+    """A values view one element off 16 bytes raises; nothing launches."""
+    plan = _plan(2048)
+    op = S.SellSpMV(plan, device=card)
+    x = torch.ones(plan.shape[1], device=card)
+    args, kw = list(_onehot_args(op, x)), op._onehot_kw()
+    store = torch.empty(op.vals.numel() + 1, dtype=op.vals.dtype,
+                        device=card)
+    args[0] = store[1:].view_as(op.vals)
+    args[0].copy_(op.vals)
+    before = S.sell_onehot.launches
+    with pytest.raises(RuntimeError, match="misaligned address"):
+        S.sell_onehot(*args, **kw)
+    assert S.sell_onehot.launches == before
 
 
 def _subwin_plan(chunk):

@@ -43,6 +43,7 @@ def test_package_sources_found():
             "csrc/cocluster.cpp", "csrc/sell_onehot.cu", "ops/cocluster.py",
             "ops/autotune.py", "utils/analyze.py", "bench/headline.py",
             "bench/bench_variants.py", "csrc/variants/sell_bench_variants.cu",
+            "csrc/variants/sell_onehot_variants.cu",
             "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
             "parallel/spmv_dist.py", "parallel/spmv_2d.py",
             "parallel/sell_dist.py", "parallel/traffic.py",
