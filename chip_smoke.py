@@ -138,6 +138,23 @@ Phases; any failure exits non-zero and prints no result line:
    and on smoke, float32 and bfloat16: <= 1e-6 of max |y| against the
    plain version and against K2 relsl on the same plan; a control,
    K2-subwin fed ``stb`` shifted by 16 tiles, must miss that tolerance.
+   The fuzz sweep (``smvp_toolkit_tpu_torch/utils/fuzz.py``, ``[fuzz]``
+   lines): the JAX suite's ten seeded cases (``tests/test_fuzz_sell.py``:
+   tall, wide, ultra-sparse, dense-ish with duplicates, a single entry,
+   bfloat16, int32 lane indices, k up to 17) and fourteen route cases
+   (streamed y on the merged word and on split planes, resident split
+   planes, ``SMVP_SELL_RELSL=0``, ``SMVP_SELL_COMPAT=1`` and
+   ``SMVP_SELL_SUBWIN=1`` in both dtypes; ``SMVP_SELL_PACK=1`` resident and
+   streamed): each rung (``__call__``, ``matmat`` at k = 1, 8, 17 and the
+   case's k, ``bench_loop`` with N = 3, ``bench_loop_mat`` with N = 3,
+   ``vjp_vals_mat``, the double-float operator and its N-iteration launch)
+   must launch its kernel and no other, agree with its plain version (an
+   operator on the CPU over the same plan: <= 1e-6 of max |y|, the SpMM
+   tolerance for k columns, K8 bit for bit, K6 bit for bit across two
+   launches) and with the float64 oracle (2e-5 of max |y| in float32, 3e-2
+   in bfloat16, 5e-14 for K8); the sweep must reach the 19 kernels of
+   ``FUZZ_KERNELS``. One line per case gives each kernel's largest error
+   against its plain version and against the oracle.
 3. The main path at full size, each run with every launch count zeroed
    just before it and read just after; a run fails unless its route's
    kernels launched and no other kernel did:
@@ -163,6 +180,15 @@ Phases; any failure exits non-zero and prints no result line:
      and word count (one value word per beat and channel, one row-length
      word per two rows), one LUT line per non-zero, the CSR checkpoint
      loadable;
+   - smoke-coo: smoke's 9,658,208 triplets as a CUDA
+     ``torch.sparse_coo_tensor``, ``COOMatrix.from_torch`` (coalesced on
+     the card) and ``sell_op_coo``, float32 and bfloat16: the triplets
+     those of smoke's CSR in its order, the plan and planes equal to
+     ``sell_op_csr``'s, y from K1 (K1 only) within 1e-6 of the CSR
+     operator's and 1e-5 of the float64 oracle, y from K6 bit for bit the
+     CSR operator's (K1's atomics make its last bits launch-dependent),
+     ``from_torch(to_torch())`` the same triplets, the host seconds of
+     ``from_torch`` and ``to_torch`` printed;
    - gcn_arxiv: a 3-layer GCN at the width of the OGB ogbn-arxiv GCN
      baseline (169,343 nodes, dims [128, 256, 256, 40]) on
      ``gcn_norm(synth_powerlaw(169_343, 2_315_598, seed=0))``, features
@@ -415,6 +441,20 @@ KERNELS = {
     "sell_bench_packed_kernel": ("sell_packed.cu", "spmv_pallas.py:765"),
     "sell_onehot_kernel": ("sell_onehot.cu", "spmv_pallas.py:903"),
     "sell_bench_subwin_kernel": ("sell_bench.cu", "spmv_pallas.py:782"),
+}
+# The kernels the fuzz sweep (utils/fuzz.py) must reach: every route's
+# forward and N-iteration kernels, K1, K4 and K5 with k columns, K2 with k
+# columns, K5 and K2-packed, K6, K2-subwin, K7, K8 and its N-iteration
+# kernel (all but the fused solvers K9-K11).
+FUZZ_KERNELS = {
+    "sell_spmv_kernel", "sell_streamy_relsl_kernel", "sell_streamy_kernel",
+    "sell_split_kernel", "sell_bench_kernel",
+    "sell_bench_streamy_relsl_kernel", "sell_bench_streamy_kernel",
+    "sell_bench_split_kernel", "sell_spmm_kernel", "sell_split_spmm_kernel",
+    "sell_bench_spmm_kernel", "sell_vals_grad_kernel", "sell_packed_kernel",
+    "sell_packed_spmm_kernel", "sell_bench_packed_kernel",
+    "sell_onehot_kernel", "sell_bench_subwin_kernel", "sell_df64_kernel",
+    "sell_bench_df64_kernel",
 }
 # The k = 1 route kernels, which all run the warp-per-sublane body
 # (sell_common.cuh, sublane_run): every forward kernel (K1 and K3-relsl
@@ -1648,6 +1688,34 @@ def phase_cisr(np, torch, configs, launches):
                f"{what}: CISR y vs CSR y {errs['CISR vs CSR']}")
 
 
+def phase_fuzz(torch):
+    """Phase 2, the fuzz sweep (``utils/fuzz.py``): every case through
+    every rung it reaches on the card, each rung's kernel (and no other)
+    against its plain version on the CPU over the same plan and against
+    the float64 oracle; one ``[fuzz]`` line per case with each kernel's
+    largest error against both. The sweep must reach ``FUZZ_KERNELS``."""
+    from smvp_toolkit_tpu_torch.utils import fuzz as F
+
+    seen = set()
+    for case in F.CASES:
+        rows, fails = F.check_on_card(case, torch.device(DEVICE))
+        _check(not fails, "fuzz: " + "; ".join(fails))
+        worst = {}
+        for row in rows:
+            for k in row["kernels"]:
+                p, o = worst.get(k, (0.0, 0.0))
+                worst[k] = (max(p, row["plain"]), max(o, row["oracle"]))
+        seen |= set(worst)
+        print(f"[fuzz] {case.name:21s} {case.n}x{case.m} nnz {case.nnz} "
+              f"{case.route}/{case.bench_route}: " + "; ".join(
+                  f"{k} vs plain {p:.3e}, vs oracle {o:.3e}"
+                  for k, (p, o) in worst.items()), flush=True)
+    _check(seen == FUZZ_KERNELS, f"fuzz reached {sorted(seen)}, not "
+           f"{sorted(FUZZ_KERNELS)}")
+    print(f"[fuzz] {len(F.CASES)} cases, {len(seen)} kernels: "
+          f"{sorted(seen)}", flush=True)
+
+
 def phase_main_path(np, torch, configs):
     """Phase 3: the main path at full size; returns launches per (kernel,
     config, dtype)."""
@@ -1680,6 +1748,98 @@ def phase_main_path(np, torch, configs):
     with _Phase("main path: L3"):
         _operator_runs(np, torch, "L3", configs["L3"][1], launches)
     return launches
+
+
+def phase_smoke_coo(np, torch, configs, launches):
+    """Phase 3, smoke-coo: smoke's triplets as a CUDA
+    ``torch.sparse_coo_tensor``, ``COOMatrix.from_torch`` (coalesced on
+    the card) and ``sell_op_coo``, float32 and bfloat16: the COO's
+    triplets must be those of smoke's CSR, in its order (no duplicate
+    coordinates: smoke's generator drops them), its plan and planes equal
+    to ``sell_op_csr``'s on smoke's CSR, its y from K1 (counted; K1 only)
+    within 1e-6 of the CSR operator's (K1's atomics add a row's sublanes in
+    launch order, so two launches of one operator differ in their last
+    bits; both counts of differing rows printed) and within 1e-5 of the
+    float64 oracle, its y from K6 (one fixed order) bit for bit the CSR
+    operator's, and ``from_torch(to_torch())`` the same triplets; the host
+    seconds of ``from_torch`` and ``to_torch`` printed."""
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.formats.csr import csr_decode, csr_encode
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+
+    r, c, v, shape = triplets = configs["smoke"][1]
+    dev = torch.device(DEVICE)
+    idx = torch.from_numpy(np.stack([r, c]).astype(np.int64)).to(dev)
+    vals = torch.from_numpy(np.asarray(v, np.float32)).to(dev)
+    for dname in DTYPE_NAMES:
+        vd = getattr(torch, dname)
+        what = f"smoke-coo {dname}"
+        t = torch.sparse_coo_tensor(idx, vals, shape, check_invariants=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coo = COOMatrix.from_torch(t, dtype=vd, pad_to=128, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        del t
+        _check(coo.nnz == len(r), f"{what}: {len(r) - coo.nnz} duplicate "
+               "coordinates summed")
+        csr = csr_encode(COOMatrix.from_numpy(r, c, v, shape=shape, dtype=vd,
+                                              pad_to=128, device=dev))
+        got = coo.to_numpy()
+        _check(all(np.array_equal(a, b) for a, b in zip(
+            got, csr_decode(csr).to_numpy())), f"{what}: triplets differ "
+            "from smoke's CSR order")
+        op_csr = S.sell_op_csr(csr)
+        t2 = time.perf_counter()
+        op = S.sell_op_coo(coo)
+        t3 = time.perf_counter()
+        _check(_same_plan(np, op.plan, op_csr.plan), f"{what}: plan differs "
+               "from sell_op_csr's")
+        _check(all(torch.equal(getattr(op, f), getattr(op_csr, f))
+                   for f in ("vals", "lidx", "relsl", "tile_base")),
+               f"{what}: planes differ from sell_op_csr's")
+        ref, x = _oracle(np, torch, triplets, dname)
+        x = torch.from_numpy(x).to(dev)
+        _zero_counts(S)
+        y = op(x)
+        torch.cuda.synchronize()
+        n = _check_launched(S, _counts(S), "relsl", False, what)
+        launches[("sell_spmv_kernel", "smoke-coo", dname)] = n
+        y_csr, y_csr2 = op_csr(x), op_csr(x)
+        with _env(SMVP_SELL_COMPAT="1"):
+            y6, y6_csr = op(x), op_csr(x)
+        torch.cuda.synchronize()
+        e_csr = _rel_err(y, y_csr)
+        _check(e_csr <= TOL_KERNEL, f"{what}: y vs the CSR operator's {e_csr}")
+        _check(torch.equal(y6, y6_csr), f"{what}: K6 y not bit for bit the "
+               f"CSR operator's ({int((y6 != y6_csr).sum())} rows differ)")
+        rows_k1 = int((y != y_csr).sum())
+        rows_self = int((y_csr2 != y_csr).sum())
+        yh = y.double().cpu().numpy()
+        err = float(np.abs(yh - ref).max() / np.abs(ref).max())
+        _check(bool(np.isfinite(yh).all()) and err <= TOL_ORACLE,
+               f"{what}: vs float64 oracle {err}")
+        t4 = time.perf_counter()
+        back = coo.to_torch()
+        torch.cuda.synchronize()
+        t5 = time.perf_counter()
+        _check(back.device == dev and back.is_coalesced(),
+               f"{what}: to_torch not a coalesced tensor on the card")
+        again = COOMatrix.from_torch(back, dtype=vd, pad_to=128, device=dev)
+        _check(all(np.array_equal(a, b) for a, b in zip(
+            got, again.to_numpy())), f"{what}: from_torch(to_torch()) "
+            "changed the triplets")
+        print(f"[main] smoke-coo {dname}: {coo.nnz} triplets, no duplicate "
+              f"coordinates; from_torch (CUDA tensor, coalesced on the card) "
+              f"{t1 - t0:.3f} s, to_torch {t5 - t4:.3f} s, sell_op_coo "
+              f"{t3 - t2:.2f} s; plan and planes equal sell_op_csr's; K1 "
+              f"launches {n}, y vs the CSR operator's K1 {e_csr:.3e} ({rows_k1} "
+              f"rows differ in their last bits; two K1 launches of the CSR "
+              f"operator differ in {rows_self}: its atomics add in launch "
+              f"order), K6 y bit for bit the CSR operator's; vs float64 "
+              f"oracle {err:.3e}; from_torch(to_torch()) same triplets",
+              flush=True)
+        del op, op_csr, csr, coo, back, again
 
 
 def _close_step(torch, what, got, want):
@@ -5039,12 +5199,16 @@ def main() -> int:
         phase_new_kernels(np, torch, plans, ops, errs)
     with _Phase("one-hot and sub-window kernels vs plain"):
         phase_switch_kernels(np, torch, plans, ops, errs, dense["lib"])
+    with _Phase("fuzz sweep: every route's kernels vs plain and oracle"):
+        phase_fuzz(torch)
     del plans
     with _Phase("solver kernels vs plain"):
         phase_solver_kernels(np, torch)
     launches = phase_main_path(np, torch, configs)
     with _Phase("main path: smoke-cisr"):
         phase_cisr(np, torch, configs, launches)
+    with _Phase("main path: smoke-coo"):
+        phase_smoke_coo(np, torch, configs, launches)
     with _Phase("main path: smoke-df64, smoke-df64-f64"):
         df64 = phase_df64(np, torch, configs, ops, launches)
     with _Phase("main path: smoke-packed, L1-packed, L2 gate"):

@@ -13,8 +13,9 @@ found under the same name:
 
 * ``io.mtx`` / ``io.native`` — MatrixMarket reading (the native parser
   ``csrc/mtxio.cpp`` by default) and writing.
-* ``formats.coo`` / ``formats.csr`` / ``formats.tjds`` — COO triplets and
-  the CSR and TJDS codecs (``formats.encode_native``: the host counting
+* ``formats.coo`` / ``formats.csr`` / ``formats.tjds`` — COO triplets
+  (with their scipy, ``torch.sparse`` and dense bridges) and the CSR and
+  TJDS codecs (``formats.encode_native``: the host counting
   sorts of ``csrc/encode.cpp``).
 * ``formats.cisr`` / ``formats.vivado`` — the CISR channel schedule
   (``csrc/cisr.cpp``), its Vivado ``.coe`` image and the TJDS LUT;
@@ -79,6 +80,8 @@ _EXPORTS = {
     "SellSpMV": "smvp_toolkit_tpu_torch.ops.spmv_sell",
     "spmv_csr_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
     "spmv_tjds_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
+    "spmv_coo_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
+    "sell_op_coo": "smvp_toolkit_tpu_torch.ops.spmv_sell",
     "spmv_cisr_sell": "smvp_toolkit_tpu_torch.ops.spmv_sell",
     "CISRMatrix": "smvp_toolkit_tpu_torch.formats.cisr",
     "cisr_encode": "smvp_toolkit_tpu_torch.formats.cisr",

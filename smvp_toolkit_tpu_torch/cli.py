@@ -1034,7 +1034,8 @@ def _run_spmm(args, coo, csr, device, label, log) -> None:
     log("INFO", f"Benchmarking CSR SpMM ({kernel} kernel), K={k} right-hand "
         f"sides, {args.iter} iterations.")
     if args.fused:
-        if op is not None and op.base_route == "relsl":
+        if (op is not None and op.base_route == "relsl"
+                and op._merged_route()):
             timing = "N-iteration kernel"
             loop = op.bench_loop_mat
         else:

@@ -58,6 +58,21 @@ class CSRMatrix:
     def ncols(self) -> int:
         return self.shape[1]
 
+    def footprint_bytes(self) -> int:
+        """Compressed footprint: row_ptr, col_ind and vals at the true nnz,
+        the values at their dtype's own size (bfloat16: 2 bytes), as the
+        JAX ``CSRMatrix.footprint_bytes``; ``row_ids`` is not counted."""
+        isz = 4  # int32 row_ptr and col_ind
+        return (self.nrows + 1) * isz + self.nnz * (
+            isz + self.vals.element_size())
+
+    def with_row_ids(self) -> "CSRMatrix":
+        """This matrix with the per-slot row ids materialized (padding
+        slots get the ``nrows`` sentinel); itself if it has them."""
+        if self.row_ids is not None:
+            return self
+        return dataclasses.replace(self, row_ids=row_ids_from_ptr(self))
+
     def __repr__(self) -> str:
         return (
             f"CSRMatrix(shape={self.shape}, nnz={self.nnz}, "
@@ -124,8 +139,7 @@ def row_ids_from_ptr(csr: CSRMatrix) -> torch.Tensor:
 
 def csr_decode(csr: CSRMatrix) -> COOMatrix:
     """Decode CSR → COO (canonical row-major order), bit-exact."""
-    row_ids = csr.row_ids if csr.row_ids is not None else row_ids_from_ptr(csr)
     return COOMatrix(
-        rows=row_ids, cols=csr.col_ind, vals=csr.vals, shape=csr.shape,
-        nnz=csr.nnz,
+        rows=csr.with_row_ids().row_ids, cols=csr.col_ind, vals=csr.vals,
+        shape=csr.shape, nnz=csr.nnz,
     )

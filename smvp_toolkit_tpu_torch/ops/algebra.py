@@ -91,33 +91,15 @@ def scale(coo: COOMatrix, alpha) -> COOMatrix:
     return dataclasses.replace(coo, vals=coo.vals * alpha)
 
 
-def _export_triplets(m: COOMatrix):
-    """The true triplets on the host, one-triangle storage expanded to the
-    full matrix (bfloat16 values as their exact float32)."""
-    from smvp_toolkit_tpu_torch.io.mtx import expand_symmetric
-
-    r, c, v = m.to_numpy()
-    if not m.typecode.is_general:
-        r, c, v = expand_symmetric(m.typecode, r, c, v)
-    return r, c, v
-
-
 def _as_general(m: COOMatrix) -> COOMatrix:
     """Full (mirrored) storage of a one-triangle operand, typed general."""
     if m.typecode.is_general:
         return m
-    r, c, v = _export_triplets(m)
+    r, c, v = m._export_triplets()
     return COOMatrix.from_numpy(
         r, c, v, shape=m.shape, dtype=m.dtype,
         pad_to=max(128, m.rows.shape[0]), device=m.device,
     )
-
-
-def _to_scipy(m: COOMatrix):
-    import scipy.sparse as sp
-
-    r, c, v = _export_triplets(m)
-    return sp.coo_matrix((v, (r, c)), shape=m.shape)
 
 
 def matmul(a: COOMatrix, b: COOMatrix, *, pad_to: int = 128) -> COOMatrix:
@@ -130,7 +112,7 @@ def matmul(a: COOMatrix, b: COOMatrix, *, pad_to: int = 128) -> COOMatrix:
         raise ValueError(
             f"inner dimensions differ: {a.shape} @ {b.shape}"
         )
-    out = (_to_scipy(a).tocsr() @ _to_scipy(b).tocsr()).tocoo()
+    out = (a.to_scipy().tocsr() @ b.to_scipy().tocsr()).tocoo()
     dtype = (torch.complex64 if np.iscomplexobj(out.data)
              else torch.float32)
     return COOMatrix.from_numpy(out.row, out.col, out.data, shape=out.shape,

@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from smvp_toolkit_tpu_torch.formats.csr import CSRMatrix, row_ids_from_ptr
+from smvp_toolkit_tpu_torch.formats.csr import CSRMatrix
 from smvp_toolkit_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -113,7 +113,7 @@ def spmv_csr_df64(csr: CSRMatrix, x_hi: torch.Tensor, x_lo: torch.Tensor,
     v = csr.vals[:n].double()
     if vals_lo is not None:
         v = v + vals_lo[:n].double()
-    row_ids = csr.row_ids if csr.row_ids is not None else row_ids_from_ptr(csr)
+    row_ids = csr.with_row_ids().row_ids
     y = torch.zeros(csr.nrows, dtype=torch.float64, device=x.device)
     y.index_add_(0, row_ids[:n].long(), v * x[col])
     hi = y.float()

@@ -4,7 +4,7 @@ Counterpart of the main-path part of the JAX package's
 ``ops/spmv_pallas.py``
 (``relsl_plane_host``, ``SellSpMV``, ``_auto_plan``, ``_cached_op``,
 ``spmv_csr_pallas``/``sell_op_csr``, ``spmv_tjds_pallas``,
-``spmv_cisr_pallas``). The operator
+``spmv_coo_pallas``/``sell_op_coo``, ``spmv_cisr_pallas``). The operator
 picks one of four routes from its plan, as the JAX operator's
 ``_apply_tiles`` and ``bench_loop`` do; each route has a forward wrapper
 (one y = A·x) and a bench wrapper (N SpMVs in one launch):
@@ -180,6 +180,8 @@ __all__ = [
     "sell_op_csr",
     "spmv_tjds_sell",
     "sell_op_tjds",
+    "spmv_coo_sell",
+    "sell_op_coo",
     "spmv_cisr_sell",
     "sell_op_cisr",
     "sell_onehot",
@@ -1923,14 +1925,15 @@ class SellSpMV:
                        iterations: int) -> torch.Tensor:
         """N SpMMs in ONE launch of the k-column bench kernel (K2 with k
         columns; merged word, resident y); returns the last Y. k > 1
-        ignores ``SMVP_SELL_PACK``, as the JAX ``bench_loop_mat`` does."""
+        ignores ``SMVP_SELL_PACK`` and refuses under ``SMVP_SELL_RELSL=0``,
+        as the JAX ``bench_loop_mat`` does."""
         if self.plan.y_block_slices:
             raise ValueError("bench_loop_mat requires a resident-y plan")
         if X.dim() != 2:
             raise ValueError(f"X must be (ncols, k), got {tuple(X.shape)}")
         if X.shape[1] == 1:
             return self.bench_loop(X[:, 0], iterations)[:, None]
-        if self.base_route != "relsl":
+        if self.base_route != "relsl" or not _relsl_on():
             raise ValueError("bench_loop_mat runs the relsl layout only")
         Xt = self._block(X, self.plan.n_coltiles * LANES, self.value_dtype,
                          "X")
@@ -2142,6 +2145,11 @@ def _triplets_from_tjds_host(tjds):
     return rows, cols, host_array(tjds.vals[: tjds.nnz]), tjds.shape
 
 
+def _triplets_from_coo_host(coo):
+    """Host (numpy) COO triplets, in storage order, padding dropped."""
+    return (*coo.to_numpy(), coo.shape)
+
+
 def _triplets_from_cisr_host(cisr):
     """Host CISR schedule → COO triplets (live cells only, in beat-major
     order: a channel emits a row's entries in CSR order, so the stable
@@ -2199,6 +2207,19 @@ def spmv_tjds_sell(tjds, x: torch.Tensor) -> torch.Tensor:
 def sell_op_tjds(tjds) -> SellSpMV:
     """The cached SELL operator for a TJDS matrix."""
     return _cached_op(tjds, _triplets_from_tjds_host)
+
+
+def spmv_coo_sell(coo, x: torch.Tensor) -> torch.Tensor:
+    """y = A·x from COO via the SELL kernels (operator cached per matrix),
+    the JAX ``spmv_coo_pallas``: the triplets are planned in storage
+    order, so a COO in CSR order runs CSR's plan."""
+    return _cached_op(coo, _triplets_from_coo_host)(x)
+
+
+def sell_op_coo(coo) -> SellSpMV:
+    """The cached SELL operator for a COO matrix, the JAX
+    ``sell_op_coo``: host planning and one upload, no CSR encode."""
+    return _cached_op(coo, _triplets_from_coo_host)
 
 
 def spmv_cisr_sell(cisr, x: torch.Tensor) -> torch.Tensor:

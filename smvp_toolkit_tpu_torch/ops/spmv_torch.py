@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
-from smvp_toolkit_tpu_torch.formats.csr import CSRMatrix, row_ids_from_ptr
+from smvp_toolkit_tpu_torch.formats.csr import CSRMatrix
 from smvp_toolkit_tpu_torch.formats.tjds import TJDSMatrix
 
 __all__ = ["spmv_coo", "spmv_csr", "spmv_csr_cumsum", "spmv_tjds",
@@ -41,7 +41,7 @@ def spmv_csr(csr: CSRMatrix, x: torch.Tensor) -> torch.Tensor:
     Padded entries (beyond ``nnz``) are dropped. The result has the dtype
     of ``vals · x``.
     """
-    row_ids = csr.row_ids if csr.row_ids is not None else row_ids_from_ptr(csr)
+    row_ids = csr.with_row_ids().row_ids
     n = csr.nnz
     products = csr.vals[:n] * x[csr.col_ind[:n].long()]
     y = torch.zeros(csr.nrows, dtype=products.dtype, device=products.device)
@@ -82,7 +82,7 @@ def spmm_csr(csr: CSRMatrix, X: torch.Tensor) -> torch.Tensor:
     ``col_ind``, scale by the values, sum per row. Padded entries (beyond
     ``nnz``) are dropped, so their values get no gradient. The result has
     the dtype of ``vals · X``."""
-    row_ids = csr.row_ids if csr.row_ids is not None else row_ids_from_ptr(csr)
+    row_ids = csr.with_row_ids().row_ids
     n = csr.nnz
     products = csr.vals[:n, None] * X[csr.col_ind[:n].long()]
     Y = torch.zeros(csr.nrows, X.shape[1], dtype=products.dtype,

@@ -27,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from smvp_toolkit_tpu_torch.formats.csr import CSRMatrix, row_ids_from_ptr
+from smvp_toolkit_tpu_torch.formats.csr import CSRMatrix
 from smvp_toolkit_tpu_torch.formats.tjds import TJDSMatrix
 from smvp_toolkit_tpu_torch.parallel.mesh import (
     Mesh,
@@ -54,7 +54,7 @@ def _round_up(x: int, m: int) -> int:
 
 def _csr_entry_rows(csr: CSRMatrix, row_ptr: np.ndarray) -> np.ndarray:
     """Global row id per true entry (host int64)."""
-    rows = csr.row_ids if csr.row_ids is not None else row_ids_from_ptr(csr)
+    rows = csr.with_row_ids().row_ids
     return rows[: csr.nnz].cpu().numpy().astype(np.int64)
 
 

@@ -211,7 +211,6 @@ def load_hierarchy(source, *, device=None):
     """Load an AMG hierarchy written by :func:`save_hierarchy` (either
     package's) onto ``device`` (default: the card). Each level's CSR
     carries its row ids, as a fresh encode does."""
-    from smvp_toolkit_tpu_torch.formats.csr import row_ids_from_ptr
     from smvp_toolkit_tpu_torch.models.amg import AMGLevel
 
     dev = resolve_device(device)
@@ -225,14 +224,13 @@ def load_hierarchy(source, *, device=None):
             raise TypeError(f"not an AMG hierarchy: {meta.get('kind')}")
 
         def get(prefix, spec):
-            csr = CSRMatrix(
+            return CSRMatrix(
                 row_ptr=tensor(z[f"{prefix}_row_ptr"], np.int32),
                 col_ind=tensor(z[f"{prefix}_col_ind"], np.int32),
                 vals=tensor(z[f"{prefix}_vals"], np.float32),
                 shape=tuple(int(s) for s in spec["shape"]),
                 nnz=int(spec["nnz"]),
-            )
-            return dataclasses.replace(csr, row_ids=row_ids_from_ptr(csr))
+            ).with_row_ids()
 
         levels = []
         for li, entry in enumerate(meta["levels"]):

@@ -23,6 +23,7 @@ from smvp_toolkit_tpu_torch.ops.sell_plan import (
     build_sell_plan,
     build_streamed_sell_plan,
 )
+from smvp_toolkit_tpu_torch.utils import fuzz
 
 import test_torch_streamy_contract as streamy_plans
 import torch_kcol_plans as kcol_plans
@@ -2091,3 +2092,47 @@ def test_krylov_and_lobpcg_on_card_match_cpu(card):
         out[dev.type] = [t.cpu() for t in (x1, x2, x3, th)]
     for c, p in zip(out["cuda"], out["cpu"]):
         assert _rel(c, p) <= 1e-4
+
+
+@pytest.mark.parametrize("case", fuzz.CASES, ids=[c.name for c in fuzz.CASES])
+def test_fuzz_case_kernels_match_plain_and_oracle(card, case):
+    """The fuzz sweep (``utils/fuzz.py``) on the card: each rung launches
+    its kernel and no other, within 1e-6 of max |y| of its plain version
+    (the SpMM tolerance for k columns; K6 across two launches and K8
+    against its plain version bit for bit) and within the JAX sweep's
+    tolerance of the oracle."""
+    rows, fails = fuzz.check_on_card(case, card)
+    assert rows and not fails, fails
+
+
+def test_coo_bridges_on_card(card):
+    """``from_torch`` of a CUDA tensor coalesces on the card into the host
+    path's triplets; ``to_torch`` lies on the card; ``sell_op_coo`` on the
+    COO runs CSR's plan and K1."""
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+
+    rng = np.random.default_rng(5)
+    r = rng.integers(0, 3000, 40000)
+    c = rng.integers(0, 2000, 40000)
+    v = rng.standard_normal(40000)
+    t = torch.sparse_coo_tensor(torch.from_numpy(np.stack([r, c])),
+                                torch.from_numpy(v), (3000, 2000))
+    host = COOMatrix.from_torch(t, pad_to=128, device="cpu")
+    coo = COOMatrix.from_torch(t.to(card), pad_to=128)
+    assert coo.device == card and coo.nnz == host.nnz < 40000
+    for a, b in zip(coo.to_numpy(), host.to_numpy()):
+        assert np.array_equal(a, b), "triplets differ"
+    back = coo.to_torch()
+    assert back.device == card and back.is_coalesced()
+    op = S.sell_op_coo(coo)
+    assert S.sell_op_coo(coo) is op and op.device == card
+    csr_op = S.sell_op_csr(csr_encode(coo))
+    for f in ("vals", "lidx", "relsl", "tile_base"):
+        assert torch.equal(getattr(op, f), getattr(csr_op, f)), f
+    x = torch.from_numpy(rng.standard_normal(2000).astype(np.float32)).to(
+        card)
+    before = S.sell_spmv.launches
+    y = S.spmv_coo_sell(coo, x)
+    assert S.sell_spmv.launches == before + 1
+    assert _rel(y, csr_op(x)) <= TOL

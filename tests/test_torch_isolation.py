@@ -18,6 +18,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import scipy.sparse
 import torch
 
 import smvp_toolkit_tpu_torch
@@ -54,7 +55,7 @@ def test_package_sources_found():
             "csrc/amg.cpp", "csrc/spmv.cpp", "ops/spmv_native.py",
             "ops/spmv_torch.py", "utils/aot.py", "bench/profile.py",
             "interactive.py", "utils/padding.py", "utils/reorder.py",
-            "io/readtest.py", "io/writetest.py"} <= names
+            "io/readtest.py", "io/writetest.py", "utils/fuzz.py"} <= names
     assert {p.name for p in EXAMPLES} == {
         "edge_train_demo.py", "eigs_demo.py", "gcn_demo.py",
         "occupancy_demo.py", "pagerank_demo.py", "precond_demo.py",
@@ -96,6 +97,17 @@ from smvp_toolkit_tpu_torch.utils.synth import parse_synth_spec
 coo = parse_synth_spec("synth:2000:10000", device="cpu").pad(128)
 y = spmv_csr_sell(csr_encode(coo), torch.ones(2000))
 assert y.shape == (2000,) and bool(torch.isfinite(y).all())
+from smvp_toolkit_tpu_torch import COOMatrix, sell_op_coo, spmv_coo_sell
+back = COOMatrix.from_torch(coo.to_torch(), pad_to=128, device="cpu")
+assert back.to_scipy().nnz == coo.nnz and back.to_dense().shape == (2000, 2000)
+assert COOMatrix.from_scipy(back.to_scipy(), device="cpu").nnz == coo.nnz
+assert torch.equal(spmv_coo_sell(back, torch.ones(2000)), y)
+assert sell_op_coo(back).route == "relsl"
+from smvp_toolkit_tpu_torch.utils import fuzz
+data = fuzz.case_data(fuzz.CASES[0])
+op = fuzz.build_operator(fuzz.CASES[0], data, "cpu")
+assert [label for label, _ in fuzz.rungs(fuzz.CASES[0], data, op)] == [
+    "spmv", "bench_loop(3)", "vjp_vals_mat"]
 assert main(["-c", "-n", "1", "--no-report", "--device", "cpu",
              "--spmm", "3", "synth:500:2000"]) == 0
 from smvp_toolkit_tpu_torch.models import gcn_init, gcn_norm, gcn_train_step
@@ -221,7 +233,11 @@ def test_other_entry_points_without_device_raise(tmp_path):
                lambda: parse_synth_spec("synth:10:20"),
                lambda: smvp_toolkit_tpu_torch.COOMatrix.from_numpy(
                    np.array([0]), np.array([0]), np.array([1.0]),
-                   shape=(1, 1))):
+                   shape=(1, 1)),
+               lambda: smvp_toolkit_tpu_torch.COOMatrix.from_torch(
+                   torch.eye(2).to_sparse_coo()),
+               lambda: smvp_toolkit_tpu_torch.COOMatrix.from_scipy(
+                   scipy.sparse.eye(2))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn()
 

@@ -150,6 +150,34 @@ def test_spmv_csr_sell_matches_spmv_csr_pallas(monkeypatch, dtype):
     assert tsp.sell_op_csr(t).value_dtype == tdt
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_spmv_coo_sell_matches_spmv_coo_pallas(monkeypatch, dtype):
+    """The COO operator against the JAX ``spmv_coo_pallas``, duplicates and
+    empty rows included; in CSR order it plans CSR's plan."""
+    monkeypatch.setenv("SMVP_SELL_AUTOTUNE", "0")  # both plan at chunk 2048
+    r, c, v, shape = _triplets("random")
+    tdt, jdt = DTYPES[dtype]
+    j = JCOO.from_numpy(r, c, v, shape=shape, dtype=jdt).pad(128)
+    t = coo_from_triplets(r, c, v, shape, dtype=tdt, device="cpu").pad(128)
+    x = np.random.default_rng(4).standard_normal(shape[1]).astype(
+        np.float32)
+    y_t = tsp.spmv_coo_sell(t, torch.from_numpy(x).to(tdt))
+    y_j = jsp.spmv_coo_pallas(j, jnp.asarray(x, jdt))
+    assert _rel(y_t.numpy(), y_j) <= TOL
+    op = tsp.sell_op_coo(t)
+    assert op is tsp.sell_op_coo(t) and op.value_dtype == tdt
+    for f, w in plan_fields(jsp.sell_op_coo(j).plan).items():
+        got = getattr(op.plan, f)
+        assert (np.array_equal(got, w) if isinstance(w, np.ndarray)
+                else got == w), f
+    ordered = t.canonical_order()
+    csr_plan = tsp.sell_op_csr(csr_encode(ordered)).plan
+    for f, w in plan_fields(csr_plan).items():
+        got = getattr(tsp.sell_op_coo(ordered).plan, f)
+        assert (np.array_equal(got, w) if isinstance(w, np.ndarray)
+                else got == w), f
+
+
 def test_operator_cache_is_weak():
     _, t = _csr_pair()
     op = tsp.sell_op_csr(t)

@@ -120,6 +120,10 @@ def test_relsl_off_takes_the_split_planes(case, dtype, monkeypatch):
         Y = op.matmat(torch.from_numpy(X))
         assert mcalls == ["sell_split_spmm_plain"]
         assert _rel(Y.numpy(), jop.matmat(jnp.asarray(X))) <= TOL
+        # K2 with k columns runs the merged word only: both refuse
+        for o, XX in ((op, torch.from_numpy(X)), (jop, jnp.asarray(X))):
+            with pytest.raises(ValueError, match="relsl layout only"):
+                o.bench_loop_mat(XX, 2)
 
 
 def test_lidx32_widens_the_lane_planes(monkeypatch):
