@@ -155,9 +155,24 @@ Phases; any failure exits non-zero and prints no result line:
    in bfloat16, 5e-14 for K8); the sweep must reach the 19 kernels of
    ``FUZZ_KERNELS``. One line per case gives each kernel's largest error
    against its plain version and against the oracle.
+   The chunk autotuner (``[autotune]`` lines) on smoke, L2 and gcn_arxiv's
+   A, float32 and bfloat16: every candidate chunk of the sweep
+   (``ops/autotune.py``, cut from the configuration's plan) with its
+   forward kernel held to its plain version and timed queued behind a spin
+   kernel (the median of 7; ``bench/calibrate.time_plan``), the model's pick at
+   the shipped rates beside the measured best, the pick's time over the
+   best and over chunk 2048, and the tuned operator's y against its plain
+   version and the float64 oracle. Timing is printed, not a limit.
 3. The main path at full size, each run with every launch count zeroed
    just before it and read just after; a run fails unless its route's
-   kernels launched and no other kernel did:
+   kernels launched and no other kernel did. Every operator plans
+   through the autotuner (``_tuned_plan``), and the kernel phases above
+   run the same plans: phase 1 plans each configuration so (the
+   ``[plan]`` lines print its pick per dtype, the chunk-2048 plan's WT
+   and route, and ``_tuned_plan``'s host seconds) and fails where the two
+   dtypes' picks differ or the pick leaves the route the configuration
+   exists to run (``ROUTE``); each main-path line prints the chunk and
+   route:
    - smoke through the CLI, ``-c -n 200 --x random:1 --spmm 8``, per call
      and ``--fused``, float32 and bfloat16 (K1 and K1 with k = 8; K2 and
      K2 with k = 8);
@@ -729,7 +744,19 @@ def _spmm_kernel_name(route, fused):
 
 
 def _configs(np):
-    """Host triplets of the four full-size configurations and their plans."""
+    """Host triplets of the four full-size configurations and the plan of
+    each that the operators take: the autotuned plan (``_tuned_plan``,
+    timed), which every kernel phase, timing and main-path run uses, in
+    both value dtypes. It fails where the float32 and bfloat16 picks
+    differ, or where the pick leaves the route the configuration exists
+    to run (``ROUTE``): the phases hold one plan a configuration."""
+    from smvp_toolkit_tpu_torch.ops.autotune import (
+        _tuned_plan,
+        pick_plan,
+        plan_route,
+        production_rates,
+    )
+    from smvp_toolkit_tpu_torch.ops.sell_plan import rechunk_plan
     from smvp_toolkit_tpu_torch.ops.spmv_sell import _auto_plan
     from smvp_toolkit_tpu_torch.utils.synth import (
         parse_synth_spec,
@@ -752,6 +779,27 @@ def _configs(np):
         if name in NATIVE_PLAN_CHECK:
             _native_vs_numpy(np, name, plan, t2 - t1,
                              lambda: _auto_plan(rr, cc, vv, coo.shape))
+        t3 = time.perf_counter()
+        t32, _ = _tuned_plan(rr, cc, vv, coo.shape, bf16=False)
+        t4 = time.perf_counter()
+        t16, _ = pick_plan(rr, cc, vv, coo.shape, bf16=True,
+                           rates=production_rates(), base=plan)
+        print(f"[plan] {name} autotuned: float32 chunk {t32.chunk}, WT "
+              f"{t32.window_tiles}, route {plan_route(t32)}; bfloat16 chunk "
+              f"{t16.chunk}, WT {t16.window_tiles}, route {plan_route(t16)} "
+              f"(chunk 2048: WT {plan.window_tiles}, route "
+              f"{plan_route(plan)}); _tuned_plan {t4 - t3:.2f} s",
+              flush=True)
+        _check(t16.chunk == t32.chunk and plan_route(t32) == ROUTE[name],
+               f"{name}: autotuned chunks {t32.chunk} / {t16.chunk} (f32 / "
+               f"bf16), route {plan_route(t32)}: the phases run one plan of "
+               f"route {ROUTE[name]} in both dtypes")
+        _check(_same_plan(np, t32, plan if t32.chunk == plan.chunk
+                          else rechunk_plan(plan, t32.chunk)),
+               f"{name}: the tuned plan is not the planner's at chunk "
+               f"{t32.chunk}")
+        del t16, plan
+        plan = t32
         occ = coo.nnz / plan.slots()
         live = float(((plan.rel_tile.reshape(-1) >= 0)
                       & (plan.slice_of.reshape(-1) >= 0)).mean())
@@ -760,7 +808,8 @@ def _configs(np):
               f"{plan.chunk}, WT {plan.window_tiles}, NS {plan.n_slices}, "
               f"CT {plan.n_coltiles}, y blocks of {plan.y_block_slices} "
               f"slices, occupancy {occ:.3f}, live sublanes {live:.4f}; made "
-              f"in {t1 - t0:.2f} s, planned in {t2 - t1:.2f} s", flush=True)
+              f"in {t1 - t0:.2f} s, planned at chunk 2048 in {t2 - t1:.2f} s",
+              flush=True)
         out[name] = (plan, (rr, cc, vv, coo.shape))
     return out
 
@@ -797,7 +846,9 @@ def _native_vs_numpy(np, name, plan, native_s, replan):
 
 def _gcn_graph(np, torch):
     """gcn_arxiv's normalised adjacency on the card with its SELL operator
-    (A) and the transpose's (Aᵀ), planned as the training path plans them."""
+    (A, autotuned) and the transpose's (Aᵀ, chunk 2048), planned as the
+    training path plans them; A must take the split planes (K4 with k
+    columns and K7 there)."""
     from smvp_toolkit_tpu_torch.models import gcn_norm
     from smvp_toolkit_tpu_torch.ops.spmv_sell import sell_op_csr
     from smvp_toolkit_tpu_torch.utils.synth import synth_powerlaw
@@ -1462,20 +1513,23 @@ def _spmm_oracle(np, torch, triplets, dname):
 
 def _cli_runs(np, torch, name, source, argv0, triplets, launches,
               spmm=False, config=None, dtypes=DTYPE_NAMES, want=None,
-              fused_modes=(False, True), n=None, count=None):
+              fused_modes=(False, True), n=None, count=None, chunk=None):
     """The CLI on ``source``, per call and fused (``fused_modes``), in
     ``dtypes``; with ``spmm``, each run also times ``--spmm 8`` and its Y
     is checked. ``config`` names the configuration whose route and N it
-    takes (default ``name``; ``n`` overrides N); ``want(fused)`` lists the
-    kernels the run must launch (default: the route's and, with ``spmm``,
-    its SpMM kernel); ``count(fused)``, when given, maps a kernel to the
-    exact number of launches the run must make."""
+    takes (default ``name``; ``n`` overrides N); ``chunk``, the autotuned
+    chunk of the configuration's plan, is printed with the route;
+    ``want(fused)`` lists the kernels the run must launch (default: the
+    route's and, with ``spmm``, its SpMM kernel); ``count(fused)``, when
+    given, maps a kernel to the exact number of launches the run must
+    make."""
     from smvp_toolkit_tpu_torch.cli import main as cli_main
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
     config = config or name
     algs = ["CSR", "TJDS"] if "-t" in argv0 else ["CSR"]
     route = ROUTE[config]
+    plan_note = f", autotuned chunk {chunk}, route {route}" if chunk else ""
     for dname in dtypes:
         ref, _ = _oracle(np, torch, triplets, dname)
         scale = float(np.abs(ref).max())
@@ -1538,15 +1592,17 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches,
                 + (f" ({r['kernel']}, {r['timing']})" if "k" in r else "")
                 for r in recs)
             print(f"[main] {name} {' '.join(argv0)} {dname}"
-                  f"{' --fused' if fused else ''}: rc {rc}, {wall:.1f} s, "
+                  f"{' --fused' if fused else ''}{plan_note}: rc {rc}, "
+                  f"{wall:.1f} s, "
                   f"{rates}, launches {got}, vs float64 oracle "
                   f"{', '.join(f'{e:.3e}' for e in errs)}", flush=True)
             for e in errs:
                 _check(e <= TOL_ORACLE, f"{what} oracle error {e}")
 
 
-def _operator_runs(np, torch, name, triplets, launches):
-    """L3 through the operator API, in both dtypes."""
+def _operator_runs(np, torch, name, triplets, launches, chunk):
+    """L3 through the operator API, in both dtypes, on the autotuned plan
+    (``SellSpMV.from_coo``), which must be the kernel phases' (``chunk``)."""
     from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
@@ -1562,6 +1618,10 @@ def _operator_runs(np, torch, name, triplets, launches):
         t0 = time.perf_counter()
         op = S.SellSpMV.from_coo(coo, value_dtype=vd)
         t1 = time.perf_counter()
+        _check(op.plan.chunk == chunk, f"{name} from_coo {dname}: chunk "
+               f"{op.plan.chunk}, the kernel phases' {chunk}")
+        label = (f"autotuned chunk {op.plan.chunk}, WT "
+                 f"{op.plan.window_tiles}, route {op.route}")
         for bench in (False, True):
             _zero_counts(S)
             y = op.bench_loop(x, ITERATIONS[name]) if bench else op(x)
@@ -1574,9 +1634,10 @@ def _operator_runs(np, torch, name, triplets, launches):
             _check(y.shape == ref.shape and bool(np.isfinite(y).all()),
                    f"{what}: y shape {y.shape} or not finite")
             err = float(np.abs(y - ref).max()) / scale
-            print(f"[main] {name} SellSpMV.from_coo ({t1 - t0:.1f} s) "
-                  f"{'bench_loop' if bench else '__call__'} {dname}: "
-                  f"launches {n}, vs float64 oracle {err:.3e}", flush=True)
+            print(f"[main] {name} SellSpMV.from_coo ({t1 - t0:.1f} s; "
+                  f"{label}) {'bench_loop' if bench else '__call__'} "
+                  f"{dname}: launches {n}, vs float64 oracle {err:.3e}",
+                  flush=True)
             _check(err <= TOL_ORACLE, f"{what} oracle error {err}")
         del op, coo
 
@@ -1688,6 +1749,71 @@ def phase_cisr(np, torch, configs, launches):
                f"{what}: CISR y vs CSR y {errs['CISR vs CSR']}")
 
 
+def phase_autotune(np, torch, configs, gcn):
+    """The chunk autotuner on smoke, L2 and gcn_arxiv's A, float32 and
+    bfloat16: every candidate of the sweep (``autotune.sweep_plans``, cut
+    from the configuration's plan) with its forward kernel held to its
+    plain version and timed queued behind a spin kernel
+    (``bench/calibrate.time_plan``: the median of its repeats); the
+    model's pick (``pick_plan`` at the shipped rates), the measured best,
+    and the pick's time over the best and over chunk 2048; the tuned
+    operator's y
+    against its plain version (``TOL_KERNEL``) and the float64 oracle
+    (``TOL_ORACLE``). Timing is recorded, not held to a limit."""
+    from smvp_toolkit_tpu_torch.bench import calibrate as CAL
+    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.ops.autotune import (
+        pick_plan,
+        plan_cost_us,
+        production_rates,
+        sweep_plans,
+    )
+
+    rates = production_rates()
+    a = gcn["A"]
+    cases = {"smoke": configs["smoke"], "L2": configs["L2"],
+             "gcn_arxiv:A": (a.plan, (*a._triplets, a.shape))}
+    for name, (base, triplets) in cases.items():
+        r, c, v, shape = triplets
+        tol = CAL.tolerance(r)
+        for dname in DTYPE_NAMES:
+            vd = getattr(torch, dname)
+            bf16 = dname == "bfloat16"
+            recs = {}
+            for plan in sweep_plans(r, c, v, shape, base=base):
+                rec = CAL.time_plan(torch, plan, vd, device=DEVICE, tol=tol)
+                rec["model_us"] = plan_cost_us(plan, 2 if bf16 else 4, rates)
+                recs[plan.chunk] = rec
+            pick, _ = pick_plan(r, c, v, shape, bf16=bf16, rates=rates,
+                                base=base)
+            best = min(recs, key=lambda ch: recs[ch]["us"])
+            t_pick = recs[pick.chunk]["us"]
+            op = S.SellSpMV(pick, value_dtype=vd, device=DEVICE)
+            ref, xh = _oracle(np, torch, triplets, dname)
+            x = torch.from_numpy(xh).to(DEVICE)
+            y = op(x)
+            fn = S._ROUTE_FNS[op.route][0]
+            plain = getattr(S, fn.__name__ + "_plain")(
+                *op._planes(), op._x_tiles(x), **op._kw())[: shape[0]]
+            e_plain = _rel_err(y, plain)
+            e_oracle = float(np.abs(y.double().cpu().numpy() - ref).max()
+                             / np.abs(ref).max())
+            _check(bool(torch.isfinite(y).all()) and e_plain <= tol
+                   and e_oracle <= TOL_ORACLE,
+                   f"[autotune] {name} {dname}: tuned y vs plain {e_plain}, "
+                   f"vs float64 oracle {e_oracle}")
+            print(f"[autotune] {name} {dname}: " + ", ".join(
+                f"chunk {ch} {rec['route']} WT {rec['WT']} {rec['us']:.3f} us "
+                f"(model {rec['model_us']:.3f})"
+                for ch, rec in recs.items())
+                + f"; model picks {pick.chunk} ({op.route}), measured best "
+                f"{best}: pick {t_pick / recs[best]['us']:.4f}x the best, "
+                f"{t_pick / recs[2048]['us']:.4f}x chunk 2048; tuned y vs "
+                f"plain {e_plain:.3e}, vs float64 oracle {e_oracle:.3e}",
+                flush=True)
+            del op, pick, recs
+
+
 def phase_fuzz(torch):
     """Phase 2, the fuzz sweep (``utils/fuzz.py``): every case through
     every rung it reaches on the card, each rung's kernel (and no other)
@@ -1724,10 +1850,11 @@ def phase_main_path(np, torch, configs):
     launches = {}
     with _Phase("main path: smoke"):
         _cli_runs(np, torch, "smoke", SMOKE_SPEC, ["-c"],
-                  configs["smoke"][1], launches, spmm=True)
+                  configs["smoke"][1], launches, spmm=True,
+                  chunk=configs["smoke"][0].chunk)
     with _Phase("main path: L1"):
         _cli_runs(np, torch, "L1", L1_SPEC, ["-c", "-t", "--decode-check"],
-                  configs["L1"][1], launches)
+                  configs["L1"][1], launches, chunk=configs["L1"][0].chunk)
     with _Phase("main path: L2"), tempfile.TemporaryDirectory() as tmp:
         r, c, v, shape = configs["L2"][1]
         path = os.path.join(tmp, "powerlaw_1M_10M.mtx")
@@ -1744,9 +1871,11 @@ def phase_main_path(np, torch, configs):
               f"{t1 - t0:.1f} s, read in {t2 - t1:.1f} s", flush=True)
         del back
         _cli_runs(np, torch, "L2", path, ["-c", "-t", "--decode-check"],
-                  configs["L2"][1], launches, spmm=True)
+                  configs["L2"][1], launches, spmm=True,
+                  chunk=configs["L2"][0].chunk)
     with _Phase("main path: L3"):
-        _operator_runs(np, torch, "L3", configs["L3"][1], launches)
+        _operator_runs(np, torch, "L3", configs["L3"][1], launches,
+                       configs["L3"][0].chunk)
     return launches
 
 
@@ -2607,10 +2736,13 @@ def phase_hpcg(np, torch, launches, work):
         t1 = time.perf_counter()
         factors = ic0(csr)
         t2 = time.perf_counter()
-        print(f"[hpcg] A planned in {t1 - t0:.1f} s; ic0 (csrc/ilu.cpp) in "
-              f"{t2 - t1:.2f} s", flush=True)
-        _native_vs_numpy(np, "hpcg104 A", op.plan, t1 - t0, lambda: (
-            S._auto_plan(*S._triplets_from_csr_host(csr))))
+        print(f"[hpcg] A planned (autotuned: chunk {op.plan.chunk}, WT "
+              f"{op.plan.window_tiles}, route {op.route}) in {t1 - t0:.1f} "
+              f"s; ic0 (csrc/ilu.cpp) in {t2 - t1:.2f} s", flush=True)
+        _native_vs_numpy(np, "hpcg104 A (the autotuner's sweep)", op.plan,
+                         t1 - t0, lambda: (
+            S._auto_plan(*S._triplets_from_csr_host(csr),
+                         chunk=op.plan.chunk)))
     bt = torch.from_numpy(b).to(DEVICE)
     api = {}
     _hpcg_solve(torch, S, "cg:300", lambda: M.conjugate_gradient(
@@ -3722,7 +3854,8 @@ def phase_switch_kernels(np, torch, plans, ops, errs, dense_lib):
 
 def _cc_operators(np, torch, triplets, result):
     """smoke-cc: the co-clustered f32 and bf16 operators, both from the
-    process's one co-clustering of the matrix (``result``)."""
+    process's one co-clustering of the matrix (``result``), at the
+    autotuner's chunk (the class's default)."""
     from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
@@ -5201,6 +5334,8 @@ def main() -> int:
         phase_switch_kernels(np, torch, plans, ops, errs, dense["lib"])
     with _Phase("fuzz sweep: every route's kernels vs plain and oracle"):
         phase_fuzz(torch)
+    with _Phase("autotune: every candidate chunk on smoke, L2, gcn_arxiv A"):
+        phase_autotune(np, torch, configs, gcn)
     del plans
     with _Phase("solver kernels vs plain"):
         phase_solver_kernels(np, torch)

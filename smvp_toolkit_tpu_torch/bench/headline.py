@@ -6,7 +6,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 The counterpart of the grid-fused rungs of the repository's ``bench.py``
 (its memplus input is not in the repository, so this runs BASELINE.json's
-synthetic 10M-nnz matrix, ``synth:1000000:10000000``, at chunk 2048).
+synthetic 10M-nnz matrix, ``synth:1000000:10000000``, at chunk 2048, the
+chunk of its earlier runs, whatever the autotuner picks).
 Three rungs, each K2 (the N-iteration kernel) with x = ones, as bench.py
 times them:
 
@@ -131,6 +132,7 @@ def run(spec: str = SPEC, *, device: str = "cuda") -> dict:
     from smvp_toolkit_tpu_torch.ops.spmv_sell import (
         CoClusteredSellSpMV,
         SellSpMV,
+        _auto_plan,
     )
     from smvp_toolkit_tpu_torch.utils.synth import parse_synth_spec
 
@@ -163,12 +165,11 @@ def run(spec: str = SPEC, *, device: str = "cuda") -> dict:
                              "natural_occupancy": natural_occ,
                              "cocluster_s": cc_secs})]
     del cc, xp
+    plan = _auto_plan(r, c, v, coo.shape, chunk=CHUNK)
     for mode, vdt, oracle in (
             ("sell-cuda-gridfused-bf16", torch.bfloat16, y_ref16),
             ("sell-cuda-gridfused", torch.float32, y_ref)):
-        op = SellSpMV.from_coo(coo, value_dtype=vdt, device=dev)
-        if op.plan.chunk != CHUNK:
-            raise RungFailed(f"{mode}: plan chunk {op.plan.chunk}")
+        op = SellSpMV(plan, value_dtype=vdt, device=dev)
         rungs.append(_rung(torch, mode, op, ones, oracle, coo.nnz,
                            {"occupancy": op.plan.nnz / op.plan.slots(),
                             "coordinates": "natural"}))

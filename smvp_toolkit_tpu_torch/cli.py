@@ -82,7 +82,7 @@ K2-packed; ``ops/spmv_sell.py``); ``--fused`` on a streamed-y plan then
 fails, as the JAX operator's ``bench_loop`` does.
 
 ``--cocluster`` runs CSR on a ``CoClusteredSellSpMV`` (``ops/cocluster.py``
-joint row and column maps, chunk 2048) built once from the CSR's host
+joint row and column maps, the autotuned chunk) built once from the CSR's host
 triplets in the run's value dtype; its occupancy and chunk are logged.
 Each call scatters x into the permuted coordinates, runs the inner
 operator's kernel and gathers y back; under ``--fused`` the N iterations
@@ -938,7 +938,7 @@ def _export_aot(prefix: str, alg: str, matrix, log) -> None:
 def _cocluster_csr(csr, log):
     """``--cocluster`` on CSR: ``(spmv_fn, loop_fn, operator)`` over a
     ``CoClusteredSellSpMV`` built once from the CSR's host triplets in the
-    CSR's value dtype, chunk 2048. ``spmv_fn`` takes and returns natural
+    CSR's value dtype, at the chunk the autotuner picks. ``spmv_fn`` takes and returns natural
     coordinates; ``loop_fn`` scatters x once, runs ``bench_loop``
     (K2-cocluster) and gathers y once."""
     import torch

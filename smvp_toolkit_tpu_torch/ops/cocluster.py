@@ -295,13 +295,13 @@ def cocluster_plan(
 ):
     """Co-cluster, then build the SELL plan in permuted coordinates.
 
-    Returns ``(CoClusterResult, SellPlan, vmem_mb)``, or None for an
-    empty matrix. The plan's shape is the PADDED permuted space
-    (``result.shape_padded``). ``chunk=None`` lets the autotuner
-    (``ops/autotune.py``) pick the chunk on the permuted coordinates, as
-    the JAX function does, and returns its VMEM figure (the card does
-    not use it); an explicit chunk plans with ``_auto_plan`` and returns
-    ``vmem_mb`` None.
+    Returns ``(CoClusterResult, SellPlan, None)``, or None for an empty
+    matrix; the third place holds the JAX function's VMEM budget, which
+    the card has no use for. The plan's shape is the PADDED permuted
+    space (``result.shape_padded``). ``chunk=None`` lets the card's
+    autotuner (``autotune.pick_plan`` at the shipped rates) pick the chunk
+    on the permuted coordinates, as the JAX function does; an explicit
+    chunk plans with ``_auto_plan``.
     """
     res = cocluster(rows, cols, shape, **cocluster_kw)
     if res is None:
@@ -311,13 +311,12 @@ def cocluster_plan(
     if chunk is None:
         from smvp_toolkit_tpu_torch.ops.autotune import (
             pick_plan,
-            pick_vmem_mb,
             production_rates,
         )
 
         plan, _cost = pick_plan(r2, c2, vals, res.shape_padded, bf16=bf16,
                                 rates=production_rates())
-        return res, plan, pick_vmem_mb(plan.chunk)
+        return res, plan, None
     from smvp_toolkit_tpu_torch.ops.spmv_sell import _auto_plan
 
     return res, _auto_plan(r2, c2, vals, res.shape_padded, chunk=chunk), None

@@ -49,6 +49,7 @@ __all__ = [
     "build_streamed_sell_plan",
     "common_window",
     "rewindow_plan",
+    "rechunk_plan",
     "lidx_bytes_for_chunk",
 ]
 
@@ -202,6 +203,25 @@ class SellPlan:
         return seg
 
 
+def _empty_plan(shape, CT: int, NS: int, chunk: int) -> SellPlan:
+    """The plan of a matrix with no entries: one all-dead chunk."""
+    return SellPlan(
+        vals=np.zeros((chunk, LANES), dtype=np.float32),
+        lane_idx=np.zeros((chunk, LANES), dtype=np.int32),
+        rel_tile=np.full((chunk, 1), -1, dtype=np.int32),
+        slice_of=np.full((1, chunk), -1, dtype=np.int32),
+        tile_base=np.zeros((1,), dtype=np.int32),
+        shape=shape,
+        nnz=0,
+        n_slices=NS,
+        n_coltiles=CT,
+        window_tiles=16,
+        chunk=chunk,
+        slice_base=np.zeros((1,), dtype=np.int32),
+        slice_window=min(16, NS),
+    )
+
+
 def build_sell_plan(
     rows: np.ndarray,
     cols: np.ndarray,
@@ -236,24 +256,7 @@ def build_sell_plan(
     NS = _round_up(ns_true, 16)
 
     if nnz == 0:
-        if allow_small_chunk:
-            chunk = 8
-        S = chunk
-        return SellPlan(
-            vals=np.zeros((S, LANES), dtype=np.float32),
-            lane_idx=np.zeros((S, LANES), dtype=np.int32),
-            rel_tile=np.full((S, 1), -1, dtype=np.int32),
-            slice_of=np.full((1, S), -1, dtype=np.int32),
-            tile_base=np.zeros((1,), dtype=np.int32),
-            shape=shape,
-            nnz=0,
-            n_slices=NS,
-            n_coltiles=CT,
-            window_tiles=16,
-            chunk=chunk,
-            slice_base=np.zeros((1,), dtype=np.int32),
-            slice_window=min(16, NS),
-        )
+        return _empty_plan(shape, CT, NS, 8 if allow_small_chunk else chunk)
 
     if use_native is None:
         use_native = os.environ.get("SMVP_NO_NATIVE_PLAN") != "1"
@@ -497,17 +500,29 @@ def build_streamed_sell_plan(
                 threads=threads,
             )
         )
-    subs, wt_common, nsw_common, sub_bases = common_window(subs, nsb)
+    return _join_blocks(subs, shape, len(rows), nsb, chunk)
 
+
+def _join_blocks(subs, shape, nnz: int, nsb: int, chunk: int,
+                 planes: bool = True) -> SellPlan:
+    """The streamed plan of per-block plans: one common window, the
+    blocks' planes concatenated (``planes`` False: the blocks have
+    ``_no_planes``, and so has the result), ``y_block_id`` per chunk."""
+    subs, wt_common, nsw_common, sub_bases = common_window(subs, nsb)
+    if planes:
+        vals = np.concatenate([p.vals for p in subs])
+        lane_idx = np.concatenate([p.lane_idx for p in subs])
+    else:
+        vals, lane_idx = _no_planes(sum(p.n_sublanes for p in subs))
     return SellPlan(
-        vals=np.concatenate([p.vals for p in subs]),
-        lane_idx=np.concatenate([p.lane_idx for p in subs]),
+        vals=vals,
+        lane_idx=lane_idx,
         rel_tile=np.concatenate([p.rel_tile for p in subs]),
         slice_of=np.concatenate([p.slice_of for p in subs]),
         tile_base=np.concatenate([p.tile_base for p in subs]),
         shape=shape,
-        nnz=len(rows),
-        n_slices=n_blocks * nsb,
+        nnz=nnz,
+        n_slices=len(subs) * nsb,
         n_coltiles=subs[0].n_coltiles,
         window_tiles=wt_common,
         chunk=chunk,
@@ -518,6 +533,88 @@ def build_streamed_sell_plan(
              for g, p in enumerate(subs)]
         ),
         y_block_slices=nsb,
+    )
+
+
+def _no_planes(S: int):
+    """Read-only zero views in the shape of the values and lane-index
+    planes of S sublanes, which hold no memory."""
+    return (np.broadcast_to(np.float32(0), (S, LANES)),
+            np.broadcast_to(np.int32(0), (S, LANES)))
+
+
+def rechunk_plan(plan: SellPlan, chunk: int, planes: bool = True) -> SellPlan:
+    """The plan the planner gives for the same triplets at another chunk,
+    cut from this plan's sublanes: no sort, one copy of the planes.
+    ``planes`` False leaves the values and lane-index planes out (zero
+    views, ``_no_planes``): every other field is the plan's, for a caller
+    that reads only its geometry.
+
+    The planner sorts the sublanes tile-major whatever the chunk and only
+    then cuts them into chunks, so a plan holds everything another chunk
+    needs: its live sublanes (a prefix of each y block: the ones with a
+    slice id), their absolute tiles (``rel_tile + tile_base``, all in the
+    window when the planner made it) and slices. The result equals
+    ``build_sell_plan`` at ``chunk`` field for field on a resident-y plan
+    (the small-matrix shrink included), and ``build_streamed_sell_plan``
+    at ``chunk`` on a streamed one, for a plan those built at the default
+    ``min_window_tiles``.
+    """
+    if not plan.y_block_slices:
+        return _recut(plan, 0, plan.n_chunks, chunk, plan.shape,
+                      plan.n_slices, plan.nnz, allow_small_chunk=True,
+                      planes=planes)
+    nsb = plan.y_block_slices
+    n_blocks = plan.n_slices // nsb
+    # Chunks of a block are adjacent and in block order.
+    bounds = np.searchsorted(plan.y_block_id, np.arange(n_blocks + 1))
+    subs = [_recut(plan, int(bounds[g]), int(bounds[g + 1]), chunk,
+                   (nsb * LANES, plan.shape[1]), nsb, None,
+                   allow_small_chunk=False, planes=planes)
+            for g in range(n_blocks)]
+    return _join_blocks(subs, plan.shape, plan.nnz, nsb, chunk, planes)
+
+
+def _recut(plan, c_lo: int, c_hi: int, chunk: int, shape, NS: int,
+           nnz: Optional[int], *, allow_small_chunk: bool,
+           planes: bool) -> SellPlan:
+    """``build_sell_plan``'s result at ``chunk`` for the sublanes of
+    ``plan``'s chunks [c_lo, c_hi) (one y block, or the whole plan).
+    ``nnz`` None: the block's plan, which keeps no count of its own (a
+    block with sublanes is given their count, as ``rewindow_plan`` only
+    asks whether it is empty)."""
+    c0 = plan.chunk
+    lo, hi = c_lo * c0, c_hi * c0
+    sl = plan.slice_of.reshape(-1)[lo:hi]
+    s_true = int(np.count_nonzero(sl >= 0))  # live sublanes lead
+    CT = plan.n_coltiles
+    if s_true == 0:
+        empty = _empty_plan(shape, CT, NS, 8 if allow_small_chunk else chunk)
+        return (empty if planes else dataclasses.replace(
+            empty, **dict(zip(("vals", "lane_idx"),
+                              _no_planes(empty.n_sublanes)))))
+    if allow_small_chunk and s_true <= chunk:
+        chunk = _round_up(s_true, 8)
+    S = _round_up(s_true, chunk)
+    if planes:
+        vals_a = np.zeros((S, LANES), dtype=np.float32)
+        lidx_a = np.zeros((S, LANES), dtype=np.int32)
+        vals_a[:s_true] = plan.vals[lo:lo + s_true]
+        lidx_a[:s_true] = plan.lane_idx[lo:lo + s_true]
+    else:
+        vals_a, lidx_a = _no_planes(S)
+    u_tile = np.empty(S, dtype=np.int64)
+    u_tile[:s_true] = (
+        plan.rel_tile.reshape(-1)[lo:lo + s_true]
+        + np.repeat(plan.tile_base[c_lo:c_hi].astype(np.int64), c0)[:s_true]
+    )
+    u_tile[s_true:] = u_tile[s_true - 1]
+    u_slice = np.zeros(S, dtype=np.int64)
+    u_slice[:s_true] = sl[:s_true]
+    return _finish_plan(
+        vals_a, lidx_a, u_tile, u_slice, s_true, S, chunk,
+        CT=CT, NS=NS, shape=shape, nnz=s_true if nnz is None else nnz,
+        min_window_tiles=8,
     )
 
 

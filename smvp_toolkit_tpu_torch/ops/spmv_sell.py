@@ -103,7 +103,7 @@ import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import host_array, host_tensor
 from smvp_toolkit_tpu_torch.ops import _build, spmv_autograd
-from smvp_toolkit_tpu_torch.ops.autotune import chain_split
+from smvp_toolkit_tpu_torch.ops.autotune import _tuned_plan, chain_split
 from smvp_toolkit_tpu_torch.ops.plan_checks import (
     PACK_REL_SHIFT,
     REL_DEAD,
@@ -1762,9 +1762,13 @@ class SellSpMV:
     @staticmethod
     def from_coo(coo, value_dtype: Optional[torch.dtype] = None,
                  device=None) -> "SellSpMV":
+        """The operator on the autotuned plan (``autotune._tuned_plan``:
+        the chunk the card's cost model picks for this value dtype; chunk
+        2048 under ``SMVP_SELL_AUTOTUNE=0``), as the JAX ``from_coo``."""
         r, c, v = coo.to_numpy()
-        return SellSpMV(_auto_plan(r, c, v, coo.shape),
-                        value_dtype=value_dtype,
+        plan, _ = _tuned_plan(r, c, v, coo.shape,
+                              bf16=value_dtype == torch.bfloat16)
+        return SellSpMV(plan, value_dtype=value_dtype,
                         device=coo.device if device is None else device,
                         triplets=(r, c, v))
 
@@ -2099,17 +2103,15 @@ class SellSpMV:
 
 
 def _auto_plan(rows, cols, vals, shape, chunk: int = 2048) -> SellPlan:
-    """The plan at chunk 2048: flat while y fits ``_RESIDENT_Y_LIMIT``,
-    streamed-y beyond it.
+    """The plan at ``chunk``: flat while y fits ``_RESIDENT_Y_LIMIT``,
+    streamed-y beyond it; the JAX package's ``_auto_plan``, field for
+    field at every chunk.
 
-    This is the JAX package's ``_auto_plan``, which its operator uses
-    under ``SMVP_SELL_AUTOTUNE=0``. By default the JAX operator autotunes
-    the chunk per matrix (``_tuned_plan``, ported as logic in
-    ``ops/autotune.py``); its rates were fitted on TPU cells, so the
-    port's operators keep chunk 2048 (a stated departure, as is
-    ``CoClusteredSellSpMV``'s default chunk), and the plan equals the JAX
-    default plan only where the autotuner also picks chunk 2048. Both
-    give the same y within tolerance.
+    The operators plan through ``autotune._tuned_plan``, which prices
+    this plan at the sweep's chunks on the card's cost model and keeps
+    chunk 2048 unless a candidate is modelled ``autotune.MARGIN``
+    cheaper; ``SMVP_SELL_AUTOTUNE=0`` and ``transpose()`` take it at
+    chunk 2048, as in the JAX package.
     """
     if shape[0] * 4 > _RESIDENT_Y_LIMIT:  # NS·128·4 ≈ nrows·4 bytes
         return build_streamed_sell_plan(
@@ -2170,7 +2172,8 @@ def _cached_op(matrix, triplets_fn=_triplets_from_csr_host,
     its operator and the operator's device planes with it. The operator
     lives on the matrix's device, or on ``device`` for a host matrix (a
     CISR schedule); a schedule asked for on another device is replanned
-    there."""
+    there. The plan is the autotuned one (``autotune._tuned_plan``) for
+    the matrix's value dtype."""
     op = _CACHE.get(matrix)
     if op is not None and (device is None or op.device == device):
         return op
@@ -2181,8 +2184,10 @@ def _cached_op(matrix, triplets_fn=_triplets_from_csr_host,
         vdt = (torch.bfloat16
                if getattr(matrix, "dtype", None) == torch.bfloat16
                else torch.float32)
-        op = SellSpMV(_auto_plan(r, c, v, shape), value_dtype=vdt,
-                      device=dev, triplets=(r, c, v))
+        plan, _ = _tuned_plan(r, c, v, shape,
+                              bf16=vdt == torch.bfloat16)
+        op = SellSpMV(plan, value_dtype=vdt, device=dev,
+                      triplets=(r, c, v))
         _CACHE[matrix] = op
     return op
 
@@ -2254,17 +2259,16 @@ class CoClusteredSellSpMV:
     ``__call__`` takes and returns natural coordinates (one scatter and
     one gather on the device per call).
 
-    Departure from the JAX class: ``chunk`` defaults to 2048, the port's
-    plan for every operator (``_auto_plan``), where the JAX class lets
-    its TPU-fitted autotuner pick; ``chunk=None`` gives the JAX default
-    plan (``cocluster_plan``'s autotuned pick). ``cocluster_kw`` pass
-    through to ``cocluster``, which keeps its last results in the process,
+    ``chunk=None`` (the default, as in the JAX class) lets the card's
+    autotuner pick the chunk on the permuted coordinates
+    (``cocluster_plan``); an explicit chunk plans at it. ``cocluster_kw``
+    pass through to ``cocluster``, which keeps its last results in the process,
     so the f32 and bf16 operators of one matrix share one refinement
     (minutes of host work for 10M non-zeros).
     """
 
     def __init__(self, coo, value_dtype: Optional[torch.dtype] = None,
-                 chunk: Optional[int] = 2048, device=None, **cocluster_kw):
+                 chunk: Optional[int] = None, device=None, **cocluster_kw):
         from smvp_toolkit_tpu_torch.ops.cocluster import cocluster_plan
 
         r, c, v = coo.to_numpy()
@@ -2281,7 +2285,7 @@ class CoClusteredSellSpMV:
             ) from e
         if out is None:
             raise ValueError("co-clustering needs a matrix with non-zeros")
-        self.result, plan, self.vmem_mb = out
+        self.result, plan, _ = out
         self.shape = coo.shape  # NATURAL shape (inner.shape is padded)
         rm, cm = self.result.row_map, self.result.col_map
         self.inner = SellSpMV(plan, value_dtype=vdt,

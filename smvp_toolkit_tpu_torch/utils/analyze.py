@@ -1,17 +1,18 @@
 """Matrix structure analysis: the numbers behind the plan choices.
 
-A copy of the JAX package's ``utils/analyze.py``: the structural
+The counterpart of the JAX package's ``utils/analyze.py``: the structural
 statistics the SELL-T1 planner keys on (row-length distribution,
-column-tile spread, slot padding, window sizes) plus classic sparse
-metrics (bandwidth, density), as one dict equal to the JAX package's for
-the same matrix. Used by the CLI's ``--analyze`` flag and by tests.
+column-tile spread, window sizes) plus classic sparse metrics (bandwidth,
+density), equal to the JAX dict for the same matrix, and the plan the
+card runs. Used by the CLI's ``--analyze`` flag and by tests.
 
-The plan metrics are the JAX operator's production plan: the autotuned
-chunk (``autotune._tuned_plan``, chunk 2048 under
-``SMVP_SELL_AUTOTUNE=0``), its chain split and TPU VMEM budget, and the
-JAX package's bytes per launch (``autotune.jax_traffic_bytes``). They
-describe the TPU plan the JAX package would run; the port's operators
-run chunk 2048 and count their own bytes (``SellPlan.traffic_bytes``).
+The ``sell`` block is the operators' plan: the chunk the card's autotuner
+picks (``autotune._tuned_plan``, chunk 2048 under
+``SMVP_SELL_AUTOTUNE=0``), the route a launch on it takes, the bytes one
+launch moves in float32 and bfloat16 (``autotune.plan_bytes``, the
+port's ``SellPlan.traffic_bytes`` of that route) and the cost model's
+time for each. The JAX dict's ``sell`` block describes its TPU plan
+instead (chain split, VMEM budget, its kernel's bytes).
 """
 
 from __future__ import annotations
@@ -58,12 +59,15 @@ def analyze(coo) -> Dict:
         "max": int(spread.max()),
     }
     from smvp_toolkit_tpu_torch.ops.autotune import (
-        _split_policy,
         _tuned_plan,
-        jax_traffic_bytes,
+        plan_bytes,
+        plan_cost_us,
+        plan_route,
+        production_rates,
     )
 
-    plan, vmem = _tuned_plan(r, c, v, coo.shape, bf16=False)
+    plan, _ = _tuned_plan(r, c, v, coo.shape, bf16=False)
+    rates = production_rates()
     out["sell"] = {
         "sublanes": plan.n_sublanes,
         "slots": plan.slots(),
@@ -72,11 +76,12 @@ def analyze(coo) -> Dict:
         "col_tiles": plan.n_coltiles,
         "chunks": plan.n_chunks,
         "chunk": plan.chunk,
-        "split_chain": _split_policy(plan.chunk, 1),
-        "vmem_mb": vmem,
-        # Bytes one TPU launch moves in f32 and bf16 value modes.
-        "traffic_f32_bytes": jax_traffic_bytes(plan, 4, None, 4),
-        "traffic_bf16_bytes": jax_traffic_bytes(plan, 2, None, 2),
+        "route": plan_route(plan),
+        # Bytes one launch on the card moves, f32 and bf16 values.
+        "traffic_f32_bytes": plan_bytes(plan, 4),
+        "traffic_bf16_bytes": plan_bytes(plan, 2),
+        "model_f32_us": plan_cost_us(plan, 4, rates),
+        "model_bf16_us": plan_cost_us(plan, 2, rates),
     }
     out["tjds_diags"] = int(cl.max())
     return out
@@ -100,18 +105,17 @@ def format_analysis(stats: Dict) -> str:
         )
         s = stats["sell"]
         lines.append(
-            f"SELL plan (autotuned): {s['sublanes']} sublanes "
+            f"SELL plan (autotuned for the card): {s['sublanes']} sublanes "
             f"({s['padding_factor']:.1f}x slots), window "
             f"{s['window_tiles']}/{s['col_tiles']} tiles, "
-            f"{s['chunks']} chunk(s) of {s['chunk']}, "
-            f"chain split {s['split_chain']}"
-            + (f", VMEM {s['vmem_mb']} MB" if s['vmem_mb'] else "")
+            f"{s['chunks']} chunk(s) of {s['chunk']}, route {s['route']}"
         )
         lines.append(
             f"SELL traffic/launch: f32 "
             f"{s['traffic_f32_bytes']/1e6:.2f} MB, bf16 "
             f"{s['traffic_bf16_bytes']/1e6:.2f} MB "
-            f"(occupancy {1.0/s['padding_factor']:.2f})"
+            f"(occupancy {1.0/s['padding_factor']:.2f}); model "
+            f"{s['model_f32_us']:.1f} / {s['model_bf16_us']:.1f} us"
         )
         lines.append(f"TJDS diagonals: {stats['tjds_diags']}")
     return "\n".join(lines)

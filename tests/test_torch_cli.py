@@ -24,6 +24,7 @@ from smvp_toolkit_tpu import cli as jcli
 from smvp_toolkit_tpu.bench.harness import TimingStats as JStats
 from smvp_toolkit_tpu.bench.report import generate_report_text as j_report
 from smvp_toolkit_tpu.io.mtx import write_mtx
+from smvp_toolkit_tpu.ops import spmv_pallas as jsp
 from smvp_toolkit_tpu_torch import cli as tcli
 from smvp_toolkit_tpu_torch.bench.harness import TimingStats as TStats
 from smvp_toolkit_tpu_torch.bench.report import generate_report_text as t_report
@@ -589,7 +590,18 @@ def test_cocluster_runs_agree_with_oracle(tmp_path, extra, capsys):
                     "--json-out", str(tmp_path / "r.jsonl"), *extra, SPEC])
     assert rc == 0
     out = capsys.readouterr().out
-    assert "co-clustered plan: occupancy" in out and "(chunk 656;" in out
+    # the plan at the chunk the card's autotuner picks (cocluster_plan's
+    # chunk=None), on the CSR's triplets as the CLI plans them
+    from smvp_toolkit_tpu_torch.formats.csr import csr_encode
+    from smvp_toolkit_tpu_torch.ops.cocluster import cocluster_plan
+    from smvp_toolkit_tpu_torch.ops.spmv_sell import _triplets_from_csr_host
+    from smvp_toolkit_tpu_torch.utils.synth import parse_synth_spec
+
+    bf16 = "bfloat16" in extra
+    csr = csr_encode(parse_synth_spec(
+        SPEC, dtype=torch.bfloat16 if bf16 else torch.float32, device="cpu"))
+    chunk = cocluster_plan(*_triplets_from_csr_host(csr), bf16=bf16)[1].chunk
+    assert "co-clustered plan: occupancy" in out and f"(chunk {chunk};" in out
     ref = _oracle_y("bfloat16" in extra)
     for alg in ("CSR", "TJDS"):
         assert _close(_vector(_report(str(tmp_path), alg)), ref)
@@ -623,13 +635,22 @@ def _analysis_lines(text):
 
 
 def test_analyze_prints_the_jax_cli_lines(tmp_path, capsys, monkeypatch):
+    """The structural lines are the JAX CLI's; the two plan lines describe
+    the card's autotuned plan (the JAX CLI's its TPU plan)."""
     assert jcli.main(["-c", "-n", "1", "--kernel", "xla", "--no-report",
                       "--analyze", SPEC]) == 0
     want = _analysis_lines(capsys.readouterr().out)
     assert tcli.main(["-c", "-n", "1", "--device", "cpu", "--no-report",
                       "--analyze", SPEC]) == 0
     got = _analysis_lines(capsys.readouterr().out)
-    assert got == want and len(got) == 6
+    assert len(got) == len(want) == 6
+    plan = [ln for ln in got if ln.startswith("\tSELL")]
+    assert [ln for ln in got if ln not in plan] == \
+        [ln for ln in want if not ln.startswith("\tSELL")]
+    assert len(plan) == 2
+    assert plan[0].startswith("\tSELL plan (autotuned for the card): ")
+    assert " route relsl" in plan[0] and "VMEM" not in plan[0]
+    assert " model " in plan[1] and plan[1].endswith(" us")
 
 
 def _analysis_matrix(kind):
@@ -666,10 +687,42 @@ def test_analyze_dict_equals_jax(kind, autotune, monkeypatch):
     from smvp_toolkit_tpu.utils.analyze import format_analysis as jformat
     from smvp_toolkit_tpu_torch.utils.analyze import analyze, format_analysis
 
+    """The structural statistics equal the JAX dict; the ``sell`` block is
+    the card's plan: the JAX planner's at the chunk the card's autotuner
+    picks (2048 under ``SMVP_SELL_AUTOTUNE=0``), its route, the port's
+    bytes per launch and the model's time."""
+    from smvp_toolkit_tpu_torch.interop import plan_fields, plan_from_arrays
+    from smvp_toolkit_tpu_torch.ops import autotune as ta
+
     monkeypatch.setenv("SMVP_SELL_AUTOTUNE", autotune)
     coo = _analysis_matrix(kind)
     r, c, v = coo.to_numpy()
     jcoo = JCOO.from_numpy(r, c, v, shape=coo.shape)
     got, want = analyze(coo), janalyze(jcoo)
+    sell, jsell = got.pop("sell", None), want.pop("sell", None)
     assert got == want
-    assert format_analysis(got) == jformat(want)
+    assert (sell is None) == (jsell is None) == (kind == "nnz0")
+    if sell is not None:
+        pick = ta._tuned_plan(r, c, v, coo.shape, bf16=False)[0].chunk
+        assert sell["chunk"] == pick
+        if autotune == "0":
+            assert pick == jsell["chunk"] and pick <= 2048
+        jp = plan_from_arrays(plan_fields(jsp._auto_plan(
+            r, c, v, coo.shape, chunk=pick)))
+        rates = ta.production_rates()
+        assert sell == {
+            "sublanes": jp.n_sublanes, "slots": jp.slots(),
+            "padding_factor": float(jp.slots() / coo.nnz),
+            "window_tiles": jp.window_tiles, "col_tiles": jp.n_coltiles,
+            "chunks": jp.n_chunks, "chunk": jp.chunk,
+            "route": ta.plan_route(jp),
+            "traffic_f32_bytes": ta.plan_bytes(jp, 4),
+            "traffic_bf16_bytes": ta.plan_bytes(jp, 2),
+            "model_f32_us": ta.plan_cost_us(jp, 4, rates),
+            "model_bf16_us": ta.plan_cost_us(jp, 2, rates)}
+        got["sell"], want["sell"] = sell, jsell
+    lines, jlines = (format_analysis(got).splitlines(),
+                     jformat(want).splitlines())
+    assert [ln for ln in lines if not ln.startswith("SELL")] == \
+        [ln for ln in jlines if not ln.startswith("SELL")]
+    assert len(lines) == len(jlines)

@@ -2136,3 +2136,36 @@ def test_coo_bridges_on_card(card):
     y = S.spmv_coo_sell(coo, x)
     assert S.sell_spmv.launches == before + 1
     assert _rel(y, csr_op(x)) <= TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tuned_operator_changes_route_and_matches_plain(card, dtype,
+                                                         monkeypatch):
+    """A power-law matrix (120,000 rows, hub columns) whose chunk-2048 plan
+    takes the split planes (WT 688), which the shipped rates keep (no
+    candidate is modelled 2% cheaper), and a cost that prices a plan by
+    its tile window, under which the autotuned plan takes the merged word
+    at a smaller chunk: the tuned operator (``from_coo`` on the card)
+    launches K1 alone, within 1e-6 of max |y| of its plain version (the
+    same plan on the CPU) and of the chunk-2048 operator's K4."""
+    from smvp_toolkit_tpu_torch.ops import autotune as ta
+    from smvp_toolkit_tpu_torch.utils.synth import synth_powerlaw
+
+    monkeypatch.delenv("SMVP_SELL_AUTOTUNE", raising=False)
+    coo = synth_powerlaw(120_000, 1_000_000, seed=0, device=card)
+    pinned = S.SellSpMV.from_coo(coo, value_dtype=dtype)
+    assert pinned.route == "split" and pinned.plan.chunk == 2048
+    monkeypatch.setattr(ta, "plan_cost_us",
+                        lambda plan, *a: float(plan.window_tiles))
+    op = S.SellSpMV.from_coo(coo, value_dtype=dtype)
+    assert op.route == "relsl" and op.plan.chunk < 2048
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        120_000).astype(np.float32)).to(card)
+    before = (S.sell_spmv.launches, S.sell_split.launches)
+    y, y_k4 = op(x), pinned(x)
+    torch.cuda.synchronize()
+    assert (S.sell_spmv.launches - before[0],
+            S.sell_split.launches - before[1]) == (1, 1)
+    plain = S.SellSpMV(op.plan, value_dtype=dtype, device="cpu")(x.cpu())
+    assert _rel(y.cpu(), plain) <= TOL
+    assert _rel(y, y_k4) <= TOL

@@ -42,7 +42,8 @@ def test_package_sources_found():
             "csrc/ilu.cpp", "ops/precision.py", "ops/spmv_df64.py",
             "csrc/sell_df64.cu", "csrc/sell_packed.cu",
             "csrc/cocluster.cpp", "csrc/sell_onehot.cu", "ops/cocluster.py",
-            "ops/autotune.py", "utils/analyze.py", "bench/headline.py",
+            "ops/autotune.py", "bench/calibrate.py", "utils/analyze.py",
+            "bench/headline.py",
             "bench/bench_variants.py", "csrc/variants/sell_bench_variants.cu",
             "csrc/variants/sell_onehot_variants.cu",
             "parallel/__init__.py", "parallel/mesh.py", "parallel/launch.py",
@@ -164,10 +165,11 @@ assert main(["-c", "-t", "-n", "1", "--no-report", "--device", "cpu",
              "--cocluster", "--analyze", "--fused", "synth:900:4000"]) == 0
 from smvp_toolkit_tpu_torch.ops.cocluster import cocluster
 from smvp_toolkit_tpu_torch.ops.autotune import pick_plan
-from smvp_toolkit_tpu_torch.bench import headline
+from smvp_toolkit_tpu_torch.bench import calibrate, headline
 r, c, v = parse_synth_spec("synth:900:4000", device="cpu").to_numpy()
 assert cocluster(r, c, (900, 900), passes=2).s_true > 0
 assert pick_plan(r, c, v, (900, 900))[0].nnz == len(r)
+assert calibrate.tolerance(r) == 1e-6
 os.environ["SMVP_SELL_COMPAT"] = "1"
 assert main(["-c", "-n", "1", "--no-report", "--device", "cpu",
              "synth:900:4000"]) == 0
