@@ -701,24 +701,17 @@ class _Phase:
         return False
 
 
-def _wrappers(S):
-    """Every kernel's wrapper by kernel name."""
-    from smvp_toolkit_tpu_torch.ops.pcg_fused import SOLVER_KERNELS
-    from smvp_toolkit_tpu_torch.ops.spmv_df64 import DF64_KERNELS
+def _zero_counts():
+    from smvp_toolkit_tpu_torch.utils.tracing import kernel_wrappers
 
-    return {**{S.KERNEL_NAMES[(route, bench)]: S._ROUTE_FNS[route][bench]
-               for route in S.ROUTES for bench in (False, True)},
-            **S.MAT_KERNELS, **SOLVER_KERNELS, **S.PACKED_KERNELS,
-            **DF64_KERNELS, **S.SWITCH_KERNELS}
-
-
-def _zero_counts(S):
-    for fn in _wrappers(S).values():
+    for fn in kernel_wrappers().values():
         fn.launches = 0
 
 
-def _counts(S):
-    return {name: fn.launches for name, fn in _wrappers(S).items()}
+def _counts():
+    from smvp_toolkit_tpu_torch.utils.tracing import kernel_counts
+
+    return kernel_counts()
 
 
 def _check_only(counts, want, what):
@@ -1544,12 +1537,12 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches,
                 if spmm:
                     argv += ["--spmm", str(SPMM_K), "--out-dir", tmp]
                 log = io.StringIO()
-                _zero_counts(S)
+                _zero_counts()
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(log):
                     rc = cli_main(argv + [source])
                 wall = time.perf_counter() - t0
-                counts = _counts(S)
+                counts = _counts()
                 what = f"{name} CLI {' '.join(argv0)} {dname} fused={fused}"
                 _check(rc == 0, f"{what} returned {rc}:\n{log.getvalue()}")
                 if "--decode-check" in argv0:
@@ -1623,10 +1616,10 @@ def _operator_runs(np, torch, name, triplets, launches, chunk):
         label = (f"autotuned chunk {op.plan.chunk}, WT "
                  f"{op.plan.window_tiles}, route {op.route}")
         for bench in (False, True):
-            _zero_counts(S)
+            _zero_counts()
             y = op.bench_loop(x, ITERATIONS[name]) if bench else op(x)
             torch.cuda.synchronize()
-            counts = _counts(S)
+            counts = _counts()
             what = f"{name} operator {dname} bench={bench}"
             n = _check_launched(S, counts, ROUTE[name], bench, what)
             launches[(S.KERNEL_NAMES[(ROUTE[name], bench)], name, dname)] = n
@@ -1693,12 +1686,12 @@ def phase_cisr(np, torch, configs, launches):
                     torch.device(DEVICE).type]
             argv += ["--fused"] if fused else []
             log = io.StringIO()
-            _zero_counts(S)
+            _zero_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(log):
                 rc = cli_main(argv + [SMOKE_SPEC])
             wall = time.perf_counter() - t0
-            counts = _counts(S)
+            counts = _counts()
             what = f"smoke-cisr CLI -a fused={fused}"
             _check(rc == 0, f"{what} returned {rc}:\n{log.getvalue()}")
             for alg in ("CSR", "TJDS", "CISR"):
@@ -1929,10 +1922,10 @@ def phase_smoke_coo(np, torch, configs, launches):
                f"{what}: planes differ from sell_op_csr's")
         ref, x = _oracle(np, torch, triplets, dname)
         x = torch.from_numpy(x).to(dev)
-        _zero_counts(S)
+        _zero_counts()
         y = op(x)
         torch.cuda.synchronize()
-        n = _check_launched(S, _counts(S), "relsl", False, what)
+        n = _check_launched(S, _counts(), "relsl", False, what)
         launches[("sell_spmv_kernel", "smoke-coo", dname)] = n
         y_csr, y_csr2 = op_csr(x), op_csr(x)
         with _env(SMVP_SELL_COMPAT="1"):
@@ -2012,7 +2005,6 @@ def phase_gcn(np, torch, gcn, launches):
         gcn_train_step,
         gcn_train_step_edges,
     )
-    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
     from smvp_toolkit_tpu_torch.ops.spmv_torch import spmm_csr
 
     dev = torch.device(DEVICE)
@@ -2042,7 +2034,7 @@ def phase_gcn(np, torch, gcn, launches):
     (_, ref_loss), ref_ms = timed(lambda: gcn_train_step(
         s, ref, h, labels, mask, GCN_LR, spmm=spmm_csr))
     model = fresh()
-    _zero_counts(S)
+    _zero_counts()
     for step in range(1, GCN_STEPS + 1):
         (_, loss), ms = timed(lambda: gcn_train_step(s, model, h, labels,
                                                       mask, GCN_LR))
@@ -2059,7 +2051,7 @@ def phase_gcn(np, torch, gcn, launches):
                     f"{max(errs):.3e}")
         print(f"[gcn] gcn_train_step {step}: {ms:.3f} ms, loss "
               f"{loss.item():.6f}{note}", flush=True)
-    got = _check_only(_counts(S), [fwd, bwd], "gcn_arxiv train steps")
+    got = _check_only(_counts(), [fwd, bwd], "gcn_arxiv train steps")
     _check(got == {fwd: layers * GCN_STEPS, bwd: layers * GCN_STEPS},
            f"gcn train steps launched {got}")
     for kname, n in got.items():
@@ -2072,7 +2064,7 @@ def phase_gcn(np, torch, gcn, launches):
                                            labels, mask, GCN_LR,
                                            spmm=spmm_csr)
     model_e, ev = fresh(), s.vals
-    _zero_counts(S)
+    _zero_counts()
     for step in range(1, GCN_STEPS + 1):
         (_, ev, loss), ms = timed(lambda: gcn_train_step_edges(
             s, model_e, ev, h, labels, mask, GCN_LR))
@@ -2091,7 +2083,7 @@ def phase_gcn(np, torch, gcn, launches):
         print(f"[gcn] gcn_train_step_edges {step}: {ms:.3f} ms, loss "
               f"{loss.item():.6f}{note}", flush=True)
     kv = "sell_vals_grad_kernel"
-    got = _check_only(_counts(S), [fwd, bwd, kv], "gcn_arxiv edge steps")
+    got = _check_only(_counts(), [fwd, bwd, kv], "gcn_arxiv edge steps")
     _check(got == {fwd: layers * GCN_STEPS, bwd: layers * GCN_STEPS,
                    kv: layers * GCN_STEPS}, f"gcn edge steps launched {got}")
     for kname, n in got.items():
@@ -2620,18 +2612,18 @@ def phase_solver_kernels(np, torch):
           f"{e:.3e}", flush=True)
 
 
-def _hpcg_solve(torch, S, label, fn, want, relres, out):
+def _hpcg_solve(torch, label, fn, want, relres, out):
     """One hpcg104 solve through the API, launch counts zeroed before and
     read after: ``want`` maps each kernel that may launch to its exact
     count (None: any count >= 1)."""
-    _zero_counts(S)
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     got = fn()
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     x, res = got if isinstance(got, tuple) else (got, None)
-    counts = _check_only(_counts(S), list(want), f"hpcg104 {label}")
+    counts = _check_only(_counts(), list(want), f"hpcg104 {label}")
     for kname, n in want.items():
         _check(n is None or counts[kname] == n,
                f"hpcg104 {label}: {kname} launched {counts[kname]}, not {n}")
@@ -2703,12 +2695,12 @@ def phase_hpcg(np, torch, launches, work):
                     "--x", "random:1", "--no-report", "--json-out", jpath,
                     "--solve", f"{method}:{iters}", "--out-dir", tmp, path]
             log = io.StringIO()
-            _zero_counts(S)
+            _zero_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(log):
                 rc = cli_main(argv)
             wall = time.perf_counter() - t0
-            counts = _counts(S)
+            counts = _counts()
             what = f"hpcg104 CLI --solve {method}:{iters}"
             _check(rc == 0, f"{what} returned {rc}:\n{log.getvalue()}")
             # the -c benchmark (N timed, 2 warm-up, 1 result) and the
@@ -2745,40 +2737,40 @@ def phase_hpcg(np, torch, launches, work):
                          chunk=op.plan.chunk)))
     bt = torch.from_numpy(b).to(DEVICE)
     api = {}
-    _hpcg_solve(torch, S, "cg:300", lambda: M.conjugate_gradient(
+    _hpcg_solve(torch, "cg:300", lambda: M.conjugate_gradient(
         csr, bt, num_iters=300), {k1: 301}, relres, api)
-    _hpcg_solve(torch, S, "cg:100", lambda: M.conjugate_gradient(
+    _hpcg_solve(torch, "cg:100", lambda: M.conjugate_gradient(
         csr, bt, num_iters=100), {k1: 101}, relres, api)
     diag = diagonal(coo)
-    _hpcg_solve(torch, S, "pcg:300", lambda: M.pcg(
+    _hpcg_solve(torch, "pcg:300", lambda: M.pcg(
         csr, bt, diag, num_iters=300), {k1: 301}, relres, api)
     pre = M.ic0_preconditioner(factors, sweeps=4, op_builder=S.sell_op_csr)
     routes = {S.KERNEL_NAMES[(S.sell_op_csr(f).base_route, False)]
               for f in (factors.strict, factors.strict_t)} | {k1}
     _, _, counts = _hpcg_solve(
-        torch, S, "pcg-ic0:100", lambda: M.pcg_precond(
+        torch, "pcg-ic0:100", lambda: M.pcg_precond(
             csr, bt, pre, num_iters=100), dict.fromkeys(routes), relres, api)
     _check(sum(counts.values()) == 101 + 6 * 101,
            f"pcg-ic0:100 launched {counts}")
     lo, hi = _bounds(torch, csr)
     print(f"[hpcg] Chebyshev interval [{lo:.6g}, {hi:.6g}] (Lanczos x0.3, "
           f"x1.1)", flush=True)
-    _hpcg_solve(torch, S, "chebyshev:600", lambda: M.chebyshev(
+    _hpcg_solve(torch, "chebyshev:600", lambda: M.chebyshev(
         csr, bt, lo, hi, num_iters=600), {k1: 601}, relres, api)
     _, _, counts = _hpcg_solve(
-        torch, S, "chebyshev-fused:600",
+        torch, "chebyshev-fused:600",
         lambda: fused_chebyshev(op, bt, lo, hi, 600),
         {"sell_chebyshev_kernel": 1}, relres, api)
     launches[("sell_chebyshev_kernel", "hpcg104", "float32")] = counts[
         "sell_chebyshev_kernel"]
     res["chebyshev-fused"] = api.pop("chebyshev-fused:600")
     _, hist, counts = _hpcg_solve(
-        torch, S, "cg:1000:1e-6", lambda: M.conjugate_gradient(
+        torch, "cg:1000:1e-6", lambda: M.conjugate_gradient(
             csr, bt, num_iters=1000, tol=1e-6), {k1: None}, relres, api)
     print(f"[hpcg] cg:1000:1e-6 stopped after {counts[k1] - 1} steps",
           flush=True)
     # K11 through the API too: it plans and keeps the factor plans
-    _hpcg_solve(torch, S, "pcg-ic0-fused:100", lambda: fused_pcg_ic0(
+    _hpcg_solve(torch, "pcg-ic0-fused:100", lambda: fused_pcg_ic0(
         op, factors, bt, 100), {"sell_pcg_ic0_kernel": 1}, relres, api)
     fp = op._ic0_planes[factors]
     for label, p in zip(("A", "L", "Lt"), fp.plans):
@@ -3221,14 +3213,14 @@ def phase_df64(np, torch, configs, ops, launches):
                     "--json-out", jpath, "--out-dir", tmp,
                     *(["--fused"] if fused else []), SMOKE_SPEC]
             log = io.StringIO()
-            _zero_counts(S)
+            _zero_counts()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(log):
                 rc = cli_main(argv)
             wall = time.perf_counter() - t0
             what = f"smoke-df64 CLI fused={fused}"
             _check(rc == 0, f"{what} returned {rc}:\n{log.getvalue()}")
-            got = _check_only(_counts(S), [k8, tj], what)
+            got = _check_only(_counts(), [k8, tj], what)
             launches[(k8, "smoke-df64", "df64")] = got[k8]
             y = np.load(os.path.join(tmp, "y.npy"))
             misses = _ulp_misses(np, y, ref)
@@ -3265,12 +3257,12 @@ def phase_df64(np, torch, configs, ops, launches):
     xh, xl = df_split(x64, device=DEVICE)
     for bench in (False, True):
         k = "sell_bench_df64_kernel" if bench else "sell_df64_kernel"
-        _zero_counts(S)
+        _zero_counts()
         y = (op.bench_loop(xh, xl, DF64_F64_ITERATIONS) if bench
              else op(xh, xl))
         torch.cuda.synchronize()
         what = f"smoke-df64-f64 {'bench_loop' if bench else '__call__'}"
-        n = _check_only(_counts(S), [k], what)[k]
+        n = _check_only(_counts(), [k], what)[k]
         launches[(k, "smoke-df64-f64", "df64")] = n
         err = _rel_err(torch.from_numpy(df_to_f64(*y)),
                        torch.from_numpy(want))
@@ -3289,7 +3281,6 @@ def phase_packed(np, torch, configs, ops, launches):
     bf16 (K5 and K5 with k = 8 per call; K2-packed and the k-column K2
     under --fused), L1-packed through the API (K5 on streamed y; its
     bench_loop refused), and L2, whose 2,000-tile window keeps K4."""
-    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
     os.environ["SMVP_SELL_PACK"] = "1"
     try:
@@ -3306,11 +3297,11 @@ def phase_packed(np, torch, configs, ops, launches):
             route = "streamy_packed" if name == "L1" else "split"
             _check(op.route == route, f"{name} with the switch runs on "
                    f"{op.route}, not {route}")
-            _zero_counts(S)
+            _zero_counts()
             y = op(torch.from_numpy(x).to(DEVICE))
             torch.cuda.synchronize()
             what = f"{config} operator bfloat16 SMVP_SELL_PACK=1"
-            n = _check_only(_counts(S), [kname], what)[kname]
+            n = _check_only(_counts(), [kname], what)[kname]
             if name == "L1":
                 launches[(kname, config, "bfloat16")] = n
                 try:
@@ -3335,20 +3326,19 @@ def phase_refine(np, torch, hp):
     solve ``fused_cg(op, r, 300)`` (K9), the residual from the
     double-float CSR SpMV; held to a float64 relative residual."""
     from smvp_toolkit_tpu_torch.models import refine_solve
-    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
     from smvp_toolkit_tpu_torch.ops.cg_fused import fused_cg
     from smvp_toolkit_tpu_torch.ops.precision import df_to_f64
 
     a, csr, op = hp["a"], hp["csr"], hp["op"]
     b64 = hp["b"].double().cpu().numpy()
-    _zero_counts(S)
+    _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     xh, xl, norms = refine_solve(csr, b64, num_refinements=3,
                                  inner=lambda r: fused_cg(op, r, 300))
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    counts = _check_only(_counts(S), ["sell_cg_kernel"], "hpcg104-refine")
+    counts = _check_only(_counts(), ["sell_cg_kernel"], "hpcg104-refine")
     _check(counts["sell_cg_kernel"] == 3, f"hpcg104-refine: {counts}")
     x64 = df_to_f64(xh, xl)
     rr = float(np.linalg.norm(b64 - a @ x64) / np.linalg.norm(b64))
@@ -3371,7 +3361,7 @@ def _check_within(counts, required, allowed, what):
     return {k: v for k, v in counts.items() if v}
 
 
-def _family_run(S, torch, what, argv, path, tmp, required, expect_rc=0):
+def _family_run(torch, what, argv, path, tmp, required, expect_rc=0):
     """One in-process CLI run of the solver family, launch counts zeroed
     before and read after: (its log, its SOLVE/EIGS records, the launched
     kernels' counts, wall s)."""
@@ -3385,7 +3375,7 @@ def _family_run(S, torch, what, argv, path, tmp, required, expect_rc=0):
             "random:1", "--no-report", "--json-out", jpath, "--out-dir", tmp,
             *argv, path]
     log = io.StringIO()
-    _zero_counts(S)
+    _zero_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
         rc = cli_main(argv)
@@ -3394,7 +3384,7 @@ def _family_run(S, torch, what, argv, path, tmp, required, expect_rc=0):
     text = log.getvalue()
     _check(rc == expect_rc, f"{what} returned {rc}, not {expect_rc}:\n"
            f"{text[-3000:]}")
-    got = _check_within(_counts(S), required, FAMILY_KERNELS, what)
+    got = _check_within(_counts(), required, FAMILY_KERNELS, what)
     with open(jpath) as f:
         recs = [json.loads(ln) for ln in f if ln.strip()]
     recs = [r for r in recs if r["alg"] != "CSR"]
@@ -3474,7 +3464,7 @@ def phase_solver_family(np, torch, hpcg):
         for spec in FAMILY_HPCG:
             what = f"hpcg104 CLI --solve {spec}"
             _, recs, got, wall, setups = _family_run(
-                S, torch, what, ["--solve", spec], hpcg["path"], tmp, [k1])
+                torch, what, ["--solve", spec], hpcg["path"], tmp, [k1])
             rr = relres(a, b64, tmp)
             _check(np.isfinite(rr) and rr <= SOLVE_RESIDUAL,
                    f"{what}: residual {rr}")
@@ -3484,7 +3474,7 @@ def phase_solver_family(np, torch, hpcg):
         # theta 0.08), then pcg-amg's refusal, as the JAX CLI runs them
         what = f"hpcg104 CLI --eigs {EIGS_K} --solve pcg-amg:60"
         text, recs, got, wall, _ = _family_run(
-            S, torch, what, ["--eigs", str(EIGS_K), "--solve", "pcg-amg:60"],
+            torch, what, ["--eigs", str(EIGS_K), "--solve", "pcg-amg:60"],
             hpcg["path"], tmp, [k1, "sell_spmm_kernel"], expect_rc=2)
         _check("AMG setup declined" in text and "coarsening stalled" in text,
                f"{what}: no AMG decline or refusal:\n{text[-3000:]}")
@@ -3531,7 +3521,7 @@ def phase_solver_family(np, torch, hpcg):
         for spec in FAMILY_POISSON:
             what = f"poisson1024 CLI --solve {spec}"
             _, recs, got, wall, setups = _family_run(
-                S, torch, what, ["--solve", spec], ppath, tmp, [k1])
+                torch, what, ["--solve", spec], ppath, tmp, [k1])
             rr = relres(ap, pb64, tmp)
             _check(np.isfinite(rr) and rr <= SOLVE_RESIDUAL,
                    f"{what}: residual {rr}")
@@ -3541,7 +3531,7 @@ def phase_solver_family(np, torch, hpcg):
         what = (f"poisson1024 CLI --eigs {EIGS_K}:{EIGS_ITERS} --solve "
                 f"cg:{CG_CONTROL}:1e-6")
         text, recs, got, wall, _ = _family_run(
-            S, torch, what, ["--eigs", f"{EIGS_K}:{EIGS_ITERS}", "--solve",
+            torch, what, ["--eigs", f"{EIGS_K}:{EIGS_ITERS}", "--solve",
                       f"cg:{CG_CONTROL}:1e-6"], ppath, tmp,
             [k1, "sell_spmm_kernel"])
         eig, cg = recs
@@ -3561,12 +3551,12 @@ def phase_solver_family(np, torch, hpcg):
         # the same LOBPCG unpreconditioned, through the API
         X0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
             (POISSON_ROWS, EIGS_K)).astype(np.float32)).to(DEVICE)
-        _zero_counts(S)
+        _zero_counts()
         t0 = time.perf_counter()
         theta0, _, res0 = M.lobpcg(csr, X0, num_iters=EIGS_ITERS)
         plain = res0[-1].double().cpu().numpy()
         ms = (time.perf_counter() - t0) * 1e3
-        got = _check_within(_counts(S), ["sell_spmm_kernel"],
+        got = _check_within(_counts(), ["sell_spmm_kernel"],
                             FAMILY_KERNELS, "poisson1024 LOBPCG API")
         amg_res = np.asarray(eig["residual_norms"])
         _check((amg_res < plain).all(),
@@ -3584,7 +3574,7 @@ def phase_solver_family(np, torch, hpcg):
         spec = FAMILY_POISSON[0]
         what = f"poisson128 CLI --solve {spec}"
         _, recs, got, wall, setups = _family_run(
-            S, torch, what, ["--solve", spec], spath, tmp, [k1])
+            torch, what, ["--solve", spec], spath, tmp, [k1])
         sb64 = np.random.default_rng(1).standard_normal(
             small.shape[0]).astype(np.float32).astype(np.float64)
         rr = relres(small, sb64, tmp)
@@ -3921,13 +3911,13 @@ def phase_cocluster(np, torch, configs, wait_cc, launches, errs):
               flush=True)
         scale = float(np.abs(ref).max())
         for bench in (False, True):
-            _zero_counts(S)
+            _zero_counts()
             y = (op.from_permuted(op.bench_loop(xp, n_iter)) if bench
                  else op(xd))
             torch.cuda.synchronize()
             what = f"smoke-cc operator {dname} bench={bench}"
             kname = S.KERNEL_NAMES[("relsl", bench)]
-            k = _check_only(_counts(S), [kname], what)[kname]
+            k = _check_only(_counts(), [kname], what)[kname]
             launches[(kname, "smoke-cc", dname)] = k
             y = y.double().cpu().numpy()
             _check(y.shape == ref.shape and bool(np.isfinite(y).all()),
@@ -3944,10 +3934,10 @@ def phase_cocluster(np, torch, configs, wait_cc, launches, errs):
     with _env(SMVP_SELL_SUBWIN="1"):
         _check(op.inner.bench_route == "subwin", "smoke-cc under the "
                f"switch runs {op.inner.bench_route}")
-        _zero_counts(S)
+        _zero_counts()
         y = op.from_permuted(op.bench_loop(xp, n_iter))
         torch.cuda.synchronize()
-    k = _check_only(_counts(S), ["sell_bench_subwin_kernel"],
+    k = _check_only(_counts(), ["sell_bench_subwin_kernel"],
                     "smoke-cc bench_loop SMVP_SELL_SUBWIN=1")
     ref, _ = _oracle(np, torch, triplets, "float32")
     err = float(np.abs(y.double().cpu().numpy() - ref).max()
@@ -3997,13 +3987,13 @@ def phase_switches(np, torch, configs, ops, launches):
             _check(op.route == "onehot", f"L2 under COMPAT: {op.route}")
             r, xh = _oracle(np, torch, l2_trip, dname)
             x = torch.from_numpy(xh).to(DEVICE)
-            _zero_counts(S)
+            _zero_counts()
             t0 = time.perf_counter()
             for _ in range(calls):
                 y = op(x)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            got = _check_only(_counts(S), ["sell_onehot_kernel"],
+            got = _check_only(_counts(), ["sell_onehot_kernel"],
                               f"L2-compat {dname}")
             _check(got == {"sell_onehot_kernel": calls},
                    f"L2-compat {dname}: launches {got}")
@@ -4384,14 +4374,13 @@ def phase_dist_main(np, torch, configs, dist_shards, launches):
     row-block CSR, the striped TJDS (NCCL all-reduce) and the 1 × 1 grid,
     each against the float64 oracle. Returns smoke-dp1's shards and the
     all-gather time of smoke's y."""
-    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
     from smvp_toolkit_tpu_torch.parallel import sell_dist as SD
 
     plan, trip = configs["smoke"]
     nrows = trip[3][0]
     sh = dist_shards["sh"]
     n_iter = ITERATIONS["smoke"]
-    _zero_counts(S)
+    _zero_counts()
     SD.bench_loop_sharded.launches = 0
     for dname in DTYPE_NAMES:
         ranks, x, ref = dist_shards[dname]
@@ -4404,7 +4393,7 @@ def phase_dist_main(np, torch, configs, dist_shards, launches):
               f"(N={n_iter}) in turn, y vs float64 oracle {e:.3e}",
               flush=True)
         _check(e <= TOL_ORACLE, f"smoke-dp4 {dname} N={n_iter}: {e}")
-    counts = _counts(S)
+    counts = _counts()
     got = _check_only(counts, ["sell_bench_kernel"], "smoke-dp4 main path")
     _check(got["sell_bench_kernel"] == SD.bench_loop_sharded.launches
            == DIST_SHARDS * len(DTYPE_NAMES),
@@ -4470,7 +4459,7 @@ def _dist_nccl(np, torch, trip, launches):
         ranks = {"float32": [sh1]}
         ranks["bfloat16"] = _dist_shards(torch, sh1, "bfloat16")
         results = {}
-        _zero_counts(S)
+        _zero_counts()
         SD.bench_loop_sharded.launches = 0
         for dname in DTYPE_NAMES:
             ref, x, X = _dist_inputs(np, torch, trip, dname)
@@ -4497,7 +4486,7 @@ def _dist_nccl(np, torch, trip, launches):
         results[("float32", "spmv_csr_2d")] = (
             spmv_csr_2d(shard_csr_2d(csr, grid), x, grid), ref)
         torch.cuda.synchronize()
-        counts = _counts(S)
+        counts = _counts()
         got = _check_only(counts, ["sell_spmv_kernel", "sell_bench_kernel",
                                    "sell_spmm_kernel"], "smoke-dp1 main path")
         _check(SD.bench_loop_sharded.launches == len(DTYPE_NAMES),
@@ -4791,20 +4780,20 @@ def _slice21_served(np, torch, S, configs, tmp):
     fresh, served = (S.SellSpMV(p, device=DEVICE) for p in (plan, loaded))
     x = torch.from_numpy(np.random.default_rng(1).standard_normal(
         plan.shape[1]).astype(np.float32)).to(DEVICE)
-    _zero_counts(S)
+    _zero_counts()
     y, want = served(x), fresh(x)
     torch.cuda.synchronize()
-    _check_only(_counts(S), [k1], "served plan K1")
+    _check_only(_counts(), [k1], "served plan K1")
     err = _rel_err(y, want)
     _check(err <= TOL_SERVED, f"served plan y vs the fresh plan's: {err}")
-    _zero_counts(S)
+    _zero_counts()
     t3 = time.perf_counter()
     lam, _ = M.power_iteration(None, torch.ones_like(x),
                                num_iters=SERVED_POWER_STEPS,
                                spmv=lambda _m, v: served(v))
     lam = float(lam)
     t4 = time.perf_counter()
-    got = _check_only(_counts(S), [k1], "served plan power iteration")
+    got = _check_only(_counts(), [k1], "served plan power iteration")
     _check(got[k1] == SERVED_POWER_STEPS and np.isfinite(lam),
            f"served power iteration: {got}, lambda {lam}")
     print(f"[slice21] served plan (smoke): save_plan {t1 - t0:.2f} s "
@@ -4828,10 +4817,10 @@ def _slice21_served(np, torch, S, configs, tmp):
     counts, rel = {}, {}
     for name, lv in (("fresh", levels), ("loaded", back)):
         m = G.amg_preconditioner(csr, levels=lv, op_builder=S.sell_op_csr)
-        _zero_counts(S)
+        _zero_counts()
         xs, res = M.pcg_precond(csr, b, m, num_iters=60, tol=1e-6)
         torch.cuda.synchronize()
-        _check_within(_counts(S), [k1], FAMILY_KERNELS,
+        _check_within(_counts(), [k1], FAMILY_KERNELS,
                       f"poisson1024 PCG-AMG ({name} hierarchy)")
         rn = res.double().cpu().numpy()
         hit = np.nonzero(rn <= target * (1 + 1e-6))[0]
@@ -4852,18 +4841,18 @@ def _slice21_served(np, torch, S, configs, tmp):
     del csr, levels, back
 
 
-def _slice21_native(np, torch, S, configs, tmp):
+def _slice21_native(np, torch, configs, tmp):
     """``-c -t --kernel native -n 200 --x random:1`` at smoke's size: both
     reports' y against the float64 oracle, no card kernel launched, the
     host ms per iteration beside the host CPU."""
     ref, _ = _oracle(np, torch, configs["smoke"][1], "float32")
     scale = float(np.abs(ref).max())
     jpath = os.path.join(tmp, "native.jsonl")
-    _zero_counts(S)
+    _zero_counts()
     _, wall = _cli(["-c", "-t", "--kernel", "native", "-n", str(NATIVE_N),
                     "--x", "random:1", "-d", tmp, "--json-out", jpath,
                     SMOKE_SPEC], "native CLI")
-    got = {k: v for k, v in _counts(S).items() if v}
+    got = {k: v for k, v in _counts().items() if v}
     _check(not got, f"native CLI launched card kernels: {got}")
     with open(jpath) as f:
         recs = {r["alg"]: r for r in map(json.loads, f)}
@@ -4886,7 +4875,7 @@ def _slice21_native(np, torch, S, configs, tmp):
           f"{errs['CSR']:.3e}, TJDS {errs['TJDS']:.3e}", flush=True)
 
 
-def _slice21_complex(np, torch, S, configs, tmp):
+def _slice21_complex(np, torch, configs, tmp):
     """smoke's pattern with complex64 values from a seed through the API
     (CSR and TJDS, 20 timed calls each), then a smaller written complex
     .mtx through the CLI's ``-c -t``; y against complex128 oracles."""
@@ -4920,10 +4909,10 @@ def _slice21_complex(np, torch, S, configs, tmp):
     for alg, enc, fn in (("CSR", csr_encode, spmv_torch.spmv_csr),
                          ("TJDS", tjds_encode, spmv_torch.spmv_tjds)):
         m = enc(coo)
-        _zero_counts(S)
+        _zero_counts()
         st = bench_spmv(fn, m, xd, iterations=COMPLEX_N)
         y = fn(m, xd).cpu().numpy()
-        got = {k: n for k, n in _counts(S).items() if n}
+        got = {k: n for k, n in _counts().items() if n}
         _check(not got, f"complex {alg} launched SELL kernels: {got}")
         err = float(np.abs(y - ref).max() / np.abs(ref).max())
         _check(y.dtype == np.complex64 and err <= TOL_ORACLE,
@@ -4944,10 +4933,10 @@ def _slice21_complex(np, torch, S, configs, tmp):
     t0 = time.perf_counter()
     write_mtx(path, r, c, vc, small.shape)
     t1 = time.perf_counter()
-    _zero_counts(S)
+    _zero_counts()
     text, wall = _cli(["-c", "-t", "-n", str(COMPLEX_N), "--x", "random:1",
                        "-d", tmp, path], "complex CLI")
-    got = {k: n for k, n in _counts(S).items() if n}
+    got = {k: n for k, n in _counts().items() if n}
     _check(not got, f"complex CLI launched SELL kernels: {got}")
     _check("complex matrix: using complex64 values." in text,
            "complex CLI: no promotion logged")
@@ -4964,7 +4953,7 @@ def _slice21_complex(np, torch, S, configs, tmp):
           f"oracle {errs}", flush=True)
 
 
-def _slice21_complex_solves(np, torch, S, tmp):
+def _slice21_complex_solves(np, torch, tmp):
     """hpcg104 with a Peierls phase (Hermitian positive definite): the five
     complex methods through the API at full size, then through the CLI's
     ``--solve`` on the written 24³ grid; each held to a complex128
@@ -5007,13 +4996,13 @@ def _slice21_complex_solves(np, torch, S, tmp):
     lines = []
     for spec in COMPLEX_SOLVES:
         method, n, tol = spec.split(":")
-        _zero_counts(S)
+        _zero_counts()
         torch.cuda.synchronize()
         s0 = time.perf_counter()
         xs, res = runs[method](int(n), float(tol))
         torch.cuda.synchronize()
         ms = (time.perf_counter() - s0) * 1e3
-        got = {k: v for k, v in _counts(S).items() if v}
+        got = {k: v for k, v in _counts().items() if v}
         _check(not got, f"complex {method} launched SELL kernels: {got}")
         x128 = xs.cpu().numpy().astype(np.complex128)
         rr = float(np.linalg.norm(b128 - a @ x128) / np.linalg.norm(b128))
@@ -5040,11 +5029,11 @@ def _slice21_complex_solves(np, torch, S, tmp):
     lines = []
     for spec in COMPLEX_SOLVES:
         jpath = os.path.join(tmp, "solve.jsonl")
-        _zero_counts(S)
+        _zero_counts()
         _, wall = _cli(["-c", "-n", "1", "--x", "random:1", "--no-report",
                         "--json-out", jpath, "--out-dir", tmp, "--solve",
                         spec, path], f"hpcg24-peierls CLI --solve {spec}")
-        got = {k: v for k, v in _counts(S).items() if v}
+        got = {k: v for k, v in _counts().items() if v}
         _check(not got, f"complex CLI {spec} launched SELL kernels: {got}")
         with open(jpath) as f:
             rec = [json.loads(s) for s in f if "SOLVE" in s][-1]
@@ -5159,14 +5148,14 @@ def _slice21_front_ends(np, torch, S, tmp):
     write_mtx(path, *demo.to_numpy(), demo.shape)
     rdir = os.path.join(tmp, "interactive")
     os.makedirs(rdir)
-    _zero_counts(S)
+    _zero_counts()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         rc = interactive.main(stdin=io.StringIO(
             f"{path}\ny\ny\n10\n{rdir}\n{torch.device(DEVICE).type}\n"),
             stdout=out)
     _check(rc == 0, f"interactive returned {rc}:\n{out.getvalue()[-2000:]}")
-    got = _check_only(_counts(S), [S.KERNEL_NAMES[("relsl", False)]],
+    got = _check_only(_counts(), [S.KERNEL_NAMES[("relsl", False)]],
                       "interactive")
     _check(len(os.listdir(rdir)) == 2, f"interactive reports "
            f"{os.listdir(rdir)}")
@@ -5183,7 +5172,7 @@ def _slice21_front_ends(np, torch, S, tmp):
         for d in demos:
             name = os.path.basename(d)
             sys.argv = [d, "--device", torch.device(DEVICE).type]
-            _zero_counts(S)
+            _zero_counts()
             out = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(out):
@@ -5195,7 +5184,7 @@ def _slice21_front_ends(np, torch, S, tmp):
             wall = time.perf_counter() - t0
             text = out.getvalue().strip()
             _check(bool(text), f"{name} printed nothing")
-            got = {k: v for k, v in _counts(S).items() if v}
+            got = {k: v for k, v in _counts().items() if v}
             _check(bool(got), f"{name} launched no kernel")
             print(f"[slice21] example {name}: {wall:.1f} s, launches {got}; "
                   f"last line: {text.splitlines()[-1][:160]}", flush=True)
@@ -5212,11 +5201,11 @@ def phase_slice21(np, torch, configs):
         with _Phase("slice 21: served plan and hierarchy"):
             _slice21_served(np, torch, S, configs, tmp)
         with _Phase("slice 21: native host backend"):
-            _slice21_native(np, torch, S, configs, tmp)
+            _slice21_native(np, torch, configs, tmp)
         with _Phase("slice 21: complex SpMVs"):
-            _slice21_complex(np, torch, S, configs, tmp)
+            _slice21_complex(np, torch, configs, tmp)
         with _Phase("slice 21: complex solves"):
-            _slice21_complex_solves(np, torch, S, tmp)
+            _slice21_complex_solves(np, torch, tmp)
         with _Phase("slice 21: AOT export and profiler"):
             _slice21_aot_profile(np, torch, S, configs, tmp)
         with _Phase("slice 21: interactive and examples"):

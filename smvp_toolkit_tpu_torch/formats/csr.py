@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+from smvp_toolkit_tpu_torch.utils import tracing
 
 __all__ = ["CSRMatrix", "csr_encode", "csr_decode", "row_ids_from_ptr"]
 
@@ -102,6 +103,11 @@ def _csr_encode_native(coo: COOMatrix) -> CSRMatrix:
 def csr_encode(coo: COOMatrix) -> CSRMatrix:
     """Encode COO → CSR on the COO's device: the native counting sort for
     a COO on the CPU (``encode_native.use_native``), else torch sorts."""
+    with tracing.span("encode.csr"):
+        return _csr_encode(coo)
+
+
+def _csr_encode(coo: COOMatrix) -> CSRMatrix:
     from smvp_toolkit_tpu_torch.formats import encode_native as en
 
     if en.use_native(coo):

@@ -36,6 +36,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence, Tuple
 
+from smvp_toolkit_tpu_torch.utils import tracing
+
 __all__ = [
     "KernelBuildError",
     "CXX_FLAGS",
@@ -158,6 +160,12 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     todo = [n for n in names if not _lib_path(n).exists()]
     if not todo:
         return {}
+    tracing.count("build.compiles", len(todo))
+    with tracing.span("build", {"names": ",".join(todo)}):
+        return _compile(todo)
+
+
+def _compile(todo: Sequence[str]) -> Dict[str, str]:
     jobs = []
     for name in todo:  # every compiler found before any process starts
         out = _lib_path(name)

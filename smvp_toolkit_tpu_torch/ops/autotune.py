@@ -82,6 +82,7 @@ from smvp_toolkit_tpu_torch.ops.sell_plan import (
     lidx_bytes_for_chunk,
     rechunk_plan,
 )
+from smvp_toolkit_tpu_torch.utils import tracing
 
 __all__ = ["RATES", "CHUNKS", "DEFAULT_CHUNK", "MARGIN", "production_rates",
            "plan_route", "plan_bytes", "hub_sublanes", "plan_cost_us",
@@ -310,16 +311,17 @@ def pick_plan(
     chunks = sorted(chunks)
     if base is None:
         base = _auto_plan(rows, cols, vals, shape, chunk=chunks[0])
-    costs, default = {}, None
-    for want, plan in zip(chunks, sweep_plans(rows, cols, vals, shape,
-                                              chunks=chunks, base=base,
-                                              planes=False)):
-        costs[plan.chunk] = plan_cost_us(plan, vb, rates)
-        if want <= DEFAULT_CHUNK or default is None:
-            default = plan.chunk
-    pick = _choose(costs, default)
-    return (base if base.chunk == pick else rechunk_plan(base, pick),
-            costs[pick])
+    with tracing.span("plan.tune"):
+        costs, default = {}, None
+        for want, plan in zip(chunks, sweep_plans(rows, cols, vals, shape,
+                                                  chunks=chunks, base=base,
+                                                  planes=False)):
+            costs[plan.chunk] = plan_cost_us(plan, vb, rates)
+            if want <= DEFAULT_CHUNK or default is None:
+                default = plan.chunk
+        pick = _choose(costs, default)
+        return (base if base.chunk == pick else rechunk_plan(base, pick),
+                costs[pick])
 
 
 def _tuned_plan(rows, cols, vals, shape, *, bf16: bool):

@@ -40,6 +40,7 @@ from smvp_toolkit_tpu_torch.ops import _build
 from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 from smvp_toolkit_tpu_torch.ops.plan_checks import check_planes
 from smvp_toolkit_tpu_torch.ops.sell_plan import LANES, SellPlan
+from smvp_toolkit_tpu_torch.utils import tracing
 from smvp_toolkit_tpu_torch.utils.device import resolve_device
 
 __all__ = ["cg_launch", "fused_cg", "fused_cg_plain", "solver_blocks"]
@@ -165,34 +166,35 @@ def launch(kernel: str, op, *, route: str, planes: dict, b, x, r, p, q,
     call ``fn``, a variant's C launcher with the arguments of
     ``sell_solver_launch``, with ``id`` in place of the solver id
     (``bench/bench_variants.py``)."""
-    dev = op.device
-    vals, lidx = planes["vals"], planes["lidx"]
-    check_planes(**planes, chunk=op.plan.chunk)
-    n = state_tiles(op.plan) * LANES
-    _check_state(n, dev, dict(b=b, x=x, r=r, p=p, q=q, z=z, invd=invd), xin,
-                 vals.dtype)
-    if coef is not None and (coef.numel() < 2 * iterations
-                             or coef.dtype != torch.float32):
-        raise ValueError("coef must hold 2 float32 per iteration")
-    lib = _lib()
-    blocks = solver_blocks(kernel, vals.dtype, lidx.dtype, dev, route)
-    part = torch.empty(2 * blocks, dtype=torch.float64, device=dev)
-    n_slots = vals.numel()
-    meta = planes.get("relsl", planes.get("rel"))
-    fn, ident = variant or (lib.sell_solver_launch,
-                            _SOLVER_IDS[_SOLVER_OF[kernel]])
-    rc = fn(
-        ident, S._ROUTE_IDS[route],
-        vals.data_ptr(), lidx.data_ptr(), meta.data_ptr(),
-        S._ptr(planes.get("slice_of")), planes["tile_base"].data_ptr(),
-        b.data_ptr(), S._ptr(coef), S._ptr(invd), x.data_ptr(), r.data_ptr(),
-        p.data_ptr(), q.data_ptr(), S._ptr(z), xin.data_ptr(),
-        part.data_ptr(), blocks, n_slots, slots_l0 or n_slots,
-        slots_lt0 or n_slots, n, op.plan.chunk, iterations, sweeps,
-        inv_theta, int(vals.dtype == torch.bfloat16),
-        int(lidx.dtype == torch.int32), dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
-    S._check_rc(lib, rc, f"{kernel} cooperative launch")
+    with tracing.span("solve.launch"):
+        dev = op.device
+        vals, lidx = planes["vals"], planes["lidx"]
+        check_planes(**planes, chunk=op.plan.chunk)
+        n = state_tiles(op.plan) * LANES
+        _check_state(n, dev, dict(b=b, x=x, r=r, p=p, q=q, z=z, invd=invd),
+                     xin, vals.dtype)
+        if coef is not None and (coef.numel() < 2 * iterations
+                                 or coef.dtype != torch.float32):
+            raise ValueError("coef must hold 2 float32 per iteration")
+        lib = _lib()
+        blocks = solver_blocks(kernel, vals.dtype, lidx.dtype, dev, route)
+        part = torch.empty(2 * blocks, dtype=torch.float64, device=dev)
+        n_slots = vals.numel()
+        meta = planes.get("relsl", planes.get("rel"))
+        fn, ident = variant or (lib.sell_solver_launch,
+                                _SOLVER_IDS[_SOLVER_OF[kernel]])
+        rc = fn(
+            ident, S._ROUTE_IDS[route],
+            vals.data_ptr(), lidx.data_ptr(), meta.data_ptr(),
+            S._ptr(planes.get("slice_of")), planes["tile_base"].data_ptr(),
+            b.data_ptr(), S._ptr(coef), S._ptr(invd), x.data_ptr(),
+            r.data_ptr(), p.data_ptr(), q.data_ptr(), S._ptr(z),
+            xin.data_ptr(), part.data_ptr(), blocks, n_slots, slots_l0 or n_slots,
+            slots_lt0 or n_slots, n, op.plan.chunk, iterations, sweeps,
+            inv_theta, int(vals.dtype == torch.bfloat16),
+            int(lidx.dtype == torch.int32), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        S._check_rc(lib, rc, f"{kernel} cooperative launch")
 
 
 def _route_planes(op) -> dict:
@@ -211,10 +213,16 @@ def fused_cg_plain(op, b: torch.Tensor, num_iters: int) -> torch.Tensor:
 
     n = check_square(op, "fused_cg")
     check_rhs(op, b)
-    x, _ = conjugate_gradient(op._planes(), pad_state(b, state_tiles(op.plan)),
-                              num_iters=max(num_iters, 0),
-                              spmv=plain_spmv(op))
+    with tracing.span("solve.prep"):
+        bt = pad_state(b, state_tiles(op.plan))
+    with tracing.span("solve.launch"):
+        x, _ = conjugate_gradient(op._planes(), bt,
+                                  num_iters=max(num_iters, 0),
+                                  spmv=plain_spmv(op))
     return x[:n]
+
+
+_CG = {"solver": "cg"}  # the span's attributes, made once
 
 
 def fused_cg(op, b: torch.Tensor, num_iters: int) -> torch.Tensor:
@@ -226,15 +234,16 @@ def fused_cg(op, b: torch.Tensor, num_iters: int) -> torch.Tensor:
     afterwards. Refuses a rectangular system and a streamed-y plan.
     ``num_iters <= 0`` returns zeros.
     """
-    n = check_square(op, "fused_cg")
-    check_rhs(op, b)
-    if num_iters <= 0:
-        return torch.zeros(n, dtype=torch.float32, device=op.device)
-    if op.device.type == "cpu":
-        return fused_cg_plain(op, b, num_iters)
-    x = cg_launch(op, b, num_iters)
-    fused_cg.launches += 1
-    return x[:n]
+    with tracing.span("solve.call", _CG):
+        n = check_square(op, "fused_cg")
+        check_rhs(op, b)
+        if num_iters <= 0:
+            return torch.zeros(n, dtype=torch.float32, device=op.device)
+        if op.device.type == "cpu":
+            return fused_cg_plain(op, b, num_iters)
+        x = cg_launch(op, b, num_iters)
+        fused_cg.launches += 1
+        return x[:n]
 
 
 def cg_launch(op, b: torch.Tensor, num_iters: int,
@@ -242,10 +251,11 @@ def cg_launch(op, b: torch.Tensor, num_iters: int,
     """One launch of ``sell_cg_kernel`` on a CUDA operator (checked by the
     caller, ``num_iters >= 1``), or of a variant of it (``launch``'s
     ``variant``); x on the padded state (T·128)."""
-    bt = pad_state(b, state_tiles(op.plan))
-    x, r, p, q = (torch.empty_like(bt) for _ in range(4))
-    xin = p if op.value_dtype == torch.float32 else torch.empty(
-        bt.numel(), dtype=op.value_dtype, device=op.device)
+    with tracing.span("solve.prep"):
+        bt = pad_state(b, state_tiles(op.plan))
+        x, r, p, q = (torch.empty_like(bt) for _ in range(4))
+        xin = p if op.value_dtype == torch.float32 else torch.empty(
+            bt.numel(), dtype=op.value_dtype, device=op.device)
     launch("sell_cg_kernel", op, route=op.base_route,
            planes=_route_planes(op), b=bt, x=x, r=r, p=p, q=q, xin=xin,
            iterations=num_iters, variant=variant)

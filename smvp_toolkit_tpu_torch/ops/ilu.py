@@ -38,6 +38,7 @@ import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
 from smvp_toolkit_tpu_torch.formats.csr import CSRMatrix, csr_encode
+from smvp_toolkit_tpu_torch.utils import tracing
 
 __all__ = [
     "ILU0Factors",
@@ -332,6 +333,11 @@ def ic0(csr: CSRMatrix, *, native: bool = True) -> IC0Factors:
     ``csr`` is read. ``native=False`` runs the numpy pass instead of the
     C++ copy (the two are bit-identical).
     """
+    with tracing.span("factor.ic0"):
+        return _ic0(csr, native)
+
+
+def _ic0(csr: CSRMatrix, native: bool) -> IC0Factors:
     n, m = csr.shape
     if n != m:
         raise ValueError(f"ic0 needs a square matrix, got {csr.shape}")
@@ -347,9 +353,10 @@ def ic0(csr: CSRMatrix, *, native: bool = True) -> IC0Factors:
     slot = np.arange(ci.size, dtype=np.int64)
     with np.errstate(over="ignore", invalid="ignore"):
         for shift in _shift_ladder(scale):
-            fac, lo_cut, diag, breakdowns = pass_fn(
-                rp, ci, v, n, shift, piv_floor
-            )
+            with tracing.span("factor.ic0.pass"):
+                fac, lo_cut, diag, breakdowns = pass_fn(
+                    rp, ci, v, n, shift, piv_floor
+                )
             low = slot < lo_cut[rows]
             if _factors_usable((fac[low], diag), breakdowns, n):
                 break
@@ -369,15 +376,16 @@ def ic0(csr: CSRMatrix, *, native: bool = True) -> IC0Factors:
             "ic0: input is SPD-marginal; completed with "
             + " and ".join(what)
             + " — the factor remains PD and usable",
-            stacklevel=2,
+            stacklevel=3,
         )
     l_rows, l_cols, l_vals = rows[low], ci[low], fac[low]
     dtype, dev = csr.dtype, csr.device
-    return IC0Factors(
-        strict=_tri_csr(l_rows, l_cols, l_vals, n, dtype, dev),
-        strict_t=_tri_csr(l_cols, l_rows, l_vals, n, dtype, dev),
-        diag=_host_vector(diag, dtype, dev),
-    )
+    with tracing.span("factor.ic0.upload"):
+        return IC0Factors(
+            strict=_tri_csr(l_rows, l_cols, l_vals, n, dtype, dev),
+            strict_t=_tri_csr(l_cols, l_rows, l_vals, n, dtype, dev),
+            diag=_host_vector(diag, dtype, dev),
+        )
 
 
 def split_triangular(

@@ -55,6 +55,7 @@ from smvp_toolkit_tpu_torch.ops.sell_plan import (
     build_sell_plan,
     common_window,
 )
+from smvp_toolkit_tpu_torch.utils import tracing
 
 __all__ = [
     "fused_chebyshev",
@@ -113,10 +114,16 @@ def fused_chebyshev_plain(op, b: torch.Tensor, lambda_min: float,
     n = _chebyshev_checks(op, b, num_iters)
     if num_iters <= 0:
         return torch.zeros(n, dtype=torch.float32, device=op.device)
-    x, _ = chebyshev(op._planes(), pad_state(b, state_tiles(op.plan)),
-                     lambda_min, lambda_max, num_iters=num_iters,
-                     spmv=plain_spmv(op))
+    with tracing.span("solve.prep"):
+        bt = pad_state(b, state_tiles(op.plan))
+    with tracing.span("solve.launch"):
+        x, _ = chebyshev(op._planes(), bt, lambda_min, lambda_max,
+                         num_iters=num_iters, spmv=plain_spmv(op))
     return x[:n]
+
+
+# the solve spans' attributes, made once
+_CHEBYSHEV, _PCG_IC0 = {"solver": "chebyshev"}, {"solver": "pcg_ic0"}
 
 
 def fused_chebyshev(op, b: torch.Tensor, lambda_min: float,
@@ -127,15 +134,16 @@ def fused_chebyshev(op, b: torch.Tensor, lambda_min: float,
     Per step: q = A·d; x += d; r −= q; d = a_k·d + c_k·r, with x0 = 0,
     r0 = b, d0 = b·float32(1/θ). ``num_iters <= 0`` returns zeros.
     """
-    n = _chebyshev_checks(op, b, num_iters)
-    if num_iters <= 0:
-        return torch.zeros(n, dtype=torch.float32, device=op.device)
-    if op.device.type == "cpu":
-        return fused_chebyshev_plain(op, b, lambda_min, lambda_max,
-                                     num_iters)
-    x = chebyshev_launch(op, b, lambda_min, lambda_max, num_iters)
-    fused_chebyshev.launches += 1
-    return x[:n]
+    with tracing.span("solve.call", _CHEBYSHEV):
+        n = _chebyshev_checks(op, b, num_iters)
+        if num_iters <= 0:
+            return torch.zeros(n, dtype=torch.float32, device=op.device)
+        if op.device.type == "cpu":
+            return fused_chebyshev_plain(op, b, lambda_min, lambda_max,
+                                         num_iters)
+        x = chebyshev_launch(op, b, lambda_min, lambda_max, num_iters)
+        fused_chebyshev.launches += 1
+        return x[:n]
 
 
 def chebyshev_launch(op, b: torch.Tensor, lambda_min: float,
@@ -146,11 +154,12 @@ def chebyshev_launch(op, b: torch.Tensor, lambda_min: float,
     (``cg_fused.launch``'s ``variant``); x on the padded state (T·128)."""
     coeffs, inv_theta = chebyshev_coefficients(lambda_min, lambda_max,
                                                num_iters)
-    coef = torch.from_numpy(np.ascontiguousarray(coeffs.T)).to(op.device)
-    bt = pad_state(b, state_tiles(op.plan))
-    x, r, d, q = (torch.empty_like(bt) for _ in range(4))
-    xin = d if op.value_dtype == torch.float32 else torch.empty(
-        bt.numel(), dtype=op.value_dtype, device=op.device)
+    with tracing.span("solve.prep"):
+        coef = torch.from_numpy(np.ascontiguousarray(coeffs.T)).to(op.device)
+        bt = pad_state(b, state_tiles(op.plan))
+        x, r, d, q = (torch.empty_like(bt) for _ in range(4))
+        xin = d if op.value_dtype == torch.float32 else torch.empty(
+            bt.numel(), dtype=op.value_dtype, device=op.device)
     launch("sell_chebyshev_kernel", op, route="relsl",
            planes=dict(vals=op.vals, lidx=op.lidx, relsl=op.relsl,
                        tile_base=op.tile_base),
@@ -210,8 +219,13 @@ def _ic0_planes(op, factors) -> _IC0Planes:
     and kept on the operator, keyed weakly by the factors."""
     cache = op.__dict__.setdefault("_ic0_planes", weakref.WeakKeyDictionary())
     got = cache.get(factors)
-    if got is not None:
-        return got
+    if got is None:
+        with tracing.span("factor.planes"):
+            got = cache[factors] = _plan_ic0_planes(op, factors)
+    return got
+
+
+def _plan_ic0_planes(op, factors) -> _IC0Planes:
     plans, wt, _, _ = ic0_plans(op, factors)
     if wt > REL_DEAD:
         raise ValueError("common window too wide for the relsl layout")
@@ -228,7 +242,7 @@ def _ic0_planes(op, factors) -> _IC0Planes:
         return host_tensor(np.concatenate([np.asarray(a).reshape(-1) for a in
                                            arrays]), np_dtype)
 
-    got = _IC0Planes(
+    return _IC0Planes(
         plans=tuple(plans), window_tiles=wt,
         vals=cat([p.vals for p in plans], np.float32).reshape(-1, LANES).to(
             op.value_dtype).to(dev),
@@ -239,8 +253,6 @@ def _ic0_planes(op, factors) -> _IC0Planes:
         invd=torch.from_numpy(invd).to(dev),
         sublane_bounds=tuple(int(s) for s in bounds),
     )
-    cache[factors] = got
-    return got
 
 
 def _pcg_ic0_checks(op, factors, b, sweeps) -> int:
@@ -273,17 +285,19 @@ def fused_pcg_ic0_plain(op, factors, b: torch.Tensor, num_iters: int,
         return torch.zeros(n, dtype=torch.float32, device=op.device)
     pa, pl, plt = (fp.sub_planes(k, op.plan.chunk) for k in range(3))
     spmv = plain_spmv(op)
-    # diag(L) on the state; padding rows take 1 (r and every sweep are 0
-    # there), so 1 / diag is the kernel's invd on every live row.
-    diag = torch.ones_like(fp.invd)
-    diag[:n] = factors.diag.to(diag)
+    with tracing.span("solve.prep"):
+        # diag(L) on the state; padding rows take 1 (r and every sweep are
+        # 0 there), so 1 / diag is the kernel's invd on every live row.
+        diag = torch.ones_like(fp.invd)
+        diag[:n] = factors.diag.to(diag)
+        bt = pad_state(b, len(fp.invd) // LANES)
 
     def precond(r):
         z = trisolve_neumann(pl, diag, r, sweeps=sweeps, spmv=spmv)
         return trisolve_neumann(plt, diag, z, sweeps=sweeps, spmv=spmv)
 
-    x, _ = pcg_precond(pa, pad_state(b, len(fp.invd) // LANES), precond,
-                       num_iters=num_iters, spmv=spmv)
+    with tracing.span("solve.launch"):
+        x, _ = pcg_precond(pa, bt, precond, num_iters=num_iters, spmv=spmv)
     return x[:n]
 
 
@@ -304,14 +318,15 @@ def fused_pcg_ic0(op, factors, b: torch.Tensor, num_iters: int,
     that are not whole chunks, or factor bounds off a chunk boundary,
     "invalid argument"; nothing falls back.
     """
-    n = _pcg_ic0_checks(op, factors, b, sweeps)
-    if num_iters <= 0:
-        return torch.zeros(n, dtype=torch.float32, device=op.device)
-    if op.device.type == "cpu":
-        return fused_pcg_ic0_plain(op, factors, b, num_iters, sweeps)
-    x = pcg_ic0_launch(op, factors, b, num_iters, sweeps)
-    fused_pcg_ic0.launches += 1
-    return x[:n]
+    with tracing.span("solve.call", _PCG_IC0):
+        n = _pcg_ic0_checks(op, factors, b, sweeps)
+        if num_iters <= 0:
+            return torch.zeros(n, dtype=torch.float32, device=op.device)
+        if op.device.type == "cpu":
+            return fused_pcg_ic0_plain(op, factors, b, num_iters, sweeps)
+        x = pcg_ic0_launch(op, factors, b, num_iters, sweeps)
+        fused_pcg_ic0.launches += 1
+        return x[:n]
 
 
 def pcg_ic0_launch(op, factors, b: torch.Tensor, num_iters: int,
@@ -320,9 +335,10 @@ def pcg_ic0_launch(op, factors, b: torch.Tensor, num_iters: int,
     by the caller, ``num_iters >= 1``), or of a variant of it
     (``cg_fused.launch``'s ``variant``); x on the padded state (T·128)."""
     fp = _ic0_planes(op, factors)
-    bt = pad_state(b, len(fp.invd) // LANES)
-    x, r, p, q, z = (torch.empty_like(bt) for _ in range(5))
-    xin = torch.empty(bt.numel(), dtype=op.value_dtype, device=op.device)
+    with tracing.span("solve.prep"):
+        bt = pad_state(b, len(fp.invd) // LANES)
+        x, r, p, q, z = (torch.empty_like(bt) for _ in range(5))
+        xin = torch.empty(bt.numel(), dtype=op.value_dtype, device=op.device)
     s_a, s_l = fp.sublane_bounds[1], fp.sublane_bounds[2]
     launch("sell_pcg_ic0_kernel", op, route="relsl",
            planes=dict(vals=fp.vals, lidx=fp.lidx, relsl=fp.relsl,

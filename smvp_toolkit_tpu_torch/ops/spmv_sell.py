@@ -123,6 +123,7 @@ from smvp_toolkit_tpu_torch.ops.sell_plan import (
     build_streamed_sell_plan,
     lidx_bytes_for_chunk,
 )
+from smvp_toolkit_tpu_torch.utils import tracing
 from smvp_toolkit_tpu_torch.utils.device import resolve_device
 
 __all__ = [
@@ -1615,6 +1616,24 @@ class SellSpMV:
     def __init__(self, plan: SellPlan, value_dtype: Optional[torch.dtype] = None,
                  device=None, *, triplets=None):
         self.device = resolve_device(device)
+        with tracing.span("plan.upload"):
+            self._upload(plan, value_dtype)
+        tracing.count("plan.slots", plan.n_sublanes * LANES)
+        tracing.count("plan.live_slots", plan.nnz)
+        self.kernel, self.bench_kernel = _ROUTE_FNS[self.base_route]
+        self.spmm_kernel = _SPMM_FNS.get(self.base_route)
+        self._packed: Optional[tuple] = None
+        self._split: Optional[tuple] = None
+        self._slice_index: Optional[tuple] = None
+        self._subwin: dict = {}
+        self._triplets = triplets
+        self._t_op: Optional[SellSpMV] = None
+        self._slot_map: Optional[np.ndarray] = None
+        self._slot_index: Optional[torch.Tensor] = None
+        self._vg_schedule: Optional[VgSchedule] = None
+
+    def _upload(self, plan: SellPlan, value_dtype) -> None:
+        """Check the plan, then upload the planes of its route."""
         check_plan(plan)
         self.value_dtype = torch.float32 if value_dtype is None else value_dtype
         if self.value_dtype not in (torch.float32, torch.bfloat16):
@@ -1640,17 +1659,6 @@ class SellSpMV:
             self.slice_of = upload(plan.slice_of)
         if plan.y_block_slices:
             self.y_block_id = upload(plan.y_block_id)
-        self.kernel, self.bench_kernel = _ROUTE_FNS[self.base_route]
-        self.spmm_kernel = _SPMM_FNS.get(self.base_route)
-        self._packed: Optional[tuple] = None
-        self._split: Optional[tuple] = None
-        self._slice_index: Optional[tuple] = None
-        self._subwin: dict = {}
-        self._triplets = triplets
-        self._t_op: Optional[SellSpMV] = None
-        self._slot_map: Optional[np.ndarray] = None
-        self._slot_index: Optional[torch.Tensor] = None
-        self._vg_schedule: Optional[VgSchedule] = None
 
     def packed_on(self, vals: Optional[torch.Tensor] = None) -> bool:
         """Whether a call takes the packed route: ``SMVP_SELL_PACK=1``,
@@ -1765,27 +1773,31 @@ class SellSpMV:
         """The operator on the autotuned plan (``autotune._tuned_plan``:
         the chunk the card's cost model picks for this value dtype; chunk
         2048 under ``SMVP_SELL_AUTOTUNE=0``), as the JAX ``from_coo``."""
-        r, c, v = coo.to_numpy()
-        plan, _ = _tuned_plan(r, c, v, coo.shape,
-                              bf16=value_dtype == torch.bfloat16)
-        return SellSpMV(plan, value_dtype=value_dtype,
-                        device=coo.device if device is None else device,
-                        triplets=(r, c, v))
+        with tracing.span("plan"):
+            with tracing.span("plan.to_host"):
+                r, c, v = coo.to_numpy()
+            plan, _ = _tuned_plan(r, c, v, coo.shape,
+                                  bf16=value_dtype == torch.bfloat16)
+            return SellSpMV(plan, value_dtype=value_dtype,
+                            device=coo.device if device is None else device,
+                            triplets=(r, c, v))
 
     def _x_tiles(self, x: torch.Tensor) -> torch.Tensor:
         """x cast to the value dtype and zero-padded to CT·128."""
-        if x.device != self.device:
-            raise ValueError(
-                f"x is on {x.device}, the operator on {self.device}"
-            )
-        ncols_pad = self.plan.n_coltiles * LANES
-        x = x.reshape(-1)
-        if x.shape[0] > ncols_pad:
-            raise ValueError(f"x has {x.shape[0]} entries, the matrix "
-                             f"{self.shape[1]} columns")
-        out = torch.zeros(ncols_pad, dtype=self.value_dtype, device=x.device)
-        out[: x.shape[0]] = x.to(self.value_dtype)
-        return out
+        with tracing.span("spmv.x_tiles"):
+            if x.device != self.device:
+                raise ValueError(
+                    f"x is on {x.device}, the operator on {self.device}"
+                )
+            ncols_pad = self.plan.n_coltiles * LANES
+            x = x.reshape(-1)
+            if x.shape[0] > ncols_pad:
+                raise ValueError(f"x has {x.shape[0]} entries, the matrix "
+                                 f"{self.shape[1]} columns")
+            out = torch.zeros(ncols_pad, dtype=self.value_dtype,
+                              device=x.device)
+            out[: x.shape[0]] = x.to(self.value_dtype)
+            return out
 
     def _planes(self, route: Optional[str] = None):
         """The planes of ``route`` (default the plan's own), in its
@@ -1855,19 +1867,20 @@ class SellSpMV:
                       vals: Optional[torch.Tensor]) -> torch.Tensor:
         """One forward launch of ``route`` over chunks ``[a, b)`` (views of
         the planes, contiguous along the sublanes); y of all NS slices."""
-        c0, c1 = a * self.plan.chunk, b * self.plan.chunk
-        kw = self._kw()
-        yb = None if self.y_block_id is None else self.y_block_id[a:b]
-        if route in PACKED_ROUTES:
-            pk, sl = self.packed_planes()
-            return sell_packed(pk[c0:c1], sl[c0:c1], self.tile_base[a:b], xt,
-                               y_block_id=yb, **kw)
-        planes = self._planes(route)
-        n_chunk_planes = 2 if yb is not None else 1
-        head = (self._vals_plane(vals),) + planes[1:-n_chunk_planes]
-        tail = planes[-n_chunk_planes:]
-        return _ROUTE_FNS[route][0](*(t[c0:c1] for t in head),
-                                    *(t[a:b] for t in tail), xt, **kw)
+        with tracing.span("spmv.launch"):
+            c0, c1 = a * self.plan.chunk, b * self.plan.chunk
+            kw = self._kw()
+            yb = None if self.y_block_id is None else self.y_block_id[a:b]
+            if route in PACKED_ROUTES:
+                pk, sl = self.packed_planes()
+                return sell_packed(pk[c0:c1], sl[c0:c1], self.tile_base[a:b],
+                                   xt, y_block_id=yb, **kw)
+            planes = self._planes(route)
+            n_chunk_planes = 2 if yb is not None else 1
+            head = (self._vals_plane(vals),) + planes[1:-n_chunk_planes]
+            tail = planes[-n_chunk_planes:]
+            return _ROUTE_FNS[route][0](*(t[c0:c1] for t in head),
+                                        *(t[a:b] for t in tail), xt, **kw)
 
     def _apply(self, x: torch.Tensor,
                vals: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -1890,7 +1903,8 @@ class SellSpMV:
         return y[: self.shape[0]]
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        return self._apply(x)
+        with tracing.span("spmv.call"):
+            return self._apply(x)
 
     def matmat(self, X: torch.Tensor,
                vals: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -2113,12 +2127,13 @@ def _auto_plan(rows, cols, vals, shape, chunk: int = 2048) -> SellPlan:
     cheaper; ``SMVP_SELL_AUTOTUNE=0`` and ``transpose()`` take it at
     chunk 2048, as in the JAX package.
     """
-    if shape[0] * 4 > _RESIDENT_Y_LIMIT:  # NS·128·4 ≈ nrows·4 bytes
-        return build_streamed_sell_plan(
-            rows, cols, vals, shape, chunk=chunk,
-            y_block_rows=_STREAM_Y_BLOCK_ROWS,
-        )
-    return build_sell_plan(rows, cols, vals, shape, chunk=chunk)
+    with tracing.span("plan.sort"):
+        if shape[0] * 4 > _RESIDENT_Y_LIMIT:  # NS·128·4 ≈ nrows·4 bytes
+            return build_streamed_sell_plan(
+                rows, cols, vals, shape, chunk=chunk,
+                y_block_rows=_STREAM_Y_BLOCK_ROWS,
+            )
+        return build_sell_plan(rows, cols, vals, shape, chunk=chunk)
 
 
 _CACHE: "weakref.WeakKeyDictionary[object, SellSpMV]" = (

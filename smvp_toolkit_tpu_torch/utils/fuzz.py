@@ -39,6 +39,7 @@ import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
 from smvp_toolkit_tpu_torch.ops.sell_plan import build_streamed_sell_plan
+from smvp_toolkit_tpu_torch.utils.tracing import kernel_counts, kernel_wrappers
 
 __all__ = [
     "FuzzCase",
@@ -378,22 +379,6 @@ def rung_kernel(op, label: str) -> str:
             "streamy_packed": "sell_packed_kernel",
             "onehot": "sell_onehot_kernel"}.get(
         route) or KERNEL_NAMES[(route, False)]
-
-
-def kernel_wrappers() -> Dict[str, Callable]:
-    """Every kernel's wrapper by kernel name (each counts its launches)."""
-    from smvp_toolkit_tpu_torch.ops import spmv_sell as S
-    from smvp_toolkit_tpu_torch.ops.pcg_fused import SOLVER_KERNELS
-    from smvp_toolkit_tpu_torch.ops.spmv_df64 import DF64_KERNELS
-
-    return {**{S.KERNEL_NAMES[(route, bench)]: S._ROUTE_FNS[route][bench]
-               for route in S.ROUTES for bench in (False, True)},
-            **S.MAT_KERNELS, **SOLVER_KERNELS, **S.PACKED_KERNELS,
-            **DF64_KERNELS, **S.SWITCH_KERNELS}
-
-
-def kernel_counts() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
 def _bits_equal(a, b) -> bool:
