@@ -184,6 +184,23 @@ Phases; any failure exits non-zero and prints no result line:
      directory (its write and read times printed);
    - L3 through the operator API (``SellSpMV.from_coo``, ``__call__``,
      ``bench_loop`` with N = 100), float32 and bfloat16;
+   - on each of them a per-call SpMV launches the kernel of the route
+     ``__call__`` takes (``_call_route``): K12 ``csr_merge_spmv_kernel``
+     where the card's cost model prices it at most half the plan
+     (``autotune.takes_csr``: L2 and L3 in both dtypes at the shipped
+     rates, and gcn_arxiv's Aᵀ), the plan's route kernel elsewhere; the
+     timings phase adds a K12 entry on each such configuration and dtype
+     (its planes' build, the kernel against its plain version and the
+     float64 oracle, queued beside the plane route's kernel and the
+     library call);
+   - kron20: the Graph500 Kronecker graph at scale 20 with permuted ids
+     (``_kron_graph``; 31.4M nonzeros, a hub row cut across some 500 warp
+     shares, 38% of the rows empty), its csr planes built on the card and
+     K12 held to its plain version and to the float64 oracle at the
+     tolerance of float32 sums in another order (``_kron_tolerance``:
+     3e-5 of max |y| at the hub's 64k products), float32 and bfloat16,
+     with one ``kernels`` entry per dtype (queued beside its plain version
+     and the library call);
    - smoke-cisr: smoke's matrix scheduled on 16 CISR channels on the host
      (``formats/cisr.py``; its decode round trip bit for bit, the ``.coe``
      text's build timed), then the CLI's ``-a -n 10 --x random:1
@@ -456,7 +473,17 @@ KERNELS = {
     "sell_bench_packed_kernel": ("sell_packed.cu", "spmv_pallas.py:765"),
     "sell_onehot_kernel": ("sell_onehot.cu", "spmv_pallas.py:903"),
     "sell_bench_subwin_kernel": ("sell_bench.cu", "spmv_pallas.py:782"),
+    "csr_merge_spmv_kernel": ("csr_spmv.cu", None),
 }
+# K12 replaces no TPU kernel: the card's fast gather lets a scattered plan
+# run on its nonzeros alone (csrc/csr_spmv.cu).
+K12 = "csr_merge_spmv_kernel"
+K12_REPLACES = "none/the csr route (ops/csr_merge.py): no TPU counterpart"
+# kron20: the Graph500 Kronecker graph (GAP's kron builder) at scale 20,
+# edge factor 16, initiator A 0.57, B = C 0.19, ids permuted; the scattered
+# plan the csr route exists for. Seeds past 32 signed bits.
+KRON_SCALE, KRON_EDGE_FACTOR, KRON_SEED = 20, 16, 2**31 + 20
+KRON_A, KRON_B, KRON_C = 0.57, 0.19, 0.19
 # The kernels the fuzz sweep (utils/fuzz.py) must reach: every route's
 # forward and N-iteration kernels, K1, K4 and K5 with k columns, K2 with k
 # columns, K5 and K2-packed, K6, K2-subwin, K7, K8 and its N-iteration
@@ -598,7 +625,8 @@ RITZ_SLACK = 2.0 ** -20
 # each level's or factor's plan takes, and the k-column SpMM (LOBPCG, the
 # block V-cycle).
 FAMILY_KERNELS = ("sell_spmv_kernel", "sell_split_kernel",
-                  "sell_spmm_kernel", "sell_split_spmm_kernel")
+                  "sell_spmm_kernel", "sell_split_spmm_kernel",
+                  "csr_merge_spmv_kernel")  # a scattered level: the csr route
 # smoke-cisr: the CLI's -a at smoke's size (-n, -s), and the full-size
 # plans whose native pass is held to the numpy flow (hpcg104's A too).
 CISR_N, CISR_SLOTS = 10, 16
@@ -727,6 +755,24 @@ def _check_launched(S, counts, route, bench, what):
     """The route's forward (or bench) kernel launched, no other kernel."""
     want = S.KERNEL_NAMES[(route, bench)]
     return _check_only(counts, [want], what)[want]
+
+
+def _call_route(configs, name, dname):
+    """The route ``__call__`` takes on a configuration's operator built
+    from its triplets: ``csr`` where the card's cost model prices K12 at
+    most half the plan (``autotune.takes_csr``, the operator's gate), else
+    the plan's route (``ROUTE``)."""
+    from smvp_toolkit_tpu_torch.ops.autotune import takes_csr
+
+    plan, (r, _c, _v, _shape) = configs[name]
+    csr = takes_csr(plan, len(r), 2 if dname == "bfloat16" else 4)
+    return "csr" if csr else ROUTE[name]
+
+
+def _call_kernel(S, configs, name, dname):
+    """The kernel one ``__call__`` launches on the configuration."""
+    route = _call_route(configs, name, dname)
+    return K12 if route == "csr" else S.KERNEL_NAMES[(route, False)]
 
 
 def _spmm_kernel_name(route, fused):
@@ -859,12 +905,14 @@ def _gcn_graph(np, torch):
           f"normalised in {t1 - t0:.2f} s", flush=True)
     for label, o, secs in (("A", op, t2 - t1), ("At", op_t, t3 - t2)):
         p = o.plan
-        print(f"[plan] gcn_arxiv {label}: route {o.route}, S {p.n_sublanes} "
+        print(f"[plan] gcn_arxiv {label}: route {o.base_route} (__call__ "
+              f"{o.route}), S {p.n_sublanes} "
               f"in {p.n_chunks} chunks of {p.chunk}, WT {p.window_tiles}, "
               f"NS {p.n_slices}, CT {p.n_coltiles}, occupancy "
               f"{p.nnz / p.slots():.3f}; planned in {secs:.2f} s", flush=True)
-    _check(op.route == "split" and op_t.route == "relsl",
-           f"gcn_arxiv routes {op.route} / {op_t.route}, not split / relsl")
+    _check(op.base_route == "split" and op_t.base_route == "relsl",
+           f"gcn_arxiv plan routes {op.base_route} / {op_t.base_route}, not "
+           f"split / relsl")
     sched = op.vals_grad_schedule()
     per_slice = torch.bincount(sched.unit_slice[sched.unit_slice >= 0].long(),
                                weights=(sched.unit_start[1:]
@@ -1506,7 +1554,8 @@ def _spmm_oracle(np, torch, triplets, dname):
 
 def _cli_runs(np, torch, name, source, argv0, triplets, launches,
               spmm=False, config=None, dtypes=DTYPE_NAMES, want=None,
-              fused_modes=(False, True), n=None, count=None, chunk=None):
+              fused_modes=(False, True), n=None, count=None, chunk=None,
+              configs=None):
     """The CLI on ``source``, per call and fused (``fused_modes``), in
     ``dtypes``; with ``spmm``, each run also times ``--spmm 8`` and its Y
     is checked. ``config`` names the configuration whose route and N it
@@ -1515,7 +1564,8 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches,
     ``want(fused)`` lists the kernels the run must launch (default: the
     route's and, with ``spmm``, its SpMM kernel); ``count(fused)``, when
     given, maps a kernel to the exact number of launches the run must
-    make."""
+    make. With ``configs``, a per-call run's SpMV kernel is the one
+    ``__call__`` takes there (``_call_kernel``: K12 on the csr route)."""
     from smvp_toolkit_tpu_torch.cli import main as cli_main
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
@@ -1551,6 +1601,8 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches,
                                in log.getvalue(), f"{what}: {alg} decode")
                 if want is None:
                     kernels = [S.KERNEL_NAMES[(route, fused)]]
+                    if configs is not None and not fused:
+                        kernels = [_call_kernel(S, configs, config, dname)]
                     if spmm:
                         kernels.append(_spmm_kernel_name(route, fused))
                 else:
@@ -1584,8 +1636,10 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches,
                 f"{r['alg']} avg {r['avg_ms']:.6f} ms/iter"
                 + (f" ({r['kernel']}, {r['timing']})" if "k" in r else "")
                 for r in recs)
+            per_call = "" if fused else f", per call {kernels[0]}"
             print(f"[main] {name} {' '.join(argv0)} {dname}"
-                  f"{' --fused' if fused else ''}{plan_note}: rc {rc}, "
+                  f"{' --fused' if fused else ''}{plan_note}{per_call}: "
+                  f"rc {rc}, "
                   f"{wall:.1f} s, "
                   f"{rates}, launches {got}, vs float64 oracle "
                   f"{', '.join(f'{e:.3e}' for e in errs)}", flush=True)
@@ -1593,9 +1647,10 @@ def _cli_runs(np, torch, name, source, argv0, triplets, launches,
                 _check(e <= TOL_ORACLE, f"{what} oracle error {e}")
 
 
-def _operator_runs(np, torch, name, triplets, launches, chunk):
+def _operator_runs(np, torch, name, triplets, launches, chunk, configs):
     """L3 through the operator API, in both dtypes, on the autotuned plan
-    (``SellSpMV.from_coo``), which must be the kernel phases' (``chunk``)."""
+    (``SellSpMV.from_coo``), which must be the kernel phases' (``chunk``);
+    ``__call__`` on the route the gate gives (``_call_route``)."""
     from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
 
@@ -1621,8 +1676,12 @@ def _operator_runs(np, torch, name, triplets, launches, chunk):
             torch.cuda.synchronize()
             counts = _counts()
             what = f"{name} operator {dname} bench={bench}"
-            n = _check_launched(S, counts, ROUTE[name], bench, what)
-            launches[(S.KERNEL_NAMES[(ROUTE[name], bench)], name, dname)] = n
+            kname = (S.KERNEL_NAMES[(ROUTE[name], True)] if bench
+                     else _call_kernel(S, configs, name, dname))
+            _check(bench or op.route == _call_route(configs, name, dname),
+                   f"{what}: route {op.route}")
+            n = _check_only(counts, [kname], what)[kname]
+            launches[(kname, name, dname)] = n
             y = y.double().cpu().numpy()
             _check(y.shape == ref.shape and bool(np.isfinite(y).all()),
                    f"{what}: y shape {y.shape} or not finite")
@@ -1844,10 +1903,11 @@ def phase_main_path(np, torch, configs):
     with _Phase("main path: smoke"):
         _cli_runs(np, torch, "smoke", SMOKE_SPEC, ["-c"],
                   configs["smoke"][1], launches, spmm=True,
-                  chunk=configs["smoke"][0].chunk)
+                  chunk=configs["smoke"][0].chunk, configs=configs)
     with _Phase("main path: L1"):
         _cli_runs(np, torch, "L1", L1_SPEC, ["-c", "-t", "--decode-check"],
-                  configs["L1"][1], launches, chunk=configs["L1"][0].chunk)
+                  configs["L1"][1], launches, chunk=configs["L1"][0].chunk,
+                  configs=configs)
     with _Phase("main path: L2"), tempfile.TemporaryDirectory() as tmp:
         r, c, v, shape = configs["L2"][1]
         path = os.path.join(tmp, "powerlaw_1M_10M.mtx")
@@ -1865,10 +1925,10 @@ def phase_main_path(np, torch, configs):
         del back
         _cli_runs(np, torch, "L2", path, ["-c", "-t", "--decode-check"],
                   configs["L2"][1], launches, spmm=True,
-                  chunk=configs["L2"][0].chunk)
+                  chunk=configs["L2"][0].chunk, configs=configs)
     with _Phase("main path: L3"):
         _operator_runs(np, torch, "L3", configs["L3"][1], launches,
-                       configs["L3"][0].chunk)
+                       configs["L3"][0].chunk, configs)
     return launches
 
 
@@ -2241,7 +2301,7 @@ def phase_timings(np, torch, ops, errs, launches, configs, bw):
                 extra = {} if bench or route not in MERGED_ROUTES else queued
                 entries.append(_entry(
                     kname, name, dname,
-                    launches=launches[(kname, name, dname)],
+                    launches=launches.get((kname, name, dname), 0),
                     err=errs[(name, dname)][int(bench)], ms=ms,
                     plain_ms=plain_ms, lib_ms=lib_ms,
                     nbytes=plan.traffic_bytes(vb, x_bytes=vb),
@@ -2259,7 +2319,165 @@ def phase_timings(np, torch, ops, errs, launches, configs, bw):
             if dname == "bfloat16" and name in PACKED_CONFIGS:
                 entries += _packed_timings(torch, S, name, op, xt, a, x2,
                                            errs, launches, bw)
+            if _call_route(configs, name, dname) == "csr":
+                entries.append(_csr_timing(torch, name, dname, configs, a, x2,
+                                           fwd_ms, launches, bw))
         del a
+    return entries
+
+
+def _csr_timing(torch, name, dname, configs, a, x2, plane_ms, launches, bw):
+    """K12 on a configuration whose ``__call__`` takes the csr route: its
+    planes from the triplets, the kernel against its plain version (both
+    on the card) and the float64 oracle, its card time queued behind the
+    spin kernel beside the plane route's (``plane_ms``) and the float32
+    CSR library call's."""
+    import numpy as np
+
+    from smvp_toolkit_tpu_torch.ops import csr_merge as M
+    from smvp_toolkit_tpu_torch.ops.autotune import csr_bytes
+
+    r, c, v, shape = configs[name][1]
+    vd = getattr(torch, dname)
+    t0 = time.perf_counter()
+    planes = M.csr_planes(r, c, v, shape, vd, DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ref, xh = _oracle(np, torch, configs[name][1], dname)
+    xv = torch.from_numpy(xh).to(DEVICE).to(vd)
+    y = M.csr_merge_spmv(planes, xv)
+    yp = M.csr_merge_spmv_plain(planes, xv)
+    e_plain = _rel_err(y, yp)
+    e_oracle = float(np.abs(y.double().cpu().numpy() - ref).max()
+                     / np.abs(ref).max())
+    _check(bool(torch.isfinite(y).all()) and e_plain <= TOL_KERNEL
+           and e_oracle <= TOL_ORACLE, f"{K12} on {name} {dname}: vs plain "
+           f"{e_plain}, vs float64 oracle {e_oracle}")
+    host_ms = _time_ms(lambda: M.csr_merge_spmv(planes, xv), reps=20)
+    ms = _time_ms(lambda: M.csr_merge_spmv(planes, xv), reps=20, queued=True)
+    plain_ms = _time_ms(lambda: M.csr_merge_spmv_plain(planes, xv), reps=3)
+    lib_ms = _time_ms(lambda: torch.sparse.mm(a, x2), reps=20, queued=True)
+    print(f"[csr] {name} {dname}: planes built in {build_s:.3f} s, "
+          f"{planes.n_warps} warps of {M.WARP_PATH} path items; {K12} "
+          f"{ms:.6f} ms against the plane route's {plane_ms:.6f} ms "
+          f"({plane_ms / ms:.2f}x); vs plain {e_plain:.3e}, vs float64 "
+          f"oracle {e_oracle:.3e}", flush=True)
+    return _entry(K12, name, dname,
+                  launches=launches.get((K12, name, dname), 0),
+                  err=float((y - yp).abs().max()), ms=ms, plain_ms=plain_ms,
+                  lib_ms=lib_ms,
+                  nbytes=csr_bytes(planes.nnz, *shape, vd.itemsize),
+                  flops=2.0 * planes.nnz, bw=bw, replaces=K12_REPLACES,
+                  body="merge-path", host_paced_ms=host_ms,
+                  plane_route_ms=plane_ms)
+
+
+def _kron_graph(torch, scale, seed):
+    """(rows, cols, vals, shape) of a Graph500 Kronecker graph on the card:
+    ``KRON_EDGE_FACTOR · 2^scale`` edges placed bit by bit into the
+    initiator's quadrants, ids permuted, each edge also reversed, self
+    loops and duplicates dropped; values 1/degree of the column, float32."""
+    n, m = 1 << scale, KRON_EDGE_FACTOR << scale
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    ab = KRON_A + KRON_B
+    c_norm, a_norm = KRON_C / (1.0 - ab), KRON_A / ab
+    u = torch.zeros(m, dtype=torch.int64, device=DEVICE)
+    v = torch.zeros(m, dtype=torch.int64, device=DEVICE)
+    for bit in range(scale):
+        ii = torch.rand(m, generator=g, device=DEVICE) > ab
+        jj = torch.rand(m, generator=g, device=DEVICE) > torch.where(
+            ii, c_norm, a_norm)
+        u += ii.long() << bit
+        v += jj.long() << bit
+    perm = torch.randperm(n, generator=g, device=DEVICE)
+    u, v = perm[u], perm[v]
+    keep = u != v
+    u, v = u[keep], v[keep]
+    keys = torch.unique(torch.cat([u * n + v, v * n + u]))
+    rows, cols = keys // n, keys % n
+    deg = torch.bincount(rows, minlength=n)
+    vals = (1.0 / deg[cols].double()).float()
+    return rows.int(), cols.int(), vals, (n, n)
+
+
+def _kron_tolerance(hub):
+    """max(``TOL_KERNEL``, 2·2^-24·√n), n the hub row's products: the
+    SpMM rule (``_spmm_tolerance``) for float32 sums in another order.
+    K12 adds a cut row's shares by atomics in the order the warps finish
+    and its plain version sums a share by ``index_add_``, so neither fixes
+    the order of a hub row's sum (1.1e-6 of max |y| between them read on
+    the card at a hub of 64k)."""
+    return max(TOL_KERNEL, 2 * 2.0 ** -24 * hub ** 0.5)
+
+
+def phase_kron20(np, torch, bw):
+    """K12 on kron20 (``_kron_graph``), float32 and bfloat16: the planes
+    built on the card from the triplets, the kernel against its plain
+    version and the float64 oracle (the rounded values and x, summed in
+    float64 on the card), each within ``_kron_tolerance`` of max |y|; the
+    hub row must span over a hundred warp shares, so that the rows cut by
+    a share's edge are the ones checked. One ``kernels`` entry per dtype."""
+    from smvp_toolkit_tpu_torch.ops import csr_merge as M
+    from smvp_toolkit_tpu_torch.ops.autotune import csr_bytes
+
+    t0 = time.perf_counter()
+    r, c, v, shape = _kron_graph(torch, KRON_SCALE, KRON_SEED)
+    torch.cuda.synchronize()
+    deg = torch.bincount(r.long(), minlength=shape[0])
+    hub, empty = int(deg.max()), int((deg == 0).sum())
+    print(f"[kron20] scale {KRON_SCALE} seed {KRON_SEED}: {len(r)} "
+          f"nonzeros, hub row {hub}, {empty} of {shape[0]} rows empty; made "
+          f"on the card in {time.perf_counter() - t0:.2f} s", flush=True)
+    _check(hub > 100 * M.WARP_PATH, f"kron20's hub row {hub} spans no more "
+           f"than 100 warp shares")
+    tol = _kron_tolerance(hub)
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=DEVICE)
+    crow[1:] = torch.cumsum(deg, 0)
+    a = torch.sparse_csr_tensor(crow, c.long(), v, size=shape)
+    host = [t.cpu().numpy() for t in (r, c, v)]
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(KRON_SEED + 1)
+    x32 = torch.randn(shape[1], generator=g, device=DEVICE)
+    entries = []
+    for dname in DTYPE_NAMES:
+        vd = getattr(torch, dname)
+        t0 = time.perf_counter()
+        planes = M.csr_planes(*host, shape, vd, DEVICE)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        xv = x32.to(vd)
+        ref = torch.zeros(shape[0], dtype=torch.float64,
+                          device=DEVICE).index_add_(
+            0, r.long(), v.to(vd).double() * xv.double()[c.long()])
+        before = M.csr_merge_spmv.launches
+        y = M.csr_merge_spmv(planes, xv)
+        launched = M.csr_merge_spmv.launches - before
+        yp = M.csr_merge_spmv_plain(planes, xv)
+        e_plain = _rel_err(y, yp)
+        e_oracle = _rel_err(y.double(), ref)
+        _check(bool(torch.isfinite(y).all()) and launched == 1
+               and e_plain <= tol and e_oracle <= tol,
+               f"{K12} on kron20 {dname}: {launched} launches, vs plain "
+               f"{e_plain}, vs float64 oracle {e_oracle} (tolerance {tol})")
+        ms = _time_ms(lambda: M.csr_merge_spmv(planes, xv), reps=20,
+                      queued=True)
+        plain_ms = _time_ms(lambda: M.csr_merge_spmv_plain(planes, xv),
+                            reps=3)
+        x2 = xv.float()[:, None]
+        lib_ms = _time_ms(lambda: torch.sparse.mm(a, x2), reps=20,
+                          queued=True)
+        print(f"[csr] kron20 {dname}: planes built in {build_s:.3f} s, "
+              f"{planes.n_warps} warps of {M.WARP_PATH} path items; {K12} "
+              f"{ms:.6f} ms; vs plain {e_plain:.3e}, vs float64 oracle "
+              f"{e_oracle:.3e} (tolerance {tol:.3e})", flush=True)
+        entries.append(_entry(
+            K12, "kron20", dname, launches=launched,
+            err=float((y - yp).abs().max()), ms=ms, plain_ms=plain_ms,
+            lib_ms=lib_ms, nbytes=csr_bytes(planes.nnz, *shape, vd.itemsize),
+            flops=2.0 * planes.nnz, bw=bw, replaces=K12_REPLACES,
+            body="merge-path", oracle_err=e_oracle))
+        del planes, y, yp, ref
     return entries
 
 
@@ -5363,11 +5581,13 @@ def main() -> int:
         phase_dist_balance(np, torch, configs)
     with _Phase("main path: slice 21"):
         phase_slice21(np, torch, configs)
-    with _Phase("timings"):
-        from smvp_toolkit_tpu_torch.bench.roofline import hbm_bandwidth_gbs
+    from smvp_toolkit_tpu_torch.bench.roofline import hbm_bandwidth_gbs
 
-        bw = hbm_bandwidth_gbs(torch.device(DEVICE)) * 1e9
-        entries = phase_timings(np, torch, ops, errs, launches, configs, bw)
+    bw = hbm_bandwidth_gbs(torch.device(DEVICE)) * 1e9
+    with _Phase("main path: kron20 (K12)"):
+        entries = phase_kron20(np, torch, bw)
+    with _Phase("timings"):
+        entries += phase_timings(np, torch, ops, errs, launches, configs, bw)
         entries += phase_mat_timings(np, torch, ops, errs, launches, configs,
                                      gcn, bw)
         entries += phase_solver_timings(np, torch, hpcg, launches, bw)

@@ -1118,7 +1118,7 @@ def _cg_variants(torch, lib, M, C, op, b, steps, mv=None, a=None) -> dict:
     torch.cuda.synchronize()
     bad = {k: e for k, e in errs.items() if not e <= SOLVER_TOL}
     if bad:
-        raise SystemExit(f"bench_variants: K9 on {op.route}: {bad}")
+        raise SystemExit(f"bench_variants: K9 on {op._route()}: {bad}")
     fns = {k: (lambda fn=fn: fn(steps)) for k, fn in runs.items()}
     if a is not None:
         fns["library"] = lambda: M.conjugate_gradient(a, b, num_iters=steps,
@@ -1131,11 +1131,11 @@ def _cg_variants(torch, lib, M, C, op, b, steps, mv=None, a=None) -> dict:
     C.fused_cg_plain(op, b, steps)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    print(f"[solver] K9 {op.route} float32, {steps} steps (errors at "
+    print(f"[solver] K9 {op._route()} float32, {steps} steps (errors at "
           f"{SOLVER_CHECK_STEPS} steps {max(errs.values()):.3e} <= "
           f"{SOLVER_TOL}); plain {plain_ms:.3f} ms", flush=True)
     _print_times("solver", times)
-    return dict(route=op.route, steps=steps, ms=times, errors=errs,
+    return dict(route=op._route(), steps=steps, ms=times, errors=errs,
                 plain_ms=plain_ms)
 
 

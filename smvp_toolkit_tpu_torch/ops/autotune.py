@@ -64,7 +64,17 @@ counterpart here: the card has no MXU and no VMEM.
 
 ``_tuned_plan`` keeps the JAX function's result pair, ``(plan, None)``:
 the second place holds the JAX operator's VMEM budget there, which the
-card has no use for.
+card has no use for. ``tuned_plan`` returns the pick's modelled µs in its
+place, for the operator's route gate.
+
+The ``csr`` route's gate (``takes_csr``). The same model prices K12, the
+merge-path CSR SpMV (``ops/csr_merge.py``), on the bytes it moves
+(``csr_bytes``: each nonzero's column and value, the row pointer, x and y
+once) and one launch. ``SellSpMV.__call__`` takes the route where that
+cost is at most ``1 / CSR_GAIN`` of the plan's: a plan whose sublanes hold
+few nonzeros each (a permuted power-law graph, one sublane a nonzero). With
+the launch term in both costs, no plan under about 26 MB of planes
+qualifies.
 """
 
 from __future__ import annotations
@@ -87,7 +97,8 @@ from smvp_toolkit_tpu_torch.utils import tracing
 __all__ = ["RATES", "CHUNKS", "DEFAULT_CHUNK", "MARGIN", "production_rates",
            "plan_route", "plan_bytes", "hub_sublanes", "plan_cost_us",
            "sweep_plans", "pick_plan", "calibrate_rates", "check_pick_plan",
-           "plan_record", "chain_split"]
+           "plan_record", "chain_split", "tuned_plan", "CSR_GAIN",
+           "csr_bytes", "csr_cost_us", "takes_csr"]
 
 # The candidate chunks of the sweep (the JAX module's), and the default.
 CHUNKS = (512, 1024, 2048, 4096, 8192)
@@ -95,6 +106,8 @@ DEFAULT_CHUNK = 2048
 # The modelled gain over the default a pick must clear: the spread of one
 # launch's repeats and calibrations on the card (module docstring).
 MARGIN = 0.02
+# How many times cheaper than the plan the csr route must be modelled.
+CSR_GAIN = 2.0
 
 # The model's defaults, before a calibration: the H100's data-sheet
 # memory rate (3.35 TB/s, SXM, 700 W) and no other cost;
@@ -324,18 +337,54 @@ def pick_plan(
                 costs[pick])
 
 
-def _tuned_plan(rows, cols, vals, shape, *, bf16: bool):
-    """The operators' plan choice, ``(plan, None)``: ``pick_plan`` at the
-    shipped rates, or ``_auto_plan`` at chunk 2048 under
-    ``SMVP_SELL_AUTOTUNE=0``. The JAX function returns its VMEM budget in
-    the second place; the card has none, so it is None here."""
+def tuned_plan(rows, cols, vals, shape, *,
+               bf16: bool) -> Tuple[SellPlan, Optional[float]]:
+    """The operators' plan choice, ``(plan, cost_us)``: ``pick_plan`` at
+    the shipped rates and its modelled µs, or ``_auto_plan`` at chunk 2048
+    and None (not priced) under ``SMVP_SELL_AUTOTUNE=0``."""
     from smvp_toolkit_tpu_torch.ops.spmv_sell import _auto_plan
 
     if os.environ.get("SMVP_SELL_AUTOTUNE") == "0":
         return _auto_plan(rows, cols, vals, shape), None
-    plan, _cost = pick_plan(rows, cols, vals, shape, bf16=bf16,
-                            rates=production_rates())
-    return plan, None
+    return pick_plan(rows, cols, vals, shape, bf16=bf16,
+                     rates=production_rates())
+
+
+def _tuned_plan(rows, cols, vals, shape, *, bf16: bool):
+    """``tuned_plan``'s plan as the JAX function's pair, ``(plan, None)``:
+    the JAX function returns its VMEM budget in the second place; the card
+    has none, so it is None here."""
+    return tuned_plan(rows, cols, vals, shape, bf16=bf16)[0], None
+
+
+def csr_bytes(nnz: int, nrows: int, ncols: int, value_bytes: int = 4) -> int:
+    """The bytes one K12 launch moves: each nonzero's column (4) and value,
+    the row pointer, x in the value dtype and y (float32), once each."""
+    return (nnz * (value_bytes + 4) + (nrows + 1) * 4 + ncols * value_bytes
+            + nrows * 4)
+
+
+def csr_cost_us(nnz: int, nrows: int, ncols: int, value_bytes: int = 4,
+                rates: Optional[dict] = None) -> float:
+    """Modelled time of one K12 launch on the card, in µs: its bytes at
+    the byte rate of its value dtype, and a launch."""
+    return float(_terms(csr_bytes(nnz, nrows, ncols, value_bytes),
+                        value_bytes == 2, 0.0) @ _coefs(rates))
+
+
+def takes_csr(plan: SellPlan, nnz: int, value_bytes: int = 4,
+              plan_us: Optional[float] = None,
+              rates: Optional[dict] = None) -> bool:
+    """Whether K12 on the plan's ``nnz`` triplets is modelled ``CSR_GAIN``
+    times cheaper than a launch of the plan: ``plan_us`` where the
+    autotuner priced it (``tuned_plan``), else ``plan_cost_us``; at the
+    shipped rates unless ``rates`` are given."""
+    rates = production_rates() if rates is None else rates
+    if plan_us is None:
+        plan_us = plan_cost_us(plan, value_bytes, rates)
+    nrows, ncols = plan.shape
+    return (CSR_GAIN * csr_cost_us(nnz, nrows, ncols, value_bytes, rates)
+            <= plan_us)
 
 
 def _usable(records: Iterable[dict]) -> list:

@@ -82,6 +82,11 @@ Two kernels serve the JAX operator's opt-in switches:
 (``ops/cocluster.py``); its ``bench_loop`` is K2 on the permuted planes
 (K2-cocluster).
 
+A plan that the SELL format fills poorly leaves the planes for one more
+route, ``csr``, in ``SellSpMV.__call__``: K12, the merge-path CSR SpMV of
+``ops/csr_merge.py`` on the operator's triplets, where the card's cost
+model prices it at most half the plan's (``autotune.takes_csr``).
+
 Each wrapper launches its kernel for a CUDA tensor, or raises; only a
 tensor that lies on the CPU goes to the plain PyTorch version beside it
 (``<wrapper>_plain``). Each wrapper counts its launches in a plain integer
@@ -103,7 +108,16 @@ import torch
 
 from smvp_toolkit_tpu_torch.formats.coo import host_array, host_tensor
 from smvp_toolkit_tpu_torch.ops import _build, spmv_autograd
-from smvp_toolkit_tpu_torch.ops.autotune import _tuned_plan, chain_split
+from smvp_toolkit_tpu_torch.ops.autotune import (
+    chain_split,
+    takes_csr,
+    tuned_plan,
+)
+from smvp_toolkit_tpu_torch.ops.csr_merge import (
+    csr_fits,
+    csr_merge_spmv,
+    csr_planes,
+)
 from smvp_toolkit_tpu_torch.ops.plan_checks import (
     PACK_REL_SHIFT,
     REL_DEAD,
@@ -1554,6 +1568,15 @@ def _n_split() -> int:
     return max(1, int(os.environ.get("SMVP_SELL_SPLIT", "1")))
 
 
+def _plane_switch() -> bool:
+    """Whether a switch names a plane route for ``__call__``:
+    ``SMVP_SELL_PACK=1``, ``SMVP_SELL_COMPAT=1``, ``SMVP_SELL_SPLIT`` set
+    or ``SMVP_SELL_RELSL=0``."""
+    env = os.environ
+    return (env.get("SMVP_SELL_PACK") == "1" or _compat()
+            or "SMVP_SELL_SPLIT" in env or not _relsl_on())
+
+
 class SellSpMV:
     """Encoded SELL-T1 operator: ``y = op(x)`` through the route's kernel,
     on one device.
@@ -1611,10 +1634,21 @@ class SellSpMV:
     from, kept for the training hooks: ``transpose`` plans Aᵀ from them
     and ``slot_map`` finds each triplet's slot. ``from_coo`` and the CSR
     and TJDS caches pass them.
+
+    The ``csr`` route (``csr_on``): where the operator has its triplets
+    and the card's cost model prices K12 (``ops/csr_merge.py``) at most
+    half the plan (``autotune.takes_csr``; ``plan_cost_us`` is the plan's
+    modelled µs where the autotuner priced it, else it is priced at the
+    first call), ``__call__`` runs K12 on CSR planes built from the
+    triplets at that call (``csr_planes``), with x in place of its padded
+    tiles, unless a switch above names a plane route. ``matmat``,
+    ``bench_loop``, the values-gradient hooks and the fused solvers keep
+    the planes.
     """
 
     def __init__(self, plan: SellPlan, value_dtype: Optional[torch.dtype] = None,
-                 device=None, *, triplets=None):
+                 device=None, *, triplets=None,
+                 plan_cost_us: Optional[float] = None):
         self.device = resolve_device(device)
         with tracing.span("plan.upload"):
             self._upload(plan, value_dtype)
@@ -1627,6 +1661,9 @@ class SellSpMV:
         self._slice_index: Optional[tuple] = None
         self._subwin: dict = {}
         self._triplets = triplets
+        self._plan_cost_us = plan_cost_us
+        self._csr_gate: Optional[bool] = None
+        self._csr = None
         self._t_op: Optional[SellSpMV] = None
         self._slot_map: Optional[np.ndarray] = None
         self._slot_index: Optional[torch.Tensor] = None
@@ -1692,7 +1729,35 @@ class SellSpMV:
     @property
     def route(self) -> str:
         """The route ``__call__`` takes now (class docstring)."""
-        return self._route()
+        return "csr" if self.csr_on() else self._route()
+
+    def csr_on(self) -> bool:
+        """Whether ``__call__`` takes the csr route now: no plane switch,
+        and ``_csr_priced``."""
+        return not _plane_switch() and self._csr_priced()
+
+    def _csr_priced(self) -> bool:
+        """Whether K12 on the triplets is modelled ``autotune.CSR_GAIN``
+        times cheaper than the plan (``autotune.takes_csr``); decided
+        once."""
+        if self._csr_gate is None:
+            nnz = 0 if self._triplets is None else len(self._triplets[0])
+            self._csr_gate = (
+                self._triplets is not None and csr_fits(nnz, self.shape[0])
+                and takes_csr(self.plan, nnz, self.vals.element_size(),
+                              self._plan_cost_us))
+        return self._csr_gate
+
+    def csr_planes(self):
+        """The csr route's planes (``csr_merge.CsrPlanes``) on the
+        operator's device, built from the triplets at first use."""
+        if self._csr is None:
+            if self._triplets is None:
+                raise ValueError("the csr route needs an operator built "
+                                 "with its triplets")
+            self._csr = csr_planes(*self._triplets, self.shape,
+                                   self.value_dtype, self.device)
+        return self._csr
 
     @property
     def bench_route(self) -> str:
@@ -1770,34 +1835,48 @@ class SellSpMV:
     @staticmethod
     def from_coo(coo, value_dtype: Optional[torch.dtype] = None,
                  device=None) -> "SellSpMV":
-        """The operator on the autotuned plan (``autotune._tuned_plan``:
+        """The operator on the autotuned plan (``autotune.tuned_plan``:
         the chunk the card's cost model picks for this value dtype; chunk
         2048 under ``SMVP_SELL_AUTOTUNE=0``), as the JAX ``from_coo``."""
         with tracing.span("plan"):
             with tracing.span("plan.to_host"):
                 r, c, v = coo.to_numpy()
-            plan, _ = _tuned_plan(r, c, v, coo.shape,
-                                  bf16=value_dtype == torch.bfloat16)
+            plan, cost = tuned_plan(r, c, v, coo.shape,
+                                    bf16=value_dtype == torch.bfloat16)
             return SellSpMV(plan, value_dtype=value_dtype,
                             device=coo.device if device is None else device,
-                            triplets=(r, c, v))
+                            triplets=(r, c, v), plan_cost_us=cost)
+
+    def _x_flat(self, x: torch.Tensor) -> torch.Tensor:
+        """x as a vector, on the operator's device and at most CT·128
+        long, or raise."""
+        if x.device != self.device:
+            raise ValueError(
+                f"x is on {x.device}, the operator on {self.device}"
+            )
+        x = x.reshape(-1)
+        if x.shape[0] > self.plan.n_coltiles * LANES:
+            raise ValueError(f"x has {x.shape[0]} entries, the matrix "
+                             f"{self.shape[1]} columns")
+        return x
 
     def _x_tiles(self, x: torch.Tensor) -> torch.Tensor:
         """x cast to the value dtype and zero-padded to CT·128."""
         with tracing.span("spmv.x_tiles"):
-            if x.device != self.device:
-                raise ValueError(
-                    f"x is on {x.device}, the operator on {self.device}"
-                )
-            ncols_pad = self.plan.n_coltiles * LANES
-            x = x.reshape(-1)
-            if x.shape[0] > ncols_pad:
-                raise ValueError(f"x has {x.shape[0]} entries, the matrix "
-                                 f"{self.shape[1]} columns")
-            out = torch.zeros(ncols_pad, dtype=self.value_dtype,
-                              device=x.device)
+            x = self._x_flat(x)
+            out = torch.zeros(self.plan.n_coltiles * LANES,
+                              dtype=self.value_dtype, device=x.device)
             out[: x.shape[0]] = x.to(self.value_dtype)
             return out
+
+    def _x_vector(self, x: torch.Tensor) -> torch.Tensor:
+        """x for K12: in the value dtype and contiguous, read in place
+        where it is so already; zero-padded only where it is shorter than
+        the matrix's columns."""
+        x = self._x_flat(x)
+        if x.shape[0] < self.shape[1]:
+            x = torch.nn.functional.pad(x, (0, self.shape[1] - x.shape[0]))
+        return x.to(self.value_dtype).contiguous()
 
     def _planes(self, route: Optional[str] = None):
         """The planes of ``route`` (default the plan's own), in its
@@ -1904,6 +1983,11 @@ class SellSpMV:
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         with tracing.span("spmv.call"):
+            if self.csr_on():
+                planes = self.csr_planes()
+                xv = self._x_vector(x)
+                with tracing.span("spmv.launch"):
+                    return csr_merge_spmv(planes, xv)
             return self._apply(x)
 
     def matmat(self, X: torch.Tensor,
@@ -2121,7 +2205,7 @@ def _auto_plan(rows, cols, vals, shape, chunk: int = 2048) -> SellPlan:
     streamed-y beyond it; the JAX package's ``_auto_plan``, field for
     field at every chunk.
 
-    The operators plan through ``autotune._tuned_plan``, which prices
+    The operators plan through ``autotune.tuned_plan``, which prices
     this plan at the sweep's chunks on the card's cost model and keeps
     chunk 2048 unless a candidate is modelled ``autotune.MARGIN``
     cheaper; ``SMVP_SELL_AUTOTUNE=0`` and ``transpose()`` take it at
@@ -2187,7 +2271,7 @@ def _cached_op(matrix, triplets_fn=_triplets_from_csr_host,
     its operator and the operator's device planes with it. The operator
     lives on the matrix's device, or on ``device`` for a host matrix (a
     CISR schedule); a schedule asked for on another device is replanned
-    there. The plan is the autotuned one (``autotune._tuned_plan``) for
+    there. The plan is the autotuned one (``autotune.tuned_plan``) for
     the matrix's value dtype."""
     op = _CACHE.get(matrix)
     if op is not None and (device is None or op.device == device):
@@ -2199,10 +2283,10 @@ def _cached_op(matrix, triplets_fn=_triplets_from_csr_host,
         vdt = (torch.bfloat16
                if getattr(matrix, "dtype", None) == torch.bfloat16
                else torch.float32)
-        plan, _ = _tuned_plan(r, c, v, shape,
-                              bf16=vdt == torch.bfloat16)
+        plan, cost = tuned_plan(r, c, v, shape,
+                                bf16=vdt == torch.bfloat16)
         op = SellSpMV(plan, value_dtype=vdt, device=dev,
-                      triplets=(r, c, v))
+                      triplets=(r, c, v), plan_cost_us=cost)
         _CACHE[matrix] = op
     return op
 

@@ -339,7 +339,9 @@ def rel_err(got: np.ndarray, ref: np.ndarray) -> float:
 
 
 def route_mismatch(case: FuzzCase, op) -> Optional[str]:
-    """Why ``op`` does not take the case's routes now, or None."""
+    """Why ``op`` does not take the case's routes now, or None. A case
+    names ``csr`` where ``__call__`` must take K12 (``SellSpMV.csr_on``);
+    ``bench_loop`` always keeps the planes."""
     bench = None if op.bench_loop_refusal() else op.bench_route
     if (op.route, bench) == (case.route, case.bench_route):
         return None
@@ -348,11 +350,12 @@ def route_mismatch(case: FuzzCase, op) -> Optional[str]:
 
 
 def rung_kernel(op, label: str) -> str:
-    """The one kernel a rung must launch on ``op``'s routes now: the
-    forward kernel of ``op.route`` (per column where ``matmat`` runs
-    column by column), the k-column kernel of a resident ``matmat``, the
-    N-iteration kernel of ``op.bench_route``, K7, or K8 and its
-    N-iteration kernel."""
+    """The one kernel a rung must launch on ``op``'s routes now: K12 for
+    a call on the csr route, the forward kernel of the plane route (per
+    column where ``matmat`` runs column by column), the k-column kernel
+    of a resident ``matmat``, the N-iteration kernel of
+    ``op.bench_route``, K7, or K8 and its N-iteration kernel."""
+    from smvp_toolkit_tpu_torch.ops.csr_merge import csr_merge_spmv
     from smvp_toolkit_tpu_torch.ops.spmv_sell import KERNEL_NAMES
 
     if label.startswith("df64"):
@@ -367,7 +370,9 @@ def rung_kernel(op, label: str) -> str:
         return {"packed": "sell_bench_packed_kernel",
                 "subwin": "sell_bench_subwin_kernel"}.get(
             route) or KERNEL_NAMES[(route, True)]
-    route = op.route
+    if label == "spmv" and op.route == "csr":
+        return csr_merge_spmv.kernel
+    route = op._route()
     by_column = (label in ("spmv", "matmat k=1") or op.plan.y_block_slices
                  or route == "onehot"
                  or os.environ.get("SMVP_SELL_SPMM") == "0")

@@ -103,13 +103,14 @@ def kernel_wrappers() -> Dict[str, Callable]:
     """Every kernel's wrapper by kernel name; each counts its launches in
     ``.launches``."""
     from smvp_toolkit_tpu_torch.ops import spmv_sell as S
+    from smvp_toolkit_tpu_torch.ops.csr_merge import CSR_KERNELS
     from smvp_toolkit_tpu_torch.ops.pcg_fused import SOLVER_KERNELS
     from smvp_toolkit_tpu_torch.ops.spmv_df64 import DF64_KERNELS
 
     return {**{S.KERNEL_NAMES[(route, bench)]: S._ROUTE_FNS[route][bench]
                for route in S.ROUTES for bench in (False, True)},
             **S.MAT_KERNELS, **SOLVER_KERNELS, **S.PACKED_KERNELS,
-            **DF64_KERNELS, **S.SWITCH_KERNELS}
+            **DF64_KERNELS, **S.SWITCH_KERNELS, **CSR_KERNELS}
 
 
 def kernel_counts() -> Dict[str, int]:

@@ -2147,25 +2147,95 @@ def test_tuned_operator_changes_route_and_matches_plain(card, dtype,
     its tile window, under which the autotuned plan takes the merged word
     at a smaller chunk: the tuned operator (``from_coo`` on the card)
     launches K1 alone, within 1e-6 of max |y| of its plain version (the
-    same plan on the CPU) and of the chunk-2048 operator's K4."""
+    same plan on the CPU) and of the chunk-2048 operator's K4. The planes'
+    route (``_route``, ``_apply``): a cost in tile windows is no cost the
+    csr route's gate can set against K12's µs."""
     from smvp_toolkit_tpu_torch.ops import autotune as ta
     from smvp_toolkit_tpu_torch.utils.synth import synth_powerlaw
 
     monkeypatch.delenv("SMVP_SELL_AUTOTUNE", raising=False)
     coo = synth_powerlaw(120_000, 1_000_000, seed=0, device=card)
     pinned = S.SellSpMV.from_coo(coo, value_dtype=dtype)
-    assert pinned.route == "split" and pinned.plan.chunk == 2048
+    assert pinned._route() == "split" and pinned.plan.chunk == 2048
     monkeypatch.setattr(ta, "plan_cost_us",
                         lambda plan, *a: float(plan.window_tiles))
     op = S.SellSpMV.from_coo(coo, value_dtype=dtype)
-    assert op.route == "relsl" and op.plan.chunk < 2048
+    assert op._route() == "relsl" and op.plan.chunk < 2048
     x = torch.from_numpy(np.random.default_rng(3).standard_normal(
         120_000).astype(np.float32)).to(card)
     before = (S.sell_spmv.launches, S.sell_split.launches)
-    y, y_k4 = op(x), pinned(x)
+    y, y_k4 = op._apply(x), pinned._apply(x)
     torch.cuda.synchronize()
     assert (S.sell_spmv.launches - before[0],
             S.sell_split.launches - before[1]) == (1, 1)
     plain = S.SellSpMV(op.plan, value_dtype=dtype, device="cpu")(x.cpu())
     assert _rel(y.cpu(), plain) <= TOL
     assert _rel(y, y_k4) <= TOL
+
+
+@pytest.mark.parametrize("case", ["kron", "kron_dup", "hub", "edges"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_csr_kernel_matches_plain_and_k1(card, dtype, case):
+    """K12 (``csr_merge.csr_merge_spmv``) against its plain version on the
+    same planes and against K1 on the same operator's plan, within
+    ``spmm_tolerance`` of max |y| (max(1e-6, 2·2^-24·√n), n the most
+    products a row sums, the hub case's hub row): the rows that a share's
+    edge cuts take one atomicAdd a share in no fixed order, and K1 sums
+    each row over its sublanes' atomics, so neither side's bits are the
+    other's. Two launches count two."""
+    import test_torch_csr_route as csr_cases
+    from smvp_toolkit_tpu_torch.formats.coo import COOMatrix
+    from smvp_toolkit_tpu_torch.ops import csr_merge as M
+
+    r, c, v, shape = csr_cases._case(case)
+    coo = COOMatrix.from_numpy(np.asarray(r, np.int32),
+                               np.asarray(c, np.int32), v, shape=shape,
+                               device=card)
+    op = S.SellSpMV.from_coo(coo, value_dtype=dtype, device=card)
+    assert op.route == "relsl"  # at test size the gate keeps the planes
+    planes = op.csr_planes()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        shape[1]).astype(np.float32)).to(card)
+    xv = op._x_vector(x)
+    before = M.csr_merge_spmv.launches
+    y, y2 = M.csr_merge_spmv(planes, xv), M.csr_merge_spmv(planes, xv)
+    torch.cuda.synchronize()
+    assert M.csr_merge_spmv.launches == before + 2
+    tol = spmm_tolerance(op.plan)[0]
+    assert _rel(y, M.csr_merge_spmv_plain(planes, xv)) <= tol
+    assert _rel(y, op._apply(x)) <= tol
+    assert _rel(y2, y) <= tol
+
+
+def test_csr_route_launches_k12_in_its_span(card, monkeypatch):
+    """An operator the gate sends to the csr route (the shipped rates
+    without their launch term, as the CPU tests set them): one call is
+    one K12 launch inside one ``spmv.launch`` span, and no K1."""
+    import test_torch_csr_route as csr_cases
+    from smvp_toolkit_tpu_torch.ops import autotune as ta
+    from smvp_toolkit_tpu_torch.ops import csr_merge as M
+    from smvp_toolkit_tpu_torch.utils import tracing
+    from smvp_toolkit_tpu_torch.utils.synth import synth_uniform
+
+    rates = dict(ta.production_rates())
+    rates["launch_us"] = 0.0
+    monkeypatch.setattr(ta, "_PRODUCTION_RATES", rates)
+    coo = synth_uniform(20000, 20000, 200000, seed=3, device=card)
+    op = S.SellSpMV.from_coo(coo, device=card)
+    assert op.route == "csr"
+    x = torch.randn(coo.shape[1], device=card)
+    op(x)
+    before = (M.csr_merge_spmv.launches, S.sell_spmv.launches)
+    tracing.enable()
+    tracing.drain()
+    try:
+        y = op(x)
+        names = [s.name for s in tracing.drain()["spans"]]
+    finally:
+        tracing.disable()
+    torch.cuda.synchronize()
+    assert names == ["spmv.call", "spmv.launch"]
+    assert (M.csr_merge_spmv.launches - before[0],
+            S.sell_spmv.launches - before[1]) == (1, 0)
+    assert _rel(y, op._apply(x)) <= TOL
+    assert csr_cases._rel(y.cpu(), op._apply(x).cpu()) <= TOL
